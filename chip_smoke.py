@@ -40,11 +40,25 @@ Phases, each of which raises on failure (nothing is caught):
    around it, ms per step, peak memory, finite losses and finite samples;
 10. training split and profile at B=20: device time of data init, forward,
    backward (B1 with saves, B5, B6 inside) and optimizer, and a
-   torch.profiler trace of one step summed by kernel with the idle share.
+   torch.profiler trace of one step summed by kernel with the idle share;
+11. good-surf (PAConv, bf16, full depth and width; the dulcet-universe
+   model is freed first): B8 and B9 against their plain versions at the four
+   set-abstraction levels of a B=25 eval (50 clouds; B8 index-equal, B9
+   equal on integer coordinates in bf16 and f32, at most 1e-3 of rows
+   differing on random ones, slot 0 the centre, k = 32 > N = 19 at level 4);
+   the eval main path through `evaluate_on_test` (2 items of B=4, launch
+   counters showing B8 and B9 four times per embed, B2 and B1) against the
+   plain path (|d nats| <= 0.01, change maps >= 99.9%); eval timing at the
+   preset's B=25 (points/s, the encoder's ms) and a profile of one item;
+   `make_sample` of 1 x 4000 (B8, B9, B7) against the plain samples of the
+   same z (|d nats| <= 0.01); the training check at B=2 (the bounds of step
+   8, the PAConv encoder's gradient among the groups) and
+   `train(max_steps=4, make_samples=True)` at B=25 (ms/step, peak memory,
+   B8 launched).
 
-Prints, last, one JSON line of per-kernel results, the nvidia-smi line and
-{"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
-Imports nothing of JAX.
+Prints, last, one JSON line of per-kernel results (B1-B9), the nvidia-smi
+line and {"ok": true, "device": {...}}. Exits non-zero without a CUDA
+device. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -61,13 +75,18 @@ import torch
 
 SEED = 0
 EVAL_B, TIME_B = 4, 20            # eval items of 4 for the check, 20 for timing
+GS_B = 25                         # good-surf's batch (its preset), for timing and training
 TRAIN_CHECK_B = 2                 # the training check's batch; timing uses TIME_B
 SAMPLE_N = 4000                   # points of one sample, as the trainer and eval dumps take
 SAMPLE_STD = 0.6                  # the sampler's latent scale (make_sample's default)
 REPO = Path(__file__).resolve().parent
-# H100 SXM dense bf16 tensor-core peak and HBM3 rate (NVIDIA's data sheet)
-PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+# H100 SXM dense bf16 tensor-core peak, f32 peak outside the tensor cores and
+# HBM3 rate (NVIDIA's data sheet)
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 989e12, 67e12, 3.35e12
 EDGE_WIDTHS = [(6, 64), (64, 64), (64, 128), (128, 256)]
+# (N, M, C) of PAConv's four set-abstraction levels on the 1250-point context
+SA_LEVELS = [(1250, 312, 3), (312, 78, 64), (78, 19, 128), (19, 4, 256)]
+SA_K = 32
 
 
 def log(*args):
@@ -107,8 +126,8 @@ def perturb_identity_leaves(model, gen: torch.Generator) -> None:
                          * (0.5 + torch.rand(p.shape, generator=gen))).to(p.device))
 
 
-def make_model(ft, device, **overrides):
-    cfg = ft.get_config("dulcet-universe")
+def make_model(ft, device, preset: str = "dulcet-universe", **overrides):
+    cfg = ft.get_config(preset)
     cfg.update(compute_dtype="bfloat16", **overrides)
     model = ft.FlowCompareModel(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
     perturb_identity_leaves(model, torch.Generator().manual_seed(SEED + 1))
@@ -149,17 +168,19 @@ def nbytes(*trees) -> int:
     return total
 
 
-def bound(flops: float, moved: float):
+def bound(flops: float, moved: float, peak: float = PEAK_BF16_FLOPS):
     """The least time the card could take: the larger of the operations over
-    the bf16 peak and the bytes (each input read once, each output written
-    once) over the memory rate, in ms, and which of the two it is."""
-    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES_PER_S * 1e3
+    the peak of their type (bf16 tensor cores unless given) and the bytes
+    (each input read once, each output written once) over the memory rate,
+    in ms, and which of the two it is."""
+    ops_ms, bytes_ms = flops / peak * 1e3, moved / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def kernel_entry(name, source, replaces, err, ms, plain_ms, flops, moved):
+def kernel_entry(name, source, replaces, err, ms, plain_ms, flops, moved,
+                 peak: float = PEAK_BF16_FLOPS):
     """No single PyTorch call computes any of these functions, so library_ms is null."""
-    bound_ms, bound_by = bound(flops, moved)
+    bound_ms, bound_by = bound(flops, moved, peak)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
@@ -303,6 +324,76 @@ def phase_kernels(ft, model, device):
     return entries
 
 
+def phase_paconv_kernels(device, items: int):
+    """B8 and B9 at the four set-abstraction levels of the PAConv eval path
+    (items = both directions of a good-surf batch) against their plain
+    versions. B8: index-equal. B9: equal slot for slot on integer-valued
+    coordinates (exact distances) in bf16 and f32; on random coordinates at
+    most 1e-3 of the (item, centre) rows may differ (a different f32 sum
+    order may flip a near-tied 32nd neighbour); slot 0 is always the centre
+    with a zero xyz diff; level 4 has k = 32 > N = 19."""
+    from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda
+
+    g = torch.Generator().manual_seed(SEED + 30)
+    ms8 = plain8 = ms9 = plain9 = 0.0
+    ops8 = bytes8 = ops9 = bytes9 = 0
+    err9, worst_rows = 0.0, 0.0
+    for n, m, c in SA_LEVELS:
+        x = torch.randn(items, n, 3, generator=g).to(device)
+        got = fps_cuda.furthest_point_sampling(x, m)
+        torch.cuda.synchronize()
+        ref = fps_cuda.furthest_point_sampling_plain(x, m)
+        differ = int((got != ref).sum())
+        ms = time_ms(lambda: fps_cuda.furthest_point_sampling(x, m))
+        pms = time_ms(lambda: fps_cuda.furthest_point_sampling_plain(x, m), reps=2)
+        ms8, plain8 = ms8 + ms, plain8 + pms
+        # m - 1 sweeps of N points, each 3 sub, 3 mul, 2 add and 1 min in f32
+        ops8 += items * (m - 1) * n * 9
+        bytes8 += nbytes(x, got)
+        log(f"B8 fps {items}x{n} -> {m}: picks differing from plain {differ} (tolerance 0); "
+            f"{ms} ms vs plain {pms} ms")
+        assert differ == 0, "B8 picks differ from the plain version"
+
+        def group(fn, xyz, feats):
+            idx = fps_cuda.furthest_point_sampling(xyz, m)
+            centres = torch.gather(xyz, 1, idx[..., None].expand(-1, -1, 3))
+            return fn(centres, idx, xyz, feats, SA_K), idx
+
+        xi = torch.randint(-8, 9, (items, n, 3), generator=g).float().to(device)
+        for dtype in (torch.bfloat16, torch.float32):
+            feats = torch.randn(items, n, c, generator=g).to(device, dtype)
+            got, _ = group(sa_group_cuda.sa_group, xi, feats)
+            torch.cuda.synchronize()
+            ref, _ = group(sa_group_cuda.sa_group_plain, xi, feats)
+            err9 = max(err9, float((got.float() - ref.float()).abs().max()))
+        feats = torch.randn(items, n, c, generator=g).to(device, torch.bfloat16)
+        got, idx = group(sa_group_cuda.sa_group, x, feats)
+        ref, _ = group(sa_group_cuda.sa_group_plain, x, feats)
+        rows = float((got != ref).flatten(2).any(-1).float().mean())
+        worst_rows = max(worst_rows, rows)
+        centre_feats = torch.gather(feats, 1, idx[..., None].expand(-1, -1, c))
+        assert float(got[:, :, 0, :3].float().abs().max()) == 0.0, "B9 slot 0 is not the centre"
+        assert torch.equal(got[:, :, 0, 3:], centre_feats), "B9 slot 0 is not the centre"
+        centres = torch.gather(x, 1, idx[..., None].expand(-1, -1, 3))
+        ms = time_ms(lambda: sa_group_cuda.sa_group(centres, idx, x, feats, SA_K))
+        pms = time_ms(lambda: sa_group_cuda.sa_group_plain(centres, idx, x, feats, SA_K), reps=2)
+        ms9, plain9 = ms9 + ms, plain9 + pms
+        # the distance expansion: 3 multiply-adds and 2 adds per (centre, point)
+        ops9 += items * m * n * 8
+        bytes9 += nbytes(centres, idx, x, feats, got)
+        log(f"B9 sa_group {items}x{n} -> {m}x{SA_K}x{3 + c}{' (k > N)' if SA_K > n else ''}: "
+            f"integer-coordinate max|err| bf16 and f32 {err9} (tolerance 0), random-coordinate "
+            f"rows differing {rows} (budget 1e-3), slot 0 the centre; {ms} ms vs plain {pms} ms")
+        assert err9 == 0.0, "B9 not exact on integer coordinates"
+    assert worst_rows <= 1e-3, f"B9 rows differing {worst_rows} > 1e-3"
+    return {"B8": kernel_entry("furthest_point_sampling (fps)", "flowcompare_tpu_torch/csrc/fps.cu",
+                               "flowcompare_tpu/ops/fps_pallas.py:99", 0.0, ms8, plain8, ops8,
+                               bytes8, peak=PEAK_F32_FLOPS),
+            "B9": kernel_entry("sa_group", "flowcompare_tpu_torch/csrc/sa_group.cu",
+                               "flowcompare_tpu/ops/sa_group_pallas.py:126", err9, ms9, plain9,
+                               ops9, bytes9, peak=PEAK_F32_FLOPS)}
+
+
 def phase_b7(small, g, device):
     """B7 on two full-width layers (the final block, then a stacked layer)
     at one sample's 1 x 4000 points against its plain version: max |dx| <=
@@ -429,29 +520,26 @@ def phase_b5(folded, x, ldj, ctx, extra, items, n, nc, g, device):
                         float((got[0] - ref[0]).abs().max()), ms, pms, flops, moved)
 
 
-def phase_main_path(ft, model, device):
-    """Full-depth eval through evaluate_on_test; kernel path vs plain path."""
-    from flowcompare_tpu_torch.ops import dgcnn_cuda, edgeconv_cuda, flow_layer_cuda as flc
-
+def phase_main_path(ft, model, device, need=("B1", "B2", "B3", "B4")):
+    """Full-depth eval through evaluate_on_test; kernel path vs plain path.
+    `need` are the kernels the path must launch."""
     items = eval_items(model.config, EVAL_B, 2, SEED + 3)
     noise = make_noise(device)
-    flc.FUSED_FLOW_LAYERS_LAUNCHES = flc.FUSED_AUGMENTER_LAUNCHES = 0
-    dgcnn_cuda.FUSED_DGCNN_ENCODER_LAUNCHES = edgeconv_cuda.EDGE_NEIGHBOR_MAX_LAUNCHES = 0
     maps_k = []
+    torch.cuda.synchronize()
+    reset_counters()
     t0 = time.perf_counter()
     nats_k, fr_k = ft.evaluate_on_test(model, items, noise=noise, change_maps=maps_k)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
-    launches = {"B1": flc.FUSED_FLOW_LAYERS_LAUNCHES, "B2": flc.FUSED_AUGMENTER_LAUNCHES,
-                "B3": edgeconv_cuda.EDGE_NEIGHBOR_MAX_LAUNCHES,
-                "B4": dgcnn_cuda.FUSED_DGCNN_ENCODER_LAUNCHES}
-    log(f"main path (kernels): nats {nats_k}, changed fractions {fr_k}, {t_k} s, "
-        f"launches {launches}")
+    launches = read_counters()
+    log(f"main path {model.config['input_embedder']} (kernels): nats {nats_k}, changed "
+        f"fractions {fr_k}, {t_k} s, launches {launches}")
     model.plain = True
     maps_p = []
     nats_p, fr_p = ft.evaluate_on_test(model, items, noise=noise, change_maps=maps_p)
     model.plain = False
-    assert all(v > 0 for v in launches.values()), f"a kernel of the path never ran: {launches}"
+    assert all(launches[k] > 0 for k in need), f"a kernel of the path never ran: {launches}"
     assert np.isfinite(nats_k) and np.isfinite(nats_p), (nats_k, nats_p)
     assert len(fr_k) == 2 * EVAL_B and all(0.0 <= f <= 1.0 for f in fr_k), fr_k
     assert all(m.shape == (EVAL_B, model.config["sample_size"]) for m in maps_k)
@@ -465,12 +553,12 @@ def phase_main_path(ft, model, device):
     return launches
 
 
-def phase_timing(ft, model, device):
-    """Main-path throughput at B=20, and the per-kernel split of one item."""
+def phase_timing(ft, model, device, batch: int = TIME_B):
+    """Main-path throughput at the preset's batch, and the split of one item."""
     from flowcompare_tpu_torch.model import inner_loop
 
     cfg = model.config
-    items = eval_items(cfg, TIME_B, 3, SEED + 4)
+    items = eval_items(cfg, batch, 3, SEED + 4)
     noise = make_noise(device)
     ft.evaluate_on_test(model, items[:1], noise=noise)        # warm-up
     torch.cuda.synchronize()
@@ -480,14 +568,14 @@ def phase_timing(ft, model, device):
     torch.cuda.synchronize()
     per_item = (time.perf_counter() - t0) / 2
     n = cfg["sample_size"]
-    out = {"item_s": per_item, "points_per_s": 2 * TIME_B * n / per_item,
-           "target_points_per_s": TIME_B * n / per_item,
+    out = {"item_s": per_item, "points_per_s": 2 * batch * n / per_item,
+           "target_points_per_s": batch * n / per_item,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     # the split of one item's two directions over the three stages
     v = [torch.as_tensor(a, device=device) for a in items[1]]
     ctx_in, tgt = torch.cat([v[0], v[8]]), torch.cat([v[1], v[7]])
-    extra = torch.cat([v[2], v[2]])[:, None, :].expand(2 * TIME_B, n, 1)
-    eps = noise(0, (2 * TIME_B, n, cfg["latent_dim"] - cfg["input_dim"]))
+    extra = torch.cat([v[2], v[2]])[:, None, :].expand(2 * batch, n, 1)
+    eps = noise(0, (2 * batch, n, cfg["latent_dim"] - cfg["input_dim"]))
     with torch.no_grad():
         emb, _ = model.embed(ctx_in)
         out["embed_ms"] = time_ms(lambda: model.embed(ctx_in), reps=3)
@@ -498,11 +586,12 @@ def phase_timing(ft, model, device):
         out["plain_inner_loop_ms"] = time_ms(
             lambda: inner_loop(model, (ctx_in, tgt, torch.cat([v[2], v[2]])), eps=eps), reps=1)
         model.plain = False
-    log(f"timing at B={TIME_B} (both directions, {2 * TIME_B * n} points per item): {out}")
+    log(f"timing {cfg['input_embedder']} at B={batch} (both directions, {2 * batch * n} "
+        f"points per item): {out}")
     return out
 
 
-def phase_sample_main(ft, model, device):
+def phase_sample_main(ft, model, device, need=("B7", "B4")):
     """The sampling main path: one full-depth make_sample of 1 x 4000 points
     through the kernels, with the launch counters set to 0 just before and
     read after, and through the plain versions on the same z."""
@@ -544,11 +633,11 @@ def phase_sample_main(ft, model, device):
            "nats_kernels": nats_k, "nats_plain": nats_p, "abs_d_nats": abs(nats_k - nats_p),
            "round_trip_max_abs": float(rt.max()), "round_trip_mean_abs": float(rt.mean()),
            "round_trip_rel": float(rt.max() / z.abs().max())}
-    log(f"sampling main path make_sample 1x{SAMPLE_N}, full depth: {out} "
-        f"(|d nats| tolerance 0.01)")
+    log(f"sampling main path {cfg['input_embedder']} make_sample 1x{SAMPLE_N}, full depth: "
+        f"{out} (|d nats| tolerance 0.01)")
     assert xk.shape == (1, SAMPLE_N, cfg["input_dim"]) and torch.isfinite(xk).all()
     assert torch.isfinite(xp).all() and np.isfinite([nats_k, nats_p]).all()
-    assert launches["B7"] >= 1 and launches["B4"] >= 1, f"a kernel never ran: {launches}"
+    assert all(launches[k] >= 1 for k in need), f"a kernel never ran: {launches}"
     assert abs(nats_k - nats_p) <= 0.01, "sample nats disagree with the plain path"
     return out
 
@@ -594,7 +683,8 @@ def train_batches(cfg, batch: int, n_batches: int, seed: int) -> list:
 
 def _counters():
     from flowcompare_tpu_torch.ops import (dgcnn_cuda, edgeconv_cuda, edgeconv_vjp_cuda,
-                                           flow_layer_cuda, flow_layer_vjp_cuda)
+                                           flow_layer_cuda, flow_layer_vjp_cuda, fps_cuda,
+                                           sa_group_cuda)
     return [(flow_layer_cuda, "FUSED_FLOW_LAYERS_LAUNCHES", "B1"),
             (flow_layer_cuda, "FUSED_FLOW_LAYERS_SAVE_LAUNCHES", "B1 with saves"),
             (flow_layer_cuda, "FUSED_AUGMENTER_LAUNCHES", "B2"),
@@ -602,7 +692,9 @@ def _counters():
             (dgcnn_cuda, "FUSED_DGCNN_ENCODER_LAUNCHES", "B4"),
             (flow_layer_vjp_cuda, "FLOW_LAYERS_BWD_LAUNCHES", "B5"),
             (edgeconv_vjp_cuda, "EDGE_KNN_REDUCE_LAUNCHES", "B6"),
-            (flow_layer_cuda, "FUSED_FLOW_LAYERS_INVERSE_LAUNCHES", "B7")]
+            (flow_layer_cuda, "FUSED_FLOW_LAYERS_INVERSE_LAUNCHES", "B7"),
+            (fps_cuda, "FPS_LAUNCHES", "B8"),
+            (sa_group_cuda, "SA_GROUP_LAUNCHES", "B9")]
 
 
 def reset_counters() -> None:
@@ -618,7 +710,7 @@ def _to_device(batch, device):
     return tuple(torch.as_tensor(a, device=device) for a in batch)
 
 
-def phase_train_check(ft, model, device):
+def phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves")):
     """Data init, then one train_step through the kernels and one through the
     plain versions from the same state, batch and noise, at B=2."""
     cfg = model.config
@@ -646,7 +738,8 @@ def phase_train_check(ft, model, device):
     (rk, ck, gk), (rp, cp, gp) = results
     cos = {gname: float(torch.nn.functional.cosine_similarity(gk[gname], gp[gname], dim=0))
            for gname in groups}
-    log(f"training check B={TRAIN_CHECK_B}: kernels {rk}, plain {rp}; |d nats| "
+    log(f"training check {cfg['input_embedder']} B={TRAIN_CHECK_B}: kernels {rk}, plain {rp}; "
+        f"|d nats| "
         f"{abs(rk['nats'] - rp['nats'])} (tolerance 0.01), grad_norm ratio "
         f"{rk['grad_norm'] / rp['grad_norm']} (tolerance 5%), gradient cosine {cos} "
         f"(tolerance >= 0.99); launches kernels {ck}, plain {cp}")
@@ -654,14 +747,15 @@ def phase_train_check(ft, model, device):
     assert abs(rk["nats"] - rp["nats"]) <= 0.01, "training nats disagree with the plain path"
     assert abs(rk["grad_norm"] - rp["grad_norm"]) <= 0.05 * rp["grad_norm"], "grad norms differ"
     assert min(cos.values()) >= 0.99, f"gradient directions differ: {cos}"
-    assert ck["B5"] >= 1 and ck["B6"] >= 1 and ck["B1 with saves"] >= 1, ck
-    assert cp["B5"] == cp["B6"] == cp["B1 with saves"] == 0, cp
+    assert all(ck[k] >= 1 for k in need), ck
+    assert all(cp[k] == 0 for k in need), cp
     return {"kernels": rk, "plain": rp, "cosine": cos}
 
 
-def phase_train_main(ft, model, device):
-    """The training main path: train() at B=20, four steps (the first a
-    warm-up) with a sample after every second batch, with the launch
+def phase_train_main(ft, model, device, batch: int = TIME_B,
+                     need=("B5", "B6", "B1 with saves")):
+    """The training main path: train() at the preset's batch, four steps (the
+    first a warm-up) with a sample after every second batch, with the launch
     counters set to 0 just before and read after."""
     from flowcompare_tpu_torch.train.metrics import MetricWriter
 
@@ -671,7 +765,7 @@ def phase_train_main(ft, model, device):
         def log(self, metrics, step=None):
             rows.append(dict(metrics))
 
-    data = train_batches(model.config, TIME_B, 4, SEED + 12)
+    data = train_batches(model.config, batch, 4, SEED + 12)
     save_dir = REPO / "build" / "chip_smoke_train"
     for old in save_dir.glob("sample_*.npz"):
         old.unlink()
@@ -696,10 +790,10 @@ def phase_train_main(ft, model, device):
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": launches,
            "samples": {name: {"shape": list(g.shape), "finite": bool(np.isfinite(g).all()),
                               "max_abs": float(np.abs(g).max())} for name, g in samples.items()}}
-    log(f"training main path B={TIME_B}, train(max_steps=4, make_samples=True, "
-        f"batches_per_sample=2): {out}")
+    log(f"training main path {model.config['input_embedder']} B={batch}, train(max_steps=4, "
+        f"make_samples=True, batches_per_sample=2): {out}")
     assert len(rows) == 4 and all(np.isfinite(losses)), losses
-    assert launches["B5"] >= 1 and launches["B6"] >= 1 and launches["B1 with saves"] >= 1
+    assert all(launches[k] >= 1 for k in need), launches
     assert sorted(samples) == ["sample_smoke_1.npz", "sample_smoke_3.npz"], sorted(samples)
     assert all(g.shape == (SAMPLE_N, 6) and np.isfinite(g).all() for g in samples.values())
     assert launches["B7"] == 2, launches
@@ -784,6 +878,10 @@ def phase_train_split(ft, model, data, device):
 
 
 def _kernel_group(name: str) -> str:
+    """The port's kernels by name; cuBLAS's products (PAConv's f32 weight-bank
+    products, the folds) as one group; the rest is PyTorch's own."""
+    if re.search(r"xmma|cutlass|sgemm|gemv|gemmSN|splitKreduce", name):
+        return "library GEMM (cuBLAS)"
     found = re.search(r"(\w+_kernel)", name)
     return found.group(1) if found and "at::" not in name else "PyTorch's own"
 
@@ -850,6 +948,55 @@ def phase_sample_profile(ft, model, device):
                            f"one make_sample of 1x{SAMPLE_N}", "chip_smoke_sample_trace.json")
 
 
+def phase_eval_profile(ft, model, device, batch: int):
+    """torch.profiler over one eval inner_loop at the preset's batch (both
+    directions stacked, as evaluate_on_test runs an item)."""
+    from flowcompare_tpu_torch.model import inner_loop
+
+    cfg = model.config
+    g = torch.Generator(device=device).manual_seed(SEED + 24)
+    b, nc, n = 2 * batch, cfg["n_samples_context"], cfg["sample_size"]
+    batch_t = (torch.randn((b, nc, 6), generator=g, device=device),
+               torch.randn((b, n, 6), generator=g, device=device),
+               torch.randn((b, 1), generator=g, device=device))
+    eps = torch.randn((b, n, cfg["latent_dim"] - cfg["input_dim"]), generator=g, device=device)
+    with torch.no_grad():
+        return profile_kernels(lambda: inner_loop(model, batch_t, eps=eps),
+                               f"one {cfg['input_embedder']} eval item, B={batch} both directions",
+                               "chip_smoke_paconv_eval_trace.json")
+
+
+def good_surf_phases(ft, device) -> tuple:
+    """The PAConv phases on good-surf at full width and depth: B8 and B9
+    against their plain versions, the eval main path, eval timing and a
+    profile at the preset's B=25, sampling, the training check at B=2 and
+    train(max_steps=4) at B=25."""
+    t0 = time.perf_counter()
+    model = make_model(ft, device, preset="good-surf")
+    log(f"model: good-surf bf16 (PAConv), {sum(p.numel() for p in model.parameters())} "
+        f"parameters, built in {time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        entries = phase_paconv_kernels(device, 2 * GS_B)
+    launches = phase_main_path(ft, model, device, need=("B1", "B2", "B8", "B9"))
+    assert launches["B8"] == launches["B9"] == 4 * 2, launches    # 4 levels, 2 items
+    timing = phase_timing(ft, model, device, batch=GS_B)
+    sample_main = phase_sample_main(ft, model, device, need=("B7", "B8", "B9"))
+    g = torch.Generator(device=device).manual_seed(SEED + 25)
+    x0 = torch.randn((1, model.config["n_samples_context"], 6), generator=g, device=device)
+    extra = torch.randn((1, 1), generator=g, device=device)
+    sample_main["make_sample_ms"] = time_ms(
+        lambda: ft.make_sample(model, SAMPLE_N, x0, extra, generator=g), reps=3)
+    log(f"good-surf make_sample 1x{SAMPLE_N}: {sample_main['make_sample_ms']} ms")
+    profile = phase_eval_profile(ft, model, device, GS_B)
+    need = ("B5", "B1 with saves", "B8")
+    check = phase_train_check(ft, model, device, need=need)
+    train_main, _ = phase_train_main(ft, model, device, batch=GS_B, need=need)
+    for key in ("B8", "B9"):
+        entries[key]["launches"] = launches[key]
+    return entries, {"eval_main_path": launches, "timing": timing, "eval_profile": profile,
+                     "sampling": sample_main, "training": {"check": check, "main_path": train_main}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -890,19 +1037,24 @@ def main() -> int:
     split = phase_train_split(ft, model, data, device)
     profile = phase_profile(ft, model, data, device)
     # each kernel's launches from the main path it serves: eval for B1-B4,
-    # training for B5 and B6, sampling for B7
+    # training for B5 and B6, sampling for B7, good-surf's eval for B8 and B9
     served = {**{k: launches[k] for k in ("B1", "B2", "B3", "B4")},
               "B5": train_main["launches"]["B5"], "B6": train_main["launches"]["B6"],
               "B7": sample_main["launches"]["B7"]}
     for key, entry in entries.items():
         entry["launches"] = served[key]
+    del model
+    torch.cuda.empty_cache()
+    paconv_entries, good_surf = good_surf_phases(ft, device)
+    entries.update(paconv_entries)
     print(json.dumps({"main_path": timing, "sampling": {"main_path": sample_main,
                                                         "timing": sample_timing,
                                                         "profile": sample_profile},
                       "training": {"check": check, "main_path": train_main, "split": split,
-                                   "profile": profile}}))
+                                   "profile": profile},
+                      "good_surf": good_surf}))
     print(json.dumps({"kernels": [entries[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6",
-                                                       "B7")]}))
+                                                       "B7", "B8", "B9")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

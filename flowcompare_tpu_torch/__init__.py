@@ -2,9 +2,10 @@
 
 The JAX package `flowcompare_tpu` is the reference; this package imports
 neither it nor JAX. The eval, training and sampling paths of the DGCNN
-attention presets (dulcet-universe) run here end to end, with hand-written
-CUDA kernels for the JAX package's Pallas kernels on those paths
-(ops/*_cuda.py, csrc/).
+attention presets (dulcet-universe, swept-energy) and the PAConv presets
+(good-surf, summer-terrain) run here end to end, with hand-written CUDA
+kernels for the JAX package's Pallas kernels on those paths (ops/*_cuda.py,
+csrc/).
 """
 
 from .compat.jax_params import load_jax_params, load_jax_train_state

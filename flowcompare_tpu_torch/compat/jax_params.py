@@ -16,7 +16,11 @@ import torch
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
-    """Nested dicts/lists -> {"a.b.0.c": leaf}."""
+    """Nested dicts/lists -> {"a.b.0.c": leaf}. None leaves (PAConv's
+    ScoreNet keeps `"bn": None` on its last layer, as a JAX pytree does)
+    give no key, as they give no parameter in the model."""
+    if tree is None:
+        return {}
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):

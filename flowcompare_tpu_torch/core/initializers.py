@@ -1,10 +1,11 @@
 """Linear-layer initialisation and application.
 
-Counterpart of `flowcompare_tpu/core/initializers.py`. Weights are stored
-`(in, out)` as in the JAX package, so a layer is `x @ w + b`. Randomness
-comes from an explicit CPU `torch.Generator`; the numbers differ from
-`jax.random`, the distribution (torch.nn.Linear's U(-1/sqrt(in), 1/sqrt(in))
-for weight and bias) does not.
+Counterpart of `flowcompare_tpu/core/initializers.py` (`torch_linear`,
+`xavier_normal`, `apply_linear`). Weights are stored `(in, out)` as in the
+JAX package, so a layer is `x @ w + b`. Randomness comes from an explicit
+CPU `torch.Generator`; the numbers differ from `jax.random`, the
+distributions (torch.nn.Linear's U(-1/sqrt(in), 1/sqrt(in)) for weight and
+bias, xavier-normal for PAConv) do not.
 """
 
 from __future__ import annotations
@@ -25,6 +26,17 @@ def torch_linear(gen: torch.Generator, in_dim: int, out_dim: int, *,
     params = {"w": _uniform(gen, (in_dim, out_dim), bound)}
     if bias:
         params["b"] = _uniform(gen, (out_dim,), bound)
+    return params
+
+
+def xavier_normal(gen: torch.Generator, in_dim: int, out_dim: int, *, bias: bool = True,
+                  gain: float = 1.0) -> dict:
+    """torch.nn.init.xavier_normal_ on an (in, out) weight, zero bias (PAConv's
+    weight_init)."""
+    std = gain * math.sqrt(2.0 / (in_dim + out_dim))
+    params = {"w": std * torch.randn((in_dim, out_dim), generator=gen, dtype=torch.float32)}
+    if bias:
+        params["b"] = torch.zeros(out_dim)
     return params
 
 

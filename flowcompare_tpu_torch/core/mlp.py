@@ -48,12 +48,12 @@ def apply_mlp(params: dict, x: torch.Tensor, nonlin: Callable,
 
 
 def cast_tree(tree, dtype):
-    """Cast every tensor of a nested dict/list to dtype."""
+    """Cast every tensor of a nested dict/list to dtype; None leaves stay."""
     if isinstance(tree, dict):
         return {k: cast_tree(v, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [cast_tree(v, dtype) for v in tree]
-    return tree.to(dtype)
+    return None if tree is None else tree.to(dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,7 @@
 // Exact kNN selection shared by knn_edge_max (B3/B4, eval) and
-// knn_edge_reduce (B6, training), so the two select the same neighbours.
+// knn_edge_reduce (B6, training), so the two select the same neighbours;
+// sa_group (B9) runs select_row on its own f32 xyz distance rows through
+// select_row_pinned.
 //
 // For each query row i of an item: d_ij = max(|x_i|^2 - 2 x_i.x_j + |x_j|^2, 0)
 // in f32 from bf16 features (the expansion of the Pallas kernels'
@@ -129,6 +131,21 @@ __device__ __forceinline__ void select_row(const unsigned* dr, int n, int k, int
     nties += __popc(tb);
   }
   __syncwarp();
+}
+
+// select_row for a query that is itself point `self` of the row (an FPS
+// centre; sa_group, B9): the self entry gets all-ones bits, above every
+// distance, so the k - 1 nearest OTHER points are taken, ascending, into
+// list[0..). Returns how many were taken, min(k, n) - 1: the caller puts the
+// centre in slot 0 (through its index, whatever its rounded distance) and
+// pads slots past n. Entries of dr are non-negative f32 bit patterns.
+__device__ __forceinline__ int select_row_pinned(unsigned* dr, int n, int k, int self,
+                                                 int* list) {
+  if ((threadIdx.x & 31) == 0) dr[self] = 0xFFFFFFFFu;
+  __syncwarp();
+  const int kr = min(k, n) - 1;
+  select_row(dr, n, kr, list);
+  return kr;
 }
 
 }  // namespace knn

@@ -4,9 +4,10 @@ inner_loop and make_sample.
 Counterpart of `flowcompare_tpu/model.py` (`FlowCompareModel.init_params`,
 `embed`, `log_prob`, `sample`, `data_dependent_init`, `inner_loop`,
 `make_sample`) for the configurations ported so far: a
-DGCNN per-point encoder, the attention-preconditioned conditional augmenter,
-sigmoid affine couplings with ActNorm and LinearLU, and a standard normal
-base (dulcet-universe and swept-energy).
+DGCNN or PAConv per-point encoder, the attention-preconditioned conditional
+augmenter, sigmoid affine couplings with ActNorm and LinearLU, and a
+standard normal base (dulcet-universe, swept-energy, good-surf and
+summer-terrain).
 
 Parameters live in the module under the JAX package's pytree paths joined
 by '.', so `state_dict()` keys are e.g. `layers.block.coupling.nn.in.w`;
@@ -17,12 +18,15 @@ generator and then moved to its device, so one seed gives the same weights
 on either device; the device is the GPU unless the caller asks for the CPU.
 
 Precision follows the config's `compute_dtype`. Under "bfloat16" the path
-is the kernels' (B4 encoder, B2 augmenter, B1 layer stack): on CUDA tensors
+is the kernels' (B4 encoder, or PAConv's B8 and B9 at every level, B2
+augmenter, B1 layer stack): on CUDA tensors
 the port's hand-written kernels, on CPU tensors their plain versions; with
 `plain=True` the plain versions run on any device (the reference the
 kernels are held against). Under "float32" (the preset default) the path
 is the JAX package's float32 one: the gather encoder, the unfolded
-augmenter and the float32 folded scan. The eval path runs under no_grad.
+augmenter and the float32 folded scan; the PAConv encoder runs B8 and B9
+under either policy, as the JAX package does. The eval path runs under
+no_grad.
 
 Sampling walks the layers in reverse from a latent z that the caller
 passes in (or `make_sample` draws from an explicit generator): under
@@ -32,7 +36,8 @@ unfolded reverse scan (coupling inverse, ActNorm inverse, LinearLU
 triangular solves).
 
 Training (`training=True`) follows the JAX package's: the train-mode
-encoder (B6 stages on CUDA tensors, the gather formulation on CPU tensors),
+encoder (DGCNN: B6 stages on CUDA tensors, the gather formulation on CPU
+tensors; PAConv: in f32, B8 for the centres and autograd gathers),
 the unfused augmenter (B2 is eval-only) and, under bf16, the trainable
 layer stack (B1 with saves and B5 on CUDA tensors, autograd through the
 plain bf16 stack on CPU tensors or with `plain=True`).
@@ -53,6 +58,7 @@ from .core.attention import apply_cross_attention
 from .core.initializers import matmul_f32
 from .core.mlp import apply_mlp, cast_tree, gelu, init_mlp
 from .encoders.dgcnn import apply_dgcnn, apply_dgcnn_train, init_dgcnn
+from .encoders.paconv import apply_pointnet2_paconv, init_pointnet2_paconv
 from .flows import actnorm, augment, coupling, permuters
 from .flows.distributions import normal_sample, standard_normal_logprob
 from .ops import dgcnn_cuda, flow_layer_cuda, flow_layer_vjp_cuda
@@ -62,14 +68,19 @@ LOG2E = math.log2(math.e)
 
 class ParamTree(nn.Module):
     """A nested dict/list of tensors as registered parameters (or buffers),
-    named by their keys, so state_dict keys are the tree's paths."""
+    named by their keys, so state_dict keys are the tree's paths. A None
+    leaf (PAConv's ScoreNet has no BatchNorm on its last layer) registers
+    nothing and comes back as None from `tree()`."""
 
     def __init__(self, tree, *, buffers: bool = False):
         super().__init__()
         self._is_list = isinstance(tree, list)
+        self._keys = [str(k) for k in (range(len(tree)) if self._is_list else tree)]
         items = enumerate(tree) if self._is_list else tree.items()
         for key, value in items:
             key = str(key)
+            if value is None:
+                continue
             if isinstance(value, torch.Tensor):
                 if buffers:
                     self.register_buffer(key, value)
@@ -79,12 +90,12 @@ class ParamTree(nn.Module):
                 self.add_module(key, ParamTree(value, buffers=buffers))
 
     def tree(self):
-        """The nested dict/list of the current tensors."""
+        """The nested dict/list of the current tensors, None leaves kept."""
         out = {**dict(self._parameters), **dict(self._buffers)}
         out.update({k: m.tree() for k, m in self._modules.items()})
         if self._is_list:
-            return [out[str(i)] for i in range(len(out))]
-        return out
+            return [out.get(k) for k in self._keys]
+        return {k: out.get(k) for k in self._keys}
 
 
 def _tree_stack(trees: list):
@@ -129,8 +140,10 @@ class FlowCompareModel(nn.Module):
         if dtype_name not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {dtype_name}")
         self.compute_dtype = torch.bfloat16 if dtype_name == "bfloat16" else None
+        if config["input_embedder"] not in ("DGCNNembedder", "PAConv"):
+            raise NotImplementedError(f"input_embedder={config['input_embedder']!r} is not "
+                                      "ported yet (needs 'DGCNNembedder' or 'PAConv')")
         unsupported = {
-            "input_embedder": (config["input_embedder"], "DGCNNembedder"),
             "flow_type": (config["flow_type"], "AffineCoupling"),
             "affine_scale_fn": (config["affine_scale_fn"], "sigmoid"),
             "permuter_type": (config["permuter_type"], "LinearLU"),
@@ -181,9 +194,14 @@ class FlowCompareModel(nn.Module):
 
     def _init_params(self, gen):
         c = self.config
-        emb, emb_state = init_dgcnn(gen, input_dim=self.input_dim,
-                                    emb_dim=c["input_embedding_dim"],
-                                    out_mlp_dims=c["hidden_dims_embedder_out"])
+        if c["input_embedder"] == "PAConv":
+            emb, emb_state = init_pointnet2_paconv(gen, c=self.input_dim - 3,
+                                                   k=c["input_embedding_dim"],
+                                                   out_mlp_dims=c["hidden_dims_embedder_out"])
+        else:
+            emb, emb_state = init_dgcnn(gen, input_dim=self.input_dim,
+                                        emb_dim=c["input_embedding_dim"],
+                                        out_mlp_dims=c["hidden_dims_embedder_out"])
         augmenter = {
             "pre_attn_mlp": init_mlp(gen, self.input_dim, c["hidden_dims"],
                                      c["attn_input_dim"]),
@@ -220,6 +238,16 @@ class FlowCompareModel(nn.Module):
         c = self.config
         params = self.params()["embedder"]
         state = self.state.tree()["embedder"]
+        if c["input_embedder"] == "PAConv":
+            # eval at the compute dtype, training in f32, as the JAX package
+            if training:
+                emb, new_state = apply_pointnet2_paconv(params, state, extract_0, training=True,
+                                                        plain=self.plain)
+                return emb, {"embedder": new_state}
+            with torch.no_grad():
+                emb, _ = apply_pointnet2_paconv(params, state, extract_0,
+                                                dtype=self.compute_dtype, plain=self.plain)
+            return emb, {"embedder": state}
         if training:
             emb, new_state = apply_dgcnn_train(params, state, extract_0,
                                                n_neighbors=c["n_neighbors"],
@@ -238,11 +266,13 @@ class FlowCompareModel(nn.Module):
     def load_state(self, new_state: dict) -> None:
         """Copy a state tree (new BatchNorm running statistics) into the buffers."""
         def walk(module, tree):
-            for key, value in tree.items():
-                if isinstance(value, dict):
-                    walk(getattr(module, key), value)
+            for key, value in (enumerate(tree) if isinstance(tree, list) else tree.items()):
+                if value is None:
+                    continue
+                if isinstance(value, (dict, list)):
+                    walk(getattr(module, str(key)), value)
                 else:
-                    getattr(module, key).copy_(value)
+                    getattr(module, str(key)).copy_(value)
         with torch.no_grad():
             walk(self.state, new_state)
 

@@ -62,6 +62,10 @@ _SIGNATURES = {
                                _V],
     "fc_knn_edge_reduce_bwd": [_V, _I, _I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I,
                                _V],
+    "fc_fps": [_V, _I, _I, _I, _V, _V],
+    "fc_fps_smem": [_I],
+    "fc_sa_group": [_V, _V, _V, _V, _I, _V, _I, _I, _I, _I, _I, _V],
+    "fc_sa_group_smem": [_I],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -566,6 +570,46 @@ def knn_edge_reduce_bwd(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.Tensor,
         _contig(idx, "knn_edge_reduce_bwd.idx", torch.int32, (rows, k)), off.data_ptr(),
         rev.data_ptr(), _contig(du, "knn_edge_reduce_bwd.du", torch.float32, shape),
         n_items, n, k, _stream()))
+
+
+_SMEM_LIMIT = 227 * 1024
+
+
+def fps(xyz: torch.Tensor, out: torch.Tensor) -> None:
+    """out (B, m) int64 = the farthest-point picks of each (N, 3) f32 cloud of xyz."""
+    if xyz.dim() != 3 or xyz.shape[2] != 3 or out.dim() != 2 or out.shape[0] != xyz.shape[0]:
+        raise ValueError(f"fps: xyz {tuple(xyz.shape)}, out {tuple(out.shape)}")
+    b, n, _ = xyz.shape
+    m = out.shape[1]
+    if n < 1 or m < 1:
+        raise ValueError(f"fps: needs n >= 1 and m >= 1 (n={n}, m={m})")
+    lib = library()
+    if lib.fc_fps_smem(n) > _SMEM_LIMIT:
+        raise ValueError(f"fps: n={n} exceeds shared memory")
+    _check("fps", lib.fc_fps(_contig(xyz, "fps.xyz", torch.float32, (b, n, 3)), b, n, m,
+                             _contig(out, "fps.out", torch.int64, (b, m)), _stream()))
+
+
+def sa_group(new_xyz: torch.Tensor, idx: torch.Tensor, xyz: torch.Tensor, feats: torch.Tensor,
+             out: torch.Tensor, *, k: int) -> None:
+    """out (B, M, k, 3 + C) = each centre's self-pinned exact kNN group of
+    [x_p - centre | feats_p]; feats and out bf16 or f32, coordinates f32."""
+    b, n, _ = xyz.shape
+    mc, c = new_xyz.shape[1], feats.shape[-1]
+    if feats.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"sa_group: features must be bf16 or f32, got {feats.dtype}")
+    if not 1 <= k <= 64 or n < 1 or mc < 1:
+        raise ValueError(f"sa_group: needs 1 <= k <= 64, n >= 1, M >= 1 (k={k}, n={n}, M={mc})")
+    lib = library()
+    if lib.fc_sa_group_smem(n) > _SMEM_LIMIT:
+        raise ValueError(f"sa_group: n={n} exceeds shared memory")
+    _check("sa_group", lib.fc_sa_group(
+        _contig(new_xyz, "sa_group.new_xyz", torch.float32, (b, mc, 3)),
+        _contig(idx, "sa_group.idx", torch.int64, (b, mc)),
+        _contig(xyz, "sa_group.xyz", torch.float32, (b, n, 3)),
+        _contig(feats, "sa_group.feats", feats.dtype, (b, n, c)), c,
+        _contig(out, "sa_group.out", feats.dtype, (b, mc, k, 3 + c)), b, n, mc, k,
+        int(feats.dtype == torch.bfloat16), _stream()))
 
 
 def mlp_chain(a: torch.Tensor, pairs: list, out: torch.Tensor, bufs: list) -> None:

@@ -388,3 +388,168 @@ def test_sampling_kernel_path_matches_plain_and_train_writes_samples(dev, tmp_pa
              make_samples=True)
     sample = np.load(tmp_path / "sample_s_0.npz")
     assert sample["gen"].shape == (4000, 6) and np.isfinite(sample["gen"]).all()
+
+
+def tiny_paconv_model(device, preset: str = "good-surf") -> ft.FlowCompareModel:
+    """The tiny flow of `tiny_model` under a PAConv preset's encoder (SA/FP
+    widths as shipped, a 64-wide head, 256 context points)."""
+    cfg = ft.get_config(preset)
+    cfg.update(dict(
+        n_flow_layers=3, latent_dim=32, cif_latent_dim=32,
+        hidden_dims=[64, 64, 64], net_augmenter_dist_hidden_dims=[64, 64, 64],
+        pre_attention_mlp_hidden_dims=[32, 32, 32], hidden_dims_embedder_out=[64, 64, 64],
+        attn_dim=48, attn_input_dim=32, input_embedding_dim=16, cross_dim_head=64,
+        sample_size=N_POINTS, n_samples_context=PACONV_CONTEXT, compute_dtype="bfloat16"))
+    model = ft.FlowCompareModel(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    perturb_identity_leaves(model, torch.Generator().manual_seed(1))
+    return model
+
+
+PACONV_CONTEXT = 256
+# (N, M) of the four set-abstraction levels of the presets' 1250-point context
+SA_LEVELS = [(1250, 312), (312, 78), (78, 19), (19, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", SA_LEVELS)
+def test_fps_index_equal_to_plain(dev, n, m):
+    """B8 at each level's shape: the same f32 operations in the same order
+    and the same first-index tie-break, so the same picks."""
+    from flowcompare_tpu_torch.ops import fps_cuda
+    x = rand(torch.Generator().manual_seed(20), 4, n, 3, device=dev)
+    before = fps_cuda.FPS_LAUNCHES
+    got = fps_cuda.furthest_point_sampling(x, m)
+    torch.cuda.synchronize()
+    assert fps_cuda.FPS_LAUNCHES == before + 1 and got.dtype == torch.int64
+    torch.testing.assert_close(got, fps_cuda.furthest_point_sampling_plain(x, m), rtol=0, atol=0)
+    dup = torch.cat([x[:, : n // 2], x[:, : n - n // 2]], 1)     # duplicated points: ties
+    torch.testing.assert_close(fps_cuda.furthest_point_sampling(dup, m),
+                               fps_cuda.furthest_point_sampling_plain(dup, m), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,m,c", [(1250, 312, 3), (312, 78, 64), (78, 19, 128), (19, 4, 256)])
+def test_sa_group_exact_on_integer_coordinates(dev, dtype, n, m, c):
+    """B9 at each level's shape (the last has k = 32 > N = 19): integer
+    coordinates make every distance exact, so the output equals the plain
+    version's slot for slot; slot 0 is the centre with a zero xyz diff."""
+    from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda
+    g = torch.Generator().manual_seed(21)
+    xyz = torch.randint(-6, 7, (2, n, 3), generator=g).float().to(dev)
+    feats = rand(g, 2, n, c, device=dev).to(dtype)
+    idx = fps_cuda.furthest_point_sampling_plain(xyz, m)
+    new_xyz = torch.gather(xyz, 1, idx[..., None].expand(-1, -1, 3))
+    got = sa_group_cuda.sa_group(new_xyz, idx, xyz, feats, 32)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (2, m, 32, 3 + c)
+    torch.testing.assert_close(got, sa_group_cuda.sa_group_plain(new_xyz, idx, xyz, feats, 32),
+                               rtol=0, atol=0)
+    assert float(got[:, :, 0, :3].abs().max()) == 0.0
+    torch.testing.assert_close(got[:, :, 0, 3:], torch.gather(
+        feats, 1, idx[..., None].expand(-1, -1, c)), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_sa_group_out_of_range_centre_gives_nan_rows(dev):
+    """A centre index outside [0, N) is not checked on the host (that would
+    synchronise): the kernel writes that centre's rows as NaN and touches
+    nothing out of range; the other rows are unchanged."""
+    from flowcompare_tpu_torch.ops import sa_group_cuda
+    g = torch.Generator().manual_seed(28)
+    xyz = torch.randint(-6, 7, (1, 100, 3), generator=g).float().to(dev)
+    feats = rand(g, 1, 100, 5, device=dev).bfloat16()
+    idx = torch.tensor([[3, 100, 7, -1]], device=dev)
+    centres = torch.gather(xyz, 1, idx.clamp(0, 99)[..., None].expand(-1, -1, 3))
+    got = sa_group_cuda.sa_group(centres, idx, xyz, feats, 16)
+    torch.cuda.synchronize()
+    assert bool(got[:, [1, 3]].isnan().all()) and not bool(got[:, [0, 2]].isnan().any())
+    ok = idx[:, [0, 2]]
+    torch.testing.assert_close(got[:, [0, 2]], sa_group_cuda.sa_group_plain(
+        centres[:, [0, 2]], ok, xyz, feats, 16), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_paconv_eval_encoder_kernels_match_plain(dev):
+    """The eval encoder through B8 and B9 (4 launches each) against the plain
+    versions: the same picks, and groups that differ only where a rounded
+    distance flips a near-tied 32nd neighbour."""
+    from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda
+    model = tiny_paconv_model(dev)
+    x = rand(torch.Generator().manual_seed(22), 2, PACONV_CONTEXT, 6, device=dev)
+    fps_cuda.FPS_LAUNCHES = sa_group_cuda.SA_GROUP_LAUNCHES = 0
+    got, _ = model.embed(x)
+    torch.cuda.synchronize()
+    assert fps_cuda.FPS_LAUNCHES == 4 and sa_group_cuda.SA_GROUP_LAUNCHES == 4
+    model.plain = True
+    ref, _ = model.embed(x)
+    err = (got.float() - ref.float()).abs()
+    assert got.dtype == torch.bfloat16 and got.shape == (2, PACONV_CONTEXT, 16)
+    assert float(err.max()) < 6e-2 and float(err.mean()) < 4e-3
+
+
+@pytest.mark.cuda
+def test_paconv_train_step_kernels_match_plain(dev):
+    """Data init (the eval encoder: B8, B9) and one good-surf train step
+    through the kernels (B8 in the train encoder, B1 with saves, B5) and
+    through the plain versions, from one state on one batch and noise."""
+    from flowcompare_tpu_torch.ops import flow_layer_vjp_cuda as fv, fps_cuda
+    model = tiny_paconv_model(dev)
+    rng = np.random.default_rng(23)
+    batch = tuple(torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=dev)
+                  for s in ((2, PACONV_CONTEXT, 6), (2, N_POINTS, 6), (2, 1)))
+    eps = rand(torch.Generator().manual_seed(24), 2, N_POINTS, 26, device=dev)
+    ft.data_init_from_batch(ft.init_train_state(model), batch, eps=eps)
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    results = []
+    for plain in (False, True):
+        model.load_state_dict(snapshot)
+        model.plain = plain
+        fps_cuda.FPS_LAUNCHES = fv.FLOW_LAYERS_BWD_LAUNCHES = 0
+        flc.FUSED_FLOW_LAYERS_SAVE_LAUNCHES = 0
+        _, row = ft.train_step(ft.init_train_state(model), batch, eps=eps)
+        counts = (fps_cuda.FPS_LAUNCHES, flc.FUSED_FLOW_LAYERS_SAVE_LAUNCHES,
+                  fv.FLOW_LAYERS_BWD_LAUNCHES)
+        grads = torch.cat([p.grad.float().reshape(-1) for p in model.parameters()])
+        results.append((row, counts, grads))
+    (rk, ck, gk), (rp, cp, gp) = results
+    assert ck == (4, 1, 1) and cp == (0, 0, 0)
+    assert abs(rk["nats"] - rp["nats"]) <= 0.01 and np.isfinite(rk["loss"])
+    assert abs(rk["grad_norm"] - rp["grad_norm"]) <= 0.05 * rp["grad_norm"]
+    assert float(torch.nn.functional.cosine_similarity(gk, gp, dim=0)) >= 0.99
+
+
+@pytest.mark.cuda
+def test_summer_terrain_kernel_paths_match_plain(dev):
+    """summer-terrain (PAConv, no extra context: B1, B2 and B7 without the
+    extra column) through the kernels and the plain versions: the eval's
+    nats, a sample of the same z, and one train step."""
+    model = tiny_paconv_model(dev, "summer-terrain")
+    rng = np.random.default_rng(25)
+    sizes = {"c": PACONV_CONTEXT, "t": N_POINTS}
+    items = [[np.asarray(rng.normal(size=(2, 1) if s == "e" else (2, sizes[s], 6)), np.float32)
+              for s in "ctecttctctt"]]
+    batch = tuple(torch.as_tensor(a, device=dev) for a in items[0][:3])
+    z = 0.6 * rand(torch.Generator().manual_seed(26), 1, 500, 32, device=dev)
+    eps = rand(torch.Generator().manual_seed(27), 2, N_POINTS, 26, device=dev)
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def noise(i, shape):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(200 + i))
+
+    out = []
+    for plain in (False, True):
+        model.load_state_dict(snapshot)
+        model.plain = plain
+        flc.FUSED_FLOW_LAYERS_LAUNCHES = flc.FUSED_FLOW_LAYERS_INVERSE_LAUNCHES = 0
+        nats, _ = ft.evaluate_on_test(model, items, noise=noise)
+        sample = ft.make_sample(model, 500, batch[0][:1], None, z=z)
+        _, row = ft.train_step(ft.init_train_state(model), batch, eps=eps)
+        out.append((nats, sample, row, flc.FUSED_FLOW_LAYERS_LAUNCHES,
+                    flc.FUSED_FLOW_LAYERS_INVERSE_LAUNCHES))
+    (nk, sk, rk, b1k, b7k), (npl, sp, rp, b1p, b7p) = out
+    assert (b1k, b7k) == (2, 1) and (b1p, b7p) == (0, 0)
+    assert np.isfinite(nk) and abs(nk - npl) < 1e-2
+    assert sk.shape == (1, 500, 6) and float((sk - sp).abs().max()) < 5e-2
+    assert abs(rk["nats"] - rp["nats"]) <= 0.01
+    assert abs(rk["grad_norm"] - rp["grad_norm"]) <= 0.05 * rp["grad_norm"]

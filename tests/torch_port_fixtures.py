@@ -1,10 +1,11 @@
 """Shared fixtures of the tests/test_torch_port_*.py parity tests.
 
 A tiny dulcet-universe configuration (3 coupling layers, latent 32, hidden
-widths <= 64, N=64 target and Nc=80 context points, k=8), one JAX
-`init_params` draw perturbed with seeded numpy noise so that LinearLU,
-ActNorm, LayerNorm and BatchNorm are not at their identity init, and the
-same weights loaded into the port through `load_jax_params`.
+widths <= 64, N=64 target and Nc=80 context points, k=8) and its PAConv
+twins (good-surf, summer-terrain: Nc=256), one JAX `init_params` draw
+perturbed with seeded numpy noise so that LinearLU, ActNorm, LayerNorm and
+every BatchNorm (nested states included) are not at their identity init,
+and the same weights loaded into the port through `load_jax_params`.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from flowcompare_tpu.configs import get_config as jax_get_config
 from flowcompare_tpu.model import FlowCompareModel as JaxModel
 
 N_POINTS, N_CONTEXT, K_NEIGHBORS = 64, 80, 8
+PACONV_CONTEXT = 256
 
 
 def tiny_config(compute_dtype: str = "float32") -> dict:
@@ -45,16 +47,27 @@ def _perturb(params: dict, state: dict, rng: np.random.Generator) -> None:
             for k, v in tree.items():
                 if isinstance(v, (dict, list)):
                     walk(v, path + (k,))
-                else:
+                elif v is not None:
                     tree[k] = _noise(path + (k,), v, rng)
         elif isinstance(tree, list):
             for v in tree:
                 walk(v, path)
 
+    def walk_state(tree):
+        """Every BatchNorm state ({"mean", "var"}) of a nested state tree,
+        None leaves (PAConv's ScoreNet head) skipped."""
+        if isinstance(tree, dict) and set(tree) == {"mean", "var"}:
+            tree["mean"] = rng.normal(0, 0.1, tree["mean"].shape).astype(np.float32)
+            tree["var"] = rng.uniform(0.5, 1.5, tree["var"].shape).astype(np.float32)
+        elif isinstance(tree, dict):
+            for v in tree.values():
+                walk_state(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                walk_state(v)
+
     walk(params)
-    for bn in state["embedder"].values():
-        bn["mean"] = rng.normal(0, 0.1, bn["mean"].shape).astype(np.float32)
-        bn["var"] = rng.uniform(0.5, 1.5, bn["var"].shape).astype(np.float32)
+    walk_state(state["embedder"])
 
 
 def _noise(path, v, rng):
@@ -71,6 +84,19 @@ def _noise(path, v, rng):
     return np.asarray(v, np.float32)
 
 
+def tiny_paconv_config(preset: str = "good-surf", compute_dtype: str = "float32") -> dict:
+    """A tiny PAConv preset: the flow of `tiny_config`, the SA/FP widths as
+    shipped (fixed constants), a 64-wide out-MLP, and 256 context points,
+    the fewest that leave every one of the four SA levels (N // 4 each) a
+    centre."""
+    cfg = tiny_config(compute_dtype)
+    preset_cfg = jax_get_config(preset)
+    cfg.update(input_embedder="PAConv",
+               extra_z_value_context=preset_cfg["extra_z_value_context"],
+               hidden_dims_embedder_out=[64, 64, 64], n_samples_context=PACONV_CONTEXT)
+    return jax_derive(cfg)
+
+
 def model_pair(compute_dtype: str = "float32", seed: int = 0):
     """(cfg, jax model, jax params, jax state, port model) on shared weights."""
     cfg = tiny_config(compute_dtype)
@@ -80,6 +106,35 @@ def model_pair(compute_dtype: str = "float32", seed: int = 0):
     state = jax.tree_util.tree_map(np.asarray, state)
     _perturb(params, state, np.random.default_rng(seed))
     pm = ft.FlowCompareModel(cfg, device="cpu")
+    ft.load_jax_params(pm, params, state)
+    to_jax = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    return cfg, jm, to_jax(params), to_jax(state), pm
+
+
+def _path_key(path) -> str:
+    return ".".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
+
+
+def paconv_pair(preset: str = "good-surf", compute_dtype: str = "float32", seed: int = 0):
+    """model_pair for `tiny_paconv_config(preset)`, with the port's seeded
+    init as the shared weights: the JAX pytrees (None leaves included) take
+    their structure from `jax.eval_shape(init_params)` and their leaves from
+    the port's state_dict, then are perturbed and loaded back into the port.
+    (The JAX PAConv init runs hundreds of small eager draws on the CPU;
+    `test_load_jax_params_carries_paconv_init` carries a real one.)"""
+    cfg = tiny_paconv_config(preset, compute_dtype)
+    jm = JaxModel(cfg, remat=False)
+    shapes = jax.eval_shape(jm.init_params, jax.random.PRNGKey(seed))
+    pm = ft.FlowCompareModel(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    own = {k: v.numpy().copy() for k, v in pm.state_dict().items()}
+
+    def fill(tree, prefix):
+        leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
+        return jax.tree_util.tree_unflatten(
+            treedef, [own[prefix + _path_key(p)].reshape(s.shape) for p, s in leaves])
+
+    params, state = fill(shapes[0], ""), fill(shapes[1], "state.")
+    _perturb(params, state, np.random.default_rng(seed))
     ft.load_jax_params(pm, params, state)
     to_jax = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
     return cfg, jm, to_jax(params), to_jax(state), pm
