@@ -71,11 +71,25 @@ Phases, each of which raises on failure (nothing is caught):
    and a profile at the preset's B=25; make_sample of 1 x 4000 against the
    plain samples of the same z (|d nats| <= 0.01); the training check at
    B=2 (the embedder's gradient among the groups) and
-   `train(max_steps=4, make_samples=True)` at B=25.
+   `train(max_steps=4, make_samples=True)` at B=25;
+14. GEMM (run second, before any model is built): gemm_bf16 and gemm_tn
+   at the main path's shapes (`phase_gemm`): each product of one flow layer
+   with the epilogue flags the chains pass, at dulcet-universe's eval rows
+   (40,960; kv over 50,000 context rows), helpful-sponge's (51,200) and one
+   sample's 4,000, B5's A @ W^T at the training rows (20,480 and 25,600)
+   and its weight gradients A^T @ B over them; each on the TMA + wgmma and
+   the WMMA route against the plain version (one bf16 rounding for bf16
+   outputs, 1e-4 of max |ref| for f32), with both routes' ms in turns, the
+   plain version's, torch.matmul's (the library yardstick) and the bound.
+   Every main path (eval, make_sample, train) then shows, through counters
+   around the B1, B2, B5 and B7 entry points, that no product inside those
+   chains took the WMMA route, and that outside them only B4's first
+   EdgeConv stage (two launches per encoder call) did.
 
-Prints, last, one JSON line of per-kernel results (B1-B10; B1, B2, B4, B5
-and B7 carry their helpful-sponge branch's check under "global", B10 its
-second shape), the nvidia-smi line and {"ok": true, "device": {...}}.
+Prints, last, one JSON line of per-kernel results (B1-B10, gemm_bf16 and
+gemm_tn at their headline shapes; B1, B2, B4, B5 and B7 carry their
+helpful-sponge branch's check under "global", B10 its second shape), the
+nvidia-smi line and {"ok": true, "device": {...}}.
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
 
@@ -358,6 +372,289 @@ def phase_kernels(ft, model, device):
     entries["B7"] = phase_b7(small, g, device)
     del small
     return entries
+
+
+# The products of one flow layer as the chains launch them: (label, K, N,
+# layout, epilogue flags, output dtype). "nn" is a @ w (w stored (K, N)), "nt"
+# a @ w^T (w stored (N, K)), "tn" a^T @ b (a stored (M, K) over the rows).
+def _gemm_layer_shapes(extra_dim: int, cond: int, attention: bool) -> dict:
+    from flowcompare_tpu_torch.ops.flow_layer_cuda import packed_input_layout
+
+    xe, xc, _ = packed_input_layout(150, extra_dim, cond)
+    k_in = xc + cond            # the packed rows [x1 | extra | pad | cond]
+    f32, bf = torch.float32, torch.bfloat16
+    forward = [("coupling in", k_in, 512, "nn", ("bias", "gelu"), bf),
+               ("coupling hidden", 512, 512, "nn", ("bias", "gelu"), bf),
+               ("coupling hidden + residual", 512, 512, "nn", ("bias", "residual", "gelu"), bf),
+               ("coupling out [s | t]", 512, 300, "nn", ("bias",), f32),
+               ("LinearLU", 300, 300, "nn", ("bias",), f32)]
+    if attention:
+        forward += [("pre-MLP in", 150, 256, "nn", ("bias", "gelu"), bf),
+                    ("pre-MLP hidden + residual", 256, 256, "nn", ("bias", "residual", "gelu"), bf),
+                    ("pre-MLP out", 256, 256, "nn", ("bias",), f32),
+                    ("q", 256, 64, "nn", ("bias",), bf)]
+    backward = [("dy = g lu_w", 300, 300, "nn", (), f32),
+                ("dh = d[s | t] W^T", 300, 512, "nt", ("gelu_grad", "out2"), f32),
+                ("dh = g W^T + residual", 512, 512, "nt", ("residual", "gelu_grad", "out2"), f32),
+                ("dx1 += dh W_in^T", 512, 150, "nt", ("accumulate",), f32)]
+    weights = [("dW coupling hidden", 512, 512, "tn", (), f32),
+               ("dW coupling out", 512, 300, "tn", (), f32),
+               ("dW LinearLU", 300, 300, "tn", (), f32),
+               ("dW coupling in (x1, extra)", xe, 512, "tn", (), f32),
+               ("dW coupling in (cond)", cond, 512, "tn", (), f32)]
+    if attention:
+        weights += [("dW pre-MLP hidden", 256, 256, "tn", (), f32)]
+    return {"forward": forward, "backward": backward, "weights": weights}
+
+
+def _aligned(rows: int, cols: int, dtype, g) -> torch.Tensor:
+    """A random (rows, cols) matrix (g a CUDA generator) whose rows start
+    16-byte aligned, as the chains lay out theirs."""
+    view = torch.empty(rows, -(-cols // 8) * 8, dtype=dtype, device="cuda")[:, :cols]
+    view.copy_(torch.randn(rows, cols, generator=g, device="cuda"))
+    return view
+
+
+def gemm_case(label, m, k, n, layout, flags, out_dtype, g) -> dict:
+    """One main-path product on both routes and as plain PyTorch: errors
+    against the plain version, ms of the wgmma and the WMMA route in turns
+    (WMMA, wgmma, wgmma, WMMA), of the plain version and of torch.matmul on
+    the same bf16 operands, and the bound."""
+    from flowcompare_tpu_torch.ops import _build
+
+    bf = torch.bfloat16
+    flops = 2 * m * k * n
+    if layout == "tn":
+        a, b = _aligned(m, k, bf, g), _aligned(m, n, bf, g)     # a^T @ b over the m rows
+        ws = torch.empty(max(1, _build.gemm_tn_workspace(k, n, m)), device="cuda")
+        moved = nbytes(a, b) + k * n * 4
+
+        def fresh():
+            return torch.empty(k, n, device="cuda"), {}
+
+        def launch(route, out, extra):
+            _build.gemm_tn(a, b, out, ws, route=route)
+
+        def plain(out, extra):
+            _build.gemm_tn_plain(a, b, out)
+
+        def library():
+            return torch.matmul(a.T, b)
+    else:
+        a = _aligned(m, k, bf, g)
+        w = _aligned(*((n, k) if layout == "nt" else (k, n)), bf, g).div_(k ** 0.5)
+        kw = {"trans_b": layout == "nt", "accumulate": "accumulate" in flags,
+              "gelu": "gelu" in flags}
+        if "bias" in flags:
+            kw["bias"] = 0.1 * torch.randn(n, generator=g, device="cuda")
+        if "residual" in flags:
+            kw["residual"] = _aligned(m, n, out_dtype, g)
+        if "gelu_grad" in flags:
+            kw["gelu_grad"] = _aligned(m, n, torch.float32, g)
+        start = _aligned(m, n, out_dtype, g)
+        moved = nbytes(a, w, *kw.values(), start)
+        moved += nbytes(start) if "accumulate" in flags else 0     # read, then written
+        moved += m * n * 2 if "out2" in flags else 0
+
+        def fresh():
+            extra = {"out2": torch.empty(m, n, dtype=bf, device="cuda")} if "out2" in flags else {}
+            return start.clone(), extra
+
+        def launch(route, out, extra):
+            _build.gemm(a, w, out, route=route, **kw, **extra)
+
+        def plain(out, extra):
+            _build.gemm_plain(a, w, out, **kw, **extra)
+
+        def library():
+            return torch.matmul(a, w.T if layout == "nt" else w)
+    ref, ref_extra = fresh()
+    plain(ref, ref_extra)
+    errs, within = {}, {}
+    for route in ("wgmma", "wmma"):
+        got, got_extra = fresh()
+        launch(route, got, got_extra)
+        torch.cuda.synchronize()
+        rel, ok = 0.0, True
+        for x, r in [(got, ref)] + [(got_extra[key], ref_extra[key]) for key in got_extra]:
+            d, scale = (x.float() - r.float()).abs(), float(r.float().abs().max().clamp_min(1e-30))
+            rel = max(rel, float(d.max()) / scale)
+            if x.dtype == bf:   # one bf16 rounding (2^-7 of the value), plus f32 sum order
+                ok &= float((d - 2.0 ** -7 * r.float().abs()).max()) <= 1e-5 * scale
+            else:               # f32 sums in another order
+                ok &= float(d.max()) <= 1e-4 * scale
+        errs[route], within[route] = rel, ok
+        if route == "wgmma":
+            abs_err = float((got.float() - ref.float()).abs().max())
+    out, extra = fresh()
+    ms = [time_ms(lambda r=route: launch(r, out, extra), reps=20)
+          for route in ("wmma", "wgmma", "wgmma", "wmma")]
+    res = {"label": label, "layout": layout, "m": m, "k": k, "n": n, "flags": list(flags),
+           "out": str(out_dtype).replace("torch.", ""),
+           "max_abs_err": abs_err, "rel_err": errs["wgmma"], "wmma_rel_err": errs["wmma"],
+           "within_tolerance": within["wgmma"] and within["wmma"],
+           "ms": (ms[1] + ms[2]) / 2, "wmma_ms": (ms[0] + ms[3]) / 2,
+           "turns_ms": {"wmma": [ms[0], ms[3]], "wgmma": [ms[1], ms[2]]},
+           "plain_ms": time_ms(lambda: plain(out, extra), reps=2),
+           "library_ms": time_ms(library, reps=10)}
+    res["bound_ms"], res["bound_by"] = bound(flops, moved)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["speedup_vs_wmma"] = res["wmma_ms"] / res["ms"]
+    return res
+
+
+def phase_gemm() -> tuple:
+    """gemm_bf16 and gemm_tn at the main path's shapes: each product of one
+    flow layer as the chains launch it (epilogue flags and output dtype
+    included) at dulcet-universe's eval rows (B=20: 40,960; kv over the
+    50,000 context rows), helpful-sponge's (B=25: 51,200) and one sample's
+    4,000, B5's input gradients (A @ W^T) and LinearLU product at the
+    training rows (20,480 and 25,600) and its weight gradients (A^T @ B over
+    those rows). Each against the plain version on both routes, with the
+    ms of both routes, of the plain version and of torch.matmul."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    cases = []
+    # (preset, extra context, cond width, attention, eval rows, training rows)
+    presets = (("dulcet-universe", 1, 64, True, 2 * TIME_B * 1024, TIME_B * 1024),
+               ("helpful-sponge", 0, 124, False, 2 * GS_B * 1024, GS_B * 1024))
+    for preset, extra_dim, cond, attention, eval_rows, train_rows in presets:
+        shapes = _gemm_layer_shapes(extra_dim, cond, attention)
+        runs = [(eval_rows, sh) for sh in shapes["forward"]]
+        if attention:
+            runs.append((2 * TIME_B * 1250, ("kv", 64, 128, "nn", (), torch.bfloat16)))
+        runs += [(train_rows, sh) for sh in shapes["backward"] + shapes["weights"]]
+        if attention:
+            runs += [(SAMPLE_N, sh) for sh in shapes["forward"]]
+        for rows, (label, k, n, layout, flags, out_dtype) in runs:
+            case = gemm_case(label, rows, k, n, layout, flags, out_dtype, g)
+            case["preset"] = preset
+            cases.append(case)
+            log(f"GEMM {preset} {label} {layout} M={rows} K={k} N={n} {'+'.join(flags) or '-'} -> "
+                f"{case['out']}: rel err {case['rel_err']} (WMMA route {case['wmma_rel_err']}; "
+                f"tolerance one bf16 rounding for bf16, 1e-4 for f32: "
+                f"{'within' if case['within_tolerance'] else 'BEYOND'}); {case['ms']} ms, WMMA "
+                f"route {case['wmma_ms']} ms ({case['speedup_vs_wmma']:.2f}x), plain "
+                f"{case['plain_ms']} ms, torch.matmul {case['library_ms']} ms, bound "
+                f"{case['bound_ms']} ms ({case['bound_by']}), {100 * case['bound_share']:.1f}% "
+                f"of it")
+    assert all(c["within_tolerance"] for c in cases), "a GEMM disagrees with its plain version"
+    host = gemm_host_cost(g)
+    log(f"GEMM host cost per call at 64 x 64 x 64 (launch-bound; us): {host}")
+
+    def entry(case, name, source, replaces, serves):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "wmma_ms",
+                "speedup_vs_wmma", "bound_share")
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": 0, **{k: case[k] for k in keys},
+                "shape": f"{case['label']} M={case['m']} K={case['k']} N={case['n']} "
+                         f"({case['layout']}, {'+'.join(case['flags']) or 'no epilogue'})",
+                "serves": serves, "shapes_checked": len(cases)}
+
+    head = next(c for c in cases if c["label"] == "coupling hidden" and c["m"] == 2 * TIME_B * 1024)
+    tn = next(c for c in cases if c["label"] == "dW coupling hidden" and c["m"] == TIME_B * 1024)
+    entries = {
+        "gemm_bf16": entry(head, "gemm_bf16 (gemm_bf16_wgmma_kernel)",
+                           "flowcompare_tpu_torch/csrc/gemm_wgmma.cu",
+                           "flowcompare_tpu/ops/flow_layer_pallas.py:924",
+                           "every product of B1, B2, B7 and B5's A @ W^T; B4's aligned ones"),
+        "gemm_tn": entry(tn, "gemm_tn (gemm_tn_wgmma_kernel)",
+                         "flowcompare_tpu_torch/csrc/gemm_tn_wgmma.cu",
+                         "flowcompare_tpu/ops/flow_layer_vjp_pallas.py:476",
+                         "B5's weight gradients"),
+    }
+    entries["gemm_bf16"]["host_us_per_call"] = host
+    return entries, cases
+
+
+def gemm_host_cost(g, calls: int = 3000) -> dict:
+    """Host time per gemm call on each route at a product too small to keep
+    the card busy (64 x 64 x 64 with bias and GELU), through the Python
+    wrapper and through the C entry point alone, in turns (WMMA, wgmma,
+    wgmma, WMMA): what a launch-bound chain (a sample's 1 x 4000) pays per
+    product; and the current-stream lookup every launch makes."""
+    from flowcompare_tpu_torch.ops import _build
+
+    bf = torch.bfloat16
+    a, w = _aligned(64, 64, bf, g), _aligned(64, 64, bf, g)
+    out, bias = torch.empty(64, 64, dtype=bf, device="cuda"), torch.randn(64, device="cuda")
+    lib, stream = _build.library(), _build._stream()
+    base = (a.data_ptr(), 64, w.data_ptr(), 64, out.data_ptr(), 64, 64, 64, 64, bias.data_ptr(),
+            None, 0, None, None, None, 0, None, 0, _build.EPI_BIAS | _build.EPI_GELU, 0)
+    direct = {"wgmma": lambda: lib.fc_gemm_bf16(*base, *_build.gemm_tile(64, 64), stream),
+              "wmma": lambda: lib.fc_gemm_bf16_wmma(*base, stream)}
+
+    def per_call_us(fn):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / calls
+
+    res = {"stream_lookup": [per_call_us(_build._stream)]}
+    for route in ("wmma", "wgmma", "wgmma", "wmma"):
+        res.setdefault(f"wrapper_{route}", []).append(per_call_us(
+            lambda r=route: _build.gemm(a, w, out, bias=bias, gelu=True, route=r)))
+        res.setdefault(f"c_entry_{route}", []).append(per_call_us(direct[route]))
+    return {k: sum(v) / len(v) for k, v in res.items()}
+
+
+class ChainRoutes:
+    """Counts, by route, the GEMM launches made inside the B1, B2, B5 and B7
+    chains: their entry points are wrapped for the whole run, so a phase
+    reads how many of their products took the WMMA route (none should)."""
+
+    ENTRY_POINTS = (("flow_layer_cuda", "fused_flow_layers"), ("flow_layer_cuda", "fused_augmenter"),
+                    ("flow_layer_cuda", "fused_flow_layers_inverse"),
+                    ("flow_layer_vjp_cuda", "flow_layers_bwd"))
+
+    def __init__(self):
+        from flowcompare_tpu_torch.ops import _build, flow_layer_cuda, flow_layer_vjp_cuda
+        self._build = _build
+        modules = {"flow_layer_cuda": flow_layer_cuda, "flow_layer_vjp_cuda": flow_layer_vjp_cuda}
+        self.reset()
+        for module_name, attr in self.ENTRY_POINTS:
+            module = modules[module_name]
+            setattr(module, attr, self._counted(getattr(module, attr)))
+
+    def _now(self) -> dict:
+        b = self._build
+        return {"wgmma": b.GEMM_WGMMA_LAUNCHES + b.GEMM_TN_WGMMA_LAUNCHES,
+                "wmma": b.GEMM_WMMA_LAUNCHES + b.GEMM_TN_WMMA_LAUNCHES}
+
+    def _counted(self, fn):
+        def counted(*args, **kwargs):
+            before = self._now()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for key, value in self._now().items():
+                    self.counts[key] += value - before[key]
+        return counted
+
+    def reset(self) -> None:
+        self.counts = {"wgmma": 0, "wmma": 0}
+
+    def read(self) -> dict:
+        return dict(self.counts)
+
+
+CHAIN_ROUTES = None   # a ChainRoutes, installed by main() once the library is built
+
+
+def check_gemm_routes(launches: dict, chains: dict, what: str) -> None:
+    """Inside the B1, B2, B5 and B7 chains no GEMM takes the WMMA route;
+    outside them only B4's first EdgeConv stage does (its c and u' products
+    read the 6-wide cloud, two launches per encoder call)."""
+    log(f"GEMM routes in {what}: inside the B1/B2/B5/B7 chains {chains}; all launches: gemm "
+        f"wgmma {launches['gemm wgmma']}, WMMA {launches['gemm wmma']} (B4 ran "
+        f"{launches['B4']} times), gemm_tn wgmma {launches['gemm_tn wgmma']}, WMMA "
+        f"{launches['gemm_tn wmma']}")
+    assert chains["wmma"] == 0 and chains["wgmma"] > 0, f"a chain took the WMMA route: {chains}"
+    assert launches["gemm wmma"] == 2 * launches["B4"], launches
+    assert launches["gemm_tn wmma"] == 0, launches
 
 
 def phase_b10(device) -> tuple:
@@ -749,9 +1046,10 @@ def phase_main_path(ft, model, device, need=("B1", "B2", "B3", "B4")):
     nats_k, fr_k = ft.evaluate_on_test(model, items, noise=noise, change_maps=maps_k)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
-    launches = read_counters()
+    launches, chains = read_counters(), CHAIN_ROUTES.read()
     log(f"main path {model.config['input_embedder']} (kernels): nats {nats_k}, changed "
         f"fractions {fr_k}, {t_k} s, launches {launches}")
+    check_gemm_routes(launches, chains, f"the {model.config['input_embedder']} eval main path")
     model.plain = True
     maps_p = []
     nats_p, fr_p = ft.evaluate_on_test(model, items, noise=noise, change_maps=maps_p)
@@ -831,7 +1129,8 @@ def phase_sample_main(ft, model, device, need=("B7", "B4")):
     xk = ft.make_sample(model, SAMPLE_N, x0, extra, z=z)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
-    launches = read_counters()
+    launches, chains = read_counters(), CHAIN_ROUTES.read()
+    check_gemm_routes(launches, chains, f"{cfg['input_embedder']} make_sample")
     model.plain = True
     xp = ft.make_sample(model, SAMPLE_N, x0, extra, z=z)
     model.plain = False
@@ -905,7 +1204,7 @@ def train_batches(cfg, batch: int, n_batches: int, seed: int) -> list:
 
 
 def _counters():
-    from flowcompare_tpu_torch.ops import (attention_cuda, dgcnn_cuda, edgeconv_cuda,
+    from flowcompare_tpu_torch.ops import (_build, attention_cuda, dgcnn_cuda, edgeconv_cuda,
                                            edgeconv_vjp_cuda, flow_layer_cuda,
                                            flow_layer_vjp_cuda, fps_cuda, sa_group_cuda)
     return [(flow_layer_cuda, "FUSED_FLOW_LAYERS_LAUNCHES", "B1"),
@@ -918,12 +1217,18 @@ def _counters():
             (flow_layer_cuda, "FUSED_FLOW_LAYERS_INVERSE_LAUNCHES", "B7"),
             (fps_cuda, "FPS_LAUNCHES", "B8"),
             (sa_group_cuda, "SA_GROUP_LAUNCHES", "B9"),
-            (attention_cuda, "FUSED_ATTENTION_CORE_LAUNCHES", "B10")]
+            (attention_cuda, "FUSED_ATTENTION_CORE_LAUNCHES", "B10"),
+            (_build, "GEMM_WGMMA_LAUNCHES", "gemm wgmma"),
+            (_build, "GEMM_WMMA_LAUNCHES", "gemm wmma"),
+            (_build, "GEMM_TN_WGMMA_LAUNCHES", "gemm_tn wgmma"),
+            (_build, "GEMM_TN_WMMA_LAUNCHES", "gemm_tn wmma")]
 
 
 def reset_counters() -> None:
     for module, attr, _ in _counters():
         setattr(module, attr, 0)
+    if CHAIN_ROUTES is not None:
+        CHAIN_ROUTES.reset()
 
 
 def read_counters() -> dict:
@@ -1004,8 +1309,9 @@ def phase_train_main(ft, model, device, batch: int = TIME_B,
              make_samples=True)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = read_counters()
+    launches, chains = read_counters(), CHAIN_ROUTES.read()
     model.config["batches_per_sample"] = bps
+    check_gemm_routes(launches, chains, f"{model.config['input_embedder']} train(max_steps=4)")
     samples = {p.name: np.load(p)["gen"] for p in sorted(save_dir.glob("sample_*.npz"))}
     losses = [r["loss"] for r in rows]
     out = {"ms_per_step": 1e3 * float(np.mean([r["time_batch"] for r in rows[1:]])),
@@ -1288,7 +1594,11 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
+    global CHAIN_ROUTES
+    CHAIN_ROUTES = ChainRoutes()
     b10, b10_entry_point = phase_b10(device)
+    torch.cuda.empty_cache()
+    gemm_entries, gemm_cases = phase_gemm()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model = make_model(ft, device)
@@ -1312,6 +1622,10 @@ def main() -> int:
               "B7": sample_main["launches"]["B7"]}
     for key, entry in entries.items():
         entry["launches"] = served[key]
+    # the GEMMs' launches on the wgmma route: the eval main path's for
+    # gemm_bf16, the training main path's for gemm_tn
+    gemm_entries["gemm_bf16"]["launches"] = launches["gemm wgmma"]
+    gemm_entries["gemm_tn"]["launches"] = train_main["launches"]["gemm_tn wgmma"]
     del model
     torch.cuda.empty_cache()
     paconv_entries, good_surf = good_surf_phases(ft, device)
@@ -1327,9 +1641,12 @@ def main() -> int:
                       "training": {"check": check, "main_path": train_main, "split": split,
                                    "profile": profile},
                       "good_surf": good_surf, "helpful_sponge": helpful_sponge,
-                      "b10": b10_entry_point, "wall_s": time.perf_counter() - T_START}))
+                      "b10": b10_entry_point, "gemm": gemm_cases,
+                      "wall_s": time.perf_counter() - T_START}))
+    entries.update(gemm_entries)
     print(json.dumps({"kernels": [entries[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6",
-                                                       "B7", "B8", "B9", "B10")]}))
+                                                       "B7", "B8", "B9", "B10", "gemm_bf16",
+                                                       "gemm_tn")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

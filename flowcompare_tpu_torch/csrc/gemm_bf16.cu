@@ -1,54 +1,37 @@
-// gemm_bf16: C = epilogue(A @ op(B)) and C = A^T @ B, bf16 operands,
-// float32 accumulation.
+// The WMMA route of the port's GEMM: C = epilogue(A @ op(B)) and
+// C = A^T @ B, bf16 operands, float32 accumulation.
 //
-// Every matrix product inside the port's ports of the Pallas kernels
-// fused_flow_layers_t, fused_augmenter, fused_dgcnn_encoder and
-// flow_layers_bwd runs here: the MLP layers, the LayerNorm-folded q
-// projection, ctx @ wkv, the coupling input, the ActNorm-folded LinearLU,
-// the EdgeConv u/c products, conv5 and the encoder head, and in the
-// training backward the input gradients (A @ B^T, the weights read in their
-// stored (in, out) layout) and the weight gradients (A^T @ B over the
-// B*N rows).
+// The port's products go to the TMA + wgmma kernels of gemm_wgmma.cu and
+// gemm_tn_wgmma.cu when both operands can be read by TMA (a 16-byte-aligned
+// base and a row stride that is a multiple of 16 bytes); `_build.gemm` and
+// `_build.gemm_tn` choose from that alone, and count each route. These
+// kernels take what TMA cannot: a matrix with a row of 6 bf16 (B4's first
+// EdgeConv stage reads the 6-wide cloud, ops/dgcnn_cuda.py) or any other
+// unaligned view. The B1, B2, B5 and B7 chains pad their buffers and weight
+// copies so that none of their products comes here.
 //
 // Design: a 64x64 output tile per block of 4 warps, each warp 32x32 as 2x2
 // WMMA 16x16x16 bf16 fragments, K in steps of 32 through shared memory. A
 // transposed operand is staged as it lies in memory and read through a
 // column-major fragment, so no transposed copy is made. Tiles are loaded
 // with 16-byte loads where the rows are aligned and zero-filled at ragged
-// edges, so M, N and K need no padding (K = 6, 150, 215 and N = 300 occur on
-// the main path). The epilogue stages the f32 tile in shared memory and
-// applies, in this order: + bias, + residual (bf16 or f32), + the current
-// f32 output (accumulate), the per-channel affine with leaky-0.2 (BatchNorm
-// folded), [store the pre-activation], erf-GELU, x GELU'(stored
-// pre-activation); then stores bf16 or f32, and optionally a bf16 copy.
+// edges, so M, N and K need no padding. The epilogue stages the f32 tile in
+// shared memory and applies gemm_common.cuh's element-wise epilogue.
 //
 // A^T @ B (weight gradients, K = B*N rows, few output tiles) splits K over
 // blocks: each split writes its f32 partial tile to a workspace and a second
 // pass sums the splits in order, so the result is deterministic.
 //
-// What bounds it on the H100: the layer products are large (M = B*1024 rows,
-// K and N 150..588), so tensor-core issue and the un-pipelined tile loads
-// bound it; wgmma, TMA and a multi-stage ring are the later speed-ups.
+// What bounds it on the H100: at the main path's shapes, tensor-core issue
+// through mma.sync and the un-pipelined tile loads (one buffer, loaded
+// through registers); it ran the 512-wide products at 6-7% of the bf16 peak.
 #include <mma.h>
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "gemm_common.cuh"
 
 using namespace nvcuda;
-
-enum : int {
-  EPI_BIAS = 1,
-  EPI_RESIDUAL = 2,
-  EPI_GELU = 4,
-  EPI_AFFINE_LEAKY = 8,
-  EPI_OUT_F32 = 16,
-  EPI_RES_F32 = 32,     // the residual is f32
-  EPI_ACCUM = 64,       // add the f32 output's current value
-  EPI_PRE_OUT = 128,    // store the pre-GELU value (f32) into aux
-  EPI_GELU_GRAD = 256,  // multiply by GELU'(aux)
-  EPI_OUT2_BF16 = 512,  // also store bf16(v) into out2
-};
 
 namespace {
 
@@ -60,25 +43,6 @@ constexpr int LDBT_S = BK + 8;  // 40 bf16: B^T tile [n][k]
 constexpr int LDC_S = BN + 4;   // 68 f32
 constexpr int A_SMEM = (BM * LDA_S > BK * LDAT_S) ? BM * LDA_S : BK * LDAT_S;
 constexpr int B_SMEM = (BK * LDB_S > BN * LDBT_S) ? BK * LDB_S : BN * LDBT_S;
-
-struct Epilogue {
-  const float* bias;
-  const void* res;
-  int ldr;
-  const float* aff_a;
-  const float* aff_b;
-  float* aux;
-  int ldaux;
-  bf16* out2;
-  int ld2;
-  int flags;
-};
-
-__device__ __forceinline__ float gelu_erf_grad(float x) {
-  const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752440f));
-  const float pdf = 0.39894228040143267794f * expf(-0.5f * x * x);
-  return cdf + x * pdf;
-}
 
 // C tile = A[m0:, k_begin:k_end] @ B[k_begin:k_end, n0:] with A given as A^T
 // (K x M) when TA and B given as B^T (N x K) when TB. Leaves the f32 tile in Cs.
@@ -146,7 +110,7 @@ __device__ __forceinline__ void mainloop(const bf16* __restrict__ A, int lda,
 }
 
 template <bool TB>
-__global__ void __launch_bounds__(128) gemm_bf16_kernel(
+__global__ void __launch_bounds__(128) gemm_bf16_wmma_kernel(
     const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb, void* C, int ldc,
     int M, int N, int K, Epilogue ep, bool a_vec, bool b_vec) {
   __shared__ __align__(32) bf16 As[A_SMEM];
@@ -155,38 +119,20 @@ __global__ void __launch_bounds__(128) gemm_bf16_kernel(
   mainloop<false, TB>(A, lda, B, ldb, M, N, 0, K, a_vec, b_vec, As, Bs, Cs);
 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int flags = ep.flags;
   for (int e = threadIdx.x; e < BM * BN; e += blockDim.x) {
     const int r = e / BN, c = e % BN;
     const int gr = m0 + r, gc = n0 + c;
-    if (gr >= M || gc >= N) continue;
-    float v = Cs[r * LDC_S + c];
-    if (flags & EPI_BIAS) v += ep.bias[gc];
-    if (flags & EPI_RESIDUAL) {
-      const size_t o = (size_t)gr * ep.ldr + gc;
-      v = ((flags & EPI_RES_F32) ? reinterpret_cast<const float*>(ep.res)[o]
-                                 : bf2f(reinterpret_cast<const bf16*>(ep.res)[o])) + v;
-    }
-    if (flags & EPI_ACCUM) v += reinterpret_cast<const float*>(C)[(size_t)gr * ldc + gc];
-    if (flags & EPI_AFFINE_LEAKY) v = leaky02(v * ep.aff_a[gc] + ep.aff_b[gc]);
-    if (flags & EPI_PRE_OUT) ep.aux[(size_t)gr * ep.ldaux + gc] = v;
-    if (flags & EPI_GELU) v = gelu_erf(v);
-    if (flags & EPI_GELU_GRAD) v *= gelu_erf_grad(ep.aux[(size_t)gr * ep.ldaux + gc]);
-    if (flags & EPI_OUT_F32)
-      reinterpret_cast<float*>(C)[(size_t)gr * ldc + gc] = v;
-    else
-      reinterpret_cast<bf16*>(C)[(size_t)gr * ldc + gc] = f2bf(v);
-    if (flags & EPI_OUT2_BF16) ep.out2[(size_t)gr * ep.ld2 + gc] = f2bf(v);
+    if (gr < M && gc < N) epilogue_store(Cs[r * LDC_S + c], gr, gc, ep, C, ldc);
   }
 }
 
 // One split of C = A^T @ B: rows [z * k_chunk, (z + 1) * k_chunk) of both,
 // written as f32 into out (ldo) + z * split_stride.
-__global__ void __launch_bounds__(128) gemm_tn_kernel(const bf16* __restrict__ A, int lda,
-                                                      const bf16* __restrict__ B, int ldb,
-                                                      float* out, int ldo, size_t split_stride,
-                                                      int M, int N, int K, int k_chunk,
-                                                      bool a_vec, bool b_vec) {
+__global__ void __launch_bounds__(128) gemm_tn_wmma_kernel(const bf16* __restrict__ A, int lda,
+                                                           const bf16* __restrict__ B, int ldb,
+                                                           float* out, int ldo, size_t split_stride,
+                                                           int M, int N, int K, int k_chunk,
+                                                           bool a_vec, bool b_vec) {
   __shared__ __align__(32) bf16 As[A_SMEM];
   __shared__ __align__(32) bf16 Bs[B_SMEM];
   __shared__ __align__(32) float Cs[BM * LDC_S];
@@ -202,34 +148,22 @@ __global__ void __launch_bounds__(128) gemm_tn_kernel(const bf16* __restrict__ A
   }
 }
 
-// C (ldc) = sum over the splits of ws (M x N each), in split order.
-__global__ void split_sum_kernel(const float* __restrict__ ws, int splits, float* __restrict__ C,
-                                 int ldc, int M, int N) {
-  const size_t total = (size_t)M * N, stride = total;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int z = 0; z < splits; ++z) acc += ws[z * stride + e];
-    C[(e / N) * ldc + e % N] = acc;
-  }
-}
-
 }  // namespace
 
-FC_API int fc_gemm_bf16(const void* A, int lda, const void* B, int ldb, void* C, int ldc, int M,
-                        int N, int K, const void* bias, const void* res, int ldr, const void* aff_a,
-                        const void* aff_b, void* aux, int ldaux, void* out2, int ld2, int flags,
-                        int trans_b, void* stream) {
+FC_API int fc_gemm_bf16_wmma(const void* A, int lda, const void* B, int ldb, void* C, int ldc,
+                             int M, int N, int K, const void* bias, const void* res, int ldr,
+                             const void* aff_a, const void* aff_b, void* aux, int ldaux,
+                             void* out2, int ld2, int flags, int trans_b, void* stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const Epilogue ep{(const float*)bias, res,          ldr,        (const float*)aff_a,
                     (const float*)aff_b, (float*)aux, ldaux,      (bf16*)out2,
                     ld2,                 flags};
   if (trans_b)
-    gemm_bf16_kernel<true><<<grid, 128, 0, (cudaStream_t)stream>>>(
+    gemm_bf16_wmma_kernel<true><<<grid, 128, 0, (cudaStream_t)stream>>>(
         (const bf16*)A, lda, (const bf16*)B, ldb, C, ldc, M, N, K, ep, aligned16(A, lda),
         aligned16(B, ldb));
   else
-    gemm_bf16_kernel<false><<<grid, 128, 0, (cudaStream_t)stream>>>(
+    gemm_bf16_wmma_kernel<false><<<grid, 128, 0, (cudaStream_t)stream>>>(
         (const bf16*)A, lda, (const bf16*)B, ldb, C, ldc, M, N, K, ep, aligned16(A, lda),
         aligned16(B, ldb));
   return (int)cudaGetLastError();
@@ -237,27 +171,24 @@ FC_API int fc_gemm_bf16(const void* A, int lda, const void* B, int ldb, void* C,
 
 // C (M x N, f32) = A^T @ B with A (K x M) and B (K x N) bf16. With splits > 1,
 // ws holds splits * M * N floats.
-FC_API int fc_gemm_tn(const void* A, int lda, const void* B, int ldb, void* C, int ldc, int M,
-                      int N, int K, int splits, void* ws, void* stream) {
+FC_API int fc_gemm_tn_wmma(const void* A, int lda, const void* B, int ldb, void* C, int ldc,
+                           int M, int N, int K, int splits, void* ws, void* stream) {
   if (splits < 1) return (int)cudaErrorInvalidValue;
   const int k_chunk = ((K + splits - 1) / splits + BK - 1) / BK * BK;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   const bool av = aligned16(A, lda), bv = aligned16(B, ldb);
   if (splits == 1) {
-    gemm_tn_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+    gemm_tn_wmma_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
         (const bf16*)A, lda, (const bf16*)B, ldb, (float*)C, ldc, 0, M, N, K, k_chunk, av, bv);
     return (int)cudaGetLastError();
   }
-  gemm_tn_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+  gemm_tn_wmma_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
       (const bf16*)A, lda, (const bf16*)B, ldb, (float*)ws, N, (size_t)M * N, M, N, K, k_chunk,
       av, bv);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  int blocks = (int)(((size_t)M * N + 255) / 256);
-  if (blocks > 4096) blocks = 4096;
-  split_sum_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)ws, splits, (float*)C,
-                                                             ldc, M, N);
-  return (int)cudaGetLastError();
+  return (int)launch_split_sum((const float*)ws, splits, (float*)C, ldc, M, N,
+                               (cudaStream_t)stream);
 }
 
 FC_API const char* fc_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -13,6 +13,18 @@ The launch functions below check device, dtype, shape and strides, pass
 pointers and the current stream, and raise if the C function returns a
 CUDA error (every entry point returns `cudaGetLastError()` after its
 launch). Kernels launch on PyTorch's current stream and never synchronise.
+
+Every matrix product of the port goes through `gemm` (C = epilogue(A @ B),
+or A @ B^T) or `gemm_tn` (C = A^T @ B), each with two routes chosen from
+the operands' alignment alone (`gemm_route`): the TMA + wgmma kernels
+(`csrc/gemm_wgmma.cu`, `csrc/gemm_tn_wgmma.cu`) when TMA can read both
+operands, the WMMA kernels (`csrc/gemm_bf16.cu`) otherwise. The choice is
+never made on a failure: a launch error on either route raises. The B1, B2,
+B5 and B7 chains pad their bf16 buffers and weight copies to rows of whole
+16 bytes (`flow_layer_cuda._pad_cols`, `_CouplingChain`), so all their
+products take the wgmma route; B4's first EdgeConv stage, which reads the
+6-wide cloud, takes the WMMA route. The four counters below count the
+launches of each route.
 """
 
 from __future__ import annotations
@@ -39,8 +51,11 @@ EPI_RES_F32, EPI_ACCUM, EPI_PRE_OUT, EPI_GELU_GRAD, EPI_OUT2_BF16 = 32, 64, 128,
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fc_gemm_bf16": [_V, _I, _V, _I, _V, _I, _I, _I, _I, _V, _V, _I, _V, _V, _V, _I, _V, _I,
-                     _I, _I, _V],
-    "fc_gemm_tn": [_V, _I, _V, _I, _V, _I, _I, _I, _I, _I, _V, _V],
+                     _I, _I, _I, _I, _V],
+    "fc_gemm_bf16_wmma": [_V, _I, _V, _I, _V, _I, _I, _I, _I, _V, _V, _I, _V, _V, _V, _I, _V,
+                          _I, _I, _I, _V],
+    "fc_gemm_tn": [_V, _I, _V, _I, _V, _I, _I, _I, _I, _I, _I, _I, _V, _V],
+    "fc_gemm_tn_wmma": [_V, _I, _V, _I, _V, _I, _I, _I, _I, _I, _V, _V],
     "fc_cast_rows": [_V, _I, _V, _I, _I, _I, _V],
     "fc_row_norm": [_V, _I, _V, _I, _I, _I, _F, _V],
     "fc_coupling_epilogue": [_V, _I, _V, _I, _V, _V, _I, _I, _I, _I, _F, _V, _V],
@@ -70,6 +85,15 @@ _SIGNATURES = {
 }
 
 _LIB: Optional[ctypes.CDLL] = None
+
+# Launch counters of the two GEMM routes (plain integers, bumped where each
+# kernel launches): TMA + wgmma and WMMA, for gemm and for gemm_tn.
+GEMM_WGMMA_LAUNCHES = 0
+GEMM_WMMA_LAUNCHES = 0
+GEMM_TN_WGMMA_LAUNCHES = 0
+GEMM_TN_WMMA_LAUNCHES = 0
+
+NUM_SMS = 132          # the H100 SXM's; tiles and splits aim at about one wave of blocks
 
 
 def _nvcc() -> str:
@@ -151,7 +175,11 @@ def _check(name: str, rc: int) -> None:
 
 
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream of the current device, as a pointer. Every
+    launch asks, so this is PyTorch's raw lookup (CUDA builds have it):
+    `torch.cuda.current_stream()` builds a Stream object each time, 4.4 us a
+    launch on the H100's host (chip_smoke.py's GEMM host cost)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def _rows(t: torch.Tensor, name: str, dtype: torch.dtype) -> int:
@@ -182,6 +210,29 @@ def _f32_like(t: Optional[torch.Tensor], name: str, shape: tuple) -> Optional[in
     return ld
 
 
+def tma_readable(ptr: int, ld: int) -> bool:
+    """Whether TMA can read a bf16 matrix at address `ptr` with a row stride
+    of `ld` elements: a 16-byte-aligned base and rows of whole 16 bytes."""
+    return ptr % 16 == 0 and ld % 8 == 0
+
+
+def gemm_route(a_ptr: int, lda: int, b_ptr: int, ldb: int) -> str:
+    """The GEMM route for two bf16 operands, from their alignment alone:
+    "wgmma" (TMA + wgmma) when TMA can read both, else "wmma"."""
+    return "wgmma" if tma_readable(a_ptr, lda) and tma_readable(b_ptr, ldb) else "wmma"
+
+
+def gemm_tile(m: int, n: int) -> tuple:
+    """(BM, BN) of the wgmma route's output tile for an M x N product. BN:
+    64 up to N = 64, else 128 (on the H100, 128 x 128 tiles two to an SM
+    beat 128 x 256 ones at every main-path width). BM: 128 (two consumer
+    warpgroups), or 64 where 128-row tiles would give fewer blocks than SMs
+    (a sample's 4,000 rows)."""
+    bn = 64 if n <= 64 else 128
+    bm = 128 if -(-m // 128) * -(-n // bn) >= NUM_SMS else 64
+    return bm, bn
+
+
 def gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
          bias: Optional[torch.Tensor] = None,
          residual: Optional[torch.Tensor] = None,
@@ -189,14 +240,24 @@ def gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
          trans_b: bool = False, accumulate: bool = False,
          pre_out: Optional[torch.Tensor] = None,
          gelu_grad: Optional[torch.Tensor] = None,
-         out2: Optional[torch.Tensor] = None) -> torch.Tensor:
+         out2: Optional[torch.Tensor] = None,
+         route: Optional[str] = None) -> torch.Tensor:
     """out = epilogue(a @ w), or a @ w^T with trans_b (w stored (N, K)).
 
     a (M, K) bf16, w (K, N) bf16, out (M, N) bf16 or f32. Epilogue order:
     + bias, + residual (bf16 or f32), + out's current value (`accumulate`,
     f32 out only), leaky(v * a + b) for `affine=(a, b)`, the pre-GELU value
     stored into `pre_out` (f32), erf-GELU, times GELU'(`gelu_grad`) (f32
-    pre-activations); a bf16 copy of the result into `out2`."""
+    pre-activations); a bf16 copy of the result into `out2`.
+
+    Two routes, one contract: when TMA can read both a and w (`gemm_route`:
+    a 16-byte-aligned base and a row stride of whole 16 bytes) the TMA +
+    wgmma kernel runs with `gemm_tile`'s output tile; otherwise the WMMA
+    kernel. `route` forces one ("wgmma" on operands TMA cannot read
+    raises); the chains leave it to the alignment. Each route counts its
+    launches (GEMM_WGMMA_LAUNCHES, GEMM_WMMA_LAUNCHES). `gemm_plain` is the
+    plain version."""
+    global GEMM_WGMMA_LAUNCHES, GEMM_WMMA_LAUNCHES
     lda = _rows(a, "gemm.a", torch.bfloat16)
     ldb = _rows(w, "gemm.w", torch.bfloat16)
     ldc = _rows(out, "gemm.out", out.dtype)
@@ -247,31 +308,107 @@ def gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
         if tuple(out2.shape) != (m, n):
             raise ValueError("gemm.out2: shape mismatch")
         out2_p = out2.data_ptr()
-    _check("gemm_bf16", library().fc_gemm_bf16(
-        a.data_ptr(), lda, w.data_ptr(), ldb, out.data_ptr(), ldc, m, n, k,
-        bias_p, res_p, ldr, aff_a, aff_b, aux_p, ldaux, out2_p, ld2, flags, int(trans_b),
-        _stream()))
+    chosen = _choose_route(route, a.data_ptr(), lda, w.data_ptr(), ldb, "gemm")
+    args = (a.data_ptr(), lda, w.data_ptr(), ldb, out.data_ptr(), ldc, m, n, k,
+            bias_p, res_p, ldr, aff_a, aff_b, aux_p, ldaux, out2_p, ld2, flags, int(trans_b))
+    if chosen == "wgmma":
+        rc = library().fc_gemm_bf16(*args, *gemm_tile(m, n), _stream())
+        GEMM_WGMMA_LAUNCHES += 1
+    else:
+        rc = library().fc_gemm_bf16_wmma(*args, _stream())
+        GEMM_WMMA_LAUNCHES += 1
+    if rc:
+        _check(f"gemm_bf16 ({chosen})", rc)
     return out
 
 
-def _tn_splits(m: int, n: int, k: int) -> int:
-    """K splits for A^T @ B: about two blocks per SM over the output tiles,
-    each split at least 256 rows deep."""
+def _choose_route(route: Optional[str], a_ptr: int, lda: int, b_ptr: int, ldb: int,
+                  name: str) -> str:
+    natural = gemm_route(a_ptr, lda, b_ptr, ldb)
+    if route is None:
+        return natural
+    if route not in ("wgmma", "wmma"):
+        raise ValueError(f"{name}: route must be 'wgmma' or 'wmma', got {route!r}")
+    if route == "wgmma" and natural != "wgmma":
+        raise ValueError(f"{name}: TMA cannot read these operands (16-byte-aligned base and "
+                         f"row stride needed), so the wgmma route cannot take them")
+    return route
+
+
+def gelu_erf_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the erf GELU, as the kernels' EPI_GELU_GRAD computes it."""
+    cdf = 0.5 * (1.0 + torch.erf(x * 0.7071067811865476))
+    return cdf + x * 0.3989422804014327 * torch.exp(-0.5 * x * x)
+
+
+def gemm_plain(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
+               bias: Optional[torch.Tensor] = None,
+               residual: Optional[torch.Tensor] = None,
+               affine: Optional[tuple] = None, gelu: bool = False,
+               trans_b: bool = False, accumulate: bool = False,
+               pre_out: Optional[torch.Tensor] = None,
+               gelu_grad: Optional[torch.Tensor] = None,
+               out2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of `gemm` on any device: the f32 product of the
+    bf16 operands, then the same epilogue in the same order, written into
+    out (rounded to its dtype), pre_out and out2."""
+    v = a.float() @ (w.float().T if trans_b else w.float())
+    if bias is not None:
+        v = v + bias.float()
+    if residual is not None:
+        v = residual.float() + v
+    if accumulate:
+        v = v + out.float()
+    if affine is not None:
+        v = v * affine[0] + affine[1]
+        v = torch.where(v >= 0, v, 0.2 * v)
+    if pre_out is not None:
+        pre_out.copy_(v)
+    if gelu:
+        v = torch.nn.functional.gelu(v)
+    if gelu_grad is not None:
+        v = v * gelu_erf_grad(gelu_grad.float())
+    out.copy_(v)
+    if out2 is not None:
+        out2.copy_(v)
+    return out
+
+
+def gemm_tn_plan(m: int, n: int, k: int) -> tuple:
+    """(BN, splits, k_chunk) of the wgmma route's A^T @ B: 128 x BN output
+    tiles (BN 64 up to N = 64, else 128), and K in chunks of whole 64-row
+    stages, as many splits as give about one wave of blocks on the SMs with
+    every split at least 512 rows deep."""
+    bn = 64 if n <= 64 else 128
+    tiles = -(-m // 128) * -(-n // bn)
+    splits = max(1, min(NUM_SMS // tiles, k // 512))
+    k_chunk = -(-(-(-k // splits)) // 64) * 64
+    return bn, -(-k // k_chunk), k_chunk
+
+
+def _tn_splits_wmma(m: int, n: int, k: int) -> int:
+    """K splits of the WMMA route's A^T @ B: about two blocks per SM over
+    its 64 x 64 output tiles, each split at least 256 rows deep."""
     tiles = -(-m // 64) * -(-n // 64)
     return max(1, min(-(-264 // tiles), k // 256))
 
 
 def gemm_tn_workspace(m: int, n: int, k: int) -> int:
-    """Floats of workspace `gemm_tn` needs for these sizes."""
-    s = _tn_splits(m, n, k)
-    return s * m * n if s > 1 else 0
+    """Floats of workspace `gemm_tn` needs for these sizes on either route."""
+    s_wgmma, s_wmma = gemm_tn_plan(m, n, k)[1], _tn_splits_wmma(m, n, k)
+    return max(s if s > 1 else 0 for s in (s_wgmma, s_wmma)) * m * n
 
 
 def gemm_tn(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
-            ws: Optional[torch.Tensor] = None) -> torch.Tensor:
+            ws: Optional[torch.Tensor] = None, route: Optional[str] = None) -> torch.Tensor:
     """out (M, N) f32 = a^T @ b for a (K, M) and b (K, N) bf16: the weight
-    gradients, K split over blocks and summed in a second, ordered pass.
-    `ws` is an f32 workspace of at least `gemm_tn_workspace` floats."""
+    gradients, K split over blocks and summed in a second, ordered pass, so
+    the result is deterministic. `ws` is an f32 workspace of at least
+    `gemm_tn_workspace` floats. The route is chosen as `gemm`'s (TMA +
+    wgmma with `gemm_tn_plan`'s tiles and splits, or WMMA) and counted
+    (GEMM_TN_WGMMA_LAUNCHES, GEMM_TN_WMMA_LAUNCHES); `route` forces one.
+    `gemm_tn_plain` is the plain version."""
+    global GEMM_TN_WGMMA_LAUNCHES, GEMM_TN_WMMA_LAUNCHES
     lda = _rows(a, "gemm_tn.a", torch.bfloat16)
     ldb = _rows(b, "gemm_tn.b", torch.bfloat16)
     ldc = _rows(out, "gemm_tn.out", torch.float32)
@@ -280,15 +417,30 @@ def gemm_tn(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
     if b.shape[0] != k or tuple(out.shape) != (m, n):
         raise ValueError(f"gemm_tn: shapes a {tuple(a.shape)} b {tuple(b.shape)} "
                          f"out {tuple(out.shape)}")
-    splits = _tn_splits(m, n, k)
-    need = gemm_tn_workspace(m, n, k)
+    chosen = _choose_route(route, a.data_ptr(), lda, b.data_ptr(), ldb, "gemm_tn")
+    if chosen == "wgmma":
+        bn, splits, k_chunk = gemm_tn_plan(m, n, k)
+    else:
+        splits = _tn_splits_wmma(m, n, k)
+    need = splits * m * n if splits > 1 else 0
     if need and (ws is None or ws.numel() < need):
         ws = torch.empty(need, dtype=torch.float32, device=out.device)
     ws_p = _vec(ws.view(-1)[:need], "gemm_tn.ws", need) if need else None
-    _check("gemm_tn", library().fc_gemm_tn(
-        a.data_ptr(), lda, b.data_ptr(), ldb, out.data_ptr(), ldc, m, n, k, splits, ws_p,
-        _stream()))
+    args = (a.data_ptr(), lda, b.data_ptr(), ldb, out.data_ptr(), ldc, m, n, k)
+    if chosen == "wgmma":
+        rc = library().fc_gemm_tn(*args, bn, splits, k_chunk, ws_p, _stream())
+        GEMM_TN_WGMMA_LAUNCHES += 1
+    else:
+        rc = library().fc_gemm_tn_wmma(*args, splits, ws_p, _stream())
+        GEMM_TN_WMMA_LAUNCHES += 1
+    if rc:
+        _check(f"gemm_tn ({chosen})", rc)
     return out
+
+
+def gemm_tn_plain(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The plain version of `gemm_tn` on any device: out = a^T @ b in f32."""
+    return out.copy_(a.float().T @ b.float())
 
 
 def colsum_workspace(rows: int, cols: int) -> int:
@@ -635,7 +787,9 @@ def mlp_chain(a: torch.Tensor, pairs: list, out: torch.Tensor, bufs: list) -> No
     """The residual MLP as gemm launches: GELU after every layer but the
     last, a residual at every second hidden layer, the last layer into
     `out` (its dtype decides bf16 or f32). `bufs` are three (R, >=H) bf16
-    scratch matrices."""
+    scratch matrices. Every launch takes the wgmma route when `a`, the
+    weights and `bufs` have rows of whole 16 bytes (the chains pad them so),
+    the WMMA route otherwise (B4's 6-wide cloud)."""
     def scratch(width, *live):
         taken = {t.data_ptr() for t in live}
         for buf in bufs:

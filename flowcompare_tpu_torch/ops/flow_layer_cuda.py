@@ -397,10 +397,32 @@ def fused_augmenter_plain(x: torch.Tensor, eps: torch.Tensor, context: torch.Ten
 
 # ------------------------------------------------------------ CUDA chains
 
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _pad_cols(t: torch.Tensor) -> torch.Tensor:
+    """t as a view of a zeroed buffer whose rows are a multiple of 8 elements
+    long, so every row starts 16-byte aligned (bf16) and the gemm's TMA
+    route can read it; the pad columns lie beyond the view's width and are
+    never read."""
+    c = t.shape[-1]
+    buf = torch.zeros(*t.shape[:-1], _round8(c), dtype=t.dtype, device=t.device)
+    buf[..., :c] = t
+    return buf[..., :c]
+
+
+def bf16_rows(rows: int, cols: int, device) -> torch.Tensor:
+    """An uninitialised (rows, cols) bf16 matrix whose row stride is a
+    multiple of 8, so the gemm's TMA route can read it."""
+    return torch.empty(rows, _round8(cols), dtype=torch.bfloat16, device=device)[:, :cols]
+
+
 def _bf16_stack(pairs):
-    """Stacked (w, b) layers as contiguous bf16 weights (L, in, out) and f32
-    biases (L, out), converted once per call rather than once per layer."""
-    return [(w.to(torch.bfloat16).contiguous(),
+    """Stacked (w, b) layers as bf16 weights (L, in, out), their rows padded
+    by `_pad_cols`, and contiguous f32 biases (L, out), converted once per
+    call rather than once per layer."""
+    return [(_pad_cols(w.to(torch.bfloat16)),
              b.float().reshape(w.shape[0], -1).contiguous()) for w, b in pairs]
 
 
@@ -408,8 +430,28 @@ def _at(pairs, l: int):
     return [(w[l], b[l]) for w, b in pairs]
 
 
-def _round8(n: int) -> int:
-    return -(-n // 8) * 8
+def packed_input_layout(split: int, extra_dim: int, cond_dim: int) -> tuple:
+    """(xe, xc, width) of the packed coupling-input rows [x1 | extra | pad |
+    cond]: x1 in [0, split), extra in [split, xe), zero pad columns in
+    [xe, xc), cond in [xc, xc + cond_dim), where xc = xe rounded up to a
+    multiple of 8 so the cond columns start 16-byte aligned (B5 reads them
+    as a gemm operand of their own); the row is `width` = xc + cond_dim
+    rounded up to a multiple of 8 long."""
+    xe = split + extra_dim
+    xc = _round8(xe)
+    return xe, xc, _round8(xc + cond_dim)
+
+
+def packed_input_weights(cpl_in_xe: torch.Tensor, cpl_in_c: torch.Tensor) -> torch.Tensor:
+    """The coupling's first weight (L, xc + cond_dim, H) for the packed rows:
+    the x1 and extra rows, zero rows for the pad columns, then the cond
+    rows. The zero rows change no value (a pad column is zero and meets a
+    zero weight), so the product over the packed rows equals [x1 | extra |
+    cond] @ [cpl_in_xe; cpl_in_c]."""
+    n_layers, xe, h = cpl_in_xe.shape
+    pad = torch.zeros(n_layers, _round8(xe) - xe, h, dtype=cpl_in_xe.dtype,
+                      device=cpl_in_xe.device)
+    return torch.cat([cpl_in_xe, pad, cpl_in_c.to(cpl_in_xe.dtype)], 1)
 
 
 class _CouplingChain:
@@ -418,10 +460,13 @@ class _CouplingChain:
     and the buffers of the conditioner and coupling MLP, shared by B1, B2
     and B7.
 
-    `xin` holds the packed coupling-input rows [x1 | extra | cond] (the
-    extra columns filled once here); it and the other bf16 row buffers are
-    padded to a multiple of 8 columns so gemm_bf16 reads their tiles 16
-    bytes at a time. With attention, cond is the attention embedding that
+    `xin` holds the packed coupling-input rows [x1 | extra | pad | cond]
+    (`packed_input_layout`: the cond columns start at xc, a multiple of 8;
+    the extra columns filled and the pad columns zeroed once here) and
+    `w_in` the coupling's first weight with zero rows at the pad
+    (`packed_input_weights`). Every bf16 row buffer and weight copy has
+    rows of whole 16 bytes, so every gemm of the chain takes the TMA +
+    wgmma route. With attention, cond is the attention embedding that
     `run(l)` writes per layer; without (the global conditioner), cond is the
     context itself, the broadcast embedding (B, N, E), the same for every
     layer, so its columns are written once here and `run(l)` skips the
@@ -434,54 +479,57 @@ class _CouplingChain:
         n_layers = folded["cpl_in_c"].shape[0]
         ed = extra.shape[-1] if extra is not None else 0
         dev, bf = context.device, torch.bfloat16
-        self.split, self.xe, self.items = split, split + ed, b
+        self.cw = folded["cpl_in_c"].shape[1]          # attention width d, or E
+        self.xe, self.xc, width = packed_input_layout(split, ed, self.cw)
+        self.split, self.items = split, b
         self.has_attn = folded["pre"] is not None
-        self.w_in = torch.cat([folded["cpl_in_xe"], folded["cpl_in_c"]], 1).to(bf).contiguous()
+        self.w_in = _pad_cols(packed_input_weights(folded["cpl_in_xe"].to(bf),
+                                                   folded["cpl_in_c"]))
         self.b_in = folded["cpl_in_b"].float().reshape(n_layers, -1).contiguous()
         self.cpl_rest = _bf16_stack(folded["cpl_rest"])
-        self.cw = folded["cpl_in_c"].shape[1]          # attention width d, or E
         widths = [w.shape[-1] for w, _ in self.cpl_rest]
         if self.has_attn:
             self.pre = _bf16_stack(folded["pre"])
-            self.wq = folded["wq_f"].to(bf).contiguous()
+            self.wq = _pad_cols(folded["wq_f"].to(bf))
             self.bq = folded["bq_f"].float().reshape(n_layers, -1).contiguous()
-            self.wkv = folded["wkv"].to(bf).contiguous()
-            self.ctx2 = context.reshape(b * nc, e_dim).to(bf).contiguous()
+            self.wkv = _pad_cols(folded["wkv"].to(bf))
+            self.ctx2 = _pad_cols(context.reshape(b * nc, e_dim).to(bf))
             widths += [w.shape[-1] for w, _ in self.pre]
             a_dim = self.pre[-1][0].shape[-1]
             self.q_f = torch.empty(rows, a_dim, dtype=torch.float32, device=dev)
-            self.q_n = torch.empty(rows, a_dim, dtype=bf, device=dev)
-            self.q = torch.empty(rows, self.cw, dtype=bf, device=dev)
-            self.kv = torch.empty(b * nc, 2 * self.cw, dtype=bf, device=dev)
+            self.q_n = bf16_rows(rows, a_dim, dev)
+            self.q = bf16_rows(rows, self.cw, dev)
+            self.kv = bf16_rows(b * nc, 2 * self.cw, dev)
         elif nc * b != rows or e_dim != self.cw:
             raise ValueError(f"the global conditioner reads the context row by row: expected "
                              f"{rows} rows of {self.cw}, got {tuple(context.shape)}")
-        self.h = [torch.empty(rows, max(widths), dtype=bf, device=dev) for _ in range(3)]
-        self.xin = torch.empty(rows, _round8(self.xe + self.cw), dtype=bf, device=dev)
+        self.h = [bf16_rows(rows, max(widths), dev) for _ in range(3)]
+        self.xin = torch.empty(rows, width, dtype=bf, device=dev)
+        self.xin[:, self.xe:self.xc].zero_()
         if extra is not None:
             _build.cast_rows(extra.reshape(rows, ed).float().contiguous(),
                              self.xin[:, split:self.xe])
         if not self.has_attn:
-            self.xin[:, self.xe:self.xe + self.cw].copy_(context.reshape(rows, e_dim))
+            self.xin[:, self.xc:self.xc + self.cw].copy_(context.reshape(rows, e_dim))
         self.st = torch.empty(rows, self.cpl_rest[-1][0].shape[-1], dtype=torch.float32,
                               device=dev)
 
     def run(self, l: int) -> None:
         if self.has_attn:
             self._conditioner(l)
-        _build.mlp_chain(self.xin[:, :self.xe + self.cw],
+        _build.mlp_chain(self.xin[:, :self.xc + self.cw],
                          [(self.w_in[l], self.b_in[l])] + _at(self.cpl_rest, l), self.st, self.h)
 
     def _conditioner(self, l: int) -> None:
         """Pre-MLP -> row_norm -> q -> kv -> cross attention, written into the
-        attention columns xin[:, xe:xe+d] of the packed coupling-input rows."""
+        attention columns xin[:, xc:xc+d] of the packed coupling-input rows."""
         d = self.cw
         _build.mlp_chain(self.xin[:, :self.split], _at(self.pre, l), self.q_f, self.h)
         _build.row_norm(self.q_f, self.q_n)
         _build.gemm(self.q_n, self.wq[l], self.q, bias=self.bq[l])
         _build.gemm(self.ctx2, self.wkv[l], self.kv)
         _build.cross_attention(self.q, self.kv[:, :d], self.kv[:, d:],
-                               self.xin[:, self.xe:self.xe + d], n_items=self.items)
+                               self.xin[:, self.xc:self.xc + d], n_items=self.items)
 
 
 def fused_flow_layers(x: torch.Tensor, ldj: torch.Tensor, context: torch.Tensor,
@@ -496,11 +544,14 @@ def fused_flow_layers(x: torch.Tensor, ldj: torch.Tensor, context: torch.Tensor,
     chain of the port's kernels: cast_rows (x1 -> bf16), four gemm_bf16 for
     the pre-MLP, row_norm, gemm for q and for ctx @ wkv, cross_attention,
     four gemm for the coupling MLP (its input one product over the packed
-    [x1 | extra | attn] rows), coupling_epilogue and gemm for the folded
-    LinearLU. A stack without attention (`has_attn=False` in the JAX
-    package: the global conditioner, context the broadcast embedding
-    (B, N, E)) skips the conditioner's launches: the packed rows are
-    [x1 | extra | ctx] with the ctx columns written once per call.
+    [x1 | extra | pad | attn] rows), coupling_epilogue and gemm for the
+    folded LinearLU: 15 launches per layer, every gemm on the TMA + wgmma
+    route (the padded layout of `_CouplingChain` adds no launch per layer).
+    A stack without attention (`has_attn=False` in the JAX package: the
+    global conditioner, context the broadcast embedding (B, N, E)) skips
+    the conditioner's launches: the packed rows are [x1 | extra | pad | ctx]
+    with the ctx columns written once per call (10 launches per layer with
+    helpful-sponge's 7-layer couplings).
 
     save=True is the training forward (the Pallas `fused_flow_layers` with
     save_every=1): it also returns the entry carry of every layer as
@@ -510,10 +561,10 @@ def fused_flow_layers(x: torch.Tensor, ldj: torch.Tensor, context: torch.Tensor,
 
     What bounds it on the H100: the tensor-core products (about 2.6 MFLOP
     per point and layer at dulcet-universe widths, 2.3 of it in gemm_bf16
-    and the rest in the attention) and, at small batch, the
-    launch cadence of 15 launches per layer; the design keeps the x carry
-    and ldj in f32 in device memory between layers and every activation in
-    bf16, and issues every launch without a host sync so they queue."""
+    and the rest in the attention) and, at small batch, the launch cadence;
+    the design keeps the x carry and ldj in f32 in device memory between
+    layers and every activation in bf16, and issues every launch without a
+    host sync so they queue."""
     global FUSED_FLOW_LAYERS_LAUNCHES, FUSED_FLOW_LAYERS_SAVE_LAUNCHES
     if not x.is_cuda:
         return fused_flow_layers_plain(x, ldj, context, extra, folded, eps_affine=eps_affine,
@@ -530,13 +581,13 @@ def _forward_chain(x, ldj, context, extra, folded, eps_affine, save):
     n_layers = folded["lu_ldj_f"].shape[0]
     rows, dev, bf = b * n, x.device, torch.bfloat16
     chain = _CouplingChain(folded, context, extra, rows, split)
-    lu_wt = folded["lu_w_f"].transpose(1, 2).to(bf).contiguous()
+    lu_wt = _pad_cols(folded["lu_w_f"].transpose(1, 2).to(bf))
     lu_b = folded["lu_b"].float().reshape(n_layers, -1).contiguous()
     lu_ldj = folded["lu_ldj_f"].float().contiguous()
     xc = x.reshape(rows, lat).float().contiguous().clone()
     xn = torch.empty_like(xc)
     ldj_c = ldj.reshape(rows).float().contiguous().clone()
-    y = torch.empty(rows, _round8(lat), dtype=bf, device=dev)[:, :lat]
+    y = bf16_rows(rows, lat, dev)
     saves = torch.empty(n_layers, rows, lat, dtype=bf, device=dev) if save else None
 
     for l in range(n_layers):
@@ -574,9 +625,11 @@ def fused_flow_layers_inverse(z: torch.Tensor, context: torch.Tensor,
     What bounds it on the H100: B1's products per point and layer (the
     inverse tail is one 300 x 300 product, as the forward's LinearLU), so
     the tensor cores at large batch and the launch cadence of 16 launches per
-    layer at B=1; the carry stays f32 in device memory and no launch waits
-    on the host. The division by scale in (1e-8, 2) amplifies what bf16
-    rounds, so the carry is never rounded between layers."""
+    layer (11 without attention, at helpful-sponge's widths) at B=1,
+    unchanged by the padded layout; the carry stays f32 in device memory
+    and no launch waits on the host. The division by scale in (1e-8, 2)
+    amplifies what bf16 rounds, so the carry is never rounded between
+    layers."""
     global FUSED_FLOW_LAYERS_INVERSE_LAUNCHES
     if not z.is_cuda:
         return fused_flow_layers_inverse_plain(z, context, extra, folded_inv,
@@ -592,10 +645,10 @@ def _inverse_chain(z, context, extra, folded_inv, eps_affine):
     n_layers = folded_inv["lu_w_inv_f"].shape[0]
     rows, dev, bf = b * n, z.device, torch.bfloat16
     chain = _CouplingChain(folded_inv, context, extra, rows, split)
-    minv_t = folded_inv["lu_w_inv_f"].transpose(1, 2).to(bf).contiguous()
+    minv_t = _pad_cols(folded_inv["lu_w_inv_f"].transpose(1, 2).to(bf))
     shift = folded_inv["lu_shift"].float().reshape(n_layers, -1).contiguous()
     xc = z.reshape(rows, lat).float().contiguous().clone()
-    zb = torch.empty(rows, _round8(lat), dtype=bf, device=dev)[:, :lat]
+    zb = bf16_rows(rows, lat, dev)
     y = torch.empty(rows, lat, dtype=torch.float32, device=dev)
 
     for l in reversed(range(n_layers)):
@@ -621,7 +674,8 @@ def fused_augmenter(x: torch.Tensor, eps: torch.Tensor, context: torch.Tensor,
 
     What bounds it on the H100: the 512-wide net products and the attention
     over Nc context rows, once per point; the first pre-MLP layer has K = 6,
-    which the gemm's zero-filled tiles take without padding the input."""
+    which TMA's zero-filled boxes take without padding the input (its rows
+    lie in the packed buffer, 16-byte aligned)."""
     global FUSED_AUGMENTER_LAUNCHES
     if not x.is_cuda:
         return fused_augmenter_plain(x, eps, context, extra, folded_aug)

@@ -209,10 +209,11 @@ def _bwd_chain(saves, dz, dldj, context, extra, folded, eps_affine):
     split = lat // 2
     half = lat - split
     ed = extra.shape[-1] if extra is not None else 0
-    xe = split + ed
     nc, e_dim = context.shape[1], context.shape[2]
     has_attn = folded["pre"] is not None
     d = folded["cpl_in_c"].shape[1]          # the attention width, or E without attention
+    # the packed rows [x1 | extra | pad | cond] of B1's chain: cond from column xc
+    xe, xc, xin_width = flc.packed_input_layout(split, ed, d)
     n_layers = folded["lu_ldj_f"].shape[0]
     if tuple(saves.shape) != (n_layers, rows, lat) or saves.dtype != bf:
         raise ValueError(f"flow_layers_bwd: saves must be ({n_layers}, {rows}, {lat}) bf16, "
@@ -222,9 +223,10 @@ def _bwd_chain(saves, dz, dldj, context, extra, folded, eps_affine):
                          f"row: expected ({b}, {n}, {d}), got {tuple(context.shape)}")
 
     cpl = flc._bf16_stack(folded["cpl_rest"])
-    w_in = torch.cat([folded["cpl_in_xe"], folded["cpl_in_c"]], 1).to(bf).contiguous()
+    w_in = flc._pad_cols(flc.packed_input_weights(folded["cpl_in_xe"].to(bf),
+                                                  folded["cpl_in_c"]))
     b_in = folded["cpl_in_b"].float().reshape(n_layers, -1).contiguous()
-    lu_w = folded["lu_w_f"].to(bf).contiguous()
+    lu_w = flc._pad_cols(folded["lu_w_f"].to(bf))
     flat = flatten_folded(folded)
     grads = {k: torch.empty(v.shape, dtype=f32, device=dev) for k, v in flat.items()}
 
@@ -232,11 +234,14 @@ def _bwd_chain(saves, dz, dldj, context, extra, folded, eps_affine):
         return torch.empty(rows, c, dtype=f32, device=dev)
 
     def bfm(c):
-        return torch.empty(rows, c, dtype=bf, device=dev)
+        return flc.bf16_rows(rows, c, dev)
 
     cpl_w = [w_in.shape[-1]] + [w.shape[-1] for w, _ in cpl]
-    # recompute scratch: the packed coupling-input rows [x1 | extra | cond]
-    xin = torch.empty(rows, flc._round8(xe + d), dtype=bf, device=dev)
+    # recompute scratch: the packed coupling-input rows [x1 | extra | pad | cond];
+    # the pad columns are zero and meet w_in's zero rows, and their gradient
+    # columns are never formed (cpl_in_xe's gradient reads xin[:, :xe])
+    xin = torch.empty(rows, xin_width, dtype=bf, device=dev)
+    xin[:, xe:xc].zero_()
     if extra is not None:
         _build.cast_rows(extra.reshape(rows, ed).float().contiguous(), xin[:, split:xe])
     cp, ch = [f32m(c) for c in cpl_w[:-1]], [bfm(c) for c in cpl_w[:-1]]
@@ -245,7 +250,7 @@ def _bwd_chain(saves, dz, dldj, context, extra, folded, eps_affine):
     g = dz.reshape(rows, lat).float().contiguous().clone()
     g_next = f32m(lat)
     g_b, dy = bfm(lat), f32m(lat)
-    y = torch.empty(rows, flc._round8(lat), dtype=bf, device=dev)[:, :lat]
+    y = bfm(lat)
     dst, dst_b = f32m(2 * half), bfm(2 * half)
     cdp, cdp_b = [f32m(c) for c in cpl_w[:-1]], [bfm(c) for c in cpl_w[:-1]]
     dextra = torch.zeros(rows, ed, dtype=f32, device=dev) if ed else None
@@ -260,7 +265,7 @@ def _bwd_chain(saves, dz, dldj, context, extra, folded, eps_affine):
     else:
         # the global conditioner: the same ctx columns for every layer, and a
         # row-wise dctx (B*N, E) summed over layers; autograd sums it over N
-        xin[:, xe:xe + d].copy_(context.reshape(rows, d))
+        xin[:, xc:xc + d].copy_(context.reshape(rows, d))
         dctx = torch.zeros(rows, d, dtype=f32, device=dev)
     ws = {"tn": torch.empty(max(1, max(_build.gemm_tn_workspace(*sh) for sh in tn_shapes)),
                             dtype=f32, device=dev),
@@ -276,8 +281,8 @@ def _bwd_chain(saves, dz, dldj, context, extra, folded, eps_affine):
         # 1. recompute layer l at its bf16 entry carry
         xin[:, :split].copy_(xs[:, :split])
         if has_attn:
-            attn.forward(l, xin, split, xe)
-        _mlp_forward_record(xin[:, :xe + d], cpl_l, cp, ch, st)
+            attn.forward(l, xin, split, xc)
+        _mlp_forward_record(xin[:, :xc + d], cpl_l, cp, ch, st)
         # 2. LinearLU and the coupling epilogue
         _build.cast_rows(g, g_b)
         _build.gemm(g_b, lu_w[l], dy)
@@ -290,17 +295,17 @@ def _bwd_chain(saves, dz, dldj, context, extra, folded, eps_affine):
                       [None] + [gw[l] for gw in cpl_gw[1:]],
                       [None] + [gb[l].view(-1) for gb in cpl_gb[1:]], ws)
         _build.gemm_tn(xin[:, :xe], cdp_b[0], grads["cpl_in_xe"][l], ws["tn"])
-        _build.gemm_tn(xin[:, xe:xe + d], cdp_b[0], grads["cpl_in_c"][l], ws["tn"])
+        _build.gemm_tn(xin[:, xc:xc + d], cdp_b[0], grads["cpl_in_c"][l], ws["tn"])
         _build.colsum(cdp[0], grads["cpl_in_b"][l].view(-1), ws["cs"])
         _build.gemm(cdp_b[0], w_in[l][:split], g_next[:, :split], trans_b=True, accumulate=True)
         if ed:
             _build.gemm(cdp_b[0], w_in[l][split:xe], dextra, trans_b=True, accumulate=True)
         if has_attn:
             # 4.-5. the attention, the q projection, row_norm and the pre-MLP
-            _build.gemm(cdp_b[0], w_in[l][xe:xe + d], attn.da, trans_b=True)
-            attn.backward(l, xin, split, xe, dctx, g_next, grads, ws)
+            _build.gemm(cdp_b[0], w_in[l][xc:xc + d], attn.da, trans_b=True)
+            attn.backward(l, xin, split, xc, dctx, g_next, grads, ws)
         else:
-            _build.gemm(cdp_b[0], w_in[l][xe:xe + d], dctx, trans_b=True, accumulate=True)
+            _build.gemm(cdp_b[0], w_in[l][xc:xc + d], dctx, trans_b=True, accumulate=True)
         g, g_next = g_next, g
     # lu_ldj_f adds a constant to every point's ldj in every layer
     total = torch.empty(1, dtype=f32, device=dev)
@@ -322,11 +327,11 @@ class _AttnBwd:
         nc, e_dim = context.shape[1], context.shape[2]
         self.items = b
         self.pre = flc._bf16_stack(folded["pre"])
-        self.wq = folded["wq_f"].to(bf).contiguous()
+        self.wq = flc._pad_cols(folded["wq_f"].to(bf))
         self.bq = folded["bq_f"].float().reshape(n_layers, -1).contiguous()
-        self.wkv = folded["wkv"].to(bf).contiguous()
+        self.wkv = flc._pad_cols(folded["wkv"].to(bf))
         self.d = d = self.wq.shape[-1]
-        self.ctx2 = context.reshape(b * nc, e_dim).to(bf).contiguous()
+        self.ctx2 = flc._pad_cols(context.reshape(b * nc, e_dim).to(bf))
         self.pre_w = [w.shape[-1] for w, _ in self.pre]
         self.a_dim = a_dim = self.pre_w[-1]
         self.e_dim, self.ctx_rows = e_dim, b * nc
@@ -335,9 +340,9 @@ class _AttnBwd:
             return torch.empty(rows, c, dtype=f32, device=dev)
 
         def bfm(c):
-            return torch.empty(rows, c, dtype=bf, device=dev)
+            return flc.bf16_rows(rows, c, dev)
 
-        self.kv = torch.empty(b * nc, 2 * d, dtype=bf, device=dev)
+        self.kv = flc.bf16_rows(b * nc, 2 * d, dev)
         self.pre_p, self.pre_h = [f32m(c) for c in self.pre_w[:-1]], [bfm(c) for c in self.pre_w[:-1]]
         self.q_in, self.qn, self.q = f32m(a_dim), bfm(a_dim), bfm(d)
         self.m_row = torch.empty(rows, dtype=f32, device=dev)
@@ -346,7 +351,7 @@ class _AttnBwd:
         self.da, self.du, self.ddn = f32m(d), bfm(d), torch.empty(rows, dtype=f32, device=dev)
         self.dq, self.dq_b = f32m(d), bfm(d)
         self.dkv = torch.empty(b * nc, 2 * d, dtype=f32, device=dev)
-        self.dkv_b = torch.empty(b * nc, 2 * d, dtype=bf, device=dev)
+        self.dkv_b = flc.bf16_rows(b * nc, 2 * d, dev)
         self.dqn, self.dq_in, self.dq_in_b = f32m(a_dim), f32m(a_dim), bfm(a_dim)
         self.rows = rows
 
@@ -356,24 +361,24 @@ class _AttnBwd:
                 + [(self.pre_w[i - 1], self.pre_w[i], self.rows)
                    for i in range(1, len(self.pre_w))])
 
-    def forward(self, l: int, xin, split: int, xe: int) -> None:
+    def forward(self, l: int, xin, split: int, xc: int) -> None:
         d = self.d
         _mlp_forward_record(xin[:, :split], flc._at(self.pre, l), self.pre_p, self.pre_h,
                             self.q_in)
         _build.row_norm(self.q_in, self.qn)
         _build.gemm(self.qn, self.wq[l], self.q, bias=self.bq[l])
         _build.gemm(self.ctx2, self.wkv[l], self.kv)
-        _build.cross_attention(self.q, self.kv[:, :d], self.kv[:, d:], xin[:, xe:xe + d],
+        _build.cross_attention(self.q, self.kv[:, :d], self.kv[:, d:], xin[:, xc:xc + d],
                                n_items=self.items, m_out=self.m_row, den_out=self.den)
 
-    def backward(self, l: int, xin, split: int, xe: int, dctx, g_next, grads, ws) -> None:
-        """From self.da, the gradient of the attention columns of xin."""
+    def backward(self, l: int, xin, split: int, xc: int, dctx, g_next, grads, ws) -> None:
+        """From self.da, the gradient of the attention columns xin[:, xc:xc+d]."""
         d = self.d
         pre_l = flc._at(self.pre, l)
         pre_gw = [grads[f"pre_w{i}"][l] for i in range(len(self.pre))]
         pre_gb = [grads[f"pre_b{i}"][l].view(-1) for i in range(len(self.pre))]
         # 4. the cross attention and the kv projection
-        _build.attn_bwd_prep(self.da, xin[:, xe:xe + d], self.den, self.du, self.ddn)
+        _build.attn_bwd_prep(self.da, xin[:, xc:xc + d], self.den, self.du, self.ddn)
         _build.attention_bwd(self.q, self.kv[:, :d], self.kv[:, d:], self.du, self.ddn,
                              self.m_row, self.dq, self.dq_b, self.dkv, self.dkv_b,
                              n_items=self.items)

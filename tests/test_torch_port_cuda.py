@@ -748,3 +748,134 @@ def test_global_kernel_paths_match_plain(dev):
     assert abs(rk["nats"] - rp["nats"]) <= 0.01
     assert abs(rk["grad_norm"] - rp["grad_norm"]) <= 0.05 * rp["grad_norm"]
     assert float(F.cosine_similarity(gk, gp, dim=0)) >= 0.99
+
+
+# ------------------------------------------------------ the two GEMM routes
+
+def aligned(gen, rows, cols, dtype, device, scale=1.0):
+    """A random (rows, cols) matrix with rows of whole 16 bytes (as the
+    chains lay out theirs), so the TMA + wgmma route can read it."""
+    view = torch.empty(rows, -(-cols // 8) * 8, dtype=dtype, device=device)[:, :cols]
+    return view.copy_(scale * torch.randn(rows, cols, generator=gen).to(device))
+
+
+def assert_gemm_close(got, ref):
+    """bf16: at most one bf16 rounding of the output apart (plus f32 sum
+    order); f32: 1e-4 of max |ref| (sums in another order)."""
+    d, scale = (got.float() - ref.float()).abs(), float(ref.float().abs().max())
+    if got.dtype == torch.bfloat16:
+        assert float((d - 2.0 ** -7 * ref.float().abs()).max()) <= 1e-5 * scale
+    else:
+        assert float(d.max()) <= 1e-4 * scale
+
+
+# epilogue flag combinations the chains pass: name -> (flags, output dtype)
+GEMM_EPILOGUES = {
+    "bias_gelu": (("bias", "gelu"), torch.bfloat16),
+    "residual_bf16": (("bias", "residual", "gelu"), torch.bfloat16),
+    "residual_f32": (("residual",), torch.float32),
+    "accumulate": (("accumulate",), torch.float32),
+    "affine_leaky": (("affine",), torch.bfloat16),
+    "pre_out": (("bias", "gelu", "pre_out"), torch.bfloat16),
+    "gelu_grad_out2": (("gelu_grad", "out2"), torch.float32),
+}
+
+
+def _gemm_pair(dev, m, k, n, *, trans_b, flags, out_dtype, route, seed=0):
+    """Runs one product through `_build.gemm` on `route` and through
+    `gemm_plain`; returns the outputs of both (out, pre_out, out2)."""
+    g = torch.Generator().manual_seed(seed)
+    a = aligned(g, m, k, torch.bfloat16, dev)
+    w = aligned(g, *((n, k) if trans_b else (k, n)), torch.bfloat16, dev, scale=k ** -0.5)
+    kw = {"trans_b": trans_b, "accumulate": "accumulate" in flags, "gelu": "gelu" in flags}
+    if "bias" in flags:
+        kw["bias"] = rand(g, n, device=dev)
+    if "residual" in flags:
+        kw["residual"] = aligned(g, m, n, out_dtype, dev)
+    if "affine" in flags:
+        kw["affine"] = (rand(g, n, device=dev), rand(g, n, device=dev))
+    if "gelu_grad" in flags:
+        kw["gelu_grad"] = aligned(g, m, n, torch.float32, dev)
+    start = aligned(g, m, n, out_dtype, dev)
+    outs = []
+    for fn, extra in ((_build.gemm, {"route": route}), (_build.gemm_plain, {})):
+        out = start.clone()
+        side = {}
+        if "pre_out" in flags:
+            side["pre_out"] = torch.zeros(m, n, device=dev)
+        if "out2" in flags:
+            side["out2"] = torch.zeros(m, n, dtype=torch.bfloat16, device=dev)
+        fn(a, w, out, **kw, **side, **extra)
+        outs.append([out, *side.values()])
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "wmma"])
+@pytest.mark.parametrize("layout", ["nn", "nt"])
+@pytest.mark.parametrize("epi", sorted(GEMM_EPILOGUES))
+def test_gemm_epilogues_match_plain_on_both_routes(dev, route, layout, epi):
+    """Every epilogue of the chains, A @ B and A @ B^T, on each route, at a
+    ragged 300 x 216 x 300 product (M not a multiple of 128, N = 300)."""
+    flags, out_dtype = GEMM_EPILOGUES[epi]
+    got, ref = _gemm_pair(dev, 300, 216, 300, trans_b=layout == "nt", flags=flags,
+                          out_dtype=out_dtype, route=route)
+    for x, r in zip(got, ref):
+        assert_gemm_close(x, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "wmma"])
+@pytest.mark.parametrize("m,k,n", [(300, 6, 64), (1000, 150, 300), (777, 216, 512),
+                                   (513, 276, 300), (4000, 512, 512), (4000, 300, 300)])
+def test_gemm_ragged_shapes_match_plain(dev, route, m, k, n):
+    """K = 6, 150, 216, 276; N = 300; M ragged or a sample's 4,000 rows."""
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got, ref = _gemm_pair(dev, m, k, n, trans_b=False, flags=("bias",), out_dtype=out_dtype,
+                              route=route, seed=m + k)
+        assert_gemm_close(got[0], ref[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "wmma"])
+@pytest.mark.parametrize("m,n,k", [(512, 512, 3000), (151, 512, 2000), (300, 300, 1000),
+                                   (64, 128, 2500), (6, 64, 100)])
+def test_gemm_tn_matches_plain(dev, route, m, n, k):
+    """A^T @ B over K rows (the weight gradients), split over K and summed
+    in order, on each route."""
+    g = torch.Generator().manual_seed(m + n + k)
+    a, b = aligned(g, k, m, torch.bfloat16, dev), aligned(g, k, n, torch.bfloat16, dev)
+    got = torch.full((m, n), float("nan"), device=dev)
+    _build.gemm_tn(a, b, got, route=route)
+    torch.cuda.synchronize()
+    assert_gemm_close(got, _build.gemm_tn_plain(a, b, torch.empty(m, n, device=dev)))
+
+
+@pytest.mark.cuda
+def test_gemm_small_m_takes_64_row_tiles(dev):
+    """A sample's 4,000 rows: 64-row tiles, so the blocks fill the SMs."""
+    assert _build.gemm_tile(4000, 512)[0] == 64 and _build.gemm_tile(40960, 512)[0] == 128
+    got, ref = _gemm_pair(dev, 4000, 216, 512, trans_b=False, flags=("bias", "gelu"),
+                          out_dtype=torch.bfloat16, route="wgmma")
+    assert_gemm_close(got[0], ref[0])
+
+
+@pytest.mark.cuda
+def test_gemm_unaligned_view_takes_wmma_route(dev):
+    """A view TMA cannot read (a base 2 bytes past 16-byte alignment) takes
+    the WMMA route, counted as such, and is still right; forcing the wgmma
+    route on it raises."""
+    g = torch.Generator().manual_seed(3)
+    base = rand(g, 200, 16, device=dev).bfloat16()
+    a = base[:, 1:7]
+    w = aligned(g, 6, 64, torch.bfloat16, dev)
+    bias = rand(g, 64, device=dev)
+    before = (_build.GEMM_WGMMA_LAUNCHES, _build.GEMM_WMMA_LAUNCHES)
+    out = torch.empty(200, 64, device=dev, dtype=torch.bfloat16)
+    _build.gemm(a, w, out, bias=bias, gelu=True)
+    torch.cuda.synchronize()
+    assert (_build.GEMM_WGMMA_LAUNCHES - before[0], _build.GEMM_WMMA_LAUNCHES - before[1]) == (0, 1)
+    assert_gemm_close(out, _build.gemm_plain(a, w, torch.empty_like(out), bias=bias, gelu=True))
+    with pytest.raises(ValueError, match="TMA"):
+        _build.gemm(a, w, out, bias=bias, route="wgmma")

@@ -238,6 +238,34 @@ def test_round_trip_f32():
     np.testing.assert_allclose(n(unfolded), n(x), rtol=1e-4, atol=1e-4)
 
 
+def test_round_trip_bf16_gap_within_the_jax_kernels():
+    """The bf16 round trip z -> inverse -> forward -> z': the port's plain
+    bf16 folded inverse (B7's plain version) then its plain bf16 folded
+    forward (B1's), against the JAX package's bf16 Pallas kernels
+    `fused_flow_layers_inverse_t` then `fused_flow_layers_t` in interpret
+    mode, layer by layer (interpret mode is only safe on one layer), on the
+    same weights and the same z. bf16 operands make neither direction the
+    exact inverse of the other; the port's mean gap must stay within 1.25
+    times the JAX kernels' own, and its largest (one point's rounding
+    flips) within twice theirs."""
+    cfg, _, _, jf, _, tf = _folded_inverse_pair("bfloat16")
+    _, z, ctx, extra = _sample_inputs(cfg, seed=11)
+    n_layers, zeros = cfg["n_flow_layers"], np.zeros((2, N_POINTS), np.float32)
+    x = flc.fused_flow_layers_inverse(t(z), t(ctx), t(extra), tf)
+    z_port, _ = flc.fused_flow_layers(x, t(zeros), t(ctx), t(extra), tf)
+    h = jnp.asarray(z)
+    for l in reversed(range(n_layers)):
+        h = flp.fused_flow_layers_inverse_t(h, jnp.asarray(ctx), jnp.asarray(extra),
+                                            flc.layer_slice(jf, l), interpret=True)
+    ldj = jnp.asarray(zeros)
+    for l in range(n_layers):
+        h, ldj = flp.fused_flow_layers_t(h, ldj, jnp.asarray(ctx), jnp.asarray(extra),
+                                         flc.layer_slice(jf, l), interpret=True)
+    d_port, d_jax = np.abs(n(z_port) - n(z)), np.abs(n(h) - n(z))
+    assert 0.0 < d_port.mean() <= 1.25 * d_jax.mean(), (d_port.mean(), d_jax.mean())
+    assert d_port.max() <= 2.0 * d_jax.max(), (d_port.max(), d_jax.max())
+
+
 def _train_batches(k):
     rng = np.random.default_rng(50)
     return [(normal(rng, 2, N_CONTEXT, 6), normal(rng, 2, N_POINTS, 6), normal(rng, 2, 1))
