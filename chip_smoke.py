@@ -59,8 +59,8 @@ Phases, each of which raises on failure (nothing is caught):
    against its plain version at the flow's attention shapes (q (20, 1024,
    64) against 1250 keys) and at helpful-sponge's augmenter shape ((25,
    1024, 64) against 1024 keys), with the kernel's, the plain version's and
-   scaled_dot_product_attention's times and the bound; its entry point
-   `apply_cross_attention(fused=True)` against fused=False, forward and
+   scaled_dot_product_attention's times (flash, on 4-D views) and the
+   bound; its entry point `apply_cross_attention(fused=True)` against fused=False, forward and
    autograd backward, with the launch counters around the fused call;
 13. helpful-sponge (the global DGCNN and the global conditioner, bf16, full
    depth and width; the good-surf model is freed first): B4 with head=False
@@ -84,12 +84,29 @@ Phases, each of which raises on failure (nothing is caught):
    Every main path (eval, make_sample, train) then shows, through counters
    around the B1, B2, B5 and B7 entry points, that no product inside those
    chains took the WMMA route, and that outside them only B4's first
-   EdgeConv stage (two launches per encoder call) did.
+   EdgeConv stage (two launches per encoder call) did;
+15. attention (run third, before any model is built): the chains' cross
+   attention, csrc/cross_attention.cu and cross_attention_bwd.cu, on the
+   TMA + wgmma route against the plain versions at dulcet's eval launch and
+   training shape (20 x 1024 queries x 1250 keys, with m and den),
+   helpful-sponge's augmenter (25 x 1024 x 1024), a sample (1 x 4000 x
+   1250) and two cross-item cases (items after the first hold large
+   queries and keys): the forward within one bf16 rounding (rtol = atol =
+   1e-2), m and den within 1e-4; dq, dk, dv with cosine >= 0.9999 and max
+   error <= 1e-2 of max |ref|. At the three main shapes, the device time
+   (the kernels' durations in a torch.profiler trace) of both routes, of
+   the plain version and of flash
+   scaled_dot_product_attention on 4-D views (forward, and the backward
+   alone: the library yardstick), a call's time through the wrapper (CUDA
+   events, the host included) and the bound. Every main path then shows
+   0 WMMA attention launches, and the wgmma forward (eval, make_sample,
+   train) and backward (train) launched wherever the path has attention.
 
-Prints, last, one JSON line of per-kernel results (B1-B10, gemm_bf16 and
-gemm_tn at their headline shapes; B1, B2, B4, B5 and B7 carry their
-helpful-sponge branch's check under "global", B10 its second shape), the
-nvidia-smi line and {"ok": true, "device": {...}}.
+Prints, last, one JSON line of per-kernel results (B1-B10, gemm_bf16,
+gemm_tn, cross_attention and cross_attention_bwd at their headline shapes;
+B1, B2, B4, B5 and B7 carry their helpful-sponge branch's check under
+"global", B10 its second shape), the nvidia-smi line and {"ok": true,
+"device": {...}}.
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
 
@@ -602,9 +619,10 @@ def gemm_host_cost(g, calls: int = 3000) -> dict:
 
 
 class ChainRoutes:
-    """Counts, by route, the GEMM launches made inside the B1, B2, B5 and B7
-    chains: their entry points are wrapped for the whole run, so a phase
-    reads how many of their products took the WMMA route (none should)."""
+    """Counts, by route, the GEMM and cross attention launches made inside
+    the B1, B2, B5 and B7 chains: their entry points are wrapped for the
+    whole run, so a phase reads how many of their products and attention
+    launches took the WMMA route (none should)."""
 
     ENTRY_POINTS = (("flow_layer_cuda", "fused_flow_layers"), ("flow_layer_cuda", "fused_augmenter"),
                     ("flow_layer_cuda", "fused_flow_layers_inverse"),
@@ -622,7 +640,9 @@ class ChainRoutes:
     def _now(self) -> dict:
         b = self._build
         return {"wgmma": b.GEMM_WGMMA_LAUNCHES + b.GEMM_TN_WGMMA_LAUNCHES,
-                "wmma": b.GEMM_WMMA_LAUNCHES + b.GEMM_TN_WMMA_LAUNCHES}
+                "wmma": b.GEMM_WMMA_LAUNCHES + b.GEMM_TN_WMMA_LAUNCHES,
+                "attention wgmma": b.CROSS_ATTENTION_WGMMA_LAUNCHES + b.ATTENTION_BWD_WGMMA_LAUNCHES,
+                "attention wmma": b.CROSS_ATTENTION_WMMA_LAUNCHES + b.ATTENTION_BWD_WMMA_LAUNCHES}
 
     def _counted(self, fn):
         def counted(*args, **kwargs):
@@ -635,7 +655,7 @@ class ChainRoutes:
         return counted
 
     def reset(self) -> None:
-        self.counts = {"wgmma": 0, "wmma": 0}
+        self.counts = {"wgmma": 0, "wmma": 0, "attention wgmma": 0, "attention wmma": 0}
 
     def read(self) -> dict:
         return dict(self.counts)
@@ -644,17 +664,30 @@ class ChainRoutes:
 CHAIN_ROUTES = None   # a ChainRoutes, installed by main() once the library is built
 
 
-def check_gemm_routes(launches: dict, chains: dict, what: str) -> None:
+def check_routes(launches: dict, chains: dict, what: str, attention: tuple = ()) -> None:
     """Inside the B1, B2, B5 and B7 chains no GEMM takes the WMMA route;
     outside them only B4's first EdgeConv stage does (its c and u' products
-    read the 6-wide cloud, two launches per encoder call)."""
+    read the 6-wide cloud, two launches per encoder call). No cross
+    attention launch takes the WMMA route anywhere, and the wgmma counters
+    named in `attention` ("attention wgmma", "attention_bwd wgmma": the
+    forward and the backward) are launched; a path with no attention
+    (`attention` empty: helpful-sponge's global conditioner outside B2)
+    launches none."""
     log(f"GEMM routes in {what}: inside the B1/B2/B5/B7 chains {chains}; all launches: gemm "
         f"wgmma {launches['gemm wgmma']}, WMMA {launches['gemm wmma']} (B4 ran "
         f"{launches['B4']} times), gemm_tn wgmma {launches['gemm_tn wgmma']}, WMMA "
-        f"{launches['gemm_tn wmma']}")
+        f"{launches['gemm_tn wmma']}; cross attention wgmma {launches['attention wgmma']}, WMMA "
+        f"{launches['attention wmma']}, backward wgmma {launches['attention_bwd wgmma']}, WMMA "
+        f"{launches['attention_bwd wmma']}")
     assert chains["wmma"] == 0 and chains["wgmma"] > 0, f"a chain took the WMMA route: {chains}"
     assert launches["gemm wmma"] == 2 * launches["B4"], launches
     assert launches["gemm_tn wmma"] == 0, launches
+    assert chains["attention wmma"] == 0, f"a chain's attention took the WMMA route: {chains}"
+    assert launches["attention wmma"] == launches["attention_bwd wmma"] == 0, launches
+    for key in ("attention wgmma", "attention_bwd wgmma"):
+        assert (launches[key] > 0) == (key in attention), (key, attention, launches)
+    assert chains["attention wgmma"] == launches["attention wgmma"] + launches[
+        "attention_bwd wgmma"], (chains, launches)
 
 
 def phase_b10(device) -> tuple:
@@ -687,7 +720,8 @@ def phase_b10(device) -> tuple:
         beyond_ulp = float((d - 2.0 ** -7 * ref.abs()).max())
         ms = time_ms(lambda: ac.fused_attention_core(q, k, v, scale))
         pms = time_ms(lambda: ac.fused_attention_core_plain(q, k, v, scale), reps=2)
-        lms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        flash = sdpa_flash(q.reshape(-1, 64), k.reshape(-1, 64), v.reshape(-1, 64), items, scale)
+        lms = flash["ms"]
         kc, vc = k.contiguous(), v.contiguous()
         lms_contiguous = time_ms(lambda: F.scaled_dot_product_attention(q, kc, vc, scale=scale))
         products = 2 * items * nq * nkv * 64
@@ -696,11 +730,12 @@ def phase_b10(device) -> tuple:
                              "flowcompare_tpu/ops/attention_pallas.py:69", float(d.max()), ms, pms,
                              [(products, PEAK_BF16_FLOPS), (products, PEAK_F32_FLOPS)],
                              nbytes(q, k, v, got), library_ms=lms)
-        entry["library_contiguous_kv_ms"] = lms_contiguous
+        entry["library"] = flash
+        entry["library_3d_default_ms"] = lms_contiguous
         log(f"B10 fused_attention_core q {tuple(q.shape)} k/v {tuple(k.shape)} bf16: max|err| "
             f"{entry['max_abs_err']}, beyond one bf16 ulp {beyond_ulp} (tolerance 1e-5); "
-            f"{ms} ms vs plain {pms} ms, scaled_dot_product_attention {lms} ms ({lms_contiguous} "
-            f"ms on contiguous copies of k and v), bound "
+            f"{ms} ms vs plain {pms} ms, scaled_dot_product_attention (flash, 4-D) {flash}, "
+            f"3-D on contiguous k and v with the default backend {lms_contiguous} ms, bound "
             f"{entry['bound_ms']} ms ({entry['bound_by']})")
         assert beyond_ulp <= 1e-5, "B10 disagrees with its plain version"
         entries.append(entry)
@@ -736,10 +771,239 @@ def phase_b10(device) -> tuple:
     entries[0]["launches"] = cf["B10"]
     entries[0]["global"] = check_entry(entries[1], "q (25, 1024, 64), k/v (25, 1024, 64): "
                                                    "helpful-sponge's augmenter")
-    for key in ("library_ms", "library_contiguous_kv_ms"):
+    for key in ("library_ms", "library", "library_3d_default_ms"):
         entries[0]["global"][key] = entries[1][key]
     return entries[0], {"entry_point": {"launches": cf["B10"], "forward_rel_err": rel,
                                         "gradient_cosines": cos}}
+
+
+def kernel_trace(fn, trace: str) -> tuple:
+    """The device kernels torch.profiler records over fn() (chrome trace
+    events of category "kernel", the trace kept in build/), and the host ms
+    fn() took under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    path = REPO / "build" / trace
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("cat") == "kernel" and "dur" in e], traced_ms
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time per call of fn: the durations of the kernels it launches
+    over reps calls (torch.profiler, after a warm-up call), summed, over reps.
+    Unlike time_ms it leaves out the gaps where the device waits for the
+    host, which decide a short call's wall time."""
+    fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    kernels, _ = kernel_trace(calls, "chip_smoke_device_ms_trace.json")
+    assert kernels, "the profiler recorded no device kernels"
+    return sum(e["dur"] for e in kernels) / 1e3 / reps
+
+
+def sdpa_flash(q, k, v, items: int, scale: float, backward: bool = False) -> dict:
+    """scaled_dot_product_attention with the flash backend forced, on 4-D
+    views (items, 1, n, 64) of (items*n, 64) q, k and v (the library
+    yardstick, never the port's): the device ms of the forward, or with
+    `backward` of torch.autograd.grad alone over a retained graph, and the
+    call's ms with the host included (CUDA events). k and v are first given
+    as the strided column halves of [k | v]; where flash refuses them, as
+    contiguous copies, and the result says which."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def four_d(t):
+        return t.unflatten(0, (items, t.shape[0] // items)).unsqueeze(1)
+
+    for layout in ("strided", "contiguous copies"):
+        kk, vv = (k, v) if layout == "strided" else (k.contiguous(), v.contiguous())
+        q4, k4, v4 = four_d(q), four_d(kk), four_d(vv)
+        try:
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                if not backward:
+                    def call():
+                        F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+                else:
+                    leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+                    out = F.scaled_dot_product_attention(*leaves, scale=scale)
+                    cot = torch.randn_like(out)
+
+                    def call():
+                        torch.autograd.grad(out, leaves, cot, retain_graph=True)
+                return {"ms": device_ms(call), "call_ms": time_ms(call, reps=20),
+                        "backend": "FLASH_ATTENTION", "kv": layout}
+        except RuntimeError as err:
+            refusal = str(err).splitlines()[0][:200]
+            log(f"  flash SDPA refused {layout} k/v: {refusal}")
+    return {"ms": None, "call_ms": None, "backend": "FLASH_ATTENTION refused both layouts",
+            "kv": None}
+
+
+# (label, items, queries, keys, m and den written, next items large)
+ATTENTION_CASES = (
+    ("dulcet-universe eval launch and training shape (B=20), with m and den", TIME_B, 1024, 1250,
+     True, False),
+    ("helpful-sponge's augmenter (B=25)", GS_B, 1024, 1024, False, False),
+    ("a sample (1 x 4000 against 1250 keys)", 1, SAMPLE_N, 1250, False, False),
+    ("cross-item: items after the first hold large queries and keys", 3, 70, 90, True, True),
+    ("cross-item at the presets' 1250 keys", 3, 70, 1250, True, True),
+)
+
+
+def phase_attention() -> tuple:
+    """The cross attention of the B1, B2, B5 and B7 chains (csrc/
+    cross_attention.cu, csrc/cross_attention_bwd.cu): the TMA + wgmma
+    forward and backward against their plain versions at the main path's
+    shapes and at two cross-item cases (a tile read across an item boundary
+    would show there), on the route the wrapper picks: the
+    forward within one bf16 rounding (rtol = atol = 1e-2), m and den within
+    1e-4 relative; dq, dk and dv with cosine >= 0.9999 and max error <= 1e-2
+    of max |ref| (from the plain forward's m and den). At the three main
+    shapes, the device ms (`device_ms`) of the wgmma route, of the WMMA
+    route, of the plain version and of
+    scaled_dot_product_attention with the flash backend (forward, and the
+    backward alone), a call's ms through the wrapper with the host included,
+    and the bound: the necessary products (2 forward, 5 backward) at the
+    bf16 peak, or the bytes."""
+    from flowcompare_tpu_torch.ops import _build
+
+    g = torch.Generator().manual_seed(SEED + 60)
+    cases = []
+    for label, items, nq, nkv, with_m, big_next in ATTENTION_CASES:
+        q = torch.randn(items * nq, 64, generator=g) / 8
+        kv = torch.randn(items * nkv, 128, generator=g)
+        if big_next:
+            q[nq:] = q[nq:] * 4 + 3
+            kv[nkv:] = kv[nkv:] * 4 + 6
+        q, kv = q.bfloat16().cuda(), kv.bfloat16().cuda()
+        k, v = kv[:, :64], kv[:, 64:]
+        rows_q, rows_k = items * nq, items * nkv
+
+        def forward(fn, m_den=True, **kw):
+            out = torch.full((rows_q, 64), float("nan"), device="cuda", dtype=torch.bfloat16)
+            m = torch.full((rows_q,), float("nan"), device="cuda") if m_den else None
+            den = torch.full((rows_q,), float("nan"), device="cuda") if m_den else None
+            fn(q, k, v, out, n_items=items, m_out=m, den_out=den, **kw)
+            return out, m, den
+
+        ref_out, ref_m, ref_den = forward(_build.cross_attention_plain)
+        got_out, got_m, got_den = forward(_build.cross_attention, m_den=with_m)
+        if not with_m:
+            _, got_m, got_den = forward(_build.cross_attention)
+        torch.cuda.synchronize()
+        d = (got_out.float() - ref_out.float()).abs()
+        fwd_beyond = float((d - (1e-2 + 1e-2 * ref_out.float().abs())).max())
+        m_rel = float(((got_m - ref_m).abs() / ref_m.abs().clamp_min(1.0)).max())
+        den_rel = float(((got_den - ref_den).abs() / ref_den).max())
+        da = torch.randn(rows_q, 64, generator=g).cuda()
+        du = torch.empty(rows_q, 64, device="cuda", dtype=torch.bfloat16)
+        ddn = torch.empty(rows_q, device="cuda")
+        _build.attn_bwd_prep(da, ref_out, ref_den, du, ddn)
+
+        def backward(fn, **kw):
+            bufs = (torch.full((rows_q, 64), float("nan"), device="cuda"),
+                    torch.full((rows_q, 64), float("nan"), device="cuda", dtype=torch.bfloat16),
+                    torch.full((rows_k, 128), float("nan"), device="cuda"),
+                    torch.full((rows_k, 128), float("nan"), device="cuda", dtype=torch.bfloat16))
+            fn(q, k, v, du, ddn, ref_m, *bufs, n_items=items, **kw)
+            return bufs
+
+        rb, gb = backward(_build.attention_bwd_plain), backward(_build.attention_bwd)
+        torch.cuda.synchronize()
+        grads = {}
+        for name, a, b in (("dq", gb[0], rb[0]), ("dk", gb[2][:, :64], rb[2][:, :64]),
+                           ("dv", gb[2][:, 64:], rb[2][:, 64:])):
+            grads[name] = {"cosine": float(torch.nn.functional.cosine_similarity(
+                a.reshape(-1).double(), b.reshape(-1).double(), dim=0)), "rel_err": rel_err(a, b)}
+        copies = bool(torch.equal(gb[1], gb[0].bfloat16()) and torch.equal(gb[3], gb[2].bfloat16()))
+        case = {"label": label, "items": items, "nq": nq, "nkv": nkv,
+                "max_abs_err": float(d.max()), "beyond_tolerance": fwd_beyond, "m_rel": m_rel,
+                "den_rel": den_rel, "grads": grads, "bf16_copies_exact": copies,
+                "within_tolerance": (fwd_beyond <= 0 and m_rel <= 1e-4 and den_rel <= 1e-4
+                                     and copies and all(x["cosine"] >= 0.9999
+                                                        and x["rel_err"] <= 1e-2
+                                                        for x in grads.values())),
+                "bwd_max_abs_err": float((gb[0] - rb[0]).abs().max())}
+        if not big_next:
+            out = torch.empty(rows_q, 64, device="cuda", dtype=torch.bfloat16)
+            m_buf, den_buf = (torch.empty(rows_q, device="cuda") for _ in range(2))
+            m_kw = {"m_out": m_buf, "den_out": den_buf} if with_m else {}
+
+            def fwd(route):
+                _build.cross_attention(q, k, v, out, n_items=items, route=route, **m_kw)
+
+            def bwd(route):
+                _build.attention_bwd(q, k, v, du, ddn, ref_m, *gb, n_items=items, route=route)
+
+            case.update({
+                "ms": device_ms(lambda: fwd("wgmma")), "wmma_ms": device_ms(lambda: fwd("wmma")),
+                "call_ms": time_ms(lambda: fwd("wgmma"), reps=20),
+                "plain_ms": device_ms(lambda: forward(_build.cross_attention_plain), reps=3),
+                "library": sdpa_flash(q, k, v, items, 1.0),
+                "bwd_ms": device_ms(lambda: bwd("wgmma")),
+                "bwd_wmma_ms": device_ms(lambda: bwd("wmma")),
+                "bwd_call_ms": time_ms(lambda: bwd("wgmma"), reps=10),
+                "bwd_plain_ms": device_ms(lambda: backward(_build.attention_bwd_plain), reps=3),
+                "bwd_library": sdpa_flash(q, k, v, items, 1.0, backward=True)})
+            products = 2 * items * nq * nkv * 64
+            case["bound_ms"], case["bound_by"] = bound(
+                2 * products, nbytes(q, k, v, out) + (8 * rows_q if with_m else 0))
+            case["bwd_bound_ms"], case["bwd_bound_by"] = bound(
+                5 * products, nbytes(q, k, v, du, ddn, ref_m, *gb))
+        cases.append(case)
+        log(f"attention {label}: {items} x {nq} queries x {nkv} keys: forward max|err| "
+            f"{case['max_abs_err']} (beyond rtol = atol = 1e-2: {fwd_beyond}), m rel {m_rel}, den "
+            f"rel {den_rel} (tolerance 1e-4); backward {grads} (tolerance cosine >= 0.9999, "
+            f"max err <= 1e-2 of max |ref|), bf16 copies exact {copies}; "
+            + ("" if big_next else
+               f"device ms: forward {case['ms']} (a call through the wrapper "
+               f"{case['call_ms']}), WMMA route {case['wmma_ms']}, plain "
+               f"{case['plain_ms']}, flash SDPA {case['library']}, bound {case['bound_ms']} "
+               f"({case['bound_by']}); backward {case['bwd_ms']} (a call "
+               f"{case['bwd_call_ms']}), WMMA route "
+               f"{case['bwd_wmma_ms']}, plain {case['bwd_plain_ms']}, flash SDPA backward "
+               f"{case['bwd_library']}, bound {case['bwd_bound_ms']} ({case['bwd_bound_by']})"))
+        del q, kv, k, v, ref_out, got_out, rb, gb, da, du, ddn
+    assert all(c["within_tolerance"] for c in cases), "the cross attention disagrees with plain"
+    head = cases[0]
+
+    def entry(name, source, replaces, prefix, err, serves):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": 0, "max_abs_err": err, "ms": head[f"{prefix}ms"],
+                "plain_ms": head[f"{prefix}plain_ms"], "bound_ms": head[f"{prefix}bound_ms"],
+                "bound_by": head[f"{prefix}bound_by"],
+                "library_ms": head[f"{prefix}library"]["ms"],
+                "library": head[f"{prefix}library"], "wmma_ms": head[f"{prefix}wmma_ms"],
+                "call_ms": head[f"{prefix}call_ms"],
+                "speedup_vs_wmma": head[f"{prefix}wmma_ms"] / head[f"{prefix}ms"],
+                "shape": f"{head['items']} x {head['nq']} queries x {head['nkv']} keys, d = 64",
+                "serves": serves,
+                "shapes_checked": [f"{c['items']}x{c['nq']}x{c['nkv']}" for c in cases]}
+
+    entries = {
+        "cross_attention": entry("cross_attention (cross_attention_wgmma_kernel)",
+                                 "flowcompare_tpu_torch/csrc/cross_attention.cu",
+                                 "flowcompare_tpu/ops/flow_layer_pallas.py:800", "",
+                                 head["max_abs_err"],
+                                 "the attention of B1, B2, B7 and B5's recompute"),
+        "cross_attention_bwd": entry(
+            "cross_attention_bwd (attn_bwd_wgmma_kernel)",
+            "flowcompare_tpu_torch/csrc/cross_attention_bwd.cu",
+            "flowcompare_tpu/ops/flow_layer_vjp_pallas.py:206", "bwd_", head["bwd_max_abs_err"],
+            "the attention's backward in B5"),
+    }
+    return entries, cases
 
 
 def phase_global_kernels(ft, model, device) -> dict:
@@ -1049,7 +1313,8 @@ def phase_main_path(ft, model, device, need=("B1", "B2", "B3", "B4")):
     launches, chains = read_counters(), CHAIN_ROUTES.read()
     log(f"main path {model.config['input_embedder']} (kernels): nats {nats_k}, changed "
         f"fractions {fr_k}, {t_k} s, launches {launches}")
-    check_gemm_routes(launches, chains, f"the {model.config['input_embedder']} eval main path")
+    check_routes(launches, chains, f"the {model.config['input_embedder']} eval main path",
+                 attention=("attention wgmma",))
     model.plain = True
     maps_p = []
     nats_p, fr_p = ft.evaluate_on_test(model, items, noise=noise, change_maps=maps_p)
@@ -1130,7 +1395,8 @@ def phase_sample_main(ft, model, device, need=("B7", "B4")):
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
     launches, chains = read_counters(), CHAIN_ROUTES.read()
-    check_gemm_routes(launches, chains, f"{cfg['input_embedder']} make_sample")
+    check_routes(launches, chains, f"{cfg['input_embedder']} make_sample",
+                 attention=() if model.is_global else ("attention wgmma",))
     model.plain = True
     xp = ft.make_sample(model, SAMPLE_N, x0, extra, z=z)
     model.plain = False
@@ -1221,7 +1487,11 @@ def _counters():
             (_build, "GEMM_WGMMA_LAUNCHES", "gemm wgmma"),
             (_build, "GEMM_WMMA_LAUNCHES", "gemm wmma"),
             (_build, "GEMM_TN_WGMMA_LAUNCHES", "gemm_tn wgmma"),
-            (_build, "GEMM_TN_WMMA_LAUNCHES", "gemm_tn wmma")]
+            (_build, "GEMM_TN_WMMA_LAUNCHES", "gemm_tn wmma"),
+            (_build, "CROSS_ATTENTION_WGMMA_LAUNCHES", "attention wgmma"),
+            (_build, "CROSS_ATTENTION_WMMA_LAUNCHES", "attention wmma"),
+            (_build, "ATTENTION_BWD_WGMMA_LAUNCHES", "attention_bwd wgmma"),
+            (_build, "ATTENTION_BWD_WMMA_LAUNCHES", "attention_bwd wmma")]
 
 
 def reset_counters() -> None:
@@ -1311,7 +1581,8 @@ def phase_train_main(ft, model, device, batch: int = TIME_B,
     total = time.perf_counter() - t0
     launches, chains = read_counters(), CHAIN_ROUTES.read()
     model.config["batches_per_sample"] = bps
-    check_gemm_routes(launches, chains, f"{model.config['input_embedder']} train(max_steps=4)")
+    check_routes(launches, chains, f"{model.config['input_embedder']} train(max_steps=4)",
+                 attention=() if model.is_global else ("attention wgmma", "attention_bwd wgmma"))
     samples = {p.name: np.load(p)["gen"] for p in sorted(save_dir.glob("sample_*.npz"))}
     losses = [r["loss"] for r in rows]
     out = {"ms_per_step": 1e3 * float(np.mean([r["time_batch"] for r in rows[1:]])),
@@ -1421,20 +1692,9 @@ def _kernel_group(name: str) -> str:
 def profile_kernels(fn, label: str, trace: str):
     """torch.profiler over one call of fn (after a warm-up call): device time
     summed by kernel, and the device's idle share of the call's span."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()                                                      # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        traced_ms = 1e3 * (time.perf_counter() - t0)
-    path = REPO / "build" / trace
-    path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    kernels = [e for e in json.loads(path.read_text())["traceEvents"]
-               if e.get("cat") == "kernel" and "dur" in e]
+    kernels, traced_ms = kernel_trace(fn, trace)
     if not kernels:
         log(f"profile of {label}: the profiler recorded no device kernels")
         return None
@@ -1600,6 +1860,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     gemm_entries, gemm_cases = phase_gemm()
     torch.cuda.empty_cache()
+    attention_entries, attention_cases = phase_attention()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model = make_model(ft, device)
     log(f"model: dulcet-universe bf16, {sum(p.numel() for p in model.parameters())} "
@@ -1626,6 +1888,10 @@ def main() -> int:
     # gemm_bf16, the training main path's for gemm_tn
     gemm_entries["gemm_bf16"]["launches"] = launches["gemm wgmma"]
     gemm_entries["gemm_tn"]["launches"] = train_main["launches"]["gemm_tn wgmma"]
+    # the attention's: the eval main path's forward, the training path's backward
+    attention_entries["cross_attention"]["launches"] = launches["attention wgmma"]
+    attention_entries["cross_attention_bwd"]["launches"] = train_main["launches"][
+        "attention_bwd wgmma"]
     del model
     torch.cuda.empty_cache()
     paconv_entries, good_surf = good_surf_phases(ft, device)
@@ -1641,12 +1907,14 @@ def main() -> int:
                       "training": {"check": check, "main_path": train_main, "split": split,
                                    "profile": profile},
                       "good_surf": good_surf, "helpful_sponge": helpful_sponge,
-                      "b10": b10_entry_point, "gemm": gemm_cases,
+                      "b10": b10_entry_point, "gemm": gemm_cases, "attention": attention_cases,
                       "wall_s": time.perf_counter() - T_START}))
     entries.update(gemm_entries)
+    entries.update(attention_entries)
     print(json.dumps({"kernels": [entries[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6",
                                                        "B7", "B8", "B9", "B10", "gemm_bf16",
-                                                       "gemm_tn")]}))
+                                                       "gemm_tn", "cross_attention",
+                                                       "cross_attention_bwd")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,31 +1,68 @@
 // cross_attention: one-head softmax(q k^T) v with head dimension 64, the
-// attention step of the Pallas kernels fused_flow_layers_t (_attention_cond_t)
-// and fused_augmenter (_attention_cond). The 1/sqrt(d) temperature is
-// already folded into q (fold_stacks).
+// attention step of the Pallas kernels fused_flow_layers_t (B1,
+// _attention_cond_t, flowcompare_tpu/ops/flow_layer_pallas.py:800),
+// fused_augmenter (B2, _attention_cond, :239) and
+// fused_flow_layers_inverse_t (B7), and of B5's per-layer recompute. The
+// 1/sqrt(d) temperature is already folded into q (fold_stacks).
 //
 //   q (items*nq, 64) bf16, k and v (items*nkv, 64) bf16 -> out (items*nq, 64) bf16
 //
 // It ports folded_scan_core's max-subtracted softmax, not the TPU kernel's
-// clamp-at-80 with an epsilon on the denominator: each row's maximum is
-// subtracted in f32, e = exp(s - max) is rounded to bf16 for the PV product,
-// and the f32 sum of the unrounded e divides after PV. A first pass over the
-// keys finds the exact row maximum; the second recomputes q k^T, forms e,
-// sums it and accumulates P V. Two passes cost one more q k^T than an online
-// softmax but keep every rounding where the plain version has it.
+// clamp-at-80 with an epsilon on the denominator: each row's exact maximum m
+// is subtracted in f32, e = exp(s - m) is rounded to bf16 for the PV
+// product, and the f32 sum of the unrounded e divides after PV. A first
+// pass over the keys finds m (one q k^T product, no exponentials); the
+// second recomputes q k^T, forms e, sums it and accumulates P V. An online
+// softmax would save that product but round P against a running maximum,
+// and the backward (cross_attention_bwd.cu) rebuilds P from the m written
+// here, so it must be the forward's own. With m_out and den_out set it also
+// writes each row's f32 m and den = sum(e).
 //
-// With m_out and den_out set it also writes each query row's f32 maximum
-// and softmax denominator, which the training backward (cross_attention_bwd)
-// reuses to rebuild P without a second max pass.
+// What bounds it on the H100: at the presets' 20-50 items x 1024 queries x
+// 1250 keys, the three 64-deep products (q k^T twice, P v) are 3 x 2 x 64
+// operations a score against 4 bytes of q, k and v a key row: operations
+// bound it, and at D = 64 the exponential (one SFU ex2 a score, about the
+// tensor cores' rate for 256 operations) is a co-limiter.
 //
-// Design: a block of 4 warps takes 64 query rows of one item (16 per warp);
-// key/value tiles of 64 rows go through shared memory; both products are
-// WMMA 16x16x16 bf16 with f32 accumulators. Bound on the H100 by the exp
-// and the per-tile shared-memory round trips of the scores (nkv = 1250 keys
-// per row); a later version keeps scores in registers (wgmma) and pipelines
-// the tile loads.
+// Design (cross_attention_wgmma_kernel, TMA + wgmma on sm_90a):
+//  * a block takes 64 query rows of one item (one consumer warpgroup) plus
+//    one producer warp, four blocks to an SM. 128-row blocks (two consumer
+//    warpgroups sharing each K and V tile, half the L2 traffic) were slower
+//    at every main-path shape on the H100, 20-50 items x 1024 x 1250 and
+//    1 x 4000 x 1250, as was issuing the next tile's q k^T ahead of this
+//    tile's exponentials inside one warpgroup (FlashAttention-3's overlap):
+//    four blocks to an SM already interleave one warpgroup's exponentials
+//    with another's products; skipping the index mask on full tiles did not
+//    pay either;
+//  * the producer loads the block's q rows once, then streams the K tiles
+//    (pass 1) and the K and V tiles (pass 2), 64 keys x 64 dims, through a
+//    ring of 2 stages with full / empty mbarriers;
+//  * S = Q K^T is four wgmma m64n64k16 (Q and K both K-major in shared
+//    memory) into 32 f32 registers a thread; pass 1 takes the row maximum
+//    over the fragment, then over the 4 threads that share a row (shuffles);
+//    pass 2 forms e = 2^((s - m) log2(e)) with the SFU's ex2, adds it to the
+//    f32 row sums, rounds it to bf16 straight into wgmma's A-register
+//    layout, and runs O += P V with A from registers and the V tile read
+//    MN-major; the scores never touch shared memory;
+//  * the epilogue writes bf16(O / sum) as bf16 pairs, and m / den.
+// Where trouble lies, and what the design does about it:
+//  * ragged keys across items: nkv = 1250 is 19 tiles and 34 keys, and the
+//    operands are (items*rows, 64) matrices, so a 2-D box at the last tile
+//    would read the next item's keys. The tensor maps are 3-D (64, rows,
+//    items): TMA clips each box at its item's last row and zero-fills the
+//    rest. A zero key still scores s = 0, which is wrong for the maximum
+//    when every real score is negative, so scores of keys >= nkv are also
+//    masked by index (left out of the maximum, e = 0);
+//  * ragged stores: the output is a column slice of the packed coupling
+//    rows (row stride `ldo`); rows >= nq of an item and columns past 64 are
+//    never written;
+//  * alignment: TMA needs 16-byte bases and rows of whole 16 bytes; the
+//    wrapper sends other operands to the WMMA kernel below
+//    (cross_attention_wmma_kernel, fc_cross_attention_wmma), counted apart;
+//  * a ring fault traps (mbar_wait) instead of hanging the card.
 #include <mma.h>
 
-#include "common.cuh"
+#include "attention_wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -37,7 +74,11 @@ constexpr int KT = 64;    // keys per tile
 constexpr int LDT = D + 8;    // 72 bf16 per smem row
 constexpr int LDS_F = KT + 4; // 68 f32 per score row
 
-__global__ void __launch_bounds__(128) cross_attention_kernel(
+// The WMMA route, for operands TMA cannot read: a block of 4 warps takes 64
+// query rows (16 a warp); key/value tiles of 64 rows go through shared
+// memory with synchronous loads; both products are WMMA 16x16x16, and each
+// score tile is stored to shared memory and read back per lane.
+__global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
     const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k, const bf16* __restrict__ v,
     int ldkv, bf16* __restrict__ out, int ldo, float* __restrict__ m_out,
     float* __restrict__ den_out, int nq, int nkv) {
@@ -150,12 +191,198 @@ __global__ void __launch_bounds__(128) cross_attention_kernel(
 
 }  // namespace
 
+FC_API int fc_cross_attention_wmma(const void* q, int ldq, const void* k, const void* v,
+                                   int ldkv, void* out, int ldo, void* m_out, void* den_out,
+                                   int n_items, int nq, int nkv, void* stream) {
+  dim3 grid((nq + QB - 1) / QB, n_items);
+  cross_attention_wmma_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+      (const bf16*)q, ldq, (const bf16*)k, (const bf16*)v, ldkv, (bf16*)out, ldo, (float*)m_out,
+      (float*)den_out, nq, nkv);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// A block of the wgmma route: one consumer warpgroup of 64 query rows and
+// a producer warp; the q tile, then a ring of FWD_STAGES stages of a K and
+// a V tile (pass 1 uses only the K slot). Two stages let four blocks share
+// an SM (92 registers a thread): on the H100 that was as fast as three
+// blocks with four stages, or faster, at every main-path shape.
+constexpr int FWD_STAGES = 2;
+constexpr int FWD_THREADS = 128 + 32;
+constexpr int FWD_MIN_BLOCKS = 4;
+constexpr int FWD_SMEM_BYTES = (1 + 2 * FWD_STAGES) * ATT_TILE_BYTES + 1024;
+static_assert(FWD_MIN_BLOCKS * FWD_SMEM_BYTES <= 232448,
+              "the rings exceed the SM's shared memory");
+
+__global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) cross_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+                                 int ldo, float* __restrict__ m_out,
+                                 float* __restrict__ den_out, int nq, int nkv) {
+  constexpr int STAGES = FWD_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], q_full;
+  uint8_t* const qs = align1024(smem_raw);
+  uint8_t* const ring = qs + ATT_TILE_BYTES;   // stage s: K, then V
+  const int item = blockIdx.y, q0 = blockIdx.x * ATT_TILE;
+  const int n_tiles = (nkv + ATT_TILE - 1) / ATT_TILE;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init(&q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // the producer warp: one thread keeps the ring's loads in flight
+    if (threadIdx.x == 128) {
+      prefetch_tensor_map(&tq);
+      prefetch_tensor_map(&tk);
+      prefetch_tensor_map(&tv);
+      mbar_expect_tx(&q_full, ATT_TILE_BYTES);
+      tma_load_3d(qs, &tq, &q_full, 0, q0, item);
+      for (int it = 0; it < 2 * n_tiles; ++it) {
+        const int s = it % STAGES;
+        const bool pass2 = it >= n_tiles;
+        const int j0 = (pass2 ? it - n_tiles : it) * ATT_TILE;
+        mbar_wait(&empty[s], ring_parity(it, STAGES) ^ 1);
+        uint8_t* ks = ring + 2 * s * ATT_TILE_BYTES;
+        mbar_expect_tx(&full[s], (pass2 ? 2 : 1) * ATT_TILE_BYTES);
+        tma_load_3d(ks, &tk, &full[s], 0, j0, item);
+        if (pass2) tma_load_3d(ks + ATT_TILE_BYTES, &tv, &full[s], 0, j0, item);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: query rows q0 + [0, 64)
+  const int t = threadIdx.x;
+  const int fc = frag_col(t);
+  const uint8_t* qw = qs;
+  float s[32];
+  mbar_wait(&q_full, 0);
+
+  // pass 1: the exact row maximum over the keys < nkv
+  float mx0 = -INFINITY, mx1 = -INFINITY;   // rows r0 and r0 + 8
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % STAGES;
+    mbar_wait(&full[st], ring_parity(it, STAGES));
+    wgmma_fence();
+    tile_abt(s, qw, ring + 2 * st * ATT_TILE_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    release_stage(&empty[st]);
+    const int c0 = it * ATT_TILE + fc;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        if (c0 + 8 * j + b < nkv) {
+          mx0 = fmaxf(mx0, s[4 * j + b]);
+          mx1 = fmaxf(mx1, s[4 * j + 2 + b]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+
+  // pass 2: e = exp(s - m), its f32 row sums, and O += bf16(e) V
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float l0 = 0.f, l1 = 0.f;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int it = n_tiles + j, st = it % STAGES;
+    const uint8_t* ks = ring + 2 * st * ATT_TILE_BYTES;
+    mbar_wait(&full[st], ring_parity(it, STAGES));
+    wgmma_fence();
+    tile_abt(s, qw, ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    const int c0 = j * ATT_TILE + fc;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const bool ok = c0 + 8 * jj + b < nkv;
+        const float e0 = ok ? exp_sub(s[4 * jj + b], mx0) : 0.f;
+        const float e1 = ok ? exp_sub(s[4 * jj + 2 + b], mx1) : 0.f;
+        s[4 * jj + b] = e0;
+        s[4 * jj + 2 + b] = e1;
+        l0 += e0;
+        l1 += e1;
+      }
+    }
+    uint32_t p[16];
+    pack_a(s, p);
+    wgmma_fence();
+    tile_pb(acc, p, ks + ATT_TILE_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    release_stage(&empty[st]);
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+
+  // epilogue: bf16(O / sum) in pairs, rows < nq only; m and den
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + frag_row(t) + 8 * half;
+    if (row >= nq) continue;
+    const float l = half ? l1 : l0;
+    const size_t r = (size_t)blockIdx.y * nq + row;
+    bf16* orow = out + r * ldo + fc;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jj) =
+          pack_bf16(acc[4 * jj + 2 * half] / l, acc[4 * jj + 2 * half + 1] / l);
+    if (m_out != nullptr && fc == 0) {
+      m_out[r] = half ? mx1 : mx0;
+      den_out[r] = l;
+    }
+  }
+}
+
+}  // namespace
+
+// The wgmma route: q, k and v TMA-readable (16-byte bases, row strides a
+// multiple of 8), out written in 4-byte pairs (a 4-byte base, ldo even).
+// Misaligned operands return cudaErrorMisalignedAddress.
 FC_API int fc_cross_attention(const void* q, int ldq, const void* k, const void* v, int ldkv,
                               void* out, int ldo, void* m_out, void* den_out, int n_items, int nq,
                               int nkv, void* stream) {
-  dim3 grid((nq + QB - 1) / QB, n_items);
-  cross_attention_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, ldq, (const bf16*)k, (const bf16*)v, ldkv, (bf16*)out, ldo, (float*)m_out,
-      (float*)den_out, nq, nkv);
+  if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(out) & 3u) || (ldo & 1)) return (int)cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = bf16_tensor_map_3d(&tq, q, n_items, nq, ATT_D, ldq, ATT_D, ATT_TILE);
+  if (err == cudaSuccess)
+    err = bf16_tensor_map_3d(&tk, k, n_items, nkv, ATT_D, ldkv, ATT_D, ATT_TILE);
+  if (err == cudaSuccess)
+    err = bf16_tensor_map_3d(&tv, v, n_items, nkv, ATT_D, ldkv, ATT_D, ATT_TILE);
+  if (err != cudaSuccess) return (int)err;
+  static bool smem_set = false;   // the shared-memory opt-in, once
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(cross_attention_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((nq + ATT_TILE - 1) / ATT_TILE, n_items);
+  cross_attention_wgmma_kernel<<<grid, FWD_THREADS, FWD_SMEM_BYTES, (cudaStream_t)stream>>>(
+      tq, tk, tv, (bf16*)out, ldo, (float*)m_out, (float*)den_out, nq, nkv);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,15 @@ B5 and B7 chains pad their bf16 buffers and weight copies to rows of whole
 products take the wgmma route; B4's first EdgeConv stage, which reads the
 6-wide cloud, takes the WMMA route. The four counters below count the
 launches of each route.
+
+The chains' cross attention (`cross_attention`, its backward
+`attention_bwd`) has the same two routes, chosen the same way
+(`attention_route`): the TMA + wgmma kernels of csrc/cross_attention.cu and
+csrc/cross_attention_bwd.cu, or their WMMA kernels for operands TMA cannot
+read; each route is counted. These wrappers, and `attn_bwd_prep`, run their
+plain versions (`cross_attention_plain`, `attention_bwd_plain`,
+`attn_bwd_prep_plain`) when given CPU tensors; every other launch function
+takes CUDA tensors only.
 """
 
 from __future__ import annotations
@@ -62,9 +71,12 @@ _SIGNATURES = {
     "fc_augment_epilogue": [_V, _I, _V, _I, _I, _V, _I, _I, _V, _I, _V, _I, _V],
     "fc_inverse_coupling_epilogue": [_V, _I, _V, _I, _V, _I, _I, _I, _I, _F, _V],
     "fc_cross_attention": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _I, _I, _I, _V],
+    "fc_cross_attention_wmma": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _I, _I, _I, _V],
     "fc_attention_core": [_V, _I, _V, _I, _V, _I, _V, _I, _I, _I, _I, _F, _V],
     "fc_attention_bwd": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _V, _I, _V, _I,
                          _I, _I, _I, _V],
+    "fc_attention_bwd_wmma": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _V, _I, _V,
+                              _I, _I, _I, _I, _V],
     "fc_coupling_epilogue_bwd": [_V, _I, _V, _I, _V, _I, _V, _V, _I, _V, _I, _V, _I, _V, _I,
                                  _I, _I, _I, _F, _V],
     "fc_attn_bwd_prep": [_V, _I, _V, _I, _V, _V, _I, _V, _I, _I, _V],
@@ -92,6 +104,11 @@ GEMM_WGMMA_LAUNCHES = 0
 GEMM_WMMA_LAUNCHES = 0
 GEMM_TN_WGMMA_LAUNCHES = 0
 GEMM_TN_WMMA_LAUNCHES = 0
+# and of the cross attention's two routes, forward and backward
+CROSS_ATTENTION_WGMMA_LAUNCHES = 0
+CROSS_ATTENTION_WMMA_LAUNCHES = 0
+ATTENTION_BWD_WGMMA_LAUNCHES = 0
+ATTENTION_BWD_WMMA_LAUNCHES = 0
 
 NUM_SMS = 132          # the H100 SXM's; tiles and splits aim at about one wave of blocks
 
@@ -308,7 +325,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
         if tuple(out2.shape) != (m, n):
             raise ValueError("gemm.out2: shape mismatch")
         out2_p = out2.data_ptr()
-    chosen = _choose_route(route, a.data_ptr(), lda, w.data_ptr(), ldb, "gemm")
+    chosen = _choose_route(route, gemm_route(a.data_ptr(), lda, w.data_ptr(), ldb), "gemm")
     args = (a.data_ptr(), lda, w.data_ptr(), ldb, out.data_ptr(), ldc, m, n, k,
             bias_p, res_p, ldr, aff_a, aff_b, aux_p, ldaux, out2_p, ld2, flags, int(trans_b))
     if chosen == "wgmma":
@@ -322,9 +339,9 @@ def gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
     return out
 
 
-def _choose_route(route: Optional[str], a_ptr: int, lda: int, b_ptr: int, ldb: int,
-                  name: str) -> str:
-    natural = gemm_route(a_ptr, lda, b_ptr, ldb)
+def _choose_route(route: Optional[str], natural: str, name: str) -> str:
+    """`route` where one is forced (the wgmma route only where the operands
+    allow it), else the route the operands' alignment gives (`natural`)."""
     if route is None:
         return natural
     if route not in ("wgmma", "wmma"):
@@ -417,7 +434,7 @@ def gemm_tn(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
     if b.shape[0] != k or tuple(out.shape) != (m, n):
         raise ValueError(f"gemm_tn: shapes a {tuple(a.shape)} b {tuple(b.shape)} "
                          f"out {tuple(out.shape)}")
-    chosen = _choose_route(route, a.data_ptr(), lda, b.data_ptr(), ldb, "gemm_tn")
+    chosen = _choose_route(route, gemm_route(a.data_ptr(), lda, b.data_ptr(), ldb), "gemm_tn")
     if chosen == "wgmma":
         bn, splits, k_chunk = gemm_tn_plan(m, n, k)
     else:
@@ -480,12 +497,64 @@ def row_norm(x: torch.Tensor, out: torch.Tensor, eps: float = 1e-5) -> None:
         x.data_ptr(), ldx, out.data_ptr(), ldy, x.shape[0], x.shape[1], eps, _stream()))
 
 
+def _pairs_ok(t: torch.Tensor) -> bool:
+    """Whether t's rows can be written two elements at a time: a base
+    aligned to a pair and an even row stride."""
+    return t.data_ptr() % (2 * t.element_size()) == 0 and t.stride(0) % 2 == 0
+
+
+def attention_route(reads: list, writes: list) -> str:
+    """The cross attention's route, from alignment alone: "wgmma" (TMA +
+    wgmma, csrc/cross_attention.cu and cross_attention_bwd.cu) when TMA can
+    read every bf16 operand in `reads` and every output in `writes` can be
+    written in pairs, else "wmma" (the WMMA kernels of the same files)."""
+    ok = (all(tma_readable(t.data_ptr(), t.stride(0)) for t in reads)
+          and all(_pairs_ok(t) for t in writes))
+    return "wgmma" if ok else "wmma"
+
+
+def _per_item(t: torch.Tensor, n_items: int) -> torch.Tensor:
+    return t.float().reshape(n_items, t.shape[0] // n_items, t.shape[1])
+
+
+def cross_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          out: torch.Tensor, *, n_items: int,
+                          m_out: Optional[torch.Tensor] = None,
+                          den_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of `cross_attention` on any device, with its exact
+    contract: per item, s = q k^T in f32, m the row maximum, e = exp(s - m),
+    out = (bf16(e) v) / sum(e) rounded to out's dtype, m_out = m and
+    den_out = sum(e) (the f32 sum of the unrounded e)."""
+    qf, kf, vf = (_per_item(t, n_items) for t in (q, k, v))
+    s = qf @ kf.transpose(1, 2)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    den = e.sum(-1, keepdim=True)
+    out.copy_(((e.bfloat16().float() @ vf) / den).reshape(out.shape))
+    if m_out is not None:
+        m_out.copy_(m.reshape(-1))
+        den_out.copy_(den.reshape(-1))
+    return out
+
+
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, *, n_items: int,
                     m_out: Optional[torch.Tensor] = None,
-                    den_out: Optional[torch.Tensor] = None) -> None:
+                    den_out: Optional[torch.Tensor] = None,
+                    route: Optional[str] = None) -> None:
     """Per item: out = softmax(q k^T) v, q (items*nq, 64), k/v (items*nkv, 64);
-    with m_out/den_out also each row's f32 maximum and denominator."""
+    with m_out/den_out also each row's f32 maximum and denominator.
+
+    Two routes, one contract (`cross_attention_plain`): the TMA + wgmma
+    kernel when TMA can read q, k and v and out can be written in pairs
+    (`attention_route`), otherwise the WMMA kernel. `route` forces one (for
+    measurements and tests); each route counts its launches
+    (CROSS_ATTENTION_WGMMA_LAUNCHES, CROSS_ATTENTION_WMMA_LAUNCHES). A CPU
+    q runs the plain version and counts nothing."""
+    global CROSS_ATTENTION_WGMMA_LAUNCHES, CROSS_ATTENTION_WMMA_LAUNCHES
+    if not q.is_cuda:
+        cross_attention_plain(q, k, v, out, n_items=n_items, m_out=m_out, den_out=den_out)
+        return
     ldq = _rows(q, "cross_attention.q", torch.bfloat16)
     ldk = _rows(k, "cross_attention.k", torch.bfloat16)
     ldv = _rows(v, "cross_attention.v", torch.bfloat16)
@@ -494,15 +563,25 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("cross_attention: head dimension must be 64")
     if ldk != ldv or k.shape[0] != v.shape[0]:
         raise ValueError("cross_attention: k and v must share rows and stride")
-    if q.shape[0] % n_items or k.shape[0] % n_items or out.shape[0] != q.shape[0]:
-        raise ValueError("cross_attention: rows not divisible by items")
+    if (q.shape[0] % n_items or k.shape[0] % n_items or out.shape[0] != q.shape[0]
+            or k.shape[0] == 0 or q.shape[0] == 0):
+        raise ValueError("cross_attention: rows not divisible by items, or no rows")
     m_p = den_p = None
     if m_out is not None:
         m_p = _vec(m_out, "cross_attention.m_out", q.shape[0])
         den_p = _vec(den_out, "cross_attention.den_out", q.shape[0])
-    _check("cross_attention", library().fc_cross_attention(
-        q.data_ptr(), ldq, k.data_ptr(), v.data_ptr(), ldk, out.data_ptr(), ldo, m_p, den_p,
-        n_items, q.shape[0] // n_items, k.shape[0] // n_items, _stream()))
+    nq, nkv = q.shape[0] // n_items, k.shape[0] // n_items
+    chosen = _choose_route(route, attention_route([q, k, v], [out]), "cross_attention")
+    args = (q.data_ptr(), ldq, k.data_ptr(), v.data_ptr(), ldk, out.data_ptr(), ldo, m_p, den_p,
+            n_items, nq, nkv)
+    if chosen == "wgmma":
+        rc = library().fc_cross_attention(*args, _stream())
+        CROSS_ATTENTION_WGMMA_LAUNCHES += 1
+    else:
+        rc = library().fc_cross_attention_wmma(*args, _stream())
+        CROSS_ATTENTION_WMMA_LAUNCHES += 1
+    if rc:
+        _check(f"cross_attention ({chosen})", rc)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
@@ -523,12 +602,40 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
         q.shape[0] // n_items, k.shape[0] // n_items, float(scale), _stream()))
 
 
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.Tensor,
+                        ddn: torch.Tensor, m: torch.Tensor, dq: torch.Tensor,
+                        dq_b: torch.Tensor, dkv: torch.Tensor, dkv_b: torch.Tensor, *,
+                        n_items: int) -> None:
+    """The plain version of `attention_bwd` on any device, with its exact
+    contract: per item, e = exp(q k^T - m) from the forward's row maximum m,
+    dv = bf16(e)^T du, dS = bf16(e (du v^T + ddn)), dq = dS k, dk = dS^T q,
+    written in f32 (dq, dkv = [dk | dv]) and bf16 (dq_b, dkv_b)."""
+    qf, kf, vf, duf = (_per_item(t, n_items) for t in (q, k, v, du))
+    e = torch.exp(qf @ kf.transpose(1, 2) - m.reshape(n_items, -1, 1))
+    dv = e.bfloat16().float().transpose(1, 2) @ duf
+    ds = (e * (duf @ vf.transpose(1, 2) + ddn.reshape(n_items, -1, 1))).bfloat16().float()
+    dq.copy_((ds @ kf).reshape(dq.shape))
+    dq_b.copy_(dq)
+    d = kf.shape[-1]
+    dkv.copy_(torch.cat([(ds.transpose(1, 2) @ qf).reshape(-1, d), dv.reshape(-1, d)], 1))
+    dkv_b.copy_(dkv)
+
+
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.Tensor,
                   ddn: torch.Tensor, m: torch.Tensor, dq: torch.Tensor, dq_b: torch.Tensor,
-                  dkv: torch.Tensor, dkv_b: torch.Tensor, *, n_items: int) -> None:
+                  dkv: torch.Tensor, dkv_b: torch.Tensor, *, n_items: int,
+                  route: Optional[str] = None) -> None:
     """The backward of `cross_attention` from du = da / den and ddn (see
     attn_bwd_prep): dq (items*nq, 64) and [dk | dv] (items*nkv, 128), each in
-    f32 and in bf16."""
+    f32 and in bf16. Routes as `cross_attention`'s (TMA + wgmma when TMA can
+    read q, k, v and du and the outputs can be written in pairs; WMMA
+    otherwise); `route` forces one; counted as ATTENTION_BWD_WGMMA_LAUNCHES /
+    ATTENTION_BWD_WMMA_LAUNCHES.
+    A CPU q runs `attention_bwd_plain` and counts nothing."""
+    global ATTENTION_BWD_WGMMA_LAUNCHES, ATTENTION_BWD_WMMA_LAUNCHES
+    if not q.is_cuda:
+        attention_bwd_plain(q, k, v, du, ddn, m, dq, dq_b, dkv, dkv_b, n_items=n_items)
+        return
     ldq = _rows(q, "attention_bwd.q", torch.bfloat16)
     ldk = _rows(k, "attention_bwd.k", torch.bfloat16)
     ldv = _rows(v, "attention_bwd.v", torch.bfloat16)
@@ -541,18 +648,40 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.T
     if (q.shape[1] != 64 or k.shape[1] != 64 or v.shape[1] != 64 or ldk != ldv
             or tuple(du.shape) != (rq, 64) or tuple(dq.shape) != (rq, 64)
             or tuple(dq_b.shape) != (rq, 64) or tuple(dkv.shape) != (rk, 128)
-            or tuple(dkv_b.shape) != (rk, 128) or rq % n_items or rk % n_items):
+            or tuple(dkv_b.shape) != (rk, 128) or rq % n_items or rk % n_items
+            or rq == 0 or rk == 0):
         raise ValueError("attention_bwd: shape mismatch")
-    _check("attention_bwd", library().fc_attention_bwd(
-        q.data_ptr(), ldq, k.data_ptr(), v.data_ptr(), ldk, du.data_ptr(), lddu,
-        _vec(ddn, "attention_bwd.ddn", rq), _vec(m, "attention_bwd.m", rq),
-        dq.data_ptr(), lddq, dq_b.data_ptr(), lddqb, dkv.data_ptr(), lddkv,
-        dkv_b.data_ptr(), lddkvb, n_items, rq // n_items, rk // n_items, _stream()))
+    nq, nkv = rq // n_items, rk // n_items
+    chosen = _choose_route(route, attention_route([q, k, v, du], [dq, dq_b, dkv, dkv_b]),
+                           "attention_bwd")
+    args = (q.data_ptr(), ldq, k.data_ptr(), v.data_ptr(), ldk, du.data_ptr(), lddu,
+            _vec(ddn, "attention_bwd.ddn", rq), _vec(m, "attention_bwd.m", rq),
+            dq.data_ptr(), lddq, dq_b.data_ptr(), lddqb, dkv.data_ptr(), lddkv,
+            dkv_b.data_ptr(), lddkvb, n_items, nq, nkv)
+    if chosen == "wgmma":
+        rc = library().fc_attention_bwd(*args, _stream())
+        ATTENTION_BWD_WGMMA_LAUNCHES += 1
+    else:
+        rc = library().fc_attention_bwd_wmma(*args, _stream())
+        ATTENTION_BWD_WMMA_LAUNCHES += 1
+    if rc:
+        _check(f"attention_bwd ({chosen})", rc)
+
+
+def attn_bwd_prep_plain(da: torch.Tensor, a: torch.Tensor, den: torch.Tensor, du: torch.Tensor,
+                        ddn: torch.Tensor) -> None:
+    """The plain version of `attn_bwd_prep` on any device."""
+    du.copy_(da.float() / den[:, None])
+    ddn.copy_(-(da.float() * a.float()).sum(-1) / den)
 
 
 def attn_bwd_prep(da: torch.Tensor, a: torch.Tensor, den: torch.Tensor, du: torch.Tensor,
                   ddn: torch.Tensor) -> None:
-    """du (bf16) = da / den, ddn = -sum(da * a) / den per row."""
+    """du (bf16) = da / den, ddn = -sum(da * a) / den per row. A CPU da runs
+    `attn_bwd_prep_plain`."""
+    if not da.is_cuda:
+        attn_bwd_prep_plain(da, a, den, du, ddn)
+        return
     ldda = _rows(da, "attn_bwd_prep.da", torch.float32)
     lda = _rows(a, "attn_bwd_prep.a", torch.bfloat16)
     lddu = _rows(du, "attn_bwd_prep.du", torch.bfloat16)

@@ -879,3 +879,163 @@ def test_gemm_unaligned_view_takes_wmma_route(dev):
     assert_gemm_close(out, _build.gemm_plain(a, w, torch.empty_like(out), bias=bias, gelu=True))
     with pytest.raises(ValueError, match="TMA"):
         _build.gemm(a, w, out, bias=bias, route="wgmma")
+
+
+# ------------------------------------------- cross attention: wgmma and WMMA
+
+ATTENTION_SHAPES = [(items, nq, nkv) for items in (1, 3, 20) for nq in (70, 4000)
+                    for nkv in (34, 90, 1250)]
+
+
+def attention_inputs(dev, items, nq, nkv, seed, big_next=False):
+    """q (items*nq, 64) scaled as the folds scale it, kv (items*nkv, 128) bf16
+    with k and v its column halves; with big_next every item after the first
+    holds large queries and keys, so a tile read across an item boundary
+    shows in the first item's maximum and output."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(items * nq, 64, generator=g) / 8
+    kv = torch.randn(items * nkv, 128, generator=g)
+    if big_next:
+        q[nq:] = q[nq:] * 4 + 3
+        kv[nkv:] = kv[nkv:] * 4 + 6
+    q, kv = q.bfloat16().to(dev), kv.bfloat16().to(dev)
+    return q, kv, kv[:, :64], kv[:, 64:]
+
+
+def attention_forward(fn, q, k, v, items, **kw):
+    out = torch.full(q.shape, float("nan"), device=q.device, dtype=torch.bfloat16)
+    m = torch.full((q.shape[0],), float("nan"), device=q.device)
+    den = torch.full_like(m, float("nan"))
+    fn(q, k, v, out, n_items=items, m_out=m, den_out=den, **kw)
+    return out, m, den
+
+
+def assert_attention_forward_close(got, ref):
+    """One bf16 rounding of the output (the bounds of
+    test_cross_attention_matches_plain); m and den to 1e-4 relative."""
+    (out, m, den), (rout, rm, rden) = got, ref
+    torch.testing.assert_close(out.float(), rout.float(), rtol=1e-2, atol=1e-2)
+    assert float(((m - rm).abs() / rm.abs().clamp_min(1.0)).max()) <= 1e-4
+    assert float(((den - rden).abs() / rden).max()) <= 1e-4
+
+
+def attention_backward(fn, q, k, v, m, den, out, items, seed, **kw):
+    g = torch.Generator().manual_seed(seed)
+    da = torch.randn(q.shape, generator=g).to(q.device)
+    du = torch.empty(q.shape, device=q.device, dtype=torch.bfloat16)
+    ddn = torch.empty(q.shape[0], device=q.device)
+    _build.attn_bwd_prep(da, out, den, du, ddn)
+    nkv = k.shape[0]
+    bufs = (torch.full(q.shape, float("nan"), device=q.device),
+            torch.full(q.shape, float("nan"), device=q.device, dtype=torch.bfloat16),
+            torch.full((nkv, 128), float("nan"), device=q.device),
+            torch.full((nkv, 128), float("nan"), device=q.device, dtype=torch.bfloat16))
+    fn(q, k, v, du, ddn, m, *bufs, n_items=items, **kw)
+    return bufs
+
+
+def assert_attention_backward_close(got, ref):
+    """dq, dk and dv: cosine >= 0.9999 and max error <= 1e-2 of max |ref|;
+    each bf16 output the rounding of its f32 twin."""
+    (dq, dq_b, dkv, dkv_b), (rq, _, rkv, _) = got, ref
+    for a, b in ((dq, rq), (dkv[:, :64], rkv[:, :64]), (dkv[:, 64:], rkv[:, 64:])):
+        assert float(F.cosine_similarity(a.reshape(-1).double(), b.reshape(-1).double(),
+                                         dim=0)) >= 0.9999
+        assert _rel(a, b) <= 1e-2
+    assert torch.equal(dq_b, dq.bfloat16()) and torch.equal(dkv_b, dkv.bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("items,nq,nkv", ATTENTION_SHAPES)
+def test_cross_attention_wgmma_matches_plain(dev, items, nq, nkv):
+    """The wgmma forward with m/den (B5's recompute) and without (B1, B2,
+    B7) against the plain version: ragged keys (34, 90, 1250 = 19 tiles and
+    34), ragged queries (70, 4000), 1, 3 and 20 items."""
+    q, kv, k, v = attention_inputs(dev, items, nq, nkv, seed=items + nq + nkv)
+    before = _build.CROSS_ATTENTION_WGMMA_LAUNCHES
+    got = attention_forward(_build.cross_attention, q, k, v, items, route="wgmma")
+    bare = torch.full_like(got[0], float("nan"))
+    _build.cross_attention(q, k, v, bare, n_items=items)
+    torch.cuda.synchronize()
+    assert _build.CROSS_ATTENTION_WGMMA_LAUNCHES == before + 2
+    assert torch.equal(bare, got[0])
+    assert_attention_forward_close(got, attention_forward(_build.cross_attention_plain, q, k, v,
+                                                          items))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("items,nq,nkv", ATTENTION_SHAPES)
+def test_attention_bwd_wgmma_matches_plain(dev, items, nq, nkv):
+    """The wgmma backward (dq and [dk | dv] kernels) against the plain
+    version from the plain forward's m and den."""
+    q, kv, k, v = attention_inputs(dev, items, nq, nkv, seed=7 + items + nq + nkv)
+    out, m, den = attention_forward(_build.cross_attention_plain, q, k, v, items)
+    before = _build.ATTENTION_BWD_WGMMA_LAUNCHES
+    got = attention_backward(_build.attention_bwd, q, k, v, m, den, out, items, 1)
+    torch.cuda.synchronize()
+    assert _build.ATTENTION_BWD_WGMMA_LAUNCHES == before + 1
+    again = attention_backward(_build.attention_bwd, q, k, v, m, den, out, items, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))      # no atomics
+    assert_attention_backward_close(
+        got, attention_backward(_build.attention_bwd_plain, q, k, v, m, den, out, items, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nkv", [(70, 34), (70, 90), (100, 1250)])
+@pytest.mark.parametrize("route", ["wgmma", "wmma"])
+def test_attention_does_not_read_across_items(dev, nq, nkv, route):
+    """Items after the first hold large queries and keys: a key tile or a
+    query tile read past an item's last row would change the first item's
+    maximum, output and gradients. Both routes."""
+    q, kv, k, v = attention_inputs(dev, 3, nq, nkv, seed=nq + nkv, big_next=True)
+    ref = attention_forward(_build.cross_attention_plain, q, k, v, 3)
+    rb = attention_backward(_build.attention_bwd_plain, q, k, v, ref[1], ref[2], ref[0], 3, 2)
+    got = attention_forward(_build.cross_attention, q, k, v, 3, route=route)
+    assert_attention_forward_close(got, ref)
+    gb = attention_backward(_build.attention_bwd, q, k, v, ref[1], ref[2], ref[0], 3, 2,
+                            route=route)
+    torch.cuda.synchronize()
+    assert_attention_backward_close(gb, rb)
+
+
+@pytest.mark.cuda
+def test_attention_unaligned_view_takes_wmma_route(dev):
+    """An aligned call takes the wgmma kernels; a q view TMA cannot read (a
+    base 2 bytes past 16-byte alignment) takes the WMMA kernels, counted as
+    such, and is still right; forcing the wgmma route on it raises."""
+    q0, kv, k, v = attention_inputs(dev, 3, 70, 90, seed=5)
+    base = torch.zeros(210, 72, device=dev, dtype=torch.bfloat16)
+    base[:, 1:65] = q0
+    q = base[:, 1:65]
+    ref = attention_forward(_build.cross_attention_plain, q0, k, v, 3)
+    rb = attention_backward(_build.attention_bwd_plain, q0, k, v, ref[1], ref[2], ref[0], 3, 3)
+    counters = ("CROSS_ATTENTION_WGMMA_LAUNCHES", "CROSS_ATTENTION_WMMA_LAUNCHES",
+                "ATTENTION_BWD_WGMMA_LAUNCHES", "ATTENTION_BWD_WMMA_LAUNCHES")
+    for view, expect in ((q0, (1, 0, 1, 0)), (q, (0, 1, 0, 1))):
+        before = [getattr(_build, c) for c in counters]
+        got = attention_forward(_build.cross_attention, view, k, v, 3)
+        gb = attention_backward(_build.attention_bwd, view, k, v, ref[1], ref[2], ref[0], 3, 3)
+        torch.cuda.synchronize()
+        assert tuple(getattr(_build, c) - b for c, b in zip(counters, before)) == expect
+        assert_attention_forward_close(got, ref)
+        assert_attention_backward_close(gb, rb)
+    with pytest.raises(ValueError, match="TMA"):
+        attention_forward(_build.cross_attention, q, k, v, 3, route="wgmma")
+
+
+@pytest.mark.cuda
+def test_attention_cpu_tensors_run_the_plain_versions(dev):
+    """With the library on the card, CPU tensors still take the plain
+    versions and count no launch."""
+    q, kv, k, v = attention_inputs("cpu", 3, 70, 90, seed=6)
+    counters = (_build.CROSS_ATTENTION_WGMMA_LAUNCHES, _build.CROSS_ATTENTION_WMMA_LAUNCHES,
+                _build.ATTENTION_BWD_WGMMA_LAUNCHES, _build.ATTENTION_BWD_WMMA_LAUNCHES)
+    got = attention_forward(_build.cross_attention, q, k, v, 3)
+    ref = attention_forward(_build.cross_attention_plain, q, k, v, 3)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    gb = attention_backward(_build.attention_bwd, q, k, v, ref[1], ref[2], ref[0], 3, 4)
+    rb = attention_backward(_build.attention_bwd_plain, q, k, v, ref[1], ref[2], ref[0], 3, 4)
+    assert all(torch.equal(a, b) for a, b in zip(gb, rb))
+    assert counters == (_build.CROSS_ATTENTION_WGMMA_LAUNCHES,
+                        _build.CROSS_ATTENTION_WMMA_LAUNCHES,
+                        _build.ATTENTION_BWD_WGMMA_LAUNCHES, _build.ATTENTION_BWD_WMMA_LAUNCHES)

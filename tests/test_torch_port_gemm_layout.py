@@ -183,15 +183,7 @@ class EmulatedLaunches:
 
     @staticmethod
     def cross_attention(q, k, v, out, *, n_items, m_out=None, den_out=None):
-        qf, kf, vf = (t.float().reshape(n_items, t.shape[0] // n_items, -1) for t in (q, k, v))
-        s = qf @ kf.transpose(1, 2)
-        m = s.amax(-1, keepdim=True)
-        e = torch.exp(s - m)
-        den = e.sum(-1, keepdim=True)
-        out.copy_(((e.bfloat16().float() @ vf) / den).reshape(out.shape))
-        if m_out is not None:
-            m_out.copy_(m.reshape(-1))
-            den_out.copy_(den.reshape(-1))
+        _build.cross_attention_plain(q, k, v, out, n_items=n_items, m_out=m_out, den_out=den_out)
 
     @staticmethod
     def coupling_epilogue(st, x, ldj, y, lu_ldj, *, split, eps_affine):
@@ -235,21 +227,11 @@ class EmulatedLaunches:
 
     @staticmethod
     def attn_bwd_prep(da, a, den, du, ddn):
-        du.copy_(da / den[:, None])
-        ddn.copy_(-(da * a.float()).sum(-1) / den)
+        _build.attn_bwd_prep_plain(da, a, den, du, ddn)
 
     @staticmethod
     def attention_bwd(q, k, v, du, ddn, m, dq, dq_b, dkv, dkv_b, *, n_items):
-        qf, kf, vf, duf = (t.float().reshape(n_items, t.shape[0] // n_items, -1)
-                           for t in (q, k, v, du))
-        e = torch.exp(qf @ kf.transpose(1, 2) - m.reshape(n_items, -1, 1))
-        dv = e.bfloat16().float().transpose(1, 2) @ duf
-        ds = (e * (duf @ vf.transpose(1, 2) + ddn.reshape(n_items, -1, 1))).bfloat16().float()
-        dq.copy_((ds @ kf).reshape(dq.shape))
-        dq_b.copy_(dq)
-        dkv.copy_(torch.cat([(ds.transpose(1, 2) @ qf).reshape(-1, kf.shape[-1]),
-                             dv.reshape(-1, vf.shape[-1])], 1))
-        dkv_b.copy_(dkv)
+        _build.attention_bwd_plain(q, k, v, du, ddn, m, dq, dq_b, dkv, dkv_b, n_items=n_items)
 
     @staticmethod
     def row_norm_bwd(x, g, dx, dx_b, eps=1e-5):
