@@ -100,10 +100,23 @@ Phases, each of which raises on failure (nothing is caught):
    alone: the library yardstick), a call's time through the wrapper (CUDA
    events, the host included) and the bound. Every main path then shows
    0 WMMA attention launches, and the wgmma forward (eval, make_sample,
-   train) and backward (train) launched wherever the path has attention.
+   train) and backward (train) launched wherever the path has attention;
+16. fused layers (run fourth, before any model is built): the two kernels of
+   a coupling layer, csrc/fused_layer.cu (`conditioner`, `coupling_layer`
+   with and without saves, `coupling_inverse` with the chained LU
+   inverse), against their plain versions at dulcet-universe's eval rows
+   (40,960), training rows (20,480) and a sample's 4,000, and
+   helpful-sponge's 51,200 (seven coupling products), with their device
+   times, the plain versions', the per-product route's (the launches a
+   layer took before), the bound and launches per layer. Every main path (eval, make_sample, train)
+   then shows, through counters around B1 and B7, no per-product MLP gemm
+   inside them and 4 launches a layer with attention, 1 without
+   (`check_flow_launches`); and the bounds of B1, B2, B3, B4 and B6 at the
+   main path's own shapes (one B=20 item) are computed from shapes.
 
 Prints, last, one JSON line of per-kernel results (B1-B10, gemm_bf16,
-gemm_tn, cross_attention and cross_attention_bwd at their headline shapes;
+gemm_tn, cross_attention, cross_attention_bwd, conditioner,
+coupling_layer and coupling_inverse at their headline shapes;
 B1, B2, B4, B5 and B7 carry their helpful-sponge branch's check under
 "global", B10 its second shape), the nvidia-smi line and {"ok": true,
 "device": {...}}.
@@ -628,6 +641,11 @@ class ChainRoutes:
                     ("flow_layer_cuda", "fused_flow_layers_inverse"),
                     ("flow_layer_vjp_cuda", "flow_layers_bwd"))
 
+    # B1 and B7 (the layer stack's two directions) are also counted apart
+    # ("flow ..." keys): their gemms, fused launches and cross attention, so
+    # a phase can show that no per-product MLP gemm ran inside them
+    FLOW = ("fused_flow_layers", "fused_flow_layers_inverse")
+
     def __init__(self):
         from flowcompare_tpu_torch.ops import _build, flow_layer_cuda, flow_layer_vjp_cuda
         self._build = _build
@@ -635,16 +653,19 @@ class ChainRoutes:
         self.reset()
         for module_name, attr in self.ENTRY_POINTS:
             module = modules[module_name]
-            setattr(module, attr, self._counted(getattr(module, attr)))
+            setattr(module, attr, self._counted(getattr(module, attr), attr))
 
     def _now(self) -> dict:
         b = self._build
         return {"wgmma": b.GEMM_WGMMA_LAUNCHES + b.GEMM_TN_WGMMA_LAUNCHES,
                 "wmma": b.GEMM_WMMA_LAUNCHES + b.GEMM_TN_WMMA_LAUNCHES,
                 "attention wgmma": b.CROSS_ATTENTION_WGMMA_LAUNCHES + b.ATTENTION_BWD_WGMMA_LAUNCHES,
-                "attention wmma": b.CROSS_ATTENTION_WMMA_LAUNCHES + b.ATTENTION_BWD_WMMA_LAUNCHES}
+                "attention wmma": b.CROSS_ATTENTION_WMMA_LAUNCHES + b.ATTENTION_BWD_WMMA_LAUNCHES,
+                "conditioner": b.FUSED_CONDITIONER_LAUNCHES,
+                "coupling_layer": b.COUPLING_LAYER_LAUNCHES,
+                "coupling_inverse": b.COUPLING_INVERSE_LAUNCHES}
 
-    def _counted(self, fn):
+    def _counted(self, fn, attr: str):
         def counted(*args, **kwargs):
             before = self._now()
             try:
@@ -652,16 +673,45 @@ class ChainRoutes:
             finally:
                 for key, value in self._now().items():
                     self.counts[key] += value - before[key]
+                    if attr in self.FLOW:
+                        self.counts[f"flow {key}"] += value - before[key]
+                self.counts["flow B7 calls"] += int(attr == "fused_flow_layers_inverse")
         return counted
 
     def reset(self) -> None:
-        self.counts = {"wgmma": 0, "wmma": 0, "attention wgmma": 0, "attention wmma": 0}
+        keys = ("wgmma", "wmma", "attention wgmma", "attention wmma", "conditioner",
+                "coupling_layer", "coupling_inverse")
+        self.counts = {**{k: 0 for k in keys}, **{f"flow {k}": 0 for k in keys},
+                       "flow B7 calls": 0}
 
     def read(self) -> dict:
         return dict(self.counts)
 
 
 CHAIN_ROUTES = None   # a ChainRoutes, installed by main() once the library is built
+
+
+def check_flow_launches(chains: dict, what: str, flow_attention: bool) -> dict:
+    """Inside B1 and B7 the coupling MLPs ran in the fused kernels: no
+    per-product MLP gemm (their only gemms are ctx @ wkv, one a layer with
+    attention, and B7's top LU inverse, one a call), and per layer one
+    coupling_layer / coupling_inverse with, where the layers have attention,
+    one conditioner, one ctx @ wkv and one cross attention: 4 launches a
+    layer with attention, 1 without. Returns the counts."""
+    f = {k[5:]: v for k, v in chains.items() if k.startswith("flow ")}
+    layers = f["coupling_layer"] + f["coupling_inverse"]
+    per_product = f["wgmma"] + f["wmma"] - f["conditioner"] - f["B7 calls"]
+    per_layer = (f["conditioner"] + (f["wgmma"] - f["B7 calls"]) + f["attention wgmma"]
+                 + layers) / max(layers, 1)
+    out = {"layers": layers, "per_product_mlp_gemms": per_product, "launches_per_layer": per_layer,
+           **{k: f[k] for k in ("conditioner", "coupling_layer", "coupling_inverse", "wgmma",
+                                "attention wgmma", "B7 calls")}}
+    log(f"fused layers in {what}: {out}")
+    assert layers > 0 and per_product == 0, f"a per-product MLP gemm ran inside B1/B7: {out}"
+    assert f["conditioner"] == (layers if flow_attention else 0), out
+    assert f["attention wgmma"] == f["conditioner"], out
+    assert per_layer == (4 if flow_attention else 1), out
+    return out
 
 
 def check_routes(launches: dict, chains: dict, what: str, attention: tuple = ()) -> None:
@@ -808,6 +858,10 @@ def device_ms(fn, reps: int = 10) -> float:
             fn()
 
     kernels, _ = kernel_trace(calls, "chip_smoke_device_ms_trace.json")
+    if not kernels:
+        # the profiler now and then returns an empty trace: trace once more
+        log("  device_ms: the profiler recorded no device kernels; tracing again")
+        kernels, _ = kernel_trace(calls, "chip_smoke_device_ms_trace.json")
     assert kernels, "the profiler recorded no device kernels"
     return sum(e["dur"] for e in kernels) / 1e3 / reps
 
@@ -1004,6 +1058,326 @@ def phase_attention() -> tuple:
             "the attention's backward in B5"),
     }
     return entries, cases
+
+
+def bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """|got - ref| elementwise in bf16 ulps of ref (one ulp: 2^-7 of the
+    power of two at or below |ref|); an element below 2^-8 of max |ref| is
+    counted at that size, where f32 sums in another order leave more than
+    an ulp of itself."""
+    a = ref.float().abs()
+    _, e = torch.frexp(torch.maximum(a, a.max() * 2 ** -8))
+    return (got.float() - ref.float()).abs() / torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def error_stats(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """How far got lies from ref: absolute (max, root mean square), the max
+    over max |ref| and over max(1, max |ref|), and in bf16 ulps of ref
+    (`bf16_ulps`: the largest, the 99.9th percentile, and the share of
+    elements more than a quarter, a half and one ulp off)."""
+    err = (got.float() - ref.float()).abs()
+    top = float(ref.float().abs().max())
+    r = bf16_ulps(got, ref).flatten()
+    return {"max_abs": float(err.max()), "rms_abs": float(err.pow(2).mean().sqrt()),
+            "max_over_max_ref": float(err.max()) / max(top, 1e-30),
+            "max_over_scale": float(err.max()) / max(top, 1.0),
+            "ulps_max": float(r.max()),
+            "ulps_q999": float(r.kthvalue(max(1, int(0.999 * r.numel()))).values),
+            **{f"share_over_{name}_ulp": float((r > v).float().mean())
+               for name, v in (("quarter", 0.25), ("half", 0.5), ("one", 1.0))}}
+
+
+# limits of the fused layer checks, by output: an f32 carry (B1's x, B7's y),
+# a bf16 output (the save row, the packed rows' x1 columns), q and ldj: the
+# largest error against the output's scale, and the shares of elements off
+# by more than a quarter or half a bf16 ulp (`error_stats`).
+# tools/torch_fused_layer_faults.py reads them on the H100 at these shapes:
+# the kernels as built put at most 1.6% of a carry's elements over a quarter
+# ulp and 0.8% over half, 1.6% of a bf16 output's, 1.7% of ldj's; the carry
+# rounded to bf16 puts 48-50% over a quarter ulp, [s | t] in bf16 1.9-12% of
+# B1's x and B7's y over half an ulp and 21-35% of ldj over a quarter, the
+# LayerNorm's input in bf16 55% of q. Each limit lies between the two.
+FUSED_LIMITS = {"carry": {"max_over_scale": 2e-2, "share_over_quarter_ulp": 0.05,
+                          "share_over_half_ulp": 0.012},
+                "bf16": {"max_over_scale": 2e-2, "share_over_quarter_ulp": 0.05},
+                "q": {"max_over_max_ref": 2 * 2 ** -8, "share_over_quarter_ulp": 0.05},
+                "ldj": {"max_abs": 1e-2, "share_over_quarter_ulp": 0.08}}
+
+
+def check_fused(what: str, got: torch.Tensor, ref: torch.Tensor, kind: str) -> dict:
+    """error_stats of a fused layer output against its plain version, held
+    to FUSED_LIMITS[kind]."""
+    stats = error_stats(got, ref)
+    over = {k: (stats[k], v) for k, v in FUSED_LIMITS[kind].items() if not stats[k] <= v}
+    assert not over, f"{what}: {over} over the limits ({stats})"
+    return stats
+
+
+FUSED_CASES = (("dulcet-universe", 40960, "dulcet eval item, B=20 x 1024, both directions"),
+               ("dulcet-universe", 20480, "dulcet training step, B=20 x 1024"),
+               ("dulcet-universe", SAMPLE_N, "a sample, 1 x 4000"),
+               ("helpful-sponge", 51200, "helpful-sponge eval item, B=25 x 1024, both "
+                                         "directions"))
+
+
+def _stack_ops(stack, rows: int, products: int) -> int:
+    return sum(2 * rows * w.shape[1] * w.shape[2] for w, _ in stack.pairs[:products])
+
+
+def _fused_bytes(stack, rows: int, cols_in: int, cols_out: int, products: int) -> int:
+    """Bytes the layer must move: its rows in and out once, one layer's weights."""
+    weights = sum(w.shape[1] * w.shape[2] * 2 + w.shape[2] * 4 for w, _ in stack.pairs[:products])
+    return rows * (cols_in + cols_out) + weights
+
+
+def phase_fused_layers(ft, device) -> dict:
+    """The fused layer kernels (csrc/fused_layer.cu) at the main path's
+    shapes: dulcet-universe's eval item (40,960 rows), training step (20,480)
+    and sample (4,000), and helpful-sponge's eval item (51,200, seven
+    coupling products, no conditioner). Each kernel against its plain version
+    on the same packed rows, and the per-product route (the gemm, row_norm,
+    cast and epilogue launches a layer took before the fusion) against it too,
+    within FUSED_LIMITS (`check_fused`); the kernel's device time (kernel
+    durations from torch.profiler), the plain version's, the per-product
+    route's, the bound, and launches per layer on both routes."""
+    from flowcompare_tpu_torch.ops import _build, flow_layer_cuda as flc
+
+    bf = torch.bfloat16
+    out, entries = {}, {}
+    for preset in ("dulcet-universe", "helpful-sponge"):
+        cfg = ft.get_config(preset)
+        cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
+        model = ft.FlowCompareModel(cfg, device=device,
+                                    generator=torch.Generator().manual_seed(SEED))
+        perturb_identity_leaves(model, torch.Generator().manual_seed(SEED + 1))
+        ed, lat, e = int(cfg["using_extra_context"]), cfg["latent_dim"], cfg["input_embedding_dim"]
+        split = lat // 2
+        with torch.no_grad():
+            folded = model._folded(model.params(), ed)
+            folded_inv = model._folded_inverse(model.params(), ed)
+        lu = (flc._pad_cols(folded["lu_w_f"].transpose(1, 2).to(bf)),
+              folded["lu_b"].float().reshape(2, -1).contiguous())
+        minv = (flc._pad_cols(folded_inv["lu_w_inv_f"].transpose(1, 2).to(bf)),
+                folded_inv["lu_shift"].float().reshape(2, -1).contiguous())
+        lu_ldj = folded["lu_ldj_f"].float().contiguous()
+        for case_preset, rows, label in FUSED_CASES:
+            if case_preset != preset:
+                continue
+            g = torch.Generator().manual_seed(SEED + rows)
+
+            def rand(*shape):
+                return torch.randn(shape, generator=g).to(device)
+
+            ctx = (rand(1, 1, e).bfloat16().expand(1, rows, e) if model.is_global
+                   else rand(1, 1250, e).bfloat16())
+            extra = rand(1, rows, 1) if ed else None
+            fwd = flc._CouplingChain(folded, ctx, extra, rows, split, tail=lu, lat=lat)
+            inv = flc._CouplingChain(folded_inv, ctx, extra, rows, split, tail=minv, lat=lat)
+            # the per-product route's coupling MLP (a chain without a tail, as
+            # B2's net runs) and conditioner parts, for its time
+            pp = flc._CouplingChain(folded, ctx, extra, rows, split)
+            for chain in (fwd, inv, pp):
+                chain.xin[:, :split] = rand(rows, split)
+                if chain.has_attn:
+                    chain.xin[:, chain.xc:chain.xc + chain.cw] = rand(rows, chain.cw)
+            x, ldj, y = rand(rows, lat), rand(rows), rand(rows, lat)
+            save = torch.empty(rows, lat, dtype=bf, device=device)
+            yb = flc.bf16_rows(rows, lat, device)      # the per-product route's bf16 y
+            case = {"rows": rows, "what": label}
+            n_mlp = fwd.cpl_stack.n_mlp
+
+            # coupling_layer (with saves: the training forward's launch)
+            xin_r, xr, lr, sr = fwd.xin.clone(), x.clone(), ldj.clone(), torch.empty_like(save)
+            flc.coupling_layer_plain(xin_r, split, fwd.cpl_stack.layer(0), xr, lr, lu_ldj[0:1],
+                                     save=sr, eps_affine=1e-8)
+            xin_k, xk, lk = fwd.xin.clone(), x.clone(), ldj.clone()
+            _build.coupling_layer(xin_k, split, fwd.cpl_stack, 0, xk, lk, lu_ldj[0:1], save=save,
+                                  eps_affine=1e-8)
+            torch.cuda.synchronize()
+            err = {"x": check_fused("coupling_layer x", xk, xr, "carry"),
+                   "ldj": check_fused("coupling_layer ldj", lk, lr, "ldj"),
+                   "save": check_fused("coupling_layer save", save, sr, "bf16"),
+                   "x1 columns": check_fused("coupling_layer x1 columns", xin_k[:, :split],
+                                             xin_r[:, :split], "bf16")}
+
+            def coupling():
+                _build.coupling_layer(fwd.xin, split, fwd.cpl_stack, 0, xw, lw, lu_ldj[0:1],
+                                      eps_affine=1e-8)
+
+            def coupling_pp(xs, ls, dst):
+                _build.cast_rows(xs[:, :split], pp.xin[:, :split])
+                _build.mlp_chain(pp.xin[:, :pp.xc + pp.cw],
+                                 [(pp.w_in[0], pp.b_in[0])] + flc._at(pp.cpl_rest, 0), pp.st, pp.h)
+                _build.coupling_epilogue(pp.st, xs, ls, yb, lu_ldj[0:1], split=split,
+                                         eps_affine=1e-8)
+                _build.gemm(yb, lu[0][0], dst, bias=lu[1][0])
+
+            # the per-product route against the plain version on its own
+            # packed rows (their x1 columns bf16 of x's, as that route casts)
+            xin_p, xr, lr = pp.xin.clone(), x.clone(), ldj.clone()
+            xin_p[:, :split] = x[:, :split]
+            flc.coupling_layer_plain(xin_p, split, fwd.cpl_stack.layer(0), xr, lr, lu_ldj[0:1],
+                                     eps_affine=1e-8)
+            xw, lw, xp = x.clone(), ldj.clone(), torch.empty_like(x)
+            coupling_pp(xw, lw, xp)
+            torch.cuda.synchronize()
+            err_pp = {"x": check_fused("per-product coupling x", xp, xr, "carry"),
+                      "ldj": check_fused("per-product coupling ldj", lw, lr, "ldj")}
+            xw, lw = x.clone(), ldj.clone()
+            ops = _stack_ops(fwd.cpl_stack, rows, n_mlp + 1)
+            moved = _fused_bytes(fwd.cpl_stack, rows, 2 * fwd.cpl_stack.in_cols + 4 * lat + 4,
+                                 4 * lat + 2 * split + 4, n_mlp + 1)
+            c = {"errors": err, "per_product_errors": err_pp,
+                 "max_abs_err": max(v["max_abs"] for v in err.values()),
+                 "device_ms": device_ms(coupling),
+                 "plain_ms": time_ms(lambda: flc.coupling_layer_plain(
+                     xin_r, split, fwd.cpl_stack.layer(0), xr, lr, lu_ldj[0:1], eps_affine=1e-8),
+                     reps=2),
+                 "per_product_ms": device_ms(lambda: coupling_pp(xw, lw, xk)),
+                 "launches_per_layer": 1,
+                 "per_product_launches_per_layer": len(pp.cpl_rest) + 4}
+            c["bound_ms"], c["bound_by"] = bound(ops, moved)
+            case["coupling_layer"] = c
+
+            # coupling_inverse: layer 1 with the chained LU inverse of layer 0
+            pairs = inv.cpl_stack.layer(1)[:n_mlp] + [inv.cpl_stack.layer(0)[-1]]
+            xin_r, yr = inv.xin.clone(), y.clone()
+            flc.coupling_inverse_plain(xin_r, split, pairs, yr, eps_affine=1e-8)
+            xin_k, yk = inv.xin.clone(), y.clone()
+            _build.coupling_inverse(xin_k, split, inv.cpl_stack, 1, yk, eps_affine=1e-8)
+            torch.cuda.synchronize()
+            err = {"y": check_fused("coupling_inverse y", yk, yr, "carry"),
+                   "x1 columns": check_fused("coupling_inverse x1 columns", xin_k[:, :split],
+                                             xin_r[:, :split], "bf16")}
+
+            # timed in place: y is the next layer's y after each call (the
+            # values drift; the work does not depend on them)
+            def inverse():
+                _build.coupling_inverse(inv.xin, split, inv.cpl_stack, 1, yw, eps_affine=1e-8)
+
+            def inverse_pp(ys, xs, dst):
+                _build.cast_rows(ys[:, :split], pp.xin[:, :split])
+                _build.mlp_chain(pp.xin[:, :pp.xc + pp.cw],
+                                 [(pp.w_in[1], pp.b_in[1])] + flc._at(pp.cpl_rest, 1), pp.st, pp.h)
+                _build.inverse_coupling_epilogue(pp.st, ys, xs, split=split, eps_affine=1e-8)
+                _build.cast_rows(xs, yb)
+                _build.gemm(yb, minv[0][0], dst, bias=minv[1][0])
+
+            xin_p, yr = pp.xin.clone(), y.clone()
+            xin_p[:, :split] = y[:, :split]
+            flc.coupling_inverse_plain(xin_p, split, pairs, yr, eps_affine=1e-8)
+            yw, xw, yp = y.clone(), torch.empty_like(y), torch.empty_like(y)
+            inverse_pp(yw, xw, yp)
+            torch.cuda.synchronize()
+            err_pp = {"y": check_fused("per-product coupling inverse y", yp, yr, "carry")}
+            yw = y.clone()
+            ci = {"errors": err, "per_product_errors": err_pp,
+                  "max_abs_err": max(v["max_abs"] for v in err.values()),
+                  "device_ms": device_ms(inverse),
+                  "per_product_ms": device_ms(lambda: inverse_pp(yw, xw, yw)),
+                  "plain_ms": time_ms(lambda: flc.coupling_inverse_plain(
+                      xin_r, split, pairs, yr.copy_(y), eps_affine=1e-8), reps=2),
+                  "launches_per_layer": 1,
+                  "per_product_launches_per_layer": len(pp.cpl_rest) + 5}
+            ci["bound_ms"], ci["bound_by"] = bound(
+                ops, _fused_bytes(inv.cpl_stack, rows, 2 * inv.cpl_stack.in_cols + 4 * lat,
+                                  4 * lat + 2 * split, n_mlp + 1))
+            case["coupling_inverse"] = ci
+
+            if fwd.has_attn:
+                q_ref = torch.empty_like(fwd.q)
+                flc.conditioner_plain(fwd.xin, split, fwd.cond_stack.layer(0), q_ref)
+                _build.conditioner(fwd.xin, split, fwd.cond_stack, 0, fwd.q)
+                torch.cuda.synchronize()
+                err = {"q": check_fused("conditioner q", fwd.q, q_ref, "q")}
+
+                pre = flc._bf16_stack(folded["pre"])
+                wq = flc._pad_cols(folded["wq_f"].to(bf))
+                bq = folded["bq_f"].float().reshape(2, -1).contiguous()
+                q_f = torch.empty(rows, pre[-1][0].shape[-1], device=device)
+                q_n = flc.bf16_rows(rows, q_f.shape[1], device)
+
+                def cond_pp():
+                    _build.mlp_chain(pp.xin[:, :split], flc._at(pre, 0), q_f, pp.h)
+                    _build.row_norm(q_f, q_n)
+                    _build.gemm(q_n, wq[0], pp.q, bias=bq[0])
+
+                cond_pp()
+                flc.conditioner_plain(pp.xin, split, fwd.cond_stack.layer(0), q_ref)
+                torch.cuda.synchronize()
+                err_pp = {"q": check_fused("per-product conditioner q", pp.q, q_ref, "q")}
+                k = len(fwd.cond_stack.pairs)
+                cd = {"errors": err, "per_product_errors": err_pp,
+                      "max_abs_err": err["q"]["max_abs"],
+                      "device_ms": device_ms(lambda: _build.conditioner(
+                          fwd.xin, split, fwd.cond_stack, 0, fwd.q)),
+                      "plain_ms": time_ms(lambda: flc.conditioner_plain(
+                          fwd.xin, split, fwd.cond_stack.layer(0), q_ref), reps=2),
+                      "per_product_ms": device_ms(cond_pp), "launches_per_layer": 1,
+                      "per_product_launches_per_layer": k + 1}
+                cd["bound_ms"], cd["bound_by"] = bound(
+                    _stack_ops(fwd.cond_stack, rows, k),
+                    _fused_bytes(fwd.cond_stack, rows, 2 * split,
+                                 2 * fwd.cond_stack.pairs[-1][0].shape[2], k))
+                case["conditioner"] = cd
+            log(f"fused layers {preset} {rows} rows ({label}): {case}")
+            out[f"{preset} {rows}"] = case
+            del fwd, inv, pp
+            torch.cuda.empty_cache()
+        del model
+    dulcet = out["dulcet-universe 40960"]
+    for name, key, replaces in (("conditioner", "conditioner", "1018"),
+                                ("coupling_layer", "coupling_layer", "1018"),
+                                ("coupling_inverse", "coupling_inverse", "1205")):
+        c = dulcet[key]
+        err = c["max_abs_err"]
+        entries[name] = {"name": name, "route": "cuda",
+                         "source": "flowcompare_tpu_torch/csrc/fused_layer.cu",
+                         "replaces": f"flowcompare_tpu/ops/flow_layer_pallas.py:{replaces}",
+                         "launches": 0, "max_abs_err": err, "ms": c["device_ms"],
+                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                         "bound_by": c["bound_by"], "library_ms": None,
+                         "per_product_ms": c.get("per_product_ms")}
+    return entries, out
+
+
+def phase_main_bounds(model) -> dict:
+    """The least time of B1, B2, B3, B4 and B6 at the main path's own shapes
+    (the kernel phase times them at smaller ones): B1 and B2 over one B=20
+    eval item (40,960 rows, every layer, 40 items of 1,250 context rows), B3,
+    B4 and B6 over its 40 context clouds of 1,250 points. From shapes only."""
+    from flowcompare_tpu_torch.ops import flow_layer_cuda as flc
+
+    cfg = model.config
+    items, nc, n, lat = 2 * TIME_B, cfg["n_samples_context"], cfg["sample_size"], cfg["latent_dim"]
+    rows, emb = items * n, cfg["input_embedding_dim"]
+    params = model.params()
+    folded = model._folded(params, 1)
+    folded_aug = flc.fold_augmenter(params["augmenter"], input_dim=6, extra_dim=1)
+    ctx_bytes = items * nc * emb * 2
+    out = {}
+    out["B1"] = bound(sum(stack_flops(folded, rows, items, nc)),
+                      rows * (2 * lat * 4 + 2 * 4 + 4) + ctx_bytes + nbytes(folded))
+    out["B2"] = bound(sum(stack_flops(folded_aug, rows, items, nc, lu=False)),
+                      rows * (6 * 4 + (lat - 6) * 4 + 4 + lat * 4 + 4) + ctx_bytes
+                      + nbytes(folded_aug))
+    pts = items * nc
+    out["B3"] = bound(sum(knn_flops(items, nc, cq) for cq, _ in EDGE_WIDTHS),
+                      sum(pts * cq * 2 + 2 * pts * cout * 2 for cq, cout in EDGE_WIDTHS))
+    enc = params["embedder"]
+    out_mlp = [l["w"] for l in [enc["out_mlp"]["in"], *enc["out_mlp"]["hidden"],
+                                enc["out_mlp"]["out"]]]
+    out["B4"] = bound(sum(knn_flops(items, nc, cin) + 2 * 2 * pts * cin * cout
+                          for cin, cout in EDGE_WIDTHS)
+                      + 2 * pts * 512 * 512 + sum(_mm(pts, w) for w in out_mlp),
+                      pts * 6 * 4 + nbytes(enc, model.state.tree()["embedder"]) + pts * emb * 2)
+    out["B6"] = bound(sum(knn_flops(items, nc, cq) for cq, _ in EDGE_WIDTHS),
+                      sum(pts * cq * 2 + pts * cout * 2 + 9 * pts * cout * 4
+                          for cq, cout in EDGE_WIDTHS))
+    out = {k: {"bound_ms": v[0], "bound_by": v[1]} for k, v in out.items()}
+    log(f"bounds at the main path's shapes (B1, B2 over a B=20 item of {rows} rows and "
+        f"{folded['lu_ldj_f'].shape[0]} layers; B3, B4, B6 over {items} clouds of {nc}): {out}")
+    return out
 
 
 def phase_global_kernels(ft, model, device) -> dict:
@@ -1315,6 +1689,8 @@ def phase_main_path(ft, model, device, need=("B1", "B2", "B3", "B4")):
         f"fractions {fr_k}, {t_k} s, launches {launches}")
     check_routes(launches, chains, f"the {model.config['input_embedder']} eval main path",
                  attention=("attention wgmma",))
+    launches["fused"] = check_flow_launches(chains, "the eval main path",
+                                            not model.is_global)
     model.plain = True
     maps_p = []
     nats_p, fr_p = ft.evaluate_on_test(model, items, noise=noise, change_maps=maps_p)
@@ -1397,6 +1773,7 @@ def phase_sample_main(ft, model, device, need=("B7", "B4")):
     launches, chains = read_counters(), CHAIN_ROUTES.read()
     check_routes(launches, chains, f"{cfg['input_embedder']} make_sample",
                  attention=() if model.is_global else ("attention wgmma",))
+    launches["fused"] = check_flow_launches(chains, "make_sample", not model.is_global)
     model.plain = True
     xp = ft.make_sample(model, SAMPLE_N, x0, extra, z=z)
     model.plain = False
@@ -1491,7 +1868,10 @@ def _counters():
             (_build, "CROSS_ATTENTION_WGMMA_LAUNCHES", "attention wgmma"),
             (_build, "CROSS_ATTENTION_WMMA_LAUNCHES", "attention wmma"),
             (_build, "ATTENTION_BWD_WGMMA_LAUNCHES", "attention_bwd wgmma"),
-            (_build, "ATTENTION_BWD_WMMA_LAUNCHES", "attention_bwd wmma")]
+            (_build, "ATTENTION_BWD_WMMA_LAUNCHES", "attention_bwd wmma"),
+            (_build, "FUSED_CONDITIONER_LAUNCHES", "conditioner"),
+            (_build, "COUPLING_LAYER_LAUNCHES", "coupling_layer"),
+            (_build, "COUPLING_INVERSE_LAUNCHES", "coupling_inverse")]
 
 
 def reset_counters() -> None:
@@ -1583,6 +1963,7 @@ def phase_train_main(ft, model, device, batch: int = TIME_B,
     model.config["batches_per_sample"] = bps
     check_routes(launches, chains, f"{model.config['input_embedder']} train(max_steps=4)",
                  attention=() if model.is_global else ("attention wgmma", "attention_bwd wgmma"))
+    launches["fused"] = check_flow_launches(chains, "train(max_steps=4)", not model.is_global)
     samples = {p.name: np.load(p)["gen"] for p in sorted(save_dir.glob("sample_*.npz"))}
     losses = [r["loss"] for r in rows]
     out = {"ms_per_step": 1e3 * float(np.mean([r["time_batch"] for r in rows[1:]])),
@@ -1685,6 +2066,9 @@ def _kernel_group(name: str) -> str:
     products, the folds) as one group; the rest is PyTorch's own."""
     if re.search(r"xmma|cutlass|sgemm|gemv|gemmSN|splitKreduce", name):
         return "library GEMM (cuBLAS)"
+    fused = re.search(r"fused_layer_kernel<(\d)>", name)
+    if fused:
+        return ("conditioner", "coupling_layer", "coupling_inverse")[int(fused.group(1))]
     found = re.search(r"(\w+_kernel)", name)
     return found.group(1) if found and "at::" not in name else "PyTorch's own"
 
@@ -1862,11 +2246,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     attention_entries, attention_cases = phase_attention()
     torch.cuda.empty_cache()
+    with torch.no_grad():
+        fused_entries, fused_cases = phase_fused_layers(ft, device)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model = make_model(ft, device)
     log(f"model: dulcet-universe bf16, {sum(p.numel() for p in model.parameters())} "
         f"parameters, built in {time.perf_counter() - t0:.1f} s")
     with torch.no_grad():
+        main_bounds = phase_main_bounds(model)
         entries = phase_kernels(ft, model, device)
     launches = phase_main_path(ft, model, device)
     timing = phase_timing(ft, model, device)
@@ -1892,6 +2280,11 @@ def main() -> int:
     attention_entries["cross_attention"]["launches"] = launches["attention wgmma"]
     attention_entries["cross_attention_bwd"]["launches"] = train_main["launches"][
         "attention_bwd wgmma"]
+    # the fused layers': the eval main path's conditioner and coupling_layer,
+    # the sampling main path's coupling_inverse
+    fused_entries["conditioner"]["launches"] = launches["conditioner"]
+    fused_entries["coupling_layer"]["launches"] = launches["coupling_layer"]
+    fused_entries["coupling_inverse"]["launches"] = sample_main["launches"]["coupling_inverse"]
     del model
     torch.cuda.empty_cache()
     paconv_entries, good_surf = good_surf_phases(ft, device)
@@ -1908,13 +2301,16 @@ def main() -> int:
                                    "profile": profile},
                       "good_surf": good_surf, "helpful_sponge": helpful_sponge,
                       "b10": b10_entry_point, "gemm": gemm_cases, "attention": attention_cases,
+                      "fused_layers": fused_cases, "main_path_bounds": main_bounds,
                       "wall_s": time.perf_counter() - T_START}))
     entries.update(gemm_entries)
     entries.update(attention_entries)
+    entries.update(fused_entries)
     print(json.dumps({"kernels": [entries[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6",
                                                        "B7", "B8", "B9", "B10", "gemm_bf16",
                                                        "gemm_tn", "cross_attention",
-                                                       "cross_attention_bwd")]}))
+                                                       "cross_attention_bwd", "conditioner",
+                                                       "coupling_layer", "coupling_inverse")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

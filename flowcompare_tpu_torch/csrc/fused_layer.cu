@@ -1,0 +1,548 @@
+// One coupling layer of the flow in two TMA + wgmma kernels that keep a row
+// tile on chip: the layer-stack port of the Pallas kernels
+// fused_flow_layers_t (B1, body _kernel_t, flowcompare_tpu/ops/
+// flow_layer_pallas.py:851-921) and fused_flow_layers_inverse_t (B7, body
+// _kernel_inverse_t), which hold a block of rows in VMEM through a whole
+// layer.
+//
+//   conditioner      packed rows' x1 columns -> pre-MLP (GELU, a residual
+//                    every second hidden product) -> LayerNorm with f32
+//                    statistics over the row -> bf16 -> q = qn @ wq_f + bq_f
+//                    in bf16, ready for cross_attention
+//   coupling_layer   packed rows [x1 | extra | pad | cond] -> coupling MLP
+//                    -> [s | t] in f32 -> the sigmoid-scale affine
+//                    (coupling_epilogue_kernel's arithmetic, flow_rows.cu)
+//                    -> y in bf16 -> y @ lu_w_f^T + lu_b into the f32 carry;
+//                    also the next layer's x1 columns of the packed rows and,
+//                    for training, its bf16 save row
+//   coupling_inverse the same MLP, then x2 = (y2 - t) / scale
+//                    (inverse_coupling_epilogue_kernel's arithmetic); below
+//                    the top layer of the walk it runs the next layer's LU
+//                    inverse on the tile, bf16(x) @ Minv^T + shift, writing
+//                    the f32 y and its x1 columns; at layer 0 it writes x.
+//
+// What bounds it on the H100: at dulcet-universe's widths a coupling layer is
+// about 1.76 MFLOP a row and the conditioner 0.49, against some 2 KB a row
+// of bf16 and f32 rows in and out: operations bound both (73 us and 21 us a
+// layer at 40,960 rows). Run as a chain of one launch per product, every 256-
+// and 512-wide activation went to device memory and back (about 22 KB a row
+// a layer), which made bytes the bound; here they stay in shared memory.
+//
+// Design:
+//  * a block owns BM = 64 rows and runs every product of its layer on them:
+//    four consumer warpgroups, each owning up to 128 output columns (the
+//    f32 sums of m64n64 / m64n128 wgmma in registers, at most 64 a thread),
+//    and one producer warp;
+//  * activations live in two 64 KB shared buffers as bf16 in wgmma's 128-
+//    byte-swizzled K-major layout (atoms of 64 columns x 64 rows): a product
+//    reads one and its epilogue writes the other, or adds the residual in
+//    place over the buffer that holds it, so three live activations of the
+//    residual scheme need two buffers;
+//  * the producer streams every product's weights, 32 K-rows x all output
+//    columns a stage (32 KB at 512 columns), through a ring of 3 stages with
+//    full / empty mbarriers, from 3-D tensor maps (N, K, layer) that clip
+//    each layer's K;
+//  * [s | t] comes out of the last MLP product with its columns interleaved
+//    (the host permutes the weight: column 2i is s_i, 2i + 1 is t_i), so
+//    each thread holds both halves of its pairs and the affine runs on the
+//    registers; y's x1 half is a TMA copy of the packed rows' bf16 x1;
+//  * ragged row counts: TMA zero-fills rows past M and no row past M is
+//    stored; the padded columns of each operand are zero (TMA fill, or
+//    written as zero), so no garbage meets a zero-filled weight row.
+//
+// What limits it on the H100 (chip_smoke.py's fused-layer phase): each
+// 64-row tile streams all of its layer's weights into its SM, and the
+// epilogues (GELU over 64 x 512 values a product, the affine, the
+// LinearLU's stores) run while the ring is full, so a layer takes about
+// six times its bound. Thread-block clusters of 2 and 4 that multicast each
+// weight stage cut the L2 reads, not the bytes each SM takes in, and were
+// slower; splitting each product's columns between two warpgroup pairs with
+// a ring each, so one pair's epilogue overlaps the other's products, was
+// slower too (small rings cannot cover an epilogue). A consumer never waits
+// on a ring slot two fills ahead of the producer (the parity would alias),
+// which one shared ring walked in order guarantees.
+//
+// Rounding points are the per-product chain's: bf16 between products, the
+// f32 add of the bf16 residual, [s | t] and the LayerNorm statistics in f32,
+// q in bf16, y rounded to bf16 before LinearLU, the carry and ldj in f32.
+#include <cstring>
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int BM = 64;            // rows a block
+constexpr int WB = 32;            // K rows a weight stage
+constexpr int CWG = 4;            // consumer warpgroups
+constexpr int CONSUMERS = CWG * 128;
+constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
+constexpr int STAGES = 3;
+constexpr int MAXW = 512;         // widest product (K and N)
+constexpr int MAX_PRODUCTS = 10;
+constexpr int BOX_BYTES = 64 * WB * 2;    // 64 output columns x 32 K rows
+constexpr int ATOM_BYTES = BM * 128;      // 64 rows x 64 bf16, 128-byte swizzle
+constexpr int ACT_BYTES = BM * MAXW * 2;
+constexpr int STAGE_BYTES = WB * MAXW * 2;
+constexpr int RED_BYTES = CWG * BM * 4;   // one f32 per row and warpgroup
+constexpr int SMEM_BYTES = 2 * ACT_BYTES + STAGES * STAGE_BYTES + RED_BYTES + 1024;
+
+enum Kind { CONDITIONER = 0, COUPLING = 1, COUPLING_INVERSE = 2 };
+
+struct Product {
+  const float* bias;   // (L, n) f32
+  int k, n, layer;
+};
+
+struct Plan {
+  CUtensorMap w[MAX_PRODUCTS];   // product p's weight stack, (n, k, L), boxes 64 x WB x 1
+  CUtensorMap in;                // the packed rows' first in_cols columns, boxes 64 x BM
+  CUtensorMap x1;                // their x1 columns (y's first half)
+  Product prod[MAX_PRODUCTS];
+  int n_products, n_mlp;
+};
+
+struct Rows {
+  float* x;            // forward: the f32 carry, in and out; inverse: x at layer 0
+  float* y;            // inverse: this layer's f32 y, in; the next layer's, out
+  float* ldj;          // forward
+  const float* lu_ldj; // forward: this layer's folded LinearLU log-det (one float)
+  bf16* xin;           // the packed rows (the x1 columns are written)
+  bf16* save;          // forward with saves: the next layer's bf16 entry carry
+  bf16* q;             // conditioner
+  int ldx, ldy, ldxin, ldsave, ldq;
+  int M, split, half;
+  float eps;
+};
+
+__device__ __forceinline__ uint8_t* act_at(uint8_t* base, int row, int col) {
+  const int cc = col & 63;
+  return base + (col >> 6) * ATOM_BYTES + row * 128 + ((((cc >> 3) ^ (row & 7))) << 4) +
+         (cc & 7) * 2;
+}
+
+__device__ __forceinline__ void st_pair(uint8_t* base, int row, int col, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(act_at(base, row, col)) = __floats2bfloat162_rn(v0, v1);
+}
+
+__device__ __forceinline__ float2 ld_pair(uint8_t* base, int row, int col) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(act_at(base, row, col)));
+}
+
+__device__ __forceinline__ float sigmoid_scale(float s, float eps) {
+  const float sig = 1.f / (1.f + expf(-s));
+  return (2.f * sig - 1.f) * (1.f - eps) + 1.f;
+}
+
+// f(row, col, h, v0, v1) for each pair of this thread's sums plus the bias:
+// rows fr + 8 h of the tile, columns col and col + 1 (col even) of its `cnt`
+// chunks of 64 from chunk c0 (wgmma's m64nN fragment layout). Each chunk's
+// 16 bias values are loaded before any of its pairs is used, so their
+// latencies overlap; columns at or past n add 0.
+template <class F>
+__device__ __forceinline__ void for_pairs(const float (&acc)[64], int cnt, int c0,
+                                          const float* __restrict__ bias, int n, F f) {
+  const int t = threadIdx.x % 128;
+  const int fr = (t / 32) * 16 + (t % 32) / 4, fc = 2 * (t % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (i < cnt) {
+      float2 b[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = (c0 + i) * 64 + 8 * j + fc;
+        b[j].x = col < n ? __ldg(bias + col) : 0.f;
+        b[j].y = col + 1 < n ? __ldg(bias + col + 1) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          f(fr + 8 * h, (c0 + i) * 64 + 8 * j + fc, h, acc[i * 32 + 4 * j + 2 * h] + b[j].x,
+            acc[i * 32 + 4 * j + 2 * h + 1] + b[j].y);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ void release(uint64_t* bar) {
+  if (threadIdx.x % 128 == 0) mbar_arrive(bar);
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(THREADS, 1)
+    fused_layer_kernel(const __grid_constant__ Plan plan, const Rows io) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], abar, ybar;
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* act[2] = {smem, smem + ACT_BYTES};
+  uint8_t* ring = smem + 2 * ACT_BYTES;
+  float* red = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);
+  const int m0 = blockIdx.x * BM;
+  // warp-uniform for the compiler (a shuffle from lane 0), so it keeps the
+  // per-warpgroup branches around wgmma from serialising the products
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CWG);
+    }
+    mbar_init(&abar, 1);
+    mbar_init(&ybar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CWG) {
+    // the producer: the block's input rows once, then every product's weights
+    if (threadIdx.x == CONSUMERS) {
+      if (KIND != CONDITIONER) {
+        // the tile's f32 rows the last epilogue reads (x forward, y inverse)
+        // into L2 now, so that epilogue finds them there
+        const float* src = (KIND == COUPLING ? io.x : io.y);
+        const int ld = KIND == COUPLING ? io.ldx : io.ldy;
+        const char* start = reinterpret_cast<const char*>(src + (size_t)m0 * ld);
+        const uint32_t bytes = (uint32_t)(min(BM, io.M - m0) * ld * 4);
+        if (reinterpret_cast<uintptr_t>(start) % 16 == 0 && bytes % 16 == 0)
+          asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(start), "r"(bytes)
+                       : "memory");
+      }
+      const int in_atoms = (plan.prod[0].k + 63) / 64;
+      mbar_expect_tx(&abar, in_atoms * ATOM_BYTES);
+      for (int a = 0; a < in_atoms; ++a)
+        tma_load(act[1] + a * ATOM_BYTES, &plan.in, &abar, 64 * a, m0);
+      int it = 0;
+      for (int p = 0; p < plan.n_products; ++p) {
+        const Product pr = plan.prod[p];
+        const CUtensorMap* map = &plan.w[p];
+        prefetch_tensor_map(map);
+        const int nch = (pr.n + 63) / 64, kt = (pr.k + WB - 1) / WB;
+        for (int t = 0; t < kt; ++t, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          uint8_t* stage = ring + s * STAGE_BYTES;
+          mbar_expect_tx(&full[s], nch * BOX_BYTES);
+          for (int c = 0; c < nch; ++c)
+            tma_load_3d(stage + c * BOX_BYTES, map, &full[s], 64 * c, WB * t, pr.layer);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    const int tid = threadIdx.x;
+    const int t = tid % 128;
+    const int M = io.M, split = io.split, half = io.half, lat = split + half;
+    int it = 0;
+    int a = 1, r = 0, ybuf = 0;
+    // the last MLP product's output goes to a bf16 y tile (all but layer 0 of
+    // the inverse walk, which writes x)
+    const bool to_y = KIND == COUPLING || plan.n_products > plan.n_mlp;
+    mbar_wait(&abar, 0);
+    for (int p = 0; p < plan.n_products; ++p) {
+      const Product pr = plan.prod[p];
+      const int n = pr.n;
+      const float* bias = pr.bias + (size_t)pr.layer * n;
+      const bool tail = p == plan.n_mlp;
+      const bool last = p == plan.n_mlp - 1;
+      uint8_t* A = act[tail ? ybuf : a];
+      if (last) {
+        ybuf = 1 - a;
+        if (KIND != CONDITIONER && to_y && tid == 0) {
+          // y's x1 half: the packed rows' bf16 x1 columns, zero past split
+          const int atoms = (split + 63) / 64;
+          mbar_expect_tx(&ybar, atoms * ATOM_BYTES);
+          for (int c = 0; c < atoms; ++c)
+            tma_load(act[ybuf] + c * ATOM_BYTES, &plan.x1, &ybar, 64 * c, m0);
+        }
+      }
+      const int nch = (n + 63) / 64, cpw = (nch + CWG - 1) / CWG, c0 = wg * cpw;
+      const int cnt = min(max(nch - c0, 0), cpw);
+      float acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      fence_acc(acc);
+      const int kt = (pr.k + WB - 1) / WB;
+      for (int kk = 0; kk < kt; ++kk, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        if (cnt > 0) {
+          const uint8_t* stage = ring + s * STAGE_BYTES + c0 * BOX_BYTES;
+          wgmma_fence();
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = kk * WB + h * 16;
+            const uint64_t da = smem_desc(A + (col >> 6) * ATOM_BYTES + (col & 63) * 2, 16, 1024);
+            const uint64_t db = smem_desc(stage + h * 2048, BOX_BYTES, 1024);
+            if (cnt == 2)
+              wgmma_m64n128<0, 1>(acc, da, db);
+            else
+              wgmma_m64n64<0, 1>(*reinterpret_cast<float(*)[32]>(&acc[0]), da, db);
+          }
+          wgmma_commit();
+        }
+        if (kk > 0) {
+          wgmma_wait<1>();
+          release(&empty[(it - 1) % STAGES]);
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      release(&empty[(it - 1) % STAGES]);
+
+      if (!last && !tail) {
+        // first and hidden products: GELU, a residual every second hidden one
+        const int k_hidden = p - 1;
+        const bool add_res = k_hidden >= 0 && (k_hidden & 1);
+        int out;
+        if (add_res) {
+          out = r;
+        } else {
+          if (k_hidden >= 0) r = a;
+          out = 1 - a;
+        }
+        uint8_t* O = act[out];
+        uint8_t* R = act[r];
+        for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int, float v0, float v1) {
+          if (add_res) {
+            const float2 rv = ld_pair(R, row, col);
+            v0 = rv.x + v0;
+            v1 = rv.y + v1;
+          }
+          st_pair(O, row, col, gelu_erf(v0), gelu_erf(v1));
+        });
+        a = out;
+      } else if (KIND == CONDITIONER && last) {
+        // LayerNorm of the f32 row (plain statistics; scale and bias are in wq_f)
+        float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+        for_pairs(acc, cnt, c0, bias, n, [&](int, int, int h, float v0, float v1) {
+          s1[h] += v0 + v1;
+          s2[h] += v0 * v0 + v1 * v1;
+        });
+        const int fr = (t / 32) * 16 + (t % 32) / 4;
+        // the row sums over the four warpgroups' columns, one quantity at a
+        // time through the 1 KB exchange
+        const auto row_total = [&](float (&v)[2]) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            v[h] = quad_sum(v[h]);
+            if (t % 4 == 0) red[wg * BM + fr + 8 * h] = v[h];
+          }
+          named_barrier(1, CONSUMERS);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float total = 0.f;
+            for (int w = 0; w < CWG; ++w) total += red[w * BM + fr + 8 * h];
+            v[h] = total;
+          }
+          named_barrier(1, CONSUMERS);
+        };
+        row_total(s1);
+        row_total(s2);
+        float mean[2], inv[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mean[h] = s1[h] / n;
+          inv[h] = rsqrtf(s2[h] / n - mean[h] * mean[h] + 1e-5f);
+        }
+        uint8_t* O = act[ybuf];
+        for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int h, float v0, float v1) {
+          st_pair(O, row, col, col < n ? (v0 - mean[h]) * inv[h] : 0.f,
+                  col + 1 < n ? (v1 - mean[h]) * inv[h] : 0.f);
+        });
+      } else if (KIND == CONDITIONER) {
+        // q = qn @ wq_f + bq_f, in bf16
+        for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int, float v0, float v1) {
+          const int gr = m0 + row;
+          if (gr >= M) return;
+          bf16* qr = io.q + (size_t)gr * io.ldq;
+          if (col < n) qr[col] = f2bf(v0);
+          if (col + 1 < n) qr[col + 1] = f2bf(v1);
+        });
+      } else if (last) {
+        // [s | t] interleaved: the affine (forward) or its inverse on the registers
+        // the tile's x2 (forward) or y2 (inverse), f32, staged in the A
+        // buffer once every warpgroup's products are done, read coalesced
+        named_barrier(1, CONSUMERS);
+        float* X2 = reinterpret_cast<float*>(act[a]);
+        {
+          const float* src = (KIND == COUPLING ? io.x : io.y) + split;
+          const int lds = KIND == COUPLING ? io.ldx : io.ldy;
+          // four loads in flight a thread before their stores
+          for (int e0 = tid; e0 < BM * half; e0 += 4 * CONSUMERS) {
+            float v[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int e = e0 + k * CONSUMERS, gr = m0 + e / half;
+              v[k] = e < BM * half && gr < M ? src[(size_t)gr * lds + e % half] : 0.f;
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (e0 + k * CONSUMERS < BM * half) X2[e0 + k * CONSUMERS] = v[k];
+          }
+        }
+        named_barrier(1, CONSUMERS);
+        if (to_y) mbar_wait(&ybar, 0);
+        uint8_t* Y = act[ybuf];
+        float lsum[2] = {0.f, 0.f};
+        for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int h, float v0, float v1) {
+          const int i = col >> 1;
+          if (i >= half) return;
+          const float sc = sigmoid_scale(v0, io.eps);
+          const int gr = m0 + row;
+          float out = 0.f;
+          if (KIND == COUPLING) {
+            if (gr < M) {
+              out = X2[row * half + i] * sc + v1;
+              lsum[h] += logf(sc);
+            }
+          } else if (gr < M) {
+            out = __fdiv_rn(X2[row * half + i] - v1, sc);
+            if (!to_y) io.x[(size_t)gr * io.ldx + split + i] = out;
+          }
+          if (to_y) *reinterpret_cast<bf16*>(act_at(Y, row, split + i)) = f2bf(out);
+        });
+        if (to_y) {
+          // zero y's pad columns up to the LinearLU's last K stage
+          const int pad = (lat + WB - 1) / WB * WB - lat;
+          for (int e = tid; e < BM * pad; e += CONSUMERS)
+            *reinterpret_cast<bf16*>(act_at(Y, e / pad, lat + e % pad)) = f2bf(0.f);
+        }
+        if (KIND == COUPLING) {
+          const int fr = (t / 32) * 16 + (t % 32) / 4;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v = quad_sum(lsum[h]);
+            if (t % 4 == 0) red[wg * BM + fr + 8 * h] = v;
+          }
+          named_barrier(1, CONSUMERS);
+          if (tid < BM && m0 + tid < M) {
+            float v = 0.f;
+            for (int w = 0; w < CWG; ++w) v += red[w * BM + tid];
+            io.ldj[m0 + tid] = (io.ldj[m0 + tid] + v) + io.lu_ldj[0];
+          }
+        } else if (!to_y) {
+          // layer 0 of the walk: x1 = y1 in f32
+          for (int e = tid; e < BM * split; e += CONSUMERS) {
+            const int gr = m0 + e / split, c = e % split;
+            if (gr < M) io.x[(size_t)gr * io.ldx + c] = io.y[(size_t)gr * io.ldy + c];
+          }
+        }
+      } else {
+        // the LinearLU (forward) or the next layer's LU inverse: the f32 tile
+        // staged over the activation buffers and the ring (every product is
+        // done and nothing is loaded after this one), then written row by
+        // row, 4 columns a thread: the f32 rows, the packed rows' bf16 x1
+        // columns and the save row
+        named_barrier(1, CONSUMERS);
+        const int ldt = (lat + 7) / 8 * 8 + 8;
+        float* T = reinterpret_cast<float*>(smem);
+        for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int, float v0, float v1) {
+          if (col < lat) *reinterpret_cast<float2*>(T + row * ldt + col) = make_float2(v0, v1);
+        });
+        named_barrier(1, CONSUMERS);
+        float* dst = KIND == COUPLING ? io.x : io.y;
+        const int ldd = KIND == COUPLING ? io.ldx : io.ldy;
+        bf16* save = KIND == COUPLING ? io.save : nullptr;
+        const bool vec = ldd % 4 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0 &&
+                         io.ldxin % 4 == 0 && reinterpret_cast<uintptr_t>(io.xin) % 8 == 0 &&
+                         (save == nullptr ||
+                          (io.ldsave % 4 == 0 && reinterpret_cast<uintptr_t>(save) % 8 == 0));
+        const int q4 = (lat + 3) / 4;
+        for (int e = tid; e < BM * q4; e += CONSUMERS) {
+          const int row = e / q4, c = 4 * (e % q4), gr = m0 + row;
+          if (gr >= M) continue;
+          const float* tv = T + row * ldt + c;
+          float* dr = dst + (size_t)gr * ldd + c;
+          bf16* xr = io.xin + (size_t)gr * io.ldxin + c;
+          bf16* sr = save == nullptr ? nullptr : save + (size_t)gr * io.ldsave + c;
+          if (vec && c + 4 <= lat) {
+            const float4 v = *reinterpret_cast<const float4*>(tv);
+            *reinterpret_cast<float4*>(dr) = v;
+            uint2 packed;
+            *reinterpret_cast<__nv_bfloat162*>(&packed.x) = __floats2bfloat162_rn(v.x, v.y);
+            *reinterpret_cast<__nv_bfloat162*>(&packed.y) = __floats2bfloat162_rn(v.z, v.w);
+            if (c + 4 <= split) {
+              *reinterpret_cast<uint2*>(xr) = packed;
+            } else {
+              for (int k = 0; k < 4 && c + k < split; ++k) xr[k] = f2bf(tv[k]);
+            }
+            if (sr != nullptr) *reinterpret_cast<uint2*>(sr) = packed;
+          } else {
+            for (int k = 0; k < 4 && c + k < lat; ++k) {
+              dr[k] = tv[k];
+              if (c + k < split) xr[k] = f2bf(tv[k]);
+              if (sr != nullptr) sr[k] = f2bf(tv[k]);
+            }
+          }
+        }
+      }
+      fence_proxy_async();
+      named_barrier(1, CONSUMERS);
+    }
+  }
+}
+
+template <int KIND>
+cudaError_t launch(const Plan& plan, const Rows& io, cudaStream_t stream) {
+  static bool smem_set = false;   // the shared-memory opt-in, once per kernel
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_layer_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  fused_layer_kernel<KIND><<<(io.M + BM - 1) / BM, THREADS, SMEM_BYTES, stream>>>(plan, io);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// One layer of the conditioner (kind 0), the coupling forward (1) or the
+// coupling inverse (2) over M rows, one block of 64 rows a tile. Product p (of n_products; the first n_mlp
+// are the MLP, one more is the tail: q, the LinearLU or the next layer's LU
+// inverse) reads weight stack w[p] ((w_layers[p], k[p], n[p]) bf16, row
+// stride w_ld[p], layer stride k[p] * w_ld[p]) at `layer` (the tail at
+// `tail_layer`) and adds bias[p] ((layers, n[p]) f32). The first product
+// reads the packed rows' first in_cols columns. Every operand must be
+// TMA-readable (16-byte base, row stride a multiple of 8 bf16).
+FC_API int fc_fused_layer(int kind, int n_products, int n_mlp,
+                          const uint64_t* w, const int* w_ld, const int* w_layers, const int* k,
+                          const int* n, const uint64_t* bias, int layer, int tail_layer,
+                          const void* xin, int ldxin, int in_cols, int split, int half, int M,
+                          void* x, int ldx, void* y, int ldy, void* ldj, const void* lu_ldj,
+                          void* save, int ldsave, void* q, int ldq, float eps, void* stream) {
+  if (kind < 0 || kind > 2 || n_products < 2 || n_products > MAX_PRODUCTS || n_mlp < 2 || n_mlp > n_products ||
+      n_products - n_mlp > 1 || M < 1 || in_cols > MAXW || split + half > MAXW ||
+      k[0] != in_cols)
+    return (int)cudaErrorInvalidValue;
+  if (kind != COUPLING_INVERSE && n_products != n_mlp + 1) return (int)cudaErrorInvalidValue;
+  Plan plan;
+  memset(&plan, 0, sizeof(plan));
+  plan.n_products = n_products;
+  plan.n_mlp = n_mlp;
+  cudaError_t err = cudaSuccess;
+  for (int p = 0; p < n_products && err == cudaSuccess; ++p) {
+    if (k[p] < 1 || k[p] > MAXW || n[p] < 1 || n[p] > MAXW) return (int)cudaErrorInvalidValue;
+    err = bf16_tensor_map_3d(&plan.w[p], reinterpret_cast<const void*>(w[p]), w_layers[p], k[p],
+                             n[p], w_ld[p], 64, WB);
+    plan.prod[p] = {reinterpret_cast<const float*>(bias[p]), k[p], n[p],
+                    p < n_mlp ? layer : tail_layer};
+  }
+  if (err == cudaSuccess) err = bf16_tensor_map(&plan.in, xin, M, in_cols, ldxin, 64, BM);
+  if (err == cudaSuccess && kind != CONDITIONER)
+    err = bf16_tensor_map(&plan.x1, xin, M, split, ldxin, 64, BM);
+  if (err != cudaSuccess) return (int)err;
+  const Rows io{(float*)x,  (float*)y, (float*)ldj, (const float*)lu_ldj, (bf16*)xin, (bf16*)save,
+                (bf16*)q,   ldx,       ldy,         ldxin,                ldsave,     ldq,
+                M,          split,     half,        eps};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (kind) {
+    case CONDITIONER: return (int)launch<CONDITIONER>(plan, io, s);
+    case COUPLING: return (int)launch<COUPLING>(plan, io, s);
+    default: return (int)launch<COUPLING_INVERSE>(plan, io, s);
+  }
+}

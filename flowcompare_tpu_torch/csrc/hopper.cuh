@@ -11,7 +11,9 @@
 //    links libcuda);
 //  * wgmma's shared-memory descriptors, its fence / commit / wait, and the
 //    m64n64k16 / m64n128k16 bf16 products with A from shared memory (SS)
-//    or, for m64n64k16, from registers (RS).
+//    or, for m64n64k16, from registers (RS);
+//  * the proxy fence between shared-memory stores and wgmma's reads
+//    (fused_layer.cu).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; its encoder is fetched through the runtime
@@ -78,6 +80,12 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// asynchronous-proxy reads of it (wgmma operands, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {

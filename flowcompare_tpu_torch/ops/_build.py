@@ -34,6 +34,13 @@ read; each route is counted. These wrappers, and `attn_bwd_prep`, run their
 plain versions (`cross_attention_plain`, `attention_bwd_plain`,
 `attn_bwd_prep_plain`) when given CPU tensors; every other launch function
 takes CUDA tensors only.
+
+B1 and B7 run each coupling layer as two fused kernels of
+csrc/fused_layer.cu that keep a 64-row tile in shared memory through every
+product of its MLP (`conditioner`, `coupling_layer`, `coupling_inverse`,
+over a `FusedStack` of weights); their plain versions are
+`flow_layer_cuda.conditioner_plain`, `coupling_layer_plain` and
+`coupling_inverse_plain`, which the wrappers run on CPU tensors.
 """
 
 from __future__ import annotations
@@ -94,6 +101,8 @@ _SIGNATURES = {
     "fc_fps_smem": [_I],
     "fc_sa_group": [_V, _V, _V, _V, _I, _V, _I, _I, _I, _I, _I, _V],
     "fc_sa_group_smem": [_I],
+    "fc_fused_layer": [_I, _I, _I, _V, _V, _V, _V, _V, _V, _I, _I, _V, _I, _I, _I, _I, _I,
+                       _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _F, _V],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -109,6 +118,12 @@ CROSS_ATTENTION_WGMMA_LAUNCHES = 0
 CROSS_ATTENTION_WMMA_LAUNCHES = 0
 ATTENTION_BWD_WGMMA_LAUNCHES = 0
 ATTENTION_BWD_WMMA_LAUNCHES = 0
+
+# and of the fused layer kernels (csrc/fused_layer.cu): the conditioner, the
+# coupling layer forward and its inverse
+FUSED_CONDITIONER_LAUNCHES = 0
+COUPLING_LAYER_LAUNCHES = 0
+COUPLING_INVERSE_LAUNCHES = 0
 
 NUM_SMS = 132          # the H100 SXM's; tiles and splits aim at about one wave of blocks
 
@@ -940,3 +955,146 @@ def mlp_chain(a: torch.Tensor, pairs: list, out: torch.Tensor, bufs: list) -> No
         h = dst
     w_last, b_last = pairs[-1]
     gemm(h, w_last, out, bias=b_last)
+
+
+# ------------------------------------------------ the fused layer kernels
+
+# the widest product (K and N) and the most products a launch takes: the
+# limits fc_fused_layer checks (csrc/fused_layer.cu's MAXW, MAX_PRODUCTS)
+FUSED_MAXW, FUSED_MAX_PRODUCTS = 512, 10
+
+
+class FusedStack:
+    """A stack of products in the fused kernels' layout: per product a bf16
+    weight stack (L, K, N) whose rows TMA can read (`flow_layer_cuda._pad_cols`)
+    and an f32 bias (L, N); the first `n_mlp` are the MLP, one more the tail
+    (q, the LinearLU or the LU inverse). The pointer and shape arrays the C
+    entry point reads are built once here, not once per layer."""
+
+    def __init__(self, pairs: list, n_mlp: int):
+        if not 2 <= n_mlp <= len(pairs) <= min(n_mlp + 1, FUSED_MAX_PRODUCTS):
+            raise ValueError(f"FusedStack: {len(pairs)} products with {n_mlp} in the MLP")
+        for w, b in pairs:
+            if (w.dim() != 3 or w.dtype != torch.bfloat16 or w.stride(2) != 1
+                    or w.stride(0) != w.shape[1] * w.stride(1)
+                    or not tma_readable(w.data_ptr(), w.stride(1))
+                    or tuple(b.shape) != (w.shape[0], w.shape[2]) or b.dtype != torch.float32
+                    or not b.is_contiguous()):
+                raise ValueError(f"FusedStack: weight {tuple(w.shape)} {w.dtype} strides "
+                                 f"{w.stride()} / bias {tuple(b.shape)} not in the layout")
+        self.pairs, self.n_mlp = pairs, n_mlp
+        n = len(pairs)
+
+        def arr(ctype, values):
+            return (ctype * n)(*values)
+
+        self._arrays = [arr(ctypes.c_uint64, [w.data_ptr() for w, _ in pairs]),
+                        arr(ctypes.c_int, [w.stride(1) for w, _ in pairs]),
+                        arr(ctypes.c_int, [w.shape[0] for w, _ in pairs]),
+                        arr(ctypes.c_int, [w.shape[1] for w, _ in pairs]),
+                        arr(ctypes.c_int, [w.shape[2] for w, _ in pairs]),
+                        arr(ctypes.c_uint64, [b.data_ptr() for _, b in pairs])]
+        self.args = [ctypes.addressof(a) for a in self._arrays]
+
+    @property
+    def in_cols(self) -> int:
+        return self.pairs[0][0].shape[1]
+
+    def layer(self, l: int) -> list:
+        """Layer l's (w (K, N), b (N)) pairs, for the plain versions."""
+        return [(w[l], b[l]) for w, b in self.pairs]
+
+
+def _fused_launch(kind: int, stack: FusedStack, n_products: int, layer: int, tail_layer: int,
+                  xin: torch.Tensor, split: int, half: int, *, x=None, y=None, ldj=None,
+                  lu_ldj=None, save=None, q=None, eps: float = 0.0) -> None:
+    ldxin = _rows(xin, "fused_layer.xin", torch.bfloat16)
+    if not tma_readable(xin.data_ptr(), ldxin) or xin.shape[1] < stack.in_cols:
+        raise ValueError("fused_layer: TMA cannot read the packed rows, or they are too narrow")
+    rows = xin.shape[0]
+    lat = split + half
+
+    def mat(t, name, dtype, cols):
+        if t is None:
+            return None, 0
+        ld = _rows(t, f"fused_layer.{name}", dtype)
+        if tuple(t.shape) != (rows, cols):
+            raise ValueError(f"fused_layer.{name}: shape {tuple(t.shape)} != {(rows, cols)}")
+        return t.data_ptr(), ld
+
+    x_p, ldx = mat(x, "x", torch.float32, lat)
+    y_p, ldy = mat(y, "y", torch.float32, lat)
+    save_p, ldsave = mat(save, "save", torch.bfloat16, lat)
+    q_p, ldq = mat(q, "q", torch.bfloat16, stack.pairs[-1][0].shape[2])
+    ldj_p = None if ldj is None else _vec(ldj, "fused_layer.ldj", rows)
+    lu_p = None if lu_ldj is None else _vec(lu_ldj, "fused_layer.lu_ldj", 1)
+    rc = library().fc_fused_layer(kind, n_products, stack.n_mlp, *stack.args, layer,
+                                  tail_layer, xin.data_ptr(), ldxin, stack.in_cols, split, half,
+                                  rows, x_p, ldx, y_p, ldy, ldj_p, lu_p, save_p, ldsave, q_p, ldq,
+                                  float(eps), _stream())
+    if rc:
+        _check(f"fused_layer (kind {kind})", rc)
+
+
+def conditioner(xin: torch.Tensor, split: int, stack: FusedStack, l: int,
+                q: torch.Tensor) -> None:
+    """q (bf16) = the attention conditioner's query of layer l from the
+    packed rows' x1 columns: the pre-MLP, LayerNorm (f32 statistics, scale
+    and bias folded into wq_f) and q = qn @ wq_f + bq_f, one launch
+    (FUSED_CONDITIONER_LAUNCHES). `stack` holds the pre-MLP and (wq_f, bq_f).
+    A CPU xin runs `flow_layer_cuda.conditioner_plain`."""
+    global FUSED_CONDITIONER_LAUNCHES
+    if not xin.is_cuda:
+        from .flow_layer_cuda import conditioner_plain
+        conditioner_plain(xin, split, stack.layer(l), q)
+        return
+    if stack.in_cols != split:
+        raise ValueError("conditioner: the pre-MLP's first weight must read the x1 columns")
+    _fused_launch(0, stack, len(stack.pairs), l, l, xin, split, 0, q=q)
+    FUSED_CONDITIONER_LAUNCHES += 1
+
+
+def coupling_layer(xin: torch.Tensor, split: int, stack: FusedStack, l: int, x: torch.Tensor,
+                   ldj: torch.Tensor, lu_ldj: torch.Tensor, *, save: Optional[torch.Tensor] = None,
+                   eps_affine: float) -> None:
+    """Layer l of B1 on the packed rows: the coupling MLP ([s | t] with its
+    columns interleaved), the affine, and the LinearLU into the f32 carry x
+    in place; ldj += sum(log scale) + lu_ldj[0]; the packed rows' x1 columns
+    (and `save`, bf16) get the new carry. One launch (COUPLING_LAYER_LAUNCHES).
+    A CPU xin runs `flow_layer_cuda.coupling_layer_plain`."""
+    global COUPLING_LAYER_LAUNCHES
+    half = x.shape[1] - split
+    if not xin.is_cuda:
+        from .flow_layer_cuda import coupling_layer_plain
+        coupling_layer_plain(xin, split, stack.layer(l), x, ldj, lu_ldj, save=save,
+                             eps_affine=eps_affine)
+        return
+    _fused_launch(1, stack, len(stack.pairs), l, l, xin, split, half, x=x, ldj=ldj,
+                  lu_ldj=lu_ldj, save=save, eps=eps_affine)
+    COUPLING_LAYER_LAUNCHES += 1
+
+
+def coupling_inverse(xin: torch.Tensor, split: int, stack: FusedStack, l: int, y: torch.Tensor,
+                     *, x: Optional[torch.Tensor] = None, eps_affine: float) -> None:
+    """Layer l of B7 on the packed rows: the coupling MLP, x2 = (y2 - t) /
+    scale, then, with x None, the LU inverse of layer l - 1 (the stack's tail)
+    into y in place and its x1 columns into the packed rows; with x given
+    (layer 0 of the walk) x = [y1 | x2] instead. One launch
+    (COUPLING_INVERSE_LAUNCHES). A CPU xin runs
+    `flow_layer_cuda.coupling_inverse_plain`."""
+    global COUPLING_INVERSE_LAUNCHES
+    half = y.shape[1] - split
+    pairs = stack.layer(l)
+    if x is None:
+        if l < 1:
+            raise ValueError("coupling_inverse: layer 0 writes x")
+        pairs = pairs[:stack.n_mlp] + [stack.layer(l - 1)[-1]]
+    else:
+        pairs = pairs[:stack.n_mlp]
+    if not xin.is_cuda:
+        from .flow_layer_cuda import coupling_inverse_plain
+        coupling_inverse_plain(xin, split, pairs, y, x=x, eps_affine=eps_affine)
+        return
+    n_products = stack.n_mlp + int(x is None)
+    _fused_launch(2, stack, n_products, l, l - 1, xin, split, half, x=x, y=y, eps=eps_affine)
+    COUPLING_INVERSE_LAUNCHES += 1

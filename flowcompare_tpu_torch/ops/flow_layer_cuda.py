@@ -18,7 +18,10 @@ Counterpart of `flowcompare_tpu/ops/flow_layer_pallas.py`:
   `fused_flow_layers_inverse` (B7, replaces `fused_flow_layers_inverse_t`)
   and `fused_augmenter` (B2, replaces `fused_augmenter`) run the same math
   as a fixed chain of the port's hand-written kernels on a CUDA tensor, and
-  their plain versions on a CPU tensor.
+  their plain versions on a CPU tensor; B1's and B7's coupling layers run
+  as two fused kernels each (`_build.conditioner`, `coupling_layer`,
+  `coupling_inverse`, plain versions `conditioner_plain`,
+  `coupling_layer_plain`, `coupling_inverse_plain` here).
 
 What the TPU needed and the port drops: the transposed twin layout and its
 padded latent, the ones-column softmax denominator, the clamp-at-80
@@ -395,6 +398,74 @@ def fused_augmenter_plain(x: torch.Tensor, eps: torch.Tensor, context: torch.Ten
     return torch.cat([x.float(), z2], -1), ldj
 
 
+def _ln_plain(v: torch.Tensor) -> torch.Tensor:
+    """Plain-statistics LayerNorm of f32 rows (scale and bias folded away)."""
+    mean = v.mean(-1, keepdim=True)
+    var = (v * v).mean(-1, keepdim=True) - mean * mean
+    return (v - mean) * torch.rsqrt(var + 1e-5)
+
+
+def _mlp_plain(a: torch.Tensor, pairs: list) -> torch.Tensor:
+    """The residual MLP on bf16 rows `a` (GELU after every product but the
+    last, a residual every second hidden product), the last product in f32."""
+    bf = torch.bfloat16
+    h = _cast(gelu(_lin(a, pairs[0], bf)), bf)
+    return _res_mlp(h, pairs[1:], len(pairs), gelu, bf)
+
+
+def conditioner_plain(xin: torch.Tensor, split: int, pairs: list, q: torch.Tensor) -> None:
+    """Plain version of `_build.conditioner` for one layer: `pairs` are the
+    pre-MLP's (w, b) and then (wq_f, bq_f). q = bf16(bf16(LN(pre-MLP(x1)))
+    @ wq_f + bq_f), the rounding points of `_attention_cond`."""
+    qn = _ln_plain(_mlp_plain(xin[:, :split], pairs[:-1])).to(torch.bfloat16)
+    q.copy_(_lin(qn, pairs[-1], torch.bfloat16))
+
+
+def _scale_shift_interleaved(xin: torch.Tensor, pairs: list, eps_affine: float):
+    """(scale, t) of the coupling MLP over the packed rows, its last product's
+    columns interleaved (column 2i is s_i, 2i + 1 is t_i)."""
+    st = _mlp_plain(xin[:, :pairs[0][0].shape[0]], pairs)
+    return sigmoid_scale(st[:, 0::2], eps_affine), st[:, 1::2]
+
+
+def coupling_layer_plain(xin: torch.Tensor, split: int, pairs: list, x: torch.Tensor,
+                         ldj: torch.Tensor, lu_ldj: torch.Tensor, *,
+                         save: Optional[torch.Tensor] = None, eps_affine: float) -> None:
+    """Plain version of `_build.coupling_layer` for one layer: `pairs` are the
+    coupling MLP (first weight over the packed rows, last with [s | t]
+    interleaved) and then (lu_w_f^T, lu_b). In place: ldj = (ldj + sum(log
+    scale)) + lu_ldj[0], x = bf16([x1 | x2 * scale + t]) @ lu_w_f^T + lu_b
+    (f32), the packed rows' x1 columns = bf16(x1) of the new x, save = bf16(x).
+    y's x1 half is the packed rows' bf16 x1 (on the chain, bf16 of x's)."""
+    sc, t = _scale_shift_interleaved(xin, pairs[:-1], eps_affine)
+    ldj.copy_((ldj + torch.log(sc).sum(-1)) + lu_ldj[0])
+    y = torch.cat([xin[:, :split].float(), x[:, split:] * sc + t], -1).to(torch.bfloat16)
+    out = _lin(y, pairs[-1], torch.bfloat16)
+    x.copy_(out)
+    xin[:, :split] = out[:, :split]
+    if save is not None:
+        save.copy_(out)
+
+
+def coupling_inverse_plain(xin: torch.Tensor, split: int, pairs: list, y: torch.Tensor, *,
+                           x: Optional[torch.Tensor] = None, eps_affine: float) -> None:
+    """Plain version of `_build.coupling_inverse` for one layer: `pairs` are
+    the coupling MLP (last product interleaved) and, when x is None, the next
+    layer's (Minv^T, shift). x2 = (y2 - t) / scale in f32; then y = bf16([y1 |
+    x2]) @ Minv^T + shift in place and the packed rows' x1 columns = bf16(y1)
+    of the new y, or, with x given, x = [y1 | x2]."""
+    n_mlp = len(pairs) - int(x is None)
+    sc, t = _scale_shift_interleaved(xin, pairs[:n_mlp], eps_affine)
+    x2 = (y[:, split:] - t) / sc
+    if x is not None:
+        x.copy_(torch.cat([y[:, :split], x2], -1))
+        return
+    h = torch.cat([xin[:, :split], x2.to(torch.bfloat16)], -1)
+    out = _lin(h, pairs[-1], torch.bfloat16)
+    y.copy_(out)
+    xin[:, :split] = out[:, :split]
+
+
 # ------------------------------------------------------------ CUDA chains
 
 def _round8(n: int) -> int:
@@ -454,6 +525,34 @@ def packed_input_weights(cpl_in_xe: torch.Tensor, cpl_in_c: torch.Tensor) -> tor
     return torch.cat([cpl_in_xe, pad, cpl_in_c.to(cpl_in_xe.dtype)], 1)
 
 
+def _fits(shapes: list) -> bool:
+    return all(1 <= k <= _build.FUSED_MAXW and 1 <= n <= _build.FUSED_MAXW for k, n in shapes)
+
+
+def fused_route(pre: Optional[list], q: Optional[tuple], cpl: list, tail: tuple, split: int,
+                lat: int) -> dict:
+    """Which layer parts take the fused kernels of csrc/fused_layer.cu, from
+    shapes alone: `pre` the pre-MLP's (K, N) per product (None without
+    attention), `q` the query product's, `cpl` the coupling MLP's (the first
+    over the packed rows), `tail` the LinearLU's. A part is fused when every
+    width is at most 512 (the kernels' shared-memory buffers), its products
+    (with the tail) number 3 to 10, and, for the coupling, the last product
+    gives [s | t] for the lat - split columns of the affine. A part that is
+    refused has no other route: `_CouplingChain` raises."""
+    n_max = _build.FUSED_MAX_PRODUCTS
+    cond = (pre is not None and 2 <= len(pre) and len(pre) + 1 <= n_max
+            and _fits(pre + [q]) and pre[0][0] == split and q[0] == pre[-1][1])
+    coupling = (2 <= len(cpl) and len(cpl) + 1 <= n_max and _fits(cpl + [tail])
+                and cpl[-1][1] == 2 * (lat - split) and tail == (lat, lat))
+    return {"conditioner": bool(cond), "coupling": bool(coupling)}
+
+
+def _interleave_st(w: torch.Tensor) -> torch.Tensor:
+    """[s | t] columns (last axis) reordered as s_0, t_0, s_1, t_1, ..."""
+    half = w.shape[-1] // 2
+    return torch.stack([w[..., :half], w[..., half:]], -1).reshape(w.shape)
+
+
 class _CouplingChain:
     """The per-layer weights of a folded stack in the kernels' layout (bf16
     weights, f32 biases, converted once per call rather than once per layer)
@@ -469,12 +568,21 @@ class _CouplingChain:
     wgmma route. With attention, cond is the attention embedding that
     `run(l)` writes per layer; without (the global conditioner), cond is the
     context itself, the broadcast embedding (B, N, E), the same for every
-    layer, so its columns are written once here and `run(l)` skips the
-    conditioner. `run(l)` reads the x1 columns of `xin` and writes layer l's
-    [s | t] (f32) into `st`."""
+    layer, so its columns are written once here and `conditioner(l)` is
+    not called.
+
+    The conditioner is one `_build.conditioner` launch (pre-MLP, LayerNorm
+    and q on a row tile kept on chip) before the ctx @ wkv product and the
+    cross attention. Given the LinearLU `tail` ((L, lat, lat) bf16, (L, lat)
+    f32: B1's lu_w_f^T or B7's Minv^T), `cpl_stack` holds the coupling MLP
+    (its last product's [s | t] columns interleaved) and the tail for
+    `_build.coupling_layer` / `coupling_inverse`. Without a tail (B2's net)
+    `run(l)` runs the conditioner and then the coupling MLP one gemm a
+    product, writing layer l's [s | t] (f32) into `st`. Shapes that
+    `fused_route` refuses raise: there is no per-product route for them."""
 
     def __init__(self, folded: dict, context: torch.Tensor, extra: Optional[torch.Tensor],
-                 rows: int, split: int):
+                 rows: int, split: int, tail: Optional[tuple] = None, lat: int = 0):
         b, nc, e_dim = context.shape
         n_layers = folded["cpl_in_c"].shape[0]
         ed = extra.shape[-1] if extra is not None else 0
@@ -486,24 +594,41 @@ class _CouplingChain:
         self.w_in = _pad_cols(packed_input_weights(folded["cpl_in_xe"].to(bf),
                                                    folded["cpl_in_c"]))
         self.b_in = folded["cpl_in_b"].float().reshape(n_layers, -1).contiguous()
-        self.cpl_rest = _bf16_stack(folded["cpl_rest"])
-        widths = [w.shape[-1] for w, _ in self.cpl_rest]
+        cpl_shapes = ([tuple(self.w_in.shape[1:])]
+                      + [tuple(w.shape[1:]) for w, _ in folded["cpl_rest"]])
+        pre_shapes = ([tuple(w.shape[1:]) for w, _ in folded["pre"]] if self.has_attn
+                      else None)
+        q_shape = tuple(folded["wq_f"].shape[1:]) if self.has_attn else None
+        route = fused_route(pre_shapes, q_shape, cpl_shapes, (lat, lat), split, lat)
+        if (self.has_attn and not route["conditioner"]) or (tail is not None
+                                                            and not route["coupling"]):
+            raise ValueError(f"the fused layer kernels cannot take these shapes: pre-MLP "
+                             f"{pre_shapes}, q {q_shape}, coupling {cpl_shapes}, split {split}, "
+                             f"latent {lat}")
+        self.cpl_stack = None
+        if tail is not None:
+            rest = [(w, b) for w, b in folded["cpl_rest"]]
+            rest[-1] = (_interleave_st(rest[-1][0]), _interleave_st(rest[-1][1]))
+            self.cpl_stack = _build.FusedStack(
+                [(self.w_in, self.b_in)] + _bf16_stack(rest) + [tail], len(cpl_shapes))
+        else:
+            self.cpl_rest = _bf16_stack(folded["cpl_rest"])
+            self.st = torch.empty(rows, self.cpl_rest[-1][0].shape[-1], dtype=torch.float32,
+                                  device=dev)
+            self.h = [bf16_rows(rows, max(w.shape[-1] for w, _ in self.cpl_rest), dev)
+                      for _ in range(3)]
         if self.has_attn:
-            self.pre = _bf16_stack(folded["pre"])
-            self.wq = _pad_cols(folded["wq_f"].to(bf))
-            self.bq = folded["bq_f"].float().reshape(n_layers, -1).contiguous()
             self.wkv = _pad_cols(folded["wkv"].to(bf))
             self.ctx2 = _pad_cols(context.reshape(b * nc, e_dim).to(bf))
-            widths += [w.shape[-1] for w, _ in self.pre]
-            a_dim = self.pre[-1][0].shape[-1]
-            self.q_f = torch.empty(rows, a_dim, dtype=torch.float32, device=dev)
-            self.q_n = bf16_rows(rows, a_dim, dev)
             self.q = bf16_rows(rows, self.cw, dev)
             self.kv = bf16_rows(b * nc, 2 * self.cw, dev)
+            wq = _pad_cols(folded["wq_f"].to(bf))
+            bq = folded["bq_f"].float().reshape(n_layers, -1).contiguous()
+            self.cond_stack = _build.FusedStack(_bf16_stack(folded["pre"]) + [(wq, bq)],
+                                                len(folded["pre"]))
         elif nc * b != rows or e_dim != self.cw:
             raise ValueError(f"the global conditioner reads the context row by row: expected "
                              f"{rows} rows of {self.cw}, got {tuple(context.shape)}")
-        self.h = [bf16_rows(rows, max(widths), dev) for _ in range(3)]
         self.xin = torch.empty(rows, width, dtype=bf, device=dev)
         self.xin[:, self.xe:self.xc].zero_()
         if extra is not None:
@@ -511,22 +636,19 @@ class _CouplingChain:
                              self.xin[:, split:self.xe])
         if not self.has_attn:
             self.xin[:, self.xc:self.xc + self.cw].copy_(context.reshape(rows, e_dim))
-        self.st = torch.empty(rows, self.cpl_rest[-1][0].shape[-1], dtype=torch.float32,
-                              device=dev)
 
     def run(self, l: int) -> None:
         if self.has_attn:
-            self._conditioner(l)
+            self.conditioner(l)
         _build.mlp_chain(self.xin[:, :self.xc + self.cw],
                          [(self.w_in[l], self.b_in[l])] + _at(self.cpl_rest, l), self.st, self.h)
 
-    def _conditioner(self, l: int) -> None:
-        """Pre-MLP -> row_norm -> q -> kv -> cross attention, written into the
-        attention columns xin[:, xc:xc+d] of the packed coupling-input rows."""
+    def conditioner(self, l: int) -> None:
+        """Pre-MLP -> LayerNorm -> q (one fused launch) -> kv -> cross
+        attention, written into the attention columns xin[:, xc:xc+d] of the
+        packed coupling-input rows."""
         d = self.cw
-        _build.mlp_chain(self.xin[:, :self.split], _at(self.pre, l), self.q_f, self.h)
-        _build.row_norm(self.q_f, self.q_n)
-        _build.gemm(self.q_n, self.wq[l], self.q, bias=self.bq[l])
+        _build.conditioner(self.xin, self.split, self.cond_stack, l, self.q)
         _build.gemm(self.ctx2, self.wkv[l], self.kv)
         _build.cross_attention(self.q, self.kv[:, :d], self.kv[:, d:],
                                self.xin[:, self.xc:self.xc + d], n_items=self.items)
@@ -540,31 +662,28 @@ def fused_flow_layers(x: torch.Tensor, ldj: torch.Tensor, context: torch.Tensor,
 
     x (B, N, LAT) f32, ldj (B, N) f32, context (B, Nc, 64), extra (B, N, e) or
     None, `folded` from `fold_stacks`. Returns (z, ldj) in f32. A CPU tensor
-    runs `fused_flow_layers_plain`; a CUDA tensor runs, per layer, a fixed
-    chain of the port's kernels: cast_rows (x1 -> bf16), four gemm_bf16 for
-    the pre-MLP, row_norm, gemm for q and for ctx @ wkv, cross_attention,
-    four gemm for the coupling MLP (its input one product over the packed
-    [x1 | extra | pad | attn] rows), coupling_epilogue and gemm for the
-    folded LinearLU: 15 launches per layer, every gemm on the TMA + wgmma
-    route (the padded layout of `_CouplingChain` adds no launch per layer).
-    A stack without attention (`has_attn=False` in the JAX package: the
-    global conditioner, context the broadcast embedding (B, N, E)) skips
-    the conditioner's launches: the packed rows are [x1 | extra | pad | ctx]
-    with the ctx columns written once per call (10 launches per layer with
-    helpful-sponge's 7-layer couplings).
+    runs `fused_flow_layers_plain`; a CUDA tensor runs, per layer, the
+    fused kernels of csrc/fused_layer.cu: `_build.conditioner` (pre-MLP, LayerNorm, q), gemm for ctx @
+    wkv, cross_attention into the attention columns of the packed [x1 |
+    extra | pad | attn] rows, and `_build.coupling_layer` (the coupling MLP,
+    the affine, the folded LinearLU into the f32 carry in place, the next
+    layer's x1 columns): 4 launches per layer. A stack without attention
+    (`has_attn=False` in the JAX package: the global conditioner, context
+    the broadcast embedding (B, N, E)) needs only coupling_layer, its ctx
+    columns written once per call: 1 launch per layer. Shapes the fused
+    kernels refuse (`fused_route`) raise.
 
     save=True is the training forward (the Pallas `fused_flow_layers` with
     save_every=1): it also returns the entry carry of every layer as
-    (L, B*N, LAT) bf16, one cast_rows into saves[l] per layer, for B5. The
-    JAX package pads L to a multiple of its segment length with identity
-    layers, a TPU-runtime workaround; here L stays as it is.
+    (L, B*N, LAT) bf16 for B5; coupling_layer writes the next layer's save
+    row. The JAX package pads L to a multiple of its segment length with
+    identity layers, a TPU-runtime workaround; here L stays as it is.
 
     What bounds it on the H100: the tensor-core products (about 2.6 MFLOP
-    per point and layer at dulcet-universe widths, 2.3 of it in gemm_bf16
+    per point and layer at dulcet-universe widths, 2.3 of it in the MLPs
     and the rest in the attention) and, at small batch, the launch cadence;
-    the design keeps the x carry and ldj in f32 in device memory between
-    layers and every activation in bf16, and issues every launch without a
-    host sync so they queue."""
+    the x carry and ldj stay in f32 in device memory between layers, and
+    no launch waits on the host."""
     global FUSED_FLOW_LAYERS_LAUNCHES, FUSED_FLOW_LAYERS_SAVE_LAUNCHES
     if not x.is_cuda:
         return fused_flow_layers_plain(x, ldj, context, extra, folded, eps_affine=eps_affine,
@@ -580,25 +699,25 @@ def _forward_chain(x, ldj, context, extra, folded, eps_affine, save):
     split = lat // 2
     n_layers = folded["lu_ldj_f"].shape[0]
     rows, dev, bf = b * n, x.device, torch.bfloat16
-    chain = _CouplingChain(folded, context, extra, rows, split)
     lu_wt = _pad_cols(folded["lu_w_f"].transpose(1, 2).to(bf))
     lu_b = folded["lu_b"].float().reshape(n_layers, -1).contiguous()
+    chain = _CouplingChain(folded, context, extra, rows, split, tail=(lu_wt, lu_b), lat=lat)
     lu_ldj = folded["lu_ldj_f"].float().contiguous()
     xc = x.reshape(rows, lat).float().contiguous().clone()
-    xn = torch.empty_like(xc)
     ldj_c = ldj.reshape(rows).float().contiguous().clone()
-    y = bf16_rows(rows, lat, dev)
     saves = torch.empty(n_layers, rows, lat, dtype=bf, device=dev) if save else None
-
+    # the entry carry's casts once, then per layer the conditioner, ctx @ wkv
+    # and the cross attention (with attention) and one coupling_layer, which
+    # writes the next layer's x1 columns and save
+    _build.cast_rows(xc[:, :split], chain.xin[:, :split])
+    if save:
+        _build.cast_rows(xc, saves[0])
     for l in range(n_layers):
-        if save:
-            _build.cast_rows(xc, saves[l])
-        _build.cast_rows(xc[:, :split], chain.xin[:, :split])
-        chain.run(l)
-        _build.coupling_epilogue(chain.st, xc, ldj_c, y, lu_ldj[l:l + 1], split=split,
-                                 eps_affine=eps_affine)
-        _build.gemm(y, lu_wt[l], xn, bias=lu_b[l])
-        xc, xn = xn, xc
+        if chain.has_attn:
+            chain.conditioner(l)
+        _build.coupling_layer(chain.xin, split, chain.cpl_stack, l, xc, ldj_c, lu_ldj[l:l + 1],
+                              save=saves[l + 1] if save and l + 1 < n_layers else None,
+                              eps_affine=eps_affine)
     if save:
         return xc.reshape(b, n, lat), ldj_c.reshape(b, n), saves
     return xc.reshape(b, n, lat), ldj_c.reshape(b, n)
@@ -615,21 +734,21 @@ def fused_flow_layers_inverse(z: torch.Tensor, context: torch.Tensor,
     z (B, N, LAT) f32, context (B, Nc, 64), extra (B, N, e) or None,
     `folded_inv` from `fold_stacks_inverse`. Returns x (B, N, LAT) f32, no
     log-det. A CPU tensor runs `fused_flow_layers_inverse_plain`; a CUDA
-    tensor runs, per layer from L-1 down to 0, a fixed chain of the port's
-    kernels: cast_rows (z -> bf16), gemm with Minv^T and the f32 shift as
-    bias into f32 y, cast_rows (y1 -> the x1 columns of the packed rows),
-    B1's conditioner and coupling MLP, and inverse_coupling_epilogue, which
-    writes the next carry [y1 | (y2 - t) / scale] in f32 over the old one.
-    Without attention the conditioner is skipped, as in B1.
+    tensor runs the top layer's LU inverse once (cast_rows, gemm with Minv^T
+    and the f32 shift as bias into f32 y, cast_rows of y1 into the packed
+    rows), then per layer from L-1 down to 0 B1's conditioner, ctx @ wkv and
+    cross attention and `_build.coupling_inverse`, which applies
+    x2 = (y2 - t) / scale and, below the top, the next layer's LU inverse on
+    its tile, writing that y and its x1 columns (layer 0 writes x): 4
+    launches per layer, 1 without attention. Shapes the fused kernels refuse
+    (`fused_route`) raise.
 
     What bounds it on the H100: B1's products per point and layer (the
     inverse tail is one 300 x 300 product, as the forward's LinearLU), so
-    the tensor cores at large batch and the launch cadence of 16 launches per
-    layer (11 without attention, at helpful-sponge's widths) at B=1,
-    unchanged by the padded layout; the carry stays f32 in device memory
-    and no launch waits on the host. The division by scale in (1e-8, 2)
-    amplifies what bf16 rounds, so the carry is never rounded between
-    layers."""
+    the tensor cores at large batch and the launch cadence at B=1; the carry
+    stays f32 and no launch waits on the host. The division by scale in
+    (1e-8, 2) amplifies what bf16 rounds, so the carry is never rounded
+    between layers."""
     global FUSED_FLOW_LAYERS_INVERSE_LAUNCHES
     if not z.is_cuda:
         return fused_flow_layers_inverse_plain(z, context, extra, folded_inv,
@@ -644,19 +763,25 @@ def _inverse_chain(z, context, extra, folded_inv, eps_affine):
     split = lat // 2
     n_layers = folded_inv["lu_w_inv_f"].shape[0]
     rows, dev, bf = b * n, z.device, torch.bfloat16
-    chain = _CouplingChain(folded_inv, context, extra, rows, split)
     minv_t = _pad_cols(folded_inv["lu_w_inv_f"].transpose(1, 2).to(bf))
     shift = folded_inv["lu_shift"].float().reshape(n_layers, -1).contiguous()
+    chain = _CouplingChain(folded_inv, context, extra, rows, split, tail=(minv_t, shift),
+                           lat=lat)
     xc = z.reshape(rows, lat).float().contiguous().clone()
     zb = bf16_rows(rows, lat, dev)
     y = torch.empty(rows, lat, dtype=torch.float32, device=dev)
-
-    for l in reversed(range(n_layers)):
-        _build.cast_rows(xc, zb)
-        _build.gemm(zb, minv_t[l], y, bias=shift[l])
-        _build.cast_rows(y[:, :split], chain.xin[:, :split])
-        chain.run(l)
-        _build.inverse_coupling_epilogue(chain.st, y, xc, split=split, eps_affine=eps_affine)
+    # the top layer's LU inverse and x1 cast once, then per layer the
+    # conditioner (with attention) and one coupling_inverse, which runs the
+    # next layer's LU inverse on its tile (layer 0 writes x)
+    top = n_layers - 1
+    _build.cast_rows(xc, zb)
+    _build.gemm(zb, minv_t[top], y, bias=shift[top])
+    _build.cast_rows(y[:, :split], chain.xin[:, :split])
+    for l in range(top, -1, -1):
+        if chain.has_attn:
+            chain.conditioner(l)
+        _build.coupling_inverse(chain.xin, split, chain.cpl_stack, l, y,
+                                x=xc if l == 0 else None, eps_affine=eps_affine)
     return xc.reshape(b, n, lat)
 
 
@@ -668,9 +793,8 @@ def fused_augmenter(x: torch.Tensor, eps: torch.Tensor, context: torch.Tensor,
     x (B, N, in) f32, eps (B, N, aug) f32 standard normal, context
     (B, Nc, 64), extra (B, N, e) or None. Returns z (B, N, in + aug) f32 and
     ldj = -log q(z2) (B, N) f32. A CPU tensor runs `fused_augmenter_plain`;
-    a CUDA tensor runs the B1 conditioner chain once (pre-MLP gemms,
-    row_norm, q, kv, cross_attention), the net's four gemm_bf16 and
-    augment_epilogue.
+    a CUDA tensor runs B1's conditioner once (`_build.conditioner`, ctx @
+    wkv, cross_attention), the net's four gemm_bf16 and augment_epilogue.
 
     What bounds it on the H100: the 512-wide net products and the attention
     over Nc context rows, once per point; the first pre-MLP layer has K = 6,

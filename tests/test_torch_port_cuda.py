@@ -1039,3 +1039,190 @@ def test_attention_cpu_tensors_run_the_plain_versions(dev):
     assert counters == (_build.CROSS_ATTENTION_WGMMA_LAUNCHES,
                         _build.CROSS_ATTENTION_WMMA_LAUNCHES,
                         _build.ATTENTION_BWD_WGMMA_LAUNCHES, _build.ATTENTION_BWD_WMMA_LAUNCHES)
+
+
+# ------------------------------------------- the fused layer kernels (B1, B7)
+
+def fused_setup(dev, preset: str, rows: int, seed: int = 40):
+    """A preset's two-layer stacks at full width on the card, B1's and B7's
+    fused-route chains over `rows` rows (one item), the packed rows filled
+    with random x1, extra and cond columns; (chain, inverse chain, split,
+    lat, folded)."""
+    cfg = ft.get_config(preset)
+    cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
+    model = ft.FlowCompareModel(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    perturb_identity_leaves(model, torch.Generator().manual_seed(1))
+    ed, lat, e = int(cfg["using_extra_context"]), cfg["latent_dim"], cfg["input_embedding_dim"]
+    with torch.no_grad():
+        folded, folded_inv = model._folded(model.params(), ed), model._folded_inverse(
+            model.params(), ed)
+    g = torch.Generator().manual_seed(seed)
+    ctx = (rand(g, 1, 1, e, device=dev).bfloat16().expand(1, rows, e) if model.is_global
+           else rand(g, 1, 1250, e, device=dev).bfloat16())
+    extra = rand(g, 1, rows, 1, device=dev) if ed else None
+    bf, split = torch.bfloat16, lat // 2
+    lu = (flc._pad_cols(folded["lu_w_f"].transpose(1, 2).to(bf)),
+          folded["lu_b"].float().reshape(2, -1).contiguous())
+    minv = (flc._pad_cols(folded_inv["lu_w_inv_f"].transpose(1, 2).to(bf)),
+            folded_inv["lu_shift"].float().reshape(2, -1).contiguous())
+    fwd = flc._CouplingChain(folded, ctx, extra, rows, split, tail=lu, lat=lat)
+    inv = flc._CouplingChain(folded_inv, ctx, extra, rows, split, tail=minv, lat=lat)
+    for chain in (fwd, inv):
+        chain.xin[:, :split] = rand(g, rows, split, device=dev)
+        if chain.has_attn:
+            chain.xin[:, chain.xc:chain.xc + chain.cw] = rand(g, rows, chain.cw, device=dev)
+    return fwd, inv, split, lat, folded
+
+
+FUSED_CASES = [("dulcet-universe", 4000), ("dulcet-universe", 1037), ("swept-energy", 4000),
+               ("helpful-sponge", 1000), ("good-surf", 40960)]
+
+
+def ulp_shares(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """The shares of elements of got more than a quarter and more than half
+    a bf16 ulp of ref away from it (an element below 2^-8 of max |ref|
+    counted at that size), as chip_smoke.error_stats reads them."""
+    a = ref.float().abs()
+    _, e = torch.frexp(torch.maximum(a, a.max() * 2 ** -8))
+    r = (got.float() - ref.float()).abs() / torch.ldexp(torch.ones_like(a), e - 8)
+    return float((r > 0.25).float().mean()), float((r > 0.5).float().mean())
+
+
+# (quarter, half) share limits, chip_smoke.FUSED_LIMITS' (PERF.md has the
+# readings of tools/torch_fused_layer_faults.py they sit between): the carry
+# rounded to bf16 puts about half of a carry over a quarter ulp, [s | t] in
+# bf16 1.9-12% over half an ulp and a fifth or more of ldj over a quarter,
+# the LayerNorm's input in bf16 55% of q; the kernels as built stay at or
+# under 1.7%, and 0.8% over half an ulp of a carry
+SHARE_LIMITS = {"carry": (0.05, 0.012), "bf16": (0.05, 1.0), "ldj": (0.08, 1.0)}
+
+
+def assert_ulp_shares(got: torch.Tensor, ref: torch.Tensor, kind: str) -> None:
+    shares = ulp_shares(got, ref)
+    assert all(s <= lim for s, lim in zip(shares, SHARE_LIMITS[kind])), (kind, shares)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,rows", FUSED_CASES)
+def test_fused_layer_kernels_match_plain(dev, preset, rows):
+    """conditioner, coupling_layer (with and without saves) and
+    coupling_inverse (layer 1 with the chained LU inverse of layer 0, and
+    layer 0 writing x) against their plain versions on the same packed rows,
+    at the shipped widths (with and without extra, helpful-sponge's seven
+    products), 4000 rows and rows that are not a multiple of 64. Same
+    rounding points, another accumulation order: q within 2 bf16 roundings,
+    the f32 carries within 2e-2 of their scale, ldj within 1e-2 (B1's
+    two-layer bound), and every output within SHARE_LIMITS."""
+    fwd, inv, split, lat, folded = fused_setup(dev, preset, rows)
+    g = torch.Generator().manual_seed(41)
+    x = rand(g, rows, lat, device=dev)
+    ldj = rand(g, rows, device=dev)
+    lu_ldj = folded["lu_ldj_f"].float().contiguous()
+    launches = (_build.FUSED_CONDITIONER_LAUNCHES, _build.COUPLING_LAYER_LAUNCHES,
+                _build.COUPLING_INVERSE_LAUNCHES)
+    for l in range(2):
+        if fwd.has_attn:
+            q_ref = torch.empty_like(fwd.q)
+            flc.conditioner_plain(fwd.xin, split, fwd.cond_stack.layer(l), q_ref)
+            _build.conditioner(fwd.xin, split, fwd.cond_stack, l, fwd.q)
+            torch.cuda.synchronize()
+            assert float((fwd.q.float() - q_ref.float()).abs().max()) <= \
+                2 * 2 ** -8 * float(q_ref.float().abs().max())
+            assert_ulp_shares(fwd.q, q_ref, "bf16")
+        for save in (None, torch.empty(rows, lat, dtype=torch.bfloat16, device=dev)):
+            xin_ref = fwd.xin.clone()
+            xk, lk, xr, lr = x.clone(), ldj.clone(), x.clone(), ldj.clone()
+            save_ref = None if save is None else torch.empty_like(save)
+            flc.coupling_layer_plain(xin_ref, split, fwd.cpl_stack.layer(l), xr, lr,
+                                     lu_ldj[l:l + 1], save=save_ref, eps_affine=1e-8)
+            xin_k = fwd.xin.clone()
+            _build.coupling_layer(xin_k, split, fwd.cpl_stack, l, xk, lk, lu_ldj[l:l + 1],
+                                  save=save, eps_affine=1e-8)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(xr.abs().max()))
+            assert float((xk - xr).abs().max()) <= 2e-2 * scale
+            assert float((lk - lr).abs().max()) <= 1e-2
+            assert float((xin_k[:, :split].float() - xin_ref[:, :split].float()).abs().max()) \
+                <= 2e-2 * scale
+            assert_ulp_shares(xk, xr, "carry")
+            assert_ulp_shares(lk, lr, "ldj")
+            assert_ulp_shares(xin_k[:, :split], xin_ref[:, :split], "bf16")
+            # only the x1 columns are written (compared bit for bit: the
+            # trailing pad columns are not initialised)
+            assert torch.equal(xin_k[:, split:].view(torch.int16),
+                               fwd.xin[:, split:].view(torch.int16))
+            if save is not None:
+                assert float((save.float() - save_ref.float()).abs().max()) <= 2e-2 * scale
+                assert_ulp_shares(save, save_ref, "bf16")
+    y = rand(g, rows, lat, device=dev)
+    for l, with_x in ((1, False), (0, True)):
+        xin_ref, xin_k = inv.xin.clone(), inv.xin.clone()
+        yr, yk = y.clone(), y.clone()
+        xr = torch.empty(rows, lat, device=dev) if with_x else None
+        xk = torch.empty(rows, lat, device=dev) if with_x else None
+        pairs = inv.cpl_stack.layer(l)[:inv.cpl_stack.n_mlp]
+        if not with_x:
+            pairs = pairs + [inv.cpl_stack.layer(l - 1)[-1]]
+        flc.coupling_inverse_plain(xin_ref, split, pairs, yr, x=xr, eps_affine=1e-8)
+        _build.coupling_inverse(xin_k, split, inv.cpl_stack, l, yk, x=xk, eps_affine=1e-8)
+        torch.cuda.synchronize()
+        got, ref = (xk, xr) if with_x else (yk, yr)
+        assert float((got - ref).abs().max()) <= 2e-2 * max(1.0, float(ref.abs().max()))
+        assert float((xin_k[:, :split].float() - xin_ref[:, :split].float()).abs().max()) <= \
+            2e-2 * max(1.0, float(ref.abs().max()))
+        assert_ulp_shares(got, ref, "carry")
+        if not with_x:
+            assert_ulp_shares(xin_k[:, :split], xin_ref[:, :split], "bf16")
+    counted = (_build.FUSED_CONDITIONER_LAUNCHES - launches[0],
+               _build.COUPLING_LAYER_LAUNCHES - launches[1],
+               _build.COUPLING_INVERSE_LAUNCHES - launches[2])
+    assert counted == (2 * fwd.has_attn, 4, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["dulcet-universe", "helpful-sponge"])
+def test_fused_route_chains_match_plain_and_launch_four_per_layer(dev, preset):
+    """B1 (with saves) and B7 at full width over 1 x 4000 points through the
+    fused route: against their plain versions, and per layer one conditioner,
+    one ctx @ wkv gemm and one cross attention with attention (none without)
+    beside one coupling_layer / coupling_inverse: no per-product MLP gemm
+    (the gemms are ctx @ wkv per layer and B7's top LU inverse)."""
+    fwd, _, split, lat, folded = fused_setup(dev, preset, 4000)
+    cfg = ft.get_config(preset)
+    ed = int(cfg["extra_z_value_context"])
+    model = ft.FlowCompareModel({**cfg, "compute_dtype": "bfloat16", "n_flow_layers": 2},
+                                device=dev, generator=torch.Generator().manual_seed(0))
+    perturb_identity_leaves(model, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        folded_inv = model._folded_inverse(model.params(), ed)
+    g = torch.Generator().manual_seed(42)
+    e = cfg["input_embedding_dim"]
+    ctx = (rand(g, 1, 1, e, device=dev).bfloat16().expand(1, 4000, e) if model.is_global
+           else rand(g, 1, 1250, e, device=dev).bfloat16())
+    extra = rand(g, 1, 4000, 1, device=dev) if ed else None
+    x, ldj = rand(g, 1, 4000, lat, device=dev), torch.zeros(1, 4000, device=dev)
+    counters = ("GEMM_WGMMA_LAUNCHES", "FUSED_CONDITIONER_LAUNCHES", "COUPLING_LAYER_LAUNCHES",
+                "COUPLING_INVERSE_LAUNCHES", "CROSS_ATTENTION_WGMMA_LAUNCHES")
+    before = [getattr(_build, c) for c in counters]
+    with torch.no_grad():
+        z, l, saves = flc.fused_flow_layers(x, ldj, ctx, extra, folded, save=True)
+        xi = flc.fused_flow_layers_inverse(0.6 * x, ctx, extra, folded_inv)
+    torch.cuda.synchronize()
+    attn = int(not model.is_global)
+    assert [getattr(_build, c) - b for c, b in zip(counters, before)] == \
+        [4 * attn + 1, 4 * attn, 2, 2, 4 * attn]
+    # two layers at 4,000 rows: one bf16 flip of y moves z by up to an ulp
+    # of its magnitude (0.0625 at |z| in [8, 16)), so the bounds scale
+    zr, lr, sr = flc.fused_flow_layers_plain(x, ldj, ctx, extra, folded, save=True)
+    scale = max(1.0, float(zr.abs().max()))
+    # ldj sums 150 log-scales a layer: flips of s move it by up to ~1e-2 over two layers
+    assert float((z - zr).abs().max()) <= 1e-2 * scale and float((l - lr).abs().max()) <= 2e-2
+    assert float((saves.float() - sr.float()).abs().max()) <= 1e-2 * scale
+    xr = flc.fused_flow_layers_inverse_plain(0.6 * x, ctx, extra, folded_inv)
+    assert float((xi - xr).abs().max()) <= 1e-2 * max(1.0, float(xr.abs().max()))
+    # over two layers (tools/torch_fused_layer_faults.py at this shape): as
+    # built at most 1.8% of z, 2.9% of x, 3.4% of ldj and 0.7% of the saves
+    # over a quarter ulp; the carry rounded to bf16 14% of z and 46% of x,
+    # [s | t] in bf16 29% of ldj
+    for got, ref, limit in ((z, zr, 0.06), (xi, xr, 0.06), (l, lr, 0.08), (saves, sr, 0.05)):
+        assert ulp_shares(got, ref)[0] <= limit

@@ -161,6 +161,25 @@ class EmulatedLaunches:
 
     def __init__(self):
         self.routes = []
+        self.fused = []
+        self._originals = {name: getattr(_build, name)
+                           for name in ("conditioner", "coupling_layer", "coupling_inverse")}
+
+    def _fused(self, name, xin, *args, **kw):
+        """A fused layer launch: the packed rows must be TMA-readable; its
+        plain version runs (the wrapper's CPU path)."""
+        assert _build.tma_readable(xin.data_ptr(), xin.stride(0))
+        self.fused.append(name)
+        self._originals[name](xin, *args, **kw)
+
+    def conditioner(self, xin, *args, **kw):
+        self._fused("conditioner", xin, *args, **kw)
+
+    def coupling_layer(self, xin, *args, **kw):
+        self._fused("coupling_layer", xin, *args, **kw)
+
+    def coupling_inverse(self, xin, *args, **kw):
+        self._fused("coupling_inverse", xin, *args, **kw)
 
     def gemm(self, a, w, out, **kw):
         self.routes.append(_build.gemm_route(a.data_ptr(), a.stride(0), w.data_ptr(),
@@ -248,7 +267,7 @@ def emulated(monkeypatch):
     for name in ("gemm", "gemm_tn", "cast_rows", "row_norm", "cross_attention",
                  "coupling_epilogue", "inverse_coupling_epilogue", "augment_epilogue", "colsum",
                  "colsum_workspace", "coupling_epilogue_bwd", "attn_bwd_prep", "attention_bwd",
-                 "row_norm_bwd"):
+                 "row_norm_bwd", "conditioner", "coupling_layer", "coupling_inverse"):
         monkeypatch.setattr(_build, name, getattr(emu, name))
     return emu
 
@@ -257,11 +276,17 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+B5_GEMMS_PER_LAYER = {"dulcet-universe": 35, "swept-energy": 34, "helpful-sponge": 25}
+
+
 @pytest.mark.parametrize("preset", ["dulcet-universe", "swept-energy", "helpful-sponge"])
 def test_chains_take_the_wgmma_route_at_the_shipped_widths(emulated, preset):
     """B1 (with and without saves), B7, B5 and B2 at the preset's full widths
     (two layers, one item of 32 points): every product finds its operands
-    TMA-readable, and each chain agrees with its plain version."""
+    TMA-readable, and each chain agrees with its plain version. B1 and B7
+    take the fused layer kernels: per layer one conditioner (with
+    attention) and one coupling_layer / coupling_inverse, and no per-product
+    MLP gemm (their only gemms are ctx @ wkv, and B7's top LU inverse)."""
     cfg = ft.get_config(preset)
     cfg.update(compute_dtype="bfloat16", n_flow_layers=2, sample_size=32, n_samples_context=40)
     model = ft.FlowCompareModel(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
@@ -282,16 +307,37 @@ def test_chains_take_the_wgmma_route_at_the_shipped_widths(emulated, preset):
            else torch.randn(1, 40, e, generator=g).bfloat16())
     extra = torch.randn(1, 32, 1, generator=g) if ed else None
     x, ldj = torch.randn(1, 32, lat, generator=g), torch.zeros(1, 32)
+    attn, n_layers = not model.is_global, 2
+    cond = ["conditioner"] * n_layers if attn else []
+
+    def launches(fn, *args):
+        routes, fused = len(emulated.routes), len(emulated.fused)
+        out = fn(*args)
+        return out, len(emulated.routes) - routes, sorted(emulated.fused[fused:])
+
     with torch.no_grad():
-        z, l = flc._forward_chain(x, ldj, ctx, extra, folded, 1e-8, False)
+        (z, l), gemms, fused = launches(flc._forward_chain, x, ldj, ctx, extra, folded, 1e-8,
+                                        False)
+        assert gemms == n_layers * attn and fused == sorted(cond + ["coupling_layer"] * n_layers)
         zr, lr = flc.fused_flow_layers_plain(x, ldj, ctx, extra, folded)
         assert float((z - zr).abs().max()) <= 0.05 and float((l - lr).abs().max()) <= 0.01
-        xi = flc._inverse_chain(0.6 * x, ctx, extra, folded_inv, 1e-8)
+        xi, gemms, fused = launches(flc._inverse_chain, 0.6 * x, ctx, extra, folded_inv, 1e-8)
+        assert gemms == n_layers * attn + 1
+        assert fused == sorted(cond + ["coupling_inverse"] * n_layers)
         assert float((xi - flc.fused_flow_layers_inverse_plain(0.6 * x, ctx, extra, folded_inv))
                      .abs().max()) <= 0.05
-        _, _, saves = flc._forward_chain(x, ldj, ctx, extra, folded, 1e-8, True)
+        (_, _, saves), gemms, fused = launches(flc._forward_chain, x, ldj, ctx, extra, folded,
+                                               1e-8, True)
+        assert gemms == n_layers * attn and fused.count("coupling_layer") == n_layers
+        torch.testing.assert_close(
+            saves.float(), flc.fused_flow_layers_plain(x, ldj, ctx, extra, folded,
+                                                       save=True)[2].float(), rtol=0, atol=0.05)
         dz, dl = torch.randn(1, 32, lat, generator=g), torch.randn(1, 32, generator=g)
-        got = fv._bwd_chain(saves, dz, dl, ctx, extra, folded, 1e-8)
+        got, gemms, _ = launches(fv._bwd_chain, saves, dz, dl, ctx, extra, folded, 1e-8)
+        # B5 per layer: the recompute, the LinearLU's and the coupling MLP's
+        # input and weight gradients, and with attention the attention's and
+        # the pre-MLP's (one gemm fewer without the extra column)
+        assert gemms == n_layers * B5_GEMMS_PER_LAYER[preset]
         ref = fv.flow_layers_bwd_plain(saves, dz, dl, ctx, extra, folded)
         assert max(_rel(a, b) for a, b in zip(got[:3], ref[:3]) if b is not None) <= 0.03
         assert max(_rel(got[3][k], ref[3][k]) for k in ref[3]) <= 0.05
@@ -299,10 +345,12 @@ def test_chains_take_the_wgmma_route_at_the_shipped_widths(emulated, preset):
         xa, eps = torch.randn(1, 32, 6, generator=g), torch.randn(1, 32, lat - 6, generator=g)
         chain = flc._CouplingChain(folded_aug, ctx, extra, 32, 6)
         _build.cast_rows(xa.reshape(32, 6), chain.xin[:, :6])
-        chain.run(0)
+        _, gemms, fused = launches(chain.run, 0)
+        # B2: the fused conditioner, then ctx @ wkv and the net's four products
+        assert gemms == 5 and fused == ["conditioner"]
         za, la = torch.empty(32, lat), torch.empty(32)
         _build.augment_epilogue(chain.st, xa.reshape(32, 6), eps.reshape(32, -1), za, la)
         zr2, lr2 = flc.fused_augmenter_plain(xa, eps, ctx, extra, folded_aug)
         assert float((za.reshape(1, 32, -1) - zr2).abs().max()) <= 0.02
         assert float(((la.reshape(1, 32) - lr2).abs() / lr2.abs().clamp_min(1.0)).max()) <= 1e-4
-    assert len(emulated.routes) > 100 and set(emulated.routes) == {"wgmma"}
+    assert set(emulated.routes) == {"wgmma"}
