@@ -1,179 +1,263 @@
 // attention_core: softmax(q k^T * scale) v with head dimension 64 and the
-// probabilities kept in f32, the port of the Pallas kernel
-// fused_attention_core (ops/attention_pallas.py, body _kernel).
+// probabilities kept at f32 precision through the PV product, the port of
+// the Pallas kernel fused_attention_core (ops/attention_pallas.py, body
+// _kernel).
 //
 //   q (items*nq, 64), k and v (items*nkv, 64) bf16 -> out (items*nq, 64) bf16
 //
 // It computes what the Pallas kernel computes, in its order: s = q k^T with
 // f32 accumulation, times the temperature in f32 (an argument here, not
-// folded into q as in cross_attention.cu); the exact row maximum subtracted
-// and exp taken; p = e / sum(e) normalised in f32 BEFORE the product; out =
-// p @ v in f32, cast once to bf16. p is never rounded to bf16: the PV
-// product runs as f32 FMAs on the CUDA cores (each v widened from bf16,
-// which is exact), not on the tensor cores. That is the difference from
-// B1's cross_attention, which rounds e to bf16 for a WMMA PV and divides
-// after.
+// folded into q as in cross_attention.cu); the exact row maximum m
+// subtracted and exp taken; p = e / sum(e) normalised in f32 BEFORE the
+// product; out = p @ v with f32 sums, cast once to bf16. That is the
+// difference from B1's cross_attention, which rounds e to bf16 for the PV
+// product and divides after, and from flash attention, which rounds p to
+// bf16.
 //
-// Design: a block of 4 warps takes 64 query rows of one item; key/value
-// tiles of 64 rows go through shared memory. Three passes over the keys:
-// the exact row maximum, the f32 row sum of e, then p and P V. Each pass
-// recomputes the scores with WMMA 16x16x16 bf16 (f32 accumulators), which is
-// cheap beside the f32 PV product. For PV each warp's scores are turned into
-// p and written transposed, p^T (keys x rows) in f32, over the score buffer;
-// each thread then owns a 4-row x 8-column block of the output and per key
-// reads 4 p values (one float4) and 8 v values (one 16-byte load) for 32
-// FMAs.
+// Design (attention_core_wgmma_kernel, TMA + wgmma on sm_90a, built from
+// cross_attention.cu's parts in attention_wgmma.cuh):
+//  * a block takes 64 query rows of one item (one consumer warpgroup) and
+//    one producer warp that streams the K tiles (pass 1) and the K and V
+//    tiles (pass 2), 64 keys x 64 dims, through a ring of 2 stages from 3-D
+//    tensor maps (64, rows, items), so no box reads the next item's keys;
+//  * S = Q K^T is four wgmma m64n64k16 into 32 f32 registers a thread, both
+//    passes; the scores never leave the registers;
+//  * pass 1 keeps, per thread and row, a running maximum and the f32 sum of
+//    exp(s - max) rescaled when the maximum grows; the four threads of a
+//    row then merge theirs. The maximum is exact; the sum differs from the
+//    plain version's by f32 rounding only;
+//  * pass 2 forms p = exp(s - m) / sum in f32 and splits it in three bf16
+//    terms, p_hi = bf16(p), p_mid = bf16(p - p_hi), p_lo = bf16(p - p_hi -
+//    p_mid) (each difference exact in f32): together about 24 bits of p,
+//    f32's own. All three go straight into wgmma's A-register layout, and
+//    each tile's P_lo V + P_mid V + P_hi V runs on the tensor cores into a
+//    fresh f32 accumulator that is then added to the output's in f32:
+//    summed over all keys in one tensor-core accumulator, or with two
+//    terms (about 16 bits), several times as many outputs came out more
+//    than half a bf16 ulp off the f32 plain version as with the earlier
+//    kernel's f32 FMAs on the H100; rounding p to bf16 alone, as flash
+//    attention does, puts far more there (chip_smoke.py's B10 phase reads
+//    the shares and holds the kernel's to B10_SHARE_LIMIT);
+//  * masked keys (>= nkv; nkv = 1250 is 19 tiles and 34 keys) are left out
+//    of the maximum and the sum and get p = 0; TMA zero-fills the rows
+//    past an item's keys and queries; rows >= nq are never stored.
 //
-// What bounds it on the H100: the f32 PV product (2 * nq * nkv * 64
-// operations per item at the 67 TFLOP/s f32 rate, 15 times the bf16 QK^T's
-// time at the tensor-core peak); the bytes are small (q, k, v and out once).
-// The hi/lo bf16 split of p on the tensor cores, or wgmma, is a later
-// speed-up.
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// What bounds it on the H100: operations. One q k^T and the three bf16 PV
+// products, 4 x 2 x 64 a score, over the bf16 peak (with the PV product as
+// f32 FMAs on the CUDA cores, as the earlier kernel ran it, the bound was
+// 0.0522 ms at (20, 1024) x 1250 keys). The second q k^T of pass 2 and
+// one SFU exponential a score per pass are the kernel's own cost on top.
+#include "attention_wgmma.cuh"
 
 namespace {
 
-constexpr int D = 64;          // head dimension
-constexpr int QB = 64;         // query rows per block
-constexpr int KT = 64;         // keys per tile
-constexpr int LDT = D + 8;     // 72 bf16 per smem row
-constexpr int LDS_F = KT + 4;  // 68 f32 per score row
-constexpr int LDP = QB + 4;    // 68 f32 per p^T row (272 bytes: float4-aligned)
+// A block of the wgmma route: one consumer warpgroup of 64 query rows and a
+// producer warp; the q tile, then a ring of CORE_STAGES stages of a K and a
+// V tile (pass 1 uses only the K slot). Two blocks to an SM leave each
+// thread room for the scores, a tile's accumulator and the output's, and
+// the three terms of p.
+constexpr int CORE_STAGES = 2;
+constexpr int CORE_THREADS = 128 + 32;
+constexpr int CORE_MIN_BLOCKS = 2;
+constexpr int CORE_SMEM_BYTES = (1 + 2 * CORE_STAGES) * ATT_TILE_BYTES + 1024;
+static_assert(CORE_MIN_BLOCKS * CORE_SMEM_BYTES <= 232448,
+              "the rings exceed the SM's shared memory");
 
-static_assert(4 * 16 * LDS_F >= KT * LDP, "p^T must fit over the score buffers");
+// Merges a (maximum, sum of exp(s - maximum)) pair into another; a pair
+// with no key yet has maximum -inf and sum 0.
+__device__ __forceinline__ void merge_max_sum(float& m, float& l, float m2, float l2) {
+  const float mn = fmaxf(m, m2);
+  if (mn == -INFINITY) return;
+  l = l * exp_sub(m, mn) + l2 * exp_sub(m2, mn);
+  m = mn;
+}
 
-__global__ void __launch_bounds__(128) attention_core_kernel(
-    const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k, int ldk,
-    const bf16* __restrict__ v, int ldv, bf16* __restrict__ out, int ldo, int nq, int nkv,
-    float scale) {
-  __shared__ __align__(32) bf16 Qs[QB * LDT];
-  __shared__ __align__(32) bf16 Ks[KT * LDT];
-  __shared__ __align__(32) bf16 Vs[KT * LDT];
-  __shared__ __align__(32) float Ss[4 * 16 * LDS_F];  // per-warp scores; p^T during PV
-
-  const int item = blockIdx.y;
-  const int q0 = blockIdx.x * QB;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bf16* qi = q + (size_t)item * nq * ldq;
-  const bf16* ki = k + (size_t)item * nkv * ldk;
-  const bf16* vi = v + (size_t)item * nkv * ldv;
-  auto vec_ok = [](const bf16* p, int ld) {
-    return ((reinterpret_cast<uintptr_t>(p) & 15u) == 0) && (ld % 8 == 0);
-  };
-  const bool q_vec = vec_ok(q, ldq), k_vec = vec_ok(k, ldk), v_vec = vec_ok(v, ldv);
-
-  load_tile_bf16<QB, D>(Qs, LDT, qi, ldq, q0, 0, nq, D, q_vec);
+__global__ void __launch_bounds__(CORE_THREADS, CORE_MIN_BLOCKS)
+    attention_core_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+                                int ldo, int nq, int nkv, float scale) {
+  constexpr int STAGES = CORE_STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], q_full;
+  uint8_t* const qs = align1024(smem_raw);
+  uint8_t* const ring = qs + ATT_TILE_BYTES;   // stage s: K, then V
+  const int item = blockIdx.y, q0 = blockIdx.x * ATT_TILE;
+  const int n_tiles = (nkv + ATT_TILE - 1) / ATT_TILE;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init(&q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(fq[kk], Qs + warp * 16 * LDT + kk * 16, LDT);
 
-  float* S = Ss + warp * 16 * LDS_F;
-  const int r = lane >> 1;         // this lane's row within the warp's 16
-  const int c0 = (lane & 1) * 32;  // and its 32 columns of each tile
-
-  // unscaled scores of the warp's 16 rows against the current key tile -> S
-  auto scores = [&]() {
-#pragma unroll
-    for (int jb = 0; jb < KT / 16; ++jb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-        wmma::load_matrix_sync(fk, Ks + jb * 16 * LDT + kk * 16, LDT);
-        wmma::mma_sync(acc, fq[kk], fk, acc);
-      }
-      wmma::store_matrix_sync(S + jb * 16, acc, LDS_F, wmma::mem_row_major);
-    }
-    __syncwarp();
-  };
-
-  // pass 1: the exact row maximum of s * scale
-  float m = -INFINITY;
-  for (int j0 = 0; j0 < nkv; j0 += KT) {
-    load_tile_bf16<KT, D>(Ks, LDT, ki, ldk, j0, 0, nkv, D, k_vec);
-    __syncthreads();
-    scores();
-    for (int c = 0; c < 32; ++c)
-      if (j0 + c0 + c < nkv) m = fmaxf(m, S[r * LDS_F + c0 + c] * scale);
-    __syncthreads();
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-
-  // pass 2: the f32 row sum of e = exp(s * scale - m)
-  float sum = 0.f;
-  for (int j0 = 0; j0 < nkv; j0 += KT) {
-    load_tile_bf16<KT, D>(Ks, LDT, ki, ldk, j0, 0, nkv, D, k_vec);
-    __syncthreads();
-    scores();
-    for (int c = 0; c < 32; ++c)
-      if (j0 + c0 + c < nkv) sum += expf(S[r * LDS_F + c0 + c] * scale - m);
-    __syncthreads();
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-
-  // pass 3: p = e / sum in f32, then out += p v with f32 FMAs
-  const int rg = threadIdx.x >> 3;  // output rows 4 * rg .. 4 * rg + 3
-  const int cg = threadIdx.x & 7;   // output columns 8 * cg .. 8 * cg + 7
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-  float* Pt = Ss;  // p^T: [key][row], over the score buffers
-  for (int j0 = 0; j0 < nkv; j0 += KT) {
-    load_tile_bf16<KT, D>(Ks, LDT, ki, ldk, j0, 0, nkv, D, k_vec);
-    load_tile_bf16<KT, D>(Vs, LDT, vi, ldv, j0, 0, nkv, D, v_vec);
-    __syncthreads();
-    scores();
-    float p[32];
-#pragma unroll
-    for (int c = 0; c < 32; ++c)
-      p[c] = (j0 + c0 + c < nkv) ? expf(S[r * LDS_F + c0 + c] * scale - m) / sum : 0.f;
-    __syncthreads();  // every warp has read its scores before p^T overwrites them
-#pragma unroll
-    for (int c = 0; c < 32; ++c) Pt[(c0 + c) * LDP + warp * 16 + r] = p[c];
-    __syncthreads();
-    for (int j = 0; j < KT; ++j) {
-      const float4 pj = *reinterpret_cast<const float4*>(Pt + j * LDP + 4 * rg);
-      const uint4 raw = *reinterpret_cast<const uint4*>(Vs + j * LDT + 8 * cg);
-      const bf16* vb = reinterpret_cast<const bf16*>(&raw);
-      const float pr[4] = {pj.x, pj.y, pj.z, pj.w};
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float vc = bf2f(vb[c]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pr[i], vc, acc[i][c]);
+  if (threadIdx.x >= 128) {
+    // the producer warp: one thread keeps the ring's loads in flight
+    if (threadIdx.x == 128) {
+      prefetch_tensor_map(&tq);
+      prefetch_tensor_map(&tk);
+      prefetch_tensor_map(&tv);
+      mbar_expect_tx(&q_full, ATT_TILE_BYTES);
+      tma_load_3d(qs, &tq, &q_full, 0, q0, item);
+      for (int it = 0; it < 2 * n_tiles; ++it) {
+        const int s = it % STAGES;
+        const bool pass2 = it >= n_tiles;
+        const int j0 = (pass2 ? it - n_tiles : it) * ATT_TILE;
+        mbar_wait(&empty[s], ring_parity(it, STAGES) ^ 1);
+        uint8_t* ks = ring + 2 * s * ATT_TILE_BYTES;
+        mbar_expect_tx(&full[s], (pass2 ? 2 : 1) * ATT_TILE_BYTES);
+        tma_load_3d(ks, &tk, &full[s], 0, j0, item);
+        if (pass2) tma_load_3d(ks + ATT_TILE_BYTES, &tv, &full[s], 0, j0, item);
       }
     }
-    __syncthreads();
+    return;
   }
 
+  // the consumer warpgroup: query rows q0 + [0, 64); this thread's rows
+  // frag_row(t) (h = 0) and +8 (h = 1)
+  const int t = threadIdx.x;
+  const int fc = frag_col(t);
+  float s[32];
+  mbar_wait(&q_full, 0);
+
+  // pass 1: the exact row maximum of s * scale and the f32 sum of
+  // exp(s * scale - maximum) over the keys < nkv, per thread, then per row
+  float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % STAGES;
+    mbar_wait(&full[st], ring_parity(it, STAGES));
+    wgmma_fence();
+    tile_abt(s, qs, ring + 2 * st * ATT_TILE_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    release_stage(&empty[st]);
+    const int c0 = it * ATT_TILE + fc;
+    float tm[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * rg + i;
-    if (row < nq) {
-      bf16* orow = out + ((size_t)item * nq + row) * ldo + 8 * cg;
+    for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) orow[c] = f2bf(acc[i][c]);
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float& v = s[4 * jj + 2 * h + b];
+          v *= scale;
+          if (c0 + 8 * jj + b < nkv) tm[h] = fmaxf(tm[h], v);
+        }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(mx[h], tm[h]);
+      if (mn == -INFINITY) continue;   // none of this thread's keys yet
+      float add = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          if (c0 + 8 * jj + b < nkv) add += exp_sub(s[4 * jj + 2 * h + b], mn);
+      l[h] = l[h] * exp_sub(mx[h], mn) + add;
+      mx[h] = mn;
     }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, mx[h], o);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l[h], o);
+      merge_max_sum(mx[h], l[h], m2, l2);
+    }
+  const float rl[2] = {1.f / l[0], 1.f / l[1]};
+
+  // pass 2: p = exp(s * scale - m) / sum in f32, split p = p_hi + p_mid +
+  // p_lo (all bf16); each tile's P_lo V + P_mid V + P_hi V on the tensor
+  // cores into a fresh accumulator, added to the f32 output in order
+  float acc[32], tile[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int it = n_tiles + j, st = it % STAGES;
+    const uint8_t* ks = ring + 2 * st * ATT_TILE_BYTES;
+    mbar_wait(&full[st], ring_parity(it, STAGES));
+    wgmma_fence();
+    tile_abt(s, qs, ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    const int c0 = j * ATT_TILE + fc;
+    uint32_t p_hi[16], p_mid[16], p_lo[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      // s[2 i], s[2 i + 1] = acc[4 j + 2 h + {0, 1}]: row + 8 h, columns
+      // 8 j + {0, 1} from c0, for i = 2 j + h
+      const int h = i & 1, col = c0 + 8 * (i >> 1);
+      const float p0 = col < nkv ? exp_sub(s[2 * i] * scale, mx[h]) * rl[h] : 0.f;
+      const float p1 = col + 1 < nkv ? exp_sub(s[2 * i + 1] * scale, mx[h]) * rl[h] : 0.f;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(hi);
+      const float r0 = p0 - hf.x, r1 = p1 - hf.y;   // exact in f32
+      const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+      const float2 mf = __bfloat1622float2(mid);
+      p_hi[i] = *reinterpret_cast<const uint32_t*>(&hi);
+      p_mid[i] = *reinterpret_cast<const uint32_t*>(&mid);
+      p_lo[i] = pack_bf16(r0 - mf.x, r1 - mf.y);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tile[i] = 0.f;
+    wgmma_fence();
+    tile_pb(tile, p_lo, ks + ATT_TILE_BYTES);
+    tile_pb(tile, p_mid, ks + ATT_TILE_BYTES);
+    tile_pb(tile, p_hi, ks + ATT_TILE_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(tile);
+    release_stage(&empty[st]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += tile[i];
+  }
+
+  // epilogue: bf16(O) in pairs, rows < nq only
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + frag_row(t) + 8 * h;
+    if (row >= nq) continue;
+    bf16* orow = out + ((size_t)item * nq + row) * ldo + fc;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jj) =
+          pack_bf16(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
   }
 }
 
 }  // namespace
 
+// The wgmma route: q, k and v TMA-readable (16-byte bases, row strides a
+// multiple of 8), out written in 4-byte pairs (a 4-byte base, ldo even).
+// Other operands return cudaErrorMisalignedAddress: there is no other route
+// on the main path.
 FC_API int fc_attention_core(const void* q, int ldq, const void* k, int ldk, const void* v,
                              int ldv, void* out, int ldo, int n_items, int nq, int nkv,
                              float scale, void* stream) {
-  dim3 grid((nq + QB - 1) / QB, n_items);
-  attention_core_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, ldq, (const bf16*)k, ldk, (const bf16*)v, ldv, (bf16*)out, ldo, nq, nkv,
-      scale);
+  if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(out) & 3u) || (ldo & 1)) return (int)cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = bf16_tensor_map_3d(&tq, q, n_items, nq, ATT_D, ldq, ATT_D, ATT_TILE);
+  if (err == cudaSuccess)
+    err = bf16_tensor_map_3d(&tk, k, n_items, nkv, ATT_D, ldk, ATT_D, ATT_TILE);
+  if (err == cudaSuccess)
+    err = bf16_tensor_map_3d(&tv, v, n_items, nkv, ATT_D, ldv, ATT_D, ATT_TILE);
+  if (err != cudaSuccess) return (int)err;
+  static bool smem_set = false;   // the shared-memory opt-in, once
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(attention_core_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, CORE_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((nq + ATT_TILE - 1) / ATT_TILE, n_items);
+  attention_core_wgmma_kernel<<<grid, CORE_THREADS, CORE_SMEM_BYTES, (cudaStream_t)stream>>>(
+      tq, tk, tv, (bf16*)out, ldo, nq, nkv, scale);
   return (int)cudaGetLastError();
 }

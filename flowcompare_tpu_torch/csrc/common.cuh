@@ -22,6 +22,22 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
 }
 
+// Its derivative, d/dx of gelu_erf.
+__device__ __forceinline__ float gelu_erf_grad(float x) {
+  const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752440f));
+  const float pdf = 0.39894228040143267794f * expf(-0.5f * x * x);
+  return cdf + x * pdf;
+}
+
+// gelu_erf(x) and gelu_erf_grad(x) from one erff, each bit for bit as the
+// functions above compute it.
+__device__ __forceinline__ float2 gelu_erf_and_grad(float x) {
+  const float e = erff(x * 0.70710678118654752440f);
+  const float cdf = 0.5f * (1.0f + e);
+  const float pdf = 0.39894228040143267794f * expf(-0.5f * x * x);
+  return make_float2(0.5f * x * (1.0f + e), cdf + x * pdf);
+}
+
 __device__ __forceinline__ float leaky02(float x) { return x >= 0.f ? x : 0.2f * x; }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -21,6 +21,15 @@
 //                    inverse on the tile, bf16(x) @ Minv^T + shift, writing
 //                    the f32 y and its x1 columns; at layer 0 it writes x.
 //
+// B5's recompute (flow_layers_bwd, the port of flow_layer_vjp_pallas.py's
+// _bwd_kernel_impl, which re-runs each layer from its bf16 save) runs the
+// conditioner and a fourth kind, coupling_record (the coupling MLP alone), in
+// record mode: each hidden product also writes GELU' at its f32
+// pre-activation (fused_layer.cuh's frag_ptr order, the order the backward
+// kernels read it in) and its bf16 activation (for the weight gradients),
+// the LayerNorm its f32 normalised row and 1 / std, the coupling MLP its
+// f32 [s | t]; the x1 columns come from the layer's save.
+//
 // What bounds it on the H100: at dulcet-universe's widths a coupling layer is
 // about 1.76 MFLOP a row and the conditioner 0.49, against some 2 KB a row
 // of bf16 and f32 rows in and out: operations bound both (73 us and 21 us a
@@ -67,30 +76,21 @@
 // q in bf16, y rounded to bf16 before LinearLU, the carry and ldj in f32.
 #include <cstring>
 
-#include "hopper.cuh"
+#include "fused_layer.cuh"
 
 namespace {
 
-constexpr int BM = 64;            // rows a block
-constexpr int WB = 32;            // K rows a weight stage
-constexpr int CWG = 4;            // consumer warpgroups
-constexpr int CONSUMERS = CWG * 128;
-constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
-constexpr int STAGES = 3;
-constexpr int MAXW = 512;         // widest product (K and N)
-constexpr int MAX_PRODUCTS = 10;
-constexpr int BOX_BYTES = 64 * WB * 2;    // 64 output columns x 32 K rows
-constexpr int ATOM_BYTES = BM * 128;      // 64 rows x 64 bf16, 128-byte swizzle
-constexpr int ACT_BYTES = BM * MAXW * 2;
-constexpr int STAGE_BYTES = WB * MAXW * 2;
-constexpr int RED_BYTES = CWG * BM * 4;   // one f32 per row and warpgroup
-constexpr int SMEM_BYTES = 2 * ACT_BYTES + STAGES * STAGE_BYTES + RED_BYTES + 1024;
-
-enum Kind { CONDITIONER = 0, COUPLING = 1, COUPLING_INVERSE = 2 };
+enum Kind { CONDITIONER = 0, COUPLING = 1, COUPLING_INVERSE = 2, COUPLING_RECORD = 3 };
 
 struct Product {
   const float* bias;   // (L, n) f32
   int k, n, layer;
+  // B5's recompute (null otherwise): the f32 value each epilogue forms (a
+  // GELU's pre-activation, the LayerNorm's input, [s | t]) and its bf16
+  // result (the activation, the normalised row), (M, n) row-major
+  float* pre;
+  bf16* h;
+  int ld_pre, ld_h;
 };
 
 struct Plan {
@@ -109,68 +109,36 @@ struct Rows {
   bf16* xin;           // the packed rows (the x1 columns are written)
   bf16* save;          // forward with saves: the next layer's bf16 entry carry
   bf16* q;             // conditioner
-  int ldx, ldy, ldxin, ldsave, ldq;
+  const bf16* x1_src;  // B5's recompute: the layer's bf16 save, whose x1 columns replace xin's
+  float* ln_rstd;      // B5's conditioner recompute: each row's LayerNorm 1 / std
+  int ldx, ldy, ldxin, ldsave, ldq, ld_x1src;
   int M, split, half;
   float eps;
 };
 
-__device__ __forceinline__ uint8_t* act_at(uint8_t* base, int row, int col) {
-  const int cc = col & 63;
-  return base + (col >> 6) * ATOM_BYTES + row * 128 + ((((cc >> 3) ^ (row & 7))) << 4) +
-         (cc & 7) * 2;
+// B5's recompute: [s | t]'s f32 values at row gr, columns col and col + 1
+// (col even), into the last product's record rows (row-major: the
+// backward's head reads them at other threads' columns).
+__device__ __forceinline__ void record_pair(const Product& pr, int gr, int M, int col, float v0,
+                                            float v1) {
+  if (gr >= M || col >= pr.n) return;
+  float* p = pr.pre + (size_t)gr * pr.ld_pre + col;
+  if (col + 1 < pr.n)
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  else
+    p[0] = v0;
 }
 
-__device__ __forceinline__ void st_pair(uint8_t* base, int row, int col, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(act_at(base, row, col)) = __floats2bfloat162_rn(v0, v1);
-}
-
-__device__ __forceinline__ float2 ld_pair(uint8_t* base, int row, int col) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(act_at(base, row, col)));
-}
-
-__device__ __forceinline__ float sigmoid_scale(float s, float eps) {
-  const float sig = 1.f / (1.f + expf(-s));
-  return (2.f * sig - 1.f) * (1.f - eps) + 1.f;
-}
-
-// f(row, col, h, v0, v1) for each pair of this thread's sums plus the bias:
-// rows fr + 8 h of the tile, columns col and col + 1 (col even) of its `cnt`
-// chunks of 64 from chunk c0 (wgmma's m64nN fragment layout). Each chunk's
-// 16 bias values are loaded before any of its pairs is used, so their
-// latencies overlap; columns at or past n add 0.
-template <class F>
-__device__ __forceinline__ void for_pairs(const float (&acc)[64], int cnt, int c0,
-                                          const float* __restrict__ bias, int n, F f) {
-  const int t = threadIdx.x % 128;
-  const int fr = (t / 32) * 16 + (t % 32) / 4, fc = 2 * (t % 4);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (i < cnt) {
-      float2 b[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = (c0 + i) * 64 + 8 * j + fc;
-        b[j].x = col < n ? __ldg(bias + col) : 0.f;
-        b[j].y = col + 1 < n ? __ldg(bias + col + 1) : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          f(fr + 8 * h, (c0 + i) * 64 + 8 * j + fc, h, acc[i * 32 + 4 * j + 2 * h] + b[j].x,
-            acc[i * 32 + 4 * j + 2 * h + 1] + b[j].y);
-      }
-    }
+// B5's recompute: a product's bf16 results, as its epilogue left them in the
+// activation buffer O, into its bf16 record rows, 16 bytes a thread.
+__device__ __forceinline__ void record_rows(const Product& pr, const uint8_t* O, int m0, int M) {
+  const int chunks = (pr.n + 7) / 8;
+  for (int e = threadIdx.x; e < BM * chunks; e += CONSUMERS) {
+    const int row = e / chunks, c = 8 * (e % chunks), gr = m0 + row;
+    if (gr < M)
+      *reinterpret_cast<uint4*>(pr.h + (size_t)gr * pr.ld_h + c) =
+          *reinterpret_cast<const uint4*>(act_at(const_cast<uint8_t*>(O), row, c));
   }
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ void release(uint64_t* bar) {
-  if (threadIdx.x % 128 == 0) mbar_arrive(bar);
 }
 
 template <int KIND>
@@ -189,7 +157,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CWG);
+      mbar_init(&empty[s], EMPTY_ARRIVALS);
     }
     mbar_init(&abar, 1);
     mbar_init(&ybar, 1);
@@ -200,7 +168,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (wg == CWG) {
     // the producer: the block's input rows once, then every product's weights
     if (threadIdx.x == CONSUMERS) {
-      if (KIND != CONDITIONER) {
+      if (KIND == COUPLING || KIND == COUPLING_INVERSE) {
         // the tile's f32 rows the last epilogue reads (x forward, y inverse)
         // into L2 now, so that epilogue finds them there
         const float* src = (KIND == COUPLING ? io.x : io.y);
@@ -216,20 +184,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int a = 0; a < in_atoms; ++a)
         tma_load(act[1] + a * ATOM_BYTES, &plan.in, &abar, 64 * a, m0);
       int it = 0;
-      for (int p = 0; p < plan.n_products; ++p) {
-        const Product pr = plan.prod[p];
-        const CUtensorMap* map = &plan.w[p];
-        prefetch_tensor_map(map);
-        const int nch = (pr.n + 63) / 64, kt = (pr.k + WB - 1) / WB;
-        for (int t = 0; t < kt; ++t, ++it) {
-          const int s = it % STAGES;
-          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-          uint8_t* stage = ring + s * STAGE_BYTES;
-          mbar_expect_tx(&full[s], nch * BOX_BYTES);
-          for (int c = 0; c < nch; ++c)
-            tma_load_3d(stage + c * BOX_BYTES, map, &full[s], 64 * c, WB * t, pr.layer);
-        }
-      }
+      for (int p = 0; p < plan.n_products; ++p)
+        produce_weights(&plan.w[p], plan.prod[p].k, plan.prod[p].n, plan.prod[p].layer, ring,
+                        full, empty, it);
     }
     __syncwarp();
   } else {
@@ -242,8 +199,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     // the inverse walk, which writes x)
     const bool to_y = KIND == COUPLING || plan.n_products > plan.n_mlp;
     mbar_wait(&abar, 0);
+    if (io.x1_src != nullptr) {
+      // B5's recompute: the x1 columns come from the layer's bf16 save (whose
+      // rows TMA cannot read), over what TMA loaded, and go into the packed
+      // rows for the weight gradients
+      for (int e = tid; e < BM * split; e += CONSUMERS) {
+        const int row = e / split, c = e % split, gr = m0 + row;
+        const bf16 v = gr < M ? io.x1_src[(size_t)gr * io.ld_x1src + c] : f2bf(0.f);
+        *reinterpret_cast<bf16*>(act_at(act[1], row, c)) = v;
+        if (gr < M) io.xin[(size_t)gr * io.ldxin + c] = v;
+      }
+      fence_proxy_async();
+      named_barrier(1, CONSUMERS);
+    }
     for (int p = 0; p < plan.n_products; ++p) {
-      const Product pr = plan.prod[p];
+      const Product& pr = plan.prod[p];
       const int n = pr.n;
       const float* bias = pr.bias + (size_t)pr.layer * n;
       const bool tail = p == plan.n_mlp;
@@ -262,36 +232,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int nch = (n + 63) / 64, cpw = (nch + CWG - 1) / CWG, c0 = wg * cpw;
       const int cnt = min(max(nch - c0, 0), cpw);
       float acc[64];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-      fence_acc(acc);
-      const int kt = (pr.k + WB - 1) / WB;
-      for (int kk = 0; kk < kt; ++kk, ++it) {
-        const int s = it % STAGES;
-        mbar_wait(&full[s], (it / STAGES) & 1);
-        if (cnt > 0) {
-          const uint8_t* stage = ring + s * STAGE_BYTES + c0 * BOX_BYTES;
-          wgmma_fence();
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int col = kk * WB + h * 16;
-            const uint64_t da = smem_desc(A + (col >> 6) * ATOM_BYTES + (col & 63) * 2, 16, 1024);
-            const uint64_t db = smem_desc(stage + h * 2048, BOX_BYTES, 1024);
-            if (cnt == 2)
-              wgmma_m64n128<0, 1>(acc, da, db);
-            else
-              wgmma_m64n64<0, 1>(*reinterpret_cast<float(*)[32]>(&acc[0]), da, db);
-          }
-          wgmma_commit();
-        }
-        if (kk > 0) {
-          wgmma_wait<1>();
-          release(&empty[(it - 1) % STAGES]);
-        }
-      }
-      wgmma_wait<0>();
-      fence_acc(acc);
-      release(&empty[(it - 1) % STAGES]);
+      consume_weights(acc, A, pr.k, c0, cnt, ring, full, empty, it);
 
       if (!last && !tail) {
         // first and hidden products: GELU, a residual every second hidden one
@@ -306,17 +247,28 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
         uint8_t* O = act[out];
         uint8_t* R = act[r];
-        for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int, float v0, float v1) {
-          if (add_res) {
-            const float2 rv = ld_pair(R, row, col);
-            v0 = rv.x + v0;
-            v1 = rv.y + v1;
-          }
-          st_pair(O, row, col, gelu_erf(v0), gelu_erf(v1));
-        });
+        if (pr.pre != nullptr) {
+          // B5's recompute: GELU' at the f32 pre-activations, in the
+          // accumulator's order
+          add_bias_res(acc, cnt, c0, bias, n, add_res ? R : nullptr);
+          gelu_record(acc, cnt, c0, pr.pre, cpw, O);
+        } else {
+          for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int, float v0, float v1) {
+            if (add_res) {
+              const float2 rv = ld_pair(R, row, col);
+              v0 = rv.x + v0;
+              v1 = rv.y + v1;
+            }
+            st_pair(O, row, col, gelu_erf(v0), gelu_erf(v1));
+          });
+        }
         a = out;
       } else if (KIND == CONDITIONER && last) {
         // LayerNorm of the f32 row (plain statistics; scale and bias are in wq_f)
+        if (pr.pre != nullptr) {
+          add_bias_res(acc, cnt, c0, bias, n, nullptr);
+          bias = nullptr;
+        }
         float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
         for_pairs(acc, cnt, c0, bias, n, [&](int, int, int h, float v0, float v1) {
           s1[h] += v0 + v1;
@@ -348,6 +300,21 @@ __global__ void __launch_bounds__(THREADS, 1)
           mean[h] = s1[h] / n;
           inv[h] = rsqrtf(s2[h] / n - mean[h] * mean[h] + 1e-5f);
         }
+        if (pr.pre != nullptr) {
+          // B5's recompute: the normalised row in f32 (xhat, in the
+          // accumulator's order) and each row's 1 / std
+#pragma unroll
+          for (int k = 0; k < 16; ++k)
+            if (k < 8 * cnt)
+              *frag_ptr(pr.pre, cpw, k) = make_float4(
+                  (acc[4 * k] - mean[0]) * inv[0], (acc[4 * k + 1] - mean[0]) * inv[0],
+                  (acc[4 * k + 2] - mean[1]) * inv[1], (acc[4 * k + 3] - mean[1]) * inv[1]);
+          if (wg == 0 && t % 4 == 0) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (m0 + fr + 8 * h < M) io.ln_rstd[m0 + fr + 8 * h] = inv[h];
+          }
+        }
         uint8_t* O = act[ybuf];
         for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int h, float v0, float v1) {
           st_pair(O, row, col, col < n ? (v0 - mean[h]) * inv[h] : 0.f,
@@ -361,6 +328,11 @@ __global__ void __launch_bounds__(THREADS, 1)
           bf16* qr = io.q + (size_t)gr * io.ldq;
           if (col < n) qr[col] = f2bf(v0);
           if (col + 1 < n) qr[col + 1] = f2bf(v1);
+        });
+      } else if (KIND == COUPLING_RECORD) {
+        // B5's recompute: [s | t] (interleaved) in f32, nothing after it
+        for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int, float v0, float v1) {
+          record_pair(pr, m0 + row, M, col, v0, v1);
         });
       } else if (last) {
         // [s | t] interleaved: the affine (forward) or its inverse on the registers
@@ -482,6 +454,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       fence_proxy_async();
       named_barrier(1, CONSUMERS);
+      // B5's recompute: the activation (or the normalised row) the epilogue
+      // wrote, now complete in shared memory
+      if (pr.h != nullptr && !tail) record_rows(pr, act[last ? ybuf : a], m0, M);
     }
   }
 }
@@ -501,25 +476,40 @@ cudaError_t launch(const Plan& plan, const Rows& io, cudaStream_t stream) {
 
 }  // namespace
 
-// One layer of the conditioner (kind 0), the coupling forward (1) or the
-// coupling inverse (2) over M rows, one block of 64 rows a tile. Product p (of n_products; the first n_mlp
-// are the MLP, one more is the tail: q, the LinearLU or the next layer's LU
-// inverse) reads weight stack w[p] ((w_layers[p], k[p], n[p]) bf16, row
-// stride w_ld[p], layer stride k[p] * w_ld[p]) at `layer` (the tail at
-// `tail_layer`) and adds bias[p] ((layers, n[p]) f32). The first product
-// reads the packed rows' first in_cols columns. Every operand must be
-// TMA-readable (16-byte base, row stride a multiple of 8 bf16).
+// One layer of the conditioner (kind 0), the coupling forward (1), the
+// coupling inverse (2) or B5's coupling recompute (3: the MLP alone) over M
+// rows, one block of 64 rows a tile. Product p (of n_products; the first
+// n_mlp are the MLP, one more is the tail: q, the LinearLU or the next
+// layer's LU inverse; kind 3 has none) reads weight stack w[p]
+// ((w_layers[p], k[p], n[p]) bf16, row stride w_ld[p], layer stride k[p] *
+// w_ld[p]) at `layer` (the tail at `tail_layer`) and adds bias[p] ((layers,
+// n[p]) f32). The first product reads the packed rows' first in_cols
+// columns. Every operand must be TMA-readable (16-byte base, row stride a
+// multiple of 8 bf16). B5's recompute passes, per product, f32 record rows
+// rec_pre[p] and bf16 rec_h[p] (0 where none; [s | t]'s row stride even,
+// rec_h's rows 16-byte aligned) and x1_src, the layer's save, whose x1 columns are read in
+// place of xin's and written into xin, and for the conditioner ln_rstd
+// (M f32): hidden products record GELU' at their f32 pre-activations in
+// frag_ptr's order, the LayerNorm the normalised f32 row likewise and each
+// row's 1 / std; other calls pass nulls.
 FC_API int fc_fused_layer(int kind, int n_products, int n_mlp,
                           const uint64_t* w, const int* w_ld, const int* w_layers, const int* k,
                           const int* n, const uint64_t* bias, int layer, int tail_layer,
                           const void* xin, int ldxin, int in_cols, int split, int half, int M,
                           void* x, int ldx, void* y, int ldy, void* ldj, const void* lu_ldj,
-                          void* save, int ldsave, void* q, int ldq, float eps, void* stream) {
-  if (kind < 0 || kind > 2 || n_products < 2 || n_products > MAX_PRODUCTS || n_mlp < 2 || n_mlp > n_products ||
+                          void* save, int ldsave, void* q, int ldq, float eps,
+                          const uint64_t* rec_pre, const int* ld_pre, const uint64_t* rec_h,
+                          const int* ld_h, const void* x1_src, int ld_x1src, void* ln_rstd,
+                          void* stream) {
+  if (kind < 0 || kind > 3 || n_products < 2 || n_products > MAX_PRODUCTS || n_mlp < 2 ||
+      n_mlp > n_products ||
       n_products - n_mlp > 1 || M < 1 || in_cols > MAXW || split + half > MAXW ||
       k[0] != in_cols)
     return (int)cudaErrorInvalidValue;
-  if (kind != COUPLING_INVERSE && n_products != n_mlp + 1) return (int)cudaErrorInvalidValue;
+  if (kind != COUPLING_INVERSE && n_products != n_mlp + (kind == COUPLING_RECORD ? 0 : 1))
+    return (int)cudaErrorInvalidValue;
+  if (kind == CONDITIONER && rec_pre != nullptr && rec_pre[n_mlp - 1] != 0 && ln_rstd == nullptr)
+    return (int)cudaErrorInvalidValue;   // the LayerNorm's record needs its 1 / std rows
   Plan plan;
   memset(&plan, 0, sizeof(plan));
   plan.n_products = n_products;
@@ -530,19 +520,24 @@ FC_API int fc_fused_layer(int kind, int n_products, int n_mlp,
     err = bf16_tensor_map_3d(&plan.w[p], reinterpret_cast<const void*>(w[p]), w_layers[p], k[p],
                              n[p], w_ld[p], 64, WB);
     plan.prod[p] = {reinterpret_cast<const float*>(bias[p]), k[p], n[p],
-                    p < n_mlp ? layer : tail_layer};
+                    p < n_mlp ? layer : tail_layer,
+                    rec_pre == nullptr ? nullptr : reinterpret_cast<float*>(rec_pre[p]),
+                    rec_h == nullptr ? nullptr : reinterpret_cast<bf16*>(rec_h[p]),
+                    rec_pre == nullptr ? 0 : ld_pre[p], rec_h == nullptr ? 0 : ld_h[p]};
   }
   if (err == cudaSuccess) err = bf16_tensor_map(&plan.in, xin, M, in_cols, ldxin, 64, BM);
   if (err == cudaSuccess && kind != CONDITIONER)
     err = bf16_tensor_map(&plan.x1, xin, M, split, ldxin, 64, BM);
   if (err != cudaSuccess) return (int)err;
-  const Rows io{(float*)x,  (float*)y, (float*)ldj, (const float*)lu_ldj, (bf16*)xin, (bf16*)save,
-                (bf16*)q,   ldx,       ldy,         ldxin,                ldsave,     ldq,
-                M,          split,     half,        eps};
+  const Rows io{(float*)x,  (float*)y, (float*)ldj, (const float*)lu_ldj, (bf16*)xin,
+                (bf16*)save, (bf16*)q, (const bf16*)x1_src, (float*)ln_rstd, ldx, ldy, ldxin,
+                ldsave, ldq,
+                ld_x1src, M, split, half, eps};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (kind) {
     case CONDITIONER: return (int)launch<CONDITIONER>(plan, io, s);
     case COUPLING: return (int)launch<COUPLING>(plan, io, s);
+    case COUPLING_RECORD: return (int)launch<COUPLING_RECORD>(plan, io, s);
     default: return (int)launch<COUPLING_INVERSE>(plan, io, s);
   }
 }

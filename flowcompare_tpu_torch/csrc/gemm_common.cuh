@@ -33,12 +33,6 @@ struct Epilogue {
   int flags;
 };
 
-__device__ __forceinline__ float gelu_erf_grad(float x) {
-  const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752440f));
-  const float pdf = 0.39894228040143267794f * expf(-0.5f * x * x);
-  return cdf + x * pdf;
-}
-
 // The epilogue of one output element (row r, column c) whose product is v,
 // in this order: + bias, + residual (bf16 or f32), + the current f32 output
 // (accumulate), the per-channel affine with leaky-0.2 (BatchNorm folded),

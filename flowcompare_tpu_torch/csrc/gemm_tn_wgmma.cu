@@ -42,7 +42,8 @@ __global__ void __launch_bounds__(TnTile<BN>::THREADS, TnTile<BN>::MIN_BLOCKS)
       for (int i = 0; i < 8 && c + i < N; ++i) p[i] = s[i];
     }
   };
-  gemm_block<TnTile<BN>, true, false>(&ta, &tb, M, N, k_begin, (k_end - k_begin + BK - 1) / BK,
+  gemm_block<TnTile<BN>, true, false>(&ta, &tb, M, N, blockIdx.y * 128, blockIdx.x * BN, k_begin,
+                                      (k_end - k_begin + BK - 1) / BK,
                                       store);
 }
 

@@ -116,7 +116,8 @@ __global__ void __launch_bounds__(BlockTile<BM, BN>::THREADS, BlockTile<BM, BN>:
   const auto epi = [=](const float* s, int r, int c) {
     epilogue_chunk(s, r, c, N, vec, ep, C, ldc);
   };
-  gemm_block<BlockTile<BM, BN>, false, B_K>(&ta, &tb, M, N, 0, (K + BK - 1) / BK, epi);
+  gemm_block<BlockTile<BM, BN>, false, B_K>(&ta, &tb, M, N, blockIdx.y * BM, blockIdx.x * BN, 0,
+                                            (K + BK - 1) / BK, epi);
 }
 
 template <int BM, int BN, bool B_K>

@@ -79,13 +79,13 @@ struct Tile {
 // stores are 16 or 32 bytes wide and a warp's are contiguous.
 template <class T, bool A_MN, bool B_K, class Epi>
 __device__ __forceinline__ void gemm_block(const CUtensorMap* ta, const CUtensorMap* tb, int M,
-                                           int N, int k_begin, int k_tiles, Epi epi) {
+                                           int N, int m0, int n0, int k_begin, int k_tiles,
+                                           Epi epi) {
   constexpr int BM = T::ROWS, BN = T::COLS;
   constexpr int STAGES = T::STAGES, LDS = T::STAGED_LD;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[T::STAGES], empty[T::STAGES];
   uint8_t* smem = align1024(smem_raw);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {

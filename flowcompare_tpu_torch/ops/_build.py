@@ -41,6 +41,16 @@ product of its MLP (`conditioner`, `coupling_layer`, `coupling_inverse`,
 over a `FusedStack` of weights); their plain versions are
 `flow_layer_cuda.conditioner_plain`, `coupling_layer_plain` and
 `coupling_inverse_plain`, which the wrappers run on CPU tensors.
+
+B5 runs each layer as the same kernels in record mode
+(`conditioner_record`, `coupling_record`, with a `Record` of rows), the
+backward kernels of csrc/fused_layer_bwd.cu (`coupling_bwd`,
+`conditioner_bwd`, over a `BwdStack`) and one grouped launch of the weight
+gradients with one more for every sum of partials (`gemm_tn_grouped` over
+a `TnGroup`, `grad_reduce` over `GradSums`, csrc/gemm_tn_grouped.cu); each
+runs its plain version (`flow_layer_vjp_cuda.*_plain`,
+`gemm_tn_grouped_plain`, `grad_reduce_plain`) on CPU tensors. B10's
+`attention_core` is a TMA + wgmma kernel.
 """
 
 from __future__ import annotations
@@ -102,7 +112,12 @@ _SIGNATURES = {
     "fc_sa_group": [_V, _V, _V, _V, _I, _V, _I, _I, _I, _I, _I, _V],
     "fc_sa_group_smem": [_I],
     "fc_fused_layer": [_I, _I, _I, _V, _V, _V, _V, _V, _V, _I, _I, _V, _I, _I, _I, _I, _I,
-                       _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _F, _V],
+                       _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _F, _V, _V, _V, _V, _V, _I, _V,
+                       _V],
+    "fc_fused_layer_bwd": [_I, _I, *[_V] * 13, _I, _I, _V, _I, _I, _V, _I, _V, _V, _I, _V, _I,
+                           _V, _V, _I, _V, _I, _V, _I, _I, _I, _I, _I, _I, _I, _V, _F, _V],
+    "fc_gemm_tn_grouped": [_I, *[_V] * 10, _V],
+    "fc_grad_reduce": [_I, *[_V] * 7, _I, _V],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -124,6 +139,19 @@ ATTENTION_BWD_WMMA_LAUNCHES = 0
 FUSED_CONDITIONER_LAUNCHES = 0
 COUPLING_LAYER_LAUNCHES = 0
 COUPLING_INVERSE_LAUNCHES = 0
+# and of B5's per-layer kernels: the recompute in the fused kernels' record
+# mode, the fused backward kernels (csrc/fused_layer_bwd.cu) and the grouped
+# weight gradients and their sums (csrc/gemm_tn_grouped.cu)
+CONDITIONER_RECORD_LAUNCHES = 0
+COUPLING_RECORD_LAUNCHES = 0
+COUPLING_BWD_LAUNCHES = 0
+CONDITIONER_BWD_LAUNCHES = 0
+GEMM_TN_GROUPED_LAUNCHES = 0
+GRAD_REDUCE_LAUNCHES = 0
+# and of two row passes the per-product B5 chain also runs: attn_bwd_prep
+# (both chains) and colsum (the per-product chain's bias gradients)
+ATTN_BWD_PREP_LAUNCHES = 0
+COLSUM_LAUNCHES = 0
 
 NUM_SMS = 132          # the H100 SXM's; tiles and splits aim at about one wave of blocks
 
@@ -481,7 +509,8 @@ def colsum_workspace(rows: int, cols: int) -> int:
 
 def colsum(src: torch.Tensor, out: torch.Tensor, ws: Optional[torch.Tensor] = None) -> None:
     """out (C) f32 = column sums of src (R, C) f32, deterministic (row
-    chunks, then the chunks in order)."""
+    chunks, then the chunks in order); counted as COLSUM_LAUNCHES."""
+    global COLSUM_LAUNCHES
     ld = _rows(src, "colsum.src", torch.float32)
     r, c = src.shape
     _vec(out, "colsum.out", c)
@@ -490,6 +519,7 @@ def colsum(src: torch.Tensor, out: torch.Tensor, ws: Optional[torch.Tensor] = No
         ws = torch.empty(need, dtype=torch.float32, device=src.device)
     _check("colsum", library().fc_colsum(src.data_ptr(), ld, r, c, out.data_ptr(),
                                          ws.data_ptr(), _stream()))
+    COLSUM_LAUNCHES += 1
 
 
 def cast_rows(src: torch.Tensor, dst: torch.Tensor) -> None:
@@ -601,8 +631,11 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
                    n_items: int, scale: float) -> None:
-    """Per item: out = softmax(q k^T * scale) v with p in f32 (B10), q
-    (items*nq, 64), k and v (items*nkv, 64) bf16, each with its own row stride."""
+    """Per item: out = softmax(q k^T * scale) v with p at f32 precision (B10),
+    q (items*nq, 64), k and v (items*nkv, 64) bf16, each with its own row
+    stride. The TMA + wgmma kernel (p split into three bf16 terms for the
+    tensor cores) takes operands TMA can read and an out written in pairs,
+    and raises on others."""
     ldq = _rows(q, "attention_core.q", torch.bfloat16)
     ldk = _rows(k, "attention_core.k", torch.bfloat16)
     ldv = _rows(v, "attention_core.v", torch.bfloat16)
@@ -610,8 +643,11 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     if q.shape[1] != 64 or k.shape[1] != 64 or v.shape[1] != 64 or out.shape[1] != 64:
         raise ValueError("attention_core: head dimension must be 64")
     if (k.shape[0] != v.shape[0] or out.shape[0] != q.shape[0] or q.shape[0] % n_items
-            or k.shape[0] % n_items or k.shape[0] == 0):
-        raise ValueError("attention_core: rows not divisible by items, or no keys")
+            or k.shape[0] % n_items or k.shape[0] == 0 or q.shape[0] == 0):
+        raise ValueError("attention_core: rows not divisible by items, or no rows")
+    if attention_route([q, k, v], [out]) != "wgmma":
+        raise ValueError("attention_core: TMA cannot read q, k or v (16-byte-aligned base "
+                         "and row stride needed), or out cannot be written in pairs")
     _check("attention_core", library().fc_attention_core(
         q.data_ptr(), ldq, k.data_ptr(), ldk, v.data_ptr(), ldv, out.data_ptr(), ldo, n_items,
         q.shape[0] // n_items, k.shape[0] // n_items, float(scale), _stream()))
@@ -692,8 +728,9 @@ def attn_bwd_prep_plain(da: torch.Tensor, a: torch.Tensor, den: torch.Tensor, du
 
 def attn_bwd_prep(da: torch.Tensor, a: torch.Tensor, den: torch.Tensor, du: torch.Tensor,
                   ddn: torch.Tensor) -> None:
-    """du (bf16) = da / den, ddn = -sum(da * a) / den per row. A CPU da runs
-    `attn_bwd_prep_plain`."""
+    """du (bf16) = da / den, ddn = -sum(da * a) / den per row
+    (ATTN_BWD_PREP_LAUNCHES). A CPU da runs `attn_bwd_prep_plain`."""
+    global ATTN_BWD_PREP_LAUNCHES
     if not da.is_cuda:
         attn_bwd_prep_plain(da, a, den, du, ddn)
         return
@@ -706,6 +743,7 @@ def attn_bwd_prep(da: torch.Tensor, a: torch.Tensor, den: torch.Tensor, du: torc
     _check("attn_bwd_prep", library().fc_attn_bwd_prep(
         da.data_ptr(), ldda, a.data_ptr(), lda, _vec(den, "attn_bwd_prep.den", r),
         du.data_ptr(), lddu, _vec(ddn, "attn_bwd_prep.ddn", r), r, c, _stream()))
+    ATTN_BWD_PREP_LAUNCHES += 1
 
 
 def row_norm_bwd(x: torch.Tensor, g: torch.Tensor, dx: torch.Tensor, dx_b: torch.Tensor,
@@ -1005,9 +1043,89 @@ class FusedStack:
         return [(w[l], b[l]) for w, b in self.pairs]
 
 
+def fragment_rows(rows: int, cols: int, device) -> torch.Tensor:
+    """An (rows, cols) f32 view for values the fused kernels write and read
+    in their accumulator's order (csrc/fused_layer.cuh's frag_ptr: a 64-row
+    tile of a product whose output has cols columns is a block of 64 x 256
+    cpw floats, cpw its warpgroups' 64-column chunks each); the plain
+    versions use the view row-major. The buffer under it has 256 cpw columns
+    and its rows rounded up to 64."""
+    cpw = -(-(-(-cols // 64)) // 4)
+    buf = torch.empty(-(-rows // 64) * 64, 256 * cpw, dtype=torch.float32, device=device)
+    return buf[:rows, :cols]
+
+
+def fragment_index(rows: int, cols: int, device) -> torch.Tensor:
+    """For each element (r, c) of a `fragment_rows` matrix, the index of
+    its value in the flat buffer under it as the CUDA kernels lay it out:
+    float4 k of consumer thread t in tile b at (b * 8 cpw + k) * 512 + t,
+    holding rows fr and fr + 8, columns col and col + 1 of warpgroup t //
+    128's chunk c0 + k // 8 (wgmma's m64nN fragment). For checks that read
+    a kernel's records row-major."""
+    cpw = -(-(-(-cols // 64)) // 4)
+    t = torch.arange(512, device=device)
+    tt, wg = t % 128, t // 128
+    fr, fc = (tt // 32) * 16 + (tt % 32) // 4, 2 * (tt % 4)
+    k = torch.arange(8 * cpw, device=device)
+    q = torch.arange(4, device=device)
+    row = fr[:, None, None] + 8 * (q >> 1)[None, None, :]
+    col = ((wg[:, None, None] * cpw + (k // 8)[None, :, None]) * 64 + 8 * (k % 8)[None, :, None]
+           + fc[:, None, None] + (q & 1)[None, None, :])
+    row, col = torch.broadcast_tensors(row, col)
+    flat = ((k[None, :, None] * 512 + t[:, None, None]) * 4 + q[None, None, :]).expand_as(row)
+    tiles = -(-rows // 64)
+    b = torch.arange(tiles, device=device)[:, None, None, None]
+    rows_all = b * 64 + row[None]
+    flat_all = b * (8 * cpw * 512 * 4) + flat[None]
+    keep = (rows_all < rows) & (col[None] < cols)
+    index = torch.empty(rows, cols, dtype=torch.long, device=device)
+    index[rows_all[keep], col.expand_as(rows_all)[keep]] = flat_all[keep]
+    return index
+
+
+def fragment_to_rows(view: torch.Tensor) -> torch.Tensor:
+    """A `fragment_rows` view's values as a kernel wrote them, row-major."""
+    flat = torch.as_strided(view, (view.untyped_storage().nbytes() // 4,), (1,), 0)
+    return flat[fragment_index(view.shape[0], view.shape[1], view.device)]
+
+
+def _ptrs(ctype, values: list):
+    """A ctypes array of `values` (the C entry points read per-product
+    tables from host memory)."""
+    return (ctype * len(values))(*values)
+
+
+class Record:
+    """The rows B5's recompute writes per product of a FusedStack: an f32
+    matrix `pre[p]` (the value the epilogue forms: a GELU's pre-activation
+    or the LayerNorm's input, a `fragment_rows` view the kernel fills in its
+    accumulator's order; [s | t], row-major with an even row stride) and a
+    bf16 matrix `h[p]` (its result; rows of whole 16 bytes from a 16-byte
+    base, written 16 bytes at a time), each (M, N_p), or None. The pointer
+    tables are built once here."""
+
+    def __init__(self, pre: list, h: list):
+        for t in pre:
+            if t is not None and (t.dtype != torch.float32 or t.dim() != 2 or t.stride(1) != 1
+                                  or t.stride(0) % 2 or t.data_ptr() % 8):
+                raise ValueError(f"Record.pre: {tuple(t.shape)} {t.dtype} strides {t.stride()}")
+        for t in h:
+            if t is not None and (t.dtype != torch.bfloat16 or t.dim() != 2 or t.stride(1) != 1
+                                  or not tma_readable(t.data_ptr(), t.stride(0))):
+                raise ValueError(f"Record.h: {tuple(t.shape)} {t.dtype} strides {t.stride()}")
+        self.pre, self.h = pre, h
+        self._arrays = [_ptrs(ctypes.c_uint64, [0 if t is None else t.data_ptr() for t in ts])
+                        for ts in (pre, h)]
+        self._arrays += [_ptrs(ctypes.c_int, [0 if t is None else t.stride(0) for t in ts])
+                         for ts in (pre, h)]
+        self.args = [ctypes.addressof(self._arrays[i]) for i in (0, 2, 1, 3)]
+
+
 def _fused_launch(kind: int, stack: FusedStack, n_products: int, layer: int, tail_layer: int,
                   xin: torch.Tensor, split: int, half: int, *, x=None, y=None, ldj=None,
-                  lu_ldj=None, save=None, q=None, eps: float = 0.0) -> None:
+                  lu_ldj=None, save=None, q=None, eps: float = 0.0, record: Record = None,
+                  x1_src: Optional[torch.Tensor] = None,
+                  ln_rstd: Optional[torch.Tensor] = None) -> None:
     ldxin = _rows(xin, "fused_layer.xin", torch.bfloat16)
     if not tma_readable(xin.data_ptr(), ldxin) or xin.shape[1] < stack.in_cols:
         raise ValueError("fused_layer: TMA cannot read the packed rows, or they are too narrow")
@@ -1028,10 +1146,19 @@ def _fused_launch(kind: int, stack: FusedStack, n_products: int, layer: int, tai
     q_p, ldq = mat(q, "q", torch.bfloat16, stack.pairs[-1][0].shape[2])
     ldj_p = None if ldj is None else _vec(ldj, "fused_layer.ldj", rows)
     lu_p = None if lu_ldj is None else _vec(lu_ldj, "fused_layer.lu_ldj", 1)
+    x1_p, ldx1 = None, 0
+    if x1_src is not None:
+        ldx1 = _rows(x1_src, "fused_layer.x1_src", torch.bfloat16)
+        if x1_src.shape[0] != rows or x1_src.shape[1] < split:
+            raise ValueError("fused_layer.x1_src: expected the layer's (M, >= split) bf16 save")
+        x1_p = x1_src.data_ptr()
+    rec = record.args if record is not None else [None] * 4
     rc = library().fc_fused_layer(kind, n_products, stack.n_mlp, *stack.args, layer,
                                   tail_layer, xin.data_ptr(), ldxin, stack.in_cols, split, half,
                                   rows, x_p, ldx, y_p, ldy, ldj_p, lu_p, save_p, ldsave, q_p, ldq,
-                                  float(eps), _stream())
+                                  float(eps), *rec, x1_p, ldx1,
+                                  None if ln_rstd is None else _vec(ln_rstd, "fused_layer.ln_rstd",
+                                                                    rows), _stream())
     if rc:
         _check(f"fused_layer (kind {kind})", rc)
 
@@ -1098,3 +1225,302 @@ def coupling_inverse(xin: torch.Tensor, split: int, stack: FusedStack, l: int, y
     n_products = stack.n_mlp + int(x is None)
     _fused_launch(2, stack, n_products, l, l - 1, xin, split, half, x=x, y=y, eps=eps_affine)
     COUPLING_INVERSE_LAUNCHES += 1
+
+
+# ---------------------------------------------- B5's per-layer kernels
+
+def conditioner_record(xin: torch.Tensor, split: int, stack: FusedStack, l: int,
+                       q: torch.Tensor, record: Record, x1_src: torch.Tensor,
+                       ln_rstd: torch.Tensor) -> None:
+    """B5's recompute of layer l's conditioner: `conditioner` reading the x1
+    columns from the layer's bf16 save `x1_src` (and writing them into the
+    packed rows), recording per hidden pre-MLP product GELU' at its f32
+    pre-activation and its bf16 activation, for the last product the
+    LayerNorm's normalised f32 row (xhat) and bf16 output (qn), and each
+    row's 1 / std into ln_rstd (M f32). One launch
+    (CONDITIONER_RECORD_LAUNCHES). A CPU xin runs
+    `flow_layer_vjp_cuda.conditioner_record_plain`."""
+    global CONDITIONER_RECORD_LAUNCHES
+    if not xin.is_cuda:
+        from .flow_layer_vjp_cuda import conditioner_record_plain
+        conditioner_record_plain(xin, split, stack.layer(l), q, record, x1_src, ln_rstd)
+        return
+    if stack.in_cols != split:
+        raise ValueError("conditioner_record: the pre-MLP's first weight must read the x1 columns")
+    _fused_launch(0, stack, len(stack.pairs), l, l, xin, split, 0, q=q, record=record,
+                  x1_src=x1_src, ln_rstd=ln_rstd)
+    CONDITIONER_RECORD_LAUNCHES += 1
+
+
+def coupling_record(xin: torch.Tensor, split: int, stack: FusedStack, l: int, record: Record,
+                    x1_src: Optional[torch.Tensor] = None) -> None:
+    """B5's recompute of layer l's coupling MLP on the packed rows (the stack
+    holds the MLP alone, its last product's [s | t] interleaved): per
+    hidden product GELU' at the f32 pre-activation and the bf16 activation,
+    and [s | t] (f32, interleaved) as the last product's pre. With `x1_src` the x1 columns come
+    from the layer's save (and are written into the packed rows). One launch
+    (COUPLING_RECORD_LAUNCHES). A CPU xin runs
+    `flow_layer_vjp_cuda.coupling_record_plain`."""
+    global COUPLING_RECORD_LAUNCHES
+    if not xin.is_cuda:
+        from .flow_layer_vjp_cuda import coupling_record_plain
+        coupling_record_plain(xin, split, stack.layer(l), record, x1_src)
+        return
+    if len(stack.pairs) != stack.n_mlp:
+        raise ValueError("coupling_record: the stack holds the MLP alone")
+    _fused_launch(3, stack, stack.n_mlp, l, l, xin, split, 0, record=record, x1_src=x1_src)
+    COUPLING_RECORD_LAUNCHES += 1
+
+
+class BwdStack:
+    """The products of one fused backward launch (csrc/fused_layer_bwd.cu):
+    per product a bf16 weight stack (L, K, N) whose rows TMA can read (the
+    head's lu_w_f or wq_f^T, then the MLP's W^T in reverse), the f32 values
+    its epilogue reads (`pre`: the coupling head's [s | t] row-major, the
+    others `fragment_rows` written by the recompute), the f32 residual
+    gradient read and written (`res_in`, `res_out`, views of one
+    `fragment_rows` scratch), the bf16 dp it writes (`d_out`) and its
+    per-tile column sums (`colsum`, (tiles, N) f32); None where a product
+    has none (the tail has only its weight). The pointer tables are built
+    once here."""
+
+    def __init__(self, weights: list, pre: list, res_in: list, res_out: list, d_out: list,
+                 colsum: list):
+        n = len(weights)
+        if not 3 <= n <= FUSED_MAX_PRODUCTS or not all(
+                len(v) == n for v in (pre, res_in, res_out, d_out, colsum)):
+            raise ValueError(f"BwdStack: {n} products")
+        for w in weights:
+            if (w.dim() != 3 or w.dtype != torch.bfloat16 or w.stride(2) != 1
+                    or w.stride(0) != w.shape[1] * w.stride(1)
+                    or not tma_readable(w.data_ptr(), w.stride(1))
+                    or not 1 <= w.shape[1] <= FUSED_MAXW or not 1 <= w.shape[2] <= FUSED_MAXW):
+                raise ValueError(f"BwdStack: weight {tuple(w.shape)} {w.dtype} strides "
+                                 f"{w.stride()} not in the layout")
+        for t in pre + res_in + res_out:
+            if t is not None and (t.dtype != torch.float32 or t.stride(0) % 2
+                                  or t.data_ptr() % 8):
+                raise ValueError("BwdStack: f32 rows need an even stride and an 8-byte base")
+        for t in d_out:
+            if t is not None and (t.dtype != torch.bfloat16
+                                  or not tma_readable(t.data_ptr(), t.stride(0))):
+                raise ValueError("BwdStack: dp rows need a 16-byte base and row stride")
+        for t in colsum:
+            if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()):
+                raise ValueError("BwdStack: column sums must be contiguous f32")
+        self.weights, self.pre, self.res_in, self.res_out = weights, pre, res_in, res_out
+        self.d_out, self.colsum = d_out, colsum
+
+        def ptr(t):
+            return 0 if t is None else t.data_ptr()
+
+        def ld(t):
+            return 0 if t is None else t.stride(0)
+
+        u64, i32 = ctypes.c_uint64, ctypes.c_int
+        self._arrays = [
+            _ptrs(u64, [ptr(w) for w in weights]), _ptrs(i32, [w.stride(1) for w in weights]),
+            _ptrs(i32, [w.shape[0] for w in weights]), _ptrs(i32, [w.shape[1] for w in weights]),
+            _ptrs(i32, [w.shape[2] for w in weights]), _ptrs(u64, [ptr(t) for t in pre]),
+            _ptrs(i32, [ld(t) for t in pre]), _ptrs(u64, [ptr(t) for t in res_in]),
+            _ptrs(u64, [ptr(t) for t in res_out]),
+            _ptrs(u64, [ptr(t) for t in d_out]), _ptrs(i32, [ld(t) for t in d_out]),
+            _ptrs(u64, [ptr(t) for t in colsum]),
+            _ptrs(i32, [0 if t is None else t.shape[1] for t in colsum])]
+        self.args = [ctypes.addressof(a) for a in self._arrays]
+
+    def layer(self, l: int) -> list:
+        """Layer l's weights (K, N), for the plain versions."""
+        return [w[l] for w in self.weights]
+
+
+def _tiles(rows: int) -> int:
+    return -(-rows // 64)
+
+
+def _bwd_launch(kind: int, stack: BwdStack, l: int, src, src_b, src_colsum, g_next, *, x=None,
+                dldj=None, y=None, dextra=None, dcond=None, accumulate_cond=False, split: int,
+                half: int = 0, xe: int = 0, xc: int = 0, eps: float = 0.0, ln_rstd=None) -> None:
+    rows, cols = src.shape
+    ld_src = _rows(src, "fused_layer_bwd.src", torch.float32)
+    ld_g = _rows(g_next, "fused_layer_bwd.g_next", torch.float32)
+    if g_next.shape[0] != rows or tuple(src_colsum.shape) != (_tiles(rows), cols):
+        raise ValueError("fused_layer_bwd: shape mismatch")
+
+    def mat(t, name, dtype):
+        return (None, 0) if t is None else (t.data_ptr(), _rows(t, f"fused_layer_bwd.{name}",
+                                                                dtype))
+
+    sb_p, ld_sb = mat(src_b, "src_b", torch.bfloat16)
+    if src_b is not None and not tma_readable(sb_p, ld_sb):
+        raise ValueError("fused_layer_bwd.src_b: rows of whole 16 bytes from a 16-byte base")
+    x_p, ld_x = mat(x, "x", torch.bfloat16)
+    y_p, ld_y = mat(y, "y", torch.bfloat16)
+    e_p, ld_e = mat(dextra, "dextra", torch.float32)
+    c_p, ld_c = mat(dcond, "dcond", torch.float32)
+    dldj_p = None if dldj is None else _vec(dldj, "fused_layer_bwd.dldj", rows)
+    cond = 0 if dcond is None else dcond.shape[1]
+    rc = library().fc_fused_layer_bwd(
+        kind, len(stack.weights), *stack.args, l, rows, src.data_ptr(), ld_src, cols, sb_p,
+        ld_sb, _vec(src_colsum, "fused_layer_bwd.src_colsum", src_colsum.numel()),
+        g_next.data_ptr(), ld_g, x_p, ld_x, dldj_p, y_p, ld_y, e_p, ld_e, c_p, ld_c,
+        int(accumulate_cond), split, half, xe, xc, cond,
+        None if ln_rstd is None else _vec(ln_rstd, "fused_layer_bwd.ln_rstd", rows), float(eps),
+        _stream())
+    if rc:
+        _check(f"fused_layer_bwd (kind {kind})", rc)
+
+
+def coupling_bwd(stack: BwdStack, l: int, g: torch.Tensor, g_b: torch.Tensor,
+                 g_colsum: torch.Tensor, g_next: torch.Tensor, x: torch.Tensor,
+                 dldj: torch.Tensor, y: torch.Tensor, dextra: Optional[torch.Tensor],
+                 dcond: torch.Tensor, *, split: int, xe: int, xc: int, accumulate_cond: bool,
+                 eps_affine: float) -> None:
+    """Layer l's coupling backward on 64-row tiles, one launch
+    (COUPLING_BWD_LAUNCHES): from the carry gradient g (f32), g_b = bf16(g)
+    and its per-tile column sums; dy = g_b @ lu_w_f; the affine's transpose
+    at the bf16 save x, writing y and g_next = [dy1 | dy2 * scale]; the
+    coupling MLP in reverse (`stack`: its d_out / colsum per product); the
+    packed input's gradient: x1's added to g_next, extra's added to dextra,
+    the cond columns' written to (or, with accumulate_cond, added to)
+    dcond. A CPU g runs `flow_layer_vjp_cuda.coupling_bwd_plain`."""
+    global COUPLING_BWD_LAUNCHES
+    if not g.is_cuda:
+        from .flow_layer_vjp_cuda import coupling_bwd_plain
+        coupling_bwd_plain(stack, l, g, g_b, g_colsum, g_next, x, dldj, y, dextra, dcond,
+                           split=split, xe=xe, xc=xc, accumulate_cond=accumulate_cond,
+                           eps_affine=eps_affine)
+        return
+    _bwd_launch(0, stack, l, g, g_b, g_colsum, g_next, x=x, dldj=dldj, y=y, dextra=dextra,
+                dcond=dcond, accumulate_cond=accumulate_cond, split=split,
+                half=g.shape[1] - split, xe=xe, xc=xc, eps=eps_affine)
+    COUPLING_BWD_LAUNCHES += 1
+
+
+def conditioner_bwd(stack: BwdStack, l: int, dq: torch.Tensor, dq_colsum: torch.Tensor,
+                    g_next: torch.Tensor, ln_rstd: torch.Tensor, *, split: int) -> None:
+    """Layer l's conditioner backward on 64-row tiles, one launch
+    (CONDITIONER_BWD_LAUNCHES): from dq (f32) and its per-tile column sums,
+    dqn = bf16(dq) @ wq_f^T, the LayerNorm's transpose from the recorded
+    normalised row (stack.pre[0]) and 1 / std (ln_rstd), the pre-MLP in
+    reverse (`stack`), and x1's gradient added to g_next. A CPU dq runs
+    `flow_layer_vjp_cuda.conditioner_bwd_plain`."""
+    global CONDITIONER_BWD_LAUNCHES
+    if not dq.is_cuda:
+        from .flow_layer_vjp_cuda import conditioner_bwd_plain
+        conditioner_bwd_plain(stack, l, dq, dq_colsum, g_next, ln_rstd, split=split)
+        return
+    _bwd_launch(1, stack, l, dq, None, dq_colsum, g_next, split=split, ln_rstd=ln_rstd)
+    CONDITIONER_BWD_LAUNCHES += 1
+
+
+def tn_splits(problems: list) -> int:
+    """The K splits of a grouped weight gradient: about two waves of 128 x
+    128 blocks on the SMs over every problem's tiles, each split at least
+    512 rows deep."""
+    tiles = sum(-(-m // 128) * -(-n // 128) for m, n, _ in problems)
+    depth = min(k for _, _, k in problems)
+    return max(1, min(-(-2 * NUM_SMS // tiles), depth // 512))
+
+
+class TnGroup:
+    """The weight gradients of one layer of B5 as one launch: problems
+    (a (K, M), b (K, N)) bf16, TMA-readable, out_i = a_i^T @ b_i, each
+    written as `splits` f32 partials into a workspace made here. The tables
+    are built once; every layer reuses them."""
+
+    def __init__(self, problems: list):
+        if not 1 <= len(problems) <= 16:
+            raise ValueError(f"TnGroup: {len(problems)} problems (1 to 16)")
+        for a, b in problems:
+            for t, name in ((a, "a"), (b, "b")):
+                if (t.dtype != torch.bfloat16 or t.dim() != 2 or t.stride(1) != 1
+                        or not tma_readable(t.data_ptr(), t.stride(0))):
+                    raise ValueError(f"TnGroup.{name}: {tuple(t.shape)} {t.dtype} strides "
+                                     f"{t.stride()} not TMA-readable bf16")
+            if a.shape[0] != b.shape[0]:
+                raise ValueError("TnGroup: a and b must share K")
+        self.problems = problems
+        shapes = [(a.shape[1], b.shape[1], a.shape[0]) for a, b in problems]
+        self.splits = s = tn_splits(shapes)
+        per = [min(s, max(1, k // 512)) for _, _, k in shapes]
+        self.chunks = chunks = [-(-(-(-k // sp)) // 64) * 64 for (_, _, k), sp in zip(shapes, per)]
+        self.per_splits = [-(-k // c) for (_, _, k), c in zip(shapes, chunks)]
+        sizes = [sp * -(-(m * n) // 4) * 4 for (m, n, _), sp in zip(shapes, self.per_splits)]
+        dev = problems[0][0].device
+        self.ws = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+        self.partials = [self.ws[o:o + sp * m * n].view(sp, m, n)
+                         for o, sp, (m, n, _) in zip(offsets, self.per_splits, shapes)]
+        u64, i32 = ctypes.c_uint64, ctypes.c_int
+        self._arrays = [
+            _ptrs(u64, [a.data_ptr() for a, _ in problems]),
+            _ptrs(i32, [a.stride(0) for a, _ in problems]),
+            _ptrs(u64, [b.data_ptr() for _, b in problems]),
+            _ptrs(i32, [b.stride(0) for _, b in problems]),
+            _ptrs(i32, [m for m, _, _ in shapes]), _ptrs(i32, [n for _, n, _ in shapes]),
+            _ptrs(i32, [k for _, _, k in shapes]), _ptrs(i32, self.per_splits),
+            _ptrs(i32, chunks), _ptrs(u64, [p.data_ptr() for p in self.partials])]
+        self.args = [ctypes.addressof(a) for a in self._arrays]
+
+
+def gemm_tn_grouped(group: TnGroup) -> None:
+    """Every problem's K-split partials of a^T @ b, one launch
+    (GEMM_TN_GROUPED_LAUNCHES); `grad_reduce` sums them. A CPU operand runs
+    `gemm_tn_grouped_plain`."""
+    global GEMM_TN_GROUPED_LAUNCHES
+    if not group.ws.is_cuda:
+        gemm_tn_grouped_plain(group)
+        return
+    _check("gemm_tn_grouped", library().fc_gemm_tn_grouped(len(group.problems), *group.args,
+                                                           _stream()))
+    GEMM_TN_GROUPED_LAUNCHES += 1
+
+
+def gemm_tn_grouped_plain(group: TnGroup) -> None:
+    """The plain version of `gemm_tn_grouped`: the same partials, each
+    split's rows of a^T @ b in f32."""
+    for (a, b), part, chunk in zip(group.problems, group.partials, group.chunks):
+        for z in range(part.shape[0]):
+            part[z] = a[z * chunk:(z + 1) * chunk].float().T @ b[z * chunk:(z + 1) * chunk].float()
+
+
+class GradSums:
+    """The sums of one layer's gradient partials as one launch: per sum,
+    (partials (count, R, C) f32 contiguous, out (L, R, C)-like stack whose
+    layer l slice is written). Weight gradients sum their K splits, biases
+    their per-tile column sums (R = 1). The tables are built once."""
+
+    def __init__(self, sums: list):
+        if not 1 <= len(sums) <= 32:
+            raise ValueError(f"GradSums: {len(sums)} sums (1 to 32)")
+        for part, out in sums:
+            if (part.dtype != torch.float32 or part.dim() != 3 or not part.is_contiguous()
+                    or out.dtype != torch.float32 or not out.is_contiguous()
+                    or out[0].numel() != part.shape[1] * part.shape[2]):
+                raise ValueError(f"GradSums: partials {tuple(part.shape)} out "
+                                 f"{tuple(out.shape)}")
+        self.sums = sums
+        u64, i32 = ctypes.c_uint64, ctypes.c_int
+        self._arrays = [
+            _ptrs(u64, [p.data_ptr() for p, _ in sums]), _ptrs(i32, [p.shape[0] for p, _ in sums]),
+            _ptrs(i32, [p.shape[1] for p, _ in sums]), _ptrs(i32, [p.shape[2] for p, _ in sums]),
+            _ptrs(u64, [o.data_ptr() for _, o in sums]), _ptrs(i32, [p.shape[2] for p, _ in sums]),
+            _ptrs(ctypes.c_longlong, [o[0].numel() for _, o in sums])]
+        self.args = [ctypes.addressof(a) for a in self._arrays]
+
+
+def grad_reduce(sums: GradSums, l: int) -> None:
+    """Layer l of every stack in `sums` = the sum of its partials, in order,
+    one launch (GRAD_REDUCE_LAUNCHES). A CPU stack runs `grad_reduce_plain`."""
+    global GRAD_REDUCE_LAUNCHES
+    if not sums.sums[0][0].is_cuda:
+        grad_reduce_plain(sums, l)
+        return
+    _check("grad_reduce", library().fc_grad_reduce(len(sums.sums), *sums.args, l, _stream()))
+    GRAD_REDUCE_LAUNCHES += 1
+
+
+def grad_reduce_plain(sums: GradSums, l: int) -> None:
+    for part, out in sums.sums:
+        out[l].copy_(part.sum(0).reshape(out[l].shape))

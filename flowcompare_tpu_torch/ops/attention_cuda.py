@@ -9,9 +9,14 @@ once to q's dtype.
 * `fused_attention_core_plain` is the plain version: the Pallas kernel's
   three steps in torch (f32 scores times the temperature, max-subtracted
   exp divided by its f32 row sum, p @ v in f32).
+* `fused_attention_core_split` computes what the CUDA kernel computes, in
+  torch: p in f32, split into three bf16 terms p_hi + p_mid + p_lo (about
+  24 bits of p), and out = p_hi @ v + p_mid @ v + p_lo @ v with f32 sums.
+  The CPU tests hold it against the plain version and the Pallas kernel.
 * `fused_attention_core` is a `torch.autograd.Function`. Its forward runs
   the plain version on CPU tensors and launches `csrc/attention_core.cu` on
-  CUDA tensors (bf16, D = 64; anything else raises). Its backward is the
+  CUDA tensors (bf16, D = 64, operands TMA can read; anything else
+  raises). Its backward is the
   JAX package's `_bwd` as written: s and p recomputed in f32 with plain
   products, then dv, dp, ds, dq and dk, returned in the inputs' dtypes. The
   JAX package computes that backward outside any Pallas kernel, so plain
@@ -37,6 +42,24 @@ def fused_attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = e / e.sum(-1, keepdim=True)
     return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def fused_attention_core_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float) -> torch.Tensor:
+    """The CUDA kernel's arithmetic in torch: p = e / sum(e) in f32 as in the
+    plain version, split into three bf16 terms (p_hi = bf16(p), p_mid =
+    bf16(p - p_hi), p_lo = bf16(p - p_hi - p_mid)), each multiplied by v
+    (bf16) with f32 sums, the output cast once to q's dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    vf = v.bfloat16().float()
+    out, rest = 0.0, p
+    for _ in range(3):
+        term = rest.bfloat16().float()
+        out = out + torch.matmul(term, vf)
+        rest = rest - term
+    return out.to(q.dtype)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -93,8 +116,10 @@ def fused_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q (B, Nq, D), k and v (B, Nkv, D) (k and v may be column slices of one
     [k | v] tensor). A CPU tensor runs `fused_attention_core_plain`; a CUDA
     tensor launches attention_core (bf16, D = 64), one block per 64 query
-    rows of an item, with p kept in f32 through the PV product.
+    rows of an item: q k^T on wgmma, p in f32 split into three bf16 terms
+    whose PV products run on wgmma into one f32 sum, so p keeps about 24
+    bits where flash attention's bf16 p keeps 8.
 
-    What bounds it on the H100: the f32 PV product on the CUDA cores (the
-    kernel never rounds p to bf16, so the tensor cores take only q k^T)."""
+    What bounds it on the H100: the operations of one q k^T and the three
+    bf16 PV products at the tensor cores' rate."""
     return _FusedAttentionCore.apply(q, k, v, scale)

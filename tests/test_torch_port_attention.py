@@ -117,3 +117,30 @@ def test_fused_attention_core_launches_nothing_on_the_cpu():
     out = attention_cuda.fused_attention_core(q, k, v, SCALE)
     assert attention_cuda.FUSED_ATTENTION_CORE_LAUNCHES == before
     assert torch.equal(out, attention_cuda.fused_attention_core_plain(q, k, v, SCALE))
+
+
+@pytest.mark.parametrize("nq,nkv", [(70, 90), (64, 1), (100, 1250)])
+def test_split_p_matches_plain_and_pallas_interpret(interpret, nq, nkv):
+    """The CUDA kernel's arithmetic (`fused_attention_core_split`: p in f32
+    split into three bf16 terms, three bf16 PV products with f32 sums) at
+    ragged key counts, against the plain version and the Pallas kernel:
+    before the output cast it lies within 2^-20 of sum(p |v|) of the f32
+    result (the split keeps about 24 bits of p; f32 sums in another order
+    stay far inside), where rounding p to bf16 alone, as flash attention
+    does, goes past that bound; after the cast at most one bf16 ulp from
+    both."""
+    rng = np.random.default_rng(nq + nkv)
+    q, k, v = (t(normal(rng, 2, m, 64)).bfloat16() for m in (nq, nkv, nkv))
+    exact = attention_cuda.fused_attention_core_plain(q.float(), k.float(), v.float(), SCALE)
+    split = attention_cuda.fused_attention_core_split(q.float(), k.float(), v.float(), SCALE)
+    p = torch.softmax((q.float() @ k.float().transpose(-1, -2)) * SCALE, -1)
+    scale_pv = p @ v.float().abs()
+    assert bool(((split - exact).abs() <= 2.0 ** -20 * scale_pv + 1e-7).all())
+    if nkv > 1:
+        bf16_p = p.bfloat16().float() @ v.float()
+        assert bool(((bf16_p - exact).abs() > 2.0 ** -20 * scale_pv + 1e-7).any())
+    got = n(attention_cuda.fused_attention_core_split(q, k, v, SCALE).float())
+    ref = n(attention_pallas.fused_attention_core(
+        *(jnp.asarray(n(a.float()), jnp.bfloat16) for a in (q, k, v)), SCALE).astype(jnp.float32))
+    plain = n(attention_cuda.fused_attention_core_plain(q, k, v, SCALE).float())
+    assert _within_bf16_ulps(got, plain) and _within_bf16_ulps(got, ref)

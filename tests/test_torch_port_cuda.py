@@ -11,7 +11,8 @@ JAX, so it runs where JAX is absent:
 Shapes are the CPU tests' tiny dulcet-universe (3 layers, latent 32, N=64,
 Nc=80, k=8) with the attention head at its real width 64, its PAConv and
 helpful-sponge twins, a sample's 4000 rows of one item where a partial
-64-row tile is the point, and B10 at the flow's attention shape;
+64-row tile is the point, B10 at the flow's attention shape, and B5's
+fused per-layer kernels at the presets' full widths;
 chip_smoke.py checks the same kernels at the full model's shapes.
 """
 
@@ -565,7 +566,7 @@ def _attention_ref(q, k, v, scale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq,nkv", [(70, 90), (1024, 1250), (64, 1)])
+@pytest.mark.parametrize("nq,nkv", [(70, 90), (1024, 1250), (64, 1), (1000, 1250), (1, 65)])
 def test_fused_attention_core_matches_plain(dev, nq, nkv):
     """B10 forward against its plain version, k and v as column slices of one
     [k | v] tensor as apply_cross_attention hands them over: f32 inside and
@@ -587,6 +588,28 @@ def test_fused_attention_core_matches_plain(dev, nq, nkv):
     # against the f32 result before the cast: one rounding, half an ulp
     exact = _attention_ref(q, k, v, 0.125)
     assert bool(((got.float() - exact).abs() <= 2.0 ** -8 * exact.abs() + 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_fused_attention_core_keeps_p_at_f32_precision(dev):
+    """At (3, 1024) x 1250 keys: the wgmma kernel (p split into three bf16
+    terms) puts at most 0.03% of its outputs more than half a bf16 ulp off
+    the plain version (chip_smoke.py's B10_SHARE_LIMIT: the earlier kernel's
+    f32 FMAs read about 0.016% on the H100, p in two bf16 terms summed in
+    one tensor-core accumulator several times that), and a smaller share than p rounded
+    to bf16 alone, flash attention's rounding (emulated)."""
+    from flowcompare_tpu_torch.ops import attention_cuda as ac
+    g = torch.Generator().manual_seed(32)
+    q = rand(g, 3, 1024, 64, device=dev).bfloat16()
+    kv = (2 * rand(g, 3, 1250, 128, device=dev)).bfloat16()
+    k, v = kv[..., :64], kv[..., 64:]
+    got = ac.fused_attention_core(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    ref = ac.fused_attention_core_plain(q, k, v, 0.125)
+    p = torch.softmax((q.float() @ k.float().transpose(-1, -2)) * 0.125, -1)
+    flash_like = (p.bfloat16().float() @ v.float()).bfloat16()
+    shares = [ulp_shares(a, ref)[1] for a in (got, flash_like)]
+    assert shares[0] <= 3e-4 and shares[0] < shares[1], shares
 
 
 @pytest.mark.cuda
@@ -1226,3 +1249,69 @@ def test_fused_route_chains_match_plain_and_launch_four_per_layer(dev, preset):
     # [s | t] in bf16 29% of ldj
     for got, ref, limit in ((z, zr, 0.06), (xi, xr, 0.06), (l, lr, 0.08), (saves, sr, 0.05)):
         assert ulp_shares(got, ref)[0] <= limit
+
+
+# ------------------------------------------- B5's fused per-layer kernels
+
+B5_COUNTERS = ("CONDITIONER_RECORD_LAUNCHES", "COUPLING_RECORD_LAUNCHES", "COUPLING_BWD_LAUNCHES",
+               "CONDITIONER_BWD_LAUNCHES", "GEMM_TN_GROUPED_LAUNCHES", "GRAD_REDUCE_LAUNCHES",
+               "GEMM_WGMMA_LAUNCHES", "GEMM_WMMA_LAUNCHES", "GEMM_TN_WGMMA_LAUNCHES",
+               "GEMM_TN_WMMA_LAUNCHES", "CROSS_ATTENTION_WGMMA_LAUNCHES",
+               "CROSS_ATTENTION_WMMA_LAUNCHES", "ATTENTION_BWD_WGMMA_LAUNCHES",
+               "ATTENTION_BWD_WMMA_LAUNCHES", "ATTN_BWD_PREP_LAUNCHES", "COLSUM_LAUNCHES")
+
+
+def counted(fn):
+    """fn()'s result and the B5 launch counters it moved."""
+    before = {c: getattr(_build, c) for c in B5_COUNTERS}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {c: getattr(_build, c) - before[c] for c in B5_COUNTERS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,rows", [("dulcet-universe", 1037), ("swept-energy", 4000),
+                                         ("helpful-sponge", 1000)])
+def test_b5_fused_kernels_match_the_per_product_chain(dev, preset, rows):
+    """B5 at a preset's full widths (two layers, one item; with and without
+    extra and attention): the fused per-layer kernels against the
+    per-product chain they replace and the plain version (the JAX package's
+    kernel-vs-vjp bands: 0.03 of max |ref| for dx, dctx and dextra, 0.05 for
+    every folded gradient), two calls bit-equal, and per layer 11 launches
+    with attention (no per-product MLP gemm: the two gemms are ctx @ wkv and
+    dctx += dkv wkv^T) and 4 without, with no gemm_tn and no colsum."""
+    from flowcompare_tpu_torch.ops import flow_layer_vjp_cuda as fv
+    cfg = ft.get_config(preset)
+    cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
+    model = ft.FlowCompareModel(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    perturb_identity_leaves(model, torch.Generator().manual_seed(1))
+    ed, lat, e = int(cfg["using_extra_context"]), cfg["latent_dim"], cfg["input_embedding_dim"]
+    with torch.no_grad():
+        folded = model._folded(model.params(), ed)
+    g = torch.Generator().manual_seed(43)
+    ctx = (rand(g, 1, 1, e, device=dev).bfloat16().expand(1, rows, e) if model.is_global
+           else rand(g, 1, 1250, e, device=dev).bfloat16())
+    extra = rand(g, 1, rows, 1, device=dev) if ed else None
+    x, ldj = rand(g, 1, rows, lat, device=dev), torch.zeros(1, rows, device=dev)
+    dz, dldj = rand(g, 1, rows, lat, device=dev), rand(g, 1, rows, device=dev)
+    _, _, saves = flc.fused_flow_layers(x, ldj, ctx, extra, folded, save=True)
+    args = (saves, dz, dldj, ctx, extra, folded)
+    got, counts = counted(lambda: fv.flow_layers_bwd(*args))
+    attn = int(not model.is_global)
+    per_layer = {c: v / 2 for c, v in counts.items()}
+    assert sum(per_layer.values()) == (11 if attn else 4), per_layer
+    assert per_layer["GEMM_WGMMA_LAUNCHES"] == 2 * attn and per_layer["COLSUM_LAUNCHES"] == 0
+    assert per_layer["GEMM_TN_WGMMA_LAUNCHES"] == per_layer["GEMM_TN_WMMA_LAUNCHES"] == 0
+    assert per_layer["GEMM_TN_GROUPED_LAUNCHES"] == per_layer["GRAD_REDUCE_LAUNCHES"] == 1
+    again = fv.flow_layers_bwd(*args)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+    assert all(torch.equal(got[3][k], again[3][k]) for k in got[3])
+    chain = fv._bwd_per_product(*args, 1e-8)
+    plain = fv.flow_layers_bwd_plain(*args)
+    for ref in (chain, plain):
+        for a, b in zip(got[:3], ref[:3]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert _rel(a, b) < 0.03
+        for k, r in ref[3].items():
+            assert _rel(got[3][k], r) < 0.05, k

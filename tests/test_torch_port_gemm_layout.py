@@ -159,11 +159,15 @@ class EmulatedLaunches:
     chains make, computing what the kernels compute; gemm and gemm_tn record
     the route their operands would take."""
 
+    FUSED = ("conditioner", "coupling_layer", "coupling_inverse", "conditioner_record",
+             "coupling_record", "coupling_bwd", "conditioner_bwd", "gemm_tn_grouped",
+             "grad_reduce")
+
     def __init__(self):
         self.routes = []
         self.fused = []
-        self._originals = {name: getattr(_build, name)
-                           for name in ("conditioner", "coupling_layer", "coupling_inverse")}
+        self.attention = []
+        self._originals = {name: getattr(_build, name) for name in self.FUSED}
 
     def _fused(self, name, xin, *args, **kw):
         """A fused layer launch: the packed rows must be TMA-readable; its
@@ -180,6 +184,30 @@ class EmulatedLaunches:
 
     def coupling_inverse(self, xin, *args, **kw):
         self._fused("coupling_inverse", xin, *args, **kw)
+
+    def conditioner_record(self, xin, *args, **kw):
+        self._fused("conditioner_record", xin, *args, **kw)
+
+    def coupling_record(self, xin, *args, **kw):
+        self._fused("coupling_record", xin, *args, **kw)
+
+    def _launch(self, name, *args, **kw):
+        """B5's fused backward and gradient launches: their wrappers' CPU
+        path (the plain versions)."""
+        self.fused.append(name)
+        self._originals[name](*args, **kw)
+
+    def coupling_bwd(self, *args, **kw):
+        self._launch("coupling_bwd", *args, **kw)
+
+    def conditioner_bwd(self, *args, **kw):
+        self._launch("conditioner_bwd", *args, **kw)
+
+    def gemm_tn_grouped(self, group):
+        self._launch("gemm_tn_grouped", group)
+
+    def grad_reduce(self, sums, l):
+        self._launch("grad_reduce", sums, l)
 
     def gemm(self, a, w, out, **kw):
         self.routes.append(_build.gemm_route(a.data_ptr(), a.stride(0), w.data_ptr(),
@@ -200,8 +228,8 @@ class EmulatedLaunches:
         mean = x.mean(-1, keepdim=True)
         out.copy_((x - mean) * torch.rsqrt((x * x).mean(-1, keepdim=True) - mean * mean + eps))
 
-    @staticmethod
-    def cross_attention(q, k, v, out, *, n_items, m_out=None, den_out=None):
+    def cross_attention(self, q, k, v, out, *, n_items, m_out=None, den_out=None):
+        self.attention.append("cross_attention")
         _build.cross_attention_plain(q, k, v, out, n_items=n_items, m_out=m_out, den_out=den_out)
 
     @staticmethod
@@ -244,12 +272,12 @@ class EmulatedLaunches:
         dx.copy_(torch.cat([dy[:, :split], dy2 * sc], 1))
         y.copy_(torch.cat([xf[:, :split], xf[:, split:] * sc + st[:, half:]], 1))
 
-    @staticmethod
-    def attn_bwd_prep(da, a, den, du, ddn):
+    def attn_bwd_prep(self, da, a, den, du, ddn):
+        self.attention.append("attn_bwd_prep")
         _build.attn_bwd_prep_plain(da, a, den, du, ddn)
 
-    @staticmethod
-    def attention_bwd(q, k, v, du, ddn, m, dq, dq_b, dkv, dkv_b, *, n_items):
+    def attention_bwd(self, q, k, v, du, ddn, m, dq, dq_b, dkv, dkv_b, *, n_items):
+        self.attention.append("attention_bwd")
         _build.attention_bwd_plain(q, k, v, du, ddn, m, dq, dq_b, dkv, dkv_b, n_items=n_items)
 
     @staticmethod
@@ -267,7 +295,7 @@ def emulated(monkeypatch):
     for name in ("gemm", "gemm_tn", "cast_rows", "row_norm", "cross_attention",
                  "coupling_epilogue", "inverse_coupling_epilogue", "augment_epilogue", "colsum",
                  "colsum_workspace", "coupling_epilogue_bwd", "attn_bwd_prep", "attention_bwd",
-                 "row_norm_bwd", "conditioner", "coupling_layer", "coupling_inverse"):
+                 "row_norm_bwd", *EmulatedLaunches.FUSED):
         monkeypatch.setattr(_build, name, getattr(emu, name))
     return emu
 
@@ -276,7 +304,12 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-B5_GEMMS_PER_LAYER = {"dulcet-universe": 35, "swept-energy": 34, "helpful-sponge": 25}
+# B5's launches a layer: with attention the conditioner and coupling records,
+# ctx @ wkv, the cross attention, the coupling backward, attn_bwd_prep,
+# attention_bwd, dctx += dkv wkv^T, the conditioner backward, the grouped
+# weight gradients and their sums; without attention the coupling record
+# and backward and the two gradient launches
+B5_LAUNCHES_PER_LAYER = {"dulcet-universe": 11, "swept-energy": 11, "helpful-sponge": 4}
 
 
 @pytest.mark.parametrize("preset", ["dulcet-universe", "swept-energy", "helpful-sponge"])
@@ -333,11 +366,16 @@ def test_chains_take_the_wgmma_route_at_the_shipped_widths(emulated, preset):
             saves.float(), flc.fused_flow_layers_plain(x, ldj, ctx, extra, folded,
                                                        save=True)[2].float(), rtol=0, atol=0.05)
         dz, dl = torch.randn(1, 32, lat, generator=g), torch.randn(1, 32, generator=g)
-        got, gemms, _ = launches(fv._bwd_chain, saves, dz, dl, ctx, extra, folded, 1e-8)
-        # B5 per layer: the recompute, the LinearLU's and the coupling MLP's
-        # input and weight gradients, and with attention the attention's and
-        # the pre-MLP's (one gemm fewer without the extra column)
-        assert gemms == n_layers * B5_GEMMS_PER_LAYER[preset]
+        attention = len(emulated.attention)
+        got, gemms, fused = launches(fv._bwd_fused, saves, dz, dl, ctx, extra, folded, 1e-8)
+        attention = len(emulated.attention) - attention
+        # B5 per layer: the fused kernels, no per-product MLP gemm (its only
+        # gemms are ctx @ wkv and dctx += dkv wkv^T) and no colsum
+        assert gemms == 2 * n_layers * attn
+        assert gemms + len(fused) + attention == n_layers * B5_LAUNCHES_PER_LAYER[preset]
+        assert fused == sorted(["coupling_record", "coupling_bwd", "gemm_tn_grouped",
+                                "grad_reduce"] * n_layers
+                               + ["conditioner_record", "conditioner_bwd"] * n_layers * attn)
         ref = fv.flow_layers_bwd_plain(saves, dz, dl, ctx, extra, folded)
         assert max(_rel(a, b) for a, b in zip(got[:3], ref[:3]) if b is not None) <= 0.03
         assert max(_rel(got[3][k], ref[3][k]) for k in ref[3]) <= 0.05
