@@ -15,7 +15,12 @@ Phases, each of which raises on failure (nothing is caught):
    points), with the kernel's and the plain version's time and the least
    time the card could take (bound); B5 also beside the per-product chain it
    replaced (`_bwd_per_product`, the comparison route) and with its shares
-   of elements off the fused route's plain version (reported);
+   of elements off the fused route's plain version (reported); B3 and B6
+   also at the main path's shapes, 40 clouds x 1,250 (a B=20 item) and 50
+   (B=25), timed beside plain and bound and held to the same row budget
+   (their kernels-line entries are the 40-cloud readings), and their split
+   by tools/torch_knn_split.py (distances / selection / gather of each
+   forward, the backward's kernels, the radix select's sweeps a row);
 4. eval main path: the full-depth, full-width dulcet-universe eval through
    `evaluate_on_test` (random weights from a seed, random clouds from a
    seed, 2 items of B=4, both directions), with launch counters showing that
@@ -24,7 +29,8 @@ Phases, each of which raises on failure (nothing is caught):
 5. eval timing: the main path at the preset's batch size (B=20), points/s;
 6. sampling main path: a full-depth `make_sample` of 1 x 4000 points (the
    trainer's and the eval dumps' call) through the kernels, with launch
-   counters showing that B4 and B7 ran, and through the plain versions on
+   counters showing that B4 (B3 inside it) and B7 ran, and through the
+   plain versions on
    the same z: max and mean |dx|, the nats of both sample sets scored by
    the eval path on the same noise (|d nats| <= 0.01), and the round trip
    z -> B7 -> B1 -> z';
@@ -150,6 +156,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -373,9 +380,32 @@ def phase_kernels(ft, model, device):
             f"(budget 0.01); {ms} ms vs plain {pms} ms")
     assert err3 == 0.0, f"B3 not exact on integer inputs: {err3}"
     assert worst_rows <= 0.01, f"B3 rows differing {worst_rows} > 0.01"
-    entries["B3"] = kernel_entry(
-        "edge_neighbor_max (knn_edge_max)", "flowcompare_tpu_torch/csrc/knn_edge_max.cu",
-        "flowcompare_tpu/ops/edgeconv_pallas.py:493", err3, ms3, plain3, flops3, bytes3)
+    # and at the main path's shapes: a B=20 item's 40 clouds (dulcet) and a
+    # B=25 item's 50 (helpful-sponge), held to the same row budget
+    main3 = {}
+    for clouds in (2 * TIME_B, 2 * GS_B):
+        ms, pms, worst, flops, moved = 0.0, 0.0, 0.0, 0, 0
+        for cq, cout in EDGE_WIDTHS:
+            x, u = rand(clouds, nc, cq).bfloat16(), rand(clouds, nc, cout).bfloat16()
+            worst = max(worst, float((edgeconv_cuda.edge_neighbor_max(x, u, k)
+                                      != edgeconv_cuda.edge_neighbor_max_plain(x, u, k))
+                                     .any(-1).float().mean()))
+            ms += time_ms(lambda: edgeconv_cuda.edge_neighbor_max(x, u, k))
+            pms += time_ms(lambda: edgeconv_cuda.edge_neighbor_max_plain(x, u, k), reps=2)
+            flops += knn_flops(clouds, nc, cq)
+            moved += nbytes(x, u) + clouds * nc * cout * 2
+        assert worst <= 0.01, f"B3 rows differing {worst} > 0.01 at {clouds} clouds"
+        main3[clouds] = kernel_entry(
+            "edge_neighbor_max (knn_edge_max)", "flowcompare_tpu_torch/csrc/knn_edge_max.cu",
+            "flowcompare_tpu/ops/edgeconv_pallas.py:493", err3, ms, pms, flops, moved)
+        log(f"B3 knn_edge_max at {clouds}x{nc}, four widths, k={k}: random-input rows "
+            f"differing {worst} (budget 0.01); {ms} ms vs plain {pms} ms, bound "
+            f"{main3[clouds]['bound_ms']} ms")
+    entries["B3"] = {**main3[2 * TIME_B], "shapes": f"{2 * TIME_B} clouds x {nc}, four widths",
+                     f"at_{2 * GS_B}_clouds": check_entry(main3[2 * GS_B],
+                                                          f"{2 * GS_B} clouds x {nc}")}
+    entries["B3"][f"at_{rows}_clouds"] = check_entry(
+        kernel_entry("", "", "", err3, ms3, plain3, flops3, bytes3), f"{rows} clouds x {nc}")
 
     # B4 on a full encoder, B=2
     params = cast_tree(model.params()["embedder"], torch.bfloat16)
@@ -1745,10 +1775,55 @@ def phase_b6(device, items, nc, k, g):
             f"(tolerance 1e-4), random-input rows differing {float(off.float().mean())} "
             f"(budget 0.01); {ms} ms vs plain {pms} ms")
     assert worst_rows <= 0.01, f"B6 rows differing {worst_rows} > 0.01"
-    return kernel_entry("edge_knn_reduce (knn_edge_reduce, forward + backward)",
-                        "flowcompare_tpu_torch/csrc/knn_edge_reduce.cu",
-                        "flowcompare_tpu/ops/edgeconv_vjp_pallas.py:274", err, ms6, plain6,
-                        flops, moved)
+    # and at the main path's shapes: 40 clouds (dulcet's B=20 item, the
+    # training bound's shape) and 50 (B=25), held to the same row budget
+    main6 = {}
+    for clouds in (2 * TIME_B, 2 * GS_B):
+        ms, pms, worst, fl, mv = 0.0, 0.0, 0.0, 0, 0
+        for cq, cout in EDGE_WIDTHS:
+            x = rand(clouds, nc, cq).bfloat16()
+            u = rand(clouds, nc, cout).bfloat16().float()
+            cots = [rand(clouds, nc, cout) for _ in range(4)]
+            got, ref = fwd_bwd(ev.edge_knn_reduce, x, u, cots), fwd_bwd(ev.edge_knn_reduce_plain,
+                                                                        x, u, cots)
+            off = torch.zeros(clouds, nc, dtype=torch.bool, device=device)
+            for a, b in zip(got, ref):
+                off |= ((a - b).abs() > 1e-4 * (1 + b.abs())).any(-1)
+            worst = max(worst, float(off.float().mean()))
+            del got, ref
+            ms += time_ms(lambda: fwd_bwd(ev.edge_knn_reduce, x, u, cots))
+            pms += time_ms(lambda: fwd_bwd(ev.edge_knn_reduce_plain, x, u, cots), reps=2)
+            fl += knn_flops(clouds, nc, cq)
+            mv += nbytes(x) + clouds * nc * cout * 2 + 9 * clouds * nc * cout * 4
+        assert worst <= 0.01, f"B6 rows differing {worst} > 0.01 at {clouds} clouds"
+        main6[clouds] = kernel_entry("edge_knn_reduce (knn_edge_reduce, forward + backward)",
+                                     "flowcompare_tpu_torch/csrc/knn_edge_reduce.cu",
+                                     "flowcompare_tpu/ops/edgeconv_vjp_pallas.py:274", err, ms,
+                                     pms, fl, mv)
+        log(f"B6 knn_edge_reduce fwd+bwd at {clouds}x{nc}, four widths, k={k}: random-input "
+            f"rows differing {worst} (budget 0.01); {ms} ms vs plain {pms} ms, bound "
+            f"{main6[clouds]['bound_ms']} ms")
+    return {**main6[2 * TIME_B], "shapes": f"{2 * TIME_B} clouds x {nc}, four widths",
+            f"at_{2 * GS_B}_clouds": check_entry(main6[2 * GS_B], f"{2 * GS_B} clouds x {nc}"),
+            f"at_{items}_clouds": check_entry(kernel_entry("", "", "", err, ms6, plain6, flops,
+                                                           moved), f"{items} clouds x {nc}")}
+
+
+def phase_knn_split() -> dict:
+    """B3's and B6's time split at the main path's shapes, by
+    tools/torch_knn_split.py: distances / selection / gather of both forward
+    kernels (copies of csrc/ stopped after a stage, built under build/), the
+    backward's kernels (torch.profiler) and the radix select's sweeps a row."""
+    from flowcompare_tpu_torch.ops import _build
+
+    sys.path.insert(0, str(REPO / "tools"))
+    import torch_knn_split
+
+    work = REPO / "build" / "knn_split"
+    try:
+        return torch_knn_split.run(_build.CSRC.resolve(), work, _build.BUILD_DIR, log=log)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def rel_err(a, b) -> float:
@@ -2272,7 +2347,7 @@ def phase_timing(ft, model, device, batch: int = TIME_B):
     return out
 
 
-def phase_sample_main(ft, model, device, need=("B7", "B4")):
+def phase_sample_main(ft, model, device, need=("B7", "B4", "B3")):
     """The sampling main path: one full-depth make_sample of 1 x 4000 points
     through the kernels, with the launch counters set to 0 just before and
     read after, and through the plain versions on the same z."""
@@ -2462,7 +2537,7 @@ def phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves")):
 
 
 def phase_train_main(ft, model, device, batch: int = TIME_B,
-                     need=("B5", "B6", "B1 with saves")):
+                     need=("B5", "B6", "B1 with saves", "B3")):
     """The training main path: train() at the preset's batch, four steps (the
     first a warm-up) with a sample after every second batch, with the launch
     counters set to 0 just before and read after."""
@@ -2826,6 +2901,7 @@ def main() -> int:
     with torch.no_grad():
         main_bounds = phase_main_bounds(model)
         entries = phase_kernels(ft, model, device)
+        knn_split = phase_knn_split()
     launches = phase_main_path(ft, model, device)
     timing = phase_timing(ft, model, device)
     sample_main = phase_sample_main(ft, model, device)
@@ -2879,6 +2955,7 @@ def main() -> int:
                       "good_surf": good_surf, "helpful_sponge": helpful_sponge,
                       "b10": b10_entry_point, "gemm": gemm_cases, "attention": attention_cases,
                       "fused_layers": fused_cases, "main_path_bounds": main_bounds,
+                      "knn_split": knn_split,
                       "b5_fused": b5_fused,
                       "wall_s": time.perf_counter() - T_START}))
     entries.update(gemm_entries)

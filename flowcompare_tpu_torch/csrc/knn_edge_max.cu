@@ -4,72 +4,139 @@
 // fused_dgcnn_encoder.
 //
 // The selection is knn_select.cuh's (shared with knn_edge_reduce, the
-// training twin); then mx_i = max over the selected j of u'_j. With the
-// optional epilogue the kernel writes the EdgeConv stage output
-// y = leaky((sign * mx + c) * a + b) directly (BatchNorm folded into a, b;
-// fold_dgcnn).
+// training twin): distances on the tensor cores, a radix select. Then
+// mx_i = max over the selected j of u'_j. With the optional epilogue the
+// kernel writes the EdgeConv stage output y = leaky((sign * mx + c) * a + b)
+// directly (BatchNorm folded into a, b; fold_dgcnn).
 //
 // Design: a block of 8 warps owns 16 query rows of one item and keeps their
-// distance rows in shared memory; each warp selects for two rows and
-// gathers the k selected u' rows from global memory (one warp-wide
-// coalesced row read each). No one-hot matmul and no pad rows: the GPU
+// distance rows in shared memory; each warp selects for two rows and gathers
+// the k selected u' rows from L2, 16 bytes a lane: L lanes cover a row in
+// chunks of 8 channels and 32 / L neighbours go at once (cout = 64: four),
+// their maxima merged by shuffles. No one-hot matmul and no pad rows: the GPU
 // gathers, and bounds are checked.
 //
-// What bounds it on the H100: the distance FMAs (N^2 * Cq per item, on CUDA
-// cores) and the search sweeps over shared memory; tensor-core distance tiles
-// and a radix select are the later speed-ups.
+// What bounds it on the H100: the u' gathers from L2 (k rows of cout bf16 a
+// query row, about 2 GB over the four widths of a B=20 eval item) and the
+// candidates' B fragments (re-read from L2 by each 16-row block); the
+// distance products are a few microseconds of tensor-core time an item and
+// the selection 2-5 sweeps a row over shared memory.
 #include "knn_select.cuh"
 
 namespace {
 
 constexpr int MAX_COUT = 256;
-constexpr int CPL = MAX_COUT / 32;  // channels per lane
 
-__global__ void __launch_bounds__(knn::THREADS) knn_edge_max_kernel(
-    const bf16* __restrict__ x, int ldx, int cq, const bf16* __restrict__ u, int ldu, int cout,
-    bf16* __restrict__ out, int ldo, const float* __restrict__ cin, int ldc,
+__device__ __forceinline__ void load8(const bf16* p, int valid, bool vec, float v[8]) {
+  if (vec && valid == 8) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[2 * e] = knn::lo_f(w[e]);
+      v[2 * e + 1] = knn::hi_f(w[e]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = e < valid ? bf2f(p[e]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load8f(const float* p, int valid, bool vec, float v[8]) {
+  if (vec && valid == 8) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = e < valid ? p[e] : 0.f;
+  }
+}
+
+template <int KS>
+__global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_max_kernel(
+    const bf16* __restrict__ x, int ldx, int cq, const bf16* __restrict__ u, int ldu,
+    int cout, bf16* __restrict__ out, int ldo, const float* __restrict__ cin, int ldc,
     const float* __restrict__ sign, const float* __restrict__ aff_a,
-    const float* __restrict__ aff_b, int n, int k) {
+    const float* __restrict__ aff_b, int n, int k, bool vec) {
   extern __shared__ __align__(16) float smem[];
   const knn::Smem s = knn::carve(smem, n, cq);
   const int item = blockIdx.y;
   const int row0 = blockIdx.x * knn::QR;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  knn::distances(x + (size_t)item * n * ldx, ldx, cq, n, row0, s);
+  knn::distances<KS>(x + (size_t)item * n * ldx, ldx, cq, n, row0, s);
 
+  unsigned* scratch = s.scratch + warp * 2 * knn::CAP;
   int* list = s.sel + warp * knn::MAX_K;
-  for (int rr = 0; rr < knn::QR / 8; ++rr) {
-    const int r = warp * (knn::QR / 8) + rr;
+  const knn::Lanes ln = knn::gather_lanes(cout);
+  const int valid = min(8, cout - ln.ch);
+  const bf16* ui = u + (size_t)item * n * ldu + ln.ch;
+  for (int rr = 0; rr < knn::QR / knn::WARPS; ++rr) {
+    const int r = warp * (knn::QR / knn::WARPS) + rr;
     const int gr = row0 + r;
     if (gr >= n) break;
-    knn::select_row(reinterpret_cast<const unsigned*>(s.dist + r * n), n, k, list);
+    const unsigned* dr = reinterpret_cast<const unsigned*>(s.dist + r * s.ldd);
+    knn::select_row(dr, n, k, s.pool[r * knn::POOL + lane],
+                    s.pool[r * knn::POOL + 32 + lane], scratch, list);
 
-    float mx[CPL];
+    float mx[8];
 #pragma unroll
-    for (int t = 0; t < CPL; ++t) mx[t] = -INFINITY;
-    for (int j = 0; j < k; ++j) {
-      const bf16* ur = u + ((size_t)item * n + list[j]) * ldu;
+    for (int e = 0; e < 8; ++e) mx[e] = -INFINITY;
+    if (valid > 0) {
+#pragma unroll 4
+      for (int j = ln.grp; j < k; j += ln.P) {
+        float v[8];
+        load8(ui + (size_t)list[j] * ldu, valid, vec, v);
 #pragma unroll
-      for (int t = 0; t < CPL; ++t) {
-        const int c = lane + 32 * t;
-        if (c < cout) mx[t] = fmaxf(mx[t], bf2f(ur[c]));
+        for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], v[e]);
       }
     }
-    const size_t orow = (size_t)item * n + gr;
+    for (int o = ln.L; o < 32; o <<= 1) {
 #pragma unroll
-    for (int t = 0; t < CPL; ++t) {
-      const int c = lane + 32 * t;
-      if (c >= cout) continue;
-      float vv = mx[t];
+      for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], __shfl_xor_sync(knn::FULL, mx[e], o));
+    }
+    if (ln.grp == 0 && valid > 0) {
+      const size_t orow = (size_t)item * n + gr;
       if (cin != nullptr) {
-        const float z = sign[c] * vv + cin[orow * ldc + c];
-        vv = leaky02(z * aff_a[c] + aff_b[c]);
+        float cv[8], sg[8], aa[8], bb[8];
+        load8f(cin + orow * ldc + ln.ch, valid, vec, cv);
+        load8f(sign + ln.ch, valid, vec, sg);
+        load8f(aff_a + ln.ch, valid, vec, aa);
+        load8f(aff_b + ln.ch, valid, vec, bb);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) mx[e] = leaky02((sg[e] * mx[e] + cv[e]) * aa[e] + bb[e]);
       }
-      out[orow * ldo + c] = f2bf(vv);
+      bf16* o = out + orow * ldo + ln.ch;
+      if (vec && valid == 8) {
+        uint4 w;
+        w.x = knn::pack2(mx[0], mx[1]);
+        w.y = knn::pack2(mx[2], mx[3]);
+        w.z = knn::pack2(mx[4], mx[5]);
+        w.w = knn::pack2(mx[6], mx[7]);
+        *reinterpret_cast<uint4*>(o) = w;
+      } else {
+        for (int e = 0; e < valid; ++e) o[e] = f2bf(mx[e]);
+      }
     }
     __syncwarp();
   }
+}
+
+template <int KS>
+int launch_max(const void* x, int ldx, int cq, const void* u, int ldu, int cout, void* out,
+               int ldo, const void* cin, int ldc, const void* sign, const void* aff_a,
+               const void* aff_b, int n_items, int n, int k, bool vec, cudaStream_t stream) {
+  const size_t bytes = knn::smem_bytes(n, cq);
+  cudaError_t err = cudaFuncSetAttribute(knn_edge_max_kernel<KS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + knn::QR - 1) / knn::QR, n_items);
+  knn_edge_max_kernel<KS><<<grid, knn::THREADS, bytes, stream>>>(
+      (const bf16*)x, ldx, cq, (const bf16*)u, ldu, cout, (bf16*)out,
+      ldo, (const float*)cin, ldc, (const float*)sign, (const float*)aff_a, (const float*)aff_b,
+      n, k, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -80,14 +147,25 @@ FC_API int fc_knn_edge_max(const void* x, int ldx, int cq, const void* u, int ld
                            void* out, int ldo, const void* cin, int ldc, const void* sign,
                            const void* aff_a, const void* aff_b, int n_items, int n, int k,
                            void* stream) {
-  if (k < 1 || k > knn::MAX_K || k > n || cout > MAX_COUT) return (int)cudaErrorInvalidValue;
-  const size_t bytes = knn::smem_bytes(n, cq);
-  cudaError_t err = cudaFuncSetAttribute(knn_edge_max_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + knn::QR - 1) / knn::QR, n_items);
-  knn_edge_max_kernel<<<grid, knn::THREADS, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)x, ldx, cq, (const bf16*)u, ldu, cout, (bf16*)out, ldo, (const float*)cin, ldc,
-      (const float*)sign, (const float*)aff_a, (const float*)aff_b, n, k);
-  return (int)cudaGetLastError();
+  if (k < 1 || k > knn::MAX_K || k > n || cout > MAX_COUT || !knn::pairs_ok(x, ldx, cq))
+    return (int)cudaErrorInvalidValue;
+  // 16-byte chunks wherever every row of every operand starts on 16 bytes
+  const bool vec = cout % 8 == 0 && aligned16(u, ldu) && aligned16(out, ldo) &&
+                   (cin == nullptr || (ldc % 4 == 0 && knn::base16(cin) && knn::base16(sign) &&
+                                       knn::base16(aff_a) && knn::base16(aff_b)));
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (knn::ks_of(cq)) {
+    case 1:
+      return launch_max<1>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
+                           n_items, n, k, vec, st);
+    case 2:
+      return launch_max<2>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
+                           n_items, n, k, vec, st);
+    case 4:
+      return launch_max<4>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
+                           n_items, n, k, vec, st);
+    default:
+      return launch_max<8>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
+                           n_items, n, k, vec, st);
+  }
 }

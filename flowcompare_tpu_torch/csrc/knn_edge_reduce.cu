@@ -3,216 +3,452 @@
 // _fwd_kernel, backward _bwd_kernel).
 //
 // Forward, per row i of an item, over i's exact kNN set in x (knn_select.cuh,
-// the same selection as knn_edge_max): mx, mn, s1 = sum u_j, s2 = sum u_j^2
-// (f32, from bf16 u), the selected indices in ascending order (the Pallas
-// kernel's selection-rank order) and, per channel, the first-occurrence
-// slot of the max and of the min in that order (torch.max's tie rule).
-// The TPU kernel's (B, N, N) rank matrix and one-hot MXU gather are not
-// kept: the GPU gathers the k rows of u directly.
+// the same selection as knn_edge_max: tensor-core distances, radix select):
+// mx, mn, s1 = sum u_j, s2 = sum u_j^2 (f32, from bf16 u), the selected
+// indices in ascending order (the Pallas kernel's selection-rank order) and,
+// per channel, the first-occurrence slot of the max and of the min in that
+// order (torch.max's tie rule). The k rows of u are gathered from L2 as
+// knn_edge_max gathers them (knn::gather_lanes: neighbour slots g, g + P, ...
+// in lane group g), the groups merged by shuffles (the max / min keep the
+// lower slot on ties). The TPU
+// kernel's (B, N, N) rank matrix and one-hot MXU gather are not kept.
 //
 // Backward, du_j = sum over rows i that selected j of
 //   ds1_i + 2 u_j ds2_i + dmx_i [argmax slot of i is j] + dmn_i [argmin slot of i is j].
-// Deterministic, with no atomics on the sums: knn_reverse_lists builds, per
-// item, the list of (i, slot) that selected each j in increasing i (a
-// counting pass, a scan, then a row-ordered fill), and knn_edge_reduce_bwd
-// walks each list in order, one warp per j, lanes over channels.
+// Deterministic, with no atomics on the sums, and spread over the card:
+// 1. knn_rev_count: per tile of REV_ROWS rows, how many of its rows selected
+//    each j (a block a tile and item; integer counts in shared memory);
+// 2. knn_rev_scan: per item, the tiles' counts of each j scanned in tile
+//    order, then an exclusive scan over j: where each (tile, j) starts;
+// 3. knn_rev_fill: per tile, its rows in increasing i append (i << 6 | slot)
+//    at their j's cursor, so each j's list stays in increasing i;
+// 4. knn_edge_reduce_bwd: a warp takes one j and one slab of 64 channels and
+//    walks j's list, 16 bytes a lane (16 lanes an entry, the two half-warps
+//    entries p and p + 1, added at the end). dmx and dmn are read only where
+//    a lane's 4 channels hold the entry's argmax or argmin slot (one entry in
+//    k on average), so the rows re-read per entry are ds1 and ds2 (8 bytes a
+//    channel) and the two slot bytes, not all four cotangent rows; the slabs
+//    of one j go to neighbouring warps, so the blocks in flight cover one or
+//    two items and read from L2.
+// The lists (a random cloud's neighbours share no order) give a tile nothing
+// to share: the gathers of ds1 and ds2 from L2 bound the backward.
 //
-// What bounds it on the H100: the forward is knn_edge_max's (the N^2 * Cq
-// distance FMAs and the per-row searches); the backward reads the four
-// cotangent rows once per selecting neighbour (k times per row, mostly
-// from L2), so bytes bound it.
+// What bounds it on the H100: the forward is knn_edge_max's (the u gathers
+// from L2) plus its five outputs; the backward the L2 gathers above
+// (about 10 bytes a channel per selected entry).
 #include "knn_select.cuh"
 
 namespace {
 
 constexpr int MAX_COUT = 256;
-constexpr int CPL = MAX_COUT / 32;  // channels per lane
-constexpr int FILL_ROWS = 64;       // rows of indices staged per fill step
+constexpr int REV_ROWS = 64;  // rows of a reverse-list tile
+constexpr int SLAB = 64;      // channels one backward warp sums
 
-__global__ void __launch_bounds__(knn::THREADS) knn_edge_reduce_fwd_kernel(
-    const bf16* __restrict__ x, int ldx, int cq, const bf16* __restrict__ u, int ldu, int cout,
-    float* __restrict__ mx_out, float* __restrict__ mn_out, float* __restrict__ s1_out,
+__device__ __forceinline__ void store8(float* p, const float v[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+template <int KS>
+__global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_reduce_fwd_kernel(
+    const bf16* __restrict__ x, int ldx, int cq, const bf16* __restrict__ u, int ldu,
+    int cout, float* __restrict__ mx_out, float* __restrict__ mn_out, float* __restrict__ s1_out,
     float* __restrict__ s2_out, unsigned char* __restrict__ amax_out,
-    unsigned char* __restrict__ amin_out, int* __restrict__ idx_out, int n, int k) {
+    unsigned char* __restrict__ amin_out, int* __restrict__ idx_out, int n, int k, bool vec) {
   extern __shared__ __align__(16) float smem[];
   const knn::Smem s = knn::carve(smem, n, cq);
   const int item = blockIdx.y;
   const int row0 = blockIdx.x * knn::QR;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  knn::distances(x + (size_t)item * n * ldx, ldx, cq, n, row0, s);
+  knn::distances<KS>(x + (size_t)item * n * ldx, ldx, cq, n, row0, s);
 
+  unsigned* scratch = s.scratch + warp * 2 * knn::CAP;
   int* list = s.sel + warp * knn::MAX_K;
-  for (int rr = 0; rr < knn::QR / 8; ++rr) {
-    const int r = warp * (knn::QR / 8) + rr;
+  const knn::Lanes ln = knn::gather_lanes(cout);
+  const int valid = min(8, cout - ln.ch);
+  const bf16* ui = u + (size_t)item * n * ldu + ln.ch;
+  for (int rr = 0; rr < knn::QR / knn::WARPS; ++rr) {
+    const int r = warp * (knn::QR / knn::WARPS) + rr;
     const int gr = row0 + r;
     if (gr >= n) break;
-    knn::select_row(reinterpret_cast<const unsigned*>(s.dist + r * n), n, k, list);
+    const unsigned* dr = reinterpret_cast<const unsigned*>(s.dist + r * s.ldd);
+    knn::select_row(dr, n, k, s.pool[r * knn::POOL + lane],
+                    s.pool[r * knn::POOL + 32 + lane], scratch, list);
     const size_t orow = (size_t)item * n + gr;
     for (int j = lane; j < k; j += 32) idx_out[orow * k + j] = list[j];
 
-    float mx[CPL], mn[CPL], a1[CPL], a2[CPL];
-    int tmx[CPL], tmn[CPL];
+    float mx[8], mn[8], a1[8], a2[8];
+    int tmx[8], tmn[8];
 #pragma unroll
-    for (int t = 0; t < CPL; ++t) {
-      mx[t] = -INFINITY;
-      mn[t] = INFINITY;
-      a1[t] = 0.f;
-      a2[t] = 0.f;
-      tmx[t] = 0;
-      tmn[t] = 0;
+    for (int e = 0; e < 8; ++e) {
+      mx[e] = -INFINITY;
+      mn[e] = INFINITY;
+      a1[e] = 0.f;
+      a2[e] = 0.f;
+      tmx[e] = 0;
+      tmn[e] = 0;
     }
-    for (int j = 0; j < k; ++j) {
-      const bf16* ur = u + ((size_t)item * n + list[j]) * ldu;
+    if (valid > 0) {
+#pragma unroll 2
+      for (int j = ln.grp; j < k; j += ln.P) {
+        const bf16* ur = ui + (size_t)list[j] * ldu;
+        float v[8];
+        if (vec) {
+          const uint4 w4 = *reinterpret_cast<const uint4*>(ur);
+          const unsigned w[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-      for (int t = 0; t < CPL; ++t) {
-        const int c = lane + 32 * t;
-        if (c >= cout) continue;
-        const float v = bf2f(ur[c]);
-        if (v > mx[t]) { mx[t] = v; tmx[t] = j; }   // strict: the first occurrence stays
-        if (v < mn[t]) { mn[t] = v; tmn[t] = j; }
-        a1[t] += v;
-        a2[t] += v * v;
+          for (int e = 0; e < 4; ++e) {
+            v[2 * e] = knn::lo_f(w[e]);
+            v[2 * e + 1] = knn::hi_f(w[e]);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = e < valid ? bf2f(ur[e]) : 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (v[e] > mx[e]) { mx[e] = v[e]; tmx[e] = j; }  // strict: the first slot stays
+          if (v[e] < mn[e]) { mn[e] = v[e]; tmn[e] = j; }
+          a1[e] += v[e];
+          a2[e] += v[e] * v[e];
+        }
       }
     }
+    for (int o = ln.L; o < 32; o <<= 1) {
 #pragma unroll
-    for (int t = 0; t < CPL; ++t) {
-      const int c = lane + 32 * t;
-      if (c >= cout) continue;
-      const size_t o = orow * cout + c;
-      mx_out[o] = mx[t];
-      mn_out[o] = mn[t];
-      s1_out[o] = a1[t];
-      s2_out[o] = a2[t];
-      amax_out[o] = (unsigned char)tmx[t];
-      amin_out[o] = (unsigned char)tmn[t];
+      for (int e = 0; e < 8; ++e) {
+        const float omx = __shfl_xor_sync(knn::FULL, mx[e], o);
+        const float omn = __shfl_xor_sync(knn::FULL, mn[e], o);
+        const int otx = __shfl_xor_sync(knn::FULL, tmx[e], o);
+        const int otn = __shfl_xor_sync(knn::FULL, tmn[e], o);
+        if (omx > mx[e] || (omx == mx[e] && otx < tmx[e])) { mx[e] = omx; tmx[e] = otx; }
+        if (omn < mn[e] || (omn == mn[e] && otn < tmn[e])) { mn[e] = omn; tmn[e] = otn; }
+        a1[e] += __shfl_xor_sync(knn::FULL, a1[e], o);
+        a2[e] += __shfl_xor_sync(knn::FULL, a2[e], o);
+      }
+    }
+    if (ln.grp == 0 && valid > 0) {
+      const size_t o = orow * cout + ln.ch;
+      if (vec) {
+        store8(mx_out + o, mx);
+        store8(mn_out + o, mn);
+        store8(s1_out + o, a1);
+        store8(s2_out + o, a2);
+        uint2 px, pn;
+        px.x = tmx[0] | tmx[1] << 8 | tmx[2] << 16 | tmx[3] << 24;
+        px.y = tmx[4] | tmx[5] << 8 | tmx[6] << 16 | tmx[7] << 24;
+        pn.x = tmn[0] | tmn[1] << 8 | tmn[2] << 16 | tmn[3] << 24;
+        pn.y = tmn[4] | tmn[5] << 8 | tmn[6] << 16 | tmn[7] << 24;
+        *reinterpret_cast<uint2*>(amax_out + o) = px;
+        *reinterpret_cast<uint2*>(amin_out + o) = pn;
+      } else {
+        for (int e = 0; e < valid; ++e) {
+          mx_out[o + e] = mx[e];
+          mn_out[o + e] = mn[e];
+          s1_out[o + e] = a1[e];
+          s2_out[o + e] = a2[e];
+          amax_out[o + e] = (unsigned char)tmx[e];
+          amin_out[o + e] = (unsigned char)tmn[e];
+        }
+      }
     }
     __syncwarp();
   }
 }
 
-// One block per item: off[j] .. off[j+1] delimit rev entries (i << 6 | slot)
-// of the rows i that selected j, in increasing i.
-__global__ void __launch_bounds__(128) knn_reverse_lists_kernel(const int* __restrict__ idx,
-                                                                int n, int k,
-                                                                int* __restrict__ off,
-                                                                int* __restrict__ rev) {
-  extern __shared__ int ish[];
-  int* cursor = ish;                    // n
-  int* staged = ish + n;                // FILL_ROWS * k
-  const int item = blockIdx.x, tid = threadIdx.x;
-  const int* ii = idx + (size_t)item * n * k;
-  int* oi = off + (size_t)item * (n + 1);
-  int* ri = rev + (size_t)item * n * k;
+// tile_cnt[(item * tiles + t) * n + j] = rows of tile t that selected j.
+__global__ void __launch_bounds__(256) knn_rev_count_kernel(const int* __restrict__ idx, int n,
+                                                            int k, int tiles,
+                                                            int* __restrict__ tile_cnt) {
+  extern __shared__ int cnt[];  // n
+  const int t = blockIdx.x, item = blockIdx.y;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) cnt[j] = 0;
+  __syncthreads();
+  const int i0 = t * REV_ROWS, rows = min(REV_ROWS, n - i0);
+  const int* ii = idx + ((size_t)item * n + i0) * k;
+  // integer counts only: the sums never take an atomic
+  for (int e = threadIdx.x; e < rows * k; e += blockDim.x) atomicAdd(&cnt[ii[e]], 1);
+  __syncthreads();
+  int* out = tile_cnt + ((size_t)item * tiles + t) * n;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) out[j] = cnt[j];
+}
 
-  for (int j = tid; j < n; j += blockDim.x) cursor[j] = 0;
-  __syncthreads();
-  for (int e = tid; e < n * k; e += blockDim.x) atomicAdd(&cursor[ii[e]], 1);  // counts only
-  __syncthreads();
-  if (tid == 0) {
-    int acc = 0;
-    for (int j = 0; j < n; ++j) {
-      const int c = cursor[j];
-      oi[j] = acc;
-      cursor[j] = acc;
-      acc += c;
+// Per item: tile_cnt becomes where each (tile, j) starts in the item's rev
+// (the lists of j in tile order, the lists in j order), off[j] .. off[j + 1]
+// the list of j.
+__global__ void __launch_bounds__(1024) knn_rev_scan_kernel(int* __restrict__ tile_cnt, int n,
+                                                            int tiles, int* __restrict__ off) {
+  extern __shared__ int tot[];  // n, then 32 warp sums
+  int* wsum = tot + n;
+  const int item = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int* tc = tile_cnt + (size_t)item * tiles * n;
+  for (int j = tid; j < n; j += blockDim.x) {
+    int run = 0;
+    for (int t = 0; t < tiles; ++t) {
+      const int c = tc[(size_t)t * n + j];
+      tc[(size_t)t * n + j] = run;
+      run += c;
     }
-    oi[n] = acc;
+    tot[j] = run;
   }
   __syncthreads();
-  // a row's k indices are distinct, so its k threads never share a cursor
-  for (int i0 = 0; i0 < n; i0 += FILL_ROWS) {
-    const int rows = min(FILL_ROWS, n - i0);
-    for (int e = tid; e < rows * k; e += blockDim.x) staged[e] = ii[(size_t)i0 * k + e];
-    __syncthreads();
-    for (int r = 0; r < rows; ++r) {
-      if (tid < k) {
-        const int j = staged[r * k + tid];
-        const int pos = cursor[j];
-        cursor[j] = pos + 1;
-        ri[pos] = ((i0 + r) << 6) | tid;
-      }
-      __syncthreads();
+  // exclusive scan of tot: a chunk a thread, then over the threads
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int b = min(n, tid * per), e = min(n, b + per);
+  int sum = 0;
+  for (int j = b; j < e; ++j) sum += tot[j];
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(knn::FULL, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < (int)(blockDim.x >> 5) ? wsum[lane] : 0;
+    int wi = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(knn::FULL, wi, o);
+      if (lane >= o) wi += v;
     }
+    wsum[lane] = wi - w;  // exclusive
+  }
+  __syncthreads();
+  int run = wsum[warp] + incl - sum;
+  for (int j = b; j < e; ++j) {
+    const int c = tot[j];
+    tot[j] = run;
+    run += c;
+  }
+  __syncthreads();
+  int* oi = off + (size_t)item * (n + 1);
+  for (int j = tid; j < n; j += blockDim.x) {
+    const int base = tot[j];
+    oi[j] = base;
+    for (int t = 0; t < tiles; ++t) tc[(size_t)t * n + j] += base;
+  }
+  if (tid == blockDim.x - 1) oi[n] = run;
+}
+
+// Per tile, rows in increasing i: rev[cursor[j]++] = i << 6 | slot. A row's k
+// indices are distinct, so its k threads never share a cursor.
+__global__ void __launch_bounds__(knn::MAX_K) knn_rev_fill_kernel(
+    const int* __restrict__ idx, const int* __restrict__ tile_pos, int n, int k, int tiles,
+    int* __restrict__ rev) {
+  extern __shared__ int fs[];
+  int* cursor = fs;        // n
+  int* staged = fs + n;    // REV_ROWS * k
+  const int t = blockIdx.x, item = blockIdx.y, tid = threadIdx.x;
+  const int i0 = t * REV_ROWS, rows = min(REV_ROWS, n - i0);
+  const int* pos = tile_pos + ((size_t)item * tiles + t) * n;
+  const int* ii = idx + ((size_t)item * n + i0) * k;
+  for (int j = tid; j < n; j += blockDim.x) cursor[j] = pos[j];
+  for (int e = tid; e < rows * k; e += blockDim.x) staged[e] = ii[e];
+  __syncthreads();
+  int* ri = rev + (size_t)item * n * k;
+  for (int r = 0; r < rows; ++r) {
+    if (tid < k) {
+      const int j = staged[r * k + tid];
+      const int p = cursor[j];
+      cursor[j] = p + 1;
+      ri[p] = ((i0 + r) << 6) | tid;
+    }
+    __syncthreads();
   }
 }
 
+__device__ __forceinline__ void load4(const float* p, int valid, bool vec, float v[4]) {
+  if (vec) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < valid ? p[e] : 0.f;
+  }
+}
+
+__device__ __forceinline__ unsigned load4b(const unsigned char* p, int valid, bool vec) {
+  if (vec) return *reinterpret_cast<const unsigned*>(p);
+  unsigned w = 0xffffffffu;  // past cout: never a slot
+  for (int e = 0; e < valid; ++e) w = (w & ~(0xffu << (8 * e))) | ((unsigned)p[e] << (8 * e));
+  return w;
+}
+
+// 0xff in each byte of w that equals slot, 0 in the others.
+__device__ __forceinline__ unsigned slot_hits(unsigned w, int slot) {
+  return __vcmpeq4(w, (unsigned)slot * 0x01010101u);
+}
+
+// A warp sums du for one j and one slab of SLAB channels: 16 lanes of 4
+// channels each take one list entry, the two half-warps entries p and p + 1
+// (group g the entries g, g + 2, ...), added at the end (one xor-16 shuffle).
+// Consecutive warps take the slabs of one j, so blocks in flight cover one or
+// two items' rows and the gathers stay in L2.
 __global__ void __launch_bounds__(256) knn_edge_reduce_bwd_kernel(
     const bf16* __restrict__ u, int ldu, int cout, const float* __restrict__ dmx,
     const float* __restrict__ dmn, const float* __restrict__ ds1, const float* __restrict__ ds2,
     const unsigned char* __restrict__ amax, const unsigned char* __restrict__ amin,
     const int* __restrict__ off, const int* __restrict__ rev, float* __restrict__ du, int n,
-    int k) {
-  const int item = blockIdx.y;
-  const int j = blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
+    int k, int slabs, bool vec) {
+  const int item = blockIdx.y, lane = threadIdx.x & 31;
+  const int unit = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int j = unit / slabs;
   if (j >= n) return;
+  const int half = lane >> 4;
+  const int ch = (unit % slabs) * SLAB + 4 * (lane & 15);
+  const int valid = min(4, cout - ch);
   const size_t jrow = (size_t)item * n + j;
-  float uj[CPL], acc[CPL];
+  float uj[4], acc[4];
 #pragma unroll
-  for (int t = 0; t < CPL; ++t) {
-    const int c = lane + 32 * t;
-    uj[t] = c < cout ? bf2f(u[jrow * ldu + c]) : 0.f;
-    acc[t] = 0.f;
+  for (int e = 0; e < 4; ++e) {
+    uj[e] = e < valid ? bf2f(u[jrow * ldu + ch + e]) : 0.f;
+    acc[e] = 0.f;
   }
   const int* oi = off + (size_t)item * (n + 1);
   const int* ri = rev + (size_t)item * n * k;
-  for (int p = oi[j]; p < oi[j + 1]; ++p) {
-    const int e = ri[p];
-    const int slot = e & 63;
-    const size_t irow = (size_t)item * n + (e >> 6);
+  const int p1 = oi[j + 1];
+  if (valid > 0) {
+#pragma unroll 2
+    for (int p = oi[j] + half; p < p1; p += 2) {
+      const int e = ri[p];
+      const int slot = e & 63;
+      const size_t o = ((size_t)item * n + (e >> 6)) * cout + ch;
+      float a[4], b[4];
+      load4(ds1 + o, valid, vec, a);
+      load4(ds2 + o, valid, vec, b);
+      const unsigned hx = slot_hits(load4b(amax + o, valid, vec), slot);
+      const unsigned hn = slot_hits(load4b(amin + o, valid, vec), slot);
+      float g[4];
 #pragma unroll
-    for (int t = 0; t < CPL; ++t) {
-      const int c = lane + 32 * t;
-      if (c >= cout) continue;
-      const size_t o = irow * cout + c;
-      float g = ds1[o] + 2.f * uj[t] * ds2[o];
-      if (amax[o] == slot) g += dmx[o];
-      if (amin[o] == slot) g += dmn[o];
-      acc[t] += g;
+      for (int q = 0; q < 4; ++q) g[q] = a[q] + 2.f * uj[q] * b[q];
+      if (hx != 0u) {
+        float m[4];
+        load4(dmx + o, valid, vec, m);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if ((hx >> (8 * q)) & 1u) g[q] += m[q];
+      }
+      if (hn != 0u) {
+        float m[4];
+        load4(dmn + o, valid, vec, m);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if ((hn >> (8 * q)) & 1u) g[q] += m[q];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] += g[q];
     }
   }
 #pragma unroll
-  for (int t = 0; t < CPL; ++t) {
-    const int c = lane + 32 * t;
-    if (c < cout) du[jrow * cout + c] = acc[t];
+  for (int q = 0; q < 4; ++q) acc[q] += __shfl_xor_sync(knn::FULL, acc[q], 16);
+  if (half != 0 || valid <= 0) return;
+  float* d = du + jrow * cout + ch;
+  if (vec) {
+    *reinterpret_cast<float4*>(d) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+    for (int q = 0; q < valid; ++q) d[q] = acc[q];
   }
+}
+
+struct FwdArgs {
+  const bf16* x;
+  int ldx, cq;
+  const bf16* u;
+  int ldu, cout;
+  float *mx, *mn, *s1, *s2;
+  unsigned char *amax, *amin;
+  int* idx;
+  int n, k;
+  bool vec;
+};
+
+template <int KS>
+int launch_fwd(const FwdArgs& a, dim3 grid, cudaStream_t stream) {
+  const size_t bytes = knn::smem_bytes(a.n, a.cq);
+  cudaError_t err = cudaFuncSetAttribute(knn_edge_reduce_fwd_kernel<KS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  knn_edge_reduce_fwd_kernel<KS><<<grid, knn::THREADS, bytes, stream>>>(
+      a.x, a.ldx, a.cq, a.u, a.ldu, a.cout, a.mx, a.mn, a.s1, a.s2, a.amax, a.amin, a.idx,
+      a.n, a.k, a.vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Ints of scratch knn_edge_reduce_bwd needs: the tiles' counts, the list
+// offsets and the lists.
+FC_API int fc_knn_edge_reduce_bwd_scratch(int n_items, int n, int k) {
+  const int tiles = (n + REV_ROWS - 1) / REV_ROWS;
+  return n_items * (tiles * n + (n + 1) + n * k);
+}
+
 FC_API int fc_knn_edge_reduce_fwd(const void* x, int ldx, int cq, const void* u, int ldu, int cout,
                                   void* mx, void* mn, void* s1, void* s2, void* amax, void* amin,
                                   void* idx, int n_items, int n, int k, void* stream) {
-  if (k < 1 || k > knn::MAX_K || k > n || cout > MAX_COUT) return (int)cudaErrorInvalidValue;
-  const size_t bytes = knn::smem_bytes(n, cq);
-  cudaError_t err = cudaFuncSetAttribute(knn_edge_reduce_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + knn::QR - 1) / knn::QR, n_items);
-  knn_edge_reduce_fwd_kernel<<<grid, knn::THREADS, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)x, ldx, cq, (const bf16*)u, ldu, cout, (float*)mx, (float*)mn, (float*)s1,
-      (float*)s2, (unsigned char*)amax, (unsigned char*)amin, (int*)idx, n, k);
-  return (int)cudaGetLastError();
+  if (k < 1 || k > knn::MAX_K || k > n || cout > MAX_COUT || !knn::pairs_ok(x, ldx, cq))
+    return (int)cudaErrorInvalidValue;
+  // outputs are contiguous (rows, cout): 16-byte chunks when cout % 8 == 0
+  const bool vec = cout % 8 == 0 && aligned16(u, ldu) && knn::base16(mx) && knn::base16(mn) &&
+                   knn::base16(s1) && knn::base16(s2) &&
+                   (reinterpret_cast<uintptr_t>(amax) & 7u) == 0 &&
+                   (reinterpret_cast<uintptr_t>(amin) & 7u) == 0;
+  const FwdArgs a{(const bf16*)x, ldx, cq, (const bf16*)u, ldu, cout,
+                  (float*)mx, (float*)mn, (float*)s1, (float*)s2, (unsigned char*)amax,
+                  (unsigned char*)amin, (int*)idx, n, k, vec};
+  const dim3 grid((n + knn::QR - 1) / knn::QR, n_items);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (knn::ks_of(cq)) {
+    case 1: return launch_fwd<1>(a, grid, st);
+    case 2: return launch_fwd<2>(a, grid, st);
+    case 4: return launch_fwd<4>(a, grid, st);
+    default: return launch_fwd<8>(a, grid, st);
+  }
 }
 
 FC_API int fc_knn_edge_reduce_bwd(const void* u, int ldu, int cout, const void* dmx,
                                   const void* dmn, const void* ds1, const void* ds2,
-                                  const void* amax, const void* amin, const void* idx, void* off,
-                                  void* rev, void* du, int n_items, int n, int k, void* stream) {
-  if (k < 1 || k > knn::MAX_K || cout > MAX_COUT) return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(int) * ((size_t)n + (size_t)FILL_ROWS * k);
-  cudaError_t err = cudaFuncSetAttribute(knn_reverse_lists_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                                  const void* amax, const void* amin, const void* idx,
+                                  void* scratch, void* du, int n_items, int n, int k,
+                                  void* stream) {
+  if (k < 1 || k > knn::MAX_K || k > n || cout > MAX_COUT) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = (n + REV_ROWS - 1) / REV_ROWS;
+  int* tile_cnt = (int*)scratch;
+  int* off = tile_cnt + (size_t)n_items * tiles * n;
+  int* rev = off + (size_t)n_items * (n + 1);
+  const size_t fill_bytes = sizeof(int) * ((size_t)n + (size_t)REV_ROWS * k);
+  cudaError_t err = cudaFuncSetAttribute(knn_rev_count_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(sizeof(int) * n));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(knn_rev_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(sizeof(int) * (n + 32)));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(knn_rev_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)fill_bytes);
   if (err != cudaSuccess) return (int)err;
-  knn_reverse_lists_kernel<<<n_items, 128, bytes, (cudaStream_t)stream>>>((const int*)idx, n, k,
-                                                                         (int*)off, (int*)rev);
+  const dim3 tgrid(tiles, n_items);
+  knn_rev_count_kernel<<<tgrid, 256, sizeof(int) * n, st>>>((const int*)idx, n, k, tiles,
+                                                             tile_cnt);
+  knn_rev_scan_kernel<<<n_items, 1024, sizeof(int) * (n + 32), st>>>(tile_cnt, n, tiles, off);
+  knn_rev_fill_kernel<<<tgrid, knn::MAX_K, fill_bytes, st>>>((const int*)idx, tile_cnt, n, k,
+                                                              tiles, rev);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + 7) / 8, n_items);
-  knn_edge_reduce_bwd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+  // every row is contiguous (rows, cout): 16-byte chunks when cout % 4 == 0
+  const bool vec = cout % 4 == 0 && knn::base16(dmx) && knn::base16(dmn) &&
+                   knn::base16(ds1) && knn::base16(ds2) && knn::base16(du) &&
+                   (reinterpret_cast<uintptr_t>(amax) & 3u) == 0 &&
+                   (reinterpret_cast<uintptr_t>(amin) & 3u) == 0;
+  const int slabs = (cout + SLAB - 1) / SLAB;
+  dim3 grid((n * slabs + 7) / 8, n_items);
+  knn_edge_reduce_bwd_kernel<<<grid, 256, 0, st>>>(
       (const bf16*)u, ldu, cout, (const float*)dmx, (const float*)dmn, (const float*)ds1,
-      (const float*)ds2, (const unsigned char*)amax, (const unsigned char*)amin, (const int*)off,
-      (const int*)rev, (float*)du, n, k);
+      (const float*)ds2, (const unsigned char*)amax, (const unsigned char*)amin, off, rev,
+      (float*)du, n, k, slabs, vec);
   return (int)cudaGetLastError();
 }

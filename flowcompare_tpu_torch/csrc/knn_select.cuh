@@ -3,17 +3,48 @@
 // sa_group (B9) runs select_row on its own f32 xyz distance rows through
 // select_row_pinned.
 //
-// For each query row i of an item: d_ij = max(|x_i|^2 - 2 x_i.x_j + |x_j|^2, 0)
+// For each query row i of an item: d_ij = max(|x_i|^2 - 2 x_i.x_j + |x_j|^2, +0)
 // in f32 from bf16 features (the expansion of the Pallas kernels'
-// _knn_select_ranks), the exact k-th smallest d by a binary search over the
-// f32 bit pattern (non-negative floats order like their bits), every j
-// strictly below it plus the ties at it in index order until k are taken
-// (lax.top_k's order). The selected indices come out ascending.
+// _knn_select_ranks), the exact k-th smallest d, every j strictly below it
+// plus the ties at it in index order until k (lax.top_k's order). The
+// selected indices come out ascending. Self is not excluded.
 //
-// Layout: a block of 8 warps owns QR = 16 query rows of one item and keeps
-// their full distance rows (16 x n f32) in shared memory; candidate rows
-// stream through shared memory in tiles of 32, transposed so neighbouring
-// threads read neighbouring candidates. Each warp then selects for two rows.
+// Design for the H100:
+// - Distances on the tensor cores. A block of 8 warps owns QR = 16 query rows
+//   of one item (one m16 tile) and writes their full distance rows into shared
+//   memory: each warp takes candidate tiles of 8 (n8) and runs mma.sync
+//   m16n8k16 bf16 -> f32 over ceil(cq / 16) k-steps, zero-padded (cq = 6 pads
+//   to 16, which changes no product). The query tile's A fragments come from
+//   shared memory, the candidates' B fragments straight from global memory
+//   (an item's rows stay in L2), KS k-steps of 2-4 tiles loaded at once so
+//   that a warp waits on L2 once per group of tiles, not once per k-step.
+//   bf16 x bf16 products are exact in f32; only the order of the f32
+//   accumulation differs from an expansion on the CUDA cores. The squared
+//   norms are f32 fmaf sums of the same fragments (per lane, then over the
+//   lane quad), the query rows' from the staged A tile in the same order, so
+//   |x_i|^2 is one number whether i is the query or the candidate.
+//   Rows in shared memory, not a tile recomputed on each pass: 16 rows of
+//   n = 1,250 take 82 KB (two blocks an SM) and the selection reads a row
+//   once more; recomputing would re-read the candidates from L2, and the
+//   loads, not the products, are what a tile costs.
+// - Selection, one warp a row, exact. While the distances are written, each
+//   of 32 sources (a warp and a lane quad: a fixed eighth of the columns of
+//   every eighth tile) keeps its two smallest entries of the row: a pool of
+//   64 entries of the row. The pool's k-th smallest, t (a bitonic sort
+//   across the warp), is at least the row's k-th smallest, since k entries of
+//   the row lie at or below it. One sweep gathers the entries d <= t (on
+//   spread distances a few more than k: t sits near the row's 4-5% quantile
+//   at k = 40 of 1,250) and their rank by (d, index) among themselves picks
+//   the k: the smallest, ties in index order. Where ties around t bring more
+//   than CAP candidates (duplicated points, integer features), the row falls
+//   back to a radix select over the f32 bit pattern (non-negative floats
+//   order like their bits): 256-bin histograms of digits of 8, 8, 8 and 7
+//   bits from bit 30 down, equal digits of a warp grouped by
+//   __match_any_sync before their shared atomic, a warp scan for the bin of
+//   the k-th value, an early stop when that bin holds exactly the entries
+//   still needed, then the admit pass. Sweeps of a row: 1 (2-5 more on the
+//   fallback) against the 33 of the binary search this replaced (31
+//   halvings of [0, 0x7F800000], a strict count, the admit pass).
 #pragma once
 
 #include "common.cuh"
@@ -21,130 +52,393 @@
 namespace {
 namespace knn {
 
-constexpr int QR = 16;        // query rows per block
-constexpr int TJ = 32;        // candidates per tile
+constexpr int QR = 16;        // query rows per block: one m16 tile
 constexpr int THREADS = 256;  // 8 warps
+constexpr int WARPS = THREADS / 32;
 constexpr int MAX_K = 64;
+constexpr int POOL = 64;      // pool values of a row: two per source
+constexpr int BINS = 256;     // histogram bins of the radix select
+constexpr int CAP = 256;      // candidates a warp holds (indices, then bit patterns)
+constexpr unsigned FULL = 0xffffffffu;
 
-// Shared memory of distances(): dist (QR x n), qs (QR x cq), xs (cq x TJ),
-// nb (QR), then the per-warp selection lists (8 x MAX_K ints).
+__host__ __device__ inline int ksteps(int cq) { return (cq + 15) / 16; }
+// shared row strides: distance rows padded to 8 mod 32 words so the
+// fragments' stores spread over the banks; query rows of 16 ksteps bf16 + 8
+__host__ __device__ inline int dist_ld(int n) { return (n + 31) / 32 * 32 + 8; }
+__host__ __device__ inline int q_ld(int cq) { return 16 * ksteps(cq) + 8; }
+
+// Shared memory of a select block: dist (QR x dist_ld f32), pool (QR x
+// POOL), qs (QR x q_ld bf16), per warp 2 CAP words of scratch (the
+// candidates, or the radix select's histogram) and a selection list (MAX_K).
 inline size_t smem_bytes(int n, int cq) {
-  return sizeof(float) * ((size_t)QR * n + (size_t)QR * cq + (size_t)cq * TJ + QR) +
-         sizeof(int) * 8 * MAX_K;
+  return sizeof(float) * (size_t)QR * dist_ld(n) + sizeof(unsigned) * QR * POOL +
+         sizeof(bf16) * (size_t)QR * q_ld(cq) + sizeof(unsigned) * WARPS * 2 * CAP +
+         sizeof(int) * WARPS * MAX_K;
 }
 
 struct Smem {
   float* dist;
-  float* qs;
-  float* xs;
-  float* nb;
+  unsigned* pool;
+  unsigned* qs;       // bf16 pairs
+  unsigned* scratch;  // 2 CAP a warp
   int* sel;
+  int ldd, ldq2;  // in f32 / in bf16 pairs
 };
 
 __device__ __forceinline__ Smem carve(float* smem, int n, int cq) {
   Smem s;
+  s.ldd = dist_ld(n);
+  s.ldq2 = q_ld(cq) / 2;
   s.dist = smem;
-  s.qs = s.dist + QR * n;
-  s.xs = s.qs + QR * cq;
-  s.nb = s.xs + cq * TJ;
-  s.sel = reinterpret_cast<int*>(s.nb + QR);
+  s.pool = reinterpret_cast<unsigned*>(s.dist + QR * s.ldd);
+  s.qs = s.pool + QR * POOL;
+  s.scratch = s.qs + QR * s.ldq2;
+  s.sel = reinterpret_cast<int*>(s.scratch + WARPS * 2 * CAP);
   return s;
 }
 
-// Distance rows of query rows row0..row0+QR-1 of item xi (n rows, ld ldx)
-// into s.dist; ends with __syncthreads().
+// The KS of the distance loop for cq features (k-steps loaded at once).
+__host__ inline int ks_of(int cq) {
+  const int ks = ksteps(cq);
+  return ks <= 1 ? 1 : ks <= 2 ? 2 : ks <= 4 ? 4 : 8;
+}
+
+// The gathers' lanes: L lanes read one row in chunks of 8 channels (cout <=
+// 256), P = 32 / L rows at once; this lane's group and first channel.
+struct Lanes {
+  int L, P, grp, ch;
+};
+
+__device__ __forceinline__ Lanes gather_lanes(int cout) {
+  const int chunks = (cout + 7) / 8;
+  int L = 1;
+  while (L < chunks) L <<= 1;
+  const int lane = threadIdx.x & 31;
+  return {L, 32 / L, lane / L, (lane % L) * 8};
+}
+
+// m1 <= m2: the two smallest values seen, v the next one.
+__device__ __forceinline__ void keep2(unsigned& m1, unsigned& m2, unsigned v) {
+  m2 = min(m2, max(m1, v));
+  m1 = min(m1, v);
+}
+
+// Whether the kernels can read a bf16 matrix in aligned pairs (the wrappers
+// pad one that cannot).
+__host__ __forceinline__ bool pairs_ok(const void* x, int ldx, int cq) {
+  return (reinterpret_cast<uintptr_t>(x) & 3u) == 0 && ldx % 2 == 0 && cq % 2 == 0;
+}
+
+__host__ __forceinline__ bool base16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// row[c], row[c + 1] (c even; zero at and past cq, which is even): an mma
+// register, low half first.
+__device__ __forceinline__ unsigned load_pair(const bf16* row, int c, int cq) {
+  return c < cq ? *reinterpret_cast<const unsigned*>(row + c) : 0u;
+}
+
+__device__ __forceinline__ float lo_f(unsigned p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float hi_f(unsigned p) { return __uint_as_float(p & 0xffff0000u); }
+
+// f32 sum of the squares of a B fragment's four bf16 values, into nrm.
+__device__ __forceinline__ void add_squares(unsigned b0, unsigned b1, float& nrm) {
+  nrm = fmaf(lo_f(b0), lo_f(b0), nrm);
+  nrm = fmaf(hi_f(b0), hi_f(b0), nrm);
+  nrm = fmaf(lo_f(b1), lo_f(b1), nrm);
+  nrm = fmaf(hi_f(b1), hi_f(b1), nrm);
+}
+
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], unsigned a0, unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Distance rows of query rows row0..row0+QR-1 of item xi (n rows, ld ldx,
+// read in aligned pairs) into s.dist (entries past n are written but never
+// read), and each row's pool: per source (warp w, lane quad q: the columns
+// 2q, 2q+1 of the tiles w, w + 8, ...) its two smallest bit patterns into
+// s.pool. KS k-steps of TILES candidate tiles are loaded at once, so a warp
+// has their L2 reads in flight together. Ends with __syncthreads().
+template <int KS>
 __device__ __forceinline__ void distances(const bf16* __restrict__ xi, int ldx, int cq, int n,
                                           int row0, const Smem& s) {
-  const int tid = threadIdx.x;
-  for (int e = tid; e < QR * cq; e += THREADS) {
-    const int r = e / cq, c = e % cq;
-    const int gr = row0 + r;
-    s.qs[e] = gr < n ? bf2f(xi[(size_t)gr * ldx + c]) : 0.f;
+  constexpr int TILES = KS >= 8 ? 2 : 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int nks = ksteps(cq);
+  for (int e = tid; e < QR * 8 * nks; e += THREADS) {
+    const int r = e / (8 * nks), cp = e % (8 * nks);
+    const bf16* row = xi + (size_t)(row0 + r) * ldx;
+    s.qs[r * s.ldq2 + cp] = row0 + r < n ? load_pair(row, 2 * cp, cq) : 0u;
   }
   __syncthreads();
-  if (tid < QR) {
-    float acc = 0.f;
-    for (int c = 0; c < cq; ++c) acc = fmaf(s.qs[tid * cq + c], s.qs[tid * cq + c], acc);
-    s.nb[tid] = acc;
+  const unsigned* qa0 = s.qs + g * s.ldq2 + q;
+  const unsigned* qa1 = qa0 + 8 * s.ldq2;
+  // the query rows' norms, summed as the candidates' are below
+  float qn0 = 0.f, qn1 = 0.f;
+  for (int ks = 0; ks < nks; ++ks) {
+    add_squares(qa0[8 * ks], qa0[8 * ks + 4], qn0);
+    add_squares(qa1[8 * ks], qa1[8 * ks + 4], qn1);
   }
-  // thread -> one candidate of the tile, QR / 8 = 2 query rows
-  const int jj = tid % TJ, rg = tid / TJ;
-  for (int j0 = 0; j0 < n; j0 += TJ) {
-    __syncthreads();
-    for (int e = tid; e < TJ * cq; e += THREADS) {
-      const int j = e / cq, c = e % cq;
-      const int gj = j0 + j;
-      s.xs[c * TJ + j] = gj < n ? bf2f(xi[(size_t)gj * ldx + c]) : 0.f;
+  qn0 = quad_sum(qn0);
+  qn1 = quad_sum(qn1);
+  unsigned m00 = FULL, m01 = FULL, m10 = FULL, m11 = FULL;  // two smallest of rows g, g + 8
+  for (int base = 8 * warp; base < n; base += 8 * WARPS * TILES) {
+    const bf16* row[TILES];
+    float acc[TILES][4], nrm[TILES];
+#pragma unroll
+    for (int u = 0; u < TILES; ++u) {
+      const int j = base + 8 * WARPS * u + g;
+      row[u] = j < n ? xi + (size_t)j * ldx : nullptr;
+      acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+      nrm[u] = 0.f;
     }
-    __syncthreads();
-    float a0 = 0.f, a1 = 0.f, nf = 0.f;
-    const float* q0 = s.qs + (rg * 2) * cq;
-    const float* q1 = q0 + cq;
-    for (int c = 0; c < cq; ++c) {
-      const float xv = s.xs[c * TJ + jj];
-      nf = fmaf(xv, xv, nf);
-      a0 = fmaf(q0[c], xv, a0);
-      a1 = fmaf(q1[c], xv, a1);
+    for (int kc = 0; kc < nks; kc += KS) {
+      unsigned b[TILES][KS][2];
+#pragma unroll
+      for (int u = 0; u < TILES; ++u)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const int c = 16 * (kc + ks) + 2 * q;
+          b[u][ks][0] = row[u] ? load_pair(row[u], c, cq) : 0u;
+          b[u][ks][1] = row[u] ? load_pair(row[u], c + 8, cq) : 0u;
+        }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        if (kc + ks < nks) {
+          const int o = 8 * (kc + ks);
+          const unsigned a0 = qa0[o], a1 = qa1[o], a2 = qa0[o + 4], a3 = qa1[o + 4];
+#pragma unroll
+          for (int u = 0; u < TILES; ++u) {
+            add_squares(b[u][ks][0], b[u][ks][1], nrm[u]);
+            mma_bf16(acc[u], a0, a1, a2, a3, b[u][ks][0], b[u][ks][1]);
+          }
+        }
+      }
     }
-    const int gj = j0 + jj;
-    if (gj < n) {
+#pragma unroll
+    for (int u = 0; u < TILES; ++u) {
+      const int j0 = base + 8 * WARPS * u;
+      if (j0 >= n) break;
+      const float nu = quad_sum(nrm[u]);  // the norm of candidate j0 + g
+      const float na = __shfl_sync(FULL, nu, 8 * q), nb = __shfl_sync(FULL, nu, 8 * q + 4);
       // clamp to +0 (never -0, whose bits would sort last)
-      const float d0 = (s.nb[rg * 2] - 2.f * a0) + nf;
-      const float d1 = (s.nb[rg * 2 + 1] - 2.f * a1) + nf;
-      s.dist[(rg * 2) * n + gj] = d0 > 0.f ? d0 : 0.f;
-      s.dist[(rg * 2 + 1) * n + gj] = d1 > 0.f ? d1 : 0.f;
+      float2 d0 = make_float2((qn0 - 2.f * acc[u][0]) + na, (qn0 - 2.f * acc[u][1]) + nb);
+      float2 d1 = make_float2((qn1 - 2.f * acc[u][2]) + na, (qn1 - 2.f * acc[u][3]) + nb);
+      d0.x = d0.x > 0.f ? d0.x : 0.f;
+      d0.y = d0.y > 0.f ? d0.y : 0.f;
+      d1.x = d1.x > 0.f ? d1.x : 0.f;
+      d1.y = d1.y > 0.f ? d1.y : 0.f;
+      *reinterpret_cast<float2*>(s.dist + g * s.ldd + j0 + 2 * q) = d0;
+      *reinterpret_cast<float2*>(s.dist + (g + 8) * s.ldd + j0 + 2 * q) = d1;
+      if (j0 + 2 * q < n) {
+        keep2(m00, m01, __float_as_uint(d0.x));
+        keep2(m10, m11, __float_as_uint(d1.x));
+      }
+      if (j0 + 2 * q + 1 < n) {
+        keep2(m00, m01, __float_as_uint(d0.y));
+        keep2(m10, m11, __float_as_uint(d1.y));
+      }
     }
   }
+  const int src = 2 * (4 * warp + q);
+  s.pool[g * POOL + src] = m00;
+  s.pool[g * POOL + src + 1] = m01;
+  s.pool[(g + 8) * POOL + src] = m10;
+  s.pool[(g + 8) * POOL + src + 1] = m11;
   __syncthreads();
 }
 
-// One warp: the exact k nearest of distance row dr (n entries) into
-// list[0..k), ascending. Ends with __syncwarp().
-__device__ __forceinline__ void select_row(const unsigned* dr, int n, int k, int* list) {
+// The k-th smallest (k <= 64) of the warp's 64 values v0 (element lane) and
+// v1 (element lane + 32): a bitonic sort across the warp.
+__device__ __forceinline__ unsigned kth_of_pool(unsigned v0, unsigned v1, int k) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 64; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride == 32) {  // element lane against lane + 32, ascending
+        const unsigned lo = min(v0, v1);
+        v1 = max(v0, v1);
+        v0 = lo;
+      } else {
+        const bool lower = (lane & stride) == 0;
+        const unsigned o0 = __shfl_xor_sync(FULL, v0, stride);
+        const unsigned o1 = __shfl_xor_sync(FULL, v1, stride);
+        // ascending where (element & size) == 0; element lane + 32 has bit 5 set
+        const bool up0 = (lane & size) == 0, up1 = ((lane + 32) & size) == 0;
+        v0 = (up0 == lower) ? min(v0, o0) : max(v0, o0);
+        v1 = (up1 == lower) ? min(v1, o1) : max(v1, o1);
+      }
+    }
+  }
+  return __shfl_sync(FULL, k <= 32 ? v0 : v1, (k - 1) & 31);
+}
+
+// Radix select, one warp: the exact k (>= 1) smallest of a row of n bit
+// patterns dr, their indices into list[0..k), ascending. Entries with bit 31
+// set are never counted or taken. hist: this warp's BINS counters. Returns
+// the sweeps over the row. Ends with __syncwarp().
+__device__ __forceinline__ int radix_select(const unsigned* dr, int n, int k, unsigned* hist,
+                                            int* list) {
   const int lane = threadIdx.x & 31;
   const unsigned lt_mask = (1u << lane) - 1u;
-  // smallest t with #{d <= t} >= k: the k-th smallest distance
-  unsigned lo = 0u, hi = 0x7F800000u;
-  while (lo < hi) {
-    const unsigned mid = (lo + hi) >> 1;
-    int cnt = 0;
-    for (int j = lane; j < n; j += 32) cnt += dr[j] <= mid;
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
-    if (cnt >= k) hi = mid; else lo = mid + 1u;
+  unsigned prefix = 0u;     // the digits found so far
+  int shift = 31;           // the bits below them
+  unsigned need = k;        // rank of the k-th value among the entries matching prefix
+  int pass = 0;
+  while (pass < 4) {
+    const int width = pass < 3 ? 8 : 7;
+    const int nshift = shift - width;
+    for (int b = lane; b < BINS; b += 32) hist[b] = 0u;
+    __syncwarp();
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      const int j = j0 + lane;
+      const unsigned v = j < n ? dr[j] : FULL;
+      const bool match = (v >> shift) == prefix;
+      if (__ballot_sync(FULL, match) == 0u) continue;
+      const unsigned digit = (v >> nshift) & ((1u << width) - 1u);
+      const unsigned peers = __match_any_sync(FULL, match ? digit : BINS + lane);
+      if (match && (peers & lt_mask) == 0u) atomicAdd(&hist[digit], (unsigned)__popc(peers));
+    }
+    __syncwarp();
+    // lane l holds bins 8l .. 8l+7
+    const uint4 h0 = reinterpret_cast<const uint4*>(hist)[2 * lane];
+    const uint4 h1 = reinterpret_cast<const uint4*>(hist)[2 * lane + 1];
+    const unsigned c[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+    unsigned sum = 0u;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) sum += c[b];
+    unsigned incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned t = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const unsigned excl = incl - sum;
+    const unsigned owner = __ballot_sync(FULL, excl < need && need <= incl);
+    unsigned digit = 0u, below = excl, cnt = 0u;
+    if ((owner >> lane) & 1u) {
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        if (cnt == 0u && below + c[b] >= need) {
+          digit = 8 * lane + b;
+          cnt = c[b];
+        } else if (cnt == 0u) {
+          below += c[b];
+        }
+      }
+    }
+    const int src = __ffs(owner) - 1;
+    digit = __shfl_sync(FULL, digit, src);
+    below = __shfl_sync(FULL, below, src);
+    cnt = __shfl_sync(FULL, cnt, src);
+    prefix = (prefix << width) | digit;
+    shift = nshift;
+    need -= below;
+    ++pass;
+    __syncwarp();
+    if (cnt == need) break;  // the whole bin is taken
   }
-  const unsigned th = hi;
-  int strict = 0;
-  for (int j = lane; j < n; j += 32) strict += dr[j] < th;
-  const int m = k - __reduce_add_sync(0xffffffffu, strict);
 
-  // admit strict rows, and ties in index order until k
-  int nsel = 0, nties = 0;
-  for (int j0 = 0; j0 < n; j0 += 32) {
+  // admit the keys below the prefix, and ties at it in index order until k
+  int nsel = 0;
+  unsigned nties = 0u;
+  for (int j0 = 0; j0 < n && nsel < k; j0 += 32) {
     const int j = j0 + lane;
-    const unsigned dv = j < n ? dr[j] : 0xFFFFFFFFu;
-    const bool tie = dv == th;
-    const unsigned tb = __ballot_sync(0xffffffffu, tie);
-    const bool take = dv < th || (tie && nties + __popc(tb & lt_mask) + 1 <= m);
-    const unsigned sb = __ballot_sync(0xffffffffu, take);
+    const unsigned key = j < n ? dr[j] >> shift : FULL;
+    const bool tie = key == prefix;
+    const unsigned tb = __ballot_sync(FULL, tie);
+    const bool take = key < prefix || (tie && nties + __popc(tb & lt_mask) < need);
+    const unsigned sb = __ballot_sync(FULL, take);
     if (take) list[nsel + __popc(sb & lt_mask)] = j;
     nsel += __popc(sb);
     nties += __popc(tb);
   }
   __syncwarp();
+  return pass + 1;
+}
+
+
+// One warp: the exact k (1 <= k <= 64) smallest of a row of n bit patterns
+// dr, their indices into list[0..k), ascending. t, the k-th smallest of the
+// 64 pool values p0 (lane) and p1 (lane + 32), which are entries of the row,
+// bounds the k-th smallest of the row from above; one sweep gathers the
+// candidates d <= t (a few more than k on spread distances) into scratch,
+// and each candidate's rank by (d, index) among them decides: rank < k is
+// taken. More than CAP candidates (ties around t) fall back to the radix
+// select. Entries with bit 31 set are never taken. scratch: this warp's 2
+// CAP words. Returns the sweeps over the row. Ends with __syncwarp().
+__device__ __forceinline__ int select_row(const unsigned* dr, int n, int k, unsigned p0,
+                                          unsigned p1, unsigned* scratch, int* list) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lt_mask = (1u << lane) - 1u;
+  const unsigned t = kth_of_pool(p0, p1, k);
+  unsigned* cand = scratch;
+  unsigned* cval = scratch + CAP;
+  int cnt = 0;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
+    const unsigned v = j < n ? dr[j] : FULL;
+    const bool c = v <= t && (v >> 31) == 0u;
+    const unsigned cb = __ballot_sync(FULL, c);
+    const int pos = cnt + __popc(cb & lt_mask);
+    if (c && pos < CAP) {
+      cand[pos] = j;
+      cval[pos] = v;
+    }
+    cnt += __popc(cb);
+  }
+  __syncwarp();
+  if (cnt > CAP) return 1 + radix_select(dr, n, k, scratch, list);
+  int nsel = 0;
+  for (int c0 = 0; c0 < cnt; c0 += 32) {
+    const int c = c0 + lane;
+    const unsigned v = c < cnt ? cval[c] : FULL;
+    int rank = 0;
+    for (int c2 = 0; c2 < cnt; ++c2) {
+      const unsigned w = cval[c2];
+      rank += (w < v) | ((w == v) & (c2 < c));
+    }
+    const bool take = c < cnt && rank < k;
+    const unsigned sb = __ballot_sync(FULL, take);
+    if (take) list[nsel + __popc(sb & lt_mask)] = (int)cand[c];
+    nsel += __popc(sb);
+  }
+  __syncwarp();
+  return 1;
 }
 
 // select_row for a query that is itself point `self` of the row (an FPS
-// centre; sa_group, B9): the self entry gets all-ones bits, above every
-// distance, so the k - 1 nearest OTHER points are taken, ascending, into
-// list[0..). Returns how many were taken, min(k, n) - 1: the caller puts the
-// centre in slot 0 (through its index, whatever its rounded distance) and
-// pads slots past n. Entries of dr are non-negative f32 bit patterns.
+// centre; sa_group, B9): the self entry gets all-ones bits, which the
+// selection never takes, so the k - 1 nearest OTHER points are taken,
+// ascending, into list[0..); p0, p1 must be entries other than self.
+// Returns how many were taken, min(k, n) - 1: the caller puts the centre in
+// slot 0 (through its index, whatever its rounded distance) and pads slots
+// past n. Entries of dr are non-negative f32 bit patterns.
 __device__ __forceinline__ int select_row_pinned(unsigned* dr, int n, int k, int self,
+                                                 unsigned p0, unsigned p1, unsigned* scratch,
                                                  int* list) {
-  if ((threadIdx.x & 31) == 0) dr[self] = 0xFFFFFFFFu;
+  if ((threadIdx.x & 31) == 0) dr[self] = FULL;
   __syncwarp();
   const int kr = min(k, n) - 1;
-  select_row(dr, n, kr, list);
+  if (kr > 0) select_row(dr, n, kr, p0, p1, scratch, list);
   return kr;
 }
 

@@ -17,15 +17,18 @@
 //
 // Design: a block of 8 warps owns 8 centres of one item, one warp each. The
 // item's points (x, y, z, |x|^2) go to shared memory once per block, each
-// warp writes its centre's distance row to shared memory, selects, then
+// warp writes its centre's distance row to shared memory, keeping each lane's
+// two nearest others as the selection's pool, selects, then
 // gathers: for each slot one warp-wide pass over the 3 + C output columns,
 // neighbouring lanes on neighbouring columns of the feature row (a real row
 // gather, not the TPU's one-hot product). Features and output are bf16 or
 // f32 (templated); coordinates are always f32.
 //
 // What bounds it on the H100: the output bytes (B M k (3 + C) elements) and
-// the selection's 31 search sweeps over each distance row in shared memory;
-// the distances are 3-deep dot products, negligible.
+// the selection's sweeps over each distance row in shared memory (knn_select.cuh:
+// one sweep a row after a threshold from the lanes' two nearest, the radix
+// select where ties crowd the threshold); the distances are 3-deep dot
+// products, negligible.
 #include "knn_select.cuh"
 
 namespace {
@@ -35,7 +38,7 @@ constexpr int SG_THREADS = SG_CENTRES * 32;
 
 inline size_t sa_group_smem(int n) {
   return sizeof(float) * ((size_t)4 * n + (size_t)SG_CENTRES * n) +
-         sizeof(int) * SG_CENTRES * knn::MAX_K;
+         sizeof(unsigned) * SG_CENTRES * 2 * knn::CAP + sizeof(int) * SG_CENTRES * knn::MAX_K;
 }
 
 template <typename T>
@@ -57,7 +60,8 @@ __global__ void __launch_bounds__(SG_THREADS) sa_group_kernel(
   extern __shared__ __align__(16) float smem[];
   float4* pts = reinterpret_cast<float4*>(smem);
   unsigned* dist = reinterpret_cast<unsigned*>(smem + 4 * (size_t)n);
-  int* lists = reinterpret_cast<int*>(dist + (size_t)SG_CENTRES * n);
+  unsigned* scratch = dist + (size_t)SG_CENTRES * n;  // 16-byte aligned: n * 48 bytes before
+  int* lists = reinterpret_cast<int*>(scratch + SG_CENTRES * 2 * knn::CAP);
 
   const int item = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -82,15 +86,19 @@ __global__ void __launch_bounds__(SG_THREADS) sa_group_kernel(
   }
   const int self = (int)self_ll;
   unsigned* dr = dist + (size_t)warp * n;
+  unsigned p0 = knn::FULL, p1 = knn::FULL;  // this lane's two nearest others: the pool
   for (int j = lane; j < n; j += 32) {
     const float4 p = pts[j];
     const float cross = fmaf(cz, p.z, fmaf(cy, p.y, cx * p.x));
     const float d = (cn - 2.f * cross) + p.w;
-    dr[j] = __float_as_uint(d > 0.f ? d : 0.f);  // +0, never -0
+    const unsigned bits = __float_as_uint(d > 0.f ? d : 0.f);  // +0, never -0
+    dr[j] = bits;
+    if (j != self) knn::keep2(p0, p1, bits);
   }
   __syncwarp();
   int* list = lists + warp * knn::MAX_K;
-  const int taken = knn::select_row_pinned(dr, n, k, self, list);
+  const int taken = knn::select_row_pinned(dr, n, k, self, p0, p1,
+                                           scratch + warp * 2 * knn::CAP, list);
 
   const T* fi = feats + (size_t)item * n * c;
   for (int s = 0; s < k; ++s) {

@@ -105,8 +105,8 @@ _SIGNATURES = {
     "fc_knn_edge_max_smem": [_I, _I],
     "fc_knn_edge_reduce_fwd": [_V, _I, _I, _V, _I, _I, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I,
                                _V],
-    "fc_knn_edge_reduce_bwd": [_V, _I, _I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I,
-                               _V],
+    "fc_knn_edge_reduce_bwd": [_V, _I, _I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _V],
+    "fc_knn_edge_reduce_bwd_scratch": [_I, _I, _I],
     "fc_fps": [_V, _I, _I, _I, _V, _V],
     "fc_fps_smem": [_I],
     "fc_sa_group": [_V, _V, _V, _V, _I, _V, _I, _I, _I, _I, _I, _V],
@@ -833,10 +833,21 @@ def augment_epilogue(st: torch.Tensor, x: torch.Tensor, eps: torch.Tensor,
         z.data_ptr(), ldz, ldj.data_ptr(), r, _stream()))
 
 
+def _knn_pairs(x: torch.Tensor) -> torch.Tensor:
+    """x as the kNN kernels read it, in aligned bf16 pairs: a copy with an
+    even width (a zero feature, which changes no distance) where x has an
+    odd width, an odd row stride or an odd base."""
+    if x.shape[1] % 2 or x.stride(0) % 2 or x.data_ptr() % 4:
+        x = torch.nn.functional.pad(x, (0, x.shape[1] % 2)).contiguous()
+    return x
+
+
 def knn_edge_max(x: torch.Tensor, u: torch.Tensor, out: torch.Tensor, *,
                  n_items: int, k: int, epilogue: Optional[tuple] = None) -> None:
     """Per item of n rows: out_i = max of u_j over the exact k nearest j of
     x_i, or with epilogue=(c, sign, a, b): leaky((sign * max + c) * a + b)."""
+    _rows(x, "knn_edge_max.x", torch.bfloat16)
+    x = _knn_pairs(x)
     ldx = _rows(x, "knn_edge_max.x", torch.bfloat16)
     ldu = _rows(u, "knn_edge_max.u", torch.bfloat16)
     ldo = _rows(out, "knn_edge_max.out", torch.bfloat16)
@@ -880,6 +891,8 @@ def knn_edge_reduce_fwd(x: torch.Tensor, u: torch.Tensor, mx: torch.Tensor, mn: 
     """Per item of n rows, over each row's exact kNN in x: mx, mn, s1, s2 of u
     (f32, (rows, C)), the first max/min slots (uint8, (rows, C)) and the
     selected indices ascending (int32, (rows, k))."""
+    _rows(x, "knn_edge_reduce.x", torch.bfloat16)
+    x = _knn_pairs(x)
     ldx = _rows(x, "knn_edge_reduce.x", torch.bfloat16)
     ldu = _rows(u, "knn_edge_reduce.u", torch.bfloat16)
     rows, cq = x.shape
@@ -907,7 +920,8 @@ def knn_edge_reduce_bwd(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.Tensor,
                         amin: torch.Tensor, idx: torch.Tensor, du: torch.Tensor, *,
                         n_items: int, k: int) -> None:
     """du (f32, (rows, C)) of `knn_edge_reduce_fwd` from the four cotangents,
-    through per-item reverse neighbour lists (no atomics on the sums)."""
+    through per-item reverse neighbour lists built tile by tile across the
+    card (no atomics on the sums; scratch allocated here)."""
     ldu = _rows(u, "knn_edge_reduce_bwd.u", torch.bfloat16)
     rows, cout = u.shape
     n = rows // n_items
@@ -916,13 +930,17 @@ def knn_edge_reduce_bwd(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.Tensor,
             for t, nm in ((dmx, "dmx"), (dmn, "dmn"), (ds1, "ds1"), (ds2, "ds2"))]
     slots = [_contig(t, f"knn_edge_reduce_bwd.{nm}", torch.uint8, shape)
              for t, nm in ((amax, "amax"), (amin, "amin"))]
-    off = torch.empty(n_items * (n + 1), dtype=torch.int32, device=u.device)
-    rev = torch.empty(rows * k, dtype=torch.int32, device=u.device)
-    _check("knn_edge_reduce_bwd", library().fc_knn_edge_reduce_bwd(
+    if rows % n_items or not 1 <= k <= min(n, 64) or cout > 256:
+        raise ValueError(f"knn_edge_reduce_bwd: needs 1 <= k <= min(n, 64) and C <= 256 "
+                         f"(k={k}, n={n}, C={cout})")
+    lib = library()
+    # the reverse lists: per tile counts, then offsets, then lists (int32)
+    scratch = torch.empty(lib.fc_knn_edge_reduce_bwd_scratch(n_items, n, k), dtype=torch.int32,
+                          device=u.device)
+    _check("knn_edge_reduce_bwd", lib.fc_knn_edge_reduce_bwd(
         u.data_ptr(), ldu, cout, *cots, *slots,
-        _contig(idx, "knn_edge_reduce_bwd.idx", torch.int32, (rows, k)), off.data_ptr(),
-        rev.data_ptr(), _contig(du, "knn_edge_reduce_bwd.du", torch.float32, shape),
-        n_items, n, k, _stream()))
+        _contig(idx, "knn_edge_reduce_bwd.idx", torch.int32, (rows, k)), scratch.data_ptr(),
+        _contig(du, "knn_edge_reduce_bwd.du", torch.float32, shape), n_items, n, k, _stream()))
 
 
 _SMEM_LIMIT = 227 * 1024

@@ -108,8 +108,10 @@ def fused_dgcnn_encoder(x: torch.Tensor, params: dict, state: dict, *,
     for conv5; the head as gemm launches with GELU and residual epilogues
     (skipped with head=False).
 
-    What bounds it on the H100: the four kNN selections (N^2 * Cq distance
-    FMAs and the per-row searches); the products are small (K <= 512).
+    What bounds it on the H100: the four kNN stages (B3: the L2 gathers of
+    u' and of the candidate rows; the distances run on the tensor cores and
+    the radix select sweeps each row 2-5 times); the products are small
+    (K <= 512).
     Stage outputs never leave their concat buffer, and the next stage reads
     its input from there, so no concat copy is made."""
     global FUSED_DGCNN_ENCODER_LAUNCHES

@@ -35,6 +35,72 @@ def edge_knn_reduce_plain(x: torch.Tensor, u: torch.Tensor, k: int):
     return sel.max(2).values, sel.min(2).values, sel.sum(2), (sel * sel).sum(2)
 
 
+# Rows of a reverse-list tile (csrc/knn_edge_reduce.cu REV_ROWS).
+REV_ROWS = 64
+
+
+def reverse_lists_tiled(idx: torch.Tensor, tile: int = REV_ROWS) -> tuple:
+    """The backward's reverse neighbour lists as its three kernels build
+    them, in PyTorch: idx (B, N, k) -> (off (B, N + 1), rev (B, N * k)), the
+    list of j at rev[off[j]:off[j + 1]], entries i << 6 | slot in increasing
+    i. knn_rev_count counts per tile of `tile` rows how many rows selected
+    each j; knn_rev_scan scans those counts over the tiles and the totals
+    over j; knn_rev_fill walks each tile's rows in increasing i and appends
+    at j's cursor (here: an entry's place among its tile's entries of the
+    same j, by a stable sort, which is the order the cursor gives)."""
+    b, n, k = idx.shape
+    idx = idx.long()
+    tiles = -(-n // tile)
+    counts = torch.zeros(b, tiles, n, dtype=torch.long)
+    for t in range(tiles):
+        sub = idx[:, t * tile:(t + 1) * tile].reshape(b, -1)
+        counts[:, t].scatter_add_(1, sub, torch.ones_like(sub))
+    tile_start = counts.cumsum(1) - counts
+    off = torch.cat([torch.zeros(b, 1, dtype=torch.long), counts.sum(1).cumsum(1)], 1)
+    pos = tile_start + off[:, None, :n]
+    entry = (torch.arange(n)[:, None] << 6 | torch.arange(k)[None, :]).expand(b, n, k)
+    rev = torch.empty(b, n * k, dtype=torch.long)
+    for t in range(tiles):
+        sub = idx[:, t * tile:(t + 1) * tile].reshape(b, -1)
+        order = torch.argsort(sub, dim=1, stable=True)
+        sj = sub.gather(1, order)
+        rank = torch.arange(sj.shape[1]) - torch.searchsorted(sj, sj, right=False)
+        dest = pos[:, t].gather(1, sj) + rank
+        rev.scatter_(1, dest, entry[:, t * tile:(t + 1) * tile].reshape(b, -1).gather(1, order))
+    return off, rev
+
+
+def edge_knn_reduce_bwd_emulated(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.Tensor,
+                                 ds1: torch.Tensor, ds2: torch.Tensor, amax: torch.Tensor,
+                                 amin: torch.Tensor, off: torch.Tensor,
+                                 rev: torch.Tensor) -> torch.Tensor:
+    """du (B, N, C) f32 as knn_edge_reduce_bwd sums it, in PyTorch: per j
+    (and 64-channel slab) over its list rev[off[j]:off[j + 1]], the two
+    half-warps summing entries 0, 2, 4, ... and 1, 3, 5, ... in order, each
+    entry ds1_i + 2 u_j ds2_i + dmx_i [amax_i == slot] + dmn_i [amin_i ==
+    slot], then the two halves added. The kernel fuses ds1 + 2 u ds2 into
+    one multiply-add; here it rounds twice. u is read at bf16 precision.
+    All tensors (B, N, C) but off (B, N + 1) and rev (B, N * k) from
+    `reverse_lists_tiled`."""
+    b, n, c = ds1.shape
+    length = off[:, 1:] - off[:, :-1]                                # (B, N)
+    longest = int(length.max())
+    q = torch.arange(longest)
+    p = off[:, :-1, None] + q                                        # (B, N, longest)
+    live = q < length[..., None]
+    e = rev.gather(1, torch.where(live, p, 0).reshape(b, -1)).reshape(b, n, longest)
+    i, slot = e >> 6, e & 63
+    uj = u.to(torch.bfloat16).float()
+    acc = [torch.zeros(b, n, c), torch.zeros(b, n, c)]
+    for pos in range(longest):
+        sel = (torch.arange(b)[:, None], i[:, :, pos])
+        g = ds1[sel] + 2.0 * uj * ds2[sel]
+        g = g + torch.where(amax[sel].long() == slot[:, :, pos, None], dmx[sel], 0.0)
+        g = g + torch.where(amin[sel].long() == slot[:, :, pos, None], dmn[sel], 0.0)
+        acc[pos % 2] = torch.where(live[:, :, pos, None], acc[pos % 2] + g, acc[pos % 2])
+    return acc[0] + acc[1]
+
+
 class _EdgeKnnReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, u, k):
@@ -79,18 +145,22 @@ def edge_knn_reduce(x: torch.Tensor, u: torch.Tensor, k: int):
     x (B, N, Cq), u (B, N, C <= 256), k <= 64. A CPU tensor runs
     `edge_knn_reduce_plain`; a CUDA tensor runs csrc/knn_edge_reduce.cu
     inside an autograd.Function: the forward kernel selects as B3 does
-    (distance rows in shared memory, the k-th distance by binary search on
-    its bit pattern, ties in index order) and writes mx, mn, s1, s2, the
-    first max/min slots and the selected indices; the backward builds
-    per-item reverse neighbour lists (a counting pass and a row-ordered
-    fill) and sums each u row's gradient over its list in order, with no
-    atomics on the sums, so it is deterministic.
+    (tensor-core distance rows in shared memory, one sweep under the pool's
+    threshold, ties in index order) and writes mx, mn, s1, s2, the first
+    max/min slots and the selected indices; the backward builds per-item
+    reverse neighbour lists across the card (counts per 64-row tile, a scan,
+    a fill that keeps each list in increasing i: `reverse_lists_tiled`) and
+    sums each u row's gradient over its list in a fixed order
+    (`edge_knn_reduce_bwd_emulated`), with no atomics on the sums, so it is
+    deterministic.
 
-    What bounds it on the H100: the forward, like B3, by the N^2 * Cq
-    distance FMAs and the per-row searches; the backward by bytes (each
-    row's four cotangent rows are read once per row that selected it, k
-    times). The TPU kernel's (B, N, N) rank matrix is not kept: the saved
-    state is the (B, N, k) indices and two byte-wide slot maps."""
+    What bounds it on the H100: the forward, like B3, by the gathers of u
+    from L2, plus its five outputs; the backward by the gathers of the
+    selecting rows' ds1 and ds2 (k times per row, from L2: a random cloud's
+    lists share no tile) and their slot bytes; dmx and dmn are read only
+    where a slot matches. The TPU kernel's (B, N, N) rank matrix is not
+    kept: the saved state is the (B, N, k) indices and two byte-wide slot
+    maps."""
     if not x.is_cuda:
         return edge_knn_reduce_plain(x, u, k)
     return _EdgeKnnReduce.apply(x, u, k)

@@ -245,6 +245,131 @@ def test_knn_edge_reduce_matches_plain_on_integer_inputs(dev, cq, cout):
     assert grads[0][1] is not None and float(grads[0][1].abs().max()) == 0.0
 
 
+# B3 and B6 at the main path's shapes: a B=20 eval item's or training step's
+# 40 context clouds of 1,250 points, k = 40, the four EdgeConv widths
+MAIN_CLOUDS, MAIN_N, MAIN_K = 40, 1250, 40
+EDGE_WIDTHS = [(6, 64), (64, 64), (64, 128), (128, 256)]
+
+
+def _b6_both(x, u, cots, k):
+    """B6 forward and du through the kernels and through the plain version."""
+    from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda as ev
+    out = []
+    for fn in (ev.edge_knn_reduce, ev.edge_knn_reduce_plain):
+        uu = u.detach().clone().requires_grad_()
+        o = fn(x, uu, k)
+        torch.autograd.backward(o, cots)
+        torch.cuda.synchronize()
+        out.append([a.detach() for a in o] + [uu.grad])
+    return out
+
+
+def _selected(x, k):
+    """The forward kernel's selected indices (ascending) and the plain ones."""
+    from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda as ev
+    b, n, cq = x.shape
+    rows = b * n
+    c = 8
+    outs = [torch.empty(rows, c, device=x.device) for _ in range(4)]
+    slots = [torch.empty(rows, c, dtype=torch.uint8, device=x.device) for _ in range(2)]
+    idx = torch.empty(rows, k, dtype=torch.int32, device=x.device)
+    u = torch.zeros(rows, c, dtype=torch.bfloat16, device=x.device)
+    _build.knn_edge_reduce_fwd(x.reshape(rows, cq), u, *outs, *slots, idx, n_items=b, k=k)
+    torch.cuda.synchronize()
+    return idx.reshape(b, n, k).long(), ev.knn_indices(x, k).sort(-1).values
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cq,cout", EDGE_WIDTHS)
+def test_knn_kernels_exact_at_main_path_shapes(dev, cq, cout):
+    """B3 and B6 at 40 x 1,250, k = 40, integer features (exact distances,
+    many ties): the selection index-equal to plain, B3 and B6's mx / mn bit
+    equal, s1 / s2 / du within 1e-4 (1 + |ref|) (f32 sums in another order)."""
+    g = torch.Generator().manual_seed(60 + cq)
+    x = torch.randint(-4, 5, (MAIN_CLOUDS, MAIN_N, cq), generator=g).bfloat16().to(dev)
+    u = rand(g, MAIN_CLOUDS, MAIN_N, cout, device=dev).bfloat16()
+    got_idx, ref_idx = _selected(x, MAIN_K)
+    assert torch.equal(got_idx, ref_idx)
+    torch.testing.assert_close(edgeconv_cuda.edge_neighbor_max(x, u, MAIN_K),
+                               edgeconv_cuda.edge_neighbor_max_plain(x, u, MAIN_K), rtol=0, atol=0)
+    cots = [rand(g, MAIN_CLOUDS, MAIN_N, cout, device=dev) for _ in range(4)]
+    got, ref = _b6_both(x, u.float(), cots, MAIN_K)
+    for a, b in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(got[2:], ref[2:]):
+        assert float(((a - b).abs() / (1 + b.abs())).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cq,cout", EDGE_WIDTHS)
+def test_knn_kernels_random_at_main_path_shapes(dev, cq, cout):
+    """Random features at 40 x 1,250: near-tied k-th neighbours may flip with
+    the f32 sum order (the tensor cores' against cuBLAS's); at most 1% of
+    rows may differ, in B3's output and in any of B6's five."""
+    g = torch.Generator().manual_seed(70 + cq)
+    x = rand(g, MAIN_CLOUDS, MAIN_N, cq, device=dev).bfloat16()
+    u = rand(g, MAIN_CLOUDS, MAIN_N, cout, device=dev).bfloat16()
+    got = edgeconv_cuda.edge_neighbor_max(x, u, MAIN_K)
+    ref = edgeconv_cuda.edge_neighbor_max_plain(x, u, MAIN_K)
+    assert float((got != ref).any(-1).float().mean()) <= 0.01
+    cots = [rand(g, MAIN_CLOUDS, MAIN_N, cout, device=dev) for _ in range(4)]
+    got, ref = _b6_both(x, u.float(), cots, MAIN_K)
+    off = torch.zeros(MAIN_CLOUDS, MAIN_N, dtype=torch.bool, device=dev)
+    for a, b in zip(got, ref):
+        off |= ((a - b).abs() > 1e-4 * (1 + b.abs())).any(-1)
+    assert float(off.float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "duplicates", "k64", "k_is_n", "cq6_ragged",
+                                  "odd_cq"])
+def test_knn_selection_edge_cases(dev, case):
+    """A ragged n (1,037: no multiple of the 16-row block or the 8-wide
+    tile), an all-duplicate cloud (every distance 0: the first k by index,
+    more candidates than a warp holds, so the radix select's four passes),
+    k = 64, k = n, cq = 6 on a ragged n and an odd cq (the wrapper pads a
+    zero feature): the kernels' selection index-equal to plain, B3 and B6
+    bit-equal on the max / min."""
+    n, cq, k, cout = {"ragged": (1037, 64, 40, 128), "duplicates": (1250, 64, 40, 64),
+                      "k64": (1250, 128, 64, 256), "k_is_n": (48, 6, 48, 64),
+                      "cq6_ragged": (1037, 6, 40, 64), "odd_cq": (500, 5, 40, 20)}[case]
+    g = torch.Generator().manual_seed(80)
+    x = torch.randint(-4, 5, (3, n, cq), generator=g).bfloat16().to(dev)
+    if case == "duplicates":
+        x = x[:, :1].expand(3, n, cq).contiguous()
+    u = rand(g, 3, n, cout, device=dev).bfloat16()
+    got_idx, ref_idx = _selected(x, k)
+    assert torch.equal(got_idx, ref_idx)
+    if case == "duplicates":
+        assert torch.equal(got_idx, torch.arange(k, device=dev).expand(3, n, k))
+    torch.testing.assert_close(edgeconv_cuda.edge_neighbor_max(x, u, k),
+                               edgeconv_cuda.edge_neighbor_max_plain(x, u, k), rtol=0, atol=0)
+    cots = [rand(g, 3, n, cout, device=dev) for _ in range(4)]
+    got, ref = _b6_both(x, u.float(), cots, k)
+    for a, b in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(got[2:], ref[2:]):
+        assert float(((a - b).abs() / (1 + b.abs())).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_knn_edge_reduce_backward_is_deterministic(dev):
+    """B6's du bit-equal over two runs at 40 x 1,250 (no atomics on the
+    sums: fixed lists, a fixed order of summation)."""
+    from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda as ev
+    g = torch.Generator().manual_seed(90)
+    x = rand(g, MAIN_CLOUDS, MAIN_N, 64, device=dev).bfloat16()
+    u0 = rand(g, MAIN_CLOUDS, MAIN_N, 256, device=dev).bfloat16().float()
+    cots = [rand(g, MAIN_CLOUDS, MAIN_N, 256, device=dev) for _ in range(4)]
+    grads = []
+    for _ in range(2):
+        u = u0.clone().requires_grad_()
+        torch.autograd.backward(ev.edge_knn_reduce(x, u, MAIN_K), cots)
+        torch.cuda.synchronize()
+        grads.append(u.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
 def _rel(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-12))
 
