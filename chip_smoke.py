@@ -9,7 +9,11 @@ Phases, each of which raises on failure (nothing is caught):
 2. build: nvcc builds every kernel from csrc/ (timed);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card at the shapes the dulcet-universe paths give it (B3 at the four
-   EdgeConv widths, B4 on a full encoder, B2 at full width, B1 on two
+   EdgeConv widths, B4 on a full encoder at 2 clouds and at a B=20 item's
+   40, B2 at full width at 8 x 1024 rows and a B=20 item's 40,960, each
+   with its wall and device time and launches a call, and the kernels of
+   their chains: the DGCNN tail on 50,000 rows, B2's net and epilogue and
+   the packed rows on 40,960; B1 on two
    full-width layers, B6 forward and backward at the four widths, B5 on two
    full-width layers, B7 on two full-width layers at a sample's 1 x 4000
    points), with the kernel's and the plain version's time and the least
@@ -24,9 +28,14 @@ Phases, each of which raises on failure (nothing is caught):
 4. eval main path: the full-depth, full-width dulcet-universe eval through
    `evaluate_on_test` (random weights from a seed, random clouds from a
    seed, 2 items of B=4, both directions), with launch counters showing that
-   B4, B3, B2 and B1 ran, held against the plain path on the same noise:
-   |d nats| <= 0.01 and change maps agreeing on >= 99.9% of points;
-5. eval timing: the main path at the preset's batch size (B=20), points/s;
+   B4, B3, B2 and B1 ran, each B4 call in at most 10 launches and each B2
+   call in at most 5 (`check_b4_b2`: no per-product gemm in B4's head or
+   B2's net) and their weights folded once, held against the plain path on
+   the same noise: |d nats| <= 0.01 and change maps agreeing on >= 99.9% of
+   points; every later path asserts the same launches a call, and the eval
+   timing and make_sample no fold (the weights have not changed);
+5. eval timing: the main path at the preset's batch size (B=20), points/s,
+   and a torch.profiler trace of one item summed by kernel;
 6. sampling main path: a full-depth `make_sample` of 1 x 4000 points (the
    trainer's and the eval dumps' call) through the kernels, with launch
    counters showing that B4 (B3 inside it) and B7 ran, and through the
@@ -80,7 +89,8 @@ Phases, each of which raises on failure (nothing is caught):
    autograd backward, with the launch counters around the fused call;
 13. helpful-sponge (the global DGCNN and the global conditioner, bf16, full
    depth and width; the good-surf model is freed first): B4 with head=False
-   at 50 clouds, B2 over the broadcast 124-wide embedding, and B1, B5 and
+   at 50 clouds, B2 over the broadcast 124-wide embedding at 8 x 1024 and
+   a B=25 item's 51,200 rows (extra=None), and B1, B5 and
    B7 on two has_attn=False layers against their plain versions; the eval
    main path at 2 items of B=4 against the plain path (B4, B3, B2 and B1
    counted, B10 not; |d nats| <= 0.01, change maps >= 99.9%); eval timing
@@ -99,8 +109,8 @@ Phases, each of which raises on failure (nothing is caught):
    plain version's, torch.matmul's (the library yardstick) and the bound.
    Every main path (eval, make_sample, train) then shows, through counters
    around the B1, B2, B5 and B7 entry points, that no product inside those
-   chains took the WMMA route, and that outside them only B4's first
-   EdgeConv stage (two launches per encoder call) did;
+   chains took the WMMA route, and that none outside them did either (B4's
+   first EdgeConv stage reads the cloud cast into 8 bf16 columns);
 15. attention (run third, before any model is built): the chains' cross
    attention, csrc/cross_attention.cu and cross_attention_bwd.cu, on the
    TMA + wgmma route against the plain versions at dulcet's eval launch and
@@ -139,13 +149,18 @@ Phases, each of which raises on failure (nothing is caught):
    B5_PROBE_LIMITS, their device ms per launch and bounds; B5 against flow_layers_bwd_plain (max-error
    bands) and against its fused route's plain version within B5_LIMITS,
    two calls bit-equal, launches a layer (11 / 4), and the per-product
-   chain timed beside it.
+   chain timed beside it;
+18. swept-energy (last, the helpful-sponge model freed first): the eval
+   main path at full width and depth against the plain path, the one path
+   through B4 with its head and B2's extra=None packed rows, with the same
+   bounds and launch and fold checks, and eval timing at B=20.
 
 Prints, last, one JSON line of per-kernel results (B1-B10, gemm_bf16,
 gemm_tn, cross_attention, cross_attention_bwd, conditioner,
-coupling_layer, coupling_inverse and B5's conditioner_record,
+coupling_layer, coupling_inverse, B5's conditioner_record,
 coupling_record, coupling_bwd, conditioner_bwd, gemm_tn_grouped and
-grad_reduce at their headline shapes;
+grad_reduce, and B4's and B2's dgcnn_tail, augment_net and pack_rows at
+their headline shapes;
 B1, B2, B4, B5 and B7 carry their helpful-sponge branch's check under
 "global", B10 its second shape), the nvidia-smi line and {"ok": true,
 "device": {...}}.
@@ -340,10 +355,203 @@ def knn_flops(items: int, n: int, cq: int) -> int:
     return items * 2 * n * n * cq
 
 
+def call_launches(fn, keys) -> int:
+    """The launches one call of fn makes, summed over the counters `keys`."""
+    before = read_counters()
+    fn()
+    torch.cuda.synchronize()
+    after = read_counters()
+    return sum(after[k] - before[k] for k in keys)
+
+
+B4_COUNTERS = ("gemm wgmma", "gemm wmma", "B3", "pack_rows", "dgcnn_tail")
+B2_COUNTERS = ("pack_rows", "conditioner", "gemm wgmma", "gemm wmma", "attention wgmma",
+               "attention wmma", "augment_net")
+
+
+def b4_flops(clouds: int, nc: int, head_ws: list) -> int:
+    """B4's operations over `clouds` clouds of nc points: the four kNN
+    distance products, the stage products, conv5 and the head (`head_ws`,
+    empty with head=False)."""
+    pts = clouds * nc
+    return (sum(knn_flops(clouds, nc, cin) + 2 * 2 * pts * cin * cout for cin, cout in EDGE_WIDTHS)
+            + 2 * pts * 512 * 512 + sum(2 * pts * w.shape[-2] * w.shape[-1] for w in head_ws))
+
+
+def check_b4(x, params, state, k: int, head: bool, label: str) -> dict:
+    """B4 at x's shape against its plain version (mean |err| <= 1e-3, share
+    of |err| > 0.1 <= 1e-3): its wall time (CUDA events, host included),
+    device time (the kernels' durations), plain time, launches a call and
+    bound."""
+    from flowcompare_tpu_torch.ops import dgcnn_cuda
+
+    def call():
+        return dgcnn_cuda.fused_dgcnn_encoder(x, params, state, k=k, head=head)
+
+    got = call()
+    torch.cuda.synchronize()
+    ref = dgcnn_cuda.fused_dgcnn_encoder_plain(x, params, state, k=k, head=head)
+    d = (got.float() - ref.float()).abs()
+    err, mean, share = float(d.max()), float(d.mean()), float((d > 0.1).float().mean())
+    per_call = call_launches(call, B4_COUNTERS)
+    ms, dms = time_ms(call), device_ms(call)
+    pms = time_ms(lambda: dgcnn_cuda.fused_dgcnn_encoder_plain(x, params, state, k=k, head=head),
+                  reps=2)
+    head_ws = ([l["w"] for l in [params["out_mlp"]["in"], *params["out_mlp"]["hidden"],
+                                 params["out_mlp"]["out"]]] if head else [])
+    trunk = {key: params[key] for key in ("conv1", "conv2", "conv3", "conv4", "conv5")}
+    entry = kernel_entry("fused_dgcnn_encoder", "flowcompare_tpu_torch/ops/dgcnn_cuda.py",
+                         "flowcompare_tpu/ops/dgcnn_pallas.py:336", err, ms, pms,
+                         b4_flops(x.shape[0], x.shape[1], head_ws),
+                         nbytes(x, trunk, head_ws, state, got))
+    entry.update(device_ms=dms, launches_per_call=per_call)
+    log(f"B4 fused_dgcnn_encoder {label} {tuple(x.shape)} -> {tuple(got.shape)}: max|err| {err}, "
+        f"mean|err| {mean} (tolerance 1e-3), share |err|>0.1 {share} (budget 1e-3); {ms} ms "
+        f"(device {dms}) vs plain {pms} ms, bound {entry['bound_ms']} ms; {per_call} launches a "
+        f"call (at most {B4_LAUNCHES})")
+    assert mean <= 1e-3 and share <= 1e-3, f"B4 ({label}) disagrees with its plain version"
+    assert per_call <= B4_LAUNCHES, per_call
+    return entry
+
+
+def check_b2(xa, eps, ctx, extra, folded_aug, nc: int, label: str) -> dict:
+    """B2 at xa's shape against its plain version (|dz| <= 0.02, relative
+    d ldj <= 1e-4): wall and device time, plain time, launches a call and
+    bound."""
+    from flowcompare_tpu_torch.ops import flow_layer_cuda as flc
+
+    def call():
+        return flc.fused_augmenter(xa, eps, ctx, extra, folded_aug)
+
+    z, l = call()
+    torch.cuda.synchronize()
+    zr, lr = flc.fused_augmenter_plain(xa, eps, ctx, extra, folded_aug)
+    errz = float((z - zr).abs().max())
+    rel = float(((l - lr).abs() / lr.abs().clamp_min(1.0)).max())
+    per_call = call_launches(call, B2_COUNTERS)
+    ms, dms = time_ms(call), device_ms(call)
+    pms = time_ms(lambda: flc.fused_augmenter_plain(xa, eps, ctx, extra, folded_aug), reps=2)
+    items, n = xa.shape[:2]
+    ctx_read = ctx[:, :1] if ctx.stride(1) == 0 else ctx
+    entry = kernel_entry("fused_augmenter", "flowcompare_tpu_torch/ops/flow_layer_cuda.py",
+                         "flowcompare_tpu/ops/flow_layer_pallas.py:1504", errz, ms, pms,
+                         sum(stack_flops(folded_aug, items * n, items, nc, lu=False)),
+                         nbytes(xa, eps, ctx_read, extra[:, :1] if extra is not None else None,
+                                folded_aug, z, l))
+    entry.update(device_ms=dms, launches_per_call=per_call)
+    log(f"B2 fused_augmenter {label} {tuple(xa.shape)} -> z {tuple(z.shape)}: max|dz| {errz} "
+        f"(tolerance 0.02), max relative d ldj {rel} (tolerance 1e-4); {ms} ms (device {dms}) "
+        f"vs plain {pms} ms, bound {entry['bound_ms']} ms; {per_call} launches a call (at most "
+        f"{B2_LAUNCHES})")
+    assert errz <= 0.02 and rel <= 1e-4, f"B2 ({label}) disagrees with its plain version"
+    assert per_call <= B2_LAUNCHES, per_call
+    return entry
+
+
+def phase_b4_b2_kernels(model, device, g) -> dict:
+    """B4 at 2 and 40 clouds of 1,250 (head) and B2 at 8 x 1024 and 40,960
+    rows (extra context) against their plain versions, and the kernels their
+    chains added, each against its plain version at the main path's shapes
+    (a B=20 item: 40 clouds, 40,960 rows): the DGCNN tail (conv5 and the
+    head on 50,000 rows), B2's net and epilogue, and the packed rows."""
+    from flowcompare_tpu_torch.core.mlp import cast_tree
+    from flowcompare_tpu_torch.ops import _build, dgcnn_cuda, flow_layer_cuda as flc
+
+    cfg = model.config
+    nc, n, k, lat = (cfg["n_samples_context"], cfg["sample_size"], cfg["n_neighbors"],
+                     cfg["latent_dim"])
+    bf, items = torch.bfloat16, 2 * TIME_B
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g).to(device)
+
+    out = {}
+    # weights of their own (cast here), so that the eval main path's first
+    # call still folds the model's
+    params = cast_tree(model.params()["embedder"], bf)
+    state = model.state.tree()["embedder"]
+    b4 = {clouds: check_b4(rand(clouds, nc, 6), params, state, k, True, f"{clouds} clouds")
+          for clouds in (2, items)}
+    out["B4"] = {**b4[items], "shapes": f"{items} clouds x {nc}",
+                 "at_2_clouds": {**check_entry(b4[2], f"2 clouds x {nc}"),
+                                 "device_ms": b4[2]["device_ms"]}}
+    folded_aug = flc.fold_augmenter(model.params()["augmenter"], input_dim=6, extra_dim=1)
+    b2 = {}
+    for b in (2 * EVAL_B, items):
+        b2[b] = check_b2(rand(b, n, 6), rand(b, n, lat - 6),
+                         rand(b, nc, cfg["input_embedding_dim"]).to(bf),
+                         rand(b, 1, 1).expand(b, n, 1), folded_aug, nc, f"{b}x{n}")
+    out["B2"] = {**b2[items], "shapes": f"{items}x{n}, extra context",
+                 f"at_{2 * EVAL_B * n}_rows": {**check_entry(b2[2 * EVAL_B], f"{2 * EVAL_B}x{n}"),
+                                               "device_ms": b2[2 * EVAL_B]["device_ms"]}}
+
+    # the tail on 50,000 rows of a stage concat
+    w = dgcnn_cuda.encoder_weights(params, state)
+    stack, rows = w.tail(True), items * nc
+    feats = rand(rows, 512).to(bf)
+    emb = torch.empty(rows, stack.pairs[-1][0].shape[2], dtype=bf, device=device)
+    tail = lambda: _build.dgcnn_tail(feats, stack, w.scale, emb)  # noqa: E731
+    tail()
+    torch.cuda.synchronize()
+    ref = dgcnn_cuda.dgcnn_tail_plain(feats, stack.layer(0), w.scale[0])
+    d = (emb.float() - ref.float()).abs()
+    mean, share = float(d.mean()), float((d > 0.1).float().mean())
+    out["dgcnn_tail"] = kernel_entry(
+        "dgcnn_tail (conv5 and the head)", "flowcompare_tpu_torch/csrc/fused_layer.cu",
+        "flowcompare_tpu/ops/dgcnn_pallas.py:336", float(d.max()), device_ms(tail),
+        time_ms(lambda: dgcnn_cuda.dgcnn_tail_plain(feats, stack.layer(0), w.scale[0]), reps=2),
+        sum(2 * rows * wt.shape[1] * wt.shape[2] for wt, _ in stack.pairs),
+        nbytes(feats, [(wt[0, :, :wt.shape[2]], bt) for wt, bt in stack.pairs], w.scale, emb))
+    log(f"dgcnn_tail {rows} rows, {len(stack.pairs)} products: max|err| {float(d.max())}, "
+        f"mean|err| {mean} (tolerance 1e-3), share |err|>0.1 {share} (budget 1e-3); "
+        f"{out['dgcnn_tail']}")
+    assert mean <= 1e-3 and share <= 1e-3, "dgcnn_tail disagrees with its plain version"
+
+    # B2's net and epilogue on 40,960 packed rows
+    aw = flc._kernel_weights(folded_aug, 6)
+    rows = items * n
+    xin = rand(rows, aw.width).to(bf)
+    xin[:, aw.xe:aw.xc] = 0
+    x2, eps2 = rand(rows, 6), rand(rows, lat - 6)
+    z, ldj = torch.empty(rows, lat, device=device), torch.empty(rows, device=device)
+    net = lambda: _build.augment_net(xin, aw.net_stack, x2, eps2, z, ldj)  # noqa: E731
+    net()
+    torch.cuda.synchronize()
+    zr, lr = flc.augment_net_plain(xin, aw.net_stack.layer(0), x2, eps2)
+    errz = float((z - zr).abs().max())
+    rel = float(((ldj - lr).abs() / lr.abs().clamp_min(1.0)).max())
+    out["augment_net"] = kernel_entry(
+        "augment_net (B2's net and epilogue)", "flowcompare_tpu_torch/csrc/fused_layer.cu",
+        "flowcompare_tpu/ops/flow_layer_pallas.py:1504", errz, device_ms(net),
+        time_ms(lambda: flc.augment_net_plain(xin, aw.net_stack.layer(0), x2, eps2), reps=2),
+        sum(2 * rows * wt.shape[1] * wt.shape[2] for wt, _ in aw.net_stack.pairs),
+        nbytes(xin[:, :aw.net_stack.in_cols], x2, eps2, z, ldj,
+               [(wt[0, :, :wt.shape[2]], bt) for wt, bt in aw.net_stack.pairs]))
+    log(f"augment_net {rows} rows: max|dz| {errz} (tolerance 0.02), max relative d ldj {rel} "
+        f"(tolerance 1e-4); {out['augment_net']}")
+    assert errz <= 0.02 and rel <= 1e-4, "augment_net disagrees with its plain version"
+
+    # the packed rows [x | extra | pad] of a B=20 item
+    xs, extra = rand(items, n, 6), rand(items, 1, 1).expand(items, n, 1)
+    dst, ref_rows = (torch.empty(rows, 8, dtype=bf, device=device) for _ in range(2))
+    pack = lambda: _build.pack_rows(dst, xs, extra)  # noqa: E731
+    pack()
+    _build.pack_rows_plain(ref_rows, xs, extra)
+    torch.cuda.synchronize()
+    err = float((dst.float() - ref_rows.float()).abs().max())
+    out["pack_rows"] = kernel_entry(
+        "pack_rows", "flowcompare_tpu_torch/csrc/flow_rows.cu",
+        "flowcompare_tpu/ops/flow_layer_pallas.py:1504", err, device_ms(pack),
+        time_ms(lambda: _build.pack_rows_plain(ref_rows, xs, extra), reps=2), 0,
+        nbytes(xs, extra[:, :1], dst))
+    log(f"pack_rows {rows} rows: max|err| {err} (tolerance 0); {out['pack_rows']}")
+    assert err == 0.0, "pack_rows disagrees with its plain version"
+    return out
+
+
 def phase_kernels(ft, model, device):
     """Each kernel against its plain version at the main path's shapes."""
-    from flowcompare_tpu_torch.core.mlp import cast_tree
-    from flowcompare_tpu_torch.ops import dgcnn_cuda, edgeconv_cuda, flow_layer_cuda as flc
+    from flowcompare_tpu_torch.ops import edgeconv_cuda, flow_layer_cuda as flc
 
     cfg = model.config
     rows = 2 * EVAL_B                          # both directions of an eval item
@@ -407,52 +615,11 @@ def phase_kernels(ft, model, device):
     entries["B3"][f"at_{rows}_clouds"] = check_entry(
         kernel_entry("", "", "", err3, ms3, plain3, flops3, bytes3), f"{rows} clouds x {nc}")
 
-    # B4 on a full encoder, B=2
-    params = cast_tree(model.params()["embedder"], torch.bfloat16)
-    state = model.state.tree()["embedder"]
-    x = rand(2, nc, 6)
-    got = dgcnn_cuda.fused_dgcnn_encoder(x, params, state, k=k)
-    torch.cuda.synchronize()
-    ref = dgcnn_cuda.fused_dgcnn_encoder_plain(x, params, state, k=k)
-    d = (got.float() - ref.float()).abs()
-    err4, mean4, share4 = float(d.max()), float(d.mean()), float((d > 0.1).float().mean())
-    ms = time_ms(lambda: dgcnn_cuda.fused_dgcnn_encoder(x, params, state, k=k))
-    pms = time_ms(lambda: dgcnn_cuda.fused_dgcnn_encoder_plain(x, params, state, k=k), reps=2)
-    log(f"B4 fused_dgcnn_encoder 2x{nc}x6 -> {tuple(got.shape)}: max|err| {err4}, "
-        f"mean|err| {mean4} (tolerance 1e-3), share |err|>0.1 {share4} (budget 1e-3); "
-        f"{ms} ms vs plain {pms} ms")
-    assert mean4 <= 1e-3 and share4 <= 1e-3, "B4 disagrees with its plain version"
-    entries["B4"] = kernel_entry(
-        "fused_dgcnn_encoder", "flowcompare_tpu_torch/ops/dgcnn_cuda.py",
-        "flowcompare_tpu/ops/dgcnn_pallas.py:336", err4, ms, pms,
-        sum(knn_flops(2, nc, cin) + 2 * 2 * (2 * nc) * cin * cout for cin, cout in EDGE_WIDTHS)
-        + 2 * (2 * nc) * 512 * 512 + sum(_mm(2 * nc, w) for w in
-                                         [l["w"] for l in [params["out_mlp"]["in"],
-                                                           *params["out_mlp"]["hidden"],
-                                                           params["out_mlp"]["out"]]]),
-        nbytes(x, params, state, got))
-
-    # B2 at full width
-    params_all = model.params()
-    folded_aug = flc.fold_augmenter(params_all["augmenter"], input_dim=6, extra_dim=1)
-    xa, eps = rand(rows, n, 6), rand(rows, n, cfg["latent_dim"] - 6)
+    # B4 on a full encoder at 2 clouds (a make_sample context is 1) and at
+    # the main path's 40 (a B=20 item, both directions), B2 at 8 x 1024 rows
+    # and the main path's 40,960, and the kernels of their chains
+    entries.update(phase_b4_b2_kernels(model, device, g))
     ctx, extra = rand(rows, nc, cfg["input_embedding_dim"]).bfloat16(), rand(rows, n, 1)
-    z, l = flc.fused_augmenter(xa, eps, ctx, extra, folded_aug)
-    torch.cuda.synchronize()
-    zr, lr = flc.fused_augmenter_plain(xa, eps, ctx, extra, folded_aug)
-    errz, errl = float((z - zr).abs().max()), float((l - lr).abs().max())
-    rel2 = float(((l - lr).abs() / lr.abs().clamp_min(1.0)).max())
-    ms = time_ms(lambda: flc.fused_augmenter(xa, eps, ctx, extra, folded_aug))
-    pms = time_ms(lambda: flc.fused_augmenter_plain(xa, eps, ctx, extra, folded_aug), reps=2)
-    log(f"B2 fused_augmenter {rows}x{n}x6 -> z {tuple(z.shape)}: max|dz| {errz} "
-        f"(tolerance 0.02), max|d ldj| {errl}, max relative d ldj {rel2} (tolerance 1e-4); "
-        f"{ms} ms vs plain {pms} ms")
-    assert errz <= 0.02 and rel2 <= 1e-4, "B2 disagrees with its plain version"
-    entries["B2"] = kernel_entry(
-        "fused_augmenter", "flowcompare_tpu_torch/ops/flow_layer_cuda.py",
-        "flowcompare_tpu/ops/flow_layer_pallas.py:1504", errz, ms, pms,
-        sum(stack_flops(folded_aug, rows * n, rows, nc, lu=False)),
-        nbytes(xa, eps, ctx, extra, folded_aug, z, l))
 
     # B1 on two full-width layers (one stacked layer and the final block)
     small = make_model(ft, device, n_flow_layers=2)
@@ -683,7 +850,7 @@ def gemm_host_cost(g, calls: int = 3000) -> dict:
     out, bias = torch.empty(64, 64, dtype=bf, device="cuda"), torch.randn(64, device="cuda")
     lib, stream = _build.library(), _build._stream()
     base = (a.data_ptr(), 64, w.data_ptr(), 64, out.data_ptr(), 64, 64, 64, 64, bias.data_ptr(),
-            None, 0, None, None, None, 0, None, 0, _build.EPI_BIAS | _build.EPI_GELU, 0)
+            None, 0, None, None, None, 0, None, 0, 0, _build.EPI_BIAS | _build.EPI_GELU, 0)
     direct = {"wgmma": lambda: lib.fc_gemm_bf16(*base, *_build.gemm_tile(64, 64), stream),
               "wmma": lambda: lib.fc_gemm_bf16_wmma(*base, stream)}
 
@@ -713,7 +880,10 @@ class ChainRoutes:
 
     ENTRY_POINTS = (("flow_layer_cuda", "fused_flow_layers"), ("flow_layer_cuda", "fused_augmenter"),
                     ("flow_layer_cuda", "fused_flow_layers_inverse"),
-                    ("flow_layer_vjp_cuda", "flow_layers_bwd"))
+                    ("flow_layer_vjp_cuda", "flow_layers_bwd"), ("dgcnn_cuda", "fused_dgcnn_encoder"))
+    # B4 and B2: each call's launches by counter (`check_b4_b2`); B4's are
+    # kept out of the chains' counts
+    PER_CALL = ("fused_dgcnn_encoder", "fused_augmenter")
 
     # B1 and B7 (the layer stack's two directions) are also counted apart
     # ("flow ..." keys): their gemms, fused launches and cross attention, so
@@ -723,12 +893,15 @@ class ChainRoutes:
     KEYS = ("wgmma", "wmma", "attention wgmma", "attention wmma", "conditioner",
             "coupling_layer", "coupling_inverse", "conditioner_record", "coupling_record",
             "coupling_bwd", "conditioner_bwd", "gemm_tn_grouped", "grad_reduce", "attn_bwd_prep",
-            "colsum", "gemm", "gemm_tn", "attention")
+            "colsum", "gemm", "gemm_tn", "attention", "knn", "pack_rows", "dgcnn_tail",
+            "augment_net")
 
     def __init__(self):
-        from flowcompare_tpu_torch.ops import _build, flow_layer_cuda, flow_layer_vjp_cuda
-        self._build = _build
-        modules = {"flow_layer_cuda": flow_layer_cuda, "flow_layer_vjp_cuda": flow_layer_vjp_cuda}
+        from flowcompare_tpu_torch.ops import (_build, dgcnn_cuda, edgeconv_cuda, flow_layer_cuda,
+                                               flow_layer_vjp_cuda)
+        self._build, self._edgeconv = _build, edgeconv_cuda
+        modules = {"flow_layer_cuda": flow_layer_cuda, "flow_layer_vjp_cuda": flow_layer_vjp_cuda,
+                   "dgcnn_cuda": dgcnn_cuda}
         self.reset()
         for module_name, attr in self.ENTRY_POINTS:
             module = modules[module_name]
@@ -752,7 +925,9 @@ class ChainRoutes:
                 "colsum": b.COLSUM_LAUNCHES, "gemm": b.GEMM_WGMMA_LAUNCHES + b.GEMM_WMMA_LAUNCHES,
                 "gemm_tn": b.GEMM_TN_WGMMA_LAUNCHES + b.GEMM_TN_WMMA_LAUNCHES,
                 "attention": (b.CROSS_ATTENTION_WGMMA_LAUNCHES + b.CROSS_ATTENTION_WMMA_LAUNCHES
-                              + b.ATTENTION_BWD_WGMMA_LAUNCHES + b.ATTENTION_BWD_WMMA_LAUNCHES)}
+                              + b.ATTENTION_BWD_WGMMA_LAUNCHES + b.ATTENTION_BWD_WMMA_LAUNCHES),
+                "knn": self._edgeconv.EDGE_NEIGHBOR_MAX_LAUNCHES, "pack_rows": b.PACK_ROWS_LAUNCHES,
+                "dgcnn_tail": b.DGCNN_TAIL_LAUNCHES, "augment_net": b.AUGMENT_NET_LAUNCHES}
 
     def _counted(self, fn, attr: str):
         def counted(*args, **kwargs):
@@ -760,7 +935,10 @@ class ChainRoutes:
             try:
                 return fn(*args, **kwargs)
             finally:
-                for key, value in self._now().items():
+                after = self._now()
+                if attr in self.PER_CALL:
+                    self.calls[attr].append({k: after[k] - before[k] for k in after})
+                for key, value in ({} if attr == "fused_dgcnn_encoder" else after).items():
                     self.counts[key] += value - before[key]
                     if attr in self.FLOW:
                         self.counts[f"flow {key}"] += value - before[key]
@@ -772,9 +950,10 @@ class ChainRoutes:
     def reset(self) -> None:
         self.counts = {**{k: 0 for k in self.KEYS}, **{f"flow {k}": 0 for k in self.KEYS},
                        **{f"b5 {k}": 0 for k in self.KEYS}, "flow B7 calls": 0}
+        self.calls = {attr: [] for attr in self.PER_CALL}
 
     def read(self) -> dict:
-        return dict(self.counts)
+        return {**self.counts, "calls": {k: list(v) for k, v in self.calls.items()}}
 
 
 CHAIN_ROUTES = None   # a ChainRoutes, installed by main() once the library is built
@@ -831,10 +1010,40 @@ def check_b5_launches(chains: dict, what: str, attention: bool) -> dict:
     return out
 
 
+# launches a call at most, by the port's counters: B4 the cloud's cast,
+# four stage products, four B3 and the tail; B2 the packed rows, the
+# conditioner, ctx @ wkv, the attention and the net with its epilogue
+B4_LAUNCHES, B2_LAUNCHES = 10, 5
+
+
+def check_b4_b2(chains: dict, what: str) -> dict:
+    """Each B4 and B2 call of a path took its few launches (B4_LAUNCHES,
+    B2_LAUNCHES): B4 four gemms (the stage products), none on the WMMA
+    route, and one tail (conv5 and the head: no per-product gemm); B2 one
+    gemm (ctx @ wkv: no per-product gemm in its net) and one net launch.
+    Returns the calls and their launches."""
+    out = {}
+    b4_keys = ("wgmma", "wmma", "knn", "pack_rows", "dgcnn_tail")
+    b2_keys = ("pack_rows", "conditioner", "wgmma", "wmma", "attention", "augment_net")
+    for attr, keys, most in (("fused_dgcnn_encoder", b4_keys, B4_LAUNCHES),
+                             ("fused_augmenter", b2_keys, B2_LAUNCHES)):
+        calls = chains["calls"][attr]
+        per_call = [sum(c[k] for k in keys) for c in calls]
+        out[attr] = {"calls": len(calls), "launches_per_call": sorted(set(per_call))}
+        assert all(n <= most for n in per_call), (attr, what, calls)
+        assert all(c["wmma"] == 0 and c["attention wmma"] == 0 for c in calls), (attr, calls)
+        if attr == "fused_dgcnn_encoder":
+            assert all(c["wgmma"] == 4 and c["dgcnn_tail"] == 1 for c in calls), calls
+        else:
+            assert all(c["wgmma"] == 1 and c["augment_net"] == 1 for c in calls), calls
+    log(f"B4 and B2 launches in {what}: {out} (at most {B4_LAUNCHES} and {B2_LAUNCHES} a call)")
+    return out
+
+
 def check_routes(launches: dict, chains: dict, what: str, attention: tuple = ()) -> None:
-    """Inside the B1, B2, B5 and B7 chains no GEMM takes the WMMA route;
-    outside them only B4's first EdgeConv stage does (its c and u' products
-    read the 6-wide cloud, two launches per encoder call). No cross
+    """No GEMM takes the WMMA route, inside the B1, B2, B5 and B7 chains or
+    outside them (B4's first EdgeConv stage reads the cloud cast into 8
+    bf16 columns, which TMA can read). No cross
     attention launch takes the WMMA route anywhere, and the wgmma counters
     named in `attention` ("attention wgmma", "attention_bwd wgmma": the
     forward and the backward) are launched; a path with no attention
@@ -847,7 +1056,7 @@ def check_routes(launches: dict, chains: dict, what: str, attention: tuple = ())
         f"{launches['attention wmma']}, backward wgmma {launches['attention_bwd wgmma']}, WMMA "
         f"{launches['attention_bwd wmma']}")
     assert chains["wmma"] == 0 and chains["wgmma"] > 0, f"a chain took the WMMA route: {chains}"
-    assert launches["gemm wmma"] == 2 * launches["B4"], launches
+    assert launches["gemm wmma"] == 0, launches
     assert launches["gemm_tn wmma"] == 0, launches
     assert chains["attention wmma"] == 0, f"a chain's attention took the WMMA route: {chains}"
     assert launches["attention wmma"] == launches["attention_bwd wmma"] == 0, launches
@@ -1010,9 +1219,14 @@ def device_ms(fn, reps: int = 10) -> float:
             fn()
 
     kernels, _ = kernel_trace(calls, "chip_smoke_device_ms_trace.json")
-    if not kernels:
-        # the profiler now and then returns an empty trace: trace once more
-        log("  device_ms: the profiler recorded no device kernels; tracing again")
+    for attempt in range(3):
+        if kernels:
+            break
+        # the profiler now and then returns an empty trace, at times twice
+        # in a row: trace again
+        log(f"  device_ms: the profiler recorded no device kernels; tracing again "
+            f"({attempt + 2} of 4)")
+        torch.cuda.synchronize()
         kernels, _ = kernel_trace(calls, "chip_smoke_device_ms_trace.json")
     assert kernels, "the profiler recorded no device kernels"
     return sum(e["dur"] for e in kernels) / 1e3 / reps
@@ -1536,10 +1750,11 @@ def phase_global_kernels(ft, model, device) -> dict:
     """helpful-sponge's branches of B4, B2, B1, B5 and B7 against their plain
     versions at full width: B4 with head=False on the 50 clouds of a B=25
     eval item (the post-conv5 trunk), B2 over the broadcast 124-wide
-    embedding (Nkv = N = 1024, a 7-layer pre-MLP), and B1, B5 and B7 on two
-    full-width has_attn=False layers (the final block and a stacked layer)."""
+    embedding (Nkv = N = 1024, a 7-layer pre-MLP, no extra context) at 8 x
+    1024 rows and a B=25 item's 51,200, and B1, B5 and B7 on two full-width
+    has_attn=False layers (the final block and a stacked layer)."""
     from flowcompare_tpu_torch.core.mlp import cast_tree
-    from flowcompare_tpu_torch.ops import dgcnn_cuda, flow_layer_cuda as flc
+    from flowcompare_tpu_torch.ops import flow_layer_cuda as flc
 
     cfg = model.config
     rows, n, nc, k = 2 * EVAL_B, cfg["sample_size"], cfg["n_samples_context"], cfg["n_neighbors"]
@@ -1549,45 +1764,29 @@ def phase_global_kernels(ft, model, device) -> dict:
     params = cast_tree(model.params()["embedder"], torch.bfloat16)
     state = model.state.tree()["embedder"]
     clouds = 2 * GS_B
-    x = torch.randn(clouds, nc, 6, generator=g).to(device)
-    got = dgcnn_cuda.fused_dgcnn_encoder(x, params, state, k=k, head=False)
-    torch.cuda.synchronize()
-    ref = dgcnn_cuda.fused_dgcnn_encoder_plain(x, params, state, k=k, head=False)
-    d = (got.float() - ref.float()).abs()
-    mean4, share4 = float(d.mean()), float((d > 0.1).float().mean())
-    ms = time_ms(lambda: dgcnn_cuda.fused_dgcnn_encoder(x, params, state, k=k, head=False))
-    pms = time_ms(lambda: dgcnn_cuda.fused_dgcnn_encoder_plain(x, params, state, k=k, head=False),
-                  reps=2)
-    log(f"B4 fused_dgcnn_encoder(head=False) {clouds}x{nc}x6 -> {tuple(got.shape)}: max|err| "
-        f"{float(d.max())}, mean|err| {mean4} (tolerance 1e-3), share |err|>0.1 {share4} "
-        f"(budget 1e-3); {ms} ms vs plain {pms} ms")
-    assert mean4 <= 1e-3 and share4 <= 1e-3, "B4 head=False disagrees with its plain version"
-    trunk = {key: params[key] for key in ("conv1", "conv2", "conv3", "conv4", "conv5")}
-    checks["B4"] = check_entry(kernel_entry(
-        "", "", "", float(d.max()), ms, pms,
-        sum(knn_flops(clouds, nc, cin) + 2 * 2 * (clouds * nc) * cin * cout
-            for cin, cout in EDGE_WIDTHS) + 2 * (clouds * nc) * 512 * 512,
-        nbytes(x, trunk, state, got)), f"head=False, {clouds} clouds x {nc}")
-    del x, got, ref, d
+    b4 = check_b4(torch.randn(clouds, nc, 6, generator=g).to(device), params, state, k, False,
+                  f"head=False, {clouds} clouds")
+    checks["B4"] = {**check_entry(b4, f"head=False, {clouds} clouds x {nc}"),
+                    "device_ms": b4["device_ms"], "launches_per_call": b4["launches_per_call"]}
 
+    # B2 over the broadcast embedding: 8 x 1024 rows and the main path's
+    # 51,200 (a B=25 item, both directions), without extra context
     folded_aug = flc.fold_augmenter(model.params()["augmenter"], input_dim=6, extra_dim=0)
-    xa = torch.randn(rows, n, 6, generator=g).to(device)
-    eps = torch.randn(rows, n, cfg["latent_dim"] - 6, generator=g).to(device)
+    b2 = {}
+    for items in (rows, 2 * GS_B):
+        xa = torch.randn(items, n, 6, generator=g).to(device)
+        eps = torch.randn(items, n, cfg["latent_dim"] - 6, generator=g).to(device)
+        ctx, extra, _ = flow_context(model, g, items, n, device)
+        b2[items] = check_b2(xa, eps, ctx, extra, folded_aug, n,
+                             f"(helpful-sponge: Nkv = N = {n}, E = {ctx.shape[-1]}, pre-MLP of "
+                             f"{len(folded_aug['pre'])}, extra=None) {items}x{n}")
+    checks["B2"] = {**check_entry(b2[2 * GS_B], f"{2 * GS_B}x{n}, context {n}x124 broadcast, "
+                                                 f"extra=None"),
+                    "device_ms": b2[2 * GS_B]["device_ms"],
+                    "launches_per_call": b2[2 * GS_B]["launches_per_call"],
+                    f"at_{rows * n}_rows": {**check_entry(b2[rows], f"{rows}x{n}"),
+                                            "device_ms": b2[rows]["device_ms"]}}
     ctx, extra, _ = flow_context(model, g, rows, n, device)
-    z, l = flc.fused_augmenter(xa, eps, ctx, extra, folded_aug)
-    torch.cuda.synchronize()
-    zr, lr = flc.fused_augmenter_plain(xa, eps, ctx, extra, folded_aug)
-    errz = float((z - zr).abs().max())
-    rel2 = float(((l - lr).abs() / lr.abs().clamp_min(1.0)).max())
-    ms = time_ms(lambda: flc.fused_augmenter(xa, eps, ctx, extra, folded_aug))
-    pms = time_ms(lambda: flc.fused_augmenter_plain(xa, eps, ctx, extra, folded_aug), reps=2)
-    log(f"B2 fused_augmenter (helpful-sponge: Nkv = N = {n}, E = {ctx.shape[-1]}, pre-MLP of "
-        f"{len(folded_aug['pre'])}) {rows}x{n}x6: max|dz| {errz} (tolerance 0.02), max relative "
-        f"d ldj {rel2} (tolerance 1e-4); {ms} ms vs plain {pms} ms")
-    assert errz <= 0.02 and rel2 <= 1e-4, "B2 disagrees with its plain version"
-    checks["B2"] = check_entry(kernel_entry(
-        "", "", "", errz, ms, pms, sum(stack_flops(folded_aug, rows * n, rows, n, lu=False)),
-        nbytes(xa, eps, ctx[:, :1], folded_aug, z, l)), f"{rows}x{n}, context {n}x124 broadcast")
 
     small = make_model(ft, device, preset="helpful-sponge", n_flow_layers=2)
     folded = small._folded(small.params(), 0)
@@ -2288,6 +2487,10 @@ def phase_main_path(ft, model, device, need=("B1", "B2", "B3", "B4")):
                  attention=("attention wgmma",))
     launches["fused"] = check_flow_launches(chains, "the eval main path",
                                             not model.is_global)
+    launches["b4_b2"] = check_b4_b2(chains, "the eval main path")
+    # the model's first eval: B2's and B4's weights folded once, for every item
+    assert launches["B2 folds"] == 1 and launches["B4 folds"] == int(launches["B4"] > 0), \
+        launches
     model.plain = True
     maps_p = []
     nats_p, fr_p = ft.evaluate_on_test(model, items, noise=noise, change_maps=maps_p)
@@ -2311,8 +2514,11 @@ def phase_timing(ft, model, device, batch: int = TIME_B):
     from flowcompare_tpu_torch.model import broadcast_embedding, inner_loop
 
     cfg = model.config
+    from flowcompare_tpu_torch.ops import dgcnn_cuda, flow_layer_cuda as flc
+
     items = eval_items(cfg, batch, 3, SEED + 4)
     noise = make_noise(device)
+    folds = (dgcnn_cuda.DGCNN_FOLDS, flc.AUGMENTER_FOLDS)
     ft.evaluate_on_test(model, items[:1], noise=noise)        # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2338,12 +2544,15 @@ def phase_timing(ft, model, device, batch: int = TIME_B):
         out["log_prob_ms"] = time_ms(lambda: model.log_prob(tgt, emb, extra, eps), reps=2)
         out["inner_loop_ms"] = time_ms(
             lambda: inner_loop(model, (ctx_in, tgt, torch.cat([v[2], v[2]])), eps=eps), reps=2)
+        # the weights were folded on the main path: none of these calls folds
+        out["folds"] = (dgcnn_cuda.DGCNN_FOLDS - folds[0], flc.AUGMENTER_FOLDS - folds[1])
         model.plain = True
         out["plain_inner_loop_ms"] = time_ms(
             lambda: inner_loop(model, (ctx_in, tgt, torch.cat([v[2], v[2]])), eps=eps), reps=1)
         model.plain = False
     log(f"timing {cfg['input_embedder']} at B={batch} (both directions, {2 * batch * n} "
-        f"points per item): {out}")
+        f"points per item; B4 and B2 folds over the timed calls {out['folds']}): {out}")
+    assert out["folds"] == (0, 0), out["folds"]
     return out
 
 
@@ -2371,6 +2580,9 @@ def phase_sample_main(ft, model, device, need=("B7", "B4", "B3")):
     check_routes(launches, chains, f"{cfg['input_embedder']} make_sample",
                  attention=() if model.is_global else ("attention wgmma",))
     launches["fused"] = check_flow_launches(chains, "make_sample", not model.is_global)
+    launches["b4_b2"] = check_b4_b2(chains, "make_sample")
+    # the weights the eval path folded: no fold here
+    assert launches["B4 folds"] == launches["B2 folds"] == 0, launches
     model.plain = True
     xp = ft.make_sample(model, SAMPLE_N, x0, extra, z=z)
     model.plain = False
@@ -2476,7 +2688,12 @@ def _counters():
             (_build, "GEMM_TN_GROUPED_LAUNCHES", "gemm_tn_grouped"),
             (_build, "GRAD_REDUCE_LAUNCHES", "grad_reduce"),
             (_build, "ATTN_BWD_PREP_LAUNCHES", "attn_bwd_prep"),
-            (_build, "COLSUM_LAUNCHES", "colsum")]
+            (_build, "COLSUM_LAUNCHES", "colsum"),
+            (_build, "PACK_ROWS_LAUNCHES", "pack_rows"),
+            (_build, "DGCNN_TAIL_LAUNCHES", "dgcnn_tail"),
+            (_build, "AUGMENT_NET_LAUNCHES", "augment_net"),
+            (dgcnn_cuda, "DGCNN_FOLDS", "B4 folds"),
+            (flow_layer_cuda, "AUGMENTER_FOLDS", "B2 folds")]
 
 
 def reset_counters() -> None:
@@ -2570,6 +2787,7 @@ def phase_train_main(ft, model, device, batch: int = TIME_B,
                  attention=() if model.is_global else ("attention wgmma", "attention_bwd wgmma"))
     launches["fused"] = check_flow_launches(chains, "train(max_steps=4)", not model.is_global)
     launches["b5"] = check_b5_launches(chains, "train(max_steps=4)", not model.is_global)
+    launches["b4_b2"] = check_b4_b2(chains, "train(max_steps=4)")
     samples = {p.name: np.load(p)["gen"] for p in sorted(save_dir.glob("sample_*.npz"))}
     losses = [r["loss"] for r in rows]
     out = {"ms_per_step": 1e3 * float(np.mean([r["time_batch"] for r in rows[1:]])),
@@ -2697,8 +2915,8 @@ def _kernel_group(name: str) -> str:
         return "library GEMM (cuBLAS)"
     fused = re.search(r"fused_layer_kernel<(\d)>", name)
     if fused:
-        return ("conditioner", "coupling_layer", "coupling_inverse",
-                "coupling_record")[int(fused.group(1))]
+        return ("conditioner", "coupling_layer", "coupling_inverse", "coupling_record",
+                "dgcnn_tail", "augment_net")[int(fused.group(1))]
     fused_bwd = re.search(r"fused_layer_bwd_kernel<(\d)>", name)
     if fused_bwd:
         return ("coupling_bwd", "conditioner_bwd")[int(fused_bwd.group(1))]
@@ -2856,6 +3074,24 @@ def helpful_sponge_phases(ft, device) -> tuple:
                     "b5_fused": b5_fused}, b5_global
 
 
+def swept_energy_phases(ft, device) -> dict:
+    """swept-energy at full width and depth (the per-point DGCNN without
+    extra context: B4 with the head and B2's extra=None packed rows on one
+    path; the previous model freed first): the eval main path through
+    evaluate_on_test at 2 items of B=4 against the plain path (|d nats| <=
+    0.01, change maps >= 99.9%; B4's and B2's launches a call and one fold
+    of their weights) and eval timing at the preset's B=20."""
+    t0 = time.perf_counter()
+    model = make_model(ft, device, preset="swept-energy")
+    log(f"model: swept-energy bf16 (DGCNN, no extra context), "
+        f"{sum(p.numel() for p in model.parameters())} parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = phase_main_path(ft, model, device)
+    assert launches["B10"] == 0, launches
+    timing = phase_timing(ft, model, device, batch=model.config["batch_size"])
+    return {"eval_main_path": launches, "timing": timing}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2904,6 +3140,7 @@ def main() -> int:
         knn_split = phase_knn_split()
     launches = phase_main_path(ft, model, device)
     timing = phase_timing(ft, model, device)
+    eval_profile = phase_eval_profile(ft, model, device, TIME_B, "chip_smoke_eval_trace.json")
     sample_main = phase_sample_main(ft, model, device)
     sample_timing = phase_sample_timing(ft, model, device)
     sample_profile = phase_sample_profile(ft, model, device)
@@ -2911,9 +3148,11 @@ def main() -> int:
     train_main, data = phase_train_main(ft, model, device)
     split = phase_train_split(ft, model, data, device)
     profile = phase_profile(ft, model, data, device)
-    # each kernel's launches from the main path it serves: eval for B1-B4,
-    # training for B5 and B6, sampling for B7, good-surf's eval for B8 and B9
-    served = {**{k: launches[k] for k in ("B1", "B2", "B3", "B4")},
+    # each kernel's launches from the main path it serves: eval for B1-B4
+    # and the kernels of B4's and B2's chains, training for B5 and B6,
+    # sampling for B7, good-surf's eval for B8 and B9
+    served = {**{k: launches[k] for k in ("B1", "B2", "B3", "B4", "dgcnn_tail", "augment_net",
+                                          "pack_rows")},
               "B5": train_main["launches"]["B5"], "B6": train_main["launches"]["B6"],
               "B7": sample_main["launches"]["B7"]}
     for key, entry in entries.items():
@@ -2946,13 +3185,17 @@ def main() -> int:
     global_checks, helpful_sponge, b5_global = helpful_sponge_phases(ft, device)
     for key, chk in global_checks.items():
         entries[key]["global"] = chk
+    torch.cuda.empty_cache()
+    swept_energy = swept_energy_phases(ft, device)
     entries["B10"] = b10
-    print(json.dumps({"main_path": timing, "sampling": {"main_path": sample_main,
+    print(json.dumps({"main_path": timing, "eval_profile": eval_profile,
+                      "sampling": {"main_path": sample_main,
                                                         "timing": sample_timing,
                                                         "profile": sample_profile},
                       "training": {"check": check, "main_path": train_main, "split": split,
                                    "profile": profile},
                       "good_surf": good_surf, "helpful_sponge": helpful_sponge,
+                      "swept_energy": swept_energy,
                       "b10": b10_entry_point, "gemm": gemm_cases, "attention": attention_cases,
                       "fused_layers": fused_cases, "main_path_bounds": main_bounds,
                       "knn_split": knn_split,
@@ -2969,7 +3212,8 @@ def main() -> int:
                                                        "gemm_tn", "cross_attention",
                                                        "cross_attention_bwd", "conditioner",
                                                        "coupling_layer", "coupling_inverse",
-                                                       *B5_KERNELS)]}))
+                                                       *B5_KERNELS, "dgcnn_tail", "augment_net",
+                                                       "pack_rows")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -2,6 +2,11 @@
 //
 //   cast_rows          f32 -> bf16 copy of a column block (x1 and the extra
 //                      context into the packed coupling-input rows)
+//   pack_rows          the bf16 rows [a | b | 0] from up to two f32 sources
+//                      read as (items, n, cols) with their own strides: B2's
+//                      [x | extra | pad] from the cloud and the extra context
+//                      broadcast over the points, B4's cloud padded to 8
+//                      columns, in one pass and without a copy of either
 //   row_norm           plain-statistics LayerNorm, (q - mean) *
 //                      rsqrt(E[q^2] - mean^2 + eps) -> bf16; its scale and
 //                      bias are folded into wq_f (fold_stacks)
@@ -33,6 +38,24 @@ __global__ void cast_rows_kernel(const float* __restrict__ src, int lds, bf16* _
        e += (size_t)gridDim.x * blockDim.x) {
     const int r = (int)(e / C), c = (int)(e % C);
     dst[(size_t)r * ldd + c] = f2bf(src[(size_t)r * lds + c]);
+  }
+}
+
+__global__ void pack_rows_kernel(const float* __restrict__ a, long long sa_item, long long sa_row,
+                                 int ca, const float* __restrict__ b, long long sb_item,
+                                 long long sb_row, int cb, int n, bf16* __restrict__ dst, int ldd,
+                                 int R, int C) {
+  const size_t total = (size_t)R * C;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(e / C), c = (int)(e % C);
+    const int item = r / n, i = r % n;
+    float v = 0.f;
+    if (c < ca)
+      v = a[item * sa_item + i * sa_row + c];
+    else if (c < ca + cb)
+      v = b[item * sb_item + i * sb_row + (c - ca)];
+    dst[(size_t)r * ldd + c] = f2bf(v);
   }
 }
 
@@ -134,6 +157,22 @@ FC_API int fc_cast_rows(const void* src, int lds, void* dst, int ldd, int R, int
   if (blocks < 1) blocks = 1;
   cast_rows_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)src, lds, (bf16*)dst,
                                                              ldd, R, C);
+  return (int)cudaGetLastError();
+}
+
+// dst (R x C bf16, row stride ldd) = [a | b | 0]: row r of a source is item
+// r / n, point r % n of an (items, n, cols) f32 array with the given item
+// and point strides (unit column stride); b may be null (cb = 0).
+FC_API int fc_pack_rows(const void* a, long long sa_item, long long sa_row, int ca, const void* b,
+                        long long sb_item, long long sb_row, int cb, int n, void* dst, int ldd,
+                        int R, int C, void* stream) {
+  if (n < 1 || ca < 0 || cb < 0 || ca + cb > C || R < 1) return (int)cudaErrorInvalidValue;
+  const size_t total = (size_t)R * C;
+  int blocks = (int)((total + 255) / 256);
+  if (blocks > 65535) blocks = 65535;
+  pack_rows_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)a, sa_item, sa_row, ca, (const float*)b, sb_item, sb_row, cb, n, (bf16*)dst,
+      ldd, R, C);
   return (int)cudaGetLastError();
 }
 

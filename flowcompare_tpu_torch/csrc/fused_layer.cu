@@ -21,6 +21,38 @@
 //                    inverse on the tile, bf16(x) @ Minv^T + shift, writing
 //                    the f32 y and its x1 columns; at layer 0 it writes x.
 //
+// Two more kinds run a whole MLP of the eval path on the same mainloop:
+//
+//   dgcnn_tail       B4's tail (the Pallas fused_dgcnn_encoder, flowcompare_tpu/
+//                    ops/dgcnn_pallas.py:336): the 512-wide concat of the
+//                    four EdgeConv stages, read once -> conv5 with its
+//                    folded eval BatchNorm, leaky(v * a5 + b5) -> the
+//                    residual head (GELU after each product but the last, a
+//                    residual every second hidden product) -> the bf16
+//                    embedding; with one product (head=False) it stops after
+//                    conv5 and writes the 512-wide trunk
+//   augment_net      B2's ConditionalNormal net (the Pallas fused_augmenter,
+//                    flow_layer_pallas.py:1504) over the packed rows
+//                    [x | extra | pad | attn]: 72 -> 512 -> 512 -> 512, then
+//                    the last product, its (mean_i, log_std_i) columns
+//                    interleaved, in two column passes of at most 256 pairs
+//                    (588 > MAXW); each pass's epilogue runs on the registers
+//                    against the pass's eps columns staged in shared memory:
+//                    z2 = mean + eps exp(log_std) and this row's share of
+//                    ldj = sum(log 2pi / 2 + log_std + eps^2 / 2), summed
+//                    over both passes and the four warpgroups through the
+//                    exchange; z = [x | z2] and ldj in f32
+//
+// Both read their input rows once and keep every activation of their MLP
+// in shared memory (the per-product chains they replace wrote about 0.8 GB
+// of the head's bf16 rows at 40 clouds, and B2's f32 [mean | log_std]).
+// They carry the coupling kernels' limit (below): every 64-row tile streams
+// all of its MLP's weights from L2 (4 MB a tile for the tail's eight
+// 512-wide products, 3.2 GB at 50,000 rows), so on device they run slower
+// than the per-product wgmma GEMMs, whose 128 x 128 tiles reuse each
+// weight tile; what they save is the host's launches and the HBM round
+// trips (PERF.md).
+//
 // B5's recompute (flow_layers_bwd, the port of flow_layer_vjp_pallas.py's
 // _bwd_kernel_impl, which re-runs each layer from its bf16 save) runs the
 // conditioner and a fourth kind, coupling_record (the coupling MLP alone), in
@@ -80,7 +112,14 @@
 
 namespace {
 
-enum Kind { CONDITIONER = 0, COUPLING = 1, COUPLING_INVERSE = 2, COUPLING_RECORD = 3 };
+enum Kind {
+  CONDITIONER = 0,
+  COUPLING = 1,
+  COUPLING_INVERSE = 2,
+  COUPLING_RECORD = 3,
+  DGCNN_TAIL = 4,
+  AUGMENT = 5
+};
 
 struct Product {
   const float* bias;   // (L, n) f32
@@ -91,6 +130,7 @@ struct Product {
   float* pre;
   bf16* h;
   int ld_pre, ld_h;
+  const float* scale;  // dgcnn_tail's conv5: the folded BatchNorm's a5, (L, n) f32
 };
 
 struct Plan {
@@ -114,6 +154,10 @@ struct Rows {
   int ldx, ldy, ldxin, ldsave, ldq, ld_x1src;
   int M, split, half;
   float eps;
+  bf16* out;           // dgcnn_tail: the embedding or the trunk (bf16)
+  const float* noise;  // augment_net: eps, (M, aug) f32
+  float* z;            // augment_net: z = [x | z2], (M, split + aug) f32 (ldj into ldj)
+  int ldout, ldnoise, ldz;
 };
 
 // B5's recompute: [s | t]'s f32 values at row gr, columns col and col + 1
@@ -195,6 +239,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int M = io.M, split = io.split, half = io.half, lat = split + half;
     int it = 0;
     int a = 1, r = 0, ybuf = 0;
+    float lsum_aug[2] = {0.f, 0.f};   // augment_net: this thread's rows' ldj terms
+    int pofs = 0;                     // augment_net: the pairs of the passes before
     // the last MLP product's output goes to a bf16 y tile (all but layer 0 of
     // the inverse walk, which writes x)
     const bool to_y = KIND == COUPLING || plan.n_products > plan.n_mlp;
@@ -229,14 +275,56 @@ __global__ void __launch_bounds__(THREADS, 1)
             tma_load(act[ybuf] + c * ATOM_BYTES, &plan.x1, &ybar, 64 * c, m0);
         }
       }
+      // augment_net's output passes: the pass's eps columns, f32, into the
+      // buffer the input does not use (free since the last product's barrier)
+      const bool aug_out = KIND == AUGMENT && p >= plan.n_mlp - 2;
+      const int P = n / 2;
+      float* E = reinterpret_cast<float*>(act[1 - a]);
+      if (aug_out) {
+        for (int e = tid; e < BM * P; e += CONSUMERS) {
+          const int gr = m0 + e / P;
+          E[e] = gr < M ? io.noise[(size_t)gr * io.ldnoise + pofs + e % P] : 0.f;
+        }
+        named_barrier(1, CONSUMERS);
+      }
       const int nch = (n + 63) / 64, cpw = (nch + CWG - 1) / CWG, c0 = wg * cpw;
       const int cnt = min(max(nch - c0, 0), cpw);
       float acc[64];
       consume_weights(acc, A, pr.k, c0, cnt, ring, full, empty, it);
 
-      if (!last && !tail) {
-        // first and hidden products: GELU, a residual every second hidden one
-        const int k_hidden = p - 1;
+      if (KIND == DGCNN_TAIL && (p == 0 || p == plan.n_products - 1)) {
+        // conv5 with its folded BatchNorm, leaky(v * a5 + b5) rounded as the
+        // plain version rounds it, or the head's last product, v + b: bf16
+        // into the free buffer, stored from there after the barrier
+        uint8_t* O = act[1 - a];
+        const float* sc = pr.scale + (size_t)pr.layer * n;
+        for_pairs(acc, cnt, c0, p == 0 ? nullptr : bias, n,
+                  [&](int row, int col, int, float v0, float v1) {
+                    if (p == 0) {
+                      const float s0 = col < n ? __ldg(sc + col) : 0.f;
+                      const float s1 = col + 1 < n ? __ldg(sc + col + 1) : 0.f;
+                      const float b0 = col < n ? __ldg(bias + col) : 0.f;
+                      const float b1 = col + 1 < n ? __ldg(bias + col + 1) : 0.f;
+                      v0 = leaky02(__fadd_rn(__fmul_rn(v0, s0), b0));
+                      v1 = leaky02(__fadd_rn(__fmul_rn(v1, s1), b1));
+                    }
+                    st_pair(O, row, col, v0, v1);
+                  });
+        a = 1 - a;
+      } else if (aug_out) {
+        // (mean_i, log_std_i) pairs against the staged eps: z2 over eps in
+        // place, and this thread's share of ldj
+        for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int h, float v0, float v1) {
+          if (col >= n || m0 + row >= M) return;
+          float* ev = E + row * P + (col >> 1);
+          const float e = *ev;
+          *ev = v0 + e * expf(v1);
+          lsum_aug[h] += (0.91893853320467274178f + v1) + 0.5f * e * e;
+        });
+      } else if (!last && !tail) {
+        // first and hidden products: GELU, a residual every second hidden
+        // one (the tail's MLP starts after conv5)
+        const int k_hidden = p - 1 - (KIND == DGCNN_TAIL ? 1 : 0);
         const bool add_res = k_hidden >= 0 && (k_hidden & 1);
         int out;
         if (add_res) {
@@ -457,6 +545,43 @@ __global__ void __launch_bounds__(THREADS, 1)
       // B5's recompute: the activation (or the normalised row) the epilogue
       // wrote, now complete in shared memory
       if (pr.h != nullptr && !tail) record_rows(pr, act[last ? ybuf : a], m0, M);
+      if (KIND == DGCNN_TAIL && p == plan.n_products - 1) {
+        // the tile's output rows, 16 bytes a thread
+        const int chunks = n / 8;
+        for (int e = tid; e < BM * chunks; e += CONSUMERS) {
+          const int row = e / chunks, c = 8 * (e % chunks), gr = m0 + row;
+          if (gr < M)
+            *reinterpret_cast<uint4*>(io.out + (size_t)gr * io.ldout + c) =
+                *reinterpret_cast<const uint4*>(act_at(act[a], row, c));
+        }
+      }
+      if (aug_out) {
+        // the pass's z2 columns, then (after the last pass) ldj and z's x columns
+        for (int e = tid; e < BM * P; e += CONSUMERS) {
+          const int gr = m0 + e / P;
+          if (gr < M) io.z[(size_t)gr * io.ldz + split + pofs + e % P] = E[e];
+        }
+        pofs += P;
+        named_barrier(1, CONSUMERS);
+        if (p == plan.n_products - 1) {
+          const int fr = (t / 32) * 16 + (t % 32) / 4;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v = quad_sum(lsum_aug[h]);
+            if (t % 4 == 0) red[wg * BM + fr + 8 * h] = v;
+          }
+          named_barrier(1, CONSUMERS);
+          if (tid < BM && m0 + tid < M) {
+            float v = 0.f;
+            for (int w = 0; w < CWG; ++w) v += red[w * BM + tid];
+            io.ldj[m0 + tid] = v;
+          }
+          for (int e = tid; e < BM * split; e += CONSUMERS) {
+            const int gr = m0 + e / split, c = e % split;
+            if (gr < M) io.z[(size_t)gr * io.ldz + c] = io.x[(size_t)gr * io.ldx + c];
+          }
+        }
+      }
     }
   }
 }
@@ -472,6 +597,29 @@ cudaError_t launch(const Plan& plan, const Rows& io, cudaStream_t stream) {
   }
   fused_layer_kernel<KIND><<<(io.M + BM - 1) / BM, THREADS, SMEM_BYTES, stream>>>(plan, io);
   return cudaGetLastError();
+}
+
+// The plan's products: product p's weight map (n, k, L) and its bias, at
+// `layer` (the tail's at `tail_layer`); record rows where given.
+cudaError_t fill_plan(Plan& plan, int n_products, int n_mlp, const uint64_t* w, const int* w_ld,
+                      const int* w_layers, const int* k, const int* n, const uint64_t* bias,
+                      int layer, int tail_layer, const uint64_t* rec_pre, const int* ld_pre,
+                      const uint64_t* rec_h, const int* ld_h) {
+  memset(&plan, 0, sizeof(plan));
+  plan.n_products = n_products;
+  plan.n_mlp = n_mlp;
+  for (int p = 0; p < n_products; ++p) {
+    if (k[p] < 1 || k[p] > MAXW || n[p] < 1 || n[p] > MAXW) return cudaErrorInvalidValue;
+    const cudaError_t err = bf16_tensor_map_3d(&plan.w[p], reinterpret_cast<const void*>(w[p]),
+                                               w_layers[p], k[p], n[p], w_ld[p], 64, WB);
+    if (err != cudaSuccess) return err;
+    plan.prod[p] = {reinterpret_cast<const float*>(bias[p]), k[p], n[p],
+                    p < n_mlp ? layer : tail_layer,
+                    rec_pre == nullptr ? nullptr : reinterpret_cast<float*>(rec_pre[p]),
+                    rec_h == nullptr ? nullptr : reinterpret_cast<bf16*>(rec_h[p]),
+                    rec_pre == nullptr ? 0 : ld_pre[p], rec_h == nullptr ? 0 : ld_h[p], nullptr};
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -511,20 +659,8 @@ FC_API int fc_fused_layer(int kind, int n_products, int n_mlp,
   if (kind == CONDITIONER && rec_pre != nullptr && rec_pre[n_mlp - 1] != 0 && ln_rstd == nullptr)
     return (int)cudaErrorInvalidValue;   // the LayerNorm's record needs its 1 / std rows
   Plan plan;
-  memset(&plan, 0, sizeof(plan));
-  plan.n_products = n_products;
-  plan.n_mlp = n_mlp;
-  cudaError_t err = cudaSuccess;
-  for (int p = 0; p < n_products && err == cudaSuccess; ++p) {
-    if (k[p] < 1 || k[p] > MAXW || n[p] < 1 || n[p] > MAXW) return (int)cudaErrorInvalidValue;
-    err = bf16_tensor_map_3d(&plan.w[p], reinterpret_cast<const void*>(w[p]), w_layers[p], k[p],
-                             n[p], w_ld[p], 64, WB);
-    plan.prod[p] = {reinterpret_cast<const float*>(bias[p]), k[p], n[p],
-                    p < n_mlp ? layer : tail_layer,
-                    rec_pre == nullptr ? nullptr : reinterpret_cast<float*>(rec_pre[p]),
-                    rec_h == nullptr ? nullptr : reinterpret_cast<bf16*>(rec_h[p]),
-                    rec_pre == nullptr ? 0 : ld_pre[p], rec_h == nullptr ? 0 : ld_h[p]};
-  }
+  cudaError_t err = fill_plan(plan, n_products, n_mlp, w, w_ld, w_layers, k, n, bias, layer,
+                              tail_layer, rec_pre, ld_pre, rec_h, ld_h);
   if (err == cudaSuccess) err = bf16_tensor_map(&plan.in, xin, M, in_cols, ldxin, 64, BM);
   if (err == cudaSuccess && kind != CONDITIONER)
     err = bf16_tensor_map(&plan.x1, xin, M, split, ldxin, 64, BM);
@@ -540,4 +676,70 @@ FC_API int fc_fused_layer(int kind, int n_products, int n_mlp,
     case COUPLING_RECORD: return (int)launch<COUPLING_RECORD>(plan, io, s);
     default: return (int)launch<COUPLING_INVERSE>(plan, io, s);
   }
+}
+
+// B4's tail (kind 4) over M rows of the stage concat xin (bf16, TMA-readable,
+// the first product's k columns): product 0 is conv5 (epilogue leaky(v *
+// scale + bias)), the others the head (GELU after each but the last, a
+// residual every second hidden product); the last product's bf16 output
+// into out (16-byte rows and base, its width a multiple of 8). Weight
+// stacks as fc_fused_layer's, at layer 0.
+FC_API int fc_dgcnn_tail(int n_products, const uint64_t* w, const int* w_ld, const int* w_layers,
+                         const int* k, const int* n, const uint64_t* bias, const void* scale,
+                         const void* xin, int ldxin, int M, void* out, int ldout, void* stream) {
+  if (n_products < 1 || n_products > MAX_PRODUCTS || M < 1 || n[n_products - 1] % 8 ||
+      ldout % 8 || reinterpret_cast<uintptr_t>(out) % 16 || scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  for (int p = 1; p < n_products; ++p)
+    if (k[p] != n[p - 1]) return (int)cudaErrorInvalidValue;
+  Plan plan;
+  cudaError_t err = fill_plan(plan, n_products, n_products, w, w_ld, w_layers, k, n, bias, 0, 0,
+                              nullptr, nullptr, nullptr, nullptr);
+  if (err == cudaSuccess) err = bf16_tensor_map(&plan.in, xin, M, k[0], ldxin, 64, BM);
+  if (err != cudaSuccess) return (int)err;
+  plan.prod[0].scale = reinterpret_cast<const float*>(scale);
+  Rows io;
+  memset(&io, 0, sizeof(io));
+  io.M = M;
+  io.out = (bf16*)out;
+  io.ldout = ldout;
+  return (int)launch<DGCNN_TAIL>(plan, io, (cudaStream_t)stream);
+}
+
+// B2's net (kind 5) over M packed rows xin (bf16, TMA-readable, the first
+// product's k columns): GELU after every product before the last two, a
+// residual every second hidden one; the last two products are the output
+// layer's column passes, (mean_i, log_std_i) interleaved, n[p] / 2 pairs
+// each and aug in all. z (M, in_dim + aug, f32) = [x | mean + eps *
+// exp(log_std)] and ldj (M) = sum(log 2pi / 2 + log_std + eps^2 / 2), from x
+// (M, in_dim) and eps (M, aug) f32. Weight stacks as fc_fused_layer's, at
+// layer 0.
+FC_API int fc_augment_net(int n_products, const uint64_t* w, const int* w_ld,
+                          const int* w_layers, const int* k, const int* n, const uint64_t* bias,
+                          const void* xin, int ldxin, int M, int in_dim, const void* x, int ldx,
+                          const void* eps, int ldeps, int aug, void* z, int ldz, void* ldj,
+                          void* stream) {
+  if (n_products < 3 || n_products > MAX_PRODUCTS || M < 1 || in_dim < 1 ||
+      n[n_products - 1] % 2 || n[n_products - 2] % 2 ||
+      n[n_products - 1] / 2 + n[n_products - 2] / 2 != aug || k[n_products - 1] != k[n_products - 2])
+    return (int)cudaErrorInvalidValue;
+  for (int p = 1; p < n_products - 1; ++p)
+    if (k[p] != n[p - 1]) return (int)cudaErrorInvalidValue;
+  Plan plan;
+  cudaError_t err = fill_plan(plan, n_products, n_products, w, w_ld, w_layers, k, n, bias, 0, 0,
+                              nullptr, nullptr, nullptr, nullptr);
+  if (err == cudaSuccess) err = bf16_tensor_map(&plan.in, xin, M, k[0], ldxin, 64, BM);
+  if (err != cudaSuccess) return (int)err;
+  Rows io;
+  memset(&io, 0, sizeof(io));
+  io.x = (float*)x;
+  io.ldx = ldx;
+  io.ldj = (float*)ldj;
+  io.M = M;
+  io.split = in_dim;
+  io.noise = (const float*)eps;
+  io.ldnoise = ldeps;
+  io.z = (float*)z;
+  io.ldz = ldz;
+  return (int)launch<AUGMENT>(plan, io, (cudaStream_t)stream);
 }

@@ -153,11 +153,12 @@ __global__ void __launch_bounds__(128) gemm_tn_wmma_kernel(const bf16* __restric
 FC_API int fc_gemm_bf16_wmma(const void* A, int lda, const void* B, int ldb, void* C, int ldc,
                              int M, int N, int K, const void* bias, const void* res, int ldr,
                              const void* aff_a, const void* aff_b, void* aux, int ldaux,
-                             void* out2, int ld2, int flags, int trans_b, void* stream) {
+                             void* out2, int ld2, int split, int flags, int trans_b,
+                             void* stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const Epilogue ep{(const float*)bias, res,          ldr,        (const float*)aff_a,
                     (const float*)aff_b, (float*)aux, ldaux,      (bf16*)out2,
-                    ld2,                 flags};
+                    ld2,                 flags,       split};
   if (trans_b)
     gemm_bf16_wmma_kernel<true><<<grid, 128, 0, (cudaStream_t)stream>>>(
         (const bf16*)A, lda, (const bf16*)B, ldb, C, ldc, M, N, K, ep, aligned16(A, lda),

@@ -18,6 +18,7 @@ enum : int {
   EPI_PRE_OUT = 128,    // store the pre-GELU value (f32) into aux
   EPI_GELU_GRAD = 256,  // multiply by GELU'(aux)
   EPI_OUT2_BF16 = 512,  // also store bf16(v) into out2
+  EPI_SPLIT = 1024,     // columns from `split` on go to out2 (bf16) instead of C
 };
 
 struct Epilogue {
@@ -31,13 +32,15 @@ struct Epilogue {
   bf16* out2;
   int ld2;
   int flags;
+  int split;   // EPI_SPLIT: the first column stored into out2 (at column c - split)
 };
 
 // The epilogue of one output element (row r, column c) whose product is v,
 // in this order: + bias, + residual (bf16 or f32), + the current f32 output
 // (accumulate), the per-channel affine with leaky-0.2 (BatchNorm folded),
 // [store the pre-activation into aux], erf-GELU, x GELU'(aux); then the
-// store (bf16 or f32) and the optional bf16 copy into out2.
+// store (bf16 or f32) and the optional bf16 copy into out2, or with
+// EPI_SPLIT the bf16 store into out2 of the columns from `split` on.
 __device__ __forceinline__ void epilogue_store(float v, int r, int c, const Epilogue& ep, void* C,
                                                int ldc) {
   const int flags = ep.flags;
@@ -52,6 +55,10 @@ __device__ __forceinline__ void epilogue_store(float v, int r, int c, const Epil
   if (flags & EPI_PRE_OUT) ep.aux[(size_t)r * ep.ldaux + c] = v;
   if (flags & EPI_GELU) v = gelu_erf(v);
   if (flags & EPI_GELU_GRAD) v *= gelu_erf_grad(ep.aux[(size_t)r * ep.ldaux + c]);
+  if ((flags & EPI_SPLIT) && c >= ep.split) {
+    ep.out2[(size_t)r * ep.ld2 + c - ep.split] = f2bf(v);
+    return;
+  }
   if (flags & EPI_OUT_F32)
     reinterpret_cast<float*>(C)[(size_t)r * ldc + c] = v;
   else

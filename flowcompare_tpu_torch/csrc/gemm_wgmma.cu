@@ -5,7 +5,8 @@
 // The epilogue keeps gemm_bf16's contract (gemm_common.cuh): + bias,
 // + residual (bf16 or f32), + the current f32 output (accumulate), the
 // leaky-0.2 affine, store of the pre-GELU value, erf-GELU, x GELU'(aux),
-// then the bf16 or f32 store and the optional bf16 copy; applied from the
+// then the bf16 or f32 store and the optional bf16 copy, or the split
+// store (C's columns below `split`, out2's from it); applied from the
 // f32 sums staged in shared memory, 8 neighbouring columns per thread with
 // 16- and 32-byte accesses where every matrix it touches allows them
 // (`vec`), one column at a time otherwise.
@@ -52,11 +53,11 @@ __device__ __forceinline__ void st8(bf16* __restrict__ p, const float (&v)[8]) {
 // element otherwise.
 __device__ __forceinline__ void epilogue_chunk(const float* s, int r, int c, int N, bool vec,
                                                const Epilogue& ep, void* C, int ldc) {
-  if (!vec || c + 8 > N) {
+  const int flags = ep.flags;
+  if (!vec || c + 8 > N || ((flags & EPI_SPLIT) && c < ep.split && c + 8 > ep.split)) {
     for (int i = 0; i < 8 && c + i < N; ++i) epilogue_store(s[i], r, c + i, ep, C, ldc);
     return;
   }
-  const int flags = ep.flags;
   float v[8], u[8], w[8];
   ld8(s, v);
   if (flags & EPI_BIAS) {
@@ -96,7 +97,9 @@ __device__ __forceinline__ void epilogue_chunk(const float* s, int r, int c, int
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] *= gelu_erf_grad(u[i]);
   }
-  if (flags & EPI_OUT_F32)
+  if ((flags & EPI_SPLIT) && c >= ep.split)
+    st8(ep.out2 + (size_t)r * ep.ld2 + c - ep.split, v);
+  else if (flags & EPI_OUT_F32)
     st8(reinterpret_cast<float*>(C) + oc, v);
   else
     st8(reinterpret_cast<bf16*>(C) + oc, v);
@@ -151,13 +154,14 @@ cudaError_t launch_bn(int bn, const CUtensorMap& ta, const CUtensorMap& tb, void
 }  // namespace
 
 // C (M x N, ldc) = epilogue(A (M x K) @ B), B (K x N) or with trans_b B^T
-// for B (N x K); output tile bm x bn (bm 64 or 128, bn 64 or 128).
+// for B (N x K); output tile bm x bn (bm 64 or 128, bn 64 or 128). With
+// EPI_SPLIT, C holds columns [0, split) and out2 (bf16) the rest.
 // Both operands must be TMA-readable (16-byte base, row stride a multiple
 // of 8 bf16), else it returns cudaErrorMisalignedAddress.
 FC_API int fc_gemm_bf16(const void* A, int lda, const void* B, int ldb, void* C, int ldc, int M,
                         int N, int K, const void* bias, const void* res, int ldr, const void* aff_a,
-                        const void* aff_b, void* aux, int ldaux, void* out2, int ld2, int flags,
-                        int trans_b, int bm, int bn, void* stream) {
+                        const void* aff_b, void* aux, int ldaux, void* out2, int ld2, int split,
+                        int flags, int trans_b, int bm, int bn, void* stream) {
   CUtensorMap ta, tb;
   cudaError_t err = bf16_tensor_map(&ta, A, M, K, lda, BK, bm);
   if (err == cudaSuccess)
@@ -166,8 +170,9 @@ FC_API int fc_gemm_bf16(const void* A, int lda, const void* B, int ldb, void* C,
   if (err != cudaSuccess) return (int)err;
   const Epilogue ep{(const float*)bias, res,          ldr,        (const float*)aff_a,
                     (const float*)aff_b, (float*)aux, ldaux,      (bf16*)out2,
-                    ld2,                 flags};
+                    ld2,                 flags,       split};
   const int vec = rows16(C, ldc, (flags & EPI_OUT_F32) ? 4 : 2) &&
+                  (!(flags & EPI_SPLIT) || split % 8 == 0) &&
                   rows16(res, ldr, (flags & EPI_RES_F32) ? 4 : 2) && rows16(aux, ldaux, 4) &&
                   rows16(out2, ld2, 2) && rows16(bias, 0, 4) && rows16(aff_a, 0, 4) &&
                   rows16(aff_b, 0, 4);

@@ -247,7 +247,7 @@ class FlowCompareModel(nn.Module):
         the global embedding (B, E), state). In training the state holds the
         new BatchNorm running statistics; in eval it is the current state."""
         c = self.config
-        params = self.params()["embedder"]
+        params = self.embedder.tree()
         state = self.state.tree()["embedder"]
         if c["input_embedder"] == "PAConv":
             # eval at the compute dtype, training in f32, as the JAX package
@@ -270,15 +270,17 @@ class FlowCompareModel(nn.Module):
                 emb = apply_dgcnn(params, state, extract_0, n_neighbors=c["n_neighbors"],
                                   global_pool=self.is_global)
             else:
+                # B4 casts the params itself (the kernels' folds once per
+                # weights version, `dgcnn_cuda.encoder_weights`)
                 encoder = (dgcnn_cuda.fused_dgcnn_encoder_plain if self.plain
                            else dgcnn_cuda.fused_dgcnn_encoder)
-                params = cast_tree(params, self.compute_dtype)
                 emb = encoder(extract_0, params, state, k=c["n_neighbors"],
-                              head=not self.is_global)
+                              head=not self.is_global, cast=self.compute_dtype)
                 if self.is_global:
                     # B4's trunk, then the pool and the head in torch, as the
                     # JAX package runs them in XLA
-                    emb = global_head(params, emb)
+                    emb = global_head({"out_mlp": cast_tree(params["out_mlp"],
+                                                            self.compute_dtype)}, emb)
         return emb, {"embedder": state}
 
     def load_state(self, new_state: dict) -> None:
@@ -345,7 +347,8 @@ class FlowCompareModel(nn.Module):
             x, ldj = flow_layer_cuda.folded_scan_core(x, ldj.float(), context, extra_context,
                                                       folded, nonlin=gelu)
             return ldj + standard_normal_logprob(x)
-        folded_aug = flow_layer_cuda.fold_augmenter(
+        # B2's folds and their kernel layout, once per weights version
+        folded_aug = flow_layer_cuda.augmenter_weights(
             params["augmenter"], input_dim=self.input_dim, extra_dim=extra_dim)
         if self.plain:
             augmenter = flow_layer_cuda.fused_augmenter_plain

@@ -73,16 +73,18 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinf
 
 EPI_BIAS, EPI_RESIDUAL, EPI_GELU, EPI_AFFINE_LEAKY, EPI_OUT_F32 = 1, 2, 4, 8, 16
 EPI_RES_F32, EPI_ACCUM, EPI_PRE_OUT, EPI_GELU_GRAD, EPI_OUT2_BF16 = 32, 64, 128, 256, 512
+EPI_SPLIT = 1024
 
-_V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_V, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "fc_gemm_bf16": [_V, _I, _V, _I, _V, _I, _I, _I, _I, _V, _V, _I, _V, _V, _V, _I, _V, _I,
-                     _I, _I, _I, _I, _V],
+                     _I, _I, _I, _I, _I, _V],
     "fc_gemm_bf16_wmma": [_V, _I, _V, _I, _V, _I, _I, _I, _I, _V, _V, _I, _V, _V, _V, _I, _V,
-                          _I, _I, _I, _V],
+                          _I, _I, _I, _I, _V],
     "fc_gemm_tn": [_V, _I, _V, _I, _V, _I, _I, _I, _I, _I, _I, _I, _V, _V],
     "fc_gemm_tn_wmma": [_V, _I, _V, _I, _V, _I, _I, _I, _I, _I, _V, _V],
     "fc_cast_rows": [_V, _I, _V, _I, _I, _I, _V],
+    "fc_pack_rows": [_V, _LL, _LL, _I, _V, _LL, _LL, _I, _I, _V, _I, _I, _I, _V],
     "fc_row_norm": [_V, _I, _V, _I, _I, _I, _F, _V],
     "fc_coupling_epilogue": [_V, _I, _V, _I, _V, _V, _I, _I, _I, _I, _F, _V, _V],
     "fc_augment_epilogue": [_V, _I, _V, _I, _I, _V, _I, _I, _V, _I, _V, _I, _V],
@@ -116,6 +118,8 @@ _SIGNATURES = {
                        _V],
     "fc_fused_layer_bwd": [_I, _I, *[_V] * 13, _I, _I, _V, _I, _I, _V, _I, _V, _V, _I, _V, _I,
                            _V, _V, _I, _V, _I, _V, _I, _I, _I, _I, _I, _I, _I, _V, _F, _V],
+    "fc_dgcnn_tail": [_I, *[_V] * 7, _V, _I, _I, _V, _I, _V],
+    "fc_augment_net": [_I, *[_V] * 6, _V, _I, _I, _I, _V, _I, _V, _I, _I, _V, _I, _V, _V],
     "fc_gemm_tn_grouped": [_I, *[_V] * 10, _V],
     "fc_grad_reduce": [_I, *[_V] * 7, _I, _V],
 }
@@ -152,6 +156,12 @@ GRAD_REDUCE_LAUNCHES = 0
 # (both chains) and colsum (the per-product chain's bias gradients)
 ATTN_BWD_PREP_LAUNCHES = 0
 COLSUM_LAUNCHES = 0
+# and of B4's and B2's own kernels: the row packing of their inputs
+# (csrc/flow_rows.cu), B4's tail (conv5 and the head) and B2's net with its
+# epilogue (csrc/fused_layer.cu kinds 4 and 5)
+PACK_ROWS_LAUNCHES = 0
+DGCNN_TAIL_LAUNCHES = 0
+AUGMENT_NET_LAUNCHES = 0
 
 NUM_SMS = 132          # the H100 SXM's; tiles and splits aim at about one wave of blocks
 
@@ -248,7 +258,8 @@ def _rows(t: torch.Tensor, name: str, dtype: torch.dtype) -> int:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1) or (
+            t.shape[0] > 1 and t.stride(0) < t.shape[1]):
         raise ValueError(f"{name}: expected a 2-D row-major matrix, got shape "
                          f"{tuple(t.shape)} strides {t.stride()}")
     return max(t.stride(0), 1)
@@ -301,6 +312,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
          pre_out: Optional[torch.Tensor] = None,
          gelu_grad: Optional[torch.Tensor] = None,
          out2: Optional[torch.Tensor] = None,
+         out2_from: Optional[int] = None,
          route: Optional[str] = None) -> torch.Tensor:
     """out = epilogue(a @ w), or a @ w^T with trans_b (w stored (N, K)).
 
@@ -308,7 +320,10 @@ def gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
     + bias, + residual (bf16 or f32), + out's current value (`accumulate`,
     f32 out only), leaky(v * a + b) for `affine=(a, b)`, the pre-GELU value
     stored into `pre_out` (f32), erf-GELU, times GELU'(`gelu_grad`) (f32
-    pre-activations); a bf16 copy of the result into `out2`.
+    pre-activations); a bf16 copy of the result into `out2`. With
+    `out2_from=s` the output is split instead: out (M, s) takes columns
+    [0, s) and out2 (M, N - s, bf16) columns [s, N) (B4's stage product:
+    c in f32 and u' in bf16 from one launch).
 
     Two routes, one contract: when TMA can read both a and w (`gemm_route`:
     a 16-byte-aligned base and a row stride of whole 16 bytes) the TMA +
@@ -324,7 +339,10 @@ def gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
     m, k = a.shape
     n = w.shape[0] if trans_b else w.shape[1]
     k_w = w.shape[1] if trans_b else w.shape[0]
-    if k_w != k or tuple(out.shape) != (m, n):
+    split = 0 if out2_from is None else out2_from
+    if out2_from is not None and (out2 is None or not 0 < split < n):
+        raise ValueError(f"gemm: out2_from={out2_from} needs out2 and 0 < out2_from < {n}")
+    if k_w != k or tuple(out.shape) != (m, split or n):
         raise ValueError(f"gemm: shapes a {tuple(a.shape)} w {tuple(w.shape)} "
                          f"(trans_b={trans_b}) out {tuple(out.shape)}")
     if out.dtype not in (torch.float32, torch.bfloat16):
@@ -363,14 +381,15 @@ def gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
     if gelu:
         flags |= EPI_GELU
     if out2 is not None:
-        flags |= EPI_OUT2_BF16
+        flags |= EPI_SPLIT if split else EPI_OUT2_BF16
         ld2 = _rows(out2, "gemm.out2", torch.bfloat16)
-        if tuple(out2.shape) != (m, n):
+        if tuple(out2.shape) != (m, n - split):
             raise ValueError("gemm.out2: shape mismatch")
         out2_p = out2.data_ptr()
     chosen = _choose_route(route, gemm_route(a.data_ptr(), lda, w.data_ptr(), ldb), "gemm")
     args = (a.data_ptr(), lda, w.data_ptr(), ldb, out.data_ptr(), ldc, m, n, k,
-            bias_p, res_p, ldr, aff_a, aff_b, aux_p, ldaux, out2_p, ld2, flags, int(trans_b))
+            bias_p, res_p, ldr, aff_a, aff_b, aux_p, ldaux, out2_p, ld2, split, flags,
+            int(trans_b))
     if chosen == "wgmma":
         rc = library().fc_gemm_bf16(*args, *gemm_tile(m, n), _stream())
         GEMM_WGMMA_LAUNCHES += 1
@@ -408,10 +427,12 @@ def gemm_plain(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
                trans_b: bool = False, accumulate: bool = False,
                pre_out: Optional[torch.Tensor] = None,
                gelu_grad: Optional[torch.Tensor] = None,
-               out2: Optional[torch.Tensor] = None) -> torch.Tensor:
+               out2: Optional[torch.Tensor] = None,
+               out2_from: Optional[int] = None) -> torch.Tensor:
     """The plain version of `gemm` on any device: the f32 product of the
     bf16 operands, then the same epilogue in the same order, written into
-    out (rounded to its dtype), pre_out and out2."""
+    out (rounded to its dtype), pre_out and out2 (with `out2_from`, split
+    between out and out2 by columns)."""
     v = a.float() @ (w.float().T if trans_b else w.float())
     if bias is not None:
         v = v + bias.float()
@@ -428,6 +449,10 @@ def gemm_plain(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, *,
         v = torch.nn.functional.gelu(v)
     if gelu_grad is not None:
         v = v * gelu_erf_grad(gelu_grad.float())
+    if out2_from is not None:
+        out.copy_(v[:, :out2_from])
+        out2.copy_(v[:, out2_from:])
+        return out
     out.copy_(v)
     if out2 is not None:
         out2.copy_(v)
@@ -530,6 +555,51 @@ def cast_rows(src: torch.Tensor, dst: torch.Tensor) -> None:
         raise ValueError("cast_rows: shape mismatch")
     _check("cast_rows", library().fc_cast_rows(
         src.data_ptr(), lds, dst.data_ptr(), ldd, src.shape[0], src.shape[1], _stream()))
+
+
+def pack_rows_plain(dst: torch.Tensor, *sources: torch.Tensor) -> None:
+    """The plain version of `pack_rows`."""
+    rows = dst.shape[0]
+    cols = [s.reshape(rows, s.shape[-1]).float() for s in sources]
+    used = sum(c.shape[1] for c in cols)
+    pad = dst.new_zeros(rows, dst.shape[1] - used, dtype=torch.float32)
+    dst.copy_(torch.cat([*cols, pad], 1))
+
+
+def pack_rows(dst: torch.Tensor, *sources: torch.Tensor) -> None:
+    """dst (R, C) bf16 = [s0 | s1 | 0]: one or two f32 sources (items, n,
+    c_i) with unit column stride and any item and point strides (a 0 point
+    stride broadcasts an item's row over its points), R = items * n, zeros in
+    the columns past them. One launch (PACK_ROWS_LAUNCHES); a CPU dst runs
+    `pack_rows_plain`."""
+    global PACK_ROWS_LAUNCHES
+    if not 1 <= len(sources) <= 2:
+        raise ValueError("pack_rows: one or two sources")
+    rows, cols = dst.shape
+    for src in sources:
+        if src.dim() != 3 or src.shape[0] * src.shape[1] != rows or src.shape[0] != \
+                sources[0].shape[0]:
+            raise ValueError(f"pack_rows: source {tuple(src.shape)} for {rows} rows")
+    if sum(src.shape[2] for src in sources) > cols:
+        raise ValueError("pack_rows: the sources are wider than dst")
+    if not dst.is_cuda:
+        pack_rows_plain(dst, *sources)
+        return
+    ldd = _rows(dst, "pack_rows.dst", torch.bfloat16)
+    args = []
+    for i in range(2):
+        if i < len(sources):
+            src = sources[i]
+            if not src.is_cuda or src.dtype != torch.float32 or (src.shape[2] > 1
+                                                                 and src.stride(2) != 1):
+                raise ValueError(f"pack_rows: source {i} must be f32 CUDA with unit column "
+                                 f"stride, got {src.dtype} strides {src.stride()}")
+            args += [src.data_ptr(), src.stride(0), src.stride(1), src.shape[2]]
+        else:
+            args += [None, 0, 0, 0]
+    _check("pack_rows", library().fc_pack_rows(*args, sources[0].shape[1], dst.data_ptr(), ldd,
+                                               rows, cols, _stream()))
+    PACK_ROWS_LAUNCHES += 1
 
 
 def row_norm(x: torch.Tensor, out: torch.Tensor, eps: float = 1e-5) -> None:
@@ -1028,7 +1098,7 @@ class FusedStack:
     entry point reads are built once here, not once per layer."""
 
     def __init__(self, pairs: list, n_mlp: int):
-        if not 2 <= n_mlp <= len(pairs) <= min(n_mlp + 1, FUSED_MAX_PRODUCTS):
+        if not 1 <= n_mlp <= len(pairs) <= min(n_mlp + 1, FUSED_MAX_PRODUCTS):
             raise ValueError(f"FusedStack: {len(pairs)} products with {n_mlp} in the MLP")
         for w, b in pairs:
             if (w.dim() != 3 or w.dtype != torch.bfloat16 or w.stride(2) != 1
@@ -1243,6 +1313,72 @@ def coupling_inverse(xin: torch.Tensor, split: int, stack: FusedStack, l: int, y
     n_products = stack.n_mlp + int(x is None)
     _fused_launch(2, stack, n_products, l, l - 1, xin, split, half, x=x, y=y, eps=eps_affine)
     COUPLING_INVERSE_LAUNCHES += 1
+
+
+def dgcnn_tail(feats: torch.Tensor, stack: FusedStack, scale: torch.Tensor,
+               out: torch.Tensor) -> None:
+    """B4's tail over the stage concat `feats` (M, K0) bf16: conv5 with its
+    folded BatchNorm, leaky(v * scale + b5), then (a stack of more than one
+    product) the residual head, GELU after each product but the last; the
+    last product's bf16 rows into out (M, N_last). `stack` holds conv5 and
+    the head at layer 0 (`dgcnn_cuda.EncoderWeights`), scale (1, N0) f32.
+    One launch (DGCNN_TAIL_LAUNCHES). A CPU feats runs
+    `dgcnn_cuda.dgcnn_tail_plain`."""
+    global DGCNN_TAIL_LAUNCHES
+    n0, n_last = stack.pairs[0][0].shape[2], stack.pairs[-1][0].shape[2]
+    if feats.shape[1] != stack.in_cols or tuple(out.shape) != (feats.shape[0], n_last):
+        raise ValueError(f"dgcnn_tail: feats {tuple(feats.shape)}, out {tuple(out.shape)} for a "
+                         f"stack of {stack.in_cols} -> {n_last} columns")
+    if not feats.is_cuda:
+        from .dgcnn_cuda import dgcnn_tail_plain
+        out.copy_(dgcnn_tail_plain(feats, stack.layer(0), scale[0]))
+        return
+    ldf = _rows(feats, "dgcnn_tail.feats", torch.bfloat16)
+    ldo = _rows(out, "dgcnn_tail.out", torch.bfloat16)
+    if not tma_readable(feats.data_ptr(), ldf) or not tma_readable(out.data_ptr(), ldo):
+        raise ValueError("dgcnn_tail: feats and out need 16-byte rows and bases")
+    rc = library().fc_dgcnn_tail(len(stack.pairs), *stack.args,
+                                 _vec(scale, "dgcnn_tail.scale", n0), feats.data_ptr(), ldf,
+                                 feats.shape[0], out.data_ptr(), ldo, _stream())
+    if rc:
+        _check("dgcnn_tail", rc)
+    DGCNN_TAIL_LAUNCHES += 1
+
+
+def augment_net(xin: torch.Tensor, stack: FusedStack, x: torch.Tensor, eps: torch.Tensor,
+                z: torch.Tensor, ldj: torch.Tensor) -> None:
+    """B2's ConditionalNormal net and its epilogue over the packed rows xin
+    (M, >= K0) bf16 [x | extra | pad | attn]: GELU after every product but
+    the output layer, a residual every second hidden product; the output
+    layer as the stack's last two products, column passes of (mean_i,
+    log_std_i) pairs (`flow_layer_cuda.augment_net_plan`). z (M, in + aug)
+    f32 = [x | mean + eps * exp(log_std)], ldj (M) f32 = sum(log 2pi / 2 +
+    log_std + eps^2 / 2), from x (M, in) and eps (M, aug) f32. One launch
+    (AUGMENT_NET_LAUNCHES). A CPU xin runs `flow_layer_cuda.augment_net_plain`."""
+    global AUGMENT_NET_LAUNCHES
+    rows, in_dim = x.shape
+    aug = eps.shape[1]
+    if (xin.shape[0] != rows or xin.shape[1] < stack.in_cols or eps.shape[0] != rows
+            or tuple(z.shape) != (rows, in_dim + aug) or ldj.numel() != rows):
+        raise ValueError(f"augment_net: xin {tuple(xin.shape)}, x {tuple(x.shape)}, eps "
+                         f"{tuple(eps.shape)}, z {tuple(z.shape)}, ldj {tuple(ldj.shape)}")
+    if not xin.is_cuda:
+        from .flow_layer_cuda import augment_net_plain
+        zr, lr = augment_net_plain(xin, stack.layer(0), x, eps)
+        z.copy_(zr)
+        ldj.copy_(lr.reshape(ldj.shape))
+        return
+    ldxin = _rows(xin, "augment_net.xin", torch.bfloat16)
+    if not tma_readable(xin.data_ptr(), ldxin):
+        raise ValueError("augment_net: TMA cannot read the packed rows")
+    rc = library().fc_augment_net(
+        len(stack.pairs), *stack.args, xin.data_ptr(), ldxin, rows, in_dim, x.data_ptr(),
+        _rows(x, "augment_net.x", torch.float32), eps.data_ptr(),
+        _rows(eps, "augment_net.eps", torch.float32), aug, z.data_ptr(),
+        _rows(z, "augment_net.z", torch.float32), _vec(ldj, "augment_net.ldj", rows), _stream())
+    if rc:
+        _check("augment_net", rc)
+    AUGMENT_NET_LAUNCHES += 1
 
 
 # ---------------------------------------------- B5's per-layer kernels

@@ -21,7 +21,11 @@ Counterpart of `flowcompare_tpu/ops/flow_layer_pallas.py`:
   their plain versions on a CPU tensor; B1's and B7's coupling layers run
   as two fused kernels each (`_build.conditioner`, `coupling_layer`,
   `coupling_inverse`, plain versions `conditioner_plain`,
-  `coupling_layer_plain`, `coupling_inverse_plain` here).
+  `coupling_layer_plain`, `coupling_inverse_plain` here), B2 as the
+  conditioner, ctx @ wkv, the cross attention and one launch of its net
+  and epilogue (`_build.augment_net`, plain version `augment_net_plain`)
+  on `AugmenterWeights`, folded once per weights version
+  (`augmenter_weights`, `AUGMENTER_FOLDS`).
 
 What the TPU needed and the port drops: the transposed twin layout and its
 padded latent, the ones-column softmax denominator, the clamp-at-80
@@ -40,6 +44,7 @@ from ..core.initializers import matmul_f32
 from ..core.mlp import gelu
 from ..flows.coupling import sigmoid_scale
 from . import _build
+from .fold_cache import FoldCache, tensor_leaves
 
 # Launch counters: one per wrapper, bumped each time it runs its kernel chain
 # (FUSED_FLOW_LAYERS_SAVE_LAUNCHES also counts the runs that wrote saves).
@@ -47,6 +52,8 @@ FUSED_FLOW_LAYERS_LAUNCHES = 0
 FUSED_FLOW_LAYERS_SAVE_LAUNCHES = 0
 FUSED_AUGMENTER_LAUNCHES = 0
 FUSED_FLOW_LAYERS_INVERSE_LAUNCHES = 0
+AUGMENTER_FOLDS = 0      # AugmenterWeights made (one per weights version)
+_AUG_FOLDS = FoldCache()
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -227,17 +234,24 @@ def _lin(h, wb, dtype):
     return matmul_f32(h, _cast(w, dtype)) + b.float()
 
 
+def _res_hidden(h_first, pairs, nonlin, dtype):
+    """The hidden layers `pairs` of the residual MLP, given the first
+    activation; a residual is re-added at every second hidden layer."""
+    h = h_first
+    residual = h
+    for k, wb in enumerate(pairs):
+        if k % 2 == 0:
+            residual = h
+            h = _cast(nonlin(_lin(h, wb, dtype)), dtype)
+        else:
+            h = _cast(nonlin(residual.float() + _lin(h, wb, dtype)), dtype)
+    return h
+
+
 def _res_mlp(h_first, pairs, n_total, nonlin, dtype):
     """Hidden and out layers of the residual MLP, given the first activation;
     a residual is re-added at every second hidden layer. f32 out."""
-    h = h_first
-    residual = h
-    for k in range(n_total - 2):
-        if k % 2 == 0:
-            residual = h
-            h = _cast(nonlin(_lin(h, pairs[k], dtype)), dtype)
-        else:
-            h = _cast(nonlin(residual.float() + _lin(h, pairs[k], dtype)), dtype)
+    h = _res_hidden(h_first, pairs[:n_total - 2], nonlin, dtype)
     return _lin(h, pairs[n_total - 2], dtype)
 
 
@@ -379,10 +393,13 @@ def fused_flow_layers_inverse_plain(z: torch.Tensor, context: torch.Tensor,
 
 
 def fused_augmenter_plain(x: torch.Tensor, eps: torch.Tensor, context: torch.Tensor,
-                          extra: Optional[torch.Tensor], folded_aug: dict):
-    """Plain version of B2 under the bf16 policy: the folded augmenter,
+                          extra: Optional[torch.Tensor], folded_aug):
+    """Plain version of B2 under the bf16 policy: the folded augmenter
+    (`fold_augmenter`'s dict, or `AugmenterWeights`),
     z = [x | mean + eps * exp(log_std)], ldj = -log q(z2) per point."""
     bf = torch.bfloat16
+    if isinstance(folded_aug, AugmenterWeights):
+        folded_aug = folded_aug.folded
     st = _layer(folded_aug, 0)
     xb = x.to(bf)
     x1e = torch.cat([xb, extra.to(bf)], -1) if extra is not None else xb
@@ -551,6 +568,56 @@ def _interleave_st(w: torch.Tensor) -> torch.Tensor:
     """[s | t] columns (last axis) reordered as s_0, t_0, s_1, t_1, ..."""
     half = w.shape[-1] // 2
     return torch.stack([w[..., :half], w[..., half:]], -1).reshape(w.shape)
+
+
+def augment_net_plan(net: list, in_cols: int, aug: int) -> dict:
+    """What B2's net kernel (csrc/fused_layer.cu, kind augment_net) runs,
+    from shapes alone: `net` the ConditionalNormal net's (K, N) per product,
+    the first over the packed rows (`in_cols` = K0), the last giving
+    [mean | log_std] (N = 2 aug). The output layer runs as two column passes
+    of (mean_i, log_std_i) pairs, the first ceil(aug / 2) pairs and the
+    rest, each at most 256 pairs (512 columns, the kernel's widest product);
+    every other width at most 512, at most 10 products with the passes.
+    Returns {"products", "passes": [(first pair, pairs), ...]}; other shapes
+    raise ValueError, and there is no other route for them."""
+    first = -(-aug // 2)
+    passes = [(0, first), (first, aug - first)]
+    ok = (len(net) >= 2 and net[0][0] == in_cols and net[-1][1] == 2 * aug
+          and 1 <= aug - first and first <= _build.FUSED_MAXW // 2
+          and len(net) + 1 <= _build.FUSED_MAX_PRODUCTS
+          and all(1 <= k <= _build.FUSED_MAXW for k, _ in net)
+          and all(1 <= n <= _build.FUSED_MAXW for _, n in net[:-1])
+          and all(net[i][0] == net[i - 1][1] for i in range(1, len(net))))
+    if not ok:
+        raise ValueError(f"the augmenter's net kernel cannot take these shapes: net {net}, "
+                         f"packed rows of {in_cols}, aug {aug}")
+    return {"products": len(net) + 1, "passes": passes}
+
+
+def interleave_passes(w: torch.Tensor, passes: list) -> list:
+    """The output layer's columns [mean | log_std] (last axis) as the
+    kernel's column passes: pairs interleaved (mean_i, log_std_i), pass j
+    holding pairs [first, first + pairs) of `augment_net_plan`'s passes."""
+    inter = _interleave_st(w)
+    return [inter[..., 2 * first:2 * (first + pairs)] for first, pairs in passes]
+
+
+def augment_net_plain(xin: torch.Tensor, pairs: list, x: torch.Tensor,
+                      eps: torch.Tensor) -> tuple:
+    """Plain version of `_build.augment_net` at the kernel's rounding points:
+    the net over the packed rows' first K0 columns (bf16 between products,
+    GELU, a residual every second hidden product), the output layer's column
+    passes (`interleave_passes`) in f32, then z = [x | mean + eps *
+    exp(log_std)] and ldj = sum(log 2pi / 2 + log_std + eps^2 / 2). `pairs`
+    are the kernel stack's (w (K, N), b (N)) at one layer."""
+    bf = torch.bfloat16
+    h = _cast(gelu(_lin(xin[:, :pairs[0][0].shape[0]], pairs[0], bf)), bf)
+    h = _res_hidden(h, pairs[1:-2], gelu, bf)
+    st = torch.cat([_lin(h, wb, bf) for wb in pairs[-2:]], 1)
+    mean, log_std = st[:, 0::2], st[:, 1::2]
+    z2 = mean + eps * torch.exp(log_std)
+    ldj = (0.5 * _LOG_2PI + log_std + 0.5 * eps * eps).sum(-1)
+    return torch.cat([x.float(), z2], 1), ldj
 
 
 class _CouplingChain:
@@ -785,33 +852,128 @@ def _inverse_chain(z, context, extra, folded_inv, eps_affine):
     return xc.reshape(b, n, lat)
 
 
+class AugmenterWeights:
+    """B2's weights, made once per weights version (`augmenter_weights`):
+    `folded`, the folds as `fold_augmenter` gives them (the plain version's),
+    and their kernel layout: the conditioner's `FusedStack` (pre-MLP and q),
+    wkv, and the net's `FusedStack` over the packed rows [x | extra | pad |
+    attn] (`packed_input_layout`; the first weight with zero rows at the
+    pad), its output layer's columns as `augment_net_plan`'s two passes of
+    interleaved (mean_i, log_std_i) pairs. Shapes the kernels refuse raise."""
+
+    def __init__(self, folded: dict, *, input_dim: int):
+        bf = torch.bfloat16
+        self.folded = folded
+        self.cw = folded["cpl_in_c"].shape[1]
+        self.xe, self.xc, self.width = packed_input_layout(
+            input_dim, folded["cpl_in_xe"].shape[1] - input_dim, self.cw)
+        pre_shapes = [tuple(w.shape[1:]) for w, _ in folded["pre"]]
+        q_shape = tuple(folded["wq_f"].shape[1:])
+        if not fused_route(pre_shapes, q_shape, [], (0, 0), input_dim, 0)["conditioner"]:
+            raise ValueError(f"the fused conditioner cannot take these shapes: pre-MLP "
+                             f"{pre_shapes}, q {q_shape}")
+        wq = _pad_cols(folded["wq_f"].to(bf))
+        bq = folded["bq_f"].float().reshape(1, -1).contiguous()
+        self.cond_stack = _build.FusedStack(_bf16_stack(folded["pre"]) + [(wq, bq)],
+                                            len(folded["pre"]))
+        self.wkv = _pad_cols(folded["wkv"].to(bf))
+        w_in = _pad_cols(packed_input_weights(folded["cpl_in_xe"].to(bf), folded["cpl_in_c"]))
+        b_in = folded["cpl_in_b"].float().reshape(1, -1).contiguous()
+        rest = folded["cpl_rest"]
+        w_out, b_out = rest[-1]
+        aug = w_out.shape[-1] // 2
+        plan = augment_net_plan([tuple(w_in.shape[1:])] + [tuple(w.shape[1:]) for w, _ in rest],
+                                self.xc + self.cw, aug)
+        passes = list(zip(interleave_passes(w_out, plan["passes"]),
+                          interleave_passes(b_out, plan["passes"])))
+        self.net_stack = _build.FusedStack(
+            [(w_in, b_in)] + _bf16_stack(rest[:-1]) + _bf16_stack(passes), plan["products"])
+
+
+def _fold_once(sources: list, key, make) -> AugmenterWeights:
+    """make()'s AugmenterWeights, once per version of the source tensors."""
+    def build():
+        global AUGMENTER_FOLDS
+        AUGMENTER_FOLDS += 1
+        with torch.no_grad():
+            return make()
+
+    return _AUG_FOLDS.get(sources, key, build)
+
+
+def augmenter_weights(aug_params: dict, *, input_dim: int, extra_dim: int) -> AugmenterWeights:
+    """B2's `AugmenterWeights` for these augmenter params, folded
+    (`fold_augmenter`) once per weights version: a lookup keyed on the
+    tensors and their versions, which every in-place change (an optimizer
+    step, `load_jax_params`) bumps."""
+    return _fold_once(tensor_leaves(aug_params), ("params", input_dim, extra_dim),
+                      lambda: AugmenterWeights(fold_augmenter(aug_params, input_dim=input_dim,
+                                                              extra_dim=extra_dim),
+                                               input_dim=input_dim))
+
+
+def _kernel_weights(folded_aug, input_dim: int) -> AugmenterWeights:
+    """`AugmenterWeights` as given, or for a `fold_augmenter` dict its
+    kernel layout, made once per version of the dict's tensors."""
+    if isinstance(folded_aug, AugmenterWeights):
+        return folded_aug
+    return _fold_once(tensor_leaves(folded_aug), ("folded", input_dim),
+                      lambda: AugmenterWeights(folded_aug, input_dim=input_dim))
+
+
 def fused_augmenter(x: torch.Tensor, eps: torch.Tensor, context: torch.Tensor,
-                    extra: Optional[torch.Tensor], folded_aug: dict):
+                    extra: Optional[torch.Tensor], folded_aug):
     """B2: the attention-preconditioned augmenter; replaces the Pallas kernel
     `fused_augmenter` (flow_layer_pallas.py, body `_augment_kernel`).
 
     x (B, N, in) f32, eps (B, N, aug) f32 standard normal, context
-    (B, Nc, 64), extra (B, N, e) or None. Returns z (B, N, in + aug) f32 and
-    ldj = -log q(z2) (B, N) f32. A CPU tensor runs `fused_augmenter_plain`;
-    a CUDA tensor runs B1's conditioner once (`_build.conditioner`, ctx @
-    wkv, cross_attention), the net's four gemm_bf16 and augment_epilogue.
+    (B, Nc, E), extra (B, N, e) or None; `folded_aug` is `AugmenterWeights`
+    (`augmenter_weights`, the model's) or a `fold_augmenter` dict, whose
+    kernel layout is then made once per version of its tensors. Returns z
+    (B, N, in + aug) f32 and ldj = -log q(z2) (B, N) f32. A CPU tensor runs
+    `fused_augmenter_plain`; a CUDA tensor runs 5 launches: [x | extra |
+    pad] cast into the packed rows (`_build.pack_rows`), B1's conditioner
+    (`_build.conditioner`, pre-MLP, LayerNorm and q on a row tile kept on
+    chip), ctx @ wkv, the cross attention into the packed rows' attention
+    columns, and `_build.augment_net`: the net 72 -> 512 -> 512 -> 512 ->
+    588 on a 64-row tile kept in shared memory, its output layer in two
+    column passes whose epilogue forms z2 and ldj on the registers.
 
-    What bounds it on the H100: the 512-wide net products and the attention
-    over Nc context rows, once per point; the first pre-MLP layer has K = 6,
-    which TMA's zero-filled boxes take without padding the input (its rows
-    lie in the packed buffer, 16-byte aligned)."""
+    What bounds it on the H100: the net's products (about 1.7 MFLOP a
+    point) and the conditioner's, and the attention over Nc context rows,
+    once per point; at a small batch the host's launches. Nothing of the
+    net ([s | t], its activations) leaves the chip."""
     global FUSED_AUGMENTER_LAUNCHES
     if not x.is_cuda:
         return fused_augmenter_plain(x, eps, context, extra, folded_aug)
+    out = _augmenter_chain(x, eps, context, extra, _kernel_weights(folded_aug, x.shape[-1]))
+    FUSED_AUGMENTER_LAUNCHES += 1
+    return out
+
+
+def _augmenter_chain(x, eps, context, extra, w: AugmenterWeights):
     b, n, in_dim = x.shape
     aug = eps.shape[-1]
-    rows, dev = b * n, x.device
-    chain = _CouplingChain(folded_aug, context, extra, rows, in_dim)
-    x2 = x.reshape(rows, in_dim).float().contiguous()
-    _build.cast_rows(x2, chain.xin[:, :in_dim])
-    chain.run(0)
+    rows, dev, bf = b * n, x.device, torch.bfloat16
+    d = w.cw
+    _, nc, e_dim = context.shape
+    # the context as the gemm's A, copied unless its rows already lie apart
+    # with 16-byte strides (a broadcast embedding at B=1 reshapes to a view
+    # whose rows all share one address)
+    ctx2 = context.reshape(b * nc, e_dim)
+    if (ctx2.dtype != bf or ctx2.stride(-1) != 1 or ctx2.stride(0) < e_dim
+            or not _build.tma_readable(ctx2.data_ptr(), ctx2.stride(0))):
+        ctx2 = _pad_cols(ctx2.to(bf))
+    xin = torch.empty(rows, w.width, dtype=bf, device=dev)
+    q = bf16_rows(rows, d, dev)
+    kv = bf16_rows(b * nc, 2 * d, dev)
     z = torch.empty(rows, in_dim + aug, dtype=torch.float32, device=dev)
     ldj = torch.empty(rows, dtype=torch.float32, device=dev)
-    _build.augment_epilogue(chain.st, x2, eps.reshape(rows, aug).float().contiguous(), z, ldj)
-    FUSED_AUGMENTER_LAUNCHES += 1
+    sources = [x.float()] + ([extra.float()] if extra is not None else [])
+    _build.pack_rows(xin[:, :w.xc], *sources)
+    _build.conditioner(xin, in_dim, w.cond_stack, 0, q)
+    _build.gemm(ctx2, w.wkv[0], kv)
+    _build.cross_attention(q, kv[:, :d], kv[:, d:], xin[:, w.xc:w.xc + d], n_items=b)
+    _build.augment_net(xin, w.net_stack, x.reshape(rows, in_dim).float(),
+                       eps.reshape(rows, aug).float(), z, ldj)
     return z.reshape(b, n, in_dim + aug), ldj.reshape(b, n)

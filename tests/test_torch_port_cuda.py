@@ -1440,3 +1440,159 @@ def test_b5_fused_kernels_match_the_per_product_chain(dev, preset, rows):
                 assert _rel(a, b) < 0.03
         for k, r in ref[3].items():
             assert _rel(got[3][k], r) < 0.05, k
+
+
+# ------------------------------------------------- B4's tail and B2's net
+
+def preset_model(dev, preset: str) -> ft.FlowCompareModel:
+    """A preset at full width on the card, the flow cut to two layers (B2
+    and B4 read none of it)."""
+    cfg = ft.get_config(preset)
+    cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
+    model = ft.FlowCompareModel(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    perturb_identity_leaves(model, torch.Generator().manual_seed(1))
+    return model
+
+
+def b4_b2_launches() -> int:
+    """Every launch the B4 and B2 chains make, by the port's counters."""
+    return (_build.GEMM_WGMMA_LAUNCHES + _build.GEMM_WMMA_LAUNCHES
+            + edgeconv_cuda.EDGE_NEIGHBOR_MAX_LAUNCHES + _build.PACK_ROWS_LAUNCHES
+            + _build.DGCNN_TAIL_LAUNCHES + _build.AUGMENT_NET_LAUNCHES
+            + _build.FUSED_CONDITIONER_LAUNCHES + _build.CROSS_ATTENTION_WGMMA_LAUNCHES
+            + _build.CROSS_ATTENTION_WMMA_LAUNCHES)
+
+
+TAIL_CASES = [("dulcet-universe", True), ("helpful-sponge", False), ("swept-energy", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,head", TAIL_CASES)
+@pytest.mark.parametrize("rows", [1037, 3750])
+def test_dgcnn_tail_matches_plain(dev, preset, head, rows):
+    """B4's tail (conv5 and the head, or conv5 alone) at the shipped widths
+    against `dgcnn_tail_plain` on the same stage concat, at row counts that
+    are not a multiple of 64; one launch."""
+    model = preset_model(dev, preset)
+    w = dgcnn_cuda.encoder_weights(model.params()["embedder"], model.state.tree()["embedder"],
+                                   cast=torch.bfloat16)
+    stack = w.tail(head)
+    feats = rand(torch.Generator().manual_seed(rows), rows, 512, device=dev).bfloat16()
+    out = torch.empty(rows, stack.pairs[-1][0].shape[2], dtype=torch.bfloat16, device=dev)
+    before = _build.DGCNN_TAIL_LAUNCHES
+    _build.dgcnn_tail(feats, stack, w.scale, out)
+    torch.cuda.synchronize()
+    assert _build.DGCNN_TAIL_LAUNCHES == before + 1
+    ref = dgcnn_cuda.dgcnn_tail_plain(feats, stack.layer(0), w.scale[0])
+    err = (out.float() - ref.float()).abs()
+    # chip_smoke's B4 limits: bf16 roundings that flip between the orders of
+    # f32 summation move an element by an ulp
+    assert float(err.mean()) <= 1e-3 and float((err > 0.1).float().mean()) <= 1e-3
+
+
+AUG_CASES = [("dulcet-universe", 1037), ("dulcet-universe", 3750), ("helpful-sponge", 1037),
+             ("helpful-sponge", 3750), ("swept-energy", 3750)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,rows", AUG_CASES)
+def test_augment_net_matches_plain(dev, preset, rows):
+    """B2's net and epilogue at the shipped widths (72 -> 512 x 3 -> 588 in
+    two passes of 147 pairs) against `augment_net_plain` on the same packed
+    rows; one launch."""
+    model = preset_model(dev, preset)
+    ed = int(model.config["using_extra_context"])
+    w = flc.augmenter_weights(model.params()["augmenter"], input_dim=6, extra_dim=ed)
+    g = torch.Generator().manual_seed(rows + 1)
+    xin = rand(g, rows, w.width, device=dev).bfloat16()
+    xin[:, w.xe:w.xc] = 0
+    x, eps = rand(g, rows, 6, device=dev), rand(g, rows, 294, device=dev)
+    z, ldj = torch.empty(rows, 300, device=dev), torch.empty(rows, device=dev)
+    before = _build.AUGMENT_NET_LAUNCHES
+    _build.augment_net(xin, w.net_stack, x, eps, z, ldj)
+    torch.cuda.synchronize()
+    assert _build.AUGMENT_NET_LAUNCHES == before + 1
+    zr, lr = flc.augment_net_plain(xin, w.net_stack.layer(0), x, eps)
+    assert torch.equal(z[:, :6], x)
+    assert float((z - zr).abs().max()) <= 0.02
+    assert float(((ldj - lr).abs() / lr.abs().clamp_min(1.0)).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_pack_rows_and_split_gemm_match_plain(dev):
+    """The packed rows from a cloud and a broadcast extra context, and the
+    stage product's split output (c in f32, u' in bf16) on both routes."""
+    g = torch.Generator().manual_seed(50)
+    x = rand(g, 3, 1037, 6, device=dev)
+    extra = rand(g, 3, 1, 1, device=dev).expand(3, 1037, 1)
+    dst = torch.full((3111, 8), 7.0, dtype=torch.bfloat16, device=dev)
+    _build.pack_rows(dst, x, extra)
+    ref = torch.empty_like(dst)
+    _build.pack_rows_plain(ref, x, extra)
+    assert torch.equal(dst, ref)
+    h = dst
+    w = (rand(g, 8, 256, device=dev) / 3).bfloat16()
+    for route in ("wgmma", "wmma"):
+        c = torch.empty(3111, 128, device=dev)
+        u = torch.empty(3111, 128, dtype=torch.bfloat16, device=dev)
+        _build.gemm(h, w, c, out2=u, out2_from=128, route=route)
+        torch.cuda.synchronize()
+        cr, ur = torch.empty_like(c), torch.empty_like(u)
+        _build.gemm_plain(h, w, cr, out2=ur, out2_from=128)
+        assert float((c - cr).abs().max()) <= 1e-5 * float(cr.abs().max()), route
+        assert float((u.float() - ur.float()).abs().max()) <= 2 ** -7 * float(ur.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_fused_dgcnn_encoder_full_width_ragged_matches_plain(dev):
+    """B4 at dulcet-universe's widths on 3 clouds of 1,250 points (3,750 rows,
+    not a multiple of 64) against its plain version: 10 launches a call,
+    none on the WMMA route, one fold over repeated calls."""
+    model = preset_model(dev, "dulcet-universe")
+    params, state = model.params()["embedder"], model.state.tree()["embedder"]
+    x = rand(torch.Generator().manual_seed(51), 3, 1250, 6, device=dev)
+    folds, wmma = dgcnn_cuda.DGCNN_FOLDS, _build.GEMM_WMMA_LAUNCHES
+    with torch.no_grad():
+        for _ in range(3):
+            before = b4_b2_launches()
+            got = dgcnn_cuda.fused_dgcnn_encoder(x, params, state, k=40, cast=torch.bfloat16)
+            torch.cuda.synchronize()
+            assert b4_b2_launches() - before == 10
+        ref = dgcnn_cuda.fused_dgcnn_encoder_plain(x, params, state, k=40, cast=torch.bfloat16)
+    assert dgcnn_cuda.DGCNN_FOLDS == folds + 1 and _build.GEMM_WMMA_LAUNCHES == wmma
+    d = (got.float() - ref.float()).abs()
+    assert float(d.mean()) <= 1e-3 and float((d > 0.1).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,items,n", [("dulcet-universe", 1, 1037),
+                                            ("dulcet-universe", 3, 1250),
+                                            ("helpful-sponge", 1, 1037),
+                                            ("helpful-sponge", 3, 1250),
+                                            ("swept-energy", 1, 1037)])
+def test_fused_augmenter_full_width_ragged_matches_plain(dev, preset, items, n):
+    """B2 at the shipped widths (with extra context and without, the
+    context per point or the broadcast embedding) at row counts that are
+    not a multiple of 64 against its plain version: 5 launches a call, one
+    fold over repeated calls."""
+    model = preset_model(dev, preset)
+    cfg = model.config
+    ed = int(cfg["using_extra_context"])
+    g = torch.Generator().manual_seed(52)
+    x, eps = rand(g, items, n, 6, device=dev), rand(g, items, n, 294, device=dev)
+    extra = rand(g, items, 1, 1, device=dev).expand(items, n, 1) if ed else None
+    e = cfg["input_embedding_dim"]
+    ctx = (rand(g, items, 1, e, device=dev).bfloat16().expand(items, n, e) if model.is_global
+           else rand(g, items, 1250, e, device=dev).bfloat16())
+    folds = flc.AUGMENTER_FOLDS
+    with torch.no_grad():
+        for _ in range(3):
+            w = flc.augmenter_weights(model.params()["augmenter"], input_dim=6, extra_dim=ed)
+            before = b4_b2_launches()
+            z, ldj = flc.fused_augmenter(x, eps, ctx, extra, w)
+            torch.cuda.synchronize()
+            assert b4_b2_launches() - before == 5
+        zr, lr = flc.fused_augmenter_plain(x, eps, ctx, extra, w)
+    assert flc.AUGMENTER_FOLDS == folds + 1
+    assert float((z - zr).abs().max()) <= 0.02
+    assert float(((ldj - lr).abs() / lr.abs().clamp_min(1.0)).max()) <= 1e-4
