@@ -64,19 +64,25 @@ Phases, each of which raises on failure (nothing is caught):
    kernels: 11 launches a layer with attention, 4 without, no per-product
    MLP gemm, no gemm_tn and no colsum (`check_b5_launches`);
 11. good-surf (PAConv, bf16, full depth and width; the dulcet-universe
-   model is freed first): B8 and B9 against their plain versions at the four
-   set-abstraction levels of a B=25 eval (50 clouds; B8 index-equal, B9
-   equal on integer coordinates in bf16 and f32, at most 1e-3 of rows
-   differing on random ones, slot 0 the centre, k = 32 > N = 19 at level 4);
-   the eval main path through `evaluate_on_test` (2 items of B=4, launch
-   counters showing B8 and B9 four times per embed, B2 and B1) against the
-   plain path (|d nats| <= 0.01, change maps >= 99.9%); eval timing at the
-   preset's B=25 (points/s, the encoder's ms) and a profile of one item;
-   `make_sample` of 1 x 4000 (B8, B9, B7) against the plain samples of the
-   same z (|d nats| <= 0.01); the training check at B=2 (the bounds of step
-   8, the PAConv encoder's gradient among the groups) and
-   `train(max_steps=4, make_samples=True)` at B=25 (ms/step, peak memory,
-   B8 launched);
+   model is freed first): B8 (the four set-abstraction levels in one
+   launch) and B9 (one selection launch for the four levels, a gather a
+   level) against their plain versions at a B=25 eval's 50 clouds and at
+   `make_sample`'s 1 (B8 index-equal on random and duplicated clouds, with
+   its dependent-chain floor from `_build.fps_round_probe`; B9 equal on
+   integer coordinates in bf16 and f32, at most 1e-3 of rows differing on
+   random ones, slot 0 the centre, k = 32 > N = 19 at level 4), each part's
+   wall and device ms beside its plain version and bound; the eval main
+   path through `evaluate_on_test` (2 items of B=4, B2 and B1 counted)
+   against the plain path (|d nats| <= 0.01, change maps >= 99.9%); eval
+   timing at the preset's B=25 (points/s, the encoder's ms) and a profile
+   of one item; `make_sample` of 1 x 4000 (B7 counted) against the plain
+   samples of the same z (|d nats| <= 0.01); the training check at B=2 (the
+   bounds of step 8, the PAConv encoder's gradient among the groups) and
+   `train(max_steps=4, make_samples=True)` at B=25 (ms/step, peak memory);
+   on each path B8, B9's selection and its gather at 1, 1 and 4 launches
+   an eval embed and B8 alone in a training embed (`check_paconv_launches`:
+   2 / 2 / 8 on the eval run, 1 / 1 / 4 on make_sample, 1 / 0 / 0 on one
+   train_step, 7 / 3 / 12 on train);
 12. B10 (run first, before any model is built): the fused attention core
    (TMA + wgmma, p in three bf16 terms) against its plain version at the
    flow's attention shapes (q (20, 1024, 64) against 1250 keys) and at
@@ -155,7 +161,8 @@ Phases, each of which raises on failure (nothing is caught):
    through B4 with its head and B2's extra=None packed rows, with the same
    bounds and launch and fold checks, and eval timing at B=20.
 
-Prints, last, one JSON line of per-kernel results (B1-B10, gemm_bf16,
+Prints, last, one JSON line of per-kernel results (B1-B10 with B9's
+gather as `sa_gather`, gemm_bf16,
 gemm_tn, cross_attention, cross_attention_bwd, conditioner,
 coupling_layer, coupling_inverse, B5's conditioner_record,
 coupling_record, coupling_bwd, conditioner_bwd, gemm_tn_grouped and
@@ -1206,11 +1213,11 @@ def kernel_trace(fn, trace: str) -> tuple:
             if e.get("cat") == "kernel" and "dur" in e], traced_ms
 
 
-def device_ms(fn, reps: int = 10) -> float:
-    """Device time per call of fn: the durations of the kernels it launches
-    over reps calls (torch.profiler, after a warm-up call), summed, over reps.
-    Unlike time_ms it leaves out the gaps where the device waits for the
-    host, which decide a short call's wall time."""
+def traced_kernels(fn, reps: int = 10, name: str = "") -> list:
+    """The device kernels torch.profiler records over reps calls of fn
+    (after a warm-up call) whose names match `name`. The profiler now and
+    then returns a trace without them, at times twice in a row: it traces
+    again, up to four times."""
     fn()
     torch.cuda.synchronize()
 
@@ -1218,18 +1225,24 @@ def device_ms(fn, reps: int = 10) -> float:
         for _ in range(reps):
             fn()
 
-    kernels, _ = kernel_trace(calls, "chip_smoke_device_ms_trace.json")
-    for attempt in range(3):
-        if kernels:
-            break
-        # the profiler now and then returns an empty trace, at times twice
-        # in a row: trace again
-        log(f"  device_ms: the profiler recorded no device kernels; tracing again "
-            f"({attempt + 2} of 4)")
-        torch.cuda.synchronize()
+    for attempt in range(4):
+        if attempt:
+            log(f"  the profiler recorded no device kernels {name}; tracing again "
+                f"({attempt + 1} of 4)")
+            torch.cuda.synchronize()
         kernels, _ = kernel_trace(calls, "chip_smoke_device_ms_trace.json")
-    assert kernels, "the profiler recorded no device kernels"
-    return sum(e["dur"] for e in kernels) / 1e3 / reps
+        kernels = [e for e in kernels if re.search(name, e["name"])]
+        if kernels:
+            return kernels
+    raise AssertionError(f"the profiler recorded no device kernels {name}")
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time per call of fn: the durations of the kernels it launches
+    over reps calls (torch.profiler, after a warm-up call), summed, over reps.
+    Unlike time_ms it leaves out the gaps where the device waits for the
+    host, which decide a short call's wall time."""
+    return sum(e["dur"] for e in traced_kernels(fn, reps)) / 1e3 / reps
 
 
 def sdpa_flash(q, k, v, items: int, scale: float, backward: bool = False) -> dict:
@@ -1668,6 +1681,10 @@ def phase_fused_layers(ft, device) -> dict:
                     _build.row_norm(q_f, q_n)
                     _build.gemm(q_n, wq[0], pp.q, bias=bq[0])
 
+                # the in-place timing of inverse_pp above leaves its drifted
+                # y in pp.xin's x1 columns (more of it when a trace is
+                # retried, until it overflows): start the check from x's
+                pp.xin[:, :split] = x[:, :split]
                 cond_pp()
                 flc.conditioner_plain(pp.xin, split, fwd.cond_stack.layer(0), q_ref)
                 torch.cuda.synchronize()
@@ -1812,74 +1829,143 @@ def phase_global_kernels(ft, model, device) -> dict:
     return checks
 
 
+def kernel_mean_ms(fn, name: str, reps: int = 10) -> float:
+    """The mean duration of the kernels matching `name` in a torch.profiler
+    trace of reps calls of fn: a call's device ms where fn launches one such
+    kernel. The profiler now and then drops a kernel from a trace, which a
+    sum over the calls (`device_ms`) would count as no time."""
+    durs = [e["dur"] for e in traced_kernels(fn, reps, name)]
+    return sum(durs) / len(durs) / 1e3
+
+
+def _paconv_reading(fn, plain_fn, kernel, flops, moved, peak=PEAK_F32_FLOPS) -> dict:
+    """A call of a wrapper that launches one `kernel`: its wall ms (CUDA
+    events, 10 calls, the host included), device ms (`kernel_mean_ms`), the
+    plain version's wall ms and the bound."""
+    bound_ms, bound_by = bound(flops, moved, peak)
+    return {"wall_ms": time_ms(fn, reps=10), "device_ms": kernel_mean_ms(fn, kernel),
+            "plain_ms": time_ms(plain_fn, reps=2), "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def phase_paconv_kernels(device, items: int):
     """B8 and B9 at the four set-abstraction levels of the PAConv eval path
-    (items = both directions of a good-surf batch) against their plain
-    versions. B8: index-equal. B9: equal slot for slot on integer-valued
+    (items = both directions of a good-surf batch) and of `make_sample`'s one
+    context cloud, against their plain versions.
+    B8: the four levels in one launch, indices and coordinates equal to the
+    plain chain of levels on random clouds and on clouds of duplicated
+    halves; beside its bound, the dependent-chain floor: the picks (sum of m
+    less one a level, 409) times the latency of one barrier and redux round
+    (`_build.fps_round_probe`).
+    B9: the selection of the four levels in one launch and a gather a level:
+    slot lists and outputs equal to the plain versions' on integer-valued
     coordinates (exact distances) in bf16 and f32; on random coordinates at
     most 1e-3 of the (item, centre) rows may differ (a different f32 sum
     order may flip a near-tied 32nd neighbour); slot 0 is always the centre
-    with a zero xyz diff; level 4 has k = 32 > N = 19."""
-    from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda
+    with a zero xyz diff; level 4 has k = 32 > N = 19.
+    Each part's wall and device ms, the plain version's and the bound."""
+    from flowcompare_tpu_torch.ops import _build, fps_cuda, sa_group_cuda as sg
 
     g = torch.Generator().manual_seed(SEED + 30)
-    ms8 = plain8 = ms9 = plain9 = 0.0
-    ops8 = bytes8 = ops9 = bytes9 = 0
-    err9, worst_rows = 0.0, 0.0
-    for n, m, c in SA_LEVELS:
-        x = torch.randn(items, n, 3, generator=g).to(device)
-        got = fps_cuda.furthest_point_sampling(x, m)
-        torch.cuda.synchronize()
-        ref = fps_cuda.furthest_point_sampling_plain(x, m)
-        differ = int((got != ref).sum())
-        ms = time_ms(lambda: fps_cuda.furthest_point_sampling(x, m))
-        pms = time_ms(lambda: fps_cuda.furthest_point_sampling_plain(x, m), reps=2)
-        ms8, plain8 = ms8 + ms, plain8 + pms
-        # m - 1 sweeps of N points, each 3 sub, 3 mul, 2 add and 1 min in f32
-        ops8 += items * (m - 1) * n * 9
-        bytes8 += nbytes(x, got)
-        log(f"B8 fps {items}x{n} -> {m}: picks differing from plain {differ} (tolerance 0); "
-            f"{ms} ms vs plain {pms} ms")
-        assert differ == 0, "B8 picks differ from the plain version"
-
-        def group(fn, xyz, feats):
-            idx = fps_cuda.furthest_point_sampling(xyz, m)
-            centres = torch.gather(xyz, 1, idx[..., None].expand(-1, -1, 3))
-            return fn(centres, idx, xyz, feats, SA_K), idx
-
-        xi = torch.randint(-8, 9, (items, n, 3), generator=g).float().to(device)
-        for dtype in (torch.bfloat16, torch.float32):
-            feats = torch.randn(items, n, c, generator=g).to(device, dtype)
-            got, _ = group(sa_group_cuda.sa_group, xi, feats)
+    ms = [m for _, m, _ in SA_LEVELS]
+    probe = torch.zeros(1, dtype=torch.int32, device=device)
+    rounds = 20000
+    round_ms = time_ms(lambda: _build.fps_round_probe(rounds, probe), reps=3) / rounds
+    picks = sum(ms) - len(ms)
+    b8, b9, gather, worst_rows, err9 = {}, {}, {}, 0.0, 0.0
+    for clouds in (items, 1):
+        x = torch.randn(clouds, SA_LEVELS[0][0], 3, generator=g).to(device)
+        dup = torch.cat([x[:, :SA_LEVELS[0][0] // 2]] * 2, 1)
+        for cloud in (x, dup):
+            idx, out = fps_cuda.furthest_point_sampling_levels(cloud, ms)
             torch.cuda.synchronize()
-            ref, _ = group(sa_group_cuda.sa_group_plain, xi, feats)
-            err9 = max(err9, float((got.float() - ref.float()).abs().max()))
-        feats = torch.randn(items, n, c, generator=g).to(device, torch.bfloat16)
-        got, idx = group(sa_group_cuda.sa_group, x, feats)
-        ref, _ = group(sa_group_cuda.sa_group_plain, x, feats)
-        rows = float((got != ref).flatten(2).any(-1).float().mean())
-        worst_rows = max(worst_rows, rows)
-        centre_feats = torch.gather(feats, 1, idx[..., None].expand(-1, -1, c))
-        assert float(got[:, :, 0, :3].float().abs().max()) == 0.0, "B9 slot 0 is not the centre"
-        assert torch.equal(got[:, :, 0, 3:], centre_feats), "B9 slot 0 is not the centre"
-        centres = torch.gather(x, 1, idx[..., None].expand(-1, -1, 3))
-        ms = time_ms(lambda: sa_group_cuda.sa_group(centres, idx, x, feats, SA_K))
-        pms = time_ms(lambda: sa_group_cuda.sa_group_plain(centres, idx, x, feats, SA_K), reps=2)
-        ms9, plain9 = ms9 + ms, plain9 + pms
-        # the distance expansion: 3 multiply-adds and 2 adds per (centre, point)
-        ops9 += items * m * n * 8
-        bytes9 += nbytes(centres, idx, x, feats, got)
-        log(f"B9 sa_group {items}x{n} -> {m}x{SA_K}x{3 + c}{' (k > N)' if SA_K > n else ''}: "
-            f"integer-coordinate max|err| bf16 and f32 {err9} (tolerance 0), random-coordinate "
-            f"rows differing {rows} (budget 1e-3), slot 0 the centre; {ms} ms vs plain {pms} ms")
+            ref_idx, ref_out = fps_cuda.furthest_point_sampling_levels_plain(cloud, ms)
+            differ = sum(int((a != b).sum()) + int((c != d).sum())
+                         for a, b, c, d in zip(idx, ref_idx, out, ref_out))
+            assert differ == 0, f"B8 picks differ from the plain version ({differ} at {clouds})"
+        idx, out = fps_cuda.furthest_point_sampling_levels(x, ms)
+        # m - 1 sweeps of N points, each 3 sub, 3 mul, 2 add and 1 min in f32
+        r = _paconv_reading(lambda: fps_cuda.furthest_point_sampling_levels(x, ms),
+                            lambda: fps_cuda.furthest_point_sampling_levels_plain(x, ms),
+                            "fps_levels_kernel", clouds * sum((m - 1) * n * 9 for n, m, _ in SA_LEVELS),
+                            nbytes(x, idx, out))
+        r["chain_floor_ms"] = picks * round_ms
+        b8[clouds] = r
+        log(f"B8 fps_levels {clouds}x{SA_LEVELS[0][0]} -> {ms} in one launch: indices and "
+            f"coordinates equal to plain (random and duplicated clouds); {json.dumps(r)}; "
+            f"chain floor {picks} picks x {round_ms} ms a barrier and redux round")
+
+        levels = list(zip(out, idx, [x, *out]))
+        xi = torch.randint(-8, 9, (clouds, SA_LEVELS[0][0], 3), generator=g).float().to(device)
+        ii, oi = fps_cuda.furthest_point_sampling_levels(xi, ms)
+        levels_i = list(zip(oi, ii, [xi, *oi]))
+        sels = sg.sa_select_levels(levels_i, SA_K)
+        torch.cuda.synchronize()
+        ref_sels = [sg.sa_select_plain(*lv, SA_K) for lv in levels_i]
+        assert all(torch.equal(a.long(), b) for a, b in zip(sels, ref_sels)), \
+            "B9's selection not exact on integer coordinates"
+        for dtype in (torch.bfloat16, torch.float32):
+            for (new_xyz, _, xyz), sel, (_, _, c) in zip(levels_i, sels, SA_LEVELS):
+                feats = torch.randn(clouds, xyz.shape[1], c, generator=g).to(device, dtype)
+                got = sg.sa_gather(sel, new_xyz, xyz, feats)
+                ref = sg.sa_gather_plain(sel, new_xyz, xyz, feats)
+                err9 = max(err9, float((got.float() - ref.float()).abs().max()))
         assert err9 == 0.0, "B9 not exact on integer coordinates"
+
+        sels = sg.sa_select_levels(levels, SA_K)
+        ref_sels = [sg.sa_select_plain(*lv, SA_K) for lv in levels]
+        feats = [torch.randn(clouds, n, c, generator=g).to(device, torch.bfloat16)
+                 for n, _, c in SA_LEVELS]
+        for (new_xyz, lidx, xyz), sel, ref_sel, f in zip(levels, sels, ref_sels, feats):
+            got = sg.sa_gather(sel, new_xyz, xyz, f)
+            ref = sg.sa_gather_plain(ref_sel, new_xyz, xyz, f)
+            rows = float((got != ref).flatten(2).any(-1).float().mean())
+            worst_rows = max(worst_rows, rows)
+            assert float(got[:, :, 0, :3].float().abs().max()) == 0.0, "B9 slot 0 is not the centre"
+            assert torch.equal(got[:, :, 0, 3:], torch.gather(
+                f, 1, lidx[..., None].expand(-1, -1, f.shape[-1]))), "B9 slot 0 is not the centre"
+        # the distance expansion: 3 multiply-adds and 2 adds per (centre, point)
+        r = _paconv_reading(lambda: sg.sa_select_levels(levels, SA_K),
+                            lambda: [sg.sa_select_plain(*lv, SA_K) for lv in levels],
+                            "sa_select_kernel", clouds * sum(m * n * 8 for n, m, _ in SA_LEVELS),
+                            nbytes(levels, sels))
+        b9[clouds] = r
+        log(f"B9 sa_select {clouds} clouds, four levels in one launch: {json.dumps(r)}")
+        parts = []
+        for (new_xyz, _, xyz), sel, f, (n, m, c) in zip(levels, sels, feats, SA_LEVELS):
+            out9 = sg.sa_gather(sel, new_xyz, xyz, f)
+            # one f32 subtraction per xyz diff
+            parts.append(_paconv_reading(lambda: sg.sa_gather(sel, new_xyz, xyz, f),
+                                         lambda: sg.sa_gather_plain(sel, new_xyz, xyz, f),
+                                         "sa_gather_kernel", clouds * m * SA_K * 3,
+                                         nbytes(sel, new_xyz, xyz, f, out9)))
+            log(f"B9 sa_gather {clouds}x{n} -> {m}x{SA_K}x{3 + c}"
+                f"{' (k > N)' if SA_K > n else ''}: {json.dumps(parts[-1])}")
+        gather[clouds] = {k: sum(p[k] for p in parts) for k in ("wall_ms", "device_ms",
+                                                                 "plain_ms", "bound_ms")}
+        gather[clouds]["bound_by"] = parts[0]["bound_by"]
+        gather[clouds]["levels"] = parts
+    log(f"B9: integer-coordinate max|err| bf16 and f32 {err9} (tolerance 0), random-coordinate "
+        f"rows differing at most {worst_rows} a level (budget 1e-3), slot 0 the centre")
     assert worst_rows <= 1e-3, f"B9 rows differing {worst_rows} > 1e-3"
-    return {"B8": kernel_entry("furthest_point_sampling (fps)", "flowcompare_tpu_torch/csrc/fps.cu",
-                               "flowcompare_tpu/ops/fps_pallas.py:99", 0.0, ms8, plain8, ops8,
-                               bytes8, peak=PEAK_F32_FLOPS),
-            "B9": kernel_entry("sa_group", "flowcompare_tpu_torch/csrc/sa_group.cu",
-                               "flowcompare_tpu/ops/sa_group_pallas.py:126", err9, ms9, plain9,
-                               ops9, bytes9, peak=PEAK_F32_FLOPS)}
+
+    def entry(name, source, err, r, one):
+        out = kernel_entry(name, source, "", err, r["wall_ms"], r["plain_ms"], 0, 0)
+        out.update(bound_ms=r["bound_ms"], bound_by=r["bound_by"], device_ms=r["device_ms"],
+                   one_cloud={k: one[k] for k in ("wall_ms", "device_ms", "plain_ms",
+                                                   "bound_ms", "bound_by") if k in one})
+        return out
+
+    fps_src, sa_src = ("flowcompare_tpu_torch/csrc/fps.cu", "flowcompare_tpu_torch/csrc/sa_group.cu")
+    out = {"B8": entry("furthest_point_sampling_levels (fps_levels)", fps_src, 0.0, b8[items],
+                       b8[1]),
+           "B9": entry("sa_select (B9's selection)", sa_src, err9, b9[items], b9[1]),
+           "sa_gather": entry("sa_gather (B9's gather)", sa_src, err9, gather[items], gather[1])}
+    out["B8"]["replaces"] = "flowcompare_tpu/ops/fps_pallas.py:99"
+    out["B9"]["replaces"] = out["sa_gather"]["replaces"] = "flowcompare_tpu/ops/sa_group_pallas.py:126"
+    out["B8"]["chain_floor_ms"] = b8[items]["chain_floor_ms"]
+    out["B8"]["round_ms"] = round_ms
+    out["sa_gather"]["levels"] = gather[items]["levels"]
+    return out
 
 
 def flow_context(model, g, items: int, n: int, device):
@@ -2668,7 +2754,8 @@ def _counters():
             (edgeconv_vjp_cuda, "EDGE_KNN_REDUCE_LAUNCHES", "B6"),
             (flow_layer_cuda, "FUSED_FLOW_LAYERS_INVERSE_LAUNCHES", "B7"),
             (fps_cuda, "FPS_LAUNCHES", "B8"),
-            (sa_group_cuda, "SA_GROUP_LAUNCHES", "B9"),
+            (sa_group_cuda, "SA_SELECT_LAUNCHES", "B9"),
+            (sa_group_cuda, "SA_GATHER_LAUNCHES", "sa_gather"),
             (attention_cuda, "FUSED_ATTENTION_CORE_LAUNCHES", "B10"),
             (_build, "GEMM_WGMMA_LAUNCHES", "gemm wgmma"),
             (_build, "GEMM_WMMA_LAUNCHES", "gemm wmma"),
@@ -2750,7 +2837,7 @@ def phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves")):
     assert min(cos.values()) >= 0.99, f"gradient directions differ: {cos}"
     assert all(ck[k] >= 1 for k in need), ck
     assert all(cp[k] == 0 for k in need), cp
-    return {"kernels": rk, "plain": rp, "cosine": cos}
+    return {"kernels": rk, "plain": rp, "cosine": cos, "launches": ck}
 
 
 def phase_train_main(ft, model, device, batch: int = TIME_B,
@@ -2994,21 +3081,34 @@ def phase_eval_profile(ft, model, device, batch: int, trace: str):
                                trace)
 
 
+def check_paconv_launches(launches: dict, what: str, eval_embeds: int,
+                          train_embeds: int = 0) -> None:
+    """PAConv's kernels on a path: B8 once an embed (its four levels in one
+    launch), B9's selection once an eval embed (four levels in one launch)
+    and its gather once a level of an eval embed; training's embeds group
+    with the plain kNN."""
+    want = {"B8": eval_embeds + train_embeds, "B9": eval_embeds, "sa_gather": 4 * eval_embeds}
+    got = {k: launches[k] for k in want}
+    log(f"PAConv launches on {what}: {got} (expected {want})")
+    assert got == want, f"PAConv launches on {what}: {got}, expected {want}"
+
+
 def good_surf_phases(ft, device) -> tuple:
     """The PAConv phases on good-surf at full width and depth: B8 and B9
     against their plain versions, the eval main path, eval timing and a
     profile at the preset's B=25, sampling, the training check at B=2 and
-    train(max_steps=4) at B=25."""
+    train(max_steps=4) at B=25, each path's B8 and B9 launches asserted."""
     t0 = time.perf_counter()
     model = make_model(ft, device, preset="good-surf")
     log(f"model: good-surf bf16 (PAConv), {sum(p.numel() for p in model.parameters())} "
         f"parameters, built in {time.perf_counter() - t0:.1f} s")
     with torch.no_grad():
         entries = phase_paconv_kernels(device, 2 * GS_B)
-    launches = phase_main_path(ft, model, device, need=("B1", "B2", "B8", "B9"))
-    assert launches["B8"] == launches["B9"] == 4 * 2, launches    # 4 levels, 2 items
+    launches = phase_main_path(ft, model, device, need=("B1", "B2", "B8", "B9", "sa_gather"))
+    check_paconv_launches(launches, "the eval main path (2 items)", eval_embeds=2)
     timing = phase_timing(ft, model, device, batch=GS_B)
-    sample_main = phase_sample_main(ft, model, device, need=("B7", "B8", "B9"))
+    sample_main = phase_sample_main(ft, model, device, need=("B7", "B8", "B9", "sa_gather"))
+    check_paconv_launches(sample_main["launches"], "make_sample", eval_embeds=1)
     g = torch.Generator(device=device).manual_seed(SEED + 25)
     x0 = torch.randn((1, model.config["n_samples_context"], 6), generator=g, device=device)
     extra = torch.randn((1, 1), generator=g, device=device)
@@ -3018,8 +3118,12 @@ def good_surf_phases(ft, device) -> tuple:
     profile = phase_eval_profile(ft, model, device, GS_B, "chip_smoke_paconv_eval_trace.json")
     need = ("B5", "B1 with saves", "B8")
     check = phase_train_check(ft, model, device, need=need)
+    check_paconv_launches(check["launches"], "one train_step", eval_embeds=0, train_embeds=1)
     train_main, _ = phase_train_main(ft, model, device, batch=GS_B, need=need)
-    for key in ("B8", "B9"):
+    # the data init and two samples embed in eval, the four steps in training
+    check_paconv_launches(train_main["launches"], "train(max_steps=4, make_samples=True)",
+                          eval_embeds=3, train_embeds=4)
+    for key in ("B8", "B9", "sa_gather"):
         entries[key]["launches"] = launches[key]
     return entries, {"eval_main_path": launches, "timing": timing, "eval_profile": profile,
                      "sampling": sample_main, "training": {"check": check, "main_path": train_main}}
@@ -3208,7 +3312,8 @@ def main() -> int:
         b5_entries[key]["global"] = chk
     entries.update(b5_entries)
     print(json.dumps({"kernels": [entries[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6",
-                                                       "B7", "B8", "B9", "B10", "gemm_bf16",
+                                                       "B7", "B8", "B9", "sa_gather", "B10",
+                                                       "gemm_bf16",
                                                        "gemm_tn", "cross_attention",
                                                        "cross_attention_bwd", "conditioner",
                                                        "coupling_layer", "coupling_inverse",

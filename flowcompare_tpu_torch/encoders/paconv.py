@@ -9,13 +9,16 @@ feature-propagation levels (3-NN interpolation, skip concat, shared MLP)
 and a residual out-MLP head; channels last, weights stored (in, out) under
 the JAX package's tree paths.
 
-Eval (`training=False`) runs B8 (`ops/fps_cuda.py`) and B9
-(`ops/sa_group_cuda.py`) at every level: their kernels on CUDA tensors,
-their plain versions on CPU tensors or with `plain=True`. Training runs B8
-for the indices only (no gradient, as `stop_gradient` in the JAX package),
-then the plain `knn_indices` and index gathers under torch autograd; the
-JAX package's scatter-free gather VJP and one-hot gathers are TPU
-workarounds. The dtype policy is the JAX package's: geometry in f32,
+Every embed starts with B8 (`ops/fps_cuda.py`) for all four levels in one
+call: each level's picks and their coordinates, with no gradient (the
+indices are `stop_gradient` in the JAX package; nothing differentiates
+with respect to the cloud). Eval (`training=False`) then runs B9
+(`ops/sa_group_cuda.py`): its selection for all four levels in one call,
+and a gather a level once that level's features exist. On CUDA tensors
+these are kernels, on CPU tensors or with `plain=True` their plain
+versions. Training runs the plain `knn_indices` and index gathers under
+torch autograd; the JAX package's scatter-free gather VJP and one-hot
+gathers are TPU workarounds. The dtype policy is the JAX package's: geometry in f32,
 features, products and activations at `dtype`, BatchNorm statistics in f32.
 """
 
@@ -28,10 +31,10 @@ import torch
 from ..core.batchnorm import apply_batchnorm, apply_batchnorm_train, init_batchnorm
 from ..core.initializers import xavier_normal
 from ..core.mlp import apply_mlp, gelu, init_mlp
-from ..ops.fps_cuda import furthest_point_sampling, furthest_point_sampling_plain
+from ..ops.fps_cuda import furthest_point_sampling_levels, furthest_point_sampling_levels_plain
 from ..ops.knn import gather_neighbors, knn_indices, three_nn_interpolate
 from ..ops.paconv_ops import paconv_assign_score
-from ..ops.sa_group_cuda import sa_group, sa_group_plain
+from ..ops.sa_group_cuda import sa_gather, sa_gather_plain, sa_select_levels, sa_select_plain
 
 
 def SA_MLPS(c: int) -> list:
@@ -150,15 +153,13 @@ def init_pointnet2_paconv(gen: torch.Generator, *, c: int = 3, k: int = 64,
     return params, state
 
 
-def _sa_level(params, state, xyz, feats, *, training, plain):
-    """One set-abstraction level -> (new_xyz (B, N // 4, 3), features
+def _sa_level(params, state, xyz, feats, idx, new_xyz, sel, *, training, plain):
+    """One set-abstraction level of the cloud xyz (B, N, 3) from its FPS
+    picks idx (B, N // 4) and their coordinates new_xyz (B, N // 4, 3); sel
+    (eval) the level's slot lists from B9's selection -> (features
     (B, N // 4, O), new_states)."""
-    npoint = xyz.shape[1] // 4
-    fps = furthest_point_sampling_plain if plain else furthest_point_sampling
-    idx = fps(xyz.detach(), npoint)
-    new_xyz = torch.gather(xyz, 1, idx[..., None].expand(-1, -1, 3))
     if not training:
-        h = (sa_group_plain if plain else sa_group)(new_xyz, idx, xyz, feats, NSAMPLE)
+        h = (sa_gather_plain if plain else sa_gather)(sel, new_xyz, xyz, feats)
         grouped_xyz_diff = h[..., :3]
     else:
         knn = knn_indices(new_xyz.detach(), xyz.detach(), NSAMPLE, self_idx=idx)
@@ -168,7 +169,7 @@ def _sa_level(params, state, xyz, feats, *, training, plain):
     for lp, ls in zip(params, state):
         h, ns = _apply_paconv_layer(lp, ls, h, grouped_xyz_diff, training=training)
         new_states.append(ns)
-    return new_xyz, h.amax(2), new_states
+    return h.amax(2), new_states
 
 
 def apply_pointnet2_paconv(params, state, pointcloud: torch.Tensor, *, training: bool = False,
@@ -178,16 +179,23 @@ def apply_pointnet2_paconv(params, state, pointcloud: torch.Tensor, *, training:
     dtype: the compute dtype of the features, products and activations
     (None keeps f32); the geometry (FPS, kNN, 3-NN) stays f32 and BatchNorm
     statistics are f32. In eval the state comes back unchanged."""
-    xyz = pointcloud[..., :3].float()
+    xyz = pointcloud[..., :3].float().contiguous()  # one copy for B8, B9 and the 3-NN
     feats = pointcloud[..., 3:]
     if dtype is not None:
         feats = feats.to(dtype)
-    l_xyz, l_feats = [xyz], [feats]
+    ms = [xyz.shape[1] // 4 ** (i + 1) for i in range(4)]
+    fps = furthest_point_sampling_levels_plain if plain else furthest_point_sampling_levels
+    idxs, centres = fps(xyz.detach(), ms)
+    l_xyz, l_feats = [xyz, *centres], [feats]
+    sels = [None] * 4
+    if not training:
+        levels = list(zip(centres, idxs, l_xyz))
+        sels = ([sa_select_plain(*lv, NSAMPLE) for lv in levels] if plain
+                else sa_select_levels(levels, NSAMPLE))
     new_state = {"sa": [], "fp": [None] * 4}
     for i in range(4):
-        nx, nf, ns = _sa_level(params["sa"][i], state["sa"][i], l_xyz[i], l_feats[i],
-                               training=training, plain=plain)
-        l_xyz.append(nx)
+        nf, ns = _sa_level(params["sa"][i], state["sa"][i], l_xyz[i], l_feats[i], idxs[i],
+                           centres[i], sels[i], training=training, plain=plain)
         l_feats.append(nf)
         new_state["sa"].append(ns)
     for i in range(-1, -5, -1):

@@ -109,10 +109,13 @@ _SIGNATURES = {
                                _V],
     "fc_knn_edge_reduce_bwd": [_V, _I, _I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _V],
     "fc_knn_edge_reduce_bwd_scratch": [_I, _I, _I],
-    "fc_fps": [_V, _I, _I, _I, _V, _V],
-    "fc_fps_smem": [_I],
-    "fc_sa_group": [_V, _V, _V, _V, _I, _V, _I, _I, _I, _I, _I, _V],
-    "fc_sa_group_smem": [_I],
+    "fc_fps_levels": [_V, _I, _I, _I, _I, _I, _I, _I, *[_V] * 8, _V],
+    "fc_fps_levels_smem": [_I] * 6,
+    "fc_fps_round_probe": [_I, _V, _V],
+    "fc_sa_select": [_I, _I, _I, _V, _V, _V, _V, _V, _V, _V],
+    "fc_sa_select_smem": [_I],
+    "fc_sa_gather": [_V, _V, _V, _V, _I, _V, _I, _I, _I, _I, _I, _V],
+    "fc_sa_gather_smem": [_I, _I, _I],
     "fc_fused_layer": [_I, _I, _I, _V, _V, _V, _V, _V, _V, _I, _I, _V, _I, _I, _I, _I, _I,
                        _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _F, _V, _V, _V, _V, _V, _I, _V,
                        _V],
@@ -1016,40 +1019,94 @@ def knn_edge_reduce_bwd(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.Tensor,
 _SMEM_LIMIT = 227 * 1024
 
 
-def fps(xyz: torch.Tensor, out: torch.Tensor) -> None:
-    """out (B, m) int64 = the farthest-point picks of each (N, 3) f32 cloud of xyz."""
-    if xyz.dim() != 3 or xyz.shape[2] != 3 or out.dim() != 2 or out.shape[0] != xyz.shape[0]:
-        raise ValueError(f"fps: xyz {tuple(xyz.shape)}, out {tuple(out.shape)}")
+def fps_levels(xyz: torch.Tensor, idx: list, out: list) -> None:
+    """Farthest-point sampling of up to four chained levels in one launch:
+    idx[l] (B, m_l) int64 the picks of level l among the points of level l's
+    cloud (xyz (B, N, 3) f32 at level 0, out[l - 1] after), out[l] (B, m_l,
+    3) f32 their coordinates."""
+    if xyz.dim() != 3 or xyz.shape[2] != 3 or not 1 <= len(idx) == len(out) <= 4:
+        raise ValueError(f"fps_levels: xyz {tuple(xyz.shape)}, {len(idx)} levels")
     b, n, _ = xyz.shape
-    m = out.shape[1]
-    if n < 1 or m < 1:
-        raise ValueError(f"fps: needs n >= 1 and m >= 1 (n={n}, m={m})")
+    ms = [t.shape[1] if t.dim() == 2 else 0 for t in idx]
+    if n < 1 or min(ms) < 1:
+        raise ValueError(f"fps_levels: needs n >= 1 and every m >= 1 (n={n}, m={ms})")
     lib = library()
-    if lib.fc_fps_smem(n) > _SMEM_LIMIT:
-        raise ValueError(f"fps: n={n} exceeds shared memory")
-    _check("fps", lib.fc_fps(_contig(xyz, "fps.xyz", torch.float32, (b, n, 3)), b, n, m,
-                             _contig(out, "fps.out", torch.int64, (b, m)), _stream()))
+    m4 = ms + [1] * (4 - len(ms))
+    smem = lib.fc_fps_levels_smem(n, len(ms), *m4)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"fps_levels: n={n}, m={ms} need {smem} bytes of shared memory, more "
+                         f"than the {_SMEM_LIMIT} a block has (the level clouds at 12 bytes a "
+                         f"point, the running minima past 2048 points at 4)")
+    ptrs = [_contig(t, f"fps_levels.idx[{l}]", torch.int64, (b, m)) for l, (t, m) in
+            enumerate(zip(idx, ms))]
+    ptrs += [None] * (4 - len(ms))
+    ptrs += [_contig(t, f"fps_levels.out[{l}]", torch.float32, (b, m, 3)) for l, (t, m) in
+             enumerate(zip(out, ms))]
+    ptrs += [None] * (4 - len(ms))
+    _check("fps_levels", lib.fc_fps_levels(
+        _contig(xyz, "fps_levels.xyz", torch.float32, (b, n, 3)), b, n, len(ms), *m4, *ptrs,
+        _stream()))
 
 
-def sa_group(new_xyz: torch.Tensor, idx: torch.Tensor, xyz: torch.Tensor, feats: torch.Tensor,
-             out: torch.Tensor, *, k: int) -> None:
-    """out (B, M, k, 3 + C) = each centre's self-pinned exact kNN group of
-    [x_p - centre | feats_p]; feats and out bf16 or f32, coordinates f32."""
+def fps_round_probe(rounds: int, out: torch.Tensor) -> None:
+    """One block of B8's pick reductions without the sweep, `rounds` times in
+    a dependent chain (out: one int32, kept live): its time over rounds is
+    the latency of one barrier and one redux round."""
+    _check("fps_round_probe", library().fc_fps_round_probe(
+        rounds, _contig(out, "fps_round_probe.out", torch.int32, (1,)), _stream()))
+
+
+def sa_select(levels: list, sel: list, *, k: int) -> None:
+    """B9's selection for up to four levels in one launch: levels[l] =
+    (new_xyz (B, M_l, 3) f32, idx (B, M_l) int64, xyz (B, N_l, 3) f32), sel[l]
+    (B, M_l, k) int32 = slot 0 the centre (-1 for an index outside [0, N_l)),
+    slots 1.. its nearest other points ascending, point 0 past N_l."""
+    if not 1 <= len(levels) == len(sel) <= 4:
+        raise ValueError(f"sa_select: {len(levels)} levels, {len(sel)} outputs")
+    if not 1 <= k <= 64:
+        raise ValueError(f"sa_select: needs 1 <= k <= 64 (k={k})")
+    b = levels[0][2].shape[0]
+    lib = library()
+    arrays = [[] for _ in range(6)]
+    for l, ((new_xyz, idx, xyz), out) in enumerate(zip(levels, sel)):
+        n, mc = xyz.shape[1], new_xyz.shape[1]
+        if n < 1 or mc < 1:
+            raise ValueError(f"sa_select: level {l} needs N >= 1 and M >= 1 (N={n}, M={mc})")
+        for a, v in zip(arrays, (
+                _contig(new_xyz, f"sa_select.new_xyz[{l}]", torch.float32, (b, mc, 3)),
+                _contig(idx, f"sa_select.idx[{l}]", torch.int64, (b, mc)),
+                _contig(xyz, f"sa_select.xyz[{l}]", torch.float32, (b, n, 3)),
+                _contig(out, f"sa_select.sel[{l}]", torch.int32, (b, mc, k)), n, mc)):
+            a.append(v)
+    if lib.fc_sa_select_smem(max(arrays[4])) > _SMEM_LIMIT:  # the launch's, for the largest N
+        raise ValueError(f"sa_select: N={max(arrays[4])} exceeds shared memory")
+    ptrs = [(ctypes.c_void_p * 4)(*a) for a in arrays[:4]]
+    ints = [(ctypes.c_int * 4)(*a) for a in arrays[4:]]
+    _check("sa_select", lib.fc_sa_select(len(levels), b, k, *map(ctypes.addressof, ptrs),
+                                         *map(ctypes.addressof, ints), _stream()))
+
+
+def sa_gather(sel: torch.Tensor, new_xyz: torch.Tensor, xyz: torch.Tensor, feats: torch.Tensor,
+              out: torch.Tensor) -> None:
+    """out (B, M, k, 3 + C) = [x_p - centre | feats_p] for the slots of sel
+    (B, M, k) int32 from `sa_select` (NaN rows where slot 0 is -1); feats
+    and out bf16 or f32, coordinates f32."""
     b, n, _ = xyz.shape
-    mc, c = new_xyz.shape[1], feats.shape[-1]
+    mc, k = sel.shape[1], sel.shape[2]
+    c = feats.shape[-1]
     if feats.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"sa_group: features must be bf16 or f32, got {feats.dtype}")
+        raise ValueError(f"sa_gather: features must be bf16 or f32, got {feats.dtype}")
     if not 1 <= k <= 64 or n < 1 or mc < 1:
-        raise ValueError(f"sa_group: needs 1 <= k <= 64, n >= 1, M >= 1 (k={k}, n={n}, M={mc})")
+        raise ValueError(f"sa_gather: needs 1 <= k <= 64, N >= 1, M >= 1 (k={k}, N={n}, M={mc})")
     lib = library()
-    if lib.fc_sa_group_smem(n) > _SMEM_LIMIT:
-        raise ValueError(f"sa_group: n={n} exceeds shared memory")
-    _check("sa_group", lib.fc_sa_group(
-        _contig(new_xyz, "sa_group.new_xyz", torch.float32, (b, mc, 3)),
-        _contig(idx, "sa_group.idx", torch.int64, (b, mc)),
-        _contig(xyz, "sa_group.xyz", torch.float32, (b, n, 3)),
-        _contig(feats, "sa_group.feats", feats.dtype, (b, n, c)), c,
-        _contig(out, "sa_group.out", feats.dtype, (b, mc, k, 3 + c)), b, n, mc, k,
+    if lib.fc_sa_gather_smem(c, k, feats.element_size()) > _SMEM_LIMIT:
+        raise ValueError(f"sa_gather: rows of 3 + {c} elements exceed shared memory")
+    _check("sa_gather", lib.fc_sa_gather(
+        _contig(sel, "sa_gather.sel", torch.int32, (b, mc, k)),
+        _contig(new_xyz, "sa_gather.new_xyz", torch.float32, (b, mc, 3)),
+        _contig(xyz, "sa_gather.xyz", torch.float32, (b, n, 3)),
+        _contig(feats, "sa_gather.feats", feats.dtype, (b, n, c)), c,
+        _contig(out, "sa_gather.out", feats.dtype, (b, mc, k, 3 + c)), b, n, mc, k,
         int(feats.dtype == torch.bfloat16), _stream()))
 
 

@@ -554,6 +554,103 @@ def test_fps_index_equal_to_plain(dev, n, m):
                                fps_cuda.furthest_point_sampling_plain(dup, m), rtol=0, atol=0)
 
 
+def fps_clouds(items: int, n: int, seed: int, device) -> dict:
+    """Clouds of n points: random, duplicated halves, an integer grid and
+    all equal (ties everywhere)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(items, n, 3, generator=g)
+    return {"random": x.to(device),
+            "duplicated": torch.cat([x[:, : n // 2], x[:, : n - n // 2]], 1).to(device),
+            "grid": torch.randint(-3, 4, (items, n, 3), generator=g).float().to(device),
+            "equal": torch.ones(items, n, 3, device=device)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1250, 2600])
+@pytest.mark.parametrize("items", [50, 1])
+def test_fps_levels_index_equal_to_plain(dev, n, items):
+    """B8's four SA levels in one launch on tie-heavy clouds, at the main
+    path's 1,250 points and past the registers' 2,048: each level's picks
+    and coordinates equal the plain version's chain of levels."""
+    from flowcompare_tpu_torch.ops import fps_cuda
+    ms = [n // 4 ** (i + 1) for i in range(4)]
+    for name, x in fps_clouds(items, n, 29, dev).items():
+        idx = [torch.empty(items, m, dtype=torch.int64, device=dev) for m in ms]
+        out = [torch.empty(items, m, 3, device=dev) for m in ms]
+        _build.fps_levels(x, idx, out)
+        torch.cuda.synchronize()
+        ref_idx, ref_out = fps_cuda.furthest_point_sampling_levels_plain(x, ms)
+        for level in range(4):
+            assert torch.equal(idx[level], ref_idx[level]), (name, level)
+            assert torch.equal(out[level], ref_out[level]), (name, level)
+
+
+@pytest.mark.cuda
+def test_fps_levels_counts_one_launch_and_takes_large_clouds(dev):
+    """The entry point launches once for all levels; a cloud past the
+    registers' 2,048 points keeps the rest in shared memory; one past shared
+    memory is refused with the limit named."""
+    from flowcompare_tpu_torch.ops import fps_cuda
+    g = torch.Generator().manual_seed(30)
+    x = rand(g, 3, 1250, 6, device=dev)
+    before = fps_cuda.FPS_LAUNCHES
+    idx, out = fps_cuda.furthest_point_sampling_levels(x, [312, 78, 19, 4])
+    assert fps_cuda.FPS_LAUNCHES == before + 1
+    ref_idx, ref_out = fps_cuda.furthest_point_sampling_levels_plain(x, [312, 78, 19, 4])
+    assert all(torch.equal(a, b) for a, b in zip(idx + out, ref_idx + ref_out))
+    big = rand(g, 2, 14000, 3, device=dev)
+    torch.testing.assert_close(fps_cuda.furthest_point_sampling(big, 64),
+                               fps_cuda.furthest_point_sampling_plain(big, 64), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        fps_cuda.furthest_point_sampling(rand(g, 1, 20000, 3, device=dev), 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sa_select_levels_one_launch_matches_plain(dev, dtype):
+    """B9's selection of the four SA levels of 50 clouds in one launch on
+    integer coordinates (exact distances, crowded ties), then a gather a
+    level: the slot lists equal the plain version's, the groups too."""
+    from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda as sg
+    g = torch.Generator().manual_seed(31)
+    x = torch.randint(-8, 9, (50, 1250, 3), generator=g).float().to(dev)
+    idxs, outs = fps_cuda.furthest_point_sampling_levels_plain(x, [312, 78, 19, 4])
+    levels = list(zip(outs, idxs, [x, *outs]))
+    before = (sg.SA_SELECT_LAUNCHES, sg.SA_GATHER_LAUNCHES)
+    sels = sg.sa_select_levels(levels, 32)
+    groups = []
+    for (new_xyz, _, xyz), sel, c in zip(levels, sels, (3, 64, 128, 256)):
+        feats = rand(g, 50, xyz.shape[1], c, device=dev).to(dtype)
+        groups.append((sg.sa_gather(sel, new_xyz, xyz, feats), new_xyz, xyz, feats))
+    torch.cuda.synchronize()
+    assert (sg.SA_SELECT_LAUNCHES, sg.SA_GATHER_LAUNCHES) == (before[0] + 1, before[1] + 4)
+    for lv, sel, (got, new_xyz, xyz, feats) in zip(levels, sels, groups):
+        ref = sg.sa_select_plain(*lv, 32)
+        assert sel.dtype == torch.int32 and torch.equal(sel.long(), ref)
+        assert torch.equal(got, sg.sa_gather_plain(ref, new_xyz, xyz, feats))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,c", [(32, 3), (32, 64), (32, 256), (12, 5), (16, 7), (40, 8),
+                                 (8, 1), (64, 61)])
+def test_sa_gather_matches_plain_at_every_alignment(dev, dtype, k, c):
+    """The gather's groups, vector and element paths and its head / body /
+    tail stores at row widths and k whose spans start off 16-byte
+    boundaries, against the plain gather of the same slot lists (point 0
+    past N included)."""
+    from flowcompare_tpu_torch.ops import sa_group_cuda as sg
+    g = torch.Generator().manual_seed(32 + k + c)
+    n, mc = 100, 9
+    xyz = rand(g, 3, n, 3, device=dev)
+    feats = rand(g, 3, n, c, device=dev).to(dtype)
+    sel = torch.randint(0, n, (3, mc, k), generator=g).int().to(dev)
+    new_xyz = rand(g, 3, mc, 3, device=dev)
+    got = sg.sa_gather(sel, new_xyz, xyz, feats)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sg.sa_gather_plain(sel, new_xyz, xyz, feats))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,m,c", [(1250, 312, 3), (312, 78, 64), (78, 19, 128), (19, 4, 256)])
@@ -598,16 +695,19 @@ def test_sa_group_out_of_range_centre_gives_nan_rows(dev):
 
 @pytest.mark.cuda
 def test_paconv_eval_encoder_kernels_match_plain(dev):
-    """The eval encoder through B8 and B9 (4 launches each) against the plain
+    """The eval encoder through B8 (one launch for the four levels) and B9
+    (one selection launch, a gather a level) against the plain
     versions: the same picks, and groups that differ only where a rounded
     distance flips a near-tied 32nd neighbour."""
     from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda
     model = tiny_paconv_model(dev)
     x = rand(torch.Generator().manual_seed(22), 2, PACONV_CONTEXT, 6, device=dev)
-    fps_cuda.FPS_LAUNCHES = sa_group_cuda.SA_GROUP_LAUNCHES = 0
+    fps_cuda.FPS_LAUNCHES = sa_group_cuda.SA_SELECT_LAUNCHES = 0
+    sa_group_cuda.SA_GATHER_LAUNCHES = 0
     got, _ = model.embed(x)
     torch.cuda.synchronize()
-    assert fps_cuda.FPS_LAUNCHES == 4 and sa_group_cuda.SA_GROUP_LAUNCHES == 4
+    assert fps_cuda.FPS_LAUNCHES == 1 and sa_group_cuda.SA_SELECT_LAUNCHES == 1
+    assert sa_group_cuda.SA_GATHER_LAUNCHES == 4
     model.plain = True
     ref, _ = model.embed(x)
     err = (got.float() - ref.float()).abs()
@@ -640,7 +740,7 @@ def test_paconv_train_step_kernels_match_plain(dev):
         grads = torch.cat([p.grad.float().reshape(-1) for p in model.parameters()])
         results.append((row, counts, grads))
     (rk, ck, gk), (rp, cp, gp) = results
-    assert ck == (4, 1, 1) and cp == (0, 0, 0)
+    assert ck == (1, 1, 1) and cp == (0, 0, 0)
     assert abs(rk["nats"] - rp["nats"]) <= 0.01 and np.isfinite(rk["loss"])
     assert abs(rk["grad_norm"] - rp["grad_norm"]) <= 0.05 * rp["grad_norm"]
     assert float(torch.nn.functional.cosine_similarity(gk, gp, dim=0)) >= 0.99

@@ -70,6 +70,27 @@ def test_fps_plain_index_equal_to_jax_and_pallas(case):
                                                                      interpret=True)))
 
 
+@pytest.mark.parametrize("kind", ["duplicated", "duplicated_grid"])
+def test_fps_levels_match_jax_sa_level_chain(kind):
+    """The port's one levels call (its plain version on CPU tensors) and the
+    JAX package's chain of `_sa_level` give the same picks and centres at
+    every level, on a cloud of duplicated points."""
+    _, _, jp, js, _ = _pair()
+    rng = np.random.default_rng(13)
+    half = (normal(rng, 2, PACONV_CONTEXT // 2, 6) if kind == "duplicated" else
+            rng.integers(-2, 3, size=(2, PACONV_CONTEXT // 2, 6)).astype(np.float32))
+    x = np.concatenate([half, half], 1)
+    ms = [PACONV_CONTEXT // 4 ** (i + 1) for i in range(4)]
+    idxs, centres = fps_cuda.furthest_point_sampling_levels(t(x), ms)
+    xyz, feats = jnp.asarray(x[..., :3]), jnp.asarray(x[..., 3:])
+    for level, m in enumerate(ms):
+        ref_idx = jfps.furthest_point_sampling(xyz, m)
+        xyz, feats, _ = jpa._sa_level(jp["embedder"]["sa"][level], js["embedder"]["sa"][level],
+                                      xyz, feats, training=False)
+        np.testing.assert_array_equal(idxs[level].numpy(), np.asarray(ref_idx))
+        np.testing.assert_array_equal(centres[level].numpy(), np.asarray(xyz))
+
+
 # ------------------------------------------------------------------ B9
 
 def _sa_inputs(b, nn, m, c, dtype, seed, duplicate=False):
