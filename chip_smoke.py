@@ -159,7 +159,26 @@ Phases, each of which raises on failure (nothing is caught):
 18. swept-energy (last, the helpful-sponge model freed first): the eval
    main path at full width and depth against the plain path, the one path
    through B4 with its head and B2's extra=None packed rows, with the same
-   bounds and launch and fold checks, and eval timing at B=20.
+   bounds and launch and fold checks, and eval timing at B=20;
+19. data (`phase_data`, after the dulcet-universe phases, on that model;
+   summer-terrain's part after swept-energy): the port's data layer
+   (flowcompare_tpu_torch/data, native/) with no JAX: (a) the native
+   libraries built from native/*.cpp and loaded, the native FPS
+   index-equal to its numpy body; (b) a two-epoch street scene written as
+   LAS and LAZ scans with a response.json (build/chip_smoke_data/), the two
+   decodes equal, AmsVoxelLoader's offline build over it in train mode
+   (LAZ) and with include_all (LAS) at the presets' 1,250 / 1,024 points
+   and voxel sizes (clearance 2 m), every item's shapes and finite values,
+   its eval items through evaluate_on_test; (c) dulcet-universe at full
+   width and depth: train(max_steps=2) at B=20 from SyntheticVoxelDataset
+   through PrefetchedDataset, then the eval main path on two include_all
+   batches of B=20 against the plain path (the bounds of step 4); (d)
+   summer-terrain (PAConv, no extra context) at full width and depth, B=25,
+   from SyntheticVoxelDataset(with_extra=False, include_all=True) through
+   the eval main path against the plain path, B8 / B9 / gather launches
+   2 / 2 / 8; (e) the host ms of one batch of 20 of each source (synthetic
+   train and eval, AmsVoxelLoader eval, PackedVoxelDataset) beside the
+   card's ms of one item, with the host CPU's model name.
 
 Prints, last, one JSON line of per-kernel results (B1-B10 with B9's
 gather as `sa_gather`, gemm_bf16,
@@ -177,6 +196,7 @@ Exits non-zero without a CUDA device. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -2554,10 +2574,12 @@ def _b5_gradient_bound(name: str, args, got) -> tuple:
     return bound([(4 * elems, PEAK_F32_FLOPS)], 4 * 5 * elems)
 
 
-def phase_main_path(ft, model, device, need=("B1", "B2", "B3", "B4")):
+def phase_main_path(ft, model, device, need=("B1", "B2", "B3", "B4"), items=None):
     """Full-depth eval through evaluate_on_test; kernel path vs plain path.
-    `need` are the kernels the path must launch."""
-    items = eval_items(model.config, EVAL_B, 2, SEED + 3)
+    `need` are the kernels the path must launch; `items` the eval batches
+    (default: two of EVAL_B random clouds)."""
+    items = items if items is not None else eval_items(model.config, EVAL_B, 2, SEED + 3)
+    batch = len(items[0][1])
     noise = make_noise(device)
     maps_k = []
     torch.cuda.synchronize()
@@ -2583,8 +2605,8 @@ def phase_main_path(ft, model, device, need=("B1", "B2", "B3", "B4")):
     model.plain = False
     assert all(launches[k] > 0 for k in need), f"a kernel of the path never ran: {launches}"
     assert np.isfinite(nats_k) and np.isfinite(nats_p), (nats_k, nats_p)
-    assert len(fr_k) == 2 * EVAL_B and all(0.0 <= f <= 1.0 for f in fr_k), fr_k
-    assert all(m.shape == (EVAL_B, model.config["sample_size"]) for m in maps_k)
+    assert len(fr_k) == len(items) * batch and all(0.0 <= f <= 1.0 for f in fr_k), fr_k
+    assert all(m.shape == (batch, model.config["sample_size"]) for m in maps_k)
     agree = float(torch.cat([(a > 0) == (b > 0) for a, b in zip(maps_k, maps_p)])
                   .float().mean())
     log(f"main path (plain): nats {nats_p}, changed fractions {fr_p}; |d nats| "
@@ -3196,6 +3218,281 @@ def swept_energy_phases(ft, device) -> dict:
     return {"eval_main_path": launches, "timing": timing}
 
 
+# ---------------------------------------------------------------- data layer
+
+DATA_DIR = REPO / "build" / "chip_smoke_data"
+
+
+def host_cpu() -> str:
+    """The host CPU as lscpu names it: its model name, vendor, family and
+    model (a virtual machine's lscpu may say "unknown" for the name)."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    except OSError:
+        return "unknown CPU (no lscpu)"
+    fields = {k.strip(): v.strip() for k, _, v in
+              (line.partition(":") for line in out.splitlines())}
+    return (f"{fields.get('Model name', 'unknown')} ({fields.get('Vendor ID', '?')} family "
+            f"{fields.get('CPU family', '?')} model {fields.get('Model', '?')}, lscpu)")
+
+
+def street_scan(rng: np.random.Generator, changed: bool) -> np.ndarray:
+    """One epoch of a 4 x 2 m street, (N, 6) xyz + rgb in [0, 1]: ground and
+    a 3.9 m facade at 250 points/m^2, dense enough that both 2 x 2 x 4 m
+    voxels along the facade keep more than 1,250 points after the 0.07 m
+    downsample; `changed` adds an 800-point object in front of it."""
+    def part(n, xyz, rgb):
+        return np.concatenate([xyz, np.clip(rng.normal(rgb, 0.05, (n, 3)), 0, 1)], axis=1)
+
+    n_ground, n_wall = 2000, 3900
+    parts = [part(n_ground, np.c_[rng.uniform(-2, 2, n_ground), rng.uniform(-2, 0, n_ground),
+                                  rng.normal(0, 0.01, n_ground)], 0.45),
+             part(n_wall, np.c_[rng.uniform(-2, 2, n_wall), -1 + rng.normal(0, 0.01, n_wall),
+                                rng.uniform(0, 3.9, n_wall)], 0.7)]
+    if changed:
+        parts.append(part(800, rng.normal([-0.8, -0.7, 0.6], 0.25, (800, 3)), 0.3))
+    return np.concatenate(parts)
+
+
+def write_street_scene(root: Path) -> None:
+    """Two epochs of one scan location as LAS and as LAZ files, and the
+    recording metadata (response.json) the AMS corpus carries."""
+    import flowcompare_tpu_torch.data as fdata
+
+    rng = np.random.default_rng(SEED + 40)
+    props = []
+    for i, year in enumerate((2019, 2020)):
+        cloud = street_scan(rng, changed=(i == 1))
+        fdata.save_las(str(root / f"scan{i}.las"), cloud)
+        fdata.write_laz(str(root / f"scan{i}.laz"), cloud)
+        props.append({"ImageId": f"scan{i}", "X": 0.0, "Y": 0.0, "Height": 2.5,
+                      "GroundLevelOffset": 2.5, "RecordingTimeGps": f"{year}-06-01T12:00:00"})
+    (root / "response.json").write_text(json.dumps({"RecordingProperties": props}))
+
+
+def host_batch_ms(make_batch, reps: int = 3) -> list:
+    """Host wall ms of make_batch() (a numpy batch), each of reps calls."""
+    out = []
+    for r in range(reps):
+        t0 = time.perf_counter()
+        batch = make_batch(r)
+        out.append(1e3 * (time.perf_counter() - t0))
+        assert all(a is None or np.isfinite(a).all() for a in batch)
+    return out
+
+
+def eval_item_ms(ft, model, items, device) -> float:
+    """Card ms of one eval item through evaluate_on_test (warm; mean of the items)."""
+    noise = make_noise(device)
+    ft.evaluate_on_test(model, items[:1], noise=noise)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ft.evaluate_on_test(model, items, noise=noise)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / len(items)
+
+
+def check_batch(batch, shapes: list, what: str) -> None:
+    got = [None if a is None else tuple(a.shape) for a in batch]
+    assert got == shapes, f"{what}: shapes {got}, expected {shapes}"
+    assert all(a is None or np.isfinite(a).all() for a in batch), f"{what}: non-finite values"
+
+
+def phase_data(ft, model, device) -> dict:
+    """The port's data layer feeding the dulcet-universe model (full width
+    and depth, its weights as the earlier phases left them):
+    (a) the native libraries built from native/*.cpp (timed) and loaded, the
+    native FPS index-equal to its numpy body on a 2,000-point cloud;
+    (b) a two-epoch street scene written as LAS and LAZ scans with a
+    response.json, the LAS and LAZ decodes equal, AmsVoxelLoader's offline
+    build (registration, voxel pairing; clearance 2 m instead of the
+    presets' 10 to keep the registration to seconds) over the LAZ scans in
+    train mode and over the LAS scans with include_all, at the presets'
+    1,250 context and 1,024 target points and voxel sizes: every item's
+    shapes and finite values, and the eval items through evaluate_on_test;
+    (c) train(max_steps=2) at B=20 from SyntheticVoxelDataset through
+    PrefetchedDataset (B5, B6 and B1 with saves counted), then the eval
+    main path on two include_all batches of B=20 from SyntheticVoxelDataset
+    against the plain path (|d nats| <= 0.01, change maps >= 99.9%);
+    (e) host ms of one batch of 20 of each source (synthetic train,
+    synthetic eval, AmsVoxelLoader eval on this scene, PackedVoxelDataset
+    over packed synthetic train items) beside the card's ms of one item.
+    The native libraries were loaded, and the loaders have no other path."""
+    import flowcompare_tpu_torch.data as fdata
+    from flowcompare_tpu_torch import native
+    from flowcompare_tpu_torch.data import laz
+    from flowcompare_tpu_torch.train.metrics import MetricWriter
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    nc, n = cfg["n_samples_context"], cfg["sample_size"]
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    DATA_DIR.mkdir(parents=True)
+    out = {"host_cpu": host_cpu(), "host_cores": len(os.sched_getaffinity(0))}
+
+    # (a) the native libraries
+    t0 = time.perf_counter()
+    libs = [native.build_library(src) for src in ("native_ops.cpp", "laz_codec.cpp")]
+    out["native_build_s"] = time.perf_counter() - t0
+    cloud = np.random.default_rng(SEED + 41).normal(size=(2000, 6)).astype(np.float32)
+    t0 = time.perf_counter()
+    idx = native.fps_indices(cloud, nc)
+    out["fps_native_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ref = native.fps_indices_plain(cloud, nc)
+    out["fps_plain_ms"] = 1e3 * (time.perf_counter() - t0)
+    assert np.array_equal(idx, ref), "native FPS differs from its numpy body"
+
+    # (b) LAS and LAZ scans through AmsVoxelLoader
+    scene = DATA_DIR / "scene"
+    scene.mkdir()
+    write_street_scene(scene)
+    for i in range(2):
+        las_cloud = fdata.load_cloud(str(scene / f"scan{i}.las"))
+        assert np.array_equal(las_cloud, fdata.load_cloud(str(scene / f"scan{i}.laz"))), i
+    kw = dict(clearance=2, n_samples=n, n_samples_context=nc,
+              final_voxel_size=cfg["final_voxel_size"],
+              context_voxel_size=cfg["context_voxel_size"], voxel_size_final_downsample=0.07,
+              min_cloud_points=1500, seed=SEED + 42)
+    t0 = time.perf_counter()
+    train_loader = fdata.AmsVoxelLoader(str(scene), str(scene), str(DATA_DIR / "ams_train"),
+                                        mode="train", cloud_ext=".laz", **kw)
+    out["ams_train_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eval_loader = fdata.AmsVoxelLoader(str(scene), str(scene), str(DATA_DIR / "ams_test"),
+                                       mode="test", include_all=True, cloud_ext=".las", **kw)
+    out["ams_eval_build_s"] = time.perf_counter() - t0
+    out["ams_items"] = {"train": len(train_loader), "eval": len(eval_loader)}
+    assert len(train_loader) >= 2 and len(eval_loader) >= 1, out["ams_items"]
+    for batch in fdata.batch_iterator(train_loader, len(train_loader), shuffle=True):
+        check_batch(batch, [(len(train_loader), nc, 6), (len(train_loader), n, 6),
+                            (len(train_loader), 1)], "AmsVoxelLoader train items")
+    ams_eval = list(fdata.eval_batches(eval_loader, len(eval_loader)))
+    b = len(eval_loader)
+    check_batch(ams_eval[0], [(b, s, 6) if s else (b, 1) for s in
+                              (nc, n, 0, nc, n, n, nc, n, nc, n, n)], "AmsVoxelLoader eval items")
+    nats_ams, changed_ams = ft.evaluate_on_test(model, ams_eval, noise=make_noise(device))
+    assert np.isfinite(nats_ams) and len(changed_ams) == b, (nats_ams, changed_ams)
+    out["ams_eval"] = {"nats": nats_ams, "changed_fractions": changed_ams}
+    assert native._lib is not None and Path(native._lib._name) == libs[0]
+    assert laz._lib is not None and Path(laz._lib._name) == libs[1]
+    log(f"data: native libraries {[p.name for p in libs]} in {out['native_build_s']:.2f} s; "
+        f"FPS 2000 -> {nc} native {out['fps_native_ms']:.3f} ms, numpy "
+        f"{out['fps_plain_ms']:.1f} ms, index-equal; AmsVoxelLoader on the street scene: "
+        f"train (LAZ) {len(train_loader)} items built in {out['ams_train_build_s']:.2f} s, "
+        f"include_all (LAS) {b} items in {out['ams_eval_build_s']:.2f} s, shapes and "
+        f"values checked; evaluate_on_test on them: nats {nats_ams}, changed {changed_ams}")
+
+    # (c) dulcet-universe trains and evaluates from the port's datasets
+    rows = []
+
+    class Rows(MetricWriter):
+        def log(self, metrics, step=None):
+            rows.append(dict(metrics))
+
+    source = fdata.PrefetchedDataset(fdata.SyntheticVoxelDataset(
+        n_items=2 * TIME_B, batch_size=TIME_B, sample_size=n, n_samples_context=nc,
+        seed=SEED + 43))
+    torch.cuda.synchronize()
+    reset_counters()
+    ft.train(model, source, generator=torch.Generator(device=device).manual_seed(SEED + 44),
+             writer=Rows(), save_dir=str(DATA_DIR / "train"), run_name="data", max_steps=2,
+             make_samples=False)
+    torch.cuda.synchronize()
+    launches, chains = read_counters(), CHAIN_ROUTES.read()
+    check_routes(launches, chains, "train(max_steps=2) from SyntheticVoxelDataset",
+                 attention=("attention wgmma", "attention_bwd wgmma"))
+    check_flow_launches(chains, "train(max_steps=2) from SyntheticVoxelDataset", True)
+    check_b5_launches(chains, "train(max_steps=2) from SyntheticVoxelDataset", True)
+    check_b4_b2(chains, "train(max_steps=2) from SyntheticVoxelDataset")
+    losses = [r["loss"] for r in rows]
+    assert len(rows) == 2 and all(np.isfinite(losses)), losses
+    assert all(launches[k] >= 1 for k in ("B5", "B6", "B1 with saves", "B3")), launches
+    out["train"] = {"losses": losses, "step_ms": [1e3 * r["time_batch"] for r in rows],
+                    "launches": {k: launches[k] for k in ("B1", "B1 with saves", "B3", "B4",
+                                                          "B5", "B6")}}
+    log(f"data: train(max_steps=2) at B={TIME_B} from PrefetchedDataset(SyntheticVoxelDataset):"
+        f" {out['train']}")
+    eval_src = fdata.SyntheticVoxelDataset(n_items=2 * TIME_B, batch_size=TIME_B, sample_size=n,
+                                           n_samples_context=nc, include_all=True, mode="test",
+                                           seed=SEED + 45)
+    items = list(eval_src)
+    out["eval_main_path"] = phase_main_path(ft, model, device, items=items)
+    out["card_eval_item_ms"] = eval_item_ms(ft, model, items, device)
+    out["card_train_step_ms"] = out["train"]["step_ms"][-1]
+
+    # (e) host ms of a batch of each source beside the card's ms of an item
+    reps = 3
+    train_src = fdata.SyntheticVoxelDataset(n_items=reps * TIME_B, batch_size=TIME_B,
+                                            sample_size=n, n_samples_context=nc, seed=SEED + 46)
+    train_batches = iter(train_src)
+    eval_batches = iter(fdata.SyntheticVoxelDataset(
+        n_items=reps * TIME_B, batch_size=TIME_B, sample_size=n, n_samples_context=nc,
+        include_all=True, mode="test", seed=SEED + 47))
+    t0 = time.perf_counter()
+    fdata.pack_dataset(train_src, str(DATA_DIR / "train.fcpack"))
+    out["pack_s"] = time.perf_counter() - t0
+    packed = iter(fdata.PackedVoxelDataset(str(DATA_DIR / "train.fcpack"), TIME_B, shuffle=True,
+                                           seed=SEED))
+
+    def ams_batch(r):
+        picks = [eval_loader.get_item_all((r * TIME_B + i) % len(eval_loader))
+                 for i in range(TIME_B)]
+        return tuple(np.stack(parts) for parts in zip(*picks))
+
+    host = {"synthetic_train": host_batch_ms(lambda r: next(train_batches), reps),
+            "synthetic_eval": host_batch_ms(lambda r: next(eval_batches), reps),
+            "ams_eval": host_batch_ms(ams_batch, reps),
+            "packed_train": host_batch_ms(lambda r: next(packed), reps)}
+    out["host_batch_ms"] = host
+    out["phase_s"] = time.perf_counter() - t_phase
+    med = {k: float(np.median(v)) for k, v in host.items()}
+    log(f"data host ms a batch of {TIME_B} on {out['host_cpu']} ({out['host_cores']} cores), "
+        f"{reps} batches each (median): synthetic train {host['synthetic_train']} "
+        f"({med['synthetic_train']:.1f}), synthetic eval {host['synthetic_eval']} "
+        f"({med['synthetic_eval']:.1f}), AmsVoxelLoader eval {host['ams_eval']} "
+        f"({med['ams_eval']:.1f}), PackedVoxelDataset train {host['packed_train']} "
+        f"({med['packed_train']:.2f}; packing {reps * TIME_B} items {out['pack_s']:.2f} s); "
+        f"card ms an item (dulcet-universe B={TIME_B}): eval {out['card_eval_item_ms']:.2f}, "
+        f"train step {out['card_train_step_ms']:.2f}; phase {out['phase_s']:.1f} s")
+    return out
+
+
+def summer_terrain_phase(ft, device) -> dict:
+    """(d) of the data phase: summer-terrain (PAConv, no extra context) at
+    full width and depth (B=25) evaluated from SyntheticVoxelDataset(
+    with_extra=False, include_all=True) through evaluate_on_test, against
+    the plain path (|d nats| <= 0.01, change maps >= 99.9%), with B8's,
+    B9's and its gather's launches (2 / 2 / 8 for the two items), the host
+    ms of one batch beside the card's ms of one item."""
+    import flowcompare_tpu_torch.data as fdata
+
+    t_phase = time.perf_counter()
+    model = make_model(ft, device, preset="summer-terrain")
+    cfg = model.config
+    log(f"model: summer-terrain bf16 (PAConv, no extra context), "
+        f"{sum(p.numel() for p in model.parameters())} parameters, built in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    b = cfg["batch_size"]
+    source = iter(fdata.SyntheticVoxelDataset(
+        n_items=3 * b, batch_size=b, sample_size=cfg["sample_size"],
+        n_samples_context=cfg["n_samples_context"], with_extra=False, include_all=True,
+        mode="test", seed=SEED + 48))
+    t0 = time.perf_counter()
+    items = [next(source), next(source)]
+    host_ms = 1e3 * (time.perf_counter() - t0) / 2
+    launches = phase_main_path(ft, model, device, need=("B1", "B2", "B8", "B9", "sa_gather"),
+                               items=items)
+    assert launches["B3"] == launches["B4"] == launches["B10"] == 0, launches
+    check_paconv_launches(launches, "summer-terrain's eval (2 items)", eval_embeds=2)
+    out = {"batch": b, "eval_main_path": launches, "host_eval_batch_ms": host_ms,
+           "card_eval_item_ms": eval_item_ms(ft, model, items, device)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"summer-terrain B={b}: host ms a synthetic eval batch {host_ms:.1f}, card ms an eval "
+        f"item {out['card_eval_item_ms']:.2f}; phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3281,6 +3578,7 @@ def main() -> int:
     gemm_entries["gemm_tn"]["launches"] = train_main["launches"]["gemm_tn wgmma"]
     gemm_entries["gemm_tn"]["comparison_route_launches"] = b5_fused[
         "per_product_gemm_tn_launches"]
+    data = phase_data(ft, model, device)
     del model
     torch.cuda.empty_cache()
     paconv_entries, good_surf = good_surf_phases(ft, device)
@@ -3291,6 +3589,10 @@ def main() -> int:
         entries[key]["global"] = chk
     torch.cuda.empty_cache()
     swept_energy = swept_energy_phases(ft, device)
+    torch.cuda.empty_cache()
+    data["summer_terrain"] = summer_terrain_phase(ft, device)
+    data["phase_s"] += data["summer_terrain"]["phase_s"]
+    log(f"data phase (with summer-terrain's): {data['phase_s']:.1f} s")
     entries["B10"] = b10
     print(json.dumps({"main_path": timing, "eval_profile": eval_profile,
                       "sampling": {"main_path": sample_main,
@@ -3299,7 +3601,7 @@ def main() -> int:
                       "training": {"check": check, "main_path": train_main, "split": split,
                                    "profile": profile},
                       "good_surf": good_surf, "helpful_sponge": helpful_sponge,
-                      "swept_energy": swept_energy,
+                      "swept_energy": swept_energy, "data": data,
                       "b10": b10_entry_point, "gemm": gemm_cases, "attention": attention_cases,
                       "fused_layers": fused_cases, "main_path_bounds": main_bounds,
                       "knn_split": knn_split,
