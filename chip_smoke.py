@@ -176,7 +176,11 @@ Phases, each of which raises on failure (nothing is caught):
    summer-terrain (PAConv, no extra context) at full width and depth, B=25,
    from SyntheticVoxelDataset(with_extra=False, include_all=True) through
    the eval main path against the plain path, B8 / B9 / gather launches
-   2 / 2 / 8; (e) the host ms of one batch of 20 of each source (synthetic
+   2 / 2 / 8, then its make_sample of 1 x 4000 (B7, B8, B9 and the gather;
+   1 / 1 / 4) and its training check at B=2 (B5, B1 with saves, B8 alone)
+   against the plain path with the bounds of steps 6 and 8, the first
+   sampling and training through PAConv with B5's and B7's extra=None
+   branches; (e) the host ms of one batch of 20 of each source (synthetic
    train and eval, AmsVoxelLoader eval, PackedVoxelDataset) beside the
    card's ms of one item, with the host CPU's model name;
 20. flow variants (`phase_variants`, last, the previous model freed
@@ -207,7 +211,24 @@ Phases, each of which raises on failure (nothing is caught):
    eval item's ms and points/s, and swept-energy's sampling and training
    checks at full width (`phase_sample_main`, `phase_train_check`: B7 and
    B5 with extra=None); each subcommand's wall seconds printed beside the
-   card's name and power limit.
+   card's name and power limit;
+22. routes from the shapes (`phase_c1`, after the variants): three bf16
+   dulcet-universe configs at 2 layers and full width that the kernels
+   refuse part by part (D = 32: the stack and the augmenter; a 1,024-wide
+   coupling MLP: the stack and the augmenter; k = 80: the encoder), each
+   printing `model.routes`; log_prob, one train_step after the data init
+   and make_sample of 1 x 4000 at B=2 on CUDA against plain=True (|d nats|
+   <= 0.01), the refused parts' kernels never launched and the others'
+   launched; every preset model `make_model` builds must read "kernels"
+   for every part;
+23. the convergence demo (`phase_demo`, last):
+   examples/convergence_demo_torch.py in processes of its own into
+   build/chip_smoke_demo/ (cross_dim_head 32, the JAX demo's: the stack and
+   the augmenter plain, the DGCNN on B4, B3 and B6) and
+   build/chip_smoke_demo_d64/ (64: every part on its kernels, 240 steps
+   through B5), each held to loss last8 < first8, AUC >= 0.95, its routes
+   and its kernels' launches; then the round trip z -> B7 -> B1 -> z' layer
+   by layer on the D = 64 run's checkpoint, kernels and plain.
 
 Prints, last, one JSON line of per-kernel results (B1-B10 with B9's
 gather as `sa_gather`, gemm_bf16,
@@ -292,10 +313,15 @@ def perturb_identity_leaves(model, gen: torch.Generator) -> None:
 
 
 def make_model(ft, device, preset: str = "dulcet-universe", **overrides):
+    """The preset under bf16 with random weights from SEED. A preset at its
+    own widths (overrides of the depth at most) must read "kernels" for
+    every part of `model.routes`: no preset falls off its kernels."""
     cfg = ft.get_config(preset)
     cfg.update(compute_dtype="bfloat16", **overrides)
     model = ft.FlowCompareModel(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
     perturb_identity_leaves(model, torch.Generator().manual_seed(SEED + 1))
+    if set(overrides) <= {"n_flow_layers"}:
+        assert all(r == "kernels" for r in model.routes.values()), (preset, dict(model.routes))
     return model
 
 
@@ -3498,7 +3524,14 @@ def summer_terrain_phase(ft, device) -> dict:
     with_extra=False, include_all=True) through evaluate_on_test, against
     the plain path (|d nats| <= 0.01, change maps >= 99.9%), with B8's,
     B9's and its gather's launches (2 / 2 / 8 for the two items), the host
-    ms of one batch beside the card's ms of one item."""
+    ms of one batch beside the card's ms of one item; then its sampling and
+    training checks at full width and depth, the first to run PAConv with
+    B7's and B5's extra=None branches: make_sample of 1 x 4000 against the
+    plain samples of the same z (|d nats| <= 0.01; B7, B8, B9 and the
+    gather launched, 1 / 1 / 4 of PAConv's), and one train_step at B=2
+    through the kernels against the plain versions (|d nats| <= 0.01, grad
+    norm within 5%, cosine >= 0.99; B5, B1 with saves and B8 launched, B8
+    alone of PAConv's)."""
     import flowcompare_tpu_torch.data as fdata
 
     t_phase = time.perf_counter()
@@ -3521,9 +3554,20 @@ def summer_terrain_phase(ft, device) -> dict:
     check_paconv_launches(launches, "summer-terrain's eval (2 items)", eval_embeds=2)
     out = {"batch": b, "eval_main_path": launches, "host_eval_batch_ms": host_ms,
            "card_eval_item_ms": eval_item_ms(ft, model, items, device)}
+    t0 = time.perf_counter()
+    out["sampling"] = phase_sample_main(ft, model, device, need=("B7", "B8", "B9", "sa_gather"))
+    check_paconv_launches(out["sampling"]["launches"], "summer-terrain's make_sample",
+                          eval_embeds=1)
+    out["sampling"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["training"] = phase_train_check(ft, model, device, need=("B5", "B1 with saves", "B8"))
+    check_paconv_launches(out["training"]["launches"], "summer-terrain's train_step",
+                          eval_embeds=0, train_embeds=1)
+    out["training"]["phase_s"] = time.perf_counter() - t0
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"summer-terrain B={b}: host ms a synthetic eval batch {host_ms:.1f}, card ms an eval "
-        f"item {out['card_eval_item_ms']:.2f}; phase {out['phase_s']:.1f} s")
+        f"item {out['card_eval_item_ms']:.2f}; sampling check {out['sampling']['phase_s']:.1f} "
+        f"s, training check {out['training']['phase_s']:.1f} s; phase {out['phase_s']:.1f} s")
     return out
 
 # ------------------------------------------------------------------- the CLI
@@ -3896,6 +3940,236 @@ def phase_variants(ft, device, dulcet_item_s: float) -> dict:
     log(f"variant phase: {out['phase_s']:.1f} s")
     return out
 
+# ------------------------------------------------- routes from the shapes
+
+# Three small bf16 configs (dulcet-universe at 2 layers, B=2) outside the
+# kernels' shape limits, and the parts each must send to the plain route
+C1_B = 2
+C1_CASES = (
+    ("D = 32", {"cross_dim_head": 32}, ("stack", "augmenter")),
+    ("1,024-wide coupling MLP", {"hidden_dims": [1024, 1024, 1024]}, ("stack", "augmenter")),
+    ("k = 80", {"n_neighbors": 80}, ("encoder",)),
+)
+# the kernels of each part, by the counters: none may launch where the part
+# is refused, each part on its kernels launches on the path that runs it
+C1_PART_KERNELS = {"stack": {"eval": ("B1",), "train": ("B5", "B1 with saves"),
+                             "sample": ("B7",)},
+                   "augmenter": {"eval": ("B2",), "train": (), "sample": ()},
+                   "encoder": {"eval": ("B4", "B3"), "train": ("B6",), "sample": ("B4", "B3")}}
+
+
+def _c1_check_launches(name: str, routes: dict, path: str, launches: dict) -> None:
+    for part, kernels in C1_PART_KERNELS.items():
+        for k in kernels[path]:
+            if routes[part] == "kernels":
+                assert launches[k] >= 1, (name, path, part, k, launches)
+            else:
+                assert launches[k] == 0, (name, path, part, k, launches)
+
+
+def phase_c1(ft, device) -> dict:
+    """Configs outside the kernels' shapes on the card (ROADMAP queue C1):
+    D = 32, a 1,024-wide coupling MLP and k = 80, each a bf16
+    dulcet-universe at 2 layers and full width, B=2. Each prints its routes
+    and must refuse the expected parts; its log_prob (inner_loop eval), one
+    train_step after the data init and one make_sample of 1 x 4000 run on
+    CUDA tensors, each held to the same model with plain=True on the same
+    noise (|d nats| <= 0.01; the samples scored by the eval path), with the
+    counters showing the refused parts' kernels never launched and the
+    others' launched."""
+    from flowcompare_tpu_torch.model import inner_loop
+
+    out = {}
+    for name, overrides, refused in C1_CASES:
+        t0 = time.perf_counter()
+        model = make_model(ft, device, n_flow_layers=2, **overrides)
+        cfg, routes = model.config, dict(model.routes)
+        log(f"C1 {name}: routes {routes}")
+        assert {p for p, r in routes.items() if r != "kernels"} == set(refused), (name, routes)
+        rng = np.random.default_rng(SEED + 80)
+        batch = tuple(torch.as_tensor(a, device=device) for a in (
+            rng.normal(size=(C1_B, cfg["n_samples_context"], 6)).astype(np.float32),
+            rng.normal(size=(C1_B, cfg["sample_size"], 6)).astype(np.float32),
+            rng.normal(size=(C1_B, 1)).astype(np.float32)))
+        gen = torch.Generator(device=device).manual_seed(SEED + 81)
+        shape = (C1_B, cfg["sample_size"], cfg["latent_dim"] - cfg["input_dim"])
+        eps_init, eps = (torch.randn(shape, generator=gen, device=device) for _ in range(2))
+        z = SAMPLE_STD * torch.randn((1, SAMPLE_N, cfg["latent_dim"]), generator=gen,
+                                     device=device)
+        row = {"routes": routes}
+        # eval: inner_loop through the kernels' routes, then plain
+        nats = []
+        for plain in (False, True):
+            model.plain = plain
+            reset_counters()
+            nats.append(float(inner_loop(model, batch, eps=eps)[2]))
+            if not plain:
+                _c1_check_launches(name, routes, "eval", read_counters())
+        row["eval"] = {"nats": nats, "abs_d_nats": abs(nats[0] - nats[1])}
+        # one train_step from the data init's state, kernels then plain
+        model.plain = False
+        ft.data_init_from_batch(ft.init_train_state(model), batch, eps=eps_init)
+        snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+        steps = []
+        for plain in (False, True):
+            model.load_state_dict(snapshot)
+            model.plain = plain
+            reset_counters()
+            _, step = ft.train_step(ft.init_train_state(model), batch, eps=eps)
+            if not plain:
+                _c1_check_launches(name, routes, "train", read_counters())
+            steps.append(step)
+        model.load_state_dict(snapshot)
+        row["train"] = {"kernels": steps[0], "plain": steps[1],
+                        "abs_d_nats": abs(steps[0]["nats"] - steps[1]["nats"]),
+                        "grad_norm_ratio": steps[0]["grad_norm"] / steps[1]["grad_norm"]}
+        # one make_sample of 1 x 4000 from the same z, both scored by the eval path
+        xs = []
+        for plain in (False, True):
+            model.plain = plain
+            reset_counters()
+            xs.append(ft.make_sample(model, SAMPLE_N, batch[0][:1], batch[2][:1], z=z))
+            if not plain:
+                _c1_check_launches(name, routes, "sample", read_counters())
+        model.plain = False
+        eps_s = torch.randn((1, SAMPLE_N, cfg["latent_dim"] - cfg["input_dim"]), generator=gen,
+                            device=device)
+        snats = [float(inner_loop(model, (batch[0][:1], x, batch[2][:1]), eps=eps_s)[2])
+                 for x in xs]
+        row["sample"] = {"nats": snats, "abs_d_nats": abs(snats[0] - snats[1]),
+                         "max_abs_dx": float((xs[0] - xs[1]).abs().max())}
+        row["phase_s"] = time.perf_counter() - t0
+        log(f"C1 {name}: {row} (|d nats| tolerance 0.01)")
+        assert all(torch.isfinite(x).all() for x in xs), name
+        assert np.isfinite(nats + snats + [steps[0]["loss"], steps[1]["loss"]]).all(), row
+        for path in ("eval", "train", "sample"):
+            assert row[path]["abs_d_nats"] <= 0.01, (name, path, row[path])
+        out[name] = row
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------ the convergence demo
+
+DEMO = REPO / "examples" / "convergence_demo_torch.py"
+DEMO_AUC_MIN = 0.95          # and loss last8 < first8 (PERF.md, set before the first run)
+# the routes each run must read (the demo's config at its cross_dim_head)
+DEMO_RUNS = (("D = 32", 32, REPO / "build" / "chip_smoke_demo", ("stack", "augmenter")),
+             ("D = 64", 64, REPO / "build" / "chip_smoke_demo_d64", ()))
+
+
+def _finite_gap(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(max |a - b| over the points finite in both, the points that are not)."""
+    ok = torch.isfinite(a).all(-1) & torch.isfinite(b).all(-1)
+    gap = float((a - b)[ok].abs().max()) if ok.any() else float("nan")
+    return gap, int((~ok).sum())
+
+
+def round_trip_by_layer(model, device, seed: int) -> dict:
+    """The bf16 round trips through the folded stack on `model`'s weights,
+    layer by layer (one-layer folded slices), on the kernels (B7, B1) and
+    on their plain versions, conditioned on a synthetic scene's context
+    cloud: "z": z ~ 0.6 N(0, I) (1 x SAMPLE_N) -> inverse -> forward, the
+    inverse's state h_l (after layers L-1 .. l) against the forward's after
+    layers 0 .. l-1 run from the inverse's x; "x": the
+    scene's augmented target cloud -> forward -> inverse, the forward's
+    state x_l against the inverse's h_l. Each layer's max |gap| over the
+    points finite on both sides, and the points that are not."""
+    import flowcompare_tpu_torch.data as fdata
+    from flowcompare_tpu_torch.ops import flow_layer_cuda as flc
+
+    cfg = model.config
+    item = next(iter(fdata.SyntheticVoxelDataset(
+        n_items=1, batch_size=1, sample_size=cfg["sample_size"],
+        n_samples_context=cfg["n_samples_context"], mode="train", seed=seed)))
+    x0, x1, extra = (torch.as_tensor(a, device=device) for a in item)
+    g = torch.Generator(device=device).manual_seed(seed)
+    z = SAMPLE_STD * torch.randn((1, SAMPLE_N, cfg["latent_dim"]), generator=g, device=device)
+    out = {}
+    with torch.no_grad():
+        emb, _ = model.embed(x0[..., :cfg["input_dim"]])
+        params = model.params()
+        folded_inv = model._folded_inverse(params, 1)
+        eps = torch.randn((1, x1.shape[1], cfg["latent_dim"] - cfg["input_dim"]), generator=g,
+                          device=device)
+        ex1 = extra[:, None, :].expand(1, x1.shape[1], 1)
+        xa, _ = model._augment_fwd(params["augmenter"], eps, x1[..., :cfg["input_dim"]], emb, ex1)
+        n_layers = folded_inv["lu_ldj_f"].shape[0]
+        for route, inverse, forward in (
+                ("kernels", flc.fused_flow_layers_inverse, flc.fused_flow_layers),
+                ("plain", flc.fused_flow_layers_inverse_plain, flc.fused_flow_layers_plain)):
+            row = {}
+            for trip, start in (("z", z), ("x", xa.float())):
+                ext = extra[:, None, :].expand(1, start.shape[1], 1)
+                zeros = torch.zeros(1, start.shape[1], device=device)
+                layer = [flc.layer_slice(folded_inv, l) for l in range(n_layers)]
+                if trip == "z":
+                    h, inv = start, [None] * n_layers
+                    for l in reversed(range(n_layers)):
+                        h = inverse(h, emb, ext, layer[l])
+                        inv[l] = h
+                    x, fwd = h, []
+                    for l in range(n_layers):
+                        fwd.append(x)
+                        x, _ = forward(x, zeros, emb, ext, layer[l])
+                    end = x
+                else:
+                    x, fwd = start, []
+                    for l in range(n_layers):
+                        fwd.append(x)
+                        x, _ = forward(x, zeros, emb, ext, layer[l])
+                    h, inv = x, [None] * n_layers
+                    for l in reversed(range(n_layers)):
+                        h = inverse(h, emb, ext, layer[l])
+                        inv[l] = h
+                    end = h
+                gaps = [_finite_gap(f, i) for f, i in zip(fwd, inv)]
+                row[trip] = {"gap_by_layer": [gp for gp, _ in gaps],
+                             "nonfinite_points_by_layer": [k for _, k in gaps],
+                             "end_gap": _finite_gap(end, start)}
+            out[route] = row
+    return out
+
+
+def phase_demo(ft, device) -> dict:
+    """examples/convergence_demo_torch.py on the card, twice, each in a
+    process of its own: at the JAX demo's cross_dim_head 32 (the layer stack
+    and the augmenter on the plain route, the DGCNN on B4, B3 and B6) and at
+    64 (every part on its kernels: 240 steps through B1 with saves and B5's
+    backward). Each run must learn (loss last8 < first8), score change
+    (AUC >= DEMO_AUC_MIN), read the routes it expects and launch the
+    kernels of its routes; then the D = 64 run's checkpoint gives the round
+    trip's gap layer by layer (`round_trip_by_layer`)."""
+    out = {}
+    for name, d, where, plain_parts in DEMO_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(DEMO), "--out", str(where),
+                               "--cross-dim-head", str(d)], capture_output=True, text=True)
+        log(f"demo {name}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s\n"
+            f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        assert proc.returncode == 0, f"the demo at {name} failed"
+        result = json.loads((where / "result.json").read_text())
+        result["process_s"] = time.perf_counter() - t0
+        log(f"demo {name}: {result}")
+        assert {p for p, r in result["routes"].items() if r != "kernels"} == set(plain_parts), \
+            result["routes"]
+        train, ev = result["launches"]["train"], result["launches"]["eval"]
+        stack = "stack" not in plain_parts
+        assert (train["B5"] > 0) == stack and (train["B1 with saves"] > 0) == stack, train
+        assert (ev["B1"] > 0) == stack and (ev["B2"] > 0) == ("augmenter" not in plain_parts), ev
+        assert train["B6"] > 0 and ev["B4"] > 0 and ev["B3"] > 0, (train, ev)
+        assert result["loss_last8"] < result["loss_first8"], "the demo did not learn"
+        assert result["auc"] >= DEMO_AUC_MIN, f"the demo's AUC {result['auc']}"
+        out[name] = result
+    _, model, _ = ft.load_any_checkpoint(str(DEMO_RUNS[1][2] / "demo_final.pt"), device=device)
+    out["round_trip_d64"] = round_trip_by_layer(model, device, SEED + 90)
+    log(f"round trip z -> B7 -> B1 -> z' on the D = 64 demo's checkpoint, layer by layer: "
+        f"{out['round_trip_d64']}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4001,6 +4275,13 @@ def main() -> int:
     log(f"data phase (with summer-terrain's): {data['phase_s']:.1f} s")
     torch.cuda.empty_cache()
     variants = phase_variants(ft, device, timing["item_s"])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c1 = phase_c1(ft, device)
+    log(f"C1 phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    demo = phase_demo(ft, device)
+    log(f"demo phase: {time.perf_counter() - t0:.1f} s")
     entries["B10"] = b10
     print(json.dumps({"main_path": timing, "eval_profile": eval_profile,
                       "sampling": {"main_path": sample_main,
@@ -4010,7 +4291,7 @@ def main() -> int:
                                    "profile": profile},
                       "good_surf": good_surf, "helpful_sponge": helpful_sponge,
                       "swept_energy": swept_energy, "cli": cli, "data": data,
-                      "variants": variants,
+                      "variants": variants, "c1": c1, "demo": demo,
                       "b10": b10_entry_point, "gemm": gemm_cases, "attention": attention_cases,
                       "fused_layers": fused_cases, "main_path_bounds": main_bounds,
                       "knn_split": knn_split,

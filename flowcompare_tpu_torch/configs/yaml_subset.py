@@ -129,44 +129,61 @@ def _unescape(text: str, where: str) -> str:
     return "".join(out)
 
 
+_SEPARATOR_BREAK = re.compile("[ \t]*([\u2028\u2029])[ \t]*")
+
+
 def _fold(lines: list, quote: str, where: str) -> str:
     """A scalar's raw lines (quote: the quote character, or None for a plain
     scalar in a flow sequence), folded: a line break between two lines
     becomes a space, k empty lines between them k newlines, and an escaped
-    line break (double quotes) nothing; each inner line is stripped."""
-    pieces = []   # (text, ends in an escaped break), None for an empty inner line
+    line break (double quotes) nothing; each inner line is stripped. The
+    line and paragraph separators (U+2028, U+2029) are line breaks that
+    stay: the blanks around them go, and a line ending in one joins the next
+    with a newline for each break."""
+    pieces = []   # (text, the break it ends in), None for an empty inner line
     last = len(lines) - 1
     for idx, line in enumerate(lines):
+        if quote:
+            line = _SEPARATOR_BREAK.sub(r"\1", line)
         if idx > 0:
             line = line.lstrip(" \t")
-        escaped = False
+        ends = "fold"
         if idx < last:
             trailing = len(line) - len(line.rstrip("\\"))
             if quote == '"' and trailing % 2 == 1:
-                line, escaped = line[:-1], True
+                line, ends = line[:-1], "escaped"
             else:
                 line = line.rstrip(" \t")
-        if 0 < idx < last and not line and not escaped:
+                if quote and line.endswith(("\u2028", "\u2029")):
+                    ends = "separator"
+        if 0 < idx < last and not line and ends == "fold":
             pieces.append(None)
         else:
             if quote == '"':
                 line = _unescape(line, where)
             elif quote == "'":
                 line = line.replace("''", "'")
-            pieces.append((line, escaped))
-    out, blanks, escaped = pieces[0][0], 0, pieces[0][1]
+            pieces.append((line, ends))
+    out, blanks, ends = pieces[0][0], 0, pieces[0][1]
     for piece in pieces[1:]:
         if piece is None:
             blanks += 1
             continue
-        out += ("" if escaped and not blanks else "\n" * blanks if blanks else " ") + piece[0]
-        blanks, escaped = 0, piece[1]
+        if ends == "separator":
+            out += "\n" * (blanks + 1)
+        elif ends == "escaped" and not blanks:
+            pass
+        else:
+            out += "\n" * blanks if blanks else " "
+        out += piece[0]
+        blanks, ends = 0, piece[1]
     return out
 
 
 class _Parser:
     def __init__(self, text: str):
-        self.raw = text.replace("\r\n", "\n").split("\n")
+        # YAML's line breaks: CR LF, CR and NEL read as LF (yaml's reader)
+        self.raw = re.sub("\r\n|\r|\x85", "\n", text).split("\n")
         self.pos = 0
         self.virtual: Optional[tuple] = None    # (pos, indent, content) of a "- " item
 

@@ -1,8 +1,8 @@
 """Linear-layer initialisation and application.
 
 Counterpart of `flowcompare_tpu/core/initializers.py` (`torch_linear`,
-`xavier_normal`, `apply_linear`). Weights are stored `(in, out)` as in the
-JAX package, so a layer is `x @ w + b`. Randomness comes from an explicit
+`xavier_normal`, `orthogonal`, `apply_linear`). Weights are stored
+`(in, out)` as in the JAX package, so a layer is `x @ w + b`. Randomness comes from an explicit
 CPU `torch.Generator`; the numbers differ from `jax.random`, the
 distributions (torch.nn.Linear's U(-1/sqrt(in), 1/sqrt(in)) for weight and
 bias, xavier-normal for PAConv) do not.
@@ -38,6 +38,13 @@ def xavier_normal(gen: torch.Generator, in_dim: int, out_dim: int, *, bias: bool
     if bias:
         params["b"] = torch.zeros(out_dim)
     return params
+
+
+def orthogonal(gen: torch.Generator, dim: int) -> torch.Tensor:
+    """A random orthogonal (dim, dim) matrix: Q of the QR of a standard
+    normal draw, its columns' signs fixed by R's diagonal."""
+    q, r = torch.linalg.qr(torch.randn(dim, dim, generator=gen))
+    return q * torch.sign(torch.diagonal(r))
 
 
 def apply_linear(params: dict, x: torch.Tensor) -> torch.Tensor:

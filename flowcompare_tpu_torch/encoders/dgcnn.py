@@ -17,8 +17,10 @@ the model runs the whole encoder as B4 (`ops/dgcnn_cuda.py`) instead;
 running statistics returned for bn1-bn5). It routes by device as the JAX
 package routes by backend: CPU tensors take the gather formulation, CUDA
 tensors take `fused_edge_stage_train` through B6 (`edge_knn_reduce`, or its
-plain version when asked). The u/c products, conv5 and the head are
-torch.matmul, as the JAX package leaves them to XLA.
+plain version when asked), unless the caller refuses the kernels for shapes
+B6 does not take (`kernels=False`: the gather formulation). The u/c
+products, conv5 and the head are torch.matmul, as the JAX package leaves
+them to XLA.
 """
 
 from __future__ import annotations
@@ -153,9 +155,11 @@ def fused_edge_stage_train(params: dict, state: dict, h: torch.Tensor, n_neighbo
 
 
 def apply_dgcnn_train(params: dict, state: dict, x: torch.Tensor, *, n_neighbors: int,
-                      dtype=None, plain: bool = False, global_pool: bool = False):
+                      dtype=None, plain: bool = False, kernels: bool = True,
+                      global_pool: bool = False):
     """Train mode: x (B, N, input_dim) -> ((B, N, emb_dim) or with
-    global_pool (B, emb_dim), new_state)."""
+    global_pool (B, emb_dim), new_state). kernels=False takes the gather
+    formulation on CUDA tensors too (shapes B6 does not take)."""
     if dtype is not None:
         params = cast_tree(params, dtype)
         x = x.to(dtype)
@@ -165,7 +169,7 @@ def apply_dgcnn_train(params: dict, state: dict, x: torch.Tensor, *, n_neighbors
     feats = []
     for i in range(1, 5):
         p, s = params[f"conv{i}"], state[f"bn{i}"]
-        if x.is_cuda:
+        if x.is_cuda and kernels:
             h, new_state[f"bn{i}"] = fused_edge_stage_train(p, s, h, n_neighbors, reduce=reduce)
         else:
             e, new_state[f"bn{i}"] = _conv_bn_leaky_train(p, s, edge_features(h, n_neighbors))

@@ -23,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.initializers import orthogonal
 from ..utils import expm
 
 
@@ -127,13 +128,6 @@ def permuter_inverse(params: dict, y: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ FullCombiner
-
-def orthogonal(gen: torch.Generator, dim: int) -> torch.Tensor:
-    """A random orthogonal (dim, dim) matrix: Q of the QR of a standard
-    normal draw, its columns' signs fixed by R's diagonal."""
-    q, r = torch.linalg.qr(torch.randn(dim, dim, generator=gen))
-    return q * torch.sign(torch.diagonal(r))
-
 
 def init_full_combiner(gen: torch.Generator, dim: int) -> dict:
     return {"w": orthogonal(gen, dim)}

@@ -52,6 +52,15 @@ The route of the layer stack is the JAX package's off the TPU:
 * the unfolded layers otherwise (coupling block, ActNorm, permuter per
   layer, then the final block), in the compute dtype's policy.
 
+`routes` says, per part, whether the kernels can take the config's shapes
+(`routes.model_routes`: the attention's head width, the fused kernels'
+widths and products, the kNN kernels' k, channels and shared memory). A
+part they refuse takes the JAX package's path off the TPU whatever the
+policy, and the other parts stay on their kernels: the stack
+`folded_scan_core` in eval and training and the unfolded reverse in
+sampling, the augmenter the unfused one, the DGCNN its gather formulation
+in eval and training, PAConv the plain FPS and grouping.
+
 Sampling walks the layers in reverse from a latent z that the caller
 passes in (or `make_sample` draws from an explicit generator): B7 on the
 kernels' route, else the JAX package's unfolded reverse (coupling inverse,
@@ -70,6 +79,7 @@ latent)}, entry l the draw of layer l and entry L - 1 the final block's;
 from __future__ import annotations
 
 import math
+from types import MappingProxyType
 from typing import Optional
 
 import torch
@@ -84,6 +94,7 @@ from .encoders.paconv import apply_pointnet2_paconv, init_pointnet2_paconv
 from .flows import actnorm, augment, coupling, permuters, spline
 from .flows.distributions import normal_sample, standard_normal_logprob
 from .ops import dgcnn_cuda, flow_layer_cuda, flow_layer_vjp_cuda
+from .routes import model_routes
 
 LOG2E = math.log2(math.e)
 
@@ -195,6 +206,7 @@ class FlowCompareModel(nn.Module):
         else:
             raise ValueError(f"Invalid augmenter_dist {config['augmenter_dist']}")
 
+        self._routes = MappingProxyType(model_routes(config))
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         params, state = self._init_params(gen)
         for key, value in params.items():
@@ -205,6 +217,13 @@ class FlowCompareModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    @property
+    def routes(self) -> MappingProxyType:
+        """Read-only {"stack", "augmenter", "encoder"} -> "kernels" or
+        "plain: <reason>": whether the kernels can take the config's shapes
+        (`routes.model_routes`)."""
+        return self._routes
 
     # -------------------------------------------------------------- init
 
@@ -347,26 +366,30 @@ class FlowCompareModel(nn.Module):
         state = self.state.tree()["embedder"]
         if c["input_embedder"] == "idenity":
             return extract_0, {"embedder": state}
+        kernels = self.routes["encoder"] == "kernels"
         if c["input_embedder"] == "PAConv":
             # eval at the compute dtype, training in f32, as the JAX package
+            plain = self.plain or not kernels
             if training:
                 emb, new_state = apply_pointnet2_paconv(params, state, extract_0, training=True,
-                                                        plain=self.plain)
+                                                        plain=plain)
                 return emb, {"embedder": new_state}
             with torch.no_grad():
                 emb, _ = apply_pointnet2_paconv(params, state, extract_0,
-                                                dtype=self.compute_dtype, plain=self.plain)
+                                                dtype=self.compute_dtype, plain=plain)
             return emb, {"embedder": state}
         if training:
             emb, new_state = apply_dgcnn_train(params, state, extract_0,
                                                n_neighbors=c["n_neighbors"],
                                                dtype=self.compute_dtype, plain=self.plain,
-                                               global_pool=self.is_global)
+                                               kernels=kernels, global_pool=self.is_global)
             return emb, {"embedder": new_state}
         with torch.no_grad():
-            if self.compute_dtype is None:
+            if self.compute_dtype is None or not kernels:
+                # the gather formulation: the float32 policy's, and a
+                # refused config's under either
                 emb = apply_dgcnn(params, state, extract_0, n_neighbors=c["n_neighbors"],
-                                  global_pool=self.is_global)
+                                  dtype=self.compute_dtype, global_pool=self.is_global)
             else:
                 # B4 casts the params itself (the kernels' folds once per
                 # weights version, `dgcnn_cuda.encoder_weights`)
@@ -405,12 +428,13 @@ class FlowCompareModel(nn.Module):
                 and self.flow_type == "AffineCoupling" and c["affine_scale_fn"] == "sigmoid"
                 and self.permuter_type == "LinearLU" and self.use_act_norm)
 
-    def _kernel_route(self) -> bool:
-        """B1, B2, B5 and B7 (or their plain versions): the folded family
-        under bf16, as JAX's `_can_fuse_layers` apart from its TPU test, and
-        GELU, the one nonlinearity those kernels compute."""
+    def _kernel_route(self, part: str = "stack") -> bool:
+        """B1, B5 and B7 (part "stack") or B2 ("augmenter"), or their plain
+        versions: the folded family under bf16, as JAX's `_can_fuse_layers`
+        apart from its TPU test, GELU, the one nonlinearity those kernels
+        compute, and shapes the kernels take (`routes`)."""
         return (self._can_fold_scan() and self.compute_dtype == torch.bfloat16
-                and self.nonlin_name == "GELU")
+                and self.nonlin_name == "GELU" and self.routes[part] == "kernels")
 
     # ------------------------------------------------------ folded stacks
 
@@ -614,7 +638,7 @@ class FlowCompareModel(nn.Module):
         extra_dim = extra_context.shape[-1] if extra_context is not None else 0
         aug_eps, cif_eps = self._split_noise(eps, x.shape[0], x.shape[1])
         kernels = self._kernel_route()
-        if kernels and not training and self.augmenter_kind == "conditional_attn":
+        if not training and self._kernel_route("augmenter"):
             # B2's folds and their kernel layout, once per weights version
             folded_aug = flow_layer_cuda.augmenter_weights(
                 params["augmenter"], input_dim=self.input_dim, extra_dim=extra_dim)

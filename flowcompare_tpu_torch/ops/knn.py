@@ -2,7 +2,7 @@
 
 Counterpart of `flowcompare_tpu/ops/knn.py` (`pairwise_sqdist`,
 `knn_indices`, `knn_self`, `ball_query`, `gather_neighbors`,
-`three_nn_interpolate`).
+`three_nn_interpolate`, `nearest_neighbor_gather`).
 Ties break by the lower index, the order `lax.top_k` gives: a stable sort on
 distance keeps equal distances in index order, which `torch.topk` does not
 promise. The gather is a plain index gather; the JAX package's one-hot
@@ -94,3 +94,13 @@ def three_nn_interpolate(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
     weight = recip / recip.sum(-1, keepdim=True)
     gathered = gather_neighbors(known_feats, idx)
     return torch.einsum("bnk,bnkc->bnc", weight, gathered.float()).to(known_feats.dtype)
+
+
+def nearest_neighbor_gather(query_xyz: torch.Tensor, points_xyz: torch.Tensor,
+                            feats: torch.Tensor) -> torch.Tensor:
+    """1-NN feature redistribution (pointops' featuredistribute and
+    featuregather): query_xyz (B, M, D), points_xyz (B, N, D), feats
+    (B, N, C) -> (B, M, C), each query taking the features of its nearest
+    point by f32 squared distance, equal distances to the lower index."""
+    idx = knn_indices(query_xyz, points_xyz, 1)
+    return torch.gather(feats, 1, idx.expand(-1, -1, feats.shape[-1]))

@@ -1,8 +1,9 @@
 """Metric writers with a wandb-like `log(dict)` protocol.
 
 Copy of `flowcompare_tpu/train/metrics.py` (`MetricWriter`, `JsonlWriter`,
-`StdoutWriter`, `MultiWriter`); that module imports no JAX, and the port
-keeps its own copy so that it imports nothing of the JAX package.
+`StdoutWriter`, `WandbWriter`, `MultiWriter`); that module imports no JAX,
+and the port keeps its own copy so that it imports nothing of the JAX
+package. `wandb` is imported only when a `WandbWriter` is built.
 """
 
 from __future__ import annotations
@@ -48,6 +49,19 @@ class StdoutWriter(MetricWriter):
         scalars = {k: (round(float(v), 5) if hasattr(v, "__float__") else "...")
                    for k, v in metrics.items()}
         print(f"[step {step}] {scalars}")
+
+
+class WandbWriter(MetricWriter):
+    def __init__(self, project: str = "flow_change", config: Optional[dict] = None):
+        import wandb  # only where a run asks for it: neither machine installs it
+        self._wandb = wandb
+        self._run = wandb.init(project=project, config=config)
+
+    def log(self, metrics: dict, step: Optional[int] = None) -> None:
+        self._wandb.log(metrics, step=step)
+
+    def close(self) -> None:
+        self._run.finish()
 
 
 class MultiWriter(MetricWriter):

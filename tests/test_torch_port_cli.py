@@ -321,3 +321,15 @@ def test_ams_batches_reshuffle_each_epoch():
     fixed = _Batches(items, 2, shuffle=False)
     assert [[int(v) for b in e for v in b[2][:, 0]] for e in (list(fixed), list(fixed))] == \
         [list(range(8))] * 2
+
+
+@pytest.mark.parametrize("value", ["\x85", "a\x85b", " ", "a b", "a  \n b",
+                                   "x\ry", "word " * 12])
+@pytest.mark.parametrize("width", [20, 80])
+def test_yaml_subset_reads_yaml_line_breaks(value, width):
+    """NEL and CR read as line breaks, and the line and paragraph separators
+    as breaks that stay, as `yaml.safe_load` reads them (drawn once by the
+    test above: {'_': '\\x85'})."""
+    text = yaml.safe_dump({"_": value}, width=width, allow_unicode=True,
+                          default_flow_style=False)
+    assert yaml_subset.load(text) == yaml.safe_load(text), text

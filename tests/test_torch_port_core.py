@@ -243,7 +243,8 @@ def test_port_imports_without_jax():
 
 def test_port_sources_never_import_jax():
     pkg = os.path.join(REPO, "flowcompare_tpu_torch")
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "examples", "convergence_demo_torch.py")]
     for root, _, files in os.walk(pkg):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in paths:

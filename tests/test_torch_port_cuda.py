@@ -48,7 +48,8 @@ def tiny_model(device, n_flow_layers: int = 3, **overrides) -> ft.FlowCompareMod
         hidden_dims_embedder_out=[64, 64, 64, 64, 64, 64],
         attn_dim=48, attn_input_dim=32, input_embedding_dim=16, cross_dim_head=64,
         sample_size=N_POINTS, n_samples_context=N_CONTEXT, n_neighbors=K,
-        compute_dtype="bfloat16", **overrides))
+        compute_dtype="bfloat16"))
+    cfg.update(overrides)
     model = ft.FlowCompareModel(cfg, device=device, generator=torch.Generator().manual_seed(0))
     perturb_identity_leaves(model, torch.Generator().manual_seed(1))
     return model
@@ -1765,3 +1766,93 @@ def test_relu_bf16_log_prob_is_the_folded_scan_on_the_card(dev):
     loss.backward()
     torch.cuda.synchronize()
     assert torch.isfinite(loss) and flow_kernel_launches() == before
+
+
+@pytest.mark.cuda
+def test_shared_memory_mirrors_equal_the_library(dev):
+    """`routes`' Python mirrors of the kernels' shared-memory formulas give
+    the library's own numbers over a grid of shapes: B3/B6's per (n, C),
+    B8's per n over the four PAConv levels and one, B9's selection per n
+    and its gather per (C, k, element size)."""
+    from flowcompare_tpu_torch import routes
+    lib = _build.library()
+    ns = [1, 7, 31, 32, 33, 80, 256, 640, 1250, 2047, 2048, 2049, 3200, 3213, 4458, 4459,
+          8000, 12661, 15000]
+    for n in ns:
+        for cq in (1, 2, 6, 8, 15, 16, 17, 64, 128, 255, 256, 257):
+            assert routes.knn_smem_bytes(n, cq) == lib.fc_knn_edge_max_smem(n, cq), (n, cq)
+        ms = [max(1, n // 4 ** (i + 1)) for i in range(4)]
+        for levels in (ms, ms[:1]):
+            m4 = levels + [1] * (4 - len(levels))
+            assert routes.fps_levels_smem(n, levels) == lib.fc_fps_levels_smem(
+                n, len(levels), *m4), (n, levels)
+        assert routes.sa_select_smem(n) == lib.fc_sa_select_smem(n), n
+    for c in (0, 3, 61, 64, 128, 256, 509, 1000, 2045, 4000):
+        for k in (1, 8, 32, 64):
+            for esize in (2, 4):
+                assert routes.sa_gather_smem(c, k, esize) == lib.fc_sa_gather_smem(c, k, esize), \
+                    (c, k, esize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides,refused", [
+    ({"cross_dim_head": 32}, {"stack", "augmenter"}),
+    ({"hidden_dims": [1024, 1024, 1024]}, {"stack", "augmenter"}),
+    ({"n_neighbors": 72}, {"encoder"})])
+def test_refused_parts_run_plain_on_the_card(dev, overrides, refused):
+    """A config the kernels refuse part by part (ROADMAP queue C1) runs on
+    CUDA tensors: `log_prob`, one training step and `sample` equal the
+    model with plain=True within 0.01 nats, and the refused parts' kernels
+    never launch."""
+    from flowcompare_tpu_torch.model import inner_loop
+    from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda, flow_layer_vjp_cuda
+    model = tiny_model(dev, **overrides)
+    assert {p for p, r in model.routes.items() if r != "kernels"} == refused, dict(model.routes)
+    counters = {"stack": [(flc, "FUSED_FLOW_LAYERS_LAUNCHES"),
+                          (flc, "FUSED_FLOW_LAYERS_INVERSE_LAUNCHES"),
+                          (flow_layer_vjp_cuda, "FLOW_LAYERS_BWD_LAUNCHES")],
+                "augmenter": [(flc, "FUSED_AUGMENTER_LAUNCHES")],
+                "encoder": [(dgcnn_cuda, "FUSED_DGCNN_ENCODER_LAUNCHES"),
+                            (edgeconv_vjp_cuda, "EDGE_KNN_REDUCE_LAUNCHES")]}
+    watched = [c for part in refused for c in counters[part]]
+    before = [getattr(m, a) for m, a in watched]
+    g = torch.Generator().manual_seed(71)
+    batch = (rand(g, 2, N_CONTEXT, 6, device=dev), rand(g, 2, N_POINTS, 6, device=dev),
+             rand(g, 2, 1, device=dev))
+    eps = rand(g, 2, N_POINTS, 26, device=dev)
+    z = rand(g, 1, 200, 32, device=dev)
+    nats, steps, xs = [], [], []
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    for plain in (False, True):
+        model.plain = plain
+        model.load_state_dict(snapshot)
+        with torch.no_grad():
+            nats.append(float(inner_loop(model, batch, eps=eps)[2]))
+            xs.append(ft.make_sample(model, 200, batch[0][:1], batch[2][:1], z=z))
+        steps.append(ft.train_step(ft.init_train_state(model), batch, eps=eps)[1])
+    torch.cuda.synchronize()
+    assert [getattr(m, a) for m, a in watched] == before
+    assert abs(nats[0] - nats[1]) <= 0.01
+    assert abs(steps[0]["nats"] - steps[1]["nats"]) <= 0.01
+    model.plain = False
+    eps_s = rand(g, 1, 200, 26, device=dev)
+    with torch.no_grad():
+        snats = [float(inner_loop(model, (batch[0][:1], x, batch[2][:1]), eps=eps_s)[2])
+                 for x in xs]
+    assert all(torch.isfinite(x).all() for x in xs) and abs(snats[0] - snats[1]) <= 0.01
+
+
+@pytest.mark.cuda
+def test_fps_subsample_launches_b8_once(dev):
+    """`ops.fps_subsample` on a CUDA tensor is one B8 launch, index-equal to
+    its CPU path (the plain version) on a cloud with repeated points."""
+    from flowcompare_tpu_torch import ops
+    from flowcompare_tpu_torch.ops import fps_cuda
+    g = torch.Generator().manual_seed(81)
+    cloud = torch.cat([torch.randint(0, 4, (2, 600, 3), generator=g).float(),
+                       torch.randn(2, 600, 3, generator=g)], -1)
+    before = fps_cuda.FPS_LAUNCHES
+    got = ops.fps_subsample(cloud.to(dev), 150)
+    torch.cuda.synchronize()
+    assert fps_cuda.FPS_LAUNCHES == before + 1
+    torch.testing.assert_close(got.cpu(), ops.fps_subsample(cloud, 150), rtol=0, atol=0)

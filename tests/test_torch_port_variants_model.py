@@ -112,10 +112,14 @@ def test_noise_shapes_and_their_draws():
 def test_relu_takes_the_folded_scan_and_the_kernels_refuse_it():
     """RELU on the folded layout runs `folded_scan_core` with RELU under bf16
     (the JAX package's semantics off the TPU); B1, B2, B5 and B7's wrappers
-    and plain versions raise when asked for it."""
+    and plain versions raise when asked for it. Its GELU twin takes the
+    kernels' route at the kernels' attention head width (64); at the
+    fixtures' width 8 the shapes refuse it (`routes`)."""
     pm = variant_pair("relu_folded", "bfloat16")[4]
     assert pm._can_fold_scan() and not pm._kernel_route()
-    assert variant_pair("attention_extra", "bfloat16")[4]._kernel_route()
+    gelu_d64 = ft.FlowCompareModel(variant_config("bfloat16", cross_dim_head=64), device="cpu")
+    assert gelu_d64._kernel_route() and gelu_d64._kernel_route("augmenter")
+    assert not variant_pair("attention_extra", "bfloat16")[4]._kernel_route()
     assert not variant_pair("folded_scan_off", "bfloat16")[4]._can_fold_scan()
     folded = pm._folded(pm.params(), 1)
     x, ldj = torch.zeros(1, 4, 8), torch.zeros(1, 4)
