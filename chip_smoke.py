@@ -85,8 +85,9 @@ Phases, each of which raises on failure (nothing is caught):
    train_step, 7 / 3 / 12 on train);
 12. B10 (run first, before any model is built): the fused attention core
    (TMA + wgmma, p in three bf16 terms) against its plain version at the
-   flow's attention shapes (q (20, 1024, 64) against 1250 keys) and at
-   helpful-sponge's augmenter shape ((25, 1024, 64) against 1024 keys), with
+   flow's attention shapes (q (20, 1024, D) against 1250 keys, at each head
+   width D = 32, 64 and 128) and at helpful-sponge's augmenter shape ((25,
+   1024, 64) against 1024 keys), with
    the kernel's, the plain version's and scaled_dot_product_attention's
    times (flash, on 4-D views), each one's share of outputs more than half
    a bf16 ulp off plain (the kernel's within B10_SHARE_LIMIT and below
@@ -118,14 +119,17 @@ Phases, each of which raises on failure (nothing is caught):
    chains took the WMMA route, and that none outside them did either (B4's
    first EdgeConv stage reads the cloud cast into 8 bf16 columns);
 15. attention (run third, before any model is built): the chains' cross
-   attention, csrc/cross_attention.cu and cross_attention_bwd.cu, on the
+   attention, csrc/cross_attention.cu and cross_attention_bwd.cu, at each
+   head width D = 32, 64 and 128, on the
    TMA + wgmma route against the plain versions at dulcet's eval launch and
    training shape (20 x 1024 queries x 1250 keys, with m and den),
    helpful-sponge's augmenter (25 x 1024 x 1024), a sample (1 x 4000 x
    1250) and two cross-item cases (items after the first hold large
    queries and keys): the forward within one bf16 rounding (rtol = atol =
    1e-2), m and den within 1e-4; dq, dk, dv with cosine >= 0.9999 and max
-   error <= 1e-2 of max |ref|. At the three main shapes, the device time
+   error <= 1e-2 of max |ref|; every output a view into rows of NaN whose
+   columns past D (2 D for [dk | dv]) must stay NaN. At the three main
+   shapes (at D = 32 and 128 the eval launch and the sample), the device time
    (the kernels' durations in a torch.profiler trace) of both routes, of
    the plain version and of flash
    scaled_dot_product_attention on 4-D views (forward, and the backward
@@ -214,7 +218,8 @@ Phases, each of which raises on failure (nothing is caught):
    card's name and power limit;
 22. routes from the shapes (`phase_c1`, after the variants): three bf16
    dulcet-universe configs at 2 layers and full width that the kernels
-   refuse part by part (D = 32: the stack and the augmenter; a 1,024-wide
+   refuse part by part (D = 256, 4 heads of 64: the stack and the
+   augmenter; a 1,024-wide
    coupling MLP: the stack and the augmenter; k = 80: the encoder), each
    printing `model.routes`; log_prob, one train_step after the data init
    and make_sample of 1 x 4000 at B=2 on CUDA against plain=True (|d nats|
@@ -223,10 +228,9 @@ Phases, each of which raises on failure (nothing is caught):
    for every part;
 23. the convergence demo (`phase_demo`, last):
    examples/convergence_demo_torch.py in processes of its own into
-   build/chip_smoke_demo/ (cross_dim_head 32, the JAX demo's: the stack and
-   the augmenter plain, the DGCNN on B4, B3 and B6) and
-   build/chip_smoke_demo_d64/ (64: every part on its kernels, 240 steps
-   through B5), each held to loss last8 < first8, AUC >= 0.95, its routes
+   build/chip_smoke_demo/ (cross_dim_head 32, the JAX demo's) and
+   build/chip_smoke_demo_d64/ (64), every part on its kernels at both (240
+   steps through B5), each held to loss last8 < first8, AUC >= 0.95, its routes
    and its kernels' launches; then the round trip z -> B7 -> B1 -> z' layer
    by layer on the D = 64 run's checkpoint, kernels and plain;
 24. data parallelism (`phase_ddp`, after the demo): this script's
@@ -261,7 +265,19 @@ Phases, each of which raises on failure (nothing is caught):
    on the mesh); per rank the sharded leaves, the bytes allocated at rest
    after the first step beside one process's and the prediction, the
    gather's and the slice's ms, the step's ms, and B5 / B6 / B1 with saves
-   launched in each step.
+   launched in each step;
+26. the attention kernels' other head widths (`phase_head_widths`, after
+   the data phase, the dulcet-universe model freed first): dulcet-universe
+   in bf16 at full width and 115 layers at D = 32 (cross_dim_head 32) and
+   D = 128 (cross_heads 2 x 64), every part of `model.routes` on its
+   kernels: the eval main path through evaluate_on_test (2 items of B=20)
+   against the plain path (|d nats| <= 0.01, change maps >= 99.9%; B1-B4
+   launched, 4 launches a layer in B1, no WMMA attention), make_sample of
+   1 x 4000 against the plain samples of the same z (|d nats| <= 0.01, 4
+   launches a layer in B7) and the training check at B=2 (|d nats| <= 0.01,
+   grad norm within 5%, cosine >= 0.99; 11 launches a layer in B5), each
+   with the counters set to 0 just before and read after. Their attention
+   launches fill the kernels line's D = 32 and 128 entries.
 
 Prints, last, one JSON line of per-kernel results (B1-B10 with B9's
 gather as `sa_gather`, gemm_bf16,
@@ -271,7 +287,9 @@ coupling_record, coupling_bwd, conditioner_bwd, gemm_tn_grouped and
 grad_reduce, and B4's and B2's dgcnn_tail, augment_net and pack_rows at
 their headline shapes;
 B1, B2, B4, B5 and B7 carry their helpful-sponge branch's check under
-"global", B10 its second shape), the nvidia-smi line and {"ok": true,
+"global", B10 its second shape; cross_attention, cross_attention_bwd and
+B10 list their head widths under "widths" and the D = 32 and 128 readings
+under "by_width"), the nvidia-smi line and {"ok": true,
 "device": {...}}.
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
@@ -302,6 +320,13 @@ T_START = time.perf_counter()
 # H100 SXM dense bf16 tensor-core peak, f32 peak outside the tensor cores and
 # HBM3 rate (NVIDIA's data sheet)
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 989e12, 67e12, 3.35e12
+# the SFU's ex2 rate: 16 results a clock an SM (the CUDA C++ Programming
+# Guide's throughput table, compute capability 9.0) x 132 SMs x 1.83 GHz,
+# the clock at which the data sheet's bf16 peak is 528 tensor cores' 1,024
+# operations a clock
+PEAK_EX2_PER_S = 16 * 132 * 1.83e9
+# the head widths of the attention kernels (flowcompare_tpu_torch/ops/_build.py)
+ATTENTION_DS = (32, 64, 128)
 EDGE_WIDTHS = [(6, 64), (64, 64), (64, 128), (128, 256)]
 # (N, M, C) of PAConv's four set-abstraction levels on the 1250-point context
 SA_LEVELS = [(1250, 312, 3), (312, 78, 64), (78, 19, 128), (19, 4, 256)]
@@ -406,6 +431,17 @@ def bound(flops, moved: float, peak: float = PEAK_BF16_FLOPS):
     ops_ms = sum(f / pk for f, pk in parts) * 1e3
     bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def attention_bound(products: float, exps: float, moved: float) -> tuple:
+    """The attention kernels' least time: the larger of their bf16 products
+    at the tensor cores' peak, their exponentials at the SFU's ex2 rate
+    (which run beside the products) and the bytes, in ms; which of them it
+    is ("operations" for either of the first two) and which unit."""
+    times = {"tensor cores": products / PEAK_BF16_FLOPS * 1e3,
+             "ex2": exps / PEAK_EX2_PER_S * 1e3, "bytes": moved / PEAK_BYTES_PER_S * 1e3}
+    unit = max(times, key=times.get)
+    return times[unit], ("bytes" if unit == "bytes" else "operations"), unit
 
 
 def kernel_entry(name, source, replaces, err, ms, plain_ms, flops, moved,
@@ -1198,19 +1234,20 @@ B10_SHARE_LIMIT = 3e-4
 
 def phase_b10(device) -> tuple:
     """B10, the fused attention core, at the flow's attention shapes (q
-    (20, 1024, 64) against k/v (20, 1250, 64)) and helpful-sponge's augmenter
-    shape ((25, 1024, 64) against 1024 keys), bf16, k and v the column
-    halves of one [k | v] tensor: the wgmma kernel against its plain version
-    (p at f32 precision on both sides: at most one bf16 ulp of the output
-    apart), its time, the plain version's, flash
-    scaled_dot_product_attention's on the same q/k/v and scale (the library
-    yardstick, never the port's; it rounds p to bf16), and each one's share
-    of outputs more than half a bf16 ulp off the plain version
-    (`error_stats`): the kernel's must lie within B10_SHARE_LIMIT and below
-    flash's. The bound: one q k^T and two bf16 P V products (p in two bf16
-    terms, the least that keeps p past bf16 on the tensor cores) at the bf16
-    peak, or the bytes; the bound with the PV product at the f32 rate (the
-    earlier kernel's) is logged beside it. Then its entry point,
+    (20, 1024, D) against k/v (20, 1250, D)) at each head width D the
+    kernel takes, and at D = 64 also helpful-sponge's augmenter shape ((25,
+    1024, 64) against 1024 keys), bf16, k and v the column halves of one
+    [k | v] tensor: the wgmma kernel against its plain version (p at f32
+    precision on both sides: at most one bf16 ulp of the output apart), its
+    time, the plain version's, flash scaled_dot_product_attention's on the
+    same q/k/v and scale (the library yardstick, never the port's; it rounds
+    p to bf16), and each one's share of outputs more than half a bf16 ulp
+    off the plain version (`error_stats`): the kernel's must lie within
+    B10_SHARE_LIMIT and below flash's. The bound: one q k^T and two bf16 P V
+    products (p in two bf16 terms, the least that keeps p past bf16 on the
+    tensor cores) at the bf16 peak, or the exponentials (one a score) at
+    the ex2 rate, or the bytes; the bound with the PV product at the f32
+    rate (the earlier kernel's) is logged beside it. Then its entry point,
     apply_cross_attention(fused=True) against fused=False, forward and
     autograd backward, with the launch counters set to 0 just before the
     fused call and read after."""
@@ -1220,18 +1257,20 @@ def phase_b10(device) -> tuple:
     from flowcompare_tpu_torch.ops import attention_cuda as ac
 
     g = torch.Generator().manual_seed(SEED + 40)
-    scale = 64 ** -0.5
-    entries = []
-    for items, nq, nkv in ((TIME_B, 1024, 1250), (GS_B, 1024, 1024)):
-        q = torch.randn(items, nq, 64, generator=g).to(device).bfloat16()
-        kv = torch.randn(items, nkv, 128, generator=g).to(device).bfloat16()
-        k, v = kv[..., :64], kv[..., 64:]
+    entries, by_width = [], {}
+    cases = [(64, TIME_B, 1024, 1250), (64, GS_B, 1024, 1024)] + [
+        (dw, TIME_B, 1024, 1250) for dw in ATTENTION_DS if dw != 64]
+    for dw, items, nq, nkv in cases:
+        scale = dw ** -0.5
+        q = torch.randn(items, nq, dw, generator=g).to(device).bfloat16()
+        kv = torch.randn(items, nkv, 2 * dw, generator=g).to(device).bfloat16()
+        k, v = kv[..., :dw], kv[..., dw:]
         got = ac.fused_attention_core(q, k, v, scale)
         torch.cuda.synchronize()
         ref = ac.fused_attention_core_plain(q, k, v, scale).float()
         d = (got.float() - ref).abs()
         beyond_ulp = float((d - 2.0 ** -7 * ref.abs()).max())
-        q2, k2, v2 = q.reshape(-1, 64), k.reshape(-1, 64), v.reshape(-1, 64)
+        q2, k2, v2 = q.reshape(-1, dw), k.reshape(-1, dw), v.reshape(-1, dw)
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
             flash_out = F.scaled_dot_product_attention(q.unsqueeze(1), k.unsqueeze(1),
                                                        v.unsqueeze(1), scale=scale)
@@ -1244,14 +1283,16 @@ def phase_b10(device) -> tuple:
         lms = flash["ms"]
         kc, vc = k.contiguous(), v.contiguous()
         lms_contiguous = time_ms(lambda: F.scaled_dot_product_attention(q, kc, vc, scale=scale))
-        products = 2 * items * nq * nkv * 64
+        products = 2 * items * nq * nkv * dw
         entry = kernel_entry("fused_attention_core (attention_core)",
                              "flowcompare_tpu_torch/csrc/attention_core.cu",
                              "flowcompare_tpu/ops/attention_pallas.py:69", float(d.max()), ms, pms,
                              3 * products, nbytes(q, k, v, got), library_ms=lms)
+        entry["bound_ms"], entry["bound_by"], entry["bound_unit"] = attention_bound(
+            3 * products, items * nq * nkv, nbytes(q, k, v, got))
         f32_pv_bound = bound([(products, PEAK_BF16_FLOPS), (products, PEAK_F32_FLOPS)],
                              nbytes(q, k, v, got))[0]
-        entry.update(library=flash, library_3d_default_ms=lms_contiguous,
+        entry.update(d=dw, library=flash, library_3d_default_ms=lms_contiguous,
                      f32_pv_bound_ms=f32_pv_bound, share_limit=B10_SHARE_LIMIT,
                      share_over_half_ulp={key: st["share_over_half_ulp"]
                                           for key, st in stats.items()},
@@ -1262,14 +1303,20 @@ def phase_b10(device) -> tuple:
             f"(the kernel's within {B10_SHARE_LIMIT} and below flash's); device {ms} ms, plain "
             f"{pms} ms, scaled_dot_product_attention (flash, 4-D) {flash}, 3-D on contiguous k "
             f"and v with the default backend {lms_contiguous} ms; bound {entry['bound_ms']} ms "
-            f"({entry['bound_by']}: q k^T and two bf16 P V at the bf16 peak; with P V at the "
-            f"f32 rate {f32_pv_bound} ms)")
-        assert beyond_ulp <= 1e-5, "B10 disagrees with its plain version"
+            f"({entry['bound_by']}, {entry['bound_unit']}: q k^T and two bf16 P V at the bf16 "
+            f"peak, or one ex2 a score; with P V at the f32 rate {f32_pv_bound} ms)")
+        assert beyond_ulp <= 1e-5, f"B10 disagrees with its plain version at D = {dw}"
         assert stats["kernel"]["share_over_half_ulp"] <= B10_SHARE_LIMIT, \
             "B10 puts more outputs over half a bf16 ulp off plain than B10_SHARE_LIMIT"
         assert stats["kernel"]["share_over_half_ulp"] < stats["flash"]["share_over_half_ulp"], \
             "B10 rounds p no better than flash attention"
-        entries.append(entry)
+        if dw == 64:
+            entries.append(entry)
+        else:
+            by_width[str(dw)] = {key: entry[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_unit",
+                "library_ms", "share_over_half_ulp")}
+            by_width[str(dw)]["shape"] = f"q {tuple(q.shape)}, k/v {tuple(k.shape)}"
         del q, kv, k, v, kc, vc, got, ref, d, flash_out
 
     # the entry point at the flow's attention shape
@@ -1304,6 +1351,8 @@ def phase_b10(device) -> tuple:
                                                    "helpful-sponge's augmenter")
     for key in ("library_ms", "library", "library_3d_default_ms", "share_over_half_ulp"):
         entries[0]["global"][key] = entries[1][key]
+    entries[0]["widths"] = list(ATTENTION_DS)
+    entries[0]["by_width"] = by_width
     return entries[0], {"entry_point": {"launches": cf["B10"], "forward_rel_err": rel,
                                         "gradient_cosines": cos}}
 
@@ -1405,151 +1454,200 @@ ATTENTION_CASES = (
     ("cross-item: items after the first hold large queries and keys", 3, 70, 90, True, True),
     ("cross-item at the presets' 1250 keys", 3, 70, 1250, True, True),
 )
+# the cases timed at D = 32 and 128 (every case without large items is
+# timed at D = 64): the eval and training launch and the sample of a
+# dulcet-universe at those widths (helpful-sponge's augmenter has D = 64)
+ATTENTION_TIMED_OTHER_WIDTHS = (0, 2)
+# columns of NaN on either side of the outputs' D (dq), 2 D (dkv) columns
+SENTINEL = 8
+
+
+def _sentinel_rows(rows: int, cols: int, dtype) -> tuple:
+    """A NaN matrix of rows x (SENTINEL + cols + SENTINEL) and the view of
+    its middle cols columns, which start 16 bytes in (TMA- and
+    pair-aligned, as the chains' packed rows are)."""
+    full = torch.full((rows, cols + 2 * SENTINEL), float("nan"), device="cuda", dtype=dtype)
+    return full, full[:, SENTINEL:SENTINEL + cols]
+
+
+def _sentinels_intact(full: torch.Tensor) -> bool:
+    return bool(full[:, :SENTINEL].isnan().all() and full[:, -SENTINEL:].isnan().all())
 
 
 def phase_attention() -> tuple:
     """The cross attention of the B1, B2, B5 and B7 chains (csrc/
-    cross_attention.cu, csrc/cross_attention_bwd.cu): the TMA + wgmma
-    forward and backward against their plain versions at the main path's
-    shapes and at two cross-item cases (a tile read across an item boundary
-    would show there), on the route the wrapper picks: the
-    forward within one bf16 rounding (rtol = atol = 1e-2), m and den within
-    1e-4 relative; dq, dk and dv with cosine >= 0.9999 and max error <= 1e-2
-    of max |ref| (from the plain forward's m and den). At the three main
-    shapes, the device ms (`device_ms`) of the wgmma route, of the WMMA
-    route, of the plain version and of
+    cross_attention.cu, csrc/cross_attention_bwd.cu) at each head width D
+    the kernels take (ATTENTION_DS): the TMA + wgmma forward and backward
+    against their plain versions at the main path's shapes and at two
+    cross-item cases (a tile read across an item boundary would show
+    there), on the route the wrapper picks: the forward within one bf16
+    rounding (rtol = atol = 1e-2), m and den within 1e-4 relative; dq, dk
+    and dv with cosine >= 0.9999 and max error <= 1e-2 of max |ref| (from
+    the plain forward's m and den). Every output is a view into wider rows
+    of NaN (`SENTINEL` columns on either side, as the forward's output is a
+    column slice of the packed coupling rows): those columns must stay NaN.
+    At the main shapes (at D = 32 and 128 those of
+    ATTENTION_TIMED_OTHER_WIDTHS), the device ms (`device_ms`) of the wgmma
+    route, of the WMMA route, of the plain version and of
     scaled_dot_product_attention with the flash backend (forward, and the
     backward alone), a call's ms through the wrapper with the host included,
-    and the bound: the necessary products (2 forward, 5 backward) at the
-    bf16 peak, or the bytes."""
+    and the bound (`attention_bound`): the necessary products (2 forward, 5
+    backward) at the bf16 peak, or one exponential a score at the ex2 rate,
+    or the bytes."""
     from flowcompare_tpu_torch.ops import _build
 
     g = torch.Generator().manual_seed(SEED + 60)
     cases = []
-    for label, items, nq, nkv, with_m, big_next in ATTENTION_CASES:
-        q = torch.randn(items * nq, 64, generator=g) / 8
-        kv = torch.randn(items * nkv, 128, generator=g)
-        if big_next:
-            q[nq:] = q[nq:] * 4 + 3
-            kv[nkv:] = kv[nkv:] * 4 + 6
-        q, kv = q.bfloat16().cuda(), kv.bfloat16().cuda()
-        k, v = kv[:, :64], kv[:, 64:]
-        rows_q, rows_k = items * nq, items * nkv
-
-        def forward(fn, m_den=True, **kw):
-            out = torch.full((rows_q, 64), float("nan"), device="cuda", dtype=torch.bfloat16)
-            m = torch.full((rows_q,), float("nan"), device="cuda") if m_den else None
-            den = torch.full((rows_q,), float("nan"), device="cuda") if m_den else None
-            fn(q, k, v, out, n_items=items, m_out=m, den_out=den, **kw)
-            return out, m, den
-
-        ref_out, ref_m, ref_den = forward(_build.cross_attention_plain)
-        got_out, got_m, got_den = forward(_build.cross_attention, m_den=with_m)
-        if not with_m:
-            _, got_m, got_den = forward(_build.cross_attention)
-        torch.cuda.synchronize()
-        d = (got_out.float() - ref_out.float()).abs()
-        fwd_beyond = float((d - (1e-2 + 1e-2 * ref_out.float().abs())).max())
-        m_rel = float(((got_m - ref_m).abs() / ref_m.abs().clamp_min(1.0)).max())
-        den_rel = float(((got_den - ref_den).abs() / ref_den).max())
-        da = torch.randn(rows_q, 64, generator=g).cuda()
-        du = torch.empty(rows_q, 64, device="cuda", dtype=torch.bfloat16)
-        ddn = torch.empty(rows_q, device="cuda")
-        _build.attn_bwd_prep(da, ref_out, ref_den, du, ddn)
-
-        def backward(fn, **kw):
-            bufs = (torch.full((rows_q, 64), float("nan"), device="cuda"),
-                    torch.full((rows_q, 64), float("nan"), device="cuda", dtype=torch.bfloat16),
-                    torch.full((rows_k, 128), float("nan"), device="cuda"),
-                    torch.full((rows_k, 128), float("nan"), device="cuda", dtype=torch.bfloat16))
-            fn(q, k, v, du, ddn, ref_m, *bufs, n_items=items, **kw)
-            return bufs
-
-        rb, gb = backward(_build.attention_bwd_plain), backward(_build.attention_bwd)
-        torch.cuda.synchronize()
-        grads = {}
-        for name, a, b in (("dq", gb[0], rb[0]), ("dk", gb[2][:, :64], rb[2][:, :64]),
-                           ("dv", gb[2][:, 64:], rb[2][:, 64:])):
-            grads[name] = {"cosine": float(torch.nn.functional.cosine_similarity(
-                a.reshape(-1).double(), b.reshape(-1).double(), dim=0)), "rel_err": rel_err(a, b)}
-        copies = bool(torch.equal(gb[1], gb[0].bfloat16()) and torch.equal(gb[3], gb[2].bfloat16()))
-        case = {"label": label, "items": items, "nq": nq, "nkv": nkv,
-                "max_abs_err": float(d.max()), "beyond_tolerance": fwd_beyond, "m_rel": m_rel,
-                "den_rel": den_rel, "grads": grads, "bf16_copies_exact": copies,
-                "within_tolerance": (fwd_beyond <= 0 and m_rel <= 1e-4 and den_rel <= 1e-4
-                                     and copies and all(x["cosine"] >= 0.9999
-                                                        and x["rel_err"] <= 1e-2
-                                                        for x in grads.values())),
-                "bwd_max_abs_err": float((gb[0] - rb[0]).abs().max())}
-        if not big_next:
-            out = torch.empty(rows_q, 64, device="cuda", dtype=torch.bfloat16)
-            m_buf, den_buf = (torch.empty(rows_q, device="cuda") for _ in range(2))
-            m_kw = {"m_out": m_buf, "den_out": den_buf} if with_m else {}
-
-            def fwd(route):
-                _build.cross_attention(q, k, v, out, n_items=items, route=route, **m_kw)
-
-            def bwd(route):
-                _build.attention_bwd(q, k, v, du, ddn, ref_m, *gb, n_items=items, route=route)
-
-            case.update({
-                "ms": device_ms(lambda: fwd("wgmma")), "wmma_ms": device_ms(lambda: fwd("wmma")),
-                "call_ms": time_ms(lambda: fwd("wgmma"), reps=20),
-                "plain_ms": device_ms(lambda: forward(_build.cross_attention_plain), reps=3),
-                "library": sdpa_flash(q, k, v, items, 1.0),
-                "bwd_ms": device_ms(lambda: bwd("wgmma")),
-                "bwd_wmma_ms": device_ms(lambda: bwd("wmma")),
-                "bwd_call_ms": time_ms(lambda: bwd("wgmma"), reps=10),
-                "bwd_plain_ms": device_ms(lambda: backward(_build.attention_bwd_plain), reps=3),
-                "bwd_library": sdpa_flash(q, k, v, items, 1.0, backward=True)})
-            products = 2 * items * nq * nkv * 64
-            case["bound_ms"], case["bound_by"] = bound(
-                2 * products, nbytes(q, k, v, out) + (8 * rows_q if with_m else 0))
-            case["bwd_bound_ms"], case["bwd_bound_by"] = bound(
-                5 * products, nbytes(q, k, v, du, ddn, ref_m, *gb))
-        cases.append(case)
-        log(f"attention {label}: {items} x {nq} queries x {nkv} keys: forward max|err| "
-            f"{case['max_abs_err']} (beyond rtol = atol = 1e-2: {fwd_beyond}), m rel {m_rel}, den "
-            f"rel {den_rel} (tolerance 1e-4); backward {grads} (tolerance cosine >= 0.9999, "
-            f"max err <= 1e-2 of max |ref|), bf16 copies exact {copies}; "
-            + ("" if big_next else
-               f"device ms: forward {case['ms']} (a call through the wrapper "
-               f"{case['call_ms']}), WMMA route {case['wmma_ms']}, plain "
-               f"{case['plain_ms']}, flash SDPA {case['library']}, bound {case['bound_ms']} "
-               f"({case['bound_by']}); backward {case['bwd_ms']} (a call "
-               f"{case['bwd_call_ms']}), WMMA route "
-               f"{case['bwd_wmma_ms']}, plain {case['bwd_plain_ms']}, flash SDPA backward "
-               f"{case['bwd_library']}, bound {case['bwd_bound_ms']} ({case['bwd_bound_by']})"))
-        del q, kv, k, v, ref_out, got_out, rb, gb, da, du, ddn
+    for dw in ATTENTION_DS:
+        for idx, (label, items, nq, nkv, with_m, big_next) in enumerate(ATTENTION_CASES):
+            timed = not big_next and (dw == 64 or idx in ATTENTION_TIMED_OTHER_WIDTHS)
+            cases.append(_attention_case(_build, g, dw, label, items, nq, nkv, with_m, big_next,
+                                         timed))
     assert all(c["within_tolerance"] for c in cases), "the cross attention disagrees with plain"
-    head = cases[0]
+    assert all(c["sentinels_intact"] for c in cases), "an output column past D was written"
+    heads = {dw: next(c for c in cases if c["d"] == dw) for dw in ATTENTION_DS}
+    head = heads[64]
 
-    def entry(name, source, replaces, prefix, err, serves):
+    def entry(name, source, replaces, prefix, err_key, serves):
+        def numbers(c):
+            return {"max_abs_err": c[err_key], "ms": c[f"{prefix}ms"],
+                    "plain_ms": c[f"{prefix}plain_ms"], "bound_ms": c[f"{prefix}bound_ms"],
+                    "bound_by": c[f"{prefix}bound_by"], "bound_unit": c[f"{prefix}bound_unit"],
+                    "library_ms": c[f"{prefix}library"]["ms"], "wmma_ms": c[f"{prefix}wmma_ms"],
+                    "call_ms": c[f"{prefix}call_ms"]}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": 0, "max_abs_err": err, "ms": head[f"{prefix}ms"],
-                "plain_ms": head[f"{prefix}plain_ms"], "bound_ms": head[f"{prefix}bound_ms"],
-                "bound_by": head[f"{prefix}bound_by"],
-                "library_ms": head[f"{prefix}library"]["ms"],
-                "library": head[f"{prefix}library"], "wmma_ms": head[f"{prefix}wmma_ms"],
-                "call_ms": head[f"{prefix}call_ms"],
+                "launches": 0, **numbers(head), "library": head[f"{prefix}library"],
                 "speedup_vs_wmma": head[f"{prefix}wmma_ms"] / head[f"{prefix}ms"],
                 "shape": f"{head['items']} x {head['nq']} queries x {head['nkv']} keys, d = 64",
-                "serves": serves,
-                "shapes_checked": [f"{c['items']}x{c['nq']}x{c['nkv']}" for c in cases]}
+                "serves": serves, "widths": list(ATTENTION_DS),
+                "by_width": {str(dw): {**numbers(c), "launches": 0,
+                                       "shape": f"{c['items']} x {c['nq']} x {c['nkv']}, d = {dw}"}
+                             for dw, c in heads.items() if dw != 64},
+                "shapes_checked": [f"{c['items']}x{c['nq']}x{c['nkv']}xd{c['d']}" for c in cases]}
 
     entries = {
         "cross_attention": entry("cross_attention (cross_attention_wgmma_kernel)",
                                  "flowcompare_tpu_torch/csrc/cross_attention.cu",
                                  "flowcompare_tpu/ops/flow_layer_pallas.py:800", "",
-                                 head["max_abs_err"],
-                                 "the attention of B1, B2, B7 and B5's recompute"),
+                                 "max_abs_err", "the attention of B1, B2, B7 and B5's recompute"),
         "cross_attention_bwd": entry(
             "cross_attention_bwd (attn_bwd_wgmma_kernel)",
             "flowcompare_tpu_torch/csrc/cross_attention_bwd.cu",
-            "flowcompare_tpu/ops/flow_layer_vjp_pallas.py:206", "bwd_", head["bwd_max_abs_err"],
+            "flowcompare_tpu/ops/flow_layer_vjp_pallas.py:206", "bwd_", "bwd_max_abs_err",
             "the attention's backward in B5"),
     }
     return entries, cases
+
+
+def _attention_case(_build, g, dw: int, label: str, items: int, nq: int, nkv: int,
+                    with_m: bool, big_next: bool, timed: bool) -> dict:
+    """One case of `phase_attention` at head width dw: q scaled by 1 /
+    sqrt(dw) as the folds scale it; with big_next the items after the
+    first hold large queries and keys whose scores are about 1,150 x
+    sqrt(64 / dw) (the queries' offset 3 x (64 / dw)^1.5): a dw-term f32
+    score rounds by about ulp(|s|) x sqrt(dw), so at every width as much as
+    at D = 64, where the m and den bounds were set."""
+    q = torch.randn(items * nq, dw, generator=g) / dw ** 0.5
+    kv = torch.randn(items * nkv, 2 * dw, generator=g)
+    if big_next:
+        q[nq:] = q[nq:] * 4 + 3 * (64 / dw) ** 1.5
+        kv[nkv:] = kv[nkv:] * 4 + 6
+    q, kv = q.bfloat16().cuda(), kv.bfloat16().cuda()
+    k, v = kv[:, :dw], kv[:, dw:]
+    rows_q, rows_k = items * nq, items * nkv
+    sentinels = []   # the wider NaN rows around the checked calls' outputs
+
+    def forward(fn, m_den=True, keep=False, **kw):
+        full, out = _sentinel_rows(rows_q, dw, torch.bfloat16)
+        if keep:
+            sentinels.append(full)
+        m = torch.full((rows_q,), float("nan"), device="cuda") if m_den else None
+        den = torch.full((rows_q,), float("nan"), device="cuda") if m_den else None
+        fn(q, k, v, out, n_items=items, m_out=m, den_out=den, **kw)
+        return out, m, den
+
+    ref_out, ref_m, ref_den = forward(_build.cross_attention_plain)
+    got_out, got_m, got_den = forward(_build.cross_attention, m_den=with_m, keep=True)
+    if not with_m:
+        _, got_m, got_den = forward(_build.cross_attention, keep=True)
+    torch.cuda.synchronize()
+    d = (got_out.float() - ref_out.float()).abs()
+    fwd_beyond = float((d - (1e-2 + 1e-2 * ref_out.float().abs())).max())
+    m_rel = float(((got_m - ref_m).abs() / ref_m.abs().clamp_min(1.0)).max())
+    den_rel = float(((got_den - ref_den).abs() / ref_den).max())
+    da = torch.randn(rows_q, dw, generator=g).cuda()
+    du = torch.empty(rows_q, dw, device="cuda", dtype=torch.bfloat16)
+    ddn = torch.empty(rows_q, device="cuda")
+    _build.attn_bwd_prep(da, ref_out, ref_den, du, ddn)
+
+    def backward(fn, keep=False, **kw):
+        fulls, bufs = zip(*(_sentinel_rows(r, c, dt) for r, c, dt in (
+            (rows_q, dw, torch.float32), (rows_q, dw, torch.bfloat16),
+            (rows_k, 2 * dw, torch.float32), (rows_k, 2 * dw, torch.bfloat16))))
+        if keep:
+            sentinels.extend(fulls)
+        fn(q, k, v, du, ddn, ref_m, *bufs, n_items=items, **kw)
+        return bufs
+
+    rb, gb = backward(_build.attention_bwd_plain), backward(_build.attention_bwd, keep=True)
+    torch.cuda.synchronize()
+    grads = {}
+    for name, a, b in (("dq", gb[0], rb[0]), ("dk", gb[2][:, :dw], rb[2][:, :dw]),
+                       ("dv", gb[2][:, dw:], rb[2][:, dw:])):
+        grads[name] = {"cosine": float(torch.nn.functional.cosine_similarity(
+            a.reshape(-1).double(), b.reshape(-1).double(), dim=0)), "rel_err": rel_err(a, b)}
+    copies = bool(torch.equal(gb[1], gb[0].bfloat16()) and torch.equal(gb[3], gb[2].bfloat16()))
+    case = {"label": label, "d": dw, "items": items, "nq": nq, "nkv": nkv,
+            "max_abs_err": float(d.max()), "beyond_tolerance": fwd_beyond, "m_rel": m_rel,
+            "den_rel": den_rel, "grads": grads, "bf16_copies_exact": copies,
+            "sentinels_intact": all(_sentinels_intact(f) for f in sentinels),
+            "within_tolerance": (fwd_beyond <= 0 and m_rel <= 1e-4 and den_rel <= 1e-4
+                                 and copies and all(x["cosine"] >= 0.9999
+                                                    and x["rel_err"] <= 1e-2
+                                                    for x in grads.values())),
+            "bwd_max_abs_err": float((gb[0] - rb[0]).abs().max())}
+    if timed:
+        out = torch.empty(rows_q, dw, device="cuda", dtype=torch.bfloat16)
+        m_buf, den_buf = (torch.empty(rows_q, device="cuda") for _ in range(2))
+        m_kw = {"m_out": m_buf, "den_out": den_buf} if with_m else {}
+
+        def fwd(route):
+            _build.cross_attention(q, k, v, out, n_items=items, route=route, **m_kw)
+
+        def bwd(route):
+            _build.attention_bwd(q, k, v, du, ddn, ref_m, *gb, n_items=items, route=route)
+
+        case.update({
+            "ms": device_ms(lambda: fwd("wgmma")), "wmma_ms": device_ms(lambda: fwd("wmma")),
+            "call_ms": time_ms(lambda: fwd("wgmma"), reps=20),
+            "plain_ms": device_ms(lambda: forward(_build.cross_attention_plain), reps=3),
+            "library": sdpa_flash(q, k, v, items, 1.0),
+            "bwd_ms": device_ms(lambda: bwd("wgmma")),
+            "bwd_wmma_ms": device_ms(lambda: bwd("wmma")),
+            "bwd_call_ms": time_ms(lambda: bwd("wgmma"), reps=10),
+            "bwd_plain_ms": device_ms(lambda: backward(_build.attention_bwd_plain), reps=3),
+            "bwd_library": sdpa_flash(q, k, v, items, 1.0, backward=True)})
+        scores = items * nq * nkv
+        products = 2 * scores * dw
+        case["bound_ms"], case["bound_by"], case["bound_unit"] = attention_bound(
+            2 * products, scores, nbytes(q, k, v, out) + (8 * rows_q if with_m else 0))
+        case["bwd_bound_ms"], case["bwd_bound_by"], case["bwd_bound_unit"] = attention_bound(
+            5 * products, scores, nbytes(q, k, v, du, ddn, ref_m, *gb))
+    log(f"attention D = {dw}, {label}: {items} x {nq} queries x {nkv} keys: forward max|err| "
+        f"{case['max_abs_err']} (beyond rtol = atol = 1e-2: {fwd_beyond}), m rel {m_rel}, den "
+        f"rel {den_rel} (tolerance 1e-4); backward {grads} (tolerance cosine >= 0.9999, "
+        f"max err <= 1e-2 of max |ref|), bf16 copies exact {copies}, NaN columns past the "
+        f"outputs intact {case['sentinels_intact']}; "
+        + ("" if not timed else
+           f"device ms: forward {case['ms']} (a call through the wrapper "
+           f"{case['call_ms']}), WMMA route {case['wmma_ms']}, plain "
+           f"{case['plain_ms']}, flash SDPA {case['library']}, bound {case['bound_ms']} "
+           f"({case['bound_by']}, {case['bound_unit']}); backward {case['bwd_ms']} (a call "
+           f"{case['bwd_call_ms']}), WMMA route "
+           f"{case['bwd_wmma_ms']}, plain {case['bwd_plain_ms']}, flash SDPA backward "
+           f"{case['bwd_library']}, bound {case['bwd_bound_ms']} ({case['bwd_bound_by']}, "
+           f"{case['bwd_bound_unit']})"))
+    return case
 
 
 def bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -2913,9 +3011,11 @@ def _to_device(batch, device):
     return tuple(torch.as_tensor(a, device=device) for a in batch)
 
 
-def phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves")):
+def phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves"),
+                      with_chains: bool = False):
     """Data init, then one train_step through the kernels and one through the
-    plain versions from the same state, batch and noise, at B=2."""
+    plain versions from the same state, batch and noise, at B=2; with
+    `with_chains` also the kernels step's ChainRoutes counts ("chains")."""
     cfg = model.config
     batch = _to_device(train_batches(cfg, TRAIN_CHECK_B, 1, SEED + 10)[0], device)
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
@@ -2935,10 +3035,10 @@ def phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves")):
         grads = {gname: torch.cat([p.grad.float().reshape(-1) for name, p in
                                    model.named_parameters() if name.startswith(gname + ".")])
                  for gname in groups}
-        results.append((row, read_counters(), grads))
+        results.append((row, read_counters(), grads, CHAIN_ROUTES.read()))
     model.plain = False
     model.load_state_dict(snapshot)
-    (rk, ck, gk), (rp, cp, gp) = results
+    (rk, ck, gk, chains), (rp, cp, gp, _) = results
     cos = {gname: float(torch.nn.functional.cosine_similarity(gk[gname], gp[gname], dim=0))
            for gname in groups}
     log(f"training check {cfg['input_embedder']} B={TRAIN_CHECK_B}: kernels {rk}, plain {rp}; "
@@ -2952,7 +3052,8 @@ def phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves")):
     assert min(cos.values()) >= 0.99, f"gradient directions differ: {cos}"
     assert all(ck[k] >= 1 for k in need), ck
     assert all(cp[k] == 0 for k in need), cp
-    return {"kernels": rk, "plain": rp, "cosine": cos, "launches": ck}
+    out = {"kernels": rk, "plain": rp, "cosine": cos, "launches": ck}
+    return {**out, "chains": chains} if with_chains else out
 
 
 def phase_train_main(ft, model, device, batch: int = TIME_B,
@@ -3980,13 +4081,57 @@ def phase_variants(ft, device, dulcet_item_s: float) -> dict:
     log(f"variant phase: {out['phase_s']:.1f} s")
     return out
 
+# ------------------------------------- the attention kernels' other head widths
+
+# dulcet-universe at the attention kernels' head widths other than its own
+# 64, at full width and depth: (label, width, overrides)
+HEAD_WIDTH_RUNS = (("D = 32 (cross_dim_head 32, the JAX demo's)", 32, {"cross_dim_head": 32}),
+                   ("D = 128 (cross_heads 2 x cross_dim_head 64)", 128, {"cross_heads": 2}))
+
+
+def phase_head_widths(ft, device) -> dict:
+    """dulcet-universe (bf16, full width, 115 layers) at D = 32 and D = 128,
+    every part of `model.routes` on its kernels: the eval main path through
+    evaluate_on_test (2 items of B=20, both directions) against the plain
+    path on the same noise (|d nats| <= 0.01, change maps >= 99.9%), with
+    B1-B4 launched, 4 launches a layer inside B1 (`check_flow_launches`) and
+    no WMMA attention; make_sample of 1 x 4000 against the plain samples of
+    the same z (|d nats| <= 0.01, 4 launches a layer inside B7); the
+    training check at B=2 (|d nats| <= 0.01, grad norm within 5%, cosine >=
+    0.99) with 11 launches a layer inside B5 (`check_b5_launches`). Each
+    phase's counters are set to 0 just before it and read just after; the
+    plain runs launch none of B1, B2, B5, B7."""
+    out = {}
+    for label, dw, overrides in HEAD_WIDTH_RUNS:
+        t0 = time.perf_counter()
+        model = make_model(ft, device, **overrides)
+        cfg = model.config
+        assert cfg["cross_heads"] * cfg["cross_dim_head"] == dw, (label, cfg["cross_heads"])
+        assert all(r == "kernels" for r in model.routes.values()), (label, dict(model.routes))
+        log(f"head width {label}: routes {dict(model.routes)}")
+        items = eval_items(cfg, TIME_B, 2, SEED + 3)
+        launches = phase_main_path(ft, model, device, items=items)
+        sample = phase_sample_main(ft, model, device)
+        check = phase_train_check(ft, model, device, with_chains=True)
+        b5 = check_b5_launches(check.pop("chains"), f"the training check at {label}", True)
+        out[str(dw)] = {"label": label, "eval_launches": launches, "sample": sample,
+                        "train_check": check, "b5": b5,
+                        "attention_launches": launches["attention wgmma"],
+                        "attention_bwd_launches": check["launches"]["attention_bwd wgmma"],
+                        "phase_s": time.perf_counter() - t0}
+        log(f"head width {label}: {out[str(dw)]['phase_s']:.1f} s")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------- routes from the shapes
 
 # Three small bf16 configs (dulcet-universe at 2 layers, B=2) outside the
 # kernels' shape limits, and the parts each must send to the plain route
 C1_B = 2
 C1_CASES = (
-    ("D = 32", {"cross_dim_head": 32}, ("stack", "augmenter")),
+    ("D = 256", {"cross_heads": 4}, ("stack", "augmenter")),
     ("1,024-wide coupling MLP", {"hidden_dims": [1024, 1024, 1024]}, ("stack", "augmenter")),
     ("k = 80", {"n_neighbors": 80}, ("encoder",)),
 )
@@ -4009,7 +4154,7 @@ def _c1_check_launches(name: str, routes: dict, path: str, launches: dict) -> No
 
 def phase_c1(ft, device) -> dict:
     """Configs outside the kernels' shapes on the card (ROADMAP queue C1):
-    D = 32, a 1,024-wide coupling MLP and k = 80, each a bf16
+    D = 256 (4 heads of 64), a 1,024-wide coupling MLP and k = 80, each a bf16
     dulcet-universe at 2 layers and full width, B=2. Each prints its routes
     and must refuse the expected parts; its log_prob (inner_loop eval), one
     train_step after the data init and one make_sample of 1 x 4000 run on
@@ -4095,7 +4240,7 @@ def phase_c1(ft, device) -> dict:
 DEMO = REPO / "examples" / "convergence_demo_torch.py"
 DEMO_AUC_MIN = 0.95          # and loss last8 < first8 (PERF.md, set before the first run)
 # the routes each run must read (the demo's config at its cross_dim_head)
-DEMO_RUNS = (("D = 32", 32, REPO / "build" / "chip_smoke_demo", ("stack", "augmenter")),
+DEMO_RUNS = (("D = 32", 32, REPO / "build" / "chip_smoke_demo", ()),
              ("D = 64", 64, REPO / "build" / "chip_smoke_demo_d64", ()))
 
 
@@ -4174,10 +4319,9 @@ def round_trip_by_layer(model, device, seed: int) -> dict:
 
 def phase_demo(ft, device) -> dict:
     """examples/convergence_demo_torch.py on the card, twice, each in a
-    process of its own: at the JAX demo's cross_dim_head 32 (the layer stack
-    and the augmenter on the plain route, the DGCNN on B4, B3 and B6) and at
-    64 (every part on its kernels: 240 steps through B1 with saves and B5's
-    backward). Each run must learn (loss last8 < first8), score change
+    process of its own: at the JAX demo's cross_dim_head 32 and at 64, every
+    part on its kernels at both (240 steps through B1 with saves and B5's
+    backward, the DGCNN on B4, B3 and B6). Each run must learn (loss last8 < first8), score change
     (AUC >= DEMO_AUC_MIN), read the routes it expects and launch the
     kernels of its routes; then the D = 64 run's checkpoint gives the round
     trip's gap layer by layer (`round_trip_by_layer`)."""
@@ -4783,6 +4927,14 @@ def main() -> int:
     data = phase_data(ft, model, device)
     del model
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    head_widths = phase_head_widths(ft, device)
+    log(f"head-width phase: {time.perf_counter() - t0:.1f} s")
+    for key in ("cross_attention", "cross_attention_bwd"):
+        for dw, run in head_widths.items():
+            attention_entries[key]["by_width"][dw]["launches"] = run[
+                "attention_launches" if key == "cross_attention" else "attention_bwd_launches"]
+    torch.cuda.empty_cache()
     paconv_entries, good_surf = good_surf_phases(ft, device)
     entries.update(paconv_entries)
     torch.cuda.empty_cache()
@@ -4825,6 +4977,7 @@ def main() -> int:
                       "good_surf": good_surf, "helpful_sponge": helpful_sponge,
                       "swept_energy": swept_energy, "cli": cli, "data": data,
                       "variants": variants, "c1": c1, "demo": demo, "ddp": ddp,
+                      "head_widths": head_widths,
                       "model_axis": model_axis,
                       "b10": b10_entry_point, "gemm": gemm_cases, "attention": attention_cases,
                       "fused_layers": fused_cases, "main_path_bounds": main_bounds,

@@ -10,10 +10,9 @@ The JAX demo's configuration (dulcet-universe reduced to 24 layers, latent
 training seed 1 with no change, eval seed 777 with half the scenes
 changed), 240 steps at B=8, truth rule and pairwise AUC. Noise comes from
 torch generators (training seed 0, eval seed 5), so the loss curve is not
-the JAX run's. At cross_dim_head 32 the layer stack and the augmenter take
-the plain route on the card (their attention kernels take a head width of
-64; `model.routes`) and the DGCNN encoder its kernels; at 64 every part
-runs on its kernels.
+the JAX run's. At cross_dim_head 32 and at 64 every part runs on its
+kernels on the card (the attention kernels take head widths 32, 64 and
+128; `model.routes`).
 
 Writes <out>/result.json with the JAX demo's keys (nats, auc,
 changed_mean, unchanged_mean, loss_first8, loss_last8), plus the routes,

@@ -1,9 +1,11 @@
-// attention_core: softmax(q k^T * scale) v with head dimension 64 and the
-// probabilities kept at f32 precision through the PV product, the port of
+// attention_core: softmax(q k^T * scale) v with head dimension D in {32,
+// 64, 128} (one template instance each, chosen by fc_attention_core's `d`;
+// any other width returns cudaErrorInvalidValue) and the probabilities
+// kept at f32 precision through the PV product, the port of
 // the Pallas kernel fused_attention_core (ops/attention_pallas.py, body
 // _kernel).
 //
-//   q (items*nq, 64), k and v (items*nkv, 64) bf16 -> out (items*nq, 64) bf16
+//   q (items*nq, D), k and v (items*nkv, D) bf16 -> out (items*nq, D) bf16
 //
 // It computes what the Pallas kernel computes, in its order: s = q k^T with
 // f32 accumulation, times the temperature in f32 (an argument here, not
@@ -18,10 +20,11 @@
 // cross_attention.cu's parts in attention_wgmma.cuh):
 //  * a block takes 64 query rows of one item (one consumer warpgroup) and
 //    one producer warp that streams the K tiles (pass 1) and the K and V
-//    tiles (pass 2), 64 keys x 64 dims, through a ring of 2 stages from 3-D
-//    tensor maps (64, rows, items), so no box reads the next item's keys;
-//  * S = Q K^T is four wgmma m64n64k16 into 32 f32 registers a thread, both
-//    passes; the scores never leave the registers;
+//    tiles (pass 2), 64 keys x D dims as 64 x 64 boxes (attention_wgmma.cuh),
+//    through a ring of 2 stages from 3-D tensor maps (D, rows, items), so
+//    no box reads the next item's keys;
+//  * S = Q K^T is D / 16 wgmma m64n64k16 into 32 f32 registers a thread,
+//    both passes; the scores never leave the registers;
 //  * pass 1 keeps, per thread and row, a running maximum and the f32 sum of
 //    exp(s - max) rescaled when the maximum grows; the four threads of a
 //    row then merge theirs. The maximum is exact; the sum differs from the
@@ -30,8 +33,11 @@
 //    terms, p_hi = bf16(p), p_mid = bf16(p - p_hi), p_lo = bf16(p - p_hi -
 //    p_mid) (each difference exact in f32): together about 24 bits of p,
 //    f32's own. All three go straight into wgmma's A-register layout, and
-//    each tile's P_lo V + P_mid V + P_hi V runs on the tensor cores into a
-//    fresh f32 accumulator that is then added to the output's in f32:
+//    each tile's P_lo V + P_mid V + P_hi V runs on the tensor cores, a box
+//    of V at a time, into a fresh f32 accumulator (one, reused by the two
+//    boxes at D = 128, so the three terms, the output's two accumulators
+//    and a tile's stay within two blocks' registers) that is then added to
+//    the output's in f32:
 //    summed over all keys in one tensor-core accumulator, or with two
 //    terms (about 16 bits), several times as many outputs came out more
 //    than half a bf16 ulp off the f32 plain version as with the earlier
@@ -40,10 +46,11 @@
 //    the shares and holds the kernel's to B10_SHARE_LIMIT);
 //  * masked keys (>= nkv; nkv = 1250 is 19 tiles and 34 keys) are left out
 //    of the maximum and the sum and get p = 0; TMA zero-fills the rows
-//    past an item's keys and queries; rows >= nq are never stored.
+//    past an item's keys and queries (and the 32 columns past D = 32, whose
+//    P V results are never stored); rows >= nq are never stored.
 //
 // What bounds it on the H100: operations. One q k^T and the three bf16 PV
-// products, 4 x 2 x 64 a score, over the bf16 peak (with the PV product as
+// products, 4 x 2 x D a score, over the bf16 peak (with the PV product as
 // f32 FMAs on the CUDA cores, as the earlier kernel ran it, the bound was
 // 0.0522 ms at (20, 1024) x 1250 keys). The second q k^T of pass 2 and
 // one SFU exponential a score per pass are the kernel's own cost on top.
@@ -59,9 +66,12 @@ namespace {
 constexpr int CORE_STAGES = 2;
 constexpr int CORE_THREADS = 128 + 32;
 constexpr int CORE_MIN_BLOCKS = 2;
-constexpr int CORE_SMEM_BYTES = (1 + 2 * CORE_STAGES) * ATT_TILE_BYTES + 1024;
-static_assert(CORE_MIN_BLOCKS * CORE_SMEM_BYTES <= 232448,
-              "the rings exceed the SM's shared memory");
+
+template <int D>
+struct Core {
+  static constexpr int SMEM = (1 + 2 * CORE_STAGES) * AttWidth<D>::TILE_BYTES + 1024;
+  static_assert(CORE_MIN_BLOCKS * SMEM <= 232448, "the rings exceed the SM's shared memory");
+};
 
 // Merges a (maximum, sum of exp(s - maximum)) pair into another; a pair
 // with no key yet has maximum -inf and sum 0.
@@ -72,16 +82,18 @@ __device__ __forceinline__ void merge_max_sum(float& m, float& l, float m2, floa
   m = mn;
 }
 
+template <int D>
 __global__ void __launch_bounds__(CORE_THREADS, CORE_MIN_BLOCKS)
     attention_core_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
                                 int ldo, int nq, int nkv, float scale) {
-  constexpr int STAGES = CORE_STAGES;
+  using W = AttWidth<D>;
+  constexpr int STAGES = CORE_STAGES, TB = W::TILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], q_full;
   uint8_t* const qs = align1024(smem_raw);
-  uint8_t* const ring = qs + ATT_TILE_BYTES;   // stage s: K, then V
+  uint8_t* const ring = qs + TB;   // stage s: K, then V
   const int item = blockIdx.y, q0 = blockIdx.x * ATT_TILE;
   const int n_tiles = (nkv + ATT_TILE - 1) / ATT_TILE;
   if (threadIdx.x == 0) {
@@ -100,17 +112,17 @@ __global__ void __launch_bounds__(CORE_THREADS, CORE_MIN_BLOCKS)
       prefetch_tensor_map(&tq);
       prefetch_tensor_map(&tk);
       prefetch_tensor_map(&tv);
-      mbar_expect_tx(&q_full, ATT_TILE_BYTES);
-      tma_load_3d(qs, &tq, &q_full, 0, q0, item);
+      mbar_expect_tx(&q_full, TB);
+      tma_load_tile<D>(qs, &tq, &q_full, q0, item);
       for (int it = 0; it < 2 * n_tiles; ++it) {
         const int s = it % STAGES;
         const bool pass2 = it >= n_tiles;
         const int j0 = (pass2 ? it - n_tiles : it) * ATT_TILE;
         mbar_wait(&empty[s], ring_parity(it, STAGES) ^ 1);
-        uint8_t* ks = ring + 2 * s * ATT_TILE_BYTES;
-        mbar_expect_tx(&full[s], (pass2 ? 2 : 1) * ATT_TILE_BYTES);
-        tma_load_3d(ks, &tk, &full[s], 0, j0, item);
-        if (pass2) tma_load_3d(ks + ATT_TILE_BYTES, &tv, &full[s], 0, j0, item);
+        uint8_t* ks = ring + 2 * s * TB;
+        mbar_expect_tx(&full[s], (pass2 ? 2 : 1) * TB);
+        tma_load_tile<D>(ks, &tk, &full[s], j0, item);
+        if (pass2) tma_load_tile<D>(ks + TB, &tv, &full[s], j0, item);
       }
     }
     return;
@@ -130,7 +142,7 @@ __global__ void __launch_bounds__(CORE_THREADS, CORE_MIN_BLOCKS)
     const int st = it % STAGES;
     mbar_wait(&full[st], ring_parity(it, STAGES));
     wgmma_fence();
-    tile_abt(s, qs, ring + 2 * st * ATT_TILE_BYTES);
+    tile_abt<D>(s, qs, ring + 2 * st * TB);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -173,16 +185,19 @@ __global__ void __launch_bounds__(CORE_THREADS, CORE_MIN_BLOCKS)
 
   // pass 2: p = exp(s * scale - m) / sum in f32, split p = p_hi + p_mid +
   // p_lo (all bf16); each tile's P_lo V + P_mid V + P_hi V on the tensor
-  // cores into a fresh accumulator, added to the f32 output in order
-  float acc[32], tile[32];
+  // cores into a fresh accumulator, a box of V at a time, added to the f32
+  // output in order
+  float acc[W::BOXES][32], tile[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int x = 0; x < W::BOXES; ++x)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[x][i] = 0.f;
   for (int j = 0; j < n_tiles; ++j) {
     const int it = n_tiles + j, st = it % STAGES;
-    const uint8_t* ks = ring + 2 * st * ATT_TILE_BYTES;
+    const uint8_t* ks = ring + 2 * st * TB;
     mbar_wait(&full[st], ring_parity(it, STAGES));
     wgmma_fence();
-    tile_abt(s, qs, ks);
+    tile_abt<D>(s, qs, ks);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -205,30 +220,57 @@ __global__ void __launch_bounds__(CORE_THREADS, CORE_MIN_BLOCKS)
       p_lo[i] = pack_bf16(r0 - mf.x, r1 - mf.y);
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) tile[i] = 0.f;
-    wgmma_fence();
-    tile_pb(tile, p_lo, ks + ATT_TILE_BYTES);
-    tile_pb(tile, p_mid, ks + ATT_TILE_BYTES);
-    tile_pb(tile, p_hi, ks + ATT_TILE_BYTES);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(tile);
-    release_stage(&empty[st]);
+    for (int x = 0; x < W::BOXES; ++x) {
+      const uint8_t* vs = ks + TB + x * ATT_BOX_BYTES;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] += tile[i];
+      for (int i = 0; i < 32; ++i) tile[i] = 0.f;
+      wgmma_fence();
+      tile_pb(tile, p_lo, vs);
+      tile_pb(tile, p_mid, vs);
+      tile_pb(tile, p_hi, vs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(tile);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[x][i] += tile[i];
+    }
+    release_stage(&empty[st]);
   }
 
-  // epilogue: bf16(O) in pairs, rows < nq only
+  // epilogue: bf16(O) in pairs, rows < nq and columns < D only
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + frag_row(t) + 8 * h;
     if (row >= nq) continue;
     bf16* orow = out + ((size_t)item * nq + row) * ldo + fc;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-      *reinterpret_cast<uint32_t*>(orow + 8 * jj) =
-          pack_bf16(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+    for (int x = 0; x < W::BOXES; ++x)
+#pragma unroll
+      for (int jj = 0; jj < W::BOX_COLS / 8; ++jj)
+        *reinterpret_cast<uint32_t*>(orow + x * ATT_BOX + 8 * jj) =
+            pack_bf16(acc[x][4 * jj + 2 * h], acc[x][4 * jj + 2 * h + 1]);
   }
+}
+
+template <int D>
+int launch_core(const void* q, int ldq, const void* k, int ldk, const void* v, int ldv, void* out,
+                int ldo, int n_items, int nq, int nkv, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = att_tensor_map<D>(&tq, q, n_items, nq, ldq);
+  if (err == cudaSuccess) err = att_tensor_map<D>(&tk, k, n_items, nkv, ldk);
+  if (err == cudaSuccess) err = att_tensor_map<D>(&tv, v, n_items, nkv, ldv);
+  if (err != cudaSuccess) return (int)err;
+  static bool smem_set = false;   // the shared-memory opt-in, once a width
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(attention_core_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Core<D>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((nq + ATT_TILE - 1) / ATT_TILE, n_items);
+  attention_core_wgmma_kernel<D><<<grid, CORE_THREADS, Core<D>::SMEM, stream>>>(
+      tq, tk, tv, (bf16*)out, ldo, nq, nkv, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -236,28 +278,19 @@ __global__ void __launch_bounds__(CORE_THREADS, CORE_MIN_BLOCKS)
 // The wgmma route: q, k and v TMA-readable (16-byte bases, row strides a
 // multiple of 8), out written in 4-byte pairs (a 4-byte base, ldo even).
 // Other operands return cudaErrorMisalignedAddress: there is no other route
-// on the main path.
+// on the main path. A head width d other than 32, 64 or 128 returns
+// cudaErrorInvalidValue.
 FC_API int fc_attention_core(const void* q, int ldq, const void* k, int ldk, const void* v,
                              int ldv, void* out, int ldo, int n_items, int nq, int nkv,
-                             float scale, void* stream) {
+                             float scale, int d, void* stream) {
   if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(out) & 3u) || (ldo & 1)) return (int)cudaErrorMisalignedAddress;
-  CUtensorMap tq, tk, tv;
-  cudaError_t err = bf16_tensor_map_3d(&tq, q, n_items, nq, ATT_D, ldq, ATT_D, ATT_TILE);
-  if (err == cudaSuccess)
-    err = bf16_tensor_map_3d(&tk, k, n_items, nkv, ATT_D, ldk, ATT_D, ATT_TILE);
-  if (err == cudaSuccess)
-    err = bf16_tensor_map_3d(&tv, v, n_items, nkv, ATT_D, ldv, ATT_D, ATT_TILE);
-  if (err != cudaSuccess) return (int)err;
-  static bool smem_set = false;   // the shared-memory opt-in, once
-  if (!smem_set) {
-    err = cudaFuncSetAttribute(attention_core_wgmma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, CORE_SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (d) {
+    case 32: return launch_core<32>(q, ldq, k, ldk, v, ldv, out, ldo, n_items, nq, nkv, scale, st);
+    case 64: return launch_core<64>(q, ldq, k, ldk, v, ldv, out, ldo, n_items, nq, nkv, scale, st);
+    case 128:
+      return launch_core<128>(q, ldq, k, ldk, v, ldv, out, ldo, n_items, nq, nkv, scale, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((nq + ATT_TILE - 1) / ATT_TILE, n_items);
-  attention_core_wgmma_kernel<<<grid, CORE_THREADS, CORE_SMEM_BYTES, (cudaStream_t)stream>>>(
-      tq, tk, tv, (bf16*)out, ldo, nq, nkv, scale);
-  return (int)cudaGetLastError();
 }

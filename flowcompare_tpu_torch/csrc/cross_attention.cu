@@ -1,11 +1,13 @@
-// cross_attention: one-head softmax(q k^T) v with head dimension 64, the
+// cross_attention: one-head softmax(q k^T) v with head dimension D in
+// {32, 64, 128} (one template instance each, chosen by the entry points'
+// `d`; any other width returns cudaErrorInvalidValue), the
 // attention step of the Pallas kernels fused_flow_layers_t (B1,
 // _attention_cond_t, flowcompare_tpu/ops/flow_layer_pallas.py:800),
 // fused_augmenter (B2, _attention_cond, :239) and
 // fused_flow_layers_inverse_t (B7), and of B5's per-layer recompute. The
 // 1/sqrt(d) temperature is already folded into q (fold_stacks).
 //
-//   q (items*nq, 64) bf16, k and v (items*nkv, 64) bf16 -> out (items*nq, 64) bf16
+//   q (items*nq, D) bf16, k and v (items*nkv, D) bf16 -> out (items*nq, D) bf16
 //
 // It ports folded_scan_core's max-subtracted softmax, not the TPU kernel's
 // clamp-at-80 with an epsilon on the denominator: each row's exact maximum m
@@ -19,10 +21,11 @@
 // writes each row's f32 m and den = sum(e).
 //
 // What bounds it on the H100: at the presets' 20-50 items x 1024 queries x
-// 1250 keys, the three 64-deep products (q k^T twice, P v) are 3 x 2 x 64
-// operations a score against 4 bytes of q, k and v a key row: operations
-// bound it, and at D = 64 the exponential (one SFU ex2 a score, about the
-// tensor cores' rate for 256 operations) is a co-limiter.
+// 1250 keys, the three D-deep products (q k^T twice, P v) are 3 x 2 x D
+// operations a score against a few bytes of q, k and v a key row:
+// operations bound it, and the exponential (one SFU ex2 a score, about the
+// tensor cores' rate for 256 operations) is a co-limiter at D = 64 and the
+// limit at D = 32.
 //
 // Design (cross_attention_wgmma_kernel, TMA + wgmma on sm_90a):
 //  * a block takes 64 query rows of one item (one consumer warpgroup) plus
@@ -35,27 +38,30 @@
 //    with another's products; skipping the index mask on full tiles did not
 //    pay either;
 //  * the producer loads the block's q rows once, then streams the K tiles
-//    (pass 1) and the K and V tiles (pass 2), 64 keys x 64 dims, through a
-//    ring of 2 stages with full / empty mbarriers;
-//  * S = Q K^T is four wgmma m64n64k16 (Q and K both K-major in shared
+//    (pass 1) and the K and V tiles (pass 2), 64 keys x D dims as 64 x 64
+//    boxes (attention_wgmma.cuh), through a ring of 2 stages with full /
+//    empty mbarriers (four blocks to an SM at D <= 64, two at D = 128,
+//    whose 16 KB tiles would not fit four);
+//  * S = Q K^T is D / 16 wgmma m64n64k16 (Q and K both K-major in shared
 //    memory) into 32 f32 registers a thread; pass 1 takes the row maximum
 //    over the fragment, then over the 4 threads that share a row (shuffles);
 //    pass 2 forms e = 2^((s - m) log2(e)) with the SFU's ex2, adds it to the
 //    f32 row sums, rounds it to bf16 straight into wgmma's A-register
-//    layout, and runs O += P V with A from registers and the V tile read
-//    MN-major; the scores never touch shared memory;
+//    layout, and runs O += P V, one m64n64 product a box of V (read
+//    MN-major) with A from registers; the scores never touch shared memory;
 //  * the epilogue writes bf16(O / sum) as bf16 pairs, and m / den.
 // Where trouble lies, and what the design does about it:
 //  * ragged keys across items: nkv = 1250 is 19 tiles and 34 keys, and the
-//    operands are (items*rows, 64) matrices, so a 2-D box at the last tile
-//    would read the next item's keys. The tensor maps are 3-D (64, rows,
+//    operands are (items*rows, D) matrices, so a 2-D box at the last tile
+//    would read the next item's keys. The tensor maps are 3-D (D, rows,
 //    items): TMA clips each box at its item's last row and zero-fills the
 //    rest. A zero key still scores s = 0, which is wrong for the maximum
 //    when every real score is negative, so scores of keys >= nkv are also
 //    masked by index (left out of the maximum, e = 0);
 //  * ragged stores: the output is a column slice of the packed coupling
-//    rows (row stride `ldo`); rows >= nq of an item and columns past 64 are
-//    never written;
+//    rows (row stride `ldo`); rows >= nq of an item and columns past D are
+//    never written (at D = 32 the P V product's 32 zero columns stay in
+//    registers);
 //  * alignment: TMA needs 16-byte bases and rows of whole 16 bytes; the
 //    wrapper sends other operands to the WMMA kernel below
 //    (cross_attention_wmma_kernel, fc_cross_attention_wmma), counted apart;
@@ -68,24 +74,35 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int D = 64;     // head dimension
 constexpr int QB = 64;    // query rows per block
 constexpr int KT = 64;    // keys per tile
-constexpr int LDT = D + 8;    // 72 bf16 per smem row
-constexpr int LDS_F = KT + 4; // 68 f32 per score row
+constexpr int LDP = KT + 8;   // 72 bf16 per row of P
+
+// The WMMA route's shared memory at head width D: q, k and v tiles of
+// (D + 8)-element rows, then a warp's f32 scores (and, at the end, its
+// output rows) of max(64, D) + 4 columns, which P (bf16) reuses.
+template <int D>
+struct WmmaFwd {
+  static constexpr int LDT = D + 8;
+  static constexpr int LDS_F = (D > KT ? D : KT) + 4;
+  static constexpr int SMEM = (QB + 2 * KT) * LDT * 2 + 4 * 16 * LDS_F * 4 + 1024;
+};
 
 // The WMMA route, for operands TMA cannot read: a block of 4 warps takes 64
 // query rows (16 a warp); key/value tiles of 64 rows go through shared
 // memory with synchronous loads; both products are WMMA 16x16x16, and each
 // score tile is stored to shared memory and read back per lane.
+template <int D>
 __global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
     const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k, const bf16* __restrict__ v,
     int ldkv, bf16* __restrict__ out, int ldo, float* __restrict__ m_out,
     float* __restrict__ den_out, int nq, int nkv) {
-  __shared__ __align__(32) bf16 Qs[QB * LDT];
-  __shared__ __align__(32) bf16 Ks[KT * LDT];
-  __shared__ __align__(32) bf16 Vs[KT * LDT];
-  __shared__ __align__(32) float Ss[4][16 * LDS_F];  // per-warp scores; reused as bf16 P
+  constexpr int LDT = WmmaFwd<D>::LDT, LDS_F = WmmaFwd<D>::LDS_F;
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const Qs = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* const Ks = Qs + QB * LDT;
+  bf16* const Vs = Ks + KT * LDT;
+  float* const Ss = reinterpret_cast<float*>(Vs + KT * LDT);  // per-warp scores; reused as bf16 P
 
   const int item = blockIdx.y;
   const int q0 = blockIdx.x * QB;
@@ -104,8 +121,8 @@ __global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
   for (int kk = 0; kk < D / 16; ++kk)
     wmma::load_matrix_sync(fq[kk], Qs + warp * 16 * LDT + kk * 16, LDT);
 
-  float* S = Ss[warp];
-  bf16* P = reinterpret_cast<bf16*>(S);  // 16 x LDT bf16 fits in 16 x LDS_F f32
+  float* S = Ss + warp * 16 * LDS_F;
+  bf16* P = reinterpret_cast<bf16*>(S);  // 16 x LDP bf16 fits in 16 x LDS_F f32
   const int r = lane >> 1;               // this lane's row within the warp's 16
   const int c0 = (lane & 1) * 32;        // and its 32 columns of each tile
 
@@ -156,13 +173,13 @@ __global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       sum += e[c];
-      P[r * LDT + c0 + c] = f2bf(e[c]);
+      P[r * LDP + c0 + c] = f2bf(e[c]);
     }
     __syncwarp();
 #pragma unroll
     for (int kb = 0; kb < KT / 16; ++kb) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-      wmma::load_matrix_sync(fp, P + kb * 16, LDT);
+      wmma::load_matrix_sync(fp, P + kb * 16, LDP);
 #pragma unroll
       for (int db = 0; db < D / 16; ++db) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
@@ -179,9 +196,10 @@ __global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
     wmma::store_matrix_sync(S + db * 16, o[db], LDS_F, wmma::mem_row_major);
   __syncwarp();
   const int row = q0 + warp * 16 + r;
+  const int oc0 = (lane & 1) * (D / 2);  // this lane's half of the D output columns
   if (row < nq) {
     bf16* orow = out + ((size_t)item * nq + row) * ldo;
-    for (int c = 0; c < 32; ++c) orow[c0 + c] = f2bf(S[r * LDS_F + c0 + c] / sum);
+    for (int c = 0; c < D / 2; ++c) orow[oc0 + c] = f2bf(S[r * LDS_F + oc0 + c] / sum);
     if (m_out != nullptr && (lane & 1) == 0) {
       m_out[(size_t)item * nq + row] = m;
       den_out[(size_t)item * nq + row] = sum;
@@ -189,16 +207,43 @@ __global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
   }
 }
 
+template <int D>
+int launch_wmma(const void* q, int ldq, const void* k, const void* v, int ldkv, void* out,
+                int ldo, void* m_out, void* den_out, int n_items, int nq, int nkv,
+                cudaStream_t stream) {
+  static bool smem_set = false;   // the shared-memory opt-in, once a width
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cross_attention_wmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        WmmaFwd<D>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  dim3 grid((nq + QB - 1) / QB, n_items);
+  cross_attention_wmma_kernel<D><<<grid, 128, WmmaFwd<D>::SMEM, stream>>>(
+      (const bf16*)q, ldq, (const bf16*)k, (const bf16*)v, ldkv, (bf16*)out, ldo, (float*)m_out,
+      (float*)den_out, nq, nkv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 FC_API int fc_cross_attention_wmma(const void* q, int ldq, const void* k, const void* v,
                                    int ldkv, void* out, int ldo, void* m_out, void* den_out,
-                                   int n_items, int nq, int nkv, void* stream) {
-  dim3 grid((nq + QB - 1) / QB, n_items);
-  cross_attention_wmma_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, ldq, (const bf16*)k, (const bf16*)v, ldkv, (bf16*)out, ldo, (float*)m_out,
-      (float*)den_out, nq, nkv);
-  return (int)cudaGetLastError();
+                                   int n_items, int nq, int nkv, int d, void* stream) {
+  if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (d) {
+    case 32:
+      return launch_wmma<32>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv, st);
+    case 64:
+      return launch_wmma<64>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv, st);
+    case 128:
+      return launch_wmma<128>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv,
+                              st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 namespace {
@@ -206,25 +251,32 @@ namespace {
 // A block of the wgmma route: one consumer warpgroup of 64 query rows and
 // a producer warp; the q tile, then a ring of FWD_STAGES stages of a K and
 // a V tile (pass 1 uses only the K slot). Two stages let four blocks share
-// an SM (92 registers a thread): on the H100 that was as fast as three
-// blocks with four stages, or faster, at every main-path shape.
+// an SM at D = 64 (92 registers a thread): on the H100 that was as fast as
+// three blocks with four stages, or faster, at every main-path shape. At
+// D = 128 the tiles are twice as large and two blocks share an SM.
 constexpr int FWD_STAGES = 2;
 constexpr int FWD_THREADS = 128 + 32;
-constexpr int FWD_MIN_BLOCKS = 4;
-constexpr int FWD_SMEM_BYTES = (1 + 2 * FWD_STAGES) * ATT_TILE_BYTES + 1024;
-static_assert(FWD_MIN_BLOCKS * FWD_SMEM_BYTES <= 232448,
-              "the rings exceed the SM's shared memory");
 
-__global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) cross_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+template <int D>
+struct Fwd {
+  static constexpr int MIN_BLOCKS = D > 64 ? 2 : 4;
+  static constexpr int SMEM = (1 + 2 * FWD_STAGES) * AttWidth<D>::TILE_BYTES + 1024;
+  static_assert(MIN_BLOCKS * SMEM <= 232448, "the rings exceed the SM's shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS, Fwd<D>::MIN_BLOCKS)
+    cross_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
                                  int ldo, float* __restrict__ m_out,
                                  float* __restrict__ den_out, int nq, int nkv) {
-  constexpr int STAGES = FWD_STAGES;
+  using W = AttWidth<D>;
+  constexpr int STAGES = FWD_STAGES, TB = W::TILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], q_full;
   uint8_t* const qs = align1024(smem_raw);
-  uint8_t* const ring = qs + ATT_TILE_BYTES;   // stage s: K, then V
+  uint8_t* const ring = qs + TB;   // stage s: K, then V
   const int item = blockIdx.y, q0 = blockIdx.x * ATT_TILE;
   const int n_tiles = (nkv + ATT_TILE - 1) / ATT_TILE;
   if (threadIdx.x == 0) {
@@ -243,17 +295,17 @@ __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) cross_attention_w
       prefetch_tensor_map(&tq);
       prefetch_tensor_map(&tk);
       prefetch_tensor_map(&tv);
-      mbar_expect_tx(&q_full, ATT_TILE_BYTES);
-      tma_load_3d(qs, &tq, &q_full, 0, q0, item);
+      mbar_expect_tx(&q_full, TB);
+      tma_load_tile<D>(qs, &tq, &q_full, q0, item);
       for (int it = 0; it < 2 * n_tiles; ++it) {
         const int s = it % STAGES;
         const bool pass2 = it >= n_tiles;
         const int j0 = (pass2 ? it - n_tiles : it) * ATT_TILE;
         mbar_wait(&empty[s], ring_parity(it, STAGES) ^ 1);
-        uint8_t* ks = ring + 2 * s * ATT_TILE_BYTES;
-        mbar_expect_tx(&full[s], (pass2 ? 2 : 1) * ATT_TILE_BYTES);
-        tma_load_3d(ks, &tk, &full[s], 0, j0, item);
-        if (pass2) tma_load_3d(ks + ATT_TILE_BYTES, &tv, &full[s], 0, j0, item);
+        uint8_t* ks = ring + 2 * s * TB;
+        mbar_expect_tx(&full[s], (pass2 ? 2 : 1) * TB);
+        tma_load_tile<D>(ks, &tk, &full[s], j0, item);
+        if (pass2) tma_load_tile<D>(ks + TB, &tv, &full[s], j0, item);
       }
     }
     return;
@@ -272,7 +324,7 @@ __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) cross_attention_w
     const int st = it % STAGES;
     mbar_wait(&full[st], ring_parity(it, STAGES));
     wgmma_fence();
-    tile_abt(s, qw, ring + 2 * st * ATT_TILE_BYTES);
+    tile_abt<D>(s, qw, ring + 2 * st * TB);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -295,17 +347,20 @@ __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) cross_attention_w
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
   }
 
-  // pass 2: e = exp(s - m), its f32 row sums, and O += bf16(e) V
-  float acc[32];
+  // pass 2: e = exp(s - m), its f32 row sums, and O += bf16(e) V, a box at
+  // a time
+  float acc[W::BOXES][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int x = 0; x < W::BOXES; ++x)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[x][i] = 0.f;
   float l0 = 0.f, l1 = 0.f;
   for (int j = 0; j < n_tiles; ++j) {
     const int it = n_tiles + j, st = it % STAGES;
-    const uint8_t* ks = ring + 2 * st * ATT_TILE_BYTES;
+    const uint8_t* ks = ring + 2 * st * TB;
     mbar_wait(&full[st], ring_parity(it, STAGES));
     wgmma_fence();
-    tile_abt(s, qw, ks);
+    tile_abt<D>(s, qw, ks);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -326,10 +381,12 @@ __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) cross_attention_w
     uint32_t p[16];
     pack_a(s, p);
     wgmma_fence();
-    tile_pb(acc, p, ks + ATT_TILE_BYTES);
+#pragma unroll
+    for (int x = 0; x < W::BOXES; ++x) tile_pb(acc[x], p, ks + TB + x * ATT_BOX_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(acc);
+#pragma unroll
+    for (int x = 0; x < W::BOXES; ++x) fence_acc(acc[x]);
     release_stage(&empty[st]);
   }
 #pragma unroll
@@ -338,7 +395,8 @@ __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) cross_attention_w
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
 
-  // epilogue: bf16(O / sum) in pairs, rows < nq only; m and den
+  // epilogue: bf16(O / sum) in pairs, rows < nq and columns < D only; m
+  // and den
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + frag_row(t) + 8 * half;
@@ -347,9 +405,11 @@ __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) cross_attention_w
     const size_t r = (size_t)blockIdx.y * nq + row;
     bf16* orow = out + r * ldo + fc;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-      *reinterpret_cast<uint32_t*>(orow + 8 * jj) =
-          pack_bf16(acc[4 * jj + 2 * half] / l, acc[4 * jj + 2 * half + 1] / l);
+    for (int x = 0; x < W::BOXES; ++x)
+#pragma unroll
+      for (int jj = 0; jj < W::BOX_COLS / 8; ++jj)
+        *reinterpret_cast<uint32_t*>(orow + x * ATT_BOX + 8 * jj) =
+            pack_bf16(acc[x][4 * jj + 2 * half] / l, acc[x][4 * jj + 2 * half + 1] / l);
     if (m_out != nullptr && fc == 0) {
       m_out[r] = half ? mx1 : mx0;
       den_out[r] = l;
@@ -357,32 +417,49 @@ __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS) cross_attention_w
   }
 }
 
-}  // namespace
-
-// The wgmma route: q, k and v TMA-readable (16-byte bases, row strides a
-// multiple of 8), out written in 4-byte pairs (a 4-byte base, ldo even).
-// Misaligned operands return cudaErrorMisalignedAddress.
-FC_API int fc_cross_attention(const void* q, int ldq, const void* k, const void* v, int ldkv,
-                              void* out, int ldo, void* m_out, void* den_out, int n_items, int nq,
-                              int nkv, void* stream) {
-  if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(out) & 3u) || (ldo & 1)) return (int)cudaErrorMisalignedAddress;
+template <int D>
+int launch_wgmma(const void* q, int ldq, const void* k, const void* v, int ldkv, void* out,
+                 int ldo, void* m_out, void* den_out, int n_items, int nq, int nkv,
+                 cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = bf16_tensor_map_3d(&tq, q, n_items, nq, ATT_D, ldq, ATT_D, ATT_TILE);
-  if (err == cudaSuccess)
-    err = bf16_tensor_map_3d(&tk, k, n_items, nkv, ATT_D, ldkv, ATT_D, ATT_TILE);
-  if (err == cudaSuccess)
-    err = bf16_tensor_map_3d(&tv, v, n_items, nkv, ATT_D, ldkv, ATT_D, ATT_TILE);
+  cudaError_t err = att_tensor_map<D>(&tq, q, n_items, nq, ldq);
+  if (err == cudaSuccess) err = att_tensor_map<D>(&tk, k, n_items, nkv, ldkv);
+  if (err == cudaSuccess) err = att_tensor_map<D>(&tv, v, n_items, nkv, ldkv);
   if (err != cudaSuccess) return (int)err;
-  static bool smem_set = false;   // the shared-memory opt-in, once
+  static bool smem_set = false;   // the shared-memory opt-in, once a width
   if (!smem_set) {
-    err = cudaFuncSetAttribute(cross_attention_wgmma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM_BYTES);
+    err = cudaFuncSetAttribute(cross_attention_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Fwd<D>::SMEM);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
   const dim3 grid((nq + ATT_TILE - 1) / ATT_TILE, n_items);
-  cross_attention_wgmma_kernel<<<grid, FWD_THREADS, FWD_SMEM_BYTES, (cudaStream_t)stream>>>(
+  cross_attention_wgmma_kernel<D><<<grid, FWD_THREADS, Fwd<D>::SMEM, stream>>>(
       tq, tk, tv, (bf16*)out, ldo, (float*)m_out, (float*)den_out, nq, nkv);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The wgmma route: q, k and v TMA-readable (16-byte bases, row strides a
+// multiple of 8), out written in 4-byte pairs (a 4-byte base, ldo even).
+// Misaligned operands return cudaErrorMisalignedAddress; a head width d
+// other than 32, 64 or 128 returns cudaErrorInvalidValue.
+FC_API int fc_cross_attention(const void* q, int ldq, const void* k, const void* v, int ldkv,
+                              void* out, int ldo, void* m_out, void* den_out, int n_items, int nq,
+                              int nkv, int d, void* stream) {
+  if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(out) & 3u) || (ldo & 1)) return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (d) {
+    case 32:
+      return launch_wgmma<32>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv, st);
+    case 64:
+      return launch_wgmma<64>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv, st);
+    case 128:
+      return launch_wgmma<128>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv,
+                               st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

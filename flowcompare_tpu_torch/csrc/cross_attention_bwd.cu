@@ -1,5 +1,7 @@
-// cross_attention_bwd: the backward of cross_attention (one head, d = 64)
-// inside flow_layers_bwd (B5), the port of the attention part of the Pallas
+// cross_attention_bwd: the backward of cross_attention (one head of width
+// D in {32, 64, 128}, one template instance each, chosen by the entry
+// points' `d`; any other width returns cudaErrorInvalidValue) inside
+// flow_layers_bwd (B5), the port of the attention part of the Pallas
 // backward kernel's per-layer jax.vjp (flowcompare_tpu/ops/
 // flow_layer_vjp_pallas.py, _bwd_kernel_impl over _layer_fwd_math).
 //
@@ -16,9 +18,9 @@
 // nothing of size nq x nkv is stored. Two kinds of block, no atomics, so
 // the result is deterministic: a dq block walks the keys for 64 query rows;
 // a dkv block walks the queries for 64 keys and writes [dk | dv] in kv's
-// (rows, 128) layout.
+// (rows, 2 D) layout.
 //
-// What bounds it on the H100: five 64-deep products a score (q k^T, du v^T,
+// What bounds it on the H100: five D-deep products a score (q k^T, du v^T,
 // dS k in a dq block; k q^T, v du^T, e^T du, dS^T q in a dkv block:
 // seven issued, five necessary) and two exponentials a score against a few
 // bytes a row: operations, with the SFU's ex2 as co-limiter.
@@ -26,8 +28,10 @@
 // Design (TMA + wgmma on sm_90a, as cross_attention.cu): a block has one
 // consumer warpgroup of 64 rows and a producer warp, two blocks to an SM.
 // The producer loads the block's own tiles once (q and du, or k and v) and
-// streams the other side's tiles (k and v, or q and du: 64 rows x 64 dims
-// each) through a 4-stage ring with full / empty mbarriers. The warpgroup
+// streams the other side's tiles (k and v, or q and du: 64 rows x D dims
+// each, as 64 x 64 boxes, attention_wgmma.cuh) through a ring with full /
+// empty mbarriers, of 4 stages at D <= 64 and 2 at D = 128 (whose 16 KB
+// tiles would not leave two blocks room for 4). The warpgroup
 // keeps S, dP and dS in registers: both score products are wgmma
 // m64n64k16 from shared memory, e = 2^((s - m) log2(e)) on the SFU, and e
 // or dS is rounded to bf16 straight into wgmma's A-register layout for the
@@ -38,27 +42,33 @@
 //  * a dkv block (attn_bwd_dkv_block, per key tile, over query tiles):
 //    S^T = K Q^T, dP^T = V dU^T, e^T = exp(S^T - m_col), dv += bf16(e^T) dU,
 //    dS^T = bf16(e^T (dP^T + ddn_col)), dk += dS^T Q; each query tile's m
-//    and ddn are staged in the stage's shared memory by the producer warp;
+//    and ddn are staged in the stage's shared memory by the producer warp.
+//    At D = 128 each key tile has two dkv blocks, one a 64-column half of
+//    dk and dv: each recomputes S^T and dP^T over all 128 dims, so a block
+//    holds dk and dv as at D = 64 (a block holding both halves would need
+//    about 230 registers a thread, past the 204 of two blocks to an SM);
 //  * both kinds of block run in one launch (attn_bwd_wgmma_kernel): at two
 //    blocks to an SM the two grids alone (320 and 400 blocks at 20 x 1024 x
 //    1250) each end in a nearly empty second wave; sharing the waves made
 //    the backward faster at every main-path shape on the H100.
 // Where trouble lies, and what the design does about it:
 //  * ragged tiles across items (nkv = 1250 = 19 x 64 + 34, nq = 4000 =
-//    62 x 64 + 32): 3-D tensor maps (64, rows, items) clip every box at its
+//    62 x 64 + 32): 3-D tensor maps (D, rows, items) clip every box at its
 //    item's last row and zero-fill the rest, so no tile reads the next
 //    item; keys >= nkv (dq blocks) and queries >= nq (dkv blocks) are also
 //    masked by index (e = 0), and the m and ddn of queries >= nq are never
 //    read (m = +inf and ddn = 0 are staged instead);
-//  * registers: a dkv block holds dk and dv (2 x 32 f32 a thread) beside
-//    S^T and dP^T (64 more) and two bf16 fragments (32): 159 registers a
-//    thread and no spills in the compiler's report (-Xptxas -v, kept beside
+//  * registers: at D = 64 a dkv block holds dk and dv (2 x 32 f32 a
+//    thread) beside S^T and dP^T (64 more) and two bf16 fragments (32):
+//    159 registers a thread and no spills in the compiler's report (-Xptxas -v, kept beside
 //    the library), so two blocks share an SM. Issuing the next tile's score
 //    products ahead of this tile's exponentials (FlashAttention-3's overlap
 //    inside a warpgroup) needs two more fragments there and spilled; in a
 //    dq block it did not spill but was no faster on the H100; 128-row
 //    blocks (two warpgroups sharing each streamed tile) were slower too, and
 //    so was skipping the index mask on full tiles;
+//  * the outputs are never written past their D columns (dq) or 2 D
+//    columns (dkv): at D = 32 the products' zero columns stay in registers;
 //  * alignment: operands TMA cannot read take the WMMA kernels below
 //    (fc_attention_bwd_wmma), counted apart by the wrapper;
 //  * a ring fault traps (mbar_wait) instead of hanging the card.
@@ -70,16 +80,27 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int D = 64;          // head dimension
 constexpr int QB = 64;         // query rows per tile
 constexpr int KT = 64;         // keys per tile
-constexpr int LDT = D + 8;     // 72 bf16 per smem row
-constexpr int LDS_F = KT + 4;  // 68 f32 per score row
+constexpr int LDP = KT + 8;    // 72 bf16 per row of a warp's P (e or dS)
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// The WMMA route's shared memory at head width D: two 64-row tiles of
+// (D + 8)-element rows, a warp's f32 tile of max(64, D) + 4 columns (16
+// rows; scores, and the output rows at the end; the tile staging at the
+// start), a warp's bf16 P, and (dkv) the query tile's m and ddn.
+template <int D>
+struct WmmaBwd {
+  static constexpr int LDT = D + 8;
+  static constexpr int LDS_F = (D > KT ? D : KT) + 4;
+  static constexpr int SMEM = 2 * 64 * LDT * 2 + 4 * 16 * LDS_F * 4 + 4 * 16 * LDP * 2 +
+                              2 * QB * 4 + 1024;
+  static_assert(64 * LDT * 2 <= 4 * 16 * LDS_F * 4, "the staging tile exceeds the f32 tiles");
+};
 
 // The WMMA route, for operands TMA cannot read: 128-thread blocks of 64
 // rows, synchronous tile loads, WMMA 16x16x16 products with every score
@@ -88,62 +109,71 @@ __device__ __forceinline__ bool vec_ok(const void* p, int ld) {
   return ((reinterpret_cast<uintptr_t>(p) & 15u) == 0) && (ld % 8 == 0);
 }
 
-// out (16 x 64, f32, ld LDS_F) = a (16 x 64 as 4 fragments) @ tile^T, tile
-// (64 rows x 64, bf16, ld LDT) read column-major.
+// out (16 x 64, f32, ld LDS_F) = a (16 x D as D / 16 fragments) @ tile^T,
+// tile (64 rows x D, bf16, ld LDT) read column-major.
+template <int D>
 __device__ __forceinline__ void rows_by_tile_t(const FragA* a, const bf16* tile, float* out) {
 #pragma unroll
   for (int jb = 0; jb < 4; ++jb) {
     FragC acc;
     wmma::fill_fragment(acc, 0.0f);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
       FragBCol fb;
-      wmma::load_matrix_sync(fb, tile + jb * 16 * LDT + kk * 16, LDT);
+      wmma::load_matrix_sync(fb, tile + jb * 16 * WmmaBwd<D>::LDT + kk * 16, WmmaBwd<D>::LDT);
       wmma::mma_sync(acc, a[kk], fb, acc);
     }
-    wmma::store_matrix_sync(out + jb * 16, acc, LDS_F, wmma::mem_row_major);
+    wmma::store_matrix_sync(out + jb * 16, acc, WmmaBwd<D>::LDS_F, wmma::mem_row_major);
   }
   __syncwarp();
 }
 
-// acc (16 x 64 as 4 fragments) += p (16 x 64, bf16, ld LDT) @ tile (64 x 64, ld LDT)
+// acc (16 x D as D / 16 fragments) += p (16 x 64, bf16, ld LDP) @ tile
+// (64 x D, ld LDT)
+template <int D>
 __device__ __forceinline__ void accumulate_p_tile(FragC* acc, const bf16* p, const bf16* tile) {
 #pragma unroll
   for (int kb = 0; kb < 4; ++kb) {
     FragA fp;
-    wmma::load_matrix_sync(fp, p + kb * 16, LDT);
+    wmma::load_matrix_sync(fp, p + kb * 16, LDP);
 #pragma unroll
-    for (int db = 0; db < 4; ++db) {
+    for (int db = 0; db < D / 16; ++db) {
       FragBRow fb;
-      wmma::load_matrix_sync(fb, tile + kb * 16 * LDT + db * 16, LDT);
+      wmma::load_matrix_sync(fb, tile + kb * 16 * WmmaBwd<D>::LDT + db * 16, WmmaBwd<D>::LDT);
       wmma::mma_sync(acc[db], fp, fb, acc[db]);
     }
   }
 }
 
-// Load this warp's 16 rows of a 64 x 64 bf16 tile (staged through `stage`)
-// into four A fragments.
+// Load this warp's 16 rows of a 64 x D bf16 tile (staged through `stage`)
+// into D / 16 A fragments.
+template <int D>
 __device__ __forceinline__ void load_rows(FragA* frag, bf16* stage, const bf16* g, int ld,
                                           int row0, int nrows, bool vec) {
+  constexpr int LDT = WmmaBwd<D>::LDT;
   load_tile_bf16<64, D>(stage, LDT, g, ld, row0, 0, nrows, D, vec);
   __syncthreads();
   const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wmma::load_matrix_sync(frag[kk], stage + warp * 16 * LDT + kk * 16, LDT);
+  for (int kk = 0; kk < D / 16; ++kk)
+    wmma::load_matrix_sync(frag[kk], stage + warp * 16 * LDT + kk * 16, LDT);
   __syncthreads();
 }
 
-// Write a warp's 16 x 64 accumulator (through its f32 tile S) to row `orow`
-// of out (f32) and out_b (bf16) at column col0; orow == (size_t)-1 skips.
+// Write a warp's 16 x D accumulator (through its f32 tile S) to row `orow`
+// of out (f32) and out_b (bf16) at column col0, each lane half a row;
+// orow == (size_t)-1 skips.
+template <int D>
 __device__ __forceinline__ void store_rows(const FragC* acc, float* S, size_t orow, float* out,
-                                           int ldo, bf16* out_b, int ldob, int col0, int r,
-                                           int c0) {
+                                           int ldo, bf16* out_b, int ldob, int col0, int lane) {
+  constexpr int LDS_F = WmmaBwd<D>::LDS_F;
 #pragma unroll
-  for (int db = 0; db < 4; ++db)
+  for (int db = 0; db < D / 16; ++db)
     wmma::store_matrix_sync(S + db * 16, acc[db], LDS_F, wmma::mem_row_major);
   __syncwarp();
   if (orow != (size_t)-1) {
-    for (int c = 0; c < 32; ++c) {
+    const int r = lane >> 1, c0 = (lane & 1) * (D / 2);
+    for (int c = 0; c < D / 2; ++c) {
       const float val = S[r * LDS_F + c0 + c];
       out[orow * ldo + col0 + c0 + c] = val;
       out_b[orow * ldob + col0 + c0 + c] = f2bf(val);
@@ -152,15 +182,19 @@ __device__ __forceinline__ void store_rows(const FragC* acc, float* S, size_t or
   __syncwarp();
 }
 
+template <int D>
 __global__ void __launch_bounds__(128) attn_bwd_dq_wmma_kernel(
     const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k, const bf16* __restrict__ v,
     int ldkv, const bf16* __restrict__ du, int lddu, const float* __restrict__ ddn,
     const float* __restrict__ mrow, float* __restrict__ dq, int lddq, bf16* __restrict__ dq_b,
     int lddqb, int nq, int nkv) {
-  __shared__ __align__(32) bf16 Ks[KT * LDT];
-  __shared__ __align__(32) bf16 Vs[KT * LDT];
-  __shared__ __align__(32) float Ss[4][16 * LDS_F];  // per-warp f32 tile; staging at start
-  __shared__ __align__(32) bf16 Ps[4][16 * LDT];     // per-warp bf16 dS
+  constexpr int LDT = WmmaBwd<D>::LDT, LDS_F = WmmaBwd<D>::LDS_F;
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const Ks = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* const Vs = Ks + KT * LDT;
+  // per-warp f32 tiles, which stage the q and du tiles at the start
+  float* const Ss = reinterpret_cast<float*>(Vs + KT * LDT);
+  bf16* const Ps = reinterpret_cast<bf16*>(Ss + 4 * 16 * LDS_F);  // per-warp bf16 dS
 
   const int item = blockIdx.y;
   const int q0 = blockIdx.x * QB;
@@ -169,53 +203,58 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_wmma_kernel(
   const bf16* vi = v + (size_t)item * nkv * ldkv;
   const bool kv_vec = vec_ok(k, ldkv) && vec_ok(v, ldkv);
 
-  bf16* stage = reinterpret_cast<bf16*>(&Ss[0][0]);  // 64 x LDT bf16 fits in Ss
-  FragA fq[4], fdu[4];
-  load_rows(fq, stage, q + (size_t)item * nq * ldq, ldq, q0, nq, vec_ok(q, ldq));
-  load_rows(fdu, stage, du + (size_t)item * nq * lddu, lddu, q0, nq, vec_ok(du, lddu));
+  bf16* stage = reinterpret_cast<bf16*>(Ss);  // 64 x LDT bf16 fits in the f32 tiles
+  FragA fq[D / 16], fdu[D / 16];
+  load_rows<D>(fq, stage, q + (size_t)item * nq * ldq, ldq, q0, nq, vec_ok(q, ldq));
+  load_rows<D>(fdu, stage, du + (size_t)item * nq * lddu, lddu, q0, nq, vec_ok(du, lddu));
 
-  float* S = Ss[warp];
-  bf16* P = Ps[warp];
+  float* S = Ss + warp * 16 * LDS_F;
+  bf16* P = Ps + warp * 16 * LDP;
   const int r = lane >> 1;         // this lane's row within the warp's 16
   const int c0 = (lane & 1) * 32;  // and its 32 columns of each tile
   const int row = q0 + warp * 16 + r;
   const float mr = row < nq ? mrow[(size_t)item * nq + row] : 0.f;
   const float dr = row < nq ? ddn[(size_t)item * nq + row] : 0.f;
 
-  FragC o[4];
+  FragC o[D / 16];
 #pragma unroll
-  for (int db = 0; db < 4; ++db) wmma::fill_fragment(o[db], 0.0f);
+  for (int db = 0; db < D / 16; ++db) wmma::fill_fragment(o[db], 0.0f);
   for (int j0 = 0; j0 < nkv; j0 += KT) {
     load_tile_bf16<KT, D>(Ks, LDT, ki, ldkv, j0, 0, nkv, D, kv_vec);
     load_tile_bf16<KT, D>(Vs, LDT, vi, ldkv, j0, 0, nkv, D, kv_vec);
     __syncthreads();
-    rows_by_tile_t(fq, Ks, S);  // s = q k^T
+    rows_by_tile_t<D>(fq, Ks, S);  // s = q k^T
     float e[32];
 #pragma unroll
     for (int c = 0; c < 32; ++c)
       e[c] = (j0 + c0 + c < nkv) ? expf(S[r * LDS_F + c0 + c] - mr) : 0.f;
     __syncwarp();
-    rows_by_tile_t(fdu, Vs, S);  // du v^T
+    rows_by_tile_t<D>(fdu, Vs, S);  // du v^T
 #pragma unroll
-    for (int c = 0; c < 32; ++c) P[r * LDT + c0 + c] = f2bf(e[c] * (S[r * LDS_F + c0 + c] + dr));
+    for (int c = 0; c < 32; ++c) P[r * LDP + c0 + c] = f2bf(e[c] * (S[r * LDS_F + c0 + c] + dr));
     __syncwarp();
-    accumulate_p_tile(o, P, Ks);  // dq += dS k
+    accumulate_p_tile<D>(o, P, Ks);  // dq += dS k
     __syncthreads();
   }
-  store_rows(o, S, row < nq ? (size_t)item * nq + row : (size_t)-1, dq, lddq, dq_b, lddqb, 0, r,
-             c0);
+  store_rows<D>(o, S, row < nq ? (size_t)item * nq + row : (size_t)-1, dq, lddq, dq_b, lddqb, 0,
+                lane);
 }
 
+template <int D>
 __global__ void __launch_bounds__(128) attn_bwd_dkv_wmma_kernel(
     const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k, const bf16* __restrict__ v,
     int ldkv, const bf16* __restrict__ du, int lddu, const float* __restrict__ ddn,
     const float* __restrict__ mrow, float* __restrict__ dkv, int lddkv,
     bf16* __restrict__ dkv_b, int lddkvb, int nq, int nkv) {
-  __shared__ __align__(32) bf16 Qs[QB * LDT];
-  __shared__ __align__(32) bf16 DUs[QB * LDT];
-  __shared__ __align__(32) float Ss[4][16 * LDS_F];  // per-warp f32 tile; staging at start
-  __shared__ __align__(32) bf16 Ps[4][16 * LDT];     // per-warp bf16 e, then dS
-  __shared__ float ms[QB], dns[QB];
+  constexpr int LDT = WmmaBwd<D>::LDT, LDS_F = WmmaBwd<D>::LDS_F;
+  extern __shared__ uint8_t smem_raw[];
+  bf16* const Qs = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* const DUs = Qs + QB * LDT;
+  // per-warp f32 tiles, which stage the k and v tiles at the start
+  float* const Ss = reinterpret_cast<float*>(DUs + QB * LDT);
+  bf16* const Ps = reinterpret_cast<bf16*>(Ss + 4 * 16 * LDS_F);  // per-warp bf16 e, then dS
+  float* const ms = reinterpret_cast<float*>(Ps + 4 * 16 * LDP);
+  float* const dns = ms + QB;
 
   const int item = blockIdx.y;
   const int k0 = blockIdx.x * KT;
@@ -224,20 +263,20 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_wmma_kernel(
   const bf16* dui = du + (size_t)item * nq * lddu;
   const bool q_vec = vec_ok(q, ldq), du_vec = vec_ok(du, lddu);
 
-  bf16* stage = reinterpret_cast<bf16*>(&Ss[0][0]);
+  bf16* stage = reinterpret_cast<bf16*>(Ss);
   const bool kv_vec = vec_ok(k, ldkv) && vec_ok(v, ldkv);
-  FragA fk[4], fv[4];
-  load_rows(fk, stage, k + (size_t)item * nkv * ldkv, ldkv, k0, nkv, kv_vec);
-  load_rows(fv, stage, v + (size_t)item * nkv * ldkv, ldkv, k0, nkv, kv_vec);
+  FragA fk[D / 16], fv[D / 16];
+  load_rows<D>(fk, stage, k + (size_t)item * nkv * ldkv, ldkv, k0, nkv, kv_vec);
+  load_rows<D>(fv, stage, v + (size_t)item * nkv * ldkv, ldkv, k0, nkv, kv_vec);
 
-  float* S = Ss[warp];
-  bf16* P = Ps[warp];
+  float* S = Ss + warp * 16 * LDS_F;
+  bf16* P = Ps + warp * 16 * LDP;
   const int r = lane >> 1;         // this lane's key row within the warp's 16
   const int c0 = (lane & 1) * 32;  // and its 32 query columns of each tile
 
-  FragC dk[4], dv[4];
+  FragC dk[D / 16], dv[D / 16];
 #pragma unroll
-  for (int db = 0; db < 4; ++db) {
+  for (int db = 0; db < D / 16; ++db) {
     wmma::fill_fragment(dk[db], 0.0f);
     wmma::fill_fragment(dv[db], 0.0f);
   }
@@ -250,29 +289,57 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_wmma_kernel(
       dns[tid] = ok ? ddn[(size_t)item * nq + i0 + tid] : 0.f;
     }
     __syncthreads();
-    rows_by_tile_t(fk, Qs, S);  // s^T = k q^T
+    rows_by_tile_t<D>(fk, Qs, S);  // s^T = k q^T
     float e[32];
 #pragma unroll
     for (int c = 0; c < 32; ++c)
       e[c] = (i0 + c0 + c < nq) ? expf(S[r * LDS_F + c0 + c] - ms[c0 + c]) : 0.f;
     __syncwarp();
 #pragma unroll
-    for (int c = 0; c < 32; ++c) P[r * LDT + c0 + c] = f2bf(e[c]);
+    for (int c = 0; c < 32; ++c) P[r * LDP + c0 + c] = f2bf(e[c]);
     __syncwarp();
-    accumulate_p_tile(dv, P, DUs);  // dv += bf16(e)^T du
-    rows_by_tile_t(fv, DUs, S);     // (du v^T)^T = v du^T
+    accumulate_p_tile<D>(dv, P, DUs);  // dv += bf16(e)^T du
+    rows_by_tile_t<D>(fv, DUs, S);     // (du v^T)^T = v du^T
 #pragma unroll
     for (int c = 0; c < 32; ++c)
-      P[r * LDT + c0 + c] = f2bf(e[c] * (S[r * LDS_F + c0 + c] + dns[c0 + c]));
+      P[r * LDP + c0 + c] = f2bf(e[c] * (S[r * LDS_F + c0 + c] + dns[c0 + c]));
     __syncwarp();
-    accumulate_p_tile(dk, P, Qs);  // dk += dS^T q
+    accumulate_p_tile<D>(dk, P, Qs);  // dk += dS^T q
     __syncthreads();
   }
   const int key = k0 + warp * 16 + r;
-  store_rows(dk, S, key < nkv ? (size_t)item * nkv + key : (size_t)-1, dkv, lddkv, dkv_b, lddkvb,
-             0, r, c0);
-  store_rows(dv, S, key < nkv ? (size_t)item * nkv + key : (size_t)-1, dkv, lddkv, dkv_b, lddkvb,
-             D, r, c0);
+  const size_t orow = key < nkv ? (size_t)item * nkv + key : (size_t)-1;
+  store_rows<D>(dk, S, orow, dkv, lddkv, dkv_b, lddkvb, 0, lane);
+  store_rows<D>(dv, S, orow, dkv, lddkv, dkv_b, lddkvb, D, lane);
+}
+
+template <int D>
+int launch_bwd_wmma(const void* q, int ldq, const void* k, const void* v, int ldkv,
+                    const void* du, int lddu, const void* ddn, const void* mrow, void* dq,
+                    int lddq, void* dq_b, int lddqb, void* dkv, int lddkv, void* dkv_b,
+                    int lddkvb, int n_items, int nq, int nkv, cudaStream_t stream) {
+  static bool smem_set = false;   // the shared-memory opt-ins, once a width
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_wmma_kernel<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           WmmaBwd<D>::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(attn_bwd_dkv_wmma_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, WmmaBwd<D>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  dim3 gq((nq + QB - 1) / QB, n_items);
+  attn_bwd_dq_wmma_kernel<D><<<gq, 128, WmmaBwd<D>::SMEM, stream>>>(
+      (const bf16*)q, ldq, (const bf16*)k, (const bf16*)v, ldkv, (const bf16*)du, lddu,
+      (const float*)ddn, (const float*)mrow, (float*)dq, lddq, (bf16*)dq_b, lddqb, nq, nkv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 gk((nkv + KT - 1) / KT, n_items);
+  attn_bwd_dkv_wmma_kernel<D><<<gk, 128, WmmaBwd<D>::SMEM, stream>>>(
+      (const bf16*)q, ldq, (const bf16*)k, (const bf16*)v, ldkv, (const bf16*)du, lddu,
+      (const float*)ddn, (const float*)mrow, (float*)dkv, lddkv, (bf16*)dkv_b, lddkvb, nq, nkv);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -281,36 +348,45 @@ FC_API int fc_attention_bwd_wmma(const void* q, int ldq, const void* k, const vo
                                  int ldkv, const void* du, int lddu, const void* ddn,
                                  const void* mrow, void* dq, int lddq, void* dq_b, int lddqb,
                                  void* dkv, int lddkv, void* dkv_b, int lddkvb, int n_items,
-                                 int nq, int nkv, void* stream) {
-  dim3 gq((nq + QB - 1) / QB, n_items);
-  attn_bwd_dq_wmma_kernel<<<gq, 128, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, ldq, (const bf16*)k, (const bf16*)v, ldkv, (const bf16*)du, lddu,
-      (const float*)ddn, (const float*)mrow, (float*)dq, lddq, (bf16*)dq_b, lddqb, nq, nkv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 gk((nkv + KT - 1) / KT, n_items);
-  attn_bwd_dkv_wmma_kernel<<<gk, 128, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, ldq, (const bf16*)k, (const bf16*)v, ldkv, (const bf16*)du, lddu,
-      (const float*)ddn, (const float*)mrow, (float*)dkv, lddkv, (bf16*)dkv_b, lddkvb, nq, nkv);
-  return (int)cudaGetLastError();
+                                 int nq, int nkv, int d, void* stream) {
+  if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define FC_BWD_WMMA(D)                                                                      \
+  launch_bwd_wmma<D>(q, ldq, k, v, ldkv, du, lddu, ddn, mrow, dq, lddq, dq_b, lddqb, dkv,   \
+                     lddkv, dkv_b, lddkvb, n_items, nq, nkv, st)
+  switch (d) {
+    case 32: return FC_BWD_WMMA(32);
+    case 64: return FC_BWD_WMMA(64);
+    case 128: return FC_BWD_WMMA(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FC_BWD_WMMA
 }
 
 namespace {
 
 // A block of the wgmma route: one consumer warpgroup of 64 rows (queries
 // for dq, keys for dkv) and a producer warp; the block's own two tiles, then
-// a ring of BWD_STAGES stages of the other side's two tiles. About 160
-// registers a thread: two blocks to an SM.
-constexpr int BWD_STAGES = 4;
+// a ring of stages of the other side's two tiles. About 160 registers a
+// thread at D = 64: two blocks to an SM. A dkv block accumulates `BOXES_OUT`
+// 64-column boxes of dk and dv: all of them at D <= 64, one at D = 128
+// (two blocks a key tile, `DKV_SPLIT`).
 constexpr int BWD_THREADS = 128 + 32;
 constexpr int BWD_MIN_BLOCKS = 2;
-constexpr int BWD_SMEM_BYTES = (2 + 2 * BWD_STAGES) * ATT_TILE_BYTES + 1024;
-static_assert(BWD_MIN_BLOCKS * BWD_SMEM_BYTES <= 232448,
-              "the rings exceed the SM's shared memory");
 
-// Stores this thread's part of a 64 x 64 f32 accumulator as f32 pairs into
-// `out` and bf16 pairs into `out_b` at rows row0 + [0, 64) (rows >= nrows
-// skipped) and column col0 of row-major matrices.
+template <int D>
+struct Bwd {
+  static constexpr int STAGES = D > 64 ? 2 : 4;
+  static constexpr int DKV_SPLIT = AttWidth<D>::BOXES;   // dkv blocks a key tile
+  static constexpr int SMEM = (2 + 2 * STAGES) * AttWidth<D>::TILE_BYTES + 1024;
+  static_assert(BWD_MIN_BLOCKS * SMEM <= 232448, "the rings exceed the SM's shared memory");
+};
+
+// Stores this thread's part of a 64 x 64 f32 accumulator (its first COLS
+// columns) as f32 pairs into `out` and bf16 pairs into `out_b` at rows
+// row0 + [0, 64) (rows >= nrows skipped) and column col0 of row-major
+// matrices.
+template <int COLS>
 __device__ __forceinline__ void store_tile(const float (&acc)[32], int t, int row0, int nrows,
                                            size_t row_base, float* out, int ldo, bf16* out_b,
                                            int ldob, int col0) {
@@ -323,7 +399,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[32], int t, int ro
     float* o = out + r * ldo + col0 + fc;
     bf16* ob = out_b + r * ldob + col0 + fc;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < COLS / 8; ++j) {
       const float x = acc[4 * j + 2 * half], y = acc[4 * j + 2 * half + 1];
       *reinterpret_cast<float2*>(o + 8 * j) = make_float2(x, y);
       *reinterpret_cast<uint32_t*>(ob + 8 * j) = pack_bf16(x, y);
@@ -331,6 +407,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[32], int t, int ro
   }
 }
 
+template <int D>
 __device__ __forceinline__ void attn_bwd_dq_block(const CUtensorMap& tq, const CUtensorMap& tk,
                                                   const CUtensorMap& tv, const CUtensorMap& tdu,
                                                   const float* __restrict__ ddn,
@@ -338,11 +415,12 @@ __device__ __forceinline__ void attn_bwd_dq_block(const CUtensorMap& tq, const C
                                                   float* __restrict__ dq, int lddq,
                                                   bf16* __restrict__ dq_b, int lddqb, int nq,
                                                   int nkv, int q_block) {
-  constexpr int STAGES = BWD_STAGES;
+  using W = AttWidth<D>;
+  constexpr int STAGES = Bwd<D>::STAGES, TB = W::TILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], own_full;
   uint8_t* const own = align1024(smem_raw);   // the Q tile, then the dU tile
-  uint8_t* const ring = own + 2 * ATT_TILE_BYTES;   // stage s: K, then V
+  uint8_t* const ring = own + 2 * TB;   // stage s: K, then V
   const int item = blockIdx.y, q0 = q_block * ATT_TILE;
   const int n_tiles = (nkv + ATT_TILE - 1) / ATT_TILE;
   if (threadIdx.x == 0) {
@@ -361,16 +439,16 @@ __device__ __forceinline__ void attn_bwd_dq_block(const CUtensorMap& tq, const C
       prefetch_tensor_map(&tk);
       prefetch_tensor_map(&tv);
       prefetch_tensor_map(&tdu);
-      mbar_expect_tx(&own_full, 2 * ATT_TILE_BYTES);
-      tma_load_3d(own, &tq, &own_full, 0, q0, item);
-      tma_load_3d(own + ATT_TILE_BYTES, &tdu, &own_full, 0, q0, item);
+      mbar_expect_tx(&own_full, 2 * TB);
+      tma_load_tile<D>(own, &tq, &own_full, q0, item);
+      tma_load_tile<D>(own + TB, &tdu, &own_full, q0, item);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES;
         mbar_wait(&empty[s], ring_parity(it, STAGES) ^ 1);
-        uint8_t* ks = ring + 2 * s * ATT_TILE_BYTES;
-        mbar_expect_tx(&full[s], 2 * ATT_TILE_BYTES);
-        tma_load_3d(ks, &tk, &full[s], 0, it * ATT_TILE, item);
-        tma_load_3d(ks + ATT_TILE_BYTES, &tv, &full[s], 0, it * ATT_TILE, item);
+        uint8_t* ks = ring + 2 * s * TB;
+        mbar_expect_tx(&full[s], 2 * TB);
+        tma_load_tile<D>(ks, &tk, &full[s], it * ATT_TILE, item);
+        tma_load_tile<D>(ks + TB, &tv, &full[s], it * ATT_TILE, item);
       }
     }
     return;
@@ -380,7 +458,7 @@ __device__ __forceinline__ void attn_bwd_dq_block(const CUtensorMap& tq, const C
   const int t = threadIdx.x;
   const int fc = frag_col(t);
   const uint8_t* qw = own;
-  const uint8_t* duw = own + ATT_TILE_BYTES;
+  const uint8_t* duw = own + TB;
   float mr[2], dd[2];   // m and ddn of rows r0 and r0 + 8 (+inf and 0 past nq)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -389,17 +467,19 @@ __device__ __forceinline__ void attn_bwd_dq_block(const CUtensorMap& tq, const C
     mr[half] = row < nq ? mrow[r] : INFINITY;
     dd[half] = row < nq ? ddn[r] : 0.f;
   }
-  float s[32], dp[32], acc[32];
+  float s[32], dp[32], acc[W::BOXES][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int x = 0; x < W::BOXES; ++x)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[x][i] = 0.f;
   mbar_wait(&own_full, 0);
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it % STAGES;
-    const uint8_t* ks = ring + 2 * st * ATT_TILE_BYTES;
+    const uint8_t* ks = ring + 2 * st * TB;
     mbar_wait(&full[st], ring_parity(it, STAGES));
     wgmma_fence();
-    tile_abt(s, qw, ks);                    // S = Q K^T
-    tile_abt(dp, duw, ks + ATT_TILE_BYTES);  // dP = dU V^T
+    tile_abt<D>(s, qw, ks);          // S = Q K^T
+    tile_abt<D>(dp, duw, ks + TB);   // dP = dU V^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -421,30 +501,40 @@ __device__ __forceinline__ void attn_bwd_dq_block(const CUtensorMap& tq, const C
     uint32_t p[16];
     pack_a(s, p);
     wgmma_fence();
-    tile_pb(acc, p, ks);                    // dq += dS K (K read MN-major)
+#pragma unroll
+    for (int x = 0; x < W::BOXES; ++x)
+      tile_pb(acc[x], p, ks + x * ATT_BOX_BYTES);   // dq += dS K (K read MN-major)
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(acc);
+#pragma unroll
+    for (int x = 0; x < W::BOXES; ++x) fence_acc(acc[x]);
     release_stage(&empty[st]);
   }
-  store_tile(acc, t, q0, nq, (size_t)item * nq, dq, lddq, dq_b, lddqb, 0);
+#pragma unroll
+  for (int x = 0; x < W::BOXES; ++x)
+    store_tile<W::BOX_COLS>(acc[x], t, q0, nq, (size_t)item * nq, dq, lddq, dq_b, lddqb,
+                            x * ATT_BOX);
 }
 
+template <int D>
 __device__ __forceinline__ void attn_bwd_dkv_block(const CUtensorMap& tq, const CUtensorMap& tk,
                                                    const CUtensorMap& tv, const CUtensorMap& tdu,
                                                    const float* __restrict__ ddn,
                                                    const float* __restrict__ mrow,
                                                    float* __restrict__ dkv, int lddkv,
                                                    bf16* __restrict__ dkv_b, int lddkvb, int nq,
-                                                   int nkv, int k_block) {
-  constexpr int STAGES = BWD_STAGES;
+                                                   int nkv, int dkv_block) {
+  using W = AttWidth<D>;
+  constexpr int STAGES = Bwd<D>::STAGES, TB = W::TILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], own_full;
   // each stage's queries: m (+inf past nq) and ddn (0 past nq)
   __shared__ __align__(16) float ml_s[STAGES][ATT_TILE], dd_s[STAGES][ATT_TILE];
   uint8_t* const own = align1024(smem_raw);   // the K tile, then the V tile
-  uint8_t* const ring = own + 2 * ATT_TILE_BYTES;   // stage s: Q, then dU
-  const int item = blockIdx.y, k0 = k_block * ATT_TILE;
+  uint8_t* const ring = own + 2 * TB;   // stage s: Q, then dU
+  // this block's key tile, and the box of dk and dv it accumulates
+  const int box = dkv_block % Bwd<D>::DKV_SPLIT;
+  const int item = blockIdx.y, k0 = (dkv_block / Bwd<D>::DKV_SPLIT) * ATT_TILE;
   const int n_tiles = (nq + ATT_TILE - 1) / ATT_TILE;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -464,9 +554,9 @@ __device__ __forceinline__ void attn_bwd_dkv_block(const CUtensorMap& tq, const 
       prefetch_tensor_map(&tk);
       prefetch_tensor_map(&tv);
       prefetch_tensor_map(&tdu);
-      mbar_expect_tx(&own_full, 2 * ATT_TILE_BYTES);
-      tma_load_3d(own, &tk, &own_full, 0, k0, item);
-      tma_load_3d(own + ATT_TILE_BYTES, &tv, &own_full, 0, k0, item);
+      mbar_expect_tx(&own_full, 2 * TB);
+      tma_load_tile<D>(own, &tk, &own_full, k0, item);
+      tma_load_tile<D>(own + TB, &tv, &own_full, k0, item);
     }
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % STAGES, i0 = it * ATT_TILE;
@@ -479,10 +569,10 @@ __device__ __forceinline__ void attn_bwd_dkv_block(const CUtensorMap& tq, const 
         dd_s[s][idx] = qi < nq ? ddn[r] : 0.f;
       }
       if (lane == 0) {
-        uint8_t* qs = ring + 2 * s * ATT_TILE_BYTES;
-        mbar_expect_tx(&full[s], 2 * ATT_TILE_BYTES);
-        tma_load_3d(qs, &tq, &full[s], 0, i0, item);
-        tma_load_3d(qs + ATT_TILE_BYTES, &tdu, &full[s], 0, i0, item);
+        uint8_t* qs = ring + 2 * s * TB;
+        mbar_expect_tx(&full[s], 2 * TB);
+        tma_load_tile<D>(qs, &tq, &full[s], i0, item);
+        tma_load_tile<D>(qs + TB, &tdu, &full[s], i0, item);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -494,19 +584,19 @@ __device__ __forceinline__ void attn_bwd_dkv_block(const CUtensorMap& tq, const 
   const int t = threadIdx.x;
   const int fc = frag_col(t);
   const uint8_t* kw = own;
-  const uint8_t* vw = own + ATT_TILE_BYTES;
+  const uint8_t* vw = own + TB;
   float s[32], dp[32], dk[32], dv[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(&own_full, 0);
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it % STAGES;
-    const uint8_t* qs = ring + 2 * st * ATT_TILE_BYTES;
-    const uint8_t* dus = qs + ATT_TILE_BYTES;
+    const uint8_t* qs = ring + 2 * st * TB;
+    const uint8_t* dus = qs + TB;
     mbar_wait(&full[st], ring_parity(it, STAGES));
     wgmma_fence();
-    tile_abt(s, kw, qs);     // S^T = K Q^T
-    tile_abt(dp, vw, dus);   // dP^T = V dU^T
+    tile_abt<D>(s, kw, qs);     // S^T = K Q^T
+    tile_abt<D>(dp, vw, dus);   // dP^T = V dU^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -533,8 +623,8 @@ __device__ __forceinline__ void attn_bwd_dkv_block(const CUtensorMap& tq, const 
     pack_a(s, pe);
     pack_a(dp, pd);
     wgmma_fence();
-    tile_pb(dv, pe, dus);   // dv += bf16(e^T) dU (dU read MN-major)
-    tile_pb(dk, pd, qs);    // dk += dS^T Q (Q read MN-major)
+    tile_pb(dv, pe, dus + box * ATT_BOX_BYTES);   // dv += bf16(e^T) dU (dU read MN-major)
+    tile_pb(dk, pd, qs + box * ATT_BOX_BYTES);    // dk += dS^T Q (Q read MN-major)
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(dv);
@@ -542,13 +632,14 @@ __device__ __forceinline__ void attn_bwd_dkv_block(const CUtensorMap& tq, const 
     release_stage(&empty[st]);
   }
   const size_t base = (size_t)item * nkv;
-  store_tile(dk, t, k0, nkv, base, dkv, lddkv, dkv_b, lddkvb, 0);
-  store_tile(dv, t, k0, nkv, base, dkv, lddkv, dkv_b, lddkvb, ATT_D);
+  store_tile<W::BOX_COLS>(dk, t, k0, nkv, base, dkv, lddkv, dkv_b, lddkvb, box * ATT_BOX);
+  store_tile<W::BOX_COLS>(dv, t, k0, nkv, base, dkv, lddkv, dkv_b, lddkvb, D + box * ATT_BOX);
 }
 
 // One launch for both kernels' blocks: blocks [0, dq_blocks) of each item
-// take query tiles (dq), the rest key tiles ([dk | dv]), so the two grids
-// share the card's waves.
+// take query tiles (dq), the rest key tiles ([dk | dv], DKV_SPLIT blocks a
+// tile), so the two grids share the card's waves.
+template <int D>
 __global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
     attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -559,49 +650,66 @@ __global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
                           float* __restrict__ dkv, int lddkv, bf16* __restrict__ dkv_b,
                           int lddkvb, int nq, int nkv, int dq_blocks) {
   if ((int)blockIdx.x < dq_blocks)
-    attn_bwd_dq_block(tq, tk, tv, tdu, ddn, mrow, dq, lddq, dq_b, lddqb, nq, nkv, blockIdx.x);
+    attn_bwd_dq_block<D>(tq, tk, tv, tdu, ddn, mrow, dq, lddq, dq_b, lddqb, nq, nkv,
+                         blockIdx.x);
   else
-    attn_bwd_dkv_block(tq, tk, tv, tdu, ddn, mrow, dkv, lddkv, dkv_b, lddkvb, nq, nkv,
-                       blockIdx.x - dq_blocks);
+    attn_bwd_dkv_block<D>(tq, tk, tv, tdu, ddn, mrow, dkv, lddkv, dkv_b, lddkvb, nq, nkv,
+                          blockIdx.x - dq_blocks);
 }
 
 bool pairs_ok(const void* p, int ld, int elt) {
   return (reinterpret_cast<uintptr_t>(p) % (2 * elt)) == 0 && ld % 2 == 0;
 }
 
-}  // namespace
-
-// The wgmma route: q, k, v and du TMA-readable (16-byte bases, row strides
-// a multiple of 8), the outputs written in pairs (bases aligned to a pair,
-// even row strides). Misaligned operands return cudaErrorMisalignedAddress.
-FC_API int fc_attention_bwd(const void* q, int ldq, const void* k, const void* v, int ldkv,
-                            const void* du, int lddu, const void* ddn, const void* mrow, void* dq,
-                            int lddq, void* dq_b, int lddqb, void* dkv, int lddkv, void* dkv_b,
-                            int lddkvb, int n_items, int nq, int nkv, void* stream) {
-  if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
-  if (!pairs_ok(dq, lddq, 4) || !pairs_ok(dq_b, lddqb, 2) || !pairs_ok(dkv, lddkv, 4) ||
-      !pairs_ok(dkv_b, lddkvb, 2))
-    return (int)cudaErrorMisalignedAddress;
+template <int D>
+int launch_bwd_wgmma(const void* q, int ldq, const void* k, const void* v, int ldkv,
+                     const void* du, int lddu, const void* ddn, const void* mrow, void* dq,
+                     int lddq, void* dq_b, int lddqb, void* dkv, int lddkv, void* dkv_b,
+                     int lddkvb, int n_items, int nq, int nkv, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdu;
-  cudaError_t err = bf16_tensor_map_3d(&tq, q, n_items, nq, ATT_D, ldq, ATT_D, ATT_TILE);
-  if (err == cudaSuccess)
-    err = bf16_tensor_map_3d(&tk, k, n_items, nkv, ATT_D, ldkv, ATT_D, ATT_TILE);
-  if (err == cudaSuccess)
-    err = bf16_tensor_map_3d(&tv, v, n_items, nkv, ATT_D, ldkv, ATT_D, ATT_TILE);
-  if (err == cudaSuccess)
-    err = bf16_tensor_map_3d(&tdu, du, n_items, nq, ATT_D, lddu, ATT_D, ATT_TILE);
+  cudaError_t err = att_tensor_map<D>(&tq, q, n_items, nq, ldq);
+  if (err == cudaSuccess) err = att_tensor_map<D>(&tk, k, n_items, nkv, ldkv);
+  if (err == cudaSuccess) err = att_tensor_map<D>(&tv, v, n_items, nkv, ldkv);
+  if (err == cudaSuccess) err = att_tensor_map<D>(&tdu, du, n_items, nq, lddu);
   if (err != cudaSuccess) return (int)err;
-  static bool smem_set = false;   // the shared-memory opt-in, once
+  static bool smem_set = false;   // the shared-memory opt-in, once a width
   if (!smem_set) {
-    err = cudaFuncSetAttribute(attn_bwd_wgmma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM_BYTES);
+    err = cudaFuncSetAttribute(attn_bwd_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Bwd<D>::SMEM);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
   const int dq_blocks = (nq + ATT_TILE - 1) / ATT_TILE;
-  const dim3 grid(dq_blocks + (nkv + ATT_TILE - 1) / ATT_TILE, n_items);
-  attn_bwd_wgmma_kernel<<<grid, BWD_THREADS, BWD_SMEM_BYTES, (cudaStream_t)stream>>>(
+  const dim3 grid(dq_blocks + Bwd<D>::DKV_SPLIT * ((nkv + ATT_TILE - 1) / ATT_TILE), n_items);
+  attn_bwd_wgmma_kernel<D><<<grid, BWD_THREADS, Bwd<D>::SMEM, stream>>>(
       tq, tk, tv, tdu, (const float*)ddn, (const float*)mrow, (float*)dq, lddq, (bf16*)dq_b,
       lddqb, (float*)dkv, lddkv, (bf16*)dkv_b, lddkvb, nq, nkv, dq_blocks);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The wgmma route: q, k, v and du TMA-readable (16-byte bases, row strides
+// a multiple of 8), the outputs written in pairs (bases aligned to a pair,
+// even row strides). Misaligned operands return cudaErrorMisalignedAddress;
+// a head width d other than 32, 64 or 128 returns cudaErrorInvalidValue.
+FC_API int fc_attention_bwd(const void* q, int ldq, const void* k, const void* v, int ldkv,
+                            const void* du, int lddu, const void* ddn, const void* mrow, void* dq,
+                            int lddq, void* dq_b, int lddqb, void* dkv, int lddkv, void* dkv_b,
+                            int lddkvb, int n_items, int nq, int nkv, int d, void* stream) {
+  if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
+  if (!pairs_ok(dq, lddq, 4) || !pairs_ok(dq_b, lddqb, 2) || !pairs_ok(dkv, lddkv, 4) ||
+      !pairs_ok(dkv_b, lddkvb, 2))
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define FC_BWD_WGMMA(D)                                                                     \
+  launch_bwd_wgmma<D>(q, ldq, k, v, ldkv, du, lddu, ddn, mrow, dq, lddq, dq_b, lddqb, dkv,  \
+                      lddkv, dkv_b, lddkvb, n_items, nq, nkv, st)
+  switch (d) {
+    case 32: return FC_BWD_WGMMA(32);
+    case 64: return FC_BWD_WGMMA(64);
+    case 128: return FC_BWD_WGMMA(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FC_BWD_WGMMA
 }

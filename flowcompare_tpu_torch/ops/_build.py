@@ -89,13 +89,13 @@ _SIGNATURES = {
     "fc_coupling_epilogue": [_V, _I, _V, _I, _V, _V, _I, _I, _I, _I, _F, _V, _V],
     "fc_augment_epilogue": [_V, _I, _V, _I, _I, _V, _I, _I, _V, _I, _V, _I, _V],
     "fc_inverse_coupling_epilogue": [_V, _I, _V, _I, _V, _I, _I, _I, _I, _F, _V],
-    "fc_cross_attention": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _I, _I, _I, _V],
-    "fc_cross_attention_wmma": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _I, _I, _I, _V],
-    "fc_attention_core": [_V, _I, _V, _I, _V, _I, _V, _I, _I, _I, _I, _F, _V],
+    "fc_cross_attention": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _I, _I, _I, _I, _V],
+    "fc_cross_attention_wmma": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _I, _I, _I, _I, _V],
+    "fc_attention_core": [_V, _I, _V, _I, _V, _I, _V, _I, _I, _I, _I, _F, _I, _V],
     "fc_attention_bwd": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _V, _I, _V, _I,
-                         _I, _I, _I, _V],
+                         _I, _I, _I, _I, _V],
     "fc_attention_bwd_wmma": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _V, _I, _V,
-                              _I, _I, _I, _I, _V],
+                              _I, _I, _I, _I, _I, _V],
     "fc_coupling_epilogue_bwd": [_V, _I, _V, _I, _V, _I, _V, _V, _I, _V, _I, _V, _I, _V, _I,
                                  _I, _I, _I, _F, _V],
     "fc_attn_bwd_prep": [_V, _I, _V, _I, _V, _V, _I, _V, _I, _I, _V],
@@ -615,6 +615,11 @@ def row_norm(x: torch.Tensor, out: torch.Tensor, eps: float = 1e-5) -> None:
         x.data_ptr(), ldx, out.data_ptr(), ldy, x.shape[0], x.shape[1], eps, _stream()))
 
 
+# the head widths D of the attention kernels (csrc/cross_attention.cu,
+# cross_attention_bwd.cu, attention_core.cu: one template instance each)
+ATTENTION_DS = (32, 64, 128)
+
+
 def _pairs_ok(t: torch.Tensor) -> bool:
     """Whether t's rows can be written two elements at a time: a base
     aligned to a pair and an even row stride."""
@@ -655,20 +660,34 @@ def cross_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def attention_width(what: str, q: torch.Tensor, *others: torch.Tensor) -> int:
+    """The head width D of q, checked against the other (rows, D) operands
+    and against the widths the attention kernels take (ATTENTION_DS)."""
+    d = q.shape[-1]
+    widths = [t.shape[-1] for t in (q, *others)]
+    if len(set(widths)) > 1:
+        raise ValueError(f"{what}: operands of head widths {widths}")
+    if d not in ATTENTION_DS:
+        raise ValueError(f"{what}: the kernels take head widths D in {ATTENTION_DS}, got {d}")
+    return d
+
+
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, *, n_items: int,
                     m_out: Optional[torch.Tensor] = None,
                     den_out: Optional[torch.Tensor] = None,
                     route: Optional[str] = None) -> None:
-    """Per item: out = softmax(q k^T) v, q (items*nq, 64), k/v (items*nkv, 64);
-    with m_out/den_out also each row's f32 maximum and denominator.
+    """Per item: out = softmax(q k^T) v, q (items*nq, D), k/v (items*nkv, D),
+    D in ATTENTION_DS; with m_out/den_out also each row's f32 maximum and
+    denominator.
 
     Two routes, one contract (`cross_attention_plain`): the TMA + wgmma
     kernel when TMA can read q, k and v and out can be written in pairs
     (`attention_route`), otherwise the WMMA kernel. `route` forces one (for
     measurements and tests); each route counts its launches
     (CROSS_ATTENTION_WGMMA_LAUNCHES, CROSS_ATTENTION_WMMA_LAUNCHES). A CPU
-    q runs the plain version and counts nothing."""
+    q runs the plain version and counts nothing. Only out's D columns are
+    written: it may be a column slice of wider rows."""
     global CROSS_ATTENTION_WGMMA_LAUNCHES, CROSS_ATTENTION_WMMA_LAUNCHES
     if not q.is_cuda:
         cross_attention_plain(q, k, v, out, n_items=n_items, m_out=m_out, den_out=den_out)
@@ -677,8 +696,7 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ldk = _rows(k, "cross_attention.k", torch.bfloat16)
     ldv = _rows(v, "cross_attention.v", torch.bfloat16)
     ldo = _rows(out, "cross_attention.out", torch.bfloat16)
-    if q.shape[1] != 64 or k.shape[1] != 64 or v.shape[1] != 64 or out.shape[1] != 64:
-        raise ValueError("cross_attention: head dimension must be 64")
+    d = attention_width("cross_attention", q, k, v, out)
     if ldk != ldv or k.shape[0] != v.shape[0]:
         raise ValueError("cross_attention: k and v must share rows and stride")
     if (q.shape[0] % n_items or k.shape[0] % n_items or out.shape[0] != q.shape[0]
@@ -691,7 +709,7 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nq, nkv = q.shape[0] // n_items, k.shape[0] // n_items
     chosen = _choose_route(route, attention_route([q, k, v], [out]), "cross_attention")
     args = (q.data_ptr(), ldq, k.data_ptr(), v.data_ptr(), ldk, out.data_ptr(), ldo, m_p, den_p,
-            n_items, nq, nkv)
+            n_items, nq, nkv, d)
     if chosen == "wgmma":
         rc = library().fc_cross_attention(*args, _stream())
         CROSS_ATTENTION_WGMMA_LAUNCHES += 1
@@ -705,16 +723,15 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
                    n_items: int, scale: float) -> None:
     """Per item: out = softmax(q k^T * scale) v with p at f32 precision (B10),
-    q (items*nq, 64), k and v (items*nkv, 64) bf16, each with its own row
-    stride. The TMA + wgmma kernel (p split into three bf16 terms for the
-    tensor cores) takes operands TMA can read and an out written in pairs,
-    and raises on others."""
+    q (items*nq, D), k and v (items*nkv, D) bf16, D in ATTENTION_DS, each with
+    its own row stride. The TMA + wgmma kernel (p split into three bf16 terms
+    for the tensor cores) takes operands TMA can read and an out written in
+    pairs, and raises on others."""
     ldq = _rows(q, "attention_core.q", torch.bfloat16)
     ldk = _rows(k, "attention_core.k", torch.bfloat16)
     ldv = _rows(v, "attention_core.v", torch.bfloat16)
     ldo = _rows(out, "attention_core.out", torch.bfloat16)
-    if q.shape[1] != 64 or k.shape[1] != 64 or v.shape[1] != 64 or out.shape[1] != 64:
-        raise ValueError("attention_core: head dimension must be 64")
+    d = attention_width("attention_core", q, k, v, out)
     if (k.shape[0] != v.shape[0] or out.shape[0] != q.shape[0] or q.shape[0] % n_items
             or k.shape[0] % n_items or k.shape[0] == 0 or q.shape[0] == 0):
         raise ValueError("attention_core: rows not divisible by items, or no rows")
@@ -723,7 +740,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
                          "and row stride needed), or out cannot be written in pairs")
     _check("attention_core", library().fc_attention_core(
         q.data_ptr(), ldq, k.data_ptr(), ldk, v.data_ptr(), ldv, out.data_ptr(), ldo, n_items,
-        q.shape[0] // n_items, k.shape[0] // n_items, float(scale), _stream()))
+        q.shape[0] // n_items, k.shape[0] // n_items, float(scale), d, _stream()))
 
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.Tensor,
@@ -750,8 +767,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.T
                   dkv: torch.Tensor, dkv_b: torch.Tensor, *, n_items: int,
                   route: Optional[str] = None) -> None:
     """The backward of `cross_attention` from du = da / den and ddn (see
-    attn_bwd_prep): dq (items*nq, 64) and [dk | dv] (items*nkv, 128), each in
-    f32 and in bf16. Routes as `cross_attention`'s (TMA + wgmma when TMA can
+    attn_bwd_prep): dq (items*nq, D) and [dk | dv] (items*nkv, 2 D), D in
+    ATTENTION_DS, each in f32 and in bf16. Routes as `cross_attention`'s (TMA + wgmma when TMA can
     read q, k, v and du and the outputs can be written in pairs; WMMA
     otherwise); `route` forces one; counted as ATTENTION_BWD_WGMMA_LAUNCHES /
     ATTENTION_BWD_WMMA_LAUNCHES.
@@ -769,10 +786,10 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.T
     lddkv = _rows(dkv, "attention_bwd.dkv", torch.float32)
     lddkvb = _rows(dkv_b, "attention_bwd.dkv_b", torch.bfloat16)
     rq, rk = q.shape[0], k.shape[0]
-    if (q.shape[1] != 64 or k.shape[1] != 64 or v.shape[1] != 64 or ldk != ldv
-            or tuple(du.shape) != (rq, 64) or tuple(dq.shape) != (rq, 64)
-            or tuple(dq_b.shape) != (rq, 64) or tuple(dkv.shape) != (rk, 128)
-            or tuple(dkv_b.shape) != (rk, 128) or rq % n_items or rk % n_items
+    d = attention_width("attention_bwd", q, k, v, du)
+    if (ldk != ldv or tuple(du.shape) != (rq, d) or tuple(dq.shape) != (rq, d)
+            or tuple(dq_b.shape) != (rq, d) or tuple(dkv.shape) != (rk, 2 * d)
+            or tuple(dkv_b.shape) != (rk, 2 * d) or rq % n_items or rk % n_items
             or rq == 0 or rk == 0):
         raise ValueError("attention_bwd: shape mismatch")
     nq, nkv = rq // n_items, rk // n_items
@@ -781,7 +798,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.T
     args = (q.data_ptr(), ldq, k.data_ptr(), v.data_ptr(), ldk, du.data_ptr(), lddu,
             _vec(ddn, "attention_bwd.ddn", rq), _vec(m, "attention_bwd.m", rq),
             dq.data_ptr(), lddq, dq_b.data_ptr(), lddqb, dkv.data_ptr(), lddkv,
-            dkv_b.data_ptr(), lddkvb, n_items, nq, nkv)
+            dkv_b.data_ptr(), lddkvb, n_items, nq, nkv, d)
     if chosen == "wgmma":
         rc = library().fc_attention_bwd(*args, _stream())
         ATTENTION_BWD_WGMMA_LAUNCHES += 1

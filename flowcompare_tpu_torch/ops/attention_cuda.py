@@ -15,8 +15,8 @@ once to q's dtype.
   The CPU tests hold it against the plain version and the Pallas kernel.
 * `fused_attention_core` is a `torch.autograd.Function`. Its forward runs
   the plain version on CPU tensors and launches `csrc/attention_core.cu` on
-  CUDA tensors (bf16, D = 64, operands TMA can read; anything else
-  raises). Its backward is the
+  CUDA tensors (bf16, D in `_build.ATTENTION_DS` = 32, 64 or 128, operands
+  TMA can read; anything else raises). Its backward is the
   JAX package's `_bwd` as written: s and p recomputed in f32 with plain
   products, then dv, dp, ds, dq and dk, returned in the inputs' dtypes. The
   JAX package computes that backward outside any Pallas kernel, so plain
@@ -67,8 +67,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
     global FUSED_ATTENTION_CORE_LAUNCHES
     b, nq, d = q.shape
     nkv = k.shape[1]
-    if d != 64 or k.shape[-1] != 64 or v.shape[-1] != 64:
-        raise ValueError(f"fused_attention_core: the CUDA kernel takes D = 64, got q "
+    if d not in _build.ATTENTION_DS or k.shape[-1] != d or v.shape[-1] != d:
+        raise ValueError(f"fused_attention_core: the CUDA kernel takes D in "
+                         f"{_build.ATTENTION_DS}, got q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError(f"fused_attention_core: the CUDA kernel takes bf16, got "
@@ -115,8 +116,8 @@ def fused_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B, Nq, D), k and v (B, Nkv, D) (k and v may be column slices of one
     [k | v] tensor). A CPU tensor runs `fused_attention_core_plain`; a CUDA
-    tensor launches attention_core (bf16, D = 64), one block per 64 query
-    rows of an item: q k^T on wgmma, p in f32 split into three bf16 terms
+    tensor launches attention_core (bf16, D = 32, 64 or 128), one block per
+    64 query rows of an item: q k^T on wgmma, p in f32 split into three bf16 terms
     whose PV products run on wgmma into one f32 sum, so p keeps about 24
     bits where flash attention's bf16 p keeps 8.
 

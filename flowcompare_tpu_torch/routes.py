@@ -2,11 +2,12 @@
 shapes alone.
 
 The kernels carry fixed limits (ROADMAP queue B): the cross attention of B1,
-B2, B5 and B7 takes one head width, D = heads * dim_head = 64; the fused
-layer kernels take widths up to 512 and 3 to 10 products a launch; B3 and
-B6 take k <= min(n, 64) neighbours of at most 256 channels with 16
-distance rows of the cloud in 227 KB of shared memory; B8 and B9 hold
-their clouds in shared memory too. A configuration outside them runs, part
+B2, B5 and B7 takes the head widths D = heads * dim_head in ATTENTION_DS
+(32, 64 and 128, one kernel instance each); the fused layer kernels take
+widths up to 512 and 3 to 10 products a launch; B3 and B6 take k <=
+min(n, 64) neighbours of at most 256 channels with 16 distance rows of
+the cloud in 227 KB of shared memory; B8 and B9 hold their clouds in
+shared memory too. A configuration outside them runs, part
 by part, the path the JAX package takes off the TPU, and the other parts
 stay on their kernels:
 
@@ -33,11 +34,11 @@ from __future__ import annotations
 
 from .encoders.dgcnn import _EDGE_DIMS
 from .encoders.paconv import NSAMPLE, SA_MLPS
+from .ops._build import ATTENTION_DS
 from .ops.dgcnn_cuda import dgcnn_tail_plan
 from .ops.flow_layer_cuda import augment_net_plan, fused_route, packed_input_layout
 
 SMEM_LIMIT = 227 * 1024          # dynamic shared memory a block may opt into on the H100
-ATTENTION_D = 64                 # the one head width of the cross-attention kernels
 KNN_MAX_K, KNN_MAX_C = 64, 256   # B3 / B6 / B9: neighbours, and B3 / B6 channels
 
 # csrc/knn_select.cuh: query rows a block, warps, pool entries a row,
@@ -122,9 +123,10 @@ def stack_shapes(c: dict) -> dict:
 
 def _attention_reason(c: dict) -> str:
     d = _head_width(c)
-    if d != ATTENTION_D:
+    if d not in ATTENTION_DS:
+        widths = ", ".join(map(str, ATTENTION_DS))
         return (f"plain: attention head width {c['cross_heads']} x {c['cross_dim_head']} = {d} "
-                f"(the cross-attention kernels take {ATTENTION_D})")
+                f"(the cross-attention kernels take {widths})")
     return ""
 
 

@@ -53,7 +53,7 @@ def _within_bf16_ulps(got, ref, ulps=1):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 16])
+@pytest.mark.parametrize("d", [64, 16, 32, 128])
 def test_fused_attention_core_plain_matches_pallas_interpret(interpret, d, dtype):
     (jq, jk, jv), (q, k, v) = _qkv(0, d, dtype)
     ref = n(attention_pallas.fused_attention_core(jq, jk, jv, SCALE))

@@ -9,7 +9,8 @@ backward from du = da / den and ddn (`attn_bwd_prep_plain`), dv = bf16(e)^T
 du, dS = bf16(e (du v^T + ddn)), dq = dS k, dk = dS^T q, in f32 and bf16.
 Here they are held against the JAX package on the same numpy inputs at
 ragged shapes (3 items of 70 queries against 90 or 34 keys, so no size is a
-multiple of a 64-row tile): the forward against max-subtracted softmax
+multiple of a 64-row tile) and at each head width the kernels take (D = 32,
+64 and 128, `_build.ATTENTION_DS`): the forward against max-subtracted softmax
 attention in jnp and the package's own `_attn_core` (the B5 kernel's
 attention, flow_layer_vjp_pallas.py); the backward against `jax.vjp` of the
 f32 function and of `_attn_core`. Tolerances: the operands are bf16 and e
@@ -32,15 +33,17 @@ from flowcompare_tpu.ops.flow_layer_vjp_pallas import _attn_core
 from flowcompare_tpu_torch.ops import _build
 
 torch.set_num_threads(2)
-SHAPES = [(3, 70, 90), (3, 70, 34)]
+# (items, queries, keys, head width D); the D = 64 cases keep their ids
+SHAPES = [pytest.param(3, 70, nkv, d, id=f"3-70-{nkv}" + ("" if d == 64 else f"-d{d}"))
+          for d in _build.ATTENTION_DS for nkv in (90, 34)]
 
 
-def _inputs(items, nq, nkv, seed):
-    """bf16-exact q (items*nq, 64) and kv (items*nkv, 128) as numpy f32,
-    q scaled by 1/sqrt(64) as the folds do."""
+def _inputs(items, nq, nkv, seed, d=64):
+    """bf16-exact q (items*nq, d) and kv (items*nkv, 2 d) as numpy f32,
+    q scaled by 1/sqrt(d) as the folds do."""
     rng = np.random.default_rng(seed)
-    q = (rng.normal(size=(items * nq, 64)) / 8).astype(np.float32)
-    kv = rng.normal(size=(items * nkv, 128)).astype(np.float32)
+    q = (rng.normal(size=(items * nq, d)) / d ** 0.5).astype(np.float32)
+    kv = rng.normal(size=(items * nkv, 2 * d)).astype(np.float32)
     rnd = lambda a: torch.from_numpy(a).bfloat16().float().numpy()    # noqa: E731
     return rnd(q), rnd(kv)
 
@@ -54,9 +57,10 @@ def _jax_attention(q, k, v):
 
 def _forward(q, kv, items):
     tq, tkv = torch.from_numpy(q).bfloat16(), torch.from_numpy(kv).bfloat16()
+    d = tq.shape[1]
     out = torch.empty(tq.shape, dtype=torch.bfloat16)
     m, den = torch.empty(tq.shape[0]), torch.empty(tq.shape[0])
-    _build.cross_attention_plain(tq, tkv[:, :64], tkv[:, 64:], out, n_items=items, m_out=m,
+    _build.cross_attention_plain(tq, tkv[:, :d], tkv[:, d:], out, n_items=items, m_out=m,
                                  den_out=den)
     return tq, tkv, out, m, den
 
@@ -70,13 +74,13 @@ def _rel(a, b):
     return float(np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(np.asarray(b)).max())
 
 
-@pytest.mark.parametrize("items,nq,nkv", SHAPES)
-def test_cross_attention_plain_matches_jax(items, nq, nkv):
-    q, kv = _inputs(items, nq, nkv, seed=nkv)
+@pytest.mark.parametrize("items,nq,nkv,d", SHAPES)
+def test_cross_attention_plain_matches_jax(items, nq, nkv, d):
+    q, kv = _inputs(items, nq, nkv, seed=nkv, d=d)
     _, _, out, m, den = _forward(q, kv, items)
-    qj = jnp.asarray(q).reshape(items, nq, 64)
-    kj, vj = (jnp.asarray(kv[:, c:c + 64]).reshape(items, nkv, 64) for c in (0, 64))
-    got = out.float().numpy().reshape(items, nq, 64)
+    qj = jnp.asarray(q).reshape(items, nq, d)
+    kj, vj = (jnp.asarray(kv[:, c:c + d]).reshape(items, nkv, d) for c in (0, d))
+    got = out.float().numpy().reshape(items, nq, d)
     ref = np.asarray(jax.vmap(_jax_attention)(qj, kj, vj))
     np.testing.assert_allclose(got, ref, rtol=1e-2, atol=1e-2)
     core = np.asarray(jax.vmap(_attn_core)(qj, kj, vj))     # e rounded to bf16 for P v
@@ -87,27 +91,27 @@ def test_cross_attention_plain_matches_jax(items, nq, nkv):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("items,nq,nkv", SHAPES)
+@pytest.mark.parametrize("items,nq,nkv,d", SHAPES)
 @pytest.mark.parametrize("reference", ["f32", "attn_core"])
-def test_attention_bwd_plain_matches_jax_vjp(items, nq, nkv, reference):
+def test_attention_bwd_plain_matches_jax_vjp(items, nq, nkv, d, reference):
     """attn_bwd_prep_plain + attention_bwd_plain against jax.vjp of the f32
     function, or of the JAX package's bf16 `_attn_core`, for one cotangent."""
-    q, kv = _inputs(items, nq, nkv, seed=100 + nkv)
-    da = np.random.default_rng(7).normal(size=(items * nq, 64)).astype(np.float32)
+    q, kv = _inputs(items, nq, nkv, seed=100 + nkv, d=d)
+    da = np.random.default_rng(7).normal(size=(items * nq, d)).astype(np.float32)
     tq, tkv, out, m, den = _forward(q, kv, items)
     du = torch.empty(tq.shape, dtype=torch.bfloat16)
     ddn = torch.empty(tq.shape[0])
     _build.attn_bwd_prep_plain(torch.from_numpy(da), out, den, du, ddn)
     dq, dq_b = torch.empty(tq.shape), torch.empty(tq.shape, dtype=torch.bfloat16)
     dkv, dkv_b = torch.empty(tkv.shape), torch.empty(tkv.shape, dtype=torch.bfloat16)
-    _build.attention_bwd_plain(tq, tkv[:, :64], tkv[:, 64:], du, ddn, m, dq, dq_b, dkv, dkv_b,
+    _build.attention_bwd_plain(tq, tkv[:, :d], tkv[:, d:], du, ddn, m, dq, dq_b, dkv, dkv_b,
                                n_items=items)
     fn = jax.vmap(_jax_attention if reference == "f32" else _attn_core)
-    args = (jnp.asarray(q).reshape(items, nq, 64),
-            *(jnp.asarray(kv[:, c:c + 64]).reshape(items, nkv, 64) for c in (0, 64)))
+    args = (jnp.asarray(q).reshape(items, nq, d),
+            *(jnp.asarray(kv[:, c:c + d]).reshape(items, nkv, d) for c in (0, d)))
     _, vjp = jax.vjp(fn, *args)
-    refs = vjp(jnp.asarray(da).reshape(items, nq, 64))
-    gots = (dq.numpy(), dkv[:, :64].numpy(), dkv[:, 64:].numpy())
+    refs = vjp(jnp.asarray(da).reshape(items, nq, d))
+    gots = (dq.numpy(), dkv[:, :d].numpy(), dkv[:, d:].numpy())
     for name, got, ref in zip(("dq", "dk", "dv"), gots, refs):
         ref = np.asarray(ref).reshape(got.shape)
         assert _cos(got, ref) >= 0.9999, name
@@ -155,3 +159,16 @@ def test_attention_route_is_decided_by_alignment_alone(q_view, kv_cols, out_view
     k, v = kv[:, :64], kv[:, 64:128]
     out = _view(*out_view)
     assert _build.attention_route([q, k, v], [out]) == route
+
+
+@pytest.mark.parametrize("d", _build.ATTENTION_DS)
+def test_attention_route_at_each_head_width(d):
+    """The chains' layout at each head width takes the wgmma route: q in rows
+    of whole 16 bytes, k and v the halves of one (rows, 2 D) matrix (v 2 D
+    bytes in), out the D columns at an 8-aligned offset of the packed rows;
+    out one element off that offset takes the WMMA route."""
+    q = torch.empty(100, d, dtype=torch.bfloat16)
+    kv = torch.empty(100, 2 * d, dtype=torch.bfloat16)
+    rows = torch.empty(100, d + 160, dtype=torch.bfloat16)
+    assert _build.attention_route([q, kv[:, :d], kv[:, d:]], [rows[:, 152:152 + d]]) == "wgmma"
+    assert _build.attention_route([q, kv[:, :d], kv[:, d:]], [rows[:, 153:153 + d]]) == "wmma"

@@ -105,18 +105,24 @@ def test_gemm_bf16_matches_plain(dev, m, k, n, epi):
 
 
 @pytest.mark.cuda
-def test_cross_attention_matches_plain(dev):
+@pytest.mark.parametrize("d", _build.ATTENTION_DS)
+def test_cross_attention_matches_plain(dev, d):
+    """At each head width, into a column slice of wider packed rows as the
+    chains write it: the D columns within one bf16 rounding of the plain
+    math, the NaN columns on either side untouched."""
     g = torch.Generator().manual_seed(1)
-    q = rand(g, 3 * 70, 64, device=dev).bfloat16()
-    kv = rand(g, 3 * 90, 128, device=dev).bfloat16()
-    out = torch.empty(3 * 70, 64, device=dev, dtype=torch.bfloat16)
-    _build.cross_attention(q, kv[:, :64], kv[:, 64:], out, n_items=3)
+    q = rand(g, 3 * 70, d, device=dev).bfloat16()
+    kv = rand(g, 3 * 90, 2 * d, device=dev).bfloat16()
+    rows = torch.full((3 * 70, d + 72), float("nan"), device=dev, dtype=torch.bfloat16)
+    out = rows[:, 8:8 + d]
+    _build.cross_attention(q, kv[:, :d], kv[:, d:], out, n_items=3)
     torch.cuda.synchronize()
-    s = q.float().view(3, 70, 64) @ kv[:, :64].float().view(3, 90, 64).transpose(1, 2)
+    s = q.float().view(3, 70, d) @ kv[:, :d].float().view(3, 90, d).transpose(1, 2)
     e = torch.exp(s - s.amax(-1, keepdim=True))
-    ref = (e.bfloat16().float() @ kv[:, 64:].float().view(3, 90, 64)) / e.sum(-1, keepdim=True)
-    torch.testing.assert_close(out.float().view(3, 70, 64), ref.bfloat16().float(),
+    ref = (e.bfloat16().float() @ kv[:, d:].float().view(3, 90, d)) / e.sum(-1, keepdim=True)
+    torch.testing.assert_close(out.float().view(3, 70, d), ref.bfloat16().float(),
                                rtol=1e-2, atol=1e-2)
+    assert bool(rows[:, :8].isnan().all() and rows[:, 8 + d:].isnan().all())
 
 
 @pytest.mark.cuda
@@ -826,27 +832,30 @@ def _attention_ref(q, k, v, scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", _build.ATTENTION_DS)
 @pytest.mark.parametrize("nq,nkv", [(70, 90), (1024, 1250), (64, 1), (1000, 1250), (1, 65)])
-def test_fused_attention_core_matches_plain(dev, nq, nkv):
-    """B10 forward against its plain version, k and v as column slices of one
-    [k | v] tensor as apply_cross_attention hands them over: f32 inside and
-    p never rounded to bf16, so at most one bf16 ulp of the output apart."""
+def test_fused_attention_core_matches_plain(dev, nq, nkv, d):
+    """B10 forward against its plain version at each head width, k and v as
+    column slices of one [k | v] tensor as apply_cross_attention hands them
+    over: f32 inside and p never rounded to bf16, so at most one bf16 ulp of
+    the output apart."""
     from flowcompare_tpu_torch.ops import attention_cuda as ac
     g = torch.Generator().manual_seed(30)
-    q = rand(g, 3, nq, 64, device=dev).bfloat16()
-    kv = (2 * rand(g, 3, nkv, 128, device=dev)).bfloat16()
-    k, v = kv[..., :64], kv[..., 64:]
+    q = rand(g, 3, nq, d, device=dev).bfloat16()
+    kv = (2 * rand(g, 3, nkv, 2 * d, device=dev)).bfloat16()
+    k, v = kv[..., :d], kv[..., d:]
+    scale = 0.125 * (64 / d) ** 0.5
     before = ac.FUSED_ATTENTION_CORE_LAUNCHES
-    got = ac.fused_attention_core(q, k, v, 0.125)
+    got = ac.fused_attention_core(q, k, v, scale)
     torch.cuda.synchronize()
     assert ac.FUSED_ATTENTION_CORE_LAUNCHES == before + 1
-    ref = ac.fused_attention_core_plain(q, k, v, 0.125).float()
-    assert got.dtype == torch.bfloat16 and got.shape == (3, nq, 64)
+    ref = ac.fused_attention_core_plain(q, k, v, scale).float()
+    assert got.dtype == torch.bfloat16 and got.shape == (3, nq, d)
     # f32 sums in another order (about 1e-6 of the |p v| terms), then one
     # bf16 rounding each: one bf16 ulp (2^-7 relative) apart at most
     assert bool(((got.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-5).all())
     # against the f32 result before the cast: one rounding, half an ulp
-    exact = _attention_ref(q, k, v, 0.125)
+    exact = _attention_ref(q, k, v, scale)
     assert bool(((got.float() - exact).abs() <= 2.0 ** -8 * exact.abs() + 1e-5).all())
 
 
@@ -875,7 +884,8 @@ def test_fused_attention_core_keeps_p_at_f32_precision(dev):
 @pytest.mark.cuda
 def test_fused_attention_core_backward_and_d_raises(dev):
     """B10's autograd backward (the JAX _bwd: an f32 recompute) against
-    autograd through the f32 softmax; D != 64 raises on CUDA tensors."""
+    autograd through the f32 softmax; a D outside ATTENTION_DS raises on
+    CUDA tensors."""
     from flowcompare_tpu_torch.ops import attention_cuda as ac
     g = torch.Generator().manual_seed(31)
     q, k, v = (rand(g, 2, n, 64, device=dev).bfloat16().requires_grad_() for n in (70, 90, 90))
@@ -885,10 +895,10 @@ def test_fused_attention_core_backward_and_d_raises(dev):
     for a, b in zip(got, ref):
         assert a.dtype == torch.bfloat16
         torch.testing.assert_close(a.float(), b.bfloat16().float(), rtol=1e-2, atol=1e-3)
-    for d in (32, 128):
+    for d in (48, 256):
         qd = rand(g, 2, 70, d, device=dev).bfloat16()
         kd = rand(g, 2, 90, d, device=dev).bfloat16()
-        with pytest.raises(ValueError, match="D = 64"):
+        with pytest.raises(ValueError, match="D in"):
             ac.fused_attention_core(qd, kd, kd, d ** -0.5)
 
 
@@ -1170,19 +1180,23 @@ ATTENTION_SHAPES = [(items, nq, nkv) for items in (1, 3, 20) for nq in (70, 4000
                     for nkv in (34, 90, 1250)]
 
 
-def attention_inputs(dev, items, nq, nkv, seed, big_next=False):
-    """q (items*nq, 64) scaled as the folds scale it, kv (items*nkv, 128) bf16
-    with k and v its column halves; with big_next every item after the first
-    holds large queries and keys, so a tile read across an item boundary
-    shows in the first item's maximum and output."""
+def attention_inputs(dev, items, nq, nkv, seed, big_next=False, d=64):
+    """q (items*nq, d) scaled as the folds scale it (1 / sqrt(d)), kv
+    (items*nkv, 2 d) bf16 with k and v its column halves; with big_next
+    every item after the first holds large queries and keys, so a tile read
+    across an item boundary shows in the first item's maximum and output.
+    Their scores are about 1,150 x sqrt(64 / d) (the queries' offset 3 x
+    (64 / d)^1.5): a d-term f32 score rounds by about ulp(|s|) x sqrt(d),
+    so at every width as much as at d = 64, where the m and den bounds were
+    set."""
     g = torch.Generator().manual_seed(seed)
-    q = torch.randn(items * nq, 64, generator=g) / 8
-    kv = torch.randn(items * nkv, 128, generator=g)
+    q = torch.randn(items * nq, d, generator=g) / d ** 0.5
+    kv = torch.randn(items * nkv, 2 * d, generator=g)
     if big_next:
-        q[nq:] = q[nq:] * 4 + 3
+        q[nq:] = q[nq:] * 4 + 3 * (64 / d) ** 1.5
         kv[nkv:] = kv[nkv:] * 4 + 6
     q, kv = q.bfloat16().to(dev), kv.bfloat16().to(dev)
-    return q, kv, kv[:, :64], kv[:, 64:]
+    return q, kv, kv[:, :d], kv[:, d:]
 
 
 def attention_forward(fn, q, k, v, items, **kw):
@@ -1208,11 +1222,11 @@ def attention_backward(fn, q, k, v, m, den, out, items, seed, **kw):
     du = torch.empty(q.shape, device=q.device, dtype=torch.bfloat16)
     ddn = torch.empty(q.shape[0], device=q.device)
     _build.attn_bwd_prep(da, out, den, du, ddn)
-    nkv = k.shape[0]
+    nkv, d = k.shape
     bufs = (torch.full(q.shape, float("nan"), device=q.device),
             torch.full(q.shape, float("nan"), device=q.device, dtype=torch.bfloat16),
-            torch.full((nkv, 128), float("nan"), device=q.device),
-            torch.full((nkv, 128), float("nan"), device=q.device, dtype=torch.bfloat16))
+            torch.full((nkv, 2 * d), float("nan"), device=q.device),
+            torch.full((nkv, 2 * d), float("nan"), device=q.device, dtype=torch.bfloat16))
     fn(q, k, v, du, ddn, m, *bufs, n_items=items, **kw)
     return bufs
 
@@ -1221,7 +1235,8 @@ def assert_attention_backward_close(got, ref):
     """dq, dk and dv: cosine >= 0.9999 and max error <= 1e-2 of max |ref|;
     each bf16 output the rounding of its f32 twin."""
     (dq, dq_b, dkv, dkv_b), (rq, _, rkv, _) = got, ref
-    for a, b in ((dq, rq), (dkv[:, :64], rkv[:, :64]), (dkv[:, 64:], rkv[:, 64:])):
+    d = dq.shape[1]
+    for a, b in ((dq, rq), (dkv[:, :d], rkv[:, :d]), (dkv[:, d:], rkv[:, d:])):
         assert float(F.cosine_similarity(a.reshape(-1).double(), b.reshape(-1).double(),
                                          dim=0)) >= 0.9999
         assert _rel(a, b) <= 1e-2
@@ -1229,12 +1244,13 @@ def assert_attention_backward_close(got, ref):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", _build.ATTENTION_DS)
 @pytest.mark.parametrize("items,nq,nkv", ATTENTION_SHAPES)
-def test_cross_attention_wgmma_matches_plain(dev, items, nq, nkv):
+def test_cross_attention_wgmma_matches_plain(dev, items, nq, nkv, d):
     """The wgmma forward with m/den (B5's recompute) and without (B1, B2,
     B7) against the plain version: ragged keys (34, 90, 1250 = 19 tiles and
-    34), ragged queries (70, 4000), 1, 3 and 20 items."""
-    q, kv, k, v = attention_inputs(dev, items, nq, nkv, seed=items + nq + nkv)
+    34), ragged queries (70, 4000), 1, 3 and 20 items, each head width."""
+    q, kv, k, v = attention_inputs(dev, items, nq, nkv, seed=items + nq + nkv, d=d)
     before = _build.CROSS_ATTENTION_WGMMA_LAUNCHES
     got = attention_forward(_build.cross_attention, q, k, v, items, route="wgmma")
     bare = torch.full_like(got[0], float("nan"))
@@ -1247,11 +1263,12 @@ def test_cross_attention_wgmma_matches_plain(dev, items, nq, nkv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", _build.ATTENTION_DS)
 @pytest.mark.parametrize("items,nq,nkv", ATTENTION_SHAPES)
-def test_attention_bwd_wgmma_matches_plain(dev, items, nq, nkv):
+def test_attention_bwd_wgmma_matches_plain(dev, items, nq, nkv, d):
     """The wgmma backward (dq and [dk | dv] kernels) against the plain
-    version from the plain forward's m and den."""
-    q, kv, k, v = attention_inputs(dev, items, nq, nkv, seed=7 + items + nq + nkv)
+    version from the plain forward's m and den, each head width."""
+    q, kv, k, v = attention_inputs(dev, items, nq, nkv, seed=7 + items + nq + nkv, d=d)
     out, m, den = attention_forward(_build.cross_attention_plain, q, k, v, items)
     before = _build.ATTENTION_BWD_WGMMA_LAUNCHES
     got = attention_backward(_build.attention_bwd, q, k, v, m, den, out, items, 1)
@@ -1264,13 +1281,14 @@ def test_attention_bwd_wgmma_matches_plain(dev, items, nq, nkv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", _build.ATTENTION_DS)
 @pytest.mark.parametrize("nq,nkv", [(70, 34), (70, 90), (100, 1250)])
 @pytest.mark.parametrize("route", ["wgmma", "wmma"])
-def test_attention_does_not_read_across_items(dev, nq, nkv, route):
+def test_attention_does_not_read_across_items(dev, nq, nkv, route, d):
     """Items after the first hold large queries and keys: a key tile or a
     query tile read past an item's last row would change the first item's
-    maximum, output and gradients. Both routes."""
-    q, kv, k, v = attention_inputs(dev, 3, nq, nkv, seed=nq + nkv, big_next=True)
+    maximum, output and gradients. Both routes, each head width."""
+    q, kv, k, v = attention_inputs(dev, 3, nq, nkv, seed=nq + nkv, big_next=True, d=d)
     ref = attention_forward(_build.cross_attention_plain, q, k, v, 3)
     rb = attention_backward(_build.attention_bwd_plain, q, k, v, ref[1], ref[2], ref[0], 3, 2)
     got = attention_forward(_build.cross_attention, q, k, v, 3, route=route)
@@ -1304,6 +1322,27 @@ def test_attention_unaligned_view_takes_wmma_route(dev):
         assert_attention_backward_close(gb, rb)
     with pytest.raises(ValueError, match="TMA"):
         attention_forward(_build.cross_attention, q, k, v, 3, route="wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 48, 256])
+def test_attention_wrappers_refuse_other_widths(dev, d):
+    """A head width outside ATTENTION_DS raises ValueError in the forward,
+    the backward and B10 on CUDA tensors, on either route, and launches
+    nothing: no plain version stands in."""
+    q, kv, k, v = attention_inputs(dev, 2, 70, 90, seed=8, d=d)
+    counters = ("CROSS_ATTENTION_WGMMA_LAUNCHES", "CROSS_ATTENTION_WMMA_LAUNCHES",
+                "ATTENTION_BWD_WGMMA_LAUNCHES", "ATTENTION_BWD_WMMA_LAUNCHES")
+    before = [getattr(_build, c) for c in counters]
+    out, m, den = attention_forward(_build.cross_attention_plain, q, k, v, 2)
+    for route in ("wgmma", "wmma"):
+        with pytest.raises(ValueError, match="head widths"):
+            attention_forward(_build.cross_attention, q, k, v, 2, route=route)
+        with pytest.raises(ValueError, match="head widths"):
+            attention_backward(_build.attention_bwd, q, k, v, m, den, out, 2, 9, route=route)
+    with pytest.raises(ValueError, match="head widths"):
+        _build.attention_core(q, k, v, torch.empty_like(q), n_items=2, scale=1.0)
+    assert [getattr(_build, c) for c in counters] == before
 
 
 @pytest.mark.cuda
@@ -1830,7 +1869,7 @@ def test_shared_memory_mirrors_equal_the_library(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("overrides,refused", [
-    ({"cross_dim_head": 32}, {"stack", "augmenter"}),
+    ({"cross_heads": 4}, {"stack", "augmenter"}),             # D = 4 x 64 = 256
     ({"hidden_dims": [1024, 1024, 1024]}, {"stack", "augmenter"}),
     ({"n_neighbors": 72}, {"encoder"})])
 def test_refused_parts_run_plain_on_the_card(dev, overrides, refused):

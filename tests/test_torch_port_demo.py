@@ -1,10 +1,10 @@
 """The port's convergence demo (examples/convergence_demo_torch.py), on the
 CPU.
 
-Its configuration is the JAX demo's: cross_dim_head 32 under bf16, so the
-port sends the layer stack and the augmenter to the JAX package's CPU
-paths (`folded_scan_core`, the unfused augmenter) and keeps the DGCNN on
-B4's plain version. Held here, at the demo's widths with the depth cut to
+Its configuration is the JAX demo's: cross_dim_head 32 under bf16, a head
+width the attention kernels take, so every part of the port reads
+"kernels" (on CPU tensors the plain versions of B1, B2, B4, B5 and B7).
+Held here, at the demo's widths with the depth cut to
 3 layers and the clouds to 64 / 80 points: `inner_loop` and one training
 step against the JAX package's (its jitted `_build_step_fn`) on the same
 weights and noise, within the bf16 tolerances of
@@ -57,19 +57,19 @@ def _batch(seed: int):
 
 
 def test_demo_config_takes_the_plain_stack_and_augmenter():
+    """The demo's D = 32 now takes the kernels for every part, as D = 64
+    does: no part of either demo config reads "plain"."""
     cfg = _demo_module().demo_config()
     assert cfg["cross_dim_head"] == 32 and cfg["compute_dtype"] == "bfloat16"
     from flowcompare_tpu_torch.routes import model_routes
-    got = model_routes(cfg)
-    assert got["encoder"] == "kernels"
-    assert got["stack"].startswith("plain: ") and got["augmenter"].startswith("plain: ")
-    assert model_routes(_demo_module().demo_config(64)) == {
-        "stack": "kernels", "augmenter": "kernels", "encoder": "kernels"}
+    kernels = {"stack": "kernels", "augmenter": "kernels", "encoder": "kernels"}
+    assert model_routes(cfg) == kernels
+    assert model_routes(_demo_module().demo_config(64)) == kernels
 
 
 def test_demo_config_inner_loop_and_train_step_match_jax():
     cfg, jm, jparams, jstate, pm = model_pair(config=lambda dtype: _demo_config())
-    assert not pm._kernel_route() and not pm._kernel_route("augmenter")
+    assert pm._kernel_route() and pm._kernel_route("augmenter")
     batch = _batch(3)
     key = jax.random.PRNGKey(11)
     _, lpr, natsr, _ = jax_inner_loop(jm, jparams, jstate, batch, rng=key)

@@ -3,9 +3,8 @@
 examples/convergence_demo_torch.py in a process of its own with `--device
 cpu --steps 3` into a temporary directory: it exits 0 and writes
 result.json with the JAX demo's keys (examples/convergence_demo.py), the
-routes (the layer stack on the plain route at the demo's cross_dim_head
-32, the encoder on the kernels' route), its metrics and its final
-checkpoint. tests/test_torch_port_demo.py holds its configuration to the
+routes (every part on the kernels' route at the demo's cross_dim_head
+32), its metrics and its final checkpoint. tests/test_torch_port_demo.py holds its configuration to the
 JAX package; chip_smoke.py runs it for 240 steps on the card.
 """
 
@@ -29,7 +28,6 @@ def test_demo_script_runs_three_steps_on_the_cpu(tmp_path):
     assert JAX_KEYS <= set(result)
     assert all(np.isfinite(result[k]) for k in JAX_KEYS)
     assert 0.0 <= result["auc"] <= 1.0 and result["steps"] == 3
-    assert result["routes"]["encoder"] == "kernels"
-    assert result["routes"]["stack"].startswith("plain: ")
+    assert result["routes"] == {"stack": "kernels", "augmenter": "kernels", "encoder": "kernels"}
     assert result["device"] == "cpu" and (out / "demo_final.pt").exists()
     assert len((out / "metrics.jsonl").read_text().splitlines()) == 3

@@ -167,6 +167,7 @@ class EmulatedLaunches:
         self.routes = []
         self.fused = []
         self.attention = []
+        self.attention_routes = []
         self._originals = {name: getattr(_build, name) for name in self.FUSED}
 
     def _fused(self, name, xin, *args, **kw):
@@ -228,8 +229,15 @@ class EmulatedLaunches:
         mean = x.mean(-1, keepdim=True)
         out.copy_((x - mean) * torch.rsqrt((x * x).mean(-1, keepdim=True) - mean * mean + eps))
 
+    def _attention_route(self, reads, writes):
+        """An attention launch's head width and the route its operands would
+        take."""
+        self.attention_routes.append((reads[0].shape[1],
+                                      _build.attention_route(reads, writes)))
+
     def cross_attention(self, q, k, v, out, *, n_items, m_out=None, den_out=None):
         self.attention.append("cross_attention")
+        self._attention_route([q, k, v], [out])
         _build.cross_attention_plain(q, k, v, out, n_items=n_items, m_out=m_out, den_out=den_out)
 
     @staticmethod
@@ -278,6 +286,7 @@ class EmulatedLaunches:
 
     def attention_bwd(self, q, k, v, du, ddn, m, dq, dq_b, dkv, dkv_b, *, n_items):
         self.attention.append("attention_bwd")
+        self._attention_route([q, k, v, du], [dq, dq_b, dkv, dkv_b])
         _build.attention_bwd_plain(q, k, v, du, ddn, m, dq, dq_b, dkv, dkv_b, n_items=n_items)
 
     @staticmethod
@@ -320,8 +329,22 @@ def test_chains_take_the_wgmma_route_at_the_shipped_widths(emulated, preset):
     take the fused layer kernels: per layer one conditioner (with
     attention) and one coupling_layer / coupling_inverse, and no per-product
     MLP gemm (their only gemms are ctx @ wkv, and B7's top LU inverse)."""
+    _check_chains(emulated, preset)
+
+
+@pytest.mark.parametrize("overrides", [{"cross_dim_head": 32}, {"cross_heads": 2}],
+                         ids=["d32", "d128"])
+def test_chains_take_the_wgmma_route_at_each_head_width(emulated, overrides):
+    """The checks of the shipped widths on dulcet-universe at the attention
+    head widths D = 32 and D = 128: the chains' q, kv halves and packed-row
+    columns at those widths give every attention launch the wgmma route."""
+    _check_chains(emulated, "dulcet-universe", **overrides)
+
+
+def _check_chains(emulated, preset, **overrides):
     cfg = ft.get_config(preset)
-    cfg.update(compute_dtype="bfloat16", n_flow_layers=2, sample_size=32, n_samples_context=40)
+    cfg.update(compute_dtype="bfloat16", n_flow_layers=2, sample_size=32, n_samples_context=40,
+               **overrides)
     model = ft.FlowCompareModel(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -392,3 +415,6 @@ def test_chains_take_the_wgmma_route_at_the_shipped_widths(emulated, preset):
         assert float((za.reshape(1, 32, -1) - zr2).abs().max()) <= 0.02
         assert float(((la.reshape(1, 32) - lr2).abs() / lr2.abs().clamp_min(1.0)).max()) <= 1e-4
     assert set(emulated.routes) == {"wgmma"}
+    d = cfg["cross_heads"] * cfg["cross_dim_head"]
+    assert d in _build.ATTENTION_DS
+    assert emulated.attention_routes and set(emulated.attention_routes) == {(d, "wgmma")}

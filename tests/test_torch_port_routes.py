@@ -2,9 +2,11 @@
 
 `routes.model_routes` decides per part whether the kernels take the
 config's shapes; a refused part takes the JAX package's path off the TPU.
-Held here: every preset reads "kernels" for every part; the three C1
-configs (D = 32, a 1,024-wide coupling MLP, k = 80) read "plain: ..." on
-the right parts; the shapes the gate reasons about are the folds' own
+Held here: every preset reads "kernels" for every part; so do the stack
+and the augmenter at each attention head width the kernels take (D = 32,
+64, 128), while D = 48 and D = 256 read "plain: ..." naming those widths;
+the three C1 configs (D = 256, a 1,024-wide coupling MLP, k = 80) read
+"plain: ..." on the right parts; the shapes the gate reasons about are the folds' own
 (`stack_shapes` against `fold_stacks`, the augmenter's against
 `AugmenterWeights`, the DGCNN's against `EncoderWeights`); the shared
 memory mirrors at the kernels' documented limits; and, for tiny models of
@@ -34,7 +36,7 @@ torch.set_num_threads(2)
 
 PRESETS = ["dulcet-universe", "good-surf", "helpful-sponge", "summer-terrain", "swept-energy"]
 C1_CASES = {
-    "d32": ({"cross_dim_head": 32}, {"stack", "augmenter"}),
+    "d256": ({"cross_heads": 4}, {"stack", "augmenter"}),
     "mlp1024": ({"hidden_dims": [1024, 1024, 1024]}, {"stack", "augmenter"}),
     "k80": ({"n_neighbors": 80}, {"encoder"}),
 }
@@ -62,9 +64,33 @@ def test_c1_configs_refuse_the_right_parts(case):
     assert all(got[p].startswith("plain: ") for p in refused)
 
 
+@pytest.mark.parametrize("heads,dim_head", [(1, 32), (1, 64), (2, 64)])
+def test_attention_head_widths_take_the_kernels(heads, dim_head):
+    """D = 32, 64 and 128 (`ATTENTION_DS`): the stack and the augmenter
+    read "kernels" on dulcet-universe under bf16."""
+    cfg = ft.get_config("dulcet-universe")
+    cfg.update(compute_dtype="bfloat16", cross_heads=heads, cross_dim_head=dim_head)
+    assert heads * dim_head in routes.ATTENTION_DS
+    assert routes.model_routes(cfg) == {p: "kernels" for p in ("stack", "augmenter", "encoder")}
+
+
+@pytest.mark.parametrize("heads,dim_head", [(1, 48), (4, 64)])
+def test_other_head_widths_read_plain_naming_the_set(heads, dim_head):
+    """D = 48 and D = 256 send the stack and the augmenter to the plain
+    route with a reason that names the widths the kernels take; the
+    encoder stays on its kernels."""
+    cfg = ft.get_config("dulcet-universe")
+    cfg.update(compute_dtype="bfloat16", cross_heads=heads, cross_dim_head=dim_head)
+    got = routes.model_routes(cfg)
+    assert got["encoder"] == "kernels"
+    for part in ("stack", "augmenter"):
+        assert got[part] == (f"plain: attention head width {heads} x {dim_head} = "
+                             f"{heads * dim_head} (the cross-attention kernels take 32, 64, 128)")
+
+
 def test_model_routes_are_read_only_and_the_gates():
     cfg = tiny_config("bfloat16")
-    cfg["cross_dim_head"] = 32
+    cfg["cross_heads"] = 4                 # D = 4 x 64 = 256: no attention kernel
     model = ft.FlowCompareModel(cfg, device="cpu")
     assert dict(model.routes) == routes.model_routes(model.config)
     with pytest.raises(TypeError):
@@ -115,7 +141,7 @@ def test_gate_shapes_are_the_folds_shapes(case):
                               extra_dim=cfg["extra_context_dim"])
     if model.routes["augmenter"] == "kernels":
         flc.AugmenterWeights(fold, input_dim=cfg["input_dim"])
-    elif cfg["cross_dim_head"] == routes.ATTENTION_D:
+    elif cfg["cross_heads"] * cfg["cross_dim_head"] in routes.ATTENTION_DS:
         with pytest.raises(ValueError):
             flc.AugmenterWeights(fold, input_dim=cfg["input_dim"])
     dgcnn_cuda.EncoderWeights(params["embedder"], model.state.tree()["embedder"])

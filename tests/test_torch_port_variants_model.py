@@ -113,8 +113,8 @@ def test_relu_takes_the_folded_scan_and_the_kernels_refuse_it():
     """RELU on the folded layout runs `folded_scan_core` with RELU under bf16
     (the JAX package's semantics off the TPU); B1, B2, B5 and B7's wrappers
     and plain versions raise when asked for it. Its GELU twin takes the
-    kernels' route at the kernels' attention head width (64); at the
-    fixtures' width 8 the shapes refuse it (`routes`)."""
+    kernels' route at one of the attention kernels' head widths (64); at
+    the fixtures' width 8 the shapes refuse it (`routes`)."""
     pm = variant_pair("relu_folded", "bfloat16")[4]
     assert pm._can_fold_scan() and not pm._kernel_route()
     gelu_d64 = ft.FlowCompareModel(variant_config("bfloat16", cross_dim_head=64), device="cpu")
