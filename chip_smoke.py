@@ -277,7 +277,19 @@ Phases, each of which raises on failure (nothing is caught):
    launches a layer in B7) and the training check at B=2 (|d nats| <= 0.01,
    grad norm within 5%, cosine >= 0.99; 11 launches a layer in B5), each
    with the counters set to 0 just before and read after. Their attention
-   launches fill the kernels line's D = 32 and 128 entries.
+   launches fill the kernels line's D = 32 and 128 entries;
+27. clouds past shared memory (`phase_large_clouds`, then
+   `phase_cloud_sizes`, after the head widths): B3 and B6 at 40 x 4,096 and
+   8 x 16,384 points (the chunked walk) and B9's
+   selection at 50 x 8,192 (the cloud from global memory) against their
+   plain versions, index-equal on integer inputs; then dulcet-universe at
+   4,096 context points and good-surf at 8,192, bf16, full width, 115
+   layers, every part on its kernels: the eval main path (2 items of the
+   preset's B=20 / 25) against plain, eval timing, make_sample of 1 x 4000
+   against plain, the training check at B=2, train(max_steps=4), B4 at 40
+   x 4,096 against plain in 10 launches a call, B8 / B9 launches as on
+   good-surf's paths. The kernels line's B3, B4, B6 and B9 entries carry
+   these readings under "by_cloud", with the launches of those paths.
 
 Prints, last, one JSON line of per-kernel results (B1-B10 with B9's
 gather as `sa_gather`, gemm_bf16,
@@ -4125,6 +4137,241 @@ def phase_head_widths(ft, device) -> dict:
     return out
 
 
+# ------------------------------------------------ clouds past shared memory
+
+# The paths past the clouds whose distance rows fit shared memory, at full
+# width and depth: (preset, context points, eval batch)
+CLOUD_RUNS = (("dulcet-universe", 4096, TIME_B), ("good-surf", 8192, GS_B))
+LARGE_KNN = ((40, 4096), (8, 16384))      # B3 / B6: (clouds, points)
+LARGE_SA = (50, 8192)                     # B9: (clouds, points), PAConv's four levels
+PLAIN_BYTES = 2 ** 30                     # the plain versions' distances a call, at most
+
+
+def by_items(fn, n: int, *tensors):
+    """fn over slices of the items of `tensors` whose n x n f32 distances
+    take at most PLAIN_BYTES (the plain versions materialise them),
+    concatenated."""
+    step = max(1, PLAIN_BYTES // (4 * n * n))
+    outs = [fn(*(t[i:i + step] for t in tensors)) for i in range(0, len(tensors[0]), step)]
+    if isinstance(outs[0], (list, tuple)):
+        return [torch.cat(parts) for parts in zip(*outs)]
+    return torch.cat(outs)
+
+
+def b6_off(got: list, ref: list, scale: torch.Tensor) -> torch.Tensor:
+    """B6's (mx, mn, s1, s2, du) against plain's: where |err| > 1e-4 (1 +
+    |ref|), for du plus 1e-6 of its terms' magnitudes
+    (`edgeconv_vjp_cuda.du_scale`: a point of a large cloud may be selected
+    by over a thousand rows, whose f32 sums in two orders round apart by
+    about eps times that) -> the entries off."""
+    off = [(a - b).abs() > 1e-4 * (1 + b.abs()) for a, b in zip(got[:4], ref[:4])]
+    off.append((got[4] - ref[4]).abs() > 1e-4 * (1 + ref[4].abs()) + 1e-6 * scale)
+    return torch.stack(off)
+
+
+def _large_entry(shapes: str, err: float, ms: float, plain_ms: float, flops, moved) -> dict:
+    """A by_cloud reading: the kernel's ms, the plain version's (an item
+    slice at a time) and the bound."""
+    bound_ms, bound_by = bound(flops, moved)
+    return {"shapes": shapes, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "launches": 0}
+
+
+def phase_large_clouds(device) -> dict:
+    """B3, B6 and B9 past the clouds whose rows fit shared memory, against
+    their plain versions (run an item slice at a time): B3 and B6 at 40 x
+    4,096 and 8 x 16,384 points at the four EdgeConv widths, k = 40 (the
+    chunked walk), B9's selection at 50 x 8,192 (the cloud read from global
+    memory) over PAConv's four levels. Integer inputs: B6's selected
+    indices equal to plain's, B3's output and B6's mx / mn bit-equal, s1 /
+    s2 within 1e-4 (1 + |ref|), du within that plus 1e-6 of its terms'
+    magnitudes (`b6_off`), B9's slot lists equal; random inputs:
+    at most 1% of rows differ in B3 and B6 and 1e-3 in B9 (a near-tied k-th
+    neighbour may flip with the f32 sum order). Returns
+    {"B3" | "B6" | "B9": {"<clouds>x<points>": reading}}."""
+    from flowcompare_tpu_torch.ops import _build, edgeconv_cuda as ec, edgeconv_vjp_cuda as ev
+    from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda as sg
+
+    g = torch.Generator().manual_seed(SEED + 40)
+    k = 40
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g).to(device)
+
+    def b6(fn, x, u, *cots):
+        with torch.enable_grad():
+            u = u.detach().requires_grad_()
+            outs = fn(x, u, k)
+            torch.autograd.backward(outs, list(cots))
+        return [o.detach() for o in outs] + [u.grad]
+
+    def selected(x):
+        b, n, cq = x.shape
+        rows = b * n
+        outs = [torch.empty(rows, 8, device=device) for _ in range(4)]
+        slots = [torch.empty(rows, 8, dtype=torch.uint8, device=device) for _ in range(2)]
+        idx = torch.empty(rows, k, dtype=torch.int32, device=device)
+        u = torch.zeros(rows, 8, dtype=torch.bfloat16, device=device)
+        _build.knn_edge_reduce_fwd(x.reshape(rows, cq), u, *outs, *slots, idx, n_items=b, k=k)
+        return idx.reshape(b, n, k).long()
+
+    out = {"B3": {}, "B6": {}, "B9": {}}
+    for clouds, n in LARGE_KNN:
+        key = f"{clouds}x{n}"
+        t3 = {"err": 0.0, "worst": 0.0, "ms": 0.0, "plain": 0.0, "flops": 0, "moved": 0}
+        t6 = {"err": 0.0, "worst": 0.0, "ms": 0.0, "plain": 0.0, "flops": 0, "moved": 0}
+        for cq, cout in EDGE_WIDTHS:
+            xi = torch.randint(-4, 5, (clouds, n, cq), generator=g).to(device).bfloat16()
+            u = rand(clouds, n, cout).bfloat16()
+            got_idx = selected(xi)
+            ref_idx = by_items(lambda x: ec.knn_indices(x, k).sort(-1).values, n, xi)
+            assert torch.equal(got_idx, ref_idx), f"B6's selection not exact at {key}, {cq}"
+            got = ec.edge_neighbor_max(xi, u, k)
+            ref = by_items(lambda x, v: ec.edge_neighbor_max_plain(x, v, k), n, xi, u)
+            t3["err"] = max(t3["err"], float((got.float() - ref.float()).abs().max()))
+            cots = [rand(clouds, n, cout) for _ in range(4)]
+            got = b6(ev.edge_knn_reduce, xi, u.float(), *cots)
+            ref = by_items(lambda *a: b6(ev.edge_knn_reduce_plain, *a), n, xi, u.float(), *cots)
+            exact = max(float((a - b).abs().max()) for a, b in zip(got[:2], ref[:2]))
+            off = int(b6_off(got, ref, ev.du_scale(ref_idx, u.float(), cots)).sum())
+            assert exact == 0.0 and off == 0, f"B6 at {key}, {cq}: {exact}, {off} entries off"
+            t6["err"] = max(t6["err"], max(float((a - b).abs().max()) for a, b in zip(got, ref)))
+            del got, ref
+            x = rand(clouds, n, cq).bfloat16()
+            got = ec.edge_neighbor_max(x, u, k)
+            ref = by_items(lambda a, v: ec.edge_neighbor_max_plain(a, v, k), n, x, u)
+            t3["worst"] = max(t3["worst"], float((got != ref).any(-1).float().mean()))
+            got = b6(ev.edge_knn_reduce, x, u.float(), *cots)
+            ref = by_items(lambda *a: b6(ev.edge_knn_reduce_plain, *a), n, x, u.float(), *cots)
+            near = by_items(lambda a: ec.knn_indices(a, k), n, x)
+            off = b6_off(got, ref, ev.du_scale(near, u.float(), cots)).any(0).any(-1)
+            t6["worst"] = max(t6["worst"], float(off.float().mean()))
+            del got, ref
+            for t, fn, plain in (
+                    (t3, lambda: ec.edge_neighbor_max(x, u, k),
+                     lambda: by_items(lambda a, v: ec.edge_neighbor_max_plain(a, v, k), n, x, u)),
+                    (t6, lambda: b6(ev.edge_knn_reduce, x, u.float(), *cots),
+                     lambda: by_items(lambda *a: b6(ev.edge_knn_reduce_plain, *a), n, x,
+                                      u.float(), *cots))):
+                t["ms"] += time_ms(fn)
+                t["plain"] += time_ms(plain, reps=1)
+                t["flops"] += knn_flops(clouds, n, cq)
+            t3["moved"] += nbytes(x, u) + clouds * n * cout * 2
+            t6["moved"] += nbytes(x) + clouds * n * cout * 2 + 9 * clouds * n * cout * 4
+            torch.cuda.empty_cache()
+        for name, t in (("B3", t3), ("B6", t6)):
+            budget = 0.01
+            assert t["worst"] <= budget, f"{name} rows differing {t['worst']} > {budget} at {key}"
+            out[name][key] = _large_entry(f"{key}, four widths, k={k}", t["err"], t["ms"],
+                                          t["plain"], t["flops"], t["moved"])
+            out[name][key]["random_rows_differing"] = t["worst"]
+            log(f"{name} at {key}, four widths, k={k}: integer inputs index-equal and exact "
+                f"(max|err| {t['err']}), random-input rows differing {t['worst']} (budget "
+                f"{budget}); {json.dumps(out[name][key])}")
+
+    clouds, n = LARGE_SA
+    key = f"{clouds}x{n}"
+    ms = [n // 4 ** (i + 1) for i in range(4)]
+    for kind in ("integer", "random"):
+        x = (torch.randint(-30, 31, (clouds, n, 3), generator=g).float() if kind == "integer"
+             else torch.randn(clouds, n, 3, generator=g)).to(device)
+        idx, centres = fps_cuda.furthest_point_sampling_levels(x, ms)
+        levels = list(zip(centres, idx, [x, *centres]))
+        sels = sg.sa_select_levels(levels, SA_K)
+        worst = err = 0.0
+        for (new_xyz, lidx, xyz), sel in zip(levels, sels):
+            ref = by_items(lambda a, b, c: sg.sa_select_plain(a, b, c, SA_K), xyz.shape[1],
+                           new_xyz, lidx, xyz)
+            worst = max(worst, float((sel.long() != ref).any(-1).float().mean()))
+            err = max(err, float((sel.long() - ref).abs().max()))
+        if kind == "integer":
+            assert worst == 0.0, f"B9's selection not exact on integer coordinates at {key}"
+            int_err = err   # the slot lists' max |kernel - plain| on integer coordinates
+    assert worst <= 1e-3, f"B9 rows differing {worst} > 1e-3 at {key}"
+    r = _paconv_reading(lambda: sg.sa_select_levels(levels, SA_K),
+                        lambda: [by_items(lambda a, b, c: sg.sa_select_plain(a, b, c, SA_K),
+                                          lv[2].shape[1], *lv) for lv in levels],
+                        "sa_select_kernel",
+                        clouds * sum(m * nn * 8 for nn, m in zip([n, *ms], ms)),
+                        nbytes(levels, sels))
+    out["B9"][key] = {"shapes": f"{key}, four levels, k={SA_K}", "max_abs_err": int_err,
+                      "ms": r["wall_ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "launches": 0,
+                      "random_rows_differing": worst}
+    log(f"B9 sa_select at {key}, four levels in one launch: integer coordinates index-equal, "
+        f"random rows differing {worst} (budget 1e-3); {json.dumps(out['B9'][key])}")
+    return out
+
+
+def phase_cloud_sizes(ft, device) -> dict:
+    """dulcet-universe at 4,096 context points (B4 with B3 inside in eval
+    and sampling, B6 in training: the chunked walk) and good-surf at 8,192
+    (B8, and B9 reading the cloud from global memory), bf16, full width, 115
+    layers, every part of `model.routes` on its kernels: the eval main path
+    through evaluate_on_test (2 items of the preset's B=20 / 25, both
+    directions) against the plain path on the same noise (|d nats| <= 0.01,
+    change maps >= 99.9%), B4 in 10 launches a call or B8 / B9 in one and
+    one selection launch an embed; eval timing at that batch; make_sample of
+    1 x 4000 against the plain samples of the same z (|d nats| <= 0.01);
+    the training check at B=2 (|d nats| <= 0.01, grad norm within 5%,
+    cosine >= 0.99) with 11 launches a layer inside B5; train(max_steps=4)
+    at the preset's batch; and, at 4,096, B4 on 40 clouds against its plain
+    version. Each phase's counters are set to 0 just before it and read
+    just after."""
+    out = {}
+    for preset, nc, batch in CLOUD_RUNS:
+        t0 = time.perf_counter()
+        model = make_model(ft, device, preset=preset, n_samples_context=nc)
+        cfg = model.config
+        assert cfg["n_samples_context"] == nc
+        assert all(r == "kernels" for r in model.routes.values()), (preset, dict(model.routes))
+        paconv = cfg["input_embedder"] == "PAConv"
+        label = f"{preset} at {nc} points"
+        log(f"{label}: routes {dict(model.routes)}")
+        items = eval_items(cfg, batch, 2, SEED + 3)
+        if paconv:
+            launches = phase_main_path(ft, model, device,
+                                       need=("B1", "B2", "B8", "B9", "sa_gather"), items=items)
+            check_paconv_launches(launches, f"{label}'s eval main path (2 items)", eval_embeds=2)
+        else:
+            launches = phase_main_path(ft, model, device, items=items)
+            b4 = launches["b4_b2"]["fused_dgcnn_encoder"]
+            assert b4["launches_per_call"] == [B4_LAUNCHES], (label, b4)
+        timing = phase_timing(ft, model, device, batch=batch)
+        sample = phase_sample_main(ft, model, device,
+                                   need=("B7", "B8", "B9", "sa_gather") if paconv
+                                   else ("B7", "B4", "B3"))
+        if paconv:
+            check_paconv_launches(sample["launches"], f"{label}'s make_sample", eval_embeds=1)
+        need = ("B5", "B1 with saves", "B8") if paconv else ("B5", "B6", "B1 with saves")
+        check = phase_train_check(ft, model, device, need=need, with_chains=True)
+        b5 = check_b5_launches(check.pop("chains"), f"the training check at {label}", True)
+        if paconv:
+            check_paconv_launches(check["launches"], f"{label}'s train_step", eval_embeds=0,
+                                  train_embeds=1)
+        train_main, _ = phase_train_main(ft, model, device, batch=batch,
+                                         need=need if paconv else (*need, "B3"))
+        run = {"label": label, "eval_launches": launches, "timing": timing, "sample": sample,
+               "train_check": check, "b5": b5, "train_main": train_main}
+        if not paconv:
+            from flowcompare_tpu_torch.core.mlp import cast_tree
+
+            g = torch.Generator().manual_seed(SEED + 41)
+            x = torch.randn(2 * TIME_B, nc, 6, generator=g).to(device)
+            params = cast_tree(model.params()["embedder"], torch.bfloat16)
+            state = model.state.tree()["embedder"]
+            with torch.no_grad():
+                run["b4"] = check_b4(x, params, state, cfg["n_neighbors"], True,
+                                     f"at {2 * TIME_B} clouds of {nc}")
+            assert run["b4"]["launches_per_call"] == B4_LAUNCHES, run["b4"]
+        run["phase_s"] = time.perf_counter() - t0
+        out[preset] = run
+        log(f"{label}: {run['phase_s']:.1f} s")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------- routes from the shapes
 
 # Three small bf16 configs (dulcet-universe at 2 layers, B=2) outside the
@@ -4935,8 +5182,29 @@ def main() -> int:
             attention_entries[key]["by_width"][dw]["launches"] = run[
                 "attention_launches" if key == "cross_attention" else "attention_bwd_launches"]
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        large = phase_large_clouds(device)
+    torch.cuda.empty_cache()
+    cloud_sizes = phase_cloud_sizes(ft, device)
+    log(f"cloud-size phases: {time.perf_counter() - t0:.1f} s")
+    # the readings past shared memory's whole rows, with the launches of the
+    # paths that run them: dulcet-universe at 4,096 points (eval: B4, B3;
+    # train(max_steps=4): B6) and good-surf at 8,192 (eval: B9)
+    dul, gs = cloud_sizes["dulcet-universe"], cloud_sizes["good-surf"]
+    large["B3"]["40x4096"]["launches"] = dul["eval_launches"]["B3"]
+    large["B6"]["40x4096"]["launches"] = dul["train_main"]["launches"]["B6"]
+    large["B9"]["50x8192"]["launches"] = gs["eval_launches"]["B9"]
+    for key in ("B3", "B6"):
+        entries[key]["by_cloud"] = large[key]
+    entries["B4"]["by_cloud"] = {"40x4096": {
+        **check_entry(dul["b4"], "40 clouds x 4096"), "device_ms": dul["b4"]["device_ms"],
+        "launches": dul["eval_launches"]["B4"],
+        "launches_per_call": dul["b4"]["launches_per_call"]}}
+    torch.cuda.empty_cache()
     paconv_entries, good_surf = good_surf_phases(ft, device)
     entries.update(paconv_entries)
+    entries["B9"]["by_cloud"] = large["B9"]
     torch.cuda.empty_cache()
     global_checks, helpful_sponge, b5_global = helpful_sponge_phases(ft, device)
     for key, chk in global_checks.items():
@@ -4978,6 +5246,7 @@ def main() -> int:
                       "swept_energy": swept_energy, "cli": cli, "data": data,
                       "variants": variants, "c1": c1, "demo": demo, "ddp": ddp,
                       "head_widths": head_widths,
+                      "cloud_sizes": cloud_sizes, "large_clouds": large,
                       "model_axis": model_axis,
                       "b10": b10_entry_point, "gemm": gemm_cases, "attention": attention_cases,
                       "fused_layers": fused_cases, "main_path_bounds": main_bounds,

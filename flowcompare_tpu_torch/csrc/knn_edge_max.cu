@@ -16,11 +16,18 @@
 // their maxima merged by shuffles. No one-hot matmul and no pad rows: the GPU
 // gathers, and bounds are checked.
 //
+// Clouds whose 16 distance rows do not fit shared memory (past 3,200 points
+// at 128 features) take knn_edge_max_chunked_kernel: the same selection
+// walking the row in chunks (knn::select_chunked, one pass with a falling
+// threshold), the same gather.
+//
 // What bounds it on the H100: the u' gathers from L2 (k rows of cout bf16 a
 // query row, about 2 GB over the four widths of a B=20 eval item) and the
 // candidates' B fragments (re-read from L2 by each 16-row block); the
 // distance products are a few microseconds of tensor-core time an item and
-// the selection 2-5 sweeps a row over shared memory.
+// the selection 2-5 sweeps a row over shared memory. Both grow as n^2 with
+// the cloud: at 4,096 points the candidates' reads (n / 16 blocks, each
+// reading the item's n rows) lead.
 #include "knn_select.cuh"
 
 namespace {
@@ -53,6 +60,61 @@ __device__ __forceinline__ void load8f(const float* p, int valid, bool vec, floa
   }
 }
 
+// The maximum of u over row gr's k selected neighbours (list), or the stage
+// output with the epilogue (cin != nullptr), into out. One warp.
+__device__ __forceinline__ void max_row(const bf16* __restrict__ u, int ldu, int cout,
+                                        bf16* __restrict__ out, int ldo,
+                                        const float* __restrict__ cin, int ldc,
+                                        const float* __restrict__ sign,
+                                        const float* __restrict__ aff_a,
+                                        const float* __restrict__ aff_b, int n, int k, bool vec,
+                                        int item, int gr, const int* list) {
+  const knn::Lanes ln = knn::gather_lanes(cout);
+  const int valid = min(8, cout - ln.ch);
+  const bf16* ui = u + (size_t)item * n * ldu + ln.ch;
+  float mx[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) mx[e] = -INFINITY;
+  if (valid > 0) {
+#pragma unroll 4
+    for (int j = ln.grp; j < k; j += ln.P) {
+      float v[8];
+      load8(ui + (size_t)list[j] * ldu, valid, vec, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], v[e]);
+    }
+  }
+  for (int o = ln.L; o < 32; o <<= 1) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], __shfl_xor_sync(knn::FULL, mx[e], o));
+  }
+  if (ln.grp == 0 && valid > 0) {
+    const size_t orow = (size_t)item * n + gr;
+    if (cin != nullptr) {
+      float cv[8], sg[8], aa[8], bb[8];
+      load8f(cin + orow * ldc + ln.ch, valid, vec, cv);
+      load8f(sign + ln.ch, valid, vec, sg);
+      load8f(aff_a + ln.ch, valid, vec, aa);
+      load8f(aff_b + ln.ch, valid, vec, bb);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) mx[e] = leaky02((sg[e] * mx[e] + cv[e]) * aa[e] + bb[e]);
+    }
+    bf16* o = out + orow * ldo + ln.ch;
+    if (vec && valid == 8) {
+      uint4 w;
+      w.x = knn::pack2(mx[0], mx[1]);
+      w.y = knn::pack2(mx[2], mx[3]);
+      w.z = knn::pack2(mx[4], mx[5]);
+      w.w = knn::pack2(mx[6], mx[7]);
+      *reinterpret_cast<uint4*>(o) = w;
+    } else {
+      for (int e = 0; e < valid; ++e) o[e] = f2bf(mx[e]);
+    }
+  }
+}
+
+// Whole distance rows in shared memory (clouds up to 3,200 points at 128
+// features).
 template <int KS>
 __global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_max_kernel(
     const bf16* __restrict__ x, int ldx, int cq, const bf16* __restrict__ u, int ldu,
@@ -69,9 +131,6 @@ __global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_max_kernel(
 
   unsigned* scratch = s.scratch + warp * 2 * knn::CAP;
   int* list = s.sel + warp * knn::MAX_K;
-  const knn::Lanes ln = knn::gather_lanes(cout);
-  const int valid = min(8, cout - ln.ch);
-  const bf16* ui = u + (size_t)item * n * ldu + ln.ch;
   for (int rr = 0; rr < knn::QR / knn::WARPS; ++rr) {
     const int r = warp * (knn::QR / knn::WARPS) + rr;
     const int gr = row0 + r;
@@ -79,64 +138,52 @@ __global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_max_kernel(
     const unsigned* dr = reinterpret_cast<const unsigned*>(s.dist + r * s.ldd);
     knn::select_row(dr, n, k, s.pool[r * knn::POOL + lane],
                     s.pool[r * knn::POOL + 32 + lane], scratch, list);
-
-    float mx[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) mx[e] = -INFINITY;
-    if (valid > 0) {
-#pragma unroll 4
-      for (int j = ln.grp; j < k; j += ln.P) {
-        float v[8];
-        load8(ui + (size_t)list[j] * ldu, valid, vec, v);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], v[e]);
-      }
-    }
-    for (int o = ln.L; o < 32; o <<= 1) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], __shfl_xor_sync(knn::FULL, mx[e], o));
-    }
-    if (ln.grp == 0 && valid > 0) {
-      const size_t orow = (size_t)item * n + gr;
-      if (cin != nullptr) {
-        float cv[8], sg[8], aa[8], bb[8];
-        load8f(cin + orow * ldc + ln.ch, valid, vec, cv);
-        load8f(sign + ln.ch, valid, vec, sg);
-        load8f(aff_a + ln.ch, valid, vec, aa);
-        load8f(aff_b + ln.ch, valid, vec, bb);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) mx[e] = leaky02((sg[e] * mx[e] + cv[e]) * aa[e] + bb[e]);
-      }
-      bf16* o = out + orow * ldo + ln.ch;
-      if (vec && valid == 8) {
-        uint4 w;
-        w.x = knn::pack2(mx[0], mx[1]);
-        w.y = knn::pack2(mx[2], mx[3]);
-        w.z = knn::pack2(mx[4], mx[5]);
-        w.w = knn::pack2(mx[6], mx[7]);
-        *reinterpret_cast<uint4*>(o) = w;
-      } else {
-        for (int e = 0; e < valid; ++e) o[e] = f2bf(mx[e]);
-      }
-    }
+    max_row(u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b, n, k, vec, item, gr, list);
     __syncwarp();
   }
 }
 
+// Larger clouds: the row walked in chunks (knn::select_chunked).
 template <int KS>
-int launch_max(const void* x, int ldx, int cq, const void* u, int ldu, int cout, void* out,
-               int ldo, const void* cin, int ldc, const void* sign, const void* aff_a,
+__global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_max_chunked_kernel(
+    const bf16* __restrict__ x, int ldx, int cq, const bf16* __restrict__ u, int ldu,
+    int cout, bf16* __restrict__ out, int ldo, const float* __restrict__ cin, int ldc,
+    const float* __restrict__ sign, const float* __restrict__ aff_a,
+    const float* __restrict__ aff_b, int n, int k, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const knn::Smem s = knn::carve(smem, knn::CHUNK, cq, knn::RPW);
+  const int item = blockIdx.y;
+  knn::select_chunked<KS>(
+      x + (size_t)item * n * ldx, ldx, cq, n, k, blockIdx.x * knn::QR, s,
+      [&](int, int gr, const int* list) {
+        max_row(u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b, n, k, vec, item, gr, list);
+      });
+}
+
+template <class Kernel>
+int launch_max(Kernel kernel, const void* x, int ldx, int cq, const void* u, int ldu, int cout,
+               void* out, int ldo, const void* cin, int ldc, const void* sign, const void* aff_a,
                const void* aff_b, int n_items, int n, int k, bool vec, cudaStream_t stream) {
   const size_t bytes = knn::smem_bytes(n, cq);
-  cudaError_t err = cudaFuncSetAttribute(knn_edge_max_kernel<KS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + knn::QR - 1) / knn::QR, n_items);
-  knn_edge_max_kernel<KS><<<grid, knn::THREADS, bytes, stream>>>(
-      (const bf16*)x, ldx, cq, (const bf16*)u, ldu, cout, (bf16*)out,
-      ldo, (const float*)cin, ldc, (const float*)sign, (const float*)aff_a, (const float*)aff_b,
-      n, k, vec);
+  kernel<<<grid, knn::THREADS, bytes, stream>>>(
+      (const bf16*)x, ldx, cq, (const bf16*)u, ldu, cout, (bf16*)out, ldo, (const float*)cin,
+      ldc, (const float*)sign, (const float*)aff_a, (const float*)aff_b, n, k, vec);
   return (int)cudaGetLastError();
+}
+
+template <int KS>
+int launch_ks(const void* x, int ldx, int cq, const void* u, int ldu, int cout, void* out,
+              int ldo, const void* cin, int ldc, const void* sign, const void* aff_a,
+              const void* aff_b, int n_items, int n, int k, bool vec, cudaStream_t st) {
+  if (knn::whole_rows(n, cq))
+    return launch_max(knn_edge_max_kernel<KS>, x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc,
+                      sign, aff_a, aff_b, n_items, n, k, vec, st);
+  return launch_max(knn_edge_max_chunked_kernel<KS>, x, ldx, cq, u, ldu, cout, out, ldo, cin,
+                    ldc, sign, aff_a, aff_b, n_items, n, k, vec, st);
 }
 
 }  // namespace
@@ -156,16 +203,16 @@ FC_API int fc_knn_edge_max(const void* x, int ldx, int cq, const void* u, int ld
   const cudaStream_t st = (cudaStream_t)stream;
   switch (knn::ks_of(cq)) {
     case 1:
-      return launch_max<1>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
-                           n_items, n, k, vec, st);
+      return launch_ks<1>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
+                          n_items, n, k, vec, st);
     case 2:
-      return launch_max<2>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
-                           n_items, n, k, vec, st);
+      return launch_ks<2>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
+                          n_items, n, k, vec, st);
     case 4:
-      return launch_max<4>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
-                           n_items, n, k, vec, st);
+      return launch_ks<4>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
+                          n_items, n, k, vec, st);
     default:
-      return launch_max<8>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
-                           n_items, n, k, vec, st);
+      return launch_ks<8>(x, ldx, cq, u, ldu, cout, out, ldo, cin, ldc, sign, aff_a, aff_b,
+                          n_items, n, k, vec, st);
   }
 }

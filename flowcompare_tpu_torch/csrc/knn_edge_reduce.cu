@@ -33,6 +33,12 @@
 // The lists (a random cloud's neighbours share no order) give a tile nothing
 // to share: the gathers of ds1 and ds2 from L2 bound the backward.
 //
+// Clouds past whole distance rows in shared memory take the forward's
+// chunked kernel (knn::select_chunked, as knn_edge_max does). The backward's
+// list kernels keep n counters (and 64 rows of k indices) in shared memory:
+// fc_knn_edge_reduce_bwd refuses a cloud past the opt-in limit (about 58,000
+// points) before launching, and its scratch grows as (n / 64) n ints an item.
+//
 // What bounds it on the H100: the forward is knn_edge_max's (the u gathers
 // from L2) plus its five outputs; the backward the L2 gathers above
 // (about 10 bytes a channel per selected entry).
@@ -49,13 +55,120 @@ __device__ __forceinline__ void store8(float* p, const float v[8]) {
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
+struct FwdArgs {
+  const bf16* x;
+  int ldx, cq;
+  const bf16* u;
+  int ldu, cout;
+  float *mx, *mn, *s1, *s2;
+  unsigned char *amax, *amin;
+  int* idx;
+  int n, k;
+  bool vec;
+};
+
+// Row gr's selected indices (list, ascending) and mx, mn, s1, s2 of u over
+// them with the first max / min slots. One warp.
+__device__ __forceinline__ void reduce_row(const FwdArgs& a, int item, int gr, const int* list) {
+  const int lane = threadIdx.x & 31;
+  const int k = a.k;
+  const knn::Lanes ln = knn::gather_lanes(a.cout);
+  const int valid = min(8, a.cout - ln.ch);
+  const bf16* ui = a.u + (size_t)item * a.n * a.ldu + ln.ch;
+  const size_t orow = (size_t)item * a.n + gr;
+  for (int j = lane; j < k; j += 32) a.idx[orow * k + j] = list[j];
+
+  float mx[8], mn[8], a1[8], a2[8];
+  int tmx[8], tmn[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    mx[e] = -INFINITY;
+    mn[e] = INFINITY;
+    a1[e] = 0.f;
+    a2[e] = 0.f;
+    tmx[e] = 0;
+    tmn[e] = 0;
+  }
+  if (valid > 0) {
+#pragma unroll 2
+    for (int j = ln.grp; j < k; j += ln.P) {
+      const bf16* ur = ui + (size_t)list[j] * a.ldu;
+      float v[8];
+      if (a.vec) {
+        const uint4 w4 = *reinterpret_cast<const uint4*>(ur);
+        const unsigned w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[2 * e] = knn::lo_f(w[e]);
+          v[2 * e + 1] = knn::hi_f(w[e]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = e < valid ? bf2f(ur[e]) : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (v[e] > mx[e]) { mx[e] = v[e]; tmx[e] = j; }  // strict: the first slot stays
+        if (v[e] < mn[e]) { mn[e] = v[e]; tmn[e] = j; }
+        a1[e] += v[e];
+        a2[e] += v[e] * v[e];
+      }
+    }
+  }
+  for (int o = ln.L; o < 32; o <<= 1) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float omx = __shfl_xor_sync(knn::FULL, mx[e], o);
+      const float omn = __shfl_xor_sync(knn::FULL, mn[e], o);
+      const int otx = __shfl_xor_sync(knn::FULL, tmx[e], o);
+      const int otn = __shfl_xor_sync(knn::FULL, tmn[e], o);
+      if (omx > mx[e] || (omx == mx[e] && otx < tmx[e])) { mx[e] = omx; tmx[e] = otx; }
+      if (omn < mn[e] || (omn == mn[e] && otn < tmn[e])) { mn[e] = omn; tmn[e] = otn; }
+      a1[e] += __shfl_xor_sync(knn::FULL, a1[e], o);
+      a2[e] += __shfl_xor_sync(knn::FULL, a2[e], o);
+    }
+  }
+  if (ln.grp == 0 && valid > 0) {
+    const size_t o = orow * a.cout + ln.ch;
+    if (a.vec) {
+      store8(a.mx + o, mx);
+      store8(a.mn + o, mn);
+      store8(a.s1 + o, a1);
+      store8(a.s2 + o, a2);
+      uint2 px, pn;
+      px.x = tmx[0] | tmx[1] << 8 | tmx[2] << 16 | tmx[3] << 24;
+      px.y = tmx[4] | tmx[5] << 8 | tmx[6] << 16 | tmx[7] << 24;
+      pn.x = tmn[0] | tmn[1] << 8 | tmn[2] << 16 | tmn[3] << 24;
+      pn.y = tmn[4] | tmn[5] << 8 | tmn[6] << 16 | tmn[7] << 24;
+      *reinterpret_cast<uint2*>(a.amax + o) = px;
+      *reinterpret_cast<uint2*>(a.amin + o) = pn;
+    } else {
+      for (int e = 0; e < valid; ++e) {
+        a.mx[o + e] = mx[e];
+        a.mn[o + e] = mn[e];
+        a.s1[o + e] = a1[e];
+        a.s2[o + e] = a2[e];
+        a.amax[o + e] = (unsigned char)tmx[e];
+        a.amin[o + e] = (unsigned char)tmn[e];
+      }
+    }
+  }
+}
+
+#define FWD_PARAMS                                                                           \
+  const bf16 *__restrict__ x, int ldx, int cq, const bf16 *__restrict__ u, int ldu, int cout, \
+      float *__restrict__ mx_out, float *__restrict__ mn_out, float *__restrict__ s1_out,     \
+      float *__restrict__ s2_out, unsigned char *__restrict__ amax_out,                       \
+      unsigned char *__restrict__ amin_out, int *__restrict__ idx_out, int n, int k, bool vec
+#define FWD_ARGS \
+  {x, ldx, cq, u, ldu, cout, mx_out, mn_out, s1_out, s2_out, amax_out, amin_out, idx_out, n, k, vec}
+
+// Whole distance rows in shared memory (clouds up to 3,200 points at 128
+// features).
 template <int KS>
-__global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_reduce_fwd_kernel(
-    const bf16* __restrict__ x, int ldx, int cq, const bf16* __restrict__ u, int ldu,
-    int cout, float* __restrict__ mx_out, float* __restrict__ mn_out, float* __restrict__ s1_out,
-    float* __restrict__ s2_out, unsigned char* __restrict__ amax_out,
-    unsigned char* __restrict__ amin_out, int* __restrict__ idx_out, int n, int k, bool vec) {
+__global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_reduce_fwd_kernel(FWD_PARAMS) {
   extern __shared__ __align__(16) float smem[];
+  const FwdArgs a FWD_ARGS;
   const knn::Smem s = knn::carve(smem, n, cq);
   const int item = blockIdx.y;
   const int row0 = blockIdx.x * knn::QR;
@@ -65,9 +178,6 @@ __global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_reduce_fwd_kernel(
 
   unsigned* scratch = s.scratch + warp * 2 * knn::CAP;
   int* list = s.sel + warp * knn::MAX_K;
-  const knn::Lanes ln = knn::gather_lanes(cout);
-  const int valid = min(8, cout - ln.ch);
-  const bf16* ui = u + (size_t)item * n * ldu + ln.ch;
   for (int rr = 0; rr < knn::QR / knn::WARPS; ++rr) {
     const int r = warp * (knn::QR / knn::WARPS) + rr;
     const int gr = row0 + r;
@@ -75,86 +185,22 @@ __global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_reduce_fwd_kernel(
     const unsigned* dr = reinterpret_cast<const unsigned*>(s.dist + r * s.ldd);
     knn::select_row(dr, n, k, s.pool[r * knn::POOL + lane],
                     s.pool[r * knn::POOL + 32 + lane], scratch, list);
-    const size_t orow = (size_t)item * n + gr;
-    for (int j = lane; j < k; j += 32) idx_out[orow * k + j] = list[j];
-
-    float mx[8], mn[8], a1[8], a2[8];
-    int tmx[8], tmn[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      mx[e] = -INFINITY;
-      mn[e] = INFINITY;
-      a1[e] = 0.f;
-      a2[e] = 0.f;
-      tmx[e] = 0;
-      tmn[e] = 0;
-    }
-    if (valid > 0) {
-#pragma unroll 2
-      for (int j = ln.grp; j < k; j += ln.P) {
-        const bf16* ur = ui + (size_t)list[j] * ldu;
-        float v[8];
-        if (vec) {
-          const uint4 w4 = *reinterpret_cast<const uint4*>(ur);
-          const unsigned w[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            v[2 * e] = knn::lo_f(w[e]);
-            v[2 * e + 1] = knn::hi_f(w[e]);
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = e < valid ? bf2f(ur[e]) : 0.f;
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          if (v[e] > mx[e]) { mx[e] = v[e]; tmx[e] = j; }  // strict: the first slot stays
-          if (v[e] < mn[e]) { mn[e] = v[e]; tmn[e] = j; }
-          a1[e] += v[e];
-          a2[e] += v[e] * v[e];
-        }
-      }
-    }
-    for (int o = ln.L; o < 32; o <<= 1) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float omx = __shfl_xor_sync(knn::FULL, mx[e], o);
-        const float omn = __shfl_xor_sync(knn::FULL, mn[e], o);
-        const int otx = __shfl_xor_sync(knn::FULL, tmx[e], o);
-        const int otn = __shfl_xor_sync(knn::FULL, tmn[e], o);
-        if (omx > mx[e] || (omx == mx[e] && otx < tmx[e])) { mx[e] = omx; tmx[e] = otx; }
-        if (omn < mn[e] || (omn == mn[e] && otn < tmn[e])) { mn[e] = omn; tmn[e] = otn; }
-        a1[e] += __shfl_xor_sync(knn::FULL, a1[e], o);
-        a2[e] += __shfl_xor_sync(knn::FULL, a2[e], o);
-      }
-    }
-    if (ln.grp == 0 && valid > 0) {
-      const size_t o = orow * cout + ln.ch;
-      if (vec) {
-        store8(mx_out + o, mx);
-        store8(mn_out + o, mn);
-        store8(s1_out + o, a1);
-        store8(s2_out + o, a2);
-        uint2 px, pn;
-        px.x = tmx[0] | tmx[1] << 8 | tmx[2] << 16 | tmx[3] << 24;
-        px.y = tmx[4] | tmx[5] << 8 | tmx[6] << 16 | tmx[7] << 24;
-        pn.x = tmn[0] | tmn[1] << 8 | tmn[2] << 16 | tmn[3] << 24;
-        pn.y = tmn[4] | tmn[5] << 8 | tmn[6] << 16 | tmn[7] << 24;
-        *reinterpret_cast<uint2*>(amax_out + o) = px;
-        *reinterpret_cast<uint2*>(amin_out + o) = pn;
-      } else {
-        for (int e = 0; e < valid; ++e) {
-          mx_out[o + e] = mx[e];
-          mn_out[o + e] = mn[e];
-          s1_out[o + e] = a1[e];
-          s2_out[o + e] = a2[e];
-          amax_out[o + e] = (unsigned char)tmx[e];
-          amin_out[o + e] = (unsigned char)tmn[e];
-        }
-      }
-    }
+    reduce_row(a, item, gr, list);
     __syncwarp();
   }
+}
+
+// Larger clouds: the row walked in chunks (knn::select_chunked).
+template <int KS>
+__global__ void __launch_bounds__(knn::THREADS, 2)
+    knn_edge_reduce_fwd_chunked_kernel(FWD_PARAMS) {
+  extern __shared__ __align__(16) float smem[];
+  const FwdArgs a FWD_ARGS;
+  const knn::Smem s = knn::carve(smem, knn::CHUNK, cq, knn::RPW);
+  const int item = blockIdx.y;
+  knn::select_chunked<KS>(
+      x + (size_t)item * n * ldx, ldx, cq, n, k, blockIdx.x * knn::QR, s,
+      [&](int, int gr, const int* list) { reduce_row(a, item, gr, list); });
 }
 
 // tile_cnt[(item * tiles + t) * n + j] = rows of tile t that selected j.
@@ -353,38 +399,42 @@ __global__ void __launch_bounds__(256) knn_edge_reduce_bwd_kernel(
   }
 }
 
-struct FwdArgs {
-  const bf16* x;
-  int ldx, cq;
-  const bf16* u;
-  int ldu, cout;
-  float *mx, *mn, *s1, *s2;
-  unsigned char *amax, *amin;
-  int* idx;
-  int n, k;
-  bool vec;
-};
+template <class Kernel>
+int launch_fwd(Kernel kernel, const FwdArgs& a, dim3 grid, cudaStream_t stream) {
+  const size_t bytes = knn::smem_bytes(a.n, a.cq);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, knn::THREADS, bytes, stream>>>(a.x, a.ldx, a.cq, a.u, a.ldu, a.cout, a.mx, a.mn,
+                                                 a.s1, a.s2, a.amax, a.amin, a.idx, a.n, a.k,
+                                                 a.vec);
+  return (int)cudaGetLastError();
+}
 
 template <int KS>
-int launch_fwd(const FwdArgs& a, dim3 grid, cudaStream_t stream) {
-  const size_t bytes = knn::smem_bytes(a.n, a.cq);
-  cudaError_t err = cudaFuncSetAttribute(knn_edge_reduce_fwd_kernel<KS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  knn_edge_reduce_fwd_kernel<KS><<<grid, knn::THREADS, bytes, stream>>>(
-      a.x, a.ldx, a.cq, a.u, a.ldu, a.cout, a.mx, a.mn, a.s1, a.s2, a.amax, a.amin, a.idx,
-      a.n, a.k, a.vec);
-  return (int)cudaGetLastError();
+int launch_fwd_ks(const FwdArgs& a, dim3 grid, cudaStream_t st) {
+  if (knn::whole_rows(a.n, a.cq)) return launch_fwd(knn_edge_reduce_fwd_kernel<KS>, a, grid, st);
+  return launch_fwd(knn_edge_reduce_fwd_chunked_kernel<KS>, a, grid, st);
+}
+
+// Dynamic shared memory of the backward's list kernels: count (n ints),
+// scan (n + 32), fill (n + REV_ROWS k).
+inline size_t bwd_smem_bytes(int n, int k) {
+  return sizeof(int) * ((size_t)n + (size_t)max(32, REV_ROWS * k));
 }
 
 }  // namespace
 
 // Ints of scratch knn_edge_reduce_bwd needs: the tiles' counts, the list
-// offsets and the lists.
+// offsets and the lists; -1 past 2^31 - 1.
 FC_API int fc_knn_edge_reduce_bwd_scratch(int n_items, int n, int k) {
-  const int tiles = (n + REV_ROWS - 1) / REV_ROWS;
-  return n_items * (tiles * n + (n + 1) + n * k);
+  const long long tiles = (n + REV_ROWS - 1) / REV_ROWS;
+  const long long ints = (long long)n_items * (tiles * n + (n + 1) + (long long)n * k);
+  return ints > 0x7fffffffLL ? -1 : (int)ints;
 }
+
+// The largest dynamic shared memory of the backward's list kernels.
+FC_API int fc_knn_edge_reduce_bwd_smem(int n, int k) { return (int)bwd_smem_bytes(n, k); }
 
 FC_API int fc_knn_edge_reduce_fwd(const void* x, int ldx, int cq, const void* u, int ldu, int cout,
                                   void* mx, void* mn, void* s1, void* s2, void* amax, void* amin,
@@ -402,10 +452,10 @@ FC_API int fc_knn_edge_reduce_fwd(const void* x, int ldx, int cq, const void* u,
   const dim3 grid((n + knn::QR - 1) / knn::QR, n_items);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (knn::ks_of(cq)) {
-    case 1: return launch_fwd<1>(a, grid, st);
-    case 2: return launch_fwd<2>(a, grid, st);
-    case 4: return launch_fwd<4>(a, grid, st);
-    default: return launch_fwd<8>(a, grid, st);
+    case 1: return launch_fwd_ks<1>(a, grid, st);
+    case 2: return launch_fwd_ks<2>(a, grid, st);
+    case 4: return launch_fwd_ks<4>(a, grid, st);
+    default: return launch_fwd_ks<8>(a, grid, st);
   }
 }
 
@@ -414,7 +464,9 @@ FC_API int fc_knn_edge_reduce_bwd(const void* u, int ldu, int cout, const void* 
                                   const void* amax, const void* amin, const void* idx,
                                   void* scratch, void* du, int n_items, int n, int k,
                                   void* stream) {
-  if (k < 1 || k > knn::MAX_K || k > n || cout > MAX_COUT) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > knn::MAX_K || k > n || cout > MAX_COUT ||
+      bwd_smem_bytes(n, k) > (size_t)knn::SMEM_OPTIN)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int tiles = (n + REV_ROWS - 1) / REV_ROWS;
   int* tile_cnt = (int*)scratch;

@@ -1,7 +1,7 @@
 // Exact kNN selection shared by knn_edge_max (B3/B4, eval) and
 // knn_edge_reduce (B6, training), so the two select the same neighbours;
 // sa_group (B9) runs select_row on its own f32 xyz distance rows through
-// select_row_pinned.
+// select_row_pinned, or select_row_of on distances it recomputes.
 //
 // For each query row i of an item: d_ij = max(|x_i|^2 - 2 x_i.x_j + |x_j|^2, +0)
 // in f32 from bf16 features (the expansion of the Pallas kernels'
@@ -45,6 +45,19 @@
 //   still needed, then the admit pass. Sweeps of a row: 1 (2-5 more on the
 //   fallback) against the 33 of the binary search this replaced (31
 //   halvings of [0, 0x7F800000], a strict count, the admit pass).
+// - Clouds whose 16 distance rows do not fit a block's shared memory (n >
+//   3,200 at 128 features) walk the row in chunks of CHUNK columns
+//   (select_chunked): the chunk's 16 distance rows go to shared memory, and a
+//   warp keeps the candidates of both its rows (2 CAP entries each) across
+//   the chunks, in index order, in one pass with a falling threshold: after
+//   each chunk the pool so far gives t, which bounds the row's k-th smallest
+//   too; a warp drops its candidates above the new t and sweeps the chunk
+//   under it. Each distance is computed once. (Two passes, a pool pass then
+//   a recomputing sweep under its t, were slower at every measured shape:
+//   PERF.md.) The radix fallback recomputes the chunks for each digit pass
+//   and for the admit pass, the whole block in step. A recomputed distance
+//   is bit-identical to the first (the same mma.sync k-steps, the same fmaf
+//   norms), so the walk selects the whole-row path's set.
 #pragma once
 
 #include "common.cuh"
@@ -60,6 +73,9 @@ constexpr int POOL = 64;      // pool values of a row: two per source
 constexpr int BINS = 256;     // histogram bins of the radix select
 constexpr int CAP = 256;      // candidates a warp holds (indices, then bit patterns)
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int CHUNK = 1024;   // columns of a chunk of the chunked walk
+constexpr int RPW = QR / WARPS;  // rows a warp selects for
+constexpr int SMEM_OPTIN = 227 * 1024;  // dynamic shared memory a block may opt into
 
 __host__ __device__ inline int ksteps(int cq) { return (cq + 15) / 16; }
 // shared row strides: distance rows padded to 8 mod 32 words so the
@@ -70,10 +86,25 @@ __host__ __device__ inline int q_ld(int cq) { return 16 * ksteps(cq) + 8; }
 // Shared memory of a select block: dist (QR x dist_ld f32), pool (QR x
 // POOL), qs (QR x q_ld bf16), per warp 2 CAP words of scratch (the
 // candidates, or the radix select's histogram) and a selection list (MAX_K).
-inline size_t smem_bytes(int n, int cq) {
+inline size_t whole_smem_bytes(int n, int cq) {
   return sizeof(float) * (size_t)QR * dist_ld(n) + sizeof(unsigned) * QR * POOL +
          sizeof(bf16) * (size_t)QR * q_ld(cq) + sizeof(unsigned) * WARPS * 2 * CAP +
          sizeof(int) * WARPS * MAX_K;
+}
+
+// Whether the whole distance rows fit: else the block walks the row in chunks.
+inline bool whole_rows(int n, int cq) { return whole_smem_bytes(n, cq) <= (size_t)SMEM_OPTIN; }
+
+// The chunked walk's: dist (QR x dist_ld(CHUNK)), pool, qs, per warp RPW rows
+// of 2 CAP words (candidates, or a radix histogram) and RPW lists.
+inline size_t chunked_smem_bytes(int cq) {
+  return sizeof(float) * (size_t)QR * dist_ld(CHUNK) + sizeof(unsigned) * QR * POOL +
+         sizeof(bf16) * (size_t)QR * q_ld(cq) + sizeof(unsigned) * WARPS * RPW * 2 * CAP +
+         sizeof(int) * WARPS * RPW * MAX_K;
+}
+
+inline size_t smem_bytes(int n, int cq) {
+  return whole_rows(n, cq) ? whole_smem_bytes(n, cq) : chunked_smem_bytes(cq);
 }
 
 struct Smem {
@@ -85,15 +116,17 @@ struct Smem {
   int ldd, ldq2;  // in f32 / in bf16 pairs
 };
 
-__device__ __forceinline__ Smem carve(float* smem, int n, int cq) {
+// cols: the distance rows' columns (n, or CHUNK); rows: the rows a warp keeps
+// candidates for at once (1, or RPW in the chunked walk).
+__device__ __forceinline__ Smem carve(float* smem, int cols, int cq, int rows = 1) {
   Smem s;
-  s.ldd = dist_ld(n);
+  s.ldd = dist_ld(cols);
   s.ldq2 = q_ld(cq) / 2;
   s.dist = smem;
   s.pool = reinterpret_cast<unsigned*>(s.dist + QR * s.ldd);
   s.qs = s.pool + QR * POOL;
   s.scratch = s.qs + QR * s.ldq2;
-  s.sel = reinterpret_cast<int*>(s.scratch + WARPS * 2 * CAP);
+  s.sel = reinterpret_cast<int*>(s.scratch + WARPS * rows * 2 * CAP);
   return s;
 }
 
@@ -169,43 +202,67 @@ __device__ __forceinline__ void mma_bf16(float c[4], unsigned a0, unsigned a1, u
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Distance rows of query rows row0..row0+QR-1 of item xi (n rows, ld ldx,
-// read in aligned pairs) into s.dist (entries past n are written but never
-// read), and each row's pool: per source (warp w, lane quad q: the columns
-// 2q, 2q+1 of the tiles w, w + 8, ...) its two smallest bit patterns into
-// s.pool. KS k-steps of TILES candidate tiles are loaded at once, so a warp
-// has their L2 reads in flight together. Ends with __syncthreads().
-template <int KS>
-__device__ __forceinline__ void distances(const bf16* __restrict__ xi, int ldx, int cq, int n,
-                                          int row0, const Smem& s) {
-  constexpr int TILES = KS >= 8 ? 2 : 4;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;
+// Stage the query rows row0..row0+QR-1 of item xi (n rows, ld ldx, read in
+// aligned pairs; zero past n) into s.qs. Ends with __syncthreads().
+__device__ __forceinline__ void stage_queries(const bf16* __restrict__ xi, int ldx, int cq,
+                                              int n, int row0, const Smem& s) {
   const int nks = ksteps(cq);
-  for (int e = tid; e < QR * 8 * nks; e += THREADS) {
+  for (int e = threadIdx.x; e < QR * 8 * nks; e += THREADS) {
     const int r = e / (8 * nks), cp = e % (8 * nks);
     const bf16* row = xi + (size_t)(row0 + r) * ldx;
     s.qs[r * s.ldq2 + cp] = row0 + r < n ? load_pair(row, 2 * cp, cq) : 0u;
   }
   __syncthreads();
-  const unsigned* qa0 = s.qs + g * s.ldq2 + q;
-  const unsigned* qa1 = qa0 + 8 * s.ldq2;
-  // the query rows' norms, summed as the candidates' are below
+}
+
+// A lane's view of the staged query tile: its A fragments' rows g and g + 8
+// and their norms, summed as the candidates' are in tiles().
+struct Queries {
+  const unsigned *qa0, *qa1;
+  float qn0, qn1;
+};
+
+__device__ __forceinline__ Queries queries(int cq, const Smem& s) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  Queries a;
+  a.qa0 = s.qs + g * s.ldq2 + q;
+  a.qa1 = a.qa0 + 8 * s.ldq2;
   float qn0 = 0.f, qn1 = 0.f;
-  for (int ks = 0; ks < nks; ++ks) {
-    add_squares(qa0[8 * ks], qa0[8 * ks + 4], qn0);
-    add_squares(qa1[8 * ks], qa1[8 * ks + 4], qn1);
+  for (int ks = 0; ks < ksteps(cq); ++ks) {
+    add_squares(a.qa0[8 * ks], a.qa0[8 * ks + 4], qn0);
+    add_squares(a.qa1[8 * ks], a.qa1[8 * ks + 4], qn1);
   }
-  qn0 = quad_sum(qn0);
-  qn1 = quad_sum(qn1);
-  unsigned m00 = FULL, m01 = FULL, m10 = FULL, m11 = FULL;  // two smallest of rows g, g + 8
-  for (int base = 8 * warp; base < n; base += 8 * WARPS * TILES) {
+  a.qn0 = quad_sum(qn0);
+  a.qn1 = quad_sum(qn1);
+  return a;
+}
+
+// Each row's two smallest of a source (warp w, lane quad q: the columns 2q,
+// 2q+1 of the tiles w, w + 8, ...), rows g and g + 8 of the lane.
+struct Pool2 {
+  unsigned m00 = FULL, m01 = FULL, m10 = FULL, m11 = FULL;
+};
+
+// The distances of the staged query rows to the columns [c0, c1) of item xi
+// (c0 a multiple of 8; n rows in all): with STORE into s.dist at column j -
+// c0 (entries past c1 are written but never read), with POOL into the
+// lane's two smallest (columns below n). KS k-steps of TILES candidate
+// tiles are loaded at once, so a warp has their L2 reads in flight together.
+template <int KS, bool STORE, bool POOL>
+__device__ __forceinline__ void tiles(const bf16* __restrict__ xi, int ldx, int cq, int n,
+                                      int c0, int c1, const Smem& s, const Queries& a,
+                                      Pool2& m) {
+  constexpr int TILES = KS >= 8 ? 2 : 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int nks = ksteps(cq);
+  for (int base = c0 + 8 * warp; base < c1; base += 8 * WARPS * TILES) {
     const bf16* row[TILES];
     float acc[TILES][4], nrm[TILES];
 #pragma unroll
     for (int u = 0; u < TILES; ++u) {
       const int j = base + 8 * WARPS * u + g;
-      row[u] = j < n ? xi + (size_t)j * ldx : nullptr;
+      row[u] = j < c1 ? xi + (size_t)j * ldx : nullptr;
       acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
       nrm[u] = 0.f;
     }
@@ -223,7 +280,7 @@ __device__ __forceinline__ void distances(const bf16* __restrict__ xi, int ldx, 
       for (int ks = 0; ks < KS; ++ks) {
         if (kc + ks < nks) {
           const int o = 8 * (kc + ks);
-          const unsigned a0 = qa0[o], a1 = qa1[o], a2 = qa0[o + 4], a3 = qa1[o + 4];
+          const unsigned a0 = a.qa0[o], a1 = a.qa1[o], a2 = a.qa0[o + 4], a3 = a.qa1[o + 4];
 #pragma unroll
           for (int u = 0; u < TILES; ++u) {
             add_squares(b[u][ks][0], b[u][ks][1], nrm[u]);
@@ -235,33 +292,55 @@ __device__ __forceinline__ void distances(const bf16* __restrict__ xi, int ldx, 
 #pragma unroll
     for (int u = 0; u < TILES; ++u) {
       const int j0 = base + 8 * WARPS * u;
-      if (j0 >= n) break;
+      if (j0 >= c1) break;
       const float nu = quad_sum(nrm[u]);  // the norm of candidate j0 + g
       const float na = __shfl_sync(FULL, nu, 8 * q), nb = __shfl_sync(FULL, nu, 8 * q + 4);
       // clamp to +0 (never -0, whose bits would sort last)
-      float2 d0 = make_float2((qn0 - 2.f * acc[u][0]) + na, (qn0 - 2.f * acc[u][1]) + nb);
-      float2 d1 = make_float2((qn1 - 2.f * acc[u][2]) + na, (qn1 - 2.f * acc[u][3]) + nb);
+      float2 d0 = make_float2((a.qn0 - 2.f * acc[u][0]) + na, (a.qn0 - 2.f * acc[u][1]) + nb);
+      float2 d1 = make_float2((a.qn1 - 2.f * acc[u][2]) + na, (a.qn1 - 2.f * acc[u][3]) + nb);
       d0.x = d0.x > 0.f ? d0.x : 0.f;
       d0.y = d0.y > 0.f ? d0.y : 0.f;
       d1.x = d1.x > 0.f ? d1.x : 0.f;
       d1.y = d1.y > 0.f ? d1.y : 0.f;
-      *reinterpret_cast<float2*>(s.dist + g * s.ldd + j0 + 2 * q) = d0;
-      *reinterpret_cast<float2*>(s.dist + (g + 8) * s.ldd + j0 + 2 * q) = d1;
-      if (j0 + 2 * q < n) {
-        keep2(m00, m01, __float_as_uint(d0.x));
-        keep2(m10, m11, __float_as_uint(d1.x));
+      if (STORE) {
+        *reinterpret_cast<float2*>(s.dist + g * s.ldd + j0 - c0 + 2 * q) = d0;
+        *reinterpret_cast<float2*>(s.dist + (g + 8) * s.ldd + j0 - c0 + 2 * q) = d1;
       }
-      if (j0 + 2 * q + 1 < n) {
-        keep2(m00, m01, __float_as_uint(d0.y));
-        keep2(m10, m11, __float_as_uint(d1.y));
+      if (POOL) {
+        if (j0 + 2 * q < n) {
+          keep2(m.m00, m.m01, __float_as_uint(d0.x));
+          keep2(m.m10, m.m11, __float_as_uint(d1.x));
+        }
+        if (j0 + 2 * q + 1 < n) {
+          keep2(m.m00, m.m01, __float_as_uint(d0.y));
+          keep2(m.m10, m.m11, __float_as_uint(d1.y));
+        }
       }
     }
   }
+}
+
+__device__ __forceinline__ void write_pool(const Pool2& m, const Smem& s) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const int src = 2 * (4 * warp + q);
-  s.pool[g * POOL + src] = m00;
-  s.pool[g * POOL + src + 1] = m01;
-  s.pool[(g + 8) * POOL + src] = m10;
-  s.pool[(g + 8) * POOL + src + 1] = m11;
+  s.pool[g * POOL + src] = m.m00;
+  s.pool[g * POOL + src + 1] = m.m01;
+  s.pool[(g + 8) * POOL + src] = m.m10;
+  s.pool[(g + 8) * POOL + src + 1] = m.m11;
+}
+
+// Distance rows of query rows row0..row0+QR-1 of item xi (n rows, ld ldx,
+// read in aligned pairs) into s.dist (entries past n are written but never
+// read), and each row's pool: per source its two smallest bit patterns into
+// s.pool. Ends with __syncthreads().
+template <int KS>
+__device__ __forceinline__ void distances(const bf16* __restrict__ xi, int ldx, int cq, int n,
+                                          int row0, const Smem& s) {
+  stage_queries(xi, ldx, cq, n, row0, s);
+  const Queries a = queries(cq, s);
+  Pool2 m;
+  tiles<KS, true, true>(xi, ldx, cq, n, 0, n, s, a, m);
+  write_pool(m, s);
   __syncthreads();
 }
 
@@ -291,111 +370,142 @@ __device__ __forceinline__ unsigned kth_of_pool(unsigned v0, unsigned v1, int k)
   return __shfl_sync(FULL, k <= 32 ? v0 : v1, (k - 1) & 31);
 }
 
-// Radix select, one warp: the exact k (>= 1) smallest of a row of n bit
-// patterns dr, their indices into list[0..k), ascending. Entries with bit 31
-// set are never counted or taken. hist: this warp's BINS counters. Returns
-// the sweeps over the row. Ends with __syncwarp().
-__device__ __forceinline__ int radix_select(const unsigned* dr, int n, int k, unsigned* hist,
-                                            int* list) {
+// The radix select's state, one warp a row (warp-uniform): the digits found
+// so far (prefix), the bits below them (shift), the rank of the k-th value
+// among the entries matching prefix (need), the histogram passes made.
+struct Radix {
+  unsigned prefix = 0u, need = 0u;
+  int shift = 31, pass = 0;
+};
+
+__device__ __forceinline__ int radix_width(const Radix& r) { return r.pass < 3 ? 8 : 7; }
+
+// Zero this warp's BINS counters. Ends with __syncwarp().
+__device__ __forceinline__ void radix_clear(unsigned* hist) {
+  for (int b = threadIdx.x & 31; b < BINS; b += 32) hist[b] = 0u;
+  __syncwarp();
+}
+
+// Count the next digit of the entries get(j), j in [j0, j1), whose higher
+// digits match the prefix, into hist. Entries with bit 31 set are never
+// counted.
+template <class Get>
+__device__ __forceinline__ void radix_count(const Radix& r, Get get, int j0, int j1,
+                                            unsigned* hist) {
   const int lane = threadIdx.x & 31;
   const unsigned lt_mask = (1u << lane) - 1u;
-  unsigned prefix = 0u;     // the digits found so far
-  int shift = 31;           // the bits below them
-  unsigned need = k;        // rank of the k-th value among the entries matching prefix
-  int pass = 0;
-  while (pass < 4) {
-    const int width = pass < 3 ? 8 : 7;
-    const int nshift = shift - width;
-    for (int b = lane; b < BINS; b += 32) hist[b] = 0u;
-    __syncwarp();
-    for (int j0 = 0; j0 < n; j0 += 32) {
-      const int j = j0 + lane;
-      const unsigned v = j < n ? dr[j] : FULL;
-      const bool match = (v >> shift) == prefix;
-      if (__ballot_sync(FULL, match) == 0u) continue;
-      const unsigned digit = (v >> nshift) & ((1u << width) - 1u);
-      const unsigned peers = __match_any_sync(FULL, match ? digit : BINS + lane);
-      if (match && (peers & lt_mask) == 0u) atomicAdd(&hist[digit], (unsigned)__popc(peers));
-    }
-    __syncwarp();
-    // lane l holds bins 8l .. 8l+7
-    const uint4 h0 = reinterpret_cast<const uint4*>(hist)[2 * lane];
-    const uint4 h1 = reinterpret_cast<const uint4*>(hist)[2 * lane + 1];
-    const unsigned c[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-    unsigned sum = 0u;
+  const int width = radix_width(r), nshift = r.shift - width;
+  for (int jb = j0; jb < j1; jb += 32) {
+    const int j = jb + lane;
+    const unsigned v = j < j1 ? get(j) : FULL;
+    const bool match = (v >> r.shift) == r.prefix;
+    if (__ballot_sync(FULL, match) == 0u) continue;
+    const unsigned digit = (v >> nshift) & ((1u << width) - 1u);
+    const unsigned peers = __match_any_sync(FULL, match ? digit : BINS + lane);
+    if (match && (peers & lt_mask) == 0u) atomicAdd(&hist[digit], (unsigned)__popc(peers));
+  }
+}
+
+// After a pass's counts (and a __syncwarp): the bin of the k-th value,
+// added to the prefix. Returns whether the search is done (the whole bin is
+// taken, or the last digit). Ends with __syncwarp().
+__device__ __forceinline__ bool radix_pick(Radix& r, const unsigned* hist) {
+  const int lane = threadIdx.x & 31;
+  const int width = radix_width(r);
+  // lane l holds bins 8l .. 8l+7
+  const uint4 h0 = reinterpret_cast<const uint4*>(hist)[2 * lane];
+  const uint4 h1 = reinterpret_cast<const uint4*>(hist)[2 * lane + 1];
+  const unsigned c[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+  unsigned sum = 0u;
 #pragma unroll
-    for (int b = 0; b < 8; ++b) sum += c[b];
-    unsigned incl = sum;
+  for (int b = 0; b < 8; ++b) sum += c[b];
+  unsigned incl = sum;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned t = __shfl_up_sync(FULL, incl, o);
-      if (lane >= o) incl += t;
-    }
-    const unsigned excl = incl - sum;
-    const unsigned owner = __ballot_sync(FULL, excl < need && need <= incl);
-    unsigned digit = 0u, below = excl, cnt = 0u;
-    if ((owner >> lane) & 1u) {
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned t = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += t;
+  }
+  const unsigned excl = incl - sum;
+  const unsigned owner = __ballot_sync(FULL, excl < r.need && r.need <= incl);
+  unsigned digit = 0u, below = excl, cnt = 0u;
+  if ((owner >> lane) & 1u) {
 #pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        if (cnt == 0u && below + c[b] >= need) {
-          digit = 8 * lane + b;
-          cnt = c[b];
-        } else if (cnt == 0u) {
-          below += c[b];
-        }
+    for (int b = 0; b < 8; ++b) {
+      if (cnt == 0u && below + c[b] >= r.need) {
+        digit = 8 * lane + b;
+        cnt = c[b];
+      } else if (cnt == 0u) {
+        below += c[b];
       }
     }
-    const int src = __ffs(owner) - 1;
-    digit = __shfl_sync(FULL, digit, src);
-    below = __shfl_sync(FULL, below, src);
-    cnt = __shfl_sync(FULL, cnt, src);
-    prefix = (prefix << width) | digit;
-    shift = nshift;
-    need -= below;
-    ++pass;
-    __syncwarp();
-    if (cnt == need) break;  // the whole bin is taken
   }
+  const int src = __ffs(owner) - 1;
+  digit = __shfl_sync(FULL, digit, src);
+  below = __shfl_sync(FULL, below, src);
+  cnt = __shfl_sync(FULL, cnt, src);
+  r.prefix = (r.prefix << width) | digit;
+  r.shift -= width;
+  r.need -= below;
+  ++r.pass;
+  __syncwarp();
+  return cnt == r.need || r.pass == 4;
+}
 
-  // admit the keys below the prefix, and ties at it in index order until k
-  int nsel = 0;
-  unsigned nties = 0u;
-  for (int j0 = 0; j0 < n && nsel < k; j0 += 32) {
-    const int j = j0 + lane;
-    const unsigned key = j < n ? dr[j] >> shift : FULL;
-    const bool tie = key == prefix;
+// The admit pass over get(j), j in [j0, j1), in index order: the keys below
+// the prefix, and ties at it until need; nsel and nties run on across calls.
+template <class Get>
+__device__ __forceinline__ void radix_admit(const Radix& r, Get get, int j0, int j1, int k,
+                                            int& nsel, unsigned& nties, int* list) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lt_mask = (1u << lane) - 1u;
+  for (int jb = j0; jb < j1 && nsel < k; jb += 32) {
+    const int j = jb + lane;
+    const unsigned key = j < j1 ? get(j) >> r.shift : FULL;
+    const bool tie = key == r.prefix;
     const unsigned tb = __ballot_sync(FULL, tie);
-    const bool take = key < prefix || (tie && nties + __popc(tb & lt_mask) < need);
+    const bool take = key < r.prefix || (tie && nties + __popc(tb & lt_mask) < r.need);
     const unsigned sb = __ballot_sync(FULL, take);
     if (take) list[nsel + __popc(sb & lt_mask)] = j;
     nsel += __popc(sb);
     nties += __popc(tb);
   }
-  __syncwarp();
-  return pass + 1;
 }
 
+// Radix select, one warp: the exact k (>= 1) smallest of a row of n bit
+// patterns get(j), their indices into list[0..k), ascending: 256-bin
+// histograms of digits of 8, 8, 8 and 7 bits from bit 30 down, equal digits
+// of a warp grouped by __match_any_sync before their shared atomic, a warp
+// scan for the bin of the k-th value, an early stop when that bin holds
+// exactly the entries still needed, then the admit pass. Entries with bit 31
+// set are never counted or taken. hist: this warp's BINS counters. Returns
+// the sweeps over the row. Ends with __syncwarp().
+template <class Get>
+__device__ __forceinline__ int radix_select(Get get, int n, int k, unsigned* hist, int* list) {
+  Radix r;
+  r.need = k;
+  do {
+    radix_clear(hist);
+    radix_count(r, get, 0, n, hist);
+    __syncwarp();
+  } while (!radix_pick(r, hist));
+  int nsel = 0;
+  unsigned nties = 0u;
+  radix_admit(r, get, 0, n, k, nsel, nties, list);
+  __syncwarp();
+  return r.pass + 1;
+}
 
-// One warp: the exact k (1 <= k <= 64) smallest of a row of n bit patterns
-// dr, their indices into list[0..k), ascending. t, the k-th smallest of the
-// 64 pool values p0 (lane) and p1 (lane + 32), which are entries of the row,
-// bounds the k-th smallest of the row from above; one sweep gathers the
-// candidates d <= t (a few more than k on spread distances) into scratch,
-// and each candidate's rank by (d, index) among them decides: rank < k is
-// taken. More than CAP candidates (ties around t) fall back to the radix
-// select. Entries with bit 31 set are never taken. scratch: this warp's 2
-// CAP words. Returns the sweeps over the row. Ends with __syncwarp().
-__device__ __forceinline__ int select_row(const unsigned* dr, int n, int k, unsigned p0,
-                                          unsigned p1, unsigned* scratch, int* list) {
+// Gather the entries get(j) <= t, j in [j0, j1), bit 31 clear, in index
+// order into cand (index) and cval (value) at cnt, which runs on across
+// calls (past CAP it counts on, storing nothing).
+template <class Get>
+__device__ __forceinline__ void sweep(Get get, int j0, int j1, unsigned t, int& cnt,
+                                      unsigned* cand, unsigned* cval) {
   const int lane = threadIdx.x & 31;
   const unsigned lt_mask = (1u << lane) - 1u;
-  const unsigned t = kth_of_pool(p0, p1, k);
-  unsigned* cand = scratch;
-  unsigned* cval = scratch + CAP;
-  int cnt = 0;
-  for (int j0 = 0; j0 < n; j0 += 32) {
-    const int j = j0 + lane;
-    const unsigned v = j < n ? dr[j] : FULL;
+  for (int jb = j0; jb < j1; jb += 32) {
+    const int j = jb + lane;
+    const unsigned v = j < j1 ? get(j) : FULL;
     const bool c = v <= t && (v >> 31) == 0u;
     const unsigned cb = __ballot_sync(FULL, c);
     const int pos = cnt + __popc(cb & lt_mask);
@@ -405,8 +515,14 @@ __device__ __forceinline__ int select_row(const unsigned* dr, int n, int k, unsi
     }
     cnt += __popc(cb);
   }
-  __syncwarp();
-  if (cnt > CAP) return 1 + radix_select(dr, n, k, scratch, list);
+}
+
+// The k of cnt (<= CAP) candidates with the smallest (value, position):
+// their indices into list, in candidate (index) order. Ends with __syncwarp().
+__device__ __forceinline__ void rank_candidates(int cnt, int k, const unsigned* cand,
+                                                const unsigned* cval, int* list) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lt_mask = (1u << lane) - 1u;
   int nsel = 0;
   for (int c0 = 0; c0 < cnt; c0 += 32) {
     const int c = c0 + lane;
@@ -422,7 +538,33 @@ __device__ __forceinline__ int select_row(const unsigned* dr, int n, int k, unsi
     nsel += __popc(sb);
   }
   __syncwarp();
+}
+
+// One warp: the exact k (1 <= k <= 64) smallest of a row of n bit patterns
+// get(j), their indices into list[0..k), ascending. t, the k-th smallest of
+// the 64 pool values p0 (lane) and p1 (lane + 32), which are entries of the
+// row, bounds the k-th smallest of the row from above; one sweep gathers the
+// candidates d <= t (a few more than k on spread distances) into scratch,
+// and each candidate's rank by (d, index) among them decides: rank < k is
+// taken. More than CAP candidates (ties around t) fall back to the radix
+// select. Entries with bit 31 set are never taken. scratch: this warp's 2
+// CAP words. Returns the sweeps over the row. Ends with __syncwarp().
+template <class Get>
+__device__ __forceinline__ int select_row_of(Get get, int n, int k, unsigned p0, unsigned p1,
+                                             unsigned* scratch, int* list) {
+  const unsigned t = kth_of_pool(p0, p1, k);
+  int cnt = 0;
+  sweep(get, 0, n, t, cnt, scratch, scratch + CAP);
+  __syncwarp();
+  if (cnt > CAP) return 1 + radix_select(get, n, k, scratch, list);
+  rank_candidates(cnt, k, scratch, scratch + CAP, list);
   return 1;
+}
+
+// select_row_of over a row held in shared memory.
+__device__ __forceinline__ int select_row(const unsigned* dr, int n, int k, unsigned p0,
+                                          unsigned p1, unsigned* scratch, int* list) {
+  return select_row_of([dr](int j) { return dr[j]; }, n, k, p0, p1, scratch, list);
 }
 
 // select_row for a query that is itself point `self` of the row (an FPS
@@ -440,6 +582,136 @@ __device__ __forceinline__ int select_row_pinned(unsigned* dr, int n, int k, int
   const int kr = min(k, n) - 1;
   if (kr > 0) select_row(dr, n, kr, p0, p1, scratch, list);
   return kr;
+}
+
+// Keep the candidates of value <= t, in order. Ends with __syncwarp().
+__device__ __forceinline__ void drop_above(unsigned t, int& cnt, unsigned* cand, unsigned* cval) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lt_mask = (1u << lane) - 1u;
+  int kept = 0;
+  for (int c0 = 0; c0 < cnt; c0 += 32) {
+    const int c = c0 + lane;
+    const unsigned v = c < cnt ? cval[c] : FULL, j = c < cnt ? cand[c] : 0u;
+    const bool keep = c < cnt && v <= t;
+    const unsigned kb = __ballot_sync(FULL, keep);
+    __syncwarp();  // every lane has read before any writes (writes land at or below reads)
+    if (keep) {
+      cand[kept + __popc(kb & lt_mask)] = j;
+      cval[kept + __popc(kb & lt_mask)] = v;
+    }
+    kept += __popc(kb);
+  }
+  cnt = kept;
+  __syncwarp();
+}
+
+// The chunked walk: the exact selection of the block's QR query rows
+// row0.. of item xi over its n points, CHUNK columns at a time (the rows of a
+// chunk in s.dist; s carved with rows = RPW), then emit(r, gr, list) for
+// each live row r (point gr = row0 + r) of the calling warp (one pass with a
+// falling threshold, header). Every thread of the block must call it.
+template <int KS, class Emit>
+__device__ __forceinline__ void select_chunked(const bf16* __restrict__ xi, int ldx, int cq,
+                                               int n, int k, int row0, const Smem& s,
+                                               Emit emit) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  stage_queries(xi, ldx, cq, n, row0, s);
+  const Queries a = queries(cq, s);
+  Pool2 m;
+  int cnt[RPW];
+  bool fall[RPW];
+  unsigned* cand[RPW];
+  int* list[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    cand[i] = s.scratch + (warp * RPW + i) * 2 * CAP;
+    list[i] = s.sel + (warp * RPW + i) * MAX_K;
+    cnt[i] = 0;
+    fall[i] = false;
+  }
+  const int r0 = warp * RPW;
+  auto row_of = [&](int i, int c0) {
+    const unsigned* dr = reinterpret_cast<const unsigned*>(s.dist + (r0 + i) * s.ldd);
+    return [dr, c0](int j) { return dr[j - c0]; };
+  };
+  for (int c0 = 0; c0 < n; c0 += CHUNK) {
+    const int c1 = min(c0 + CHUNK, n);
+    tiles<KS, true, true>(xi, ldx, cq, n, c0, c1, s, a, m);
+    write_pool(m, s);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      if (row0 + r0 + i >= n || fall[i]) continue;
+      // the pool of the chunks so far: t falls
+      const unsigned t =
+          kth_of_pool(s.pool[(r0 + i) * POOL + lane], s.pool[(r0 + i) * POOL + 32 + lane], k);
+      drop_above(t, cnt[i], cand[i], cand[i] + CAP);
+      sweep(row_of(i, c0), c0, c1, t, cnt[i], cand[i], cand[i] + CAP);
+      fall[i] = cnt[i] > CAP;
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+  bool mine = false;
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    if (row0 + r0 + i >= n) continue;
+    if (!fall[i]) rank_candidates(cnt[i], k, cand[i], cand[i] + CAP, list[i]);
+    mine |= fall[i];
+  }
+  if (__syncthreads_or(mine)) {
+    // crowded ties: the radix select, each digit pass and the admit pass a
+    // walk over the chunks, recomputed; a row's histogram is its candidates'
+    // words
+    Radix rs[RPW];
+    bool active[RPW];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      rs[i].need = k;
+      active[i] = fall[i];
+    }
+    auto any_active = [&] {
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) any |= active[i];
+      return any;
+    };
+    while (__syncthreads_or(any_active())) {
+#pragma unroll
+      for (int i = 0; i < RPW; ++i)
+        if (active[i]) radix_clear(cand[i]);
+      for (int c0 = 0; c0 < n; c0 += CHUNK) {
+        const int c1 = min(c0 + CHUNK, n);
+        tiles<KS, true, false>(xi, ldx, cq, n, c0, c1, s, a, m);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < RPW; ++i)
+          if (active[i]) radix_count(rs[i], row_of(i, c0), c0, c1, cand[i]);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < RPW; ++i)
+        if (active[i]) active[i] = !radix_pick(rs[i], cand[i]);
+    }
+    int nsel[RPW];
+    unsigned nties[RPW];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) nsel[i] = 0, nties[i] = 0u;
+    for (int c0 = 0; c0 < n; c0 += CHUNK) {
+      const int c1 = min(c0 + CHUNK, n);
+      tiles<KS, true, false>(xi, ldx, cq, n, c0, c1, s, a, m);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < RPW; ++i)
+        if (fall[i]) radix_admit(rs[i], row_of(i, c0), c0, c1, k, nsel[i], nties[i], list[i]);
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    if (row0 + r0 + i >= n) break;
+    emit(r0 + i, row0 + r0 + i, list[i]);
+  }
 }
 
 }  // namespace knn

@@ -25,7 +25,11 @@
 // memory once per block; a warp writes a centre's distance row to shared
 // memory, keeping each lane's two nearest others as the selection's pool,
 // selects, and writes the k slot indices (int32; slot 0 -1 for a centre
-// outside [0, n)).
+// outside [0, n)). A launch whose largest cloud does not fit that way (past
+// 4,458 points) keeps no rows: a warp reads its item's points from global
+// memory (L1 and L2 hold them) and recomputes a centre's distances, bit for
+// bit, for each sweep: one for the pool, one for the candidates under its
+// threshold (and the radix fallback's), so a cloud of any size fits.
 //
 // sa_gather (step 4): one launch a level, when the level's features exist.
 // A warp owns a group of up to 32 consecutive slots of a centre (fewer for
@@ -67,6 +71,7 @@ struct SelLevel {
 struct SelArgs {
   SelLevel lv[SEL_LEVELS];
   int levels, k;
+  bool rows;  // the cloud and the distance rows in shared memory (select_rows_fit)
 };
 
 // The card's SMs, asked once: they set the selection's rows a warp and the
@@ -89,9 +94,63 @@ int select_rows(int items, int mc, int sms) {
   return blocks >= 8LL * sms ? 4 : blocks >= 4LL * sms ? 2 : 1;
 }
 
-inline size_t select_smem(int n) {
-  return sizeof(float) * ((size_t)4 * n + (size_t)SEL_WARPS * n) +
-         sizeof(unsigned) * SEL_WARPS * 2 * knn::CAP + sizeof(int) * SEL_WARPS * knn::MAX_K;
+// The warps' candidates and lists; with rows, the points as float4 and a
+// distance row a warp before them.
+inline size_t select_smem_of(int n, bool rows) {
+  const size_t row_bytes = rows ? sizeof(float) * ((size_t)4 * n + (size_t)SEL_WARPS * n) : 0;
+  return row_bytes + sizeof(unsigned) * SEL_WARPS * 2 * knn::CAP +
+         sizeof(int) * SEL_WARPS * knn::MAX_K;
+}
+
+// Whether clouds of n points fit shared memory with their distance rows (n
+// <= 4,458); larger clouds are read from global memory (L1 and L2) and
+// their distances recomputed for each sweep.
+inline bool select_rows_fit(int n) { return select_smem_of(n, true) <= (size_t)knn::SMEM_OPTIN; }
+
+inline size_t select_smem(int n) { return select_smem_of(n, select_rows_fit(n)); }
+
+// The distance bit pattern of point j of xi (n x 3 f32) to the centre (cx,
+// cy, cz) of squared norm cn, clamped to +0: the expansion of the rows'
+// path (the norm fmaf(z, z, fmaf(y, y, x x)), the cross term fmaf(cz, z,
+// fmaf(cy, y, cx x))), bit for bit.
+__device__ __forceinline__ unsigned centre_bits(const float* __restrict__ xi, int j, float cx,
+                                                float cy, float cz, float cn) {
+  const float x = __ldg(xi + 3 * j), y = __ldg(xi + 3 * j + 1), z = __ldg(xi + 3 * j + 2);
+  const float w = fmaf(z, z, fmaf(y, y, x * x));
+  const float cross = fmaf(cz, z, fmaf(cy, y, cx * x));
+  const float d = (cn - 2.f * cross) + w;
+  return __float_as_uint(d > 0.f ? d : 0.f);  // +0, never -0
+}
+
+// One centre's slot list with the cloud read from global memory: the pool
+// (each lane's two nearest others, lane = j mod 32, as the rows' path keeps
+// it) from a first sweep of the recomputed distances, then knn::select_row_of
+// over the same distances recomputed (the radix fallback recomputes them
+// for each pass too). One warp.
+__device__ __forceinline__ void select_centre(const SelLevel& L, int item, int ci, int k,
+                                              const float* __restrict__ xi, unsigned* scratch,
+                                              int* list) {
+  const int lane = threadIdx.x & 31, n = L.n;
+  const size_t crow = (size_t)item * L.mc + ci;
+  int* sel = L.sel + crow * k;
+  const float cx = L.new_xyz[3 * crow], cy = L.new_xyz[3 * crow + 1],
+              cz = L.new_xyz[3 * crow + 2];
+  const float cn = fmaf(cz, cz, fmaf(cy, cy, cx * cx));
+  const long long self_ll = L.idx[crow];
+  if (self_ll < 0 || self_ll >= n) {  // not a point of the item: the gather writes NaN
+    if (lane == 0) sel[0] = -1;
+    return;
+  }
+  const int self = (int)self_ll;
+  // the centre's own entry all ones: never in the pool, never taken
+  auto get = [=](int j) { return j == self ? knn::FULL : centre_bits(xi, j, cx, cy, cz, cn); };
+  unsigned p0 = knn::FULL, p1 = knn::FULL;
+#pragma unroll 4
+  for (int j = lane; j < n; j += 32) knn::keep2(p0, p1, get(j));
+  const int taken = min(k, n) - 1;
+  if (taken > 0) knn::select_row_of(get, n, taken, p0, p1, scratch, list);
+  for (int s = lane; s < k; s += 32) sel[s] = s == 0 ? self : (s <= taken ? list[s - 1] : 0);
+  __syncwarp();  // the list serves the warp's next centre
 }
 
 __global__ void __launch_bounds__(SEL_THREADS) sa_select_kernel(SelArgs a) {
@@ -104,13 +163,23 @@ __global__ void __launch_bounds__(SEL_THREADS) sa_select_kernel(SelArgs a) {
   const int n = L.n, k = a.k;
 
   extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* xi = L.xyz + (size_t)item * n * 3;
+  if (!a.rows) {
+    unsigned* scratch = reinterpret_cast<unsigned*>(smem);
+    int* list = reinterpret_cast<int*>(scratch + SEL_WARPS * 2 * knn::CAP) + warp * knn::MAX_K;
+    for (int r = 0; r < L.rpw; ++r) {
+      const int ci = (blk * L.rpw + r) * SEL_WARPS + warp;
+      if (ci >= L.mc) break;
+      select_centre(L, item, ci, k, xi, scratch + warp * 2 * knn::CAP, list);
+    }
+    return;
+  }
   float4* pts = reinterpret_cast<float4*>(smem);
   unsigned* dist = reinterpret_cast<unsigned*>(smem + 4 * (size_t)n);
   unsigned* scratch = dist + (size_t)SEL_WARPS * n;  // 16-byte aligned: n * 48 bytes before
   int* lists = reinterpret_cast<int*>(scratch + SEL_WARPS * 2 * knn::CAP);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* xi = L.xyz + (size_t)item * n * 3;
   for (int j = threadIdx.x; j < n; j += SEL_THREADS) {
     const float x = xi[3 * j], y = xi[3 * j + 1], z = xi[3 * j + 2];
     pts[j] = make_float4(x, y, z, fmaf(z, z, fmaf(y, y, x * x)));
@@ -306,6 +375,7 @@ FC_API int fc_sa_select(int levels, int items, int k, const void* const* new_xyz
     blocks += items * L.blocks;
     nmax = max(nmax, n[l]);
   }
+  a.rows = select_rows_fit(nmax);
   const size_t smem = select_smem(nmax);
   cudaError_t err = cudaFuncSetAttribute(sa_select_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

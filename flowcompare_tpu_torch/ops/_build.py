@@ -109,6 +109,7 @@ _SIGNATURES = {
                                _V],
     "fc_knn_edge_reduce_bwd": [_V, _I, _I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _V],
     "fc_knn_edge_reduce_bwd_scratch": [_I, _I, _I],
+    "fc_knn_edge_reduce_bwd_smem": [_I, _I],
     "fc_fps_levels": [_V, _I, _I, _I, _I, _I, _I, _I, *[_V] * 8, _V],
     "fc_fps_levels_smem": [_I] * 6,
     "fc_fps_round_probe": [_I, _V, _V],
@@ -923,6 +924,9 @@ def augment_epilogue(st: torch.Tensor, x: torch.Tensor, eps: torch.Tensor,
         z.data_ptr(), ldz, ldj.data_ptr(), r, _stream()))
 
 
+SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block may opt into on the H100
+
+
 def _knn_pairs(x: torch.Tensor) -> torch.Tensor:
     """x as the kNN kernels read it, in aligned bf16 pairs: a copy with an
     even width (a zero feature, which changes no distance) where x has an
@@ -950,7 +954,7 @@ def knn_edge_max(x: torch.Tensor, u: torch.Tensor, out: torch.Tensor, *,
         raise ValueError(f"knn_edge_max: needs 1 <= k <= min(n, 64) and cout <= 256 "
                          f"(k={k}, n={n}, cout={cout})")
     lib = library()
-    if lib.fc_knn_edge_max_smem(n, cq) > 227 * 1024:
+    if lib.fc_knn_edge_max_smem(n, cq) > SMEM_LIMIT:
         raise ValueError(f"knn_edge_max: n={n}, cq={cq} exceed shared memory")
     c_p = sign_p = a_p = b_p = None
     ldc = 0
@@ -994,7 +998,7 @@ def knn_edge_reduce_fwd(x: torch.Tensor, u: torch.Tensor, mx: torch.Tensor, mn: 
         raise ValueError(f"knn_edge_reduce: needs 1 <= k <= min(n, 64) and C <= 256 "
                          f"(k={k}, n={n}, C={cout})")
     lib = library()
-    if lib.fc_knn_edge_max_smem(n, cq) > 227 * 1024:
+    if lib.fc_knn_edge_max_smem(n, cq) > SMEM_LIMIT:
         raise ValueError(f"knn_edge_reduce: n={n}, cq={cq} exceed shared memory")
     f32 = [_contig(t, f"knn_edge_reduce.{nm}", torch.float32, (rows, cout))
            for t, nm in ((mx, "mx"), (mn, "mn"), (s1, "s1"), (s2, "s2"))]
@@ -1024,16 +1028,20 @@ def knn_edge_reduce_bwd(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.Tensor,
         raise ValueError(f"knn_edge_reduce_bwd: needs 1 <= k <= min(n, 64) and C <= 256 "
                          f"(k={k}, n={n}, C={cout})")
     lib = library()
+    smem = lib.fc_knn_edge_reduce_bwd_smem(n, k)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"knn_edge_reduce_bwd: n={n}, k={k} need {smem} bytes of shared memory "
+                         f"in the reverse lists' kernels, more than the {SMEM_LIMIT} a block has")
     # the reverse lists: per tile counts, then offsets, then lists (int32)
-    scratch = torch.empty(lib.fc_knn_edge_reduce_bwd_scratch(n_items, n, k), dtype=torch.int32,
-                          device=u.device)
+    ints = lib.fc_knn_edge_reduce_bwd_scratch(n_items, n, k)
+    if ints < 0:
+        raise ValueError(f"knn_edge_reduce_bwd: the reverse lists of {n_items} x {n} rows, "
+                         f"k={k} need more than 2^31 - 1 ints of scratch")
+    scratch = torch.empty(ints, dtype=torch.int32, device=u.device)
     _check("knn_edge_reduce_bwd", lib.fc_knn_edge_reduce_bwd(
         u.data_ptr(), ldu, cout, *cots, *slots,
         _contig(idx, "knn_edge_reduce_bwd.idx", torch.int32, (rows, k)), scratch.data_ptr(),
         _contig(du, "knn_edge_reduce_bwd.du", torch.float32, shape), n_items, n, k, _stream()))
-
-
-_SMEM_LIMIT = 227 * 1024
 
 
 def fps_levels(xyz: torch.Tensor, idx: list, out: list) -> None:
@@ -1050,9 +1058,9 @@ def fps_levels(xyz: torch.Tensor, idx: list, out: list) -> None:
     lib = library()
     m4 = ms + [1] * (4 - len(ms))
     smem = lib.fc_fps_levels_smem(n, len(ms), *m4)
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(f"fps_levels: n={n}, m={ms} need {smem} bytes of shared memory, more "
-                         f"than the {_SMEM_LIMIT} a block has (the level clouds at 12 bytes a "
+                         f"than the {SMEM_LIMIT} a block has (the level clouds at 12 bytes a "
                          f"point, the running minima past 2048 points at 4)")
     ptrs = [_contig(t, f"fps_levels.idx[{l}]", torch.int64, (b, m)) for l, (t, m) in
             enumerate(zip(idx, ms))]
@@ -1095,7 +1103,7 @@ def sa_select(levels: list, sel: list, *, k: int) -> None:
                 _contig(xyz, f"sa_select.xyz[{l}]", torch.float32, (b, n, 3)),
                 _contig(out, f"sa_select.sel[{l}]", torch.int32, (b, mc, k)), n, mc)):
             a.append(v)
-    if lib.fc_sa_select_smem(max(arrays[4])) > _SMEM_LIMIT:  # the launch's, for the largest N
+    if lib.fc_sa_select_smem(max(arrays[4])) > SMEM_LIMIT:  # the launch's, for the largest N
         raise ValueError(f"sa_select: N={max(arrays[4])} exceeds shared memory")
     ptrs = [(ctypes.c_void_p * 4)(*a) for a in arrays[:4]]
     ints = [(ctypes.c_int * 4)(*a) for a in arrays[4:]]
@@ -1116,7 +1124,7 @@ def sa_gather(sel: torch.Tensor, new_xyz: torch.Tensor, xyz: torch.Tensor, feats
     if not 1 <= k <= 64 or n < 1 or mc < 1:
         raise ValueError(f"sa_gather: needs 1 <= k <= 64, N >= 1, M >= 1 (k={k}, N={n}, M={mc})")
     lib = library()
-    if lib.fc_sa_gather_smem(c, k, feats.element_size()) > _SMEM_LIMIT:
+    if lib.fc_sa_gather_smem(c, k, feats.element_size()) > SMEM_LIMIT:
         raise ValueError(f"sa_gather: rows of 3 + {c} elements exceed shared memory")
     _check("sa_gather", lib.fc_sa_gather(
         _contig(sel, "sa_gather.sel", torch.int32, (b, mc, k)),

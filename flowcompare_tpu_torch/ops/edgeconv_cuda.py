@@ -47,7 +47,17 @@ def distance_bits(x: torch.Tensor) -> torch.Tensor:
     return d.contiguous().view(torch.int32).long()
 
 
-def radix_select_emulated(bits: torch.Tensor, k: int) -> tuple:
+def _chunks(n: int, chunk) -> list:
+    """The column ranges of the kernels' walk over a row of n: one range with
+    whole rows (chunk None), else CHUNK columns at a time."""
+    if chunk is None:
+        return [(0, n)]
+    if chunk % 8:
+        raise ValueError(f"a chunk is whole 8-column tiles (got {chunk} columns)")
+    return [(c0, min(c0 + chunk, n)) for c0 in range(0, n, chunk)]
+
+
+def radix_select_emulated(bits: torch.Tensor, k: int, chunk=None) -> tuple:
     """The kernels' fallback selection (knn_select.cuh `radix_select`, for
     rows whose ties crowd the pool's threshold) step for step in PyTorch,
     rows of `bits` (R, n) int64 in parallel:
@@ -56,10 +66,14 @@ def radix_select_emulated(bits: torch.Tensor, k: int) -> tuple:
     count reaches the rank still needed, and a stop as soon as that bin
     holds exactly the entries still needed; then the admit pass (keys below
     the prefix, then ties at it in index order). Entries with bit 31 set are
-    never counted or taken. -> (indices (R, k) int64 ascending, sweeps (R,)
-    over each row: the histogram passes and the admit pass)."""
+    never counted or taken. With `chunk` the histograms and the admit pass
+    walk the row chunk by chunk (`select_chunked`'s fallback: the ties'
+    running count carried across chunks). -> (indices (R, k) int64
+    ascending, sweeps (R,) over each row: the histogram passes and the admit
+    pass)."""
     rows, n = bits.shape
     dev = bits.device
+    spans = _chunks(n, chunk)
     prefix = torch.zeros(rows, dtype=torch.long, device=dev)
     shift = torch.full((rows,), 31, dtype=torch.long, device=dev)
     need = torch.full((rows,), k, dtype=torch.long, device=dev)
@@ -67,10 +81,12 @@ def radix_select_emulated(bits: torch.Tensor, k: int) -> tuple:
     active = torch.ones(rows, dtype=torch.bool, device=dev)
     for width in RADIX_DIGITS:
         nshift = shift - width
-        match = ((bits >> shift[:, None]) == prefix[:, None]) & active[:, None]
-        digit = torch.where(match, (bits >> nshift[:, None]) & ((1 << width) - 1), 0)
-        hist = torch.zeros(rows, 256, dtype=torch.long, device=dev).scatter_add_(1, digit,
-                                                                                 match.long())
+        hist = torch.zeros(rows, 256, dtype=torch.long, device=dev)
+        for c0, c1 in spans:
+            part = bits[:, c0:c1]
+            match = ((part >> shift[:, None]) == prefix[:, None]) & active[:, None]
+            digit = torch.where(match, (part >> nshift[:, None]) & ((1 << width) - 1), 0)
+            hist.scatter_add_(1, digit, match.long())
         cum = hist.cumsum(1)
         found = (cum < need[:, None]).sum(1).clamp_max(255)      # first bin reaching need
         below = torch.where(found > 0, cum.gather(1, (found - 1).clamp_min(0)[:, None])[:, 0], 0)
@@ -80,61 +96,132 @@ def radix_select_emulated(bits: torch.Tensor, k: int) -> tuple:
         need = torch.where(active, need - below, need)
         passes = passes + active.long()
         active = active & (cnt != need)
-    key = bits >> shift[:, None]
-    tie = key == prefix[:, None]
-    take = (key < prefix[:, None]) | (tie & (tie.long().cumsum(1) <= need[:, None]))
-    order = torch.where(take, torch.arange(n, device=dev), n)
+    take, nties = [], torch.zeros(rows, dtype=torch.long, device=dev)
+    for c0, c1 in spans:
+        key = bits[:, c0:c1] >> shift[:, None]
+        tie = key == prefix[:, None]
+        take.append((key < prefix[:, None]) | (tie & (nties[:, None] + tie.long().cumsum(1)
+                                                      <= need[:, None])))
+        nties = nties + tie.long().sum(1)
+    order = torch.where(torch.cat(take, 1), torch.arange(n, device=dev), n)
     return order.sort(1).values[:, :k], passes + 1
 
 
 # Candidates a warp holds before it falls back to the radix select
 # (knn_select.cuh CAP).
 SELECT_CAP = 256
+# Columns of a chunk of the kernels' walk over rows that do not fit shared
+# memory whole (knn_select.cuh CHUNK).
+KNN_CHUNK = 1024
+# knn_select.cuh: query rows a block, warps, pool entries a row, the largest k
+_QR, _WARPS, _POOL, _MAX_K = 16, 8, 64, 64
 
 
-def pool_sources(n: int) -> torch.Tensor:
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def whole_smem_bytes(n: int, cq: int) -> int:
+    """B3's and B6's shared memory with whole distance rows (knn_select.cuh
+    `whole_smem_bytes`): 16 f32 distance rows padded to 8 mod 32 words, a
+    pool of 64 a row, 16 bf16 query rows of whole 16-feature steps plus 8,
+    and per warp 2 x 256 words of candidates and a list of 64."""
+    return (4 * _QR * (_up(n, 32) + 8) + 4 * _QR * _POOL + 2 * _QR * (_up(cq, 16) + 8)
+            + 4 * _WARPS * 2 * SELECT_CAP + 4 * _WARPS * _MAX_K)
+
+
+def chunked_smem_bytes(cq: int) -> int:
+    """The chunked walk's (`chunked_smem_bytes`): the rows of one chunk, and
+    per warp the candidates and lists of its two rows."""
+    rpw = _QR // _WARPS
+    return (4 * _QR * (KNN_CHUNK + 8) + 4 * _QR * _POOL + 2 * _QR * (_up(cq, 16) + 8)
+            + 4 * _WARPS * rpw * 2 * SELECT_CAP + 4 * _WARPS * rpw * _MAX_K)
+
+
+def knn_chunk(n: int, cq: int):
+    """The kernels' walk for clouds of n points of cq features: None (whole
+    rows in shared memory, up to 3,200 points at 128 features) or
+    KNN_CHUNK."""
+    return None if whole_smem_bytes(n, cq) <= _build.SMEM_LIMIT else KNN_CHUNK
+
+
+def knn_smem_bytes(n: int, cq: int) -> int:
+    """B3's and B6's shared memory a block (`fc_knn_edge_max_smem`)."""
+    return whole_smem_bytes(n, cq) if knn_chunk(n, cq) is None else chunked_smem_bytes(cq)
+
+
+def pool_sources(n: int, chunk=None) -> torch.Tensor:
     """The pool source of each of n columns in B3's and B6's kernels: the
-    warp that computes its tile (tile % 8) and the lane quad within it."""
+    warp that computes its tile and the lane quad within it. A walk's warps
+    count the tiles from the start of its range: the whole row, or each
+    chunk of `chunk` columns; the library's CHUNK is whole 64-column rounds,
+    where the two agree."""
     j = torch.arange(n)
+    if chunk is not None:
+        j = j % chunk
     return (j // 8 % 8) * 4 + (j % 8) // 2
 
 
-def knn_select_emulated(bits: torch.Tensor, k: int, sources: torch.Tensor) -> tuple:
+def _pool_kth(bits: torch.Tensor, live: torch.Tensor, sources: torch.Tensor, k: int):
+    """The k-th smallest of the pool: each of 32 sources' two smallest live
+    entries of `bits` (all ones where a source has fewer)."""
+    full = 0xFFFFFFFF
+    pool = []
+    for src in range(32):
+        vals = torch.where(live & (sources.to(bits.device) == src), bits, full)
+        vals = torch.cat([vals, torch.full_like(vals[:, :2], full)], 1)
+        pool.append(vals.topk(2, dim=1, largest=False).values)
+    return torch.cat(pool, 1).sort(1).values[:, k - 1]
+
+
+def knn_select_emulated(bits: torch.Tensor, k: int, sources: torch.Tensor,
+                        chunk=None) -> tuple:
     """The kernels' selection (knn_select.cuh `select_row`) step for step in
     PyTorch, rows of `bits` (R, n) int64 in parallel: the pool (each of 32
     sources' two smallest entries, all-ones where a source has fewer), t its
     k-th smallest, the candidates d <= t, the k smallest of them by (d,
     index); rows with more than SELECT_CAP candidates take
     `radix_select_emulated`. Entries with bit 31 set are never taken.
-    -> (indices (R, k) int64 ascending, sweeps (R,) over each row,
-    candidates (R,))."""
+
+    With `chunk` (whole 8-column tiles) the row is walked as
+    `select_chunked` walks it, in one pass with a falling threshold: after
+    each chunk the pool of the chunks so far, the candidates above its k-th
+    smallest dropped and the chunk's entries under it added; a row whose
+    candidates ever pass SELECT_CAP falls back (to the radix select over
+    the chunks). It ends with the candidates d <= t of the whole row's
+    pool. `sources` are the walk's (`pool_sources`).
+    -> (indices (R, k) int64 ascending, walks (R,) over each row: one, the
+    fallback's passes added; candidates (R,): the most a row held at once,
+    past the cap as counted)."""
     rows, n = bits.shape
-    full = 0xFFFFFFFF
     live = (bits >> 31) == 0
-    pool = []
-    for src in range(32):
-        vals = torch.where(live & (sources.to(bits.device) == src), bits, full)
-        vals = torch.cat([vals, torch.full_like(vals[:, :2], full)], 1)
-        pool.append(vals.topk(2, dim=1, largest=False).values)
-    t = torch.cat(pool, 1).sort(1).values[:, k - 1]
+    most = torch.zeros(rows, dtype=torch.long, device=bits.device)
+    for c0, c1 in _chunks(n, chunk):
+        t = _pool_kth(bits[:, :c1], live[:, :c1], sources[:c1], k)
+        count = (live[:, :c1] & (bits[:, :c1] <= t[:, None])).sum(1)   # kept, and the chunk's
+        most = torch.maximum(most, count)
     cand = live & (bits <= t[:, None])
-    count = cand.sum(1)
     key = torch.where(cand, bits, 1 << 33)
     idx = torch.sort(key, dim=1, stable=True).indices[:, :k].sort(1).values
     sweeps = torch.ones(rows, dtype=torch.long, device=bits.device)
-    fallback = count > SELECT_CAP
+    fallback = most > SELECT_CAP
     if bool(fallback.any()):
-        ridx, rsw = radix_select_emulated(bits[fallback], k)
+        ridx, rsw = radix_select_emulated(bits[fallback], k, chunk)
         idx[fallback] = ridx
         sweeps[fallback] += rsw
-    return idx, sweeps, count
+    return idx, sweeps, most
 
 
-def knn_indices_emulated(x: torch.Tensor, k: int) -> torch.Tensor:
+def knn_indices_emulated(x: torch.Tensor, k: int, chunk="kernel") -> torch.Tensor:
     """(B, N, Cq) -> int64 (B, N, k): each row's exact kNN as the kernels
-    select it (`knn_select_emulated` on `distance_bits`), ascending."""
-    b, n, _ = x.shape
-    idx, _, _ = knn_select_emulated(distance_bits(x).reshape(b * n, n), k, pool_sources(n))
+    select it (`knn_select_emulated` on `distance_bits`), ascending; the
+    walk the kernels take at this shape (`knn_chunk`) unless `chunk` names
+    one (None: whole rows)."""
+    b, n, cq = x.shape
+    if chunk == "kernel":
+        chunk = knn_chunk(n, _up(cq, 2))
+    idx, _, _ = knn_select_emulated(distance_bits(x).reshape(b * n, n), k,
+                                    pool_sources(n, chunk), chunk)
     return idx.reshape(b, n, k)
 
 
@@ -168,7 +255,10 @@ def edge_neighbor_max(x: torch.Tensor, u: torch.Tensor, k: int) -> torch.Tensor:
     or below the pool's k-th smallest in one sweep and ranks them (a radix
     select where ties crowd that threshold; `knn_select_emulated` is the
     same algorithm in PyTorch), ties in index order, and gathers the k
-    selected rows of u 16 bytes a lane. Bound on the H100 by
+    selected rows of u 16 bytes a lane. Clouds whose 16 distance rows do
+    not fit shared memory (past 3,200 points at 128 features, `knn_chunk`)
+    walk the rows in chunks of KNN_CHUNK columns, one pass with a falling
+    threshold: the same selection. Bound on the H100 by
     those gathers from L2 (k rows of u a query row) and the candidate rows'
     re-reads from L2; the products and the selection are the smaller part."""
     if not x.is_cuda:

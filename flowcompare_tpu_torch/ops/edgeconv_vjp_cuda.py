@@ -101,6 +101,24 @@ def edge_knn_reduce_bwd_emulated(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.
     return acc[0] + acc[1]
 
 
+def du_scale(idx: torch.Tensor, u: torch.Tensor, cots) -> torch.Tensor:
+    """The scale of du as f32 sums it, for holding two orders of the sum
+    against each other: per (j, channel) the sum over the rows i that
+    selected j (idx (B, N, k)) of |ds1_i| + 2 |u_j| |ds2_i| + |dmx_i| +
+    |dmn_i|, the magnitudes of the terms; cots = (dmx, dmn, ds1, ds2). A
+    point of a large cloud may be selected by over a thousand rows."""
+    dmx, dmn, ds1, ds2 = cots
+    k = idx.shape[-1]
+    out = []
+    for i in range(len(idx)):
+        flat = idx[i].reshape(-1)
+        a = torch.zeros_like(ds1[i]).index_add_(
+            0, flat, (ds1[i].abs() + dmx[i].abs() + dmn[i].abs()).repeat_interleave(k, 0))
+        c = torch.zeros_like(ds1[i]).index_add_(0, flat, ds2[i].abs().repeat_interleave(k, 0))
+        out.append(a + 2 * u[i].abs() * c)
+    return torch.stack(out)
+
+
 class _EdgeKnnReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, u, k):
@@ -146,7 +164,8 @@ def edge_knn_reduce(x: torch.Tensor, u: torch.Tensor, k: int):
     `edge_knn_reduce_plain`; a CUDA tensor runs csrc/knn_edge_reduce.cu
     inside an autograd.Function: the forward kernel selects as B3 does
     (tensor-core distance rows in shared memory, one sweep under the pool's
-    threshold, ties in index order) and writes mx, mn, s1, s2, the first
+    threshold, ties in index order; the rows walked in chunks past 3,200
+    points) and writes mx, mn, s1, s2, the first
     max/min slots and the selected indices; the backward builds per-item
     reverse neighbour lists across the card (counts per 64-row tile, a scan,
     a fill that keeps each list in increasing i: `reverse_lists_tiled`) and
@@ -160,7 +179,8 @@ def edge_knn_reduce(x: torch.Tensor, u: torch.Tensor, k: int):
     lists share no tile) and their slot bytes; dmx and dmn are read only
     where a slot matches. The TPU kernel's (B, N, N) rank matrix is not
     kept: the saved state is the (B, N, k) indices and two byte-wide slot
-    maps."""
+    maps. The lists' kernels hold n counters in shared memory: clouds past
+    about 58,000 points raise (`routes.knn_bwd_smem_bytes`)."""
     if not x.is_cuda:
         return edge_knn_reduce_plain(x, u, k)
     return _EdgeKnnReduce.apply(x, u, k)

@@ -68,7 +68,9 @@ def sa_select_levels(levels: list, k: int) -> list:
     slot 0 for a centre index outside [0, N_l)): the grid holds each level's
     blocks, level 0 first, a block the points of one item in shared memory
     and 8 warps of distance rows, the exact selection of knn_select.cuh
-    with the centre pinned."""
+    with the centre pinned; a launch whose largest cloud does not fit that
+    way (past 4,458 points, `select_rows_fit`) reads the points from global
+    memory and recomputes the distances for each sweep."""
     global SA_SELECT_LAUNCHES
     if not levels[0][2].is_cuda:
         return [sa_select_plain(new_xyz, idx, xyz, k) for new_xyz, idx, xyz in levels]
@@ -171,7 +173,32 @@ def centre_distance_bits(new_xyz: torch.Tensor, xyz: torch.Tensor) -> torch.Tens
     return d.contiguous().view(torch.int32).long()
 
 
-def sa_select_emulated(levels: list, k: int, sms: int) -> tuple:
+# csrc/sa_group.cu: the candidates a warp holds, the largest k
+_CAP, _MAX_K = 256, 64
+
+
+def select_smem_of(n: int, rows: bool) -> int:
+    """The selection's shared memory (sa_group.cu `select_smem_of`): each
+    warp's candidates and list, and with `rows` the points as float4 and a
+    distance row a warp before them."""
+    return (4 * (4 * n + SEL_WARPS * n) if rows else 0) + 4 * SEL_WARPS * 2 * _CAP \
+        + 4 * SEL_WARPS * _MAX_K
+
+
+def select_rows_fit(n: int) -> bool:
+    """Whether a launch whose largest cloud has n points keeps the clouds and
+    the distance rows in shared memory (n <= 4,458); larger ones read the
+    points from global memory and recompute the distances each sweep."""
+    return select_smem_of(n, True) <= _build.SMEM_LIMIT
+
+
+def sa_select_smem(n: int) -> int:
+    """The selection launch's shared memory for clouds of up to n points
+    (`fc_sa_select_smem`)."""
+    return select_smem_of(n, select_rows_fit(n))
+
+
+def sa_select_emulated(levels: list, k: int, sms: int, rows_in_smem=None) -> tuple:
     """The selection kernel (csrc/sa_group.cu `sa_select_kernel`) step for
     step in PyTorch over the launch's grid on a card of `sms` SMs
     (`select_grid`): per (level,
@@ -179,7 +206,13 @@ def sa_select_emulated(levels: list, k: int, sms: int) -> tuple:
     centre's own entry set to all ones, each lane's two nearest others (lane
     = j mod 32) as the pool, and `knn_select_emulated` for the k - 1 others
     (min(k, N) - 1 when N < k); slot 0 the centre, the rest point 0.
+    `rows_in_smem` is the kernel's path (default: as the launch decides from
+    its largest cloud, `select_rows_fit`): with False the pool takes a sweep of
+    its own over the recomputed distances, and the selection's sweeps
+    (the radix fallback's too) recompute them again.
     -> ([sel_l int64 (B, M_l, k)], the sweeps over each row)."""
+    if rows_in_smem is None:
+        rows_in_smem = select_rows_fit(max(xyz.shape[1] for _, _, xyz in levels))
     items = levels[0][2].shape[0]
     mcs = [new_xyz.shape[1] for new_xyz, _, _ in levels]
     rows = select_grid(items, mcs, sms).reshape(-1, 3)
@@ -201,6 +234,7 @@ def sa_select_emulated(levels: list, k: int, sms: int) -> tuple:
         if kr > 0:
             got, sw, _ = knn_select_emulated(bits, kr, torch.arange(n) % 32)
             sel[:, 1:kr + 1] = got
+            sw = sw + (not rows_in_smem)
         sels.append(sel.reshape(items, mcs[level], k))
         sweeps.append(sw.reshape(items, mcs[level]))
     return sels, sweeps

@@ -5,11 +5,14 @@ The kernels carry fixed limits (ROADMAP queue B): the cross attention of B1,
 B2, B5 and B7 takes the head widths D = heads * dim_head in ATTENTION_DS
 (32, 64 and 128, one kernel instance each); the fused layer kernels take
 widths up to 512 and 3 to 10 products a launch; B3 and B6 take k <=
-min(n, 64) neighbours of at most 256 channels with 16 distance rows of
-the cloud in 227 KB of shared memory; B8 and B9 hold their clouds in
-shared memory too. A configuration outside them runs, part
-by part, the path the JAX package takes off the TPU, and the other parts
-stay on their kernels:
+min(n, 64) neighbours of at most 256 channels, on clouds of any size (16
+distance rows of the cloud in shared memory up to 3,200 points, walked in
+chunks past it), and B6's backward clouds whose reverse lists' counters fit
+shared memory (about 58,000 points); B8 holds its clouds in shared memory
+(up to 12,662 points over PAConv's four levels), B9 takes any cloud (in
+shared memory up to 4,458 points, read from L2 past it). A configuration
+outside them runs, part by part, the path the JAX package takes off the
+TPU, and the other parts stay on their kernels:
 
 * "stack" (B1, B5, B7): `flow_layer_cuda.folded_scan_core` for eval and
   training, the unfolded reverse for sampling;
@@ -20,10 +23,12 @@ stay on their kernels:
 `model_routes(config)` gives each part "kernels" or "plain: <reason>". It
 needs no CUDA device and no compiled library: the shared-memory sizes are
 Python mirrors of the library's own formulas (`knn_smem_bytes`,
-`fps_levels_smem`, `sa_select_smem`, `sa_gather_smem`), which a card test
-holds equal to `fc_knn_edge_max_smem`, `fc_fps_levels_smem`,
-`fc_sa_select_smem` and `fc_sa_gather_smem`. The kernels keep their own
-checks: a shape these gates let through and a kernel refuses still raises.
+`knn_bwd_smem_bytes`, `fps_levels_smem`, `sa_select_smem`,
+`sa_gather_smem`), which a card test holds equal to
+`fc_knn_edge_max_smem`, `fc_knn_edge_reduce_bwd_smem`,
+`fc_fps_levels_smem`, `fc_sa_select_smem` and `fc_sa_gather_smem`. The
+kernels keep their own checks: a shape these gates let through and a
+kernel refuses still raises.
 
 The routes are the shapes' verdict only. The compute dtype and the
 nonlinearity are the model's policy on top of them (bf16 and GELU for B1,
@@ -34,18 +39,18 @@ from __future__ import annotations
 
 from .encoders.dgcnn import _EDGE_DIMS
 from .encoders.paconv import NSAMPLE, SA_MLPS
-from .ops._build import ATTENTION_DS
+from .ops._build import ATTENTION_DS, SMEM_LIMIT
 from .ops.dgcnn_cuda import dgcnn_tail_plan
+from .ops.edgeconv_cuda import knn_smem_bytes
 from .ops.flow_layer_cuda import augment_net_plan, fused_route, packed_input_layout
+from .ops.sa_group_cuda import sa_select_smem
 
-SMEM_LIMIT = 227 * 1024          # dynamic shared memory a block may opt into on the H100
 KNN_MAX_K, KNN_MAX_C = 64, 256   # B3 / B6 / B9: neighbours, and B3 / B6 channels
 
-# csrc/knn_select.cuh: query rows a block, warps, pool entries a row,
-# candidates a warp holds
-_KNN_QR, _KNN_WARPS, _KNN_POOL, _KNN_CAP = 16, 8, 64, 256
-# csrc/sa_group.cu: selection warps, gather warps, elements of a gather tile
-_SEL_WARPS, _GA_WARPS, _GA_TILE = 8, 4, 2048
+# csrc/knn_edge_reduce.cu: rows of a reverse-list tile
+_REV_ROWS = 64
+# csrc/sa_group.cu: gather warps, elements of a gather tile
+_GA_WARPS, _GA_TILE = 4, 2048
 # csrc/fps.cu: warps a block, points a block holds in registers
 _FPS_NW, _FPS_POINTS = 4, 2048
 
@@ -54,15 +59,11 @@ def _up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def knn_smem_bytes(n: int, cq: int) -> int:
-    """B3's and B6's shared memory for clouds of n points of cq features
-    (`knn::smem_bytes`): 16 f32 distance rows padded to 8 mod 32 words, a
-    pool of 64 a row, 16 bf16 query rows of whole 16-feature steps plus 8,
-    and per warp 2 x 256 words of candidates and a list of 64."""
-    dist_ld = _up(n, 32) + 8
-    q_ld = _up(cq, 16) + 8
-    return (4 * _KNN_QR * dist_ld + 4 * _KNN_QR * _KNN_POOL + 2 * _KNN_QR * q_ld
-            + 4 * _KNN_WARPS * 2 * _KNN_CAP + 4 * _KNN_WARPS * KNN_MAX_K)
+def knn_bwd_smem_bytes(n: int, k: int) -> int:
+    """B6's backward: the largest of its reverse lists' kernels' shared
+    memory (knn_edge_reduce.cu `bwd_smem_bytes`), n counters and 64 rows of
+    k indices."""
+    return 4 * (n + max(32, _REV_ROWS * k))
 
 
 def fps_levels_smem(n: int, ms) -> int:
@@ -75,14 +76,6 @@ def fps_levels_smem(n: int, ms) -> int:
         spill = max(spill, pts - _FPS_POINTS)
         pts = m
     return 8 * 2 * _FPS_NW + 4 * (3 * (size[0] + size[1]) + spill)
-
-
-def sa_select_smem(n: int) -> int:
-    """B9's selection, for clouds of n points (sa_group.cu `select_smem`):
-    the points as float4 and a distance row a warp, then each warp's
-    candidates and list."""
-    return (4 * (4 * n + _SEL_WARPS * n) + 4 * _SEL_WARPS * 2 * _KNN_CAP
-            + 4 * _SEL_WARPS * KNN_MAX_K)
 
 
 def sa_gather_smem(c: int, k: int, esize: int) -> int:
@@ -190,6 +183,10 @@ def _dgcnn_route(c: dict) -> str:
     if smem > SMEM_LIMIT:
         return (f"plain: clouds of {n} points need {smem} bytes of shared memory in B3 and B6 "
                 f"(more than {SMEM_LIMIT})")
+    smem = knn_bwd_smem_bytes(n, k)
+    if smem > SMEM_LIMIT:
+        return (f"plain: clouds of {n} points need {smem} bytes of shared memory in B6's "
+                f"reverse lists (more than {SMEM_LIMIT})")
     head = None if c["global"] else _mlp_shapes(512, c["hidden_dims_embedder_out"],
                                                 c["input_embedding_dim"])
     try:

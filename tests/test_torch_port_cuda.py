@@ -377,6 +377,109 @@ def test_knn_edge_reduce_backward_is_deterministic(dev):
     assert torch.equal(grads[0], grads[1])
 
 
+# Clouds past the 3,200 points whose 16 distance rows fit shared memory:
+# B3 and B6 walk each row in chunks (knn_select.cuh select_chunked)
+LARGE_CLOUDS = [(40, 4096), (8, 16384)]
+
+
+def _per_item(fn, *tensors):
+    """fn over one item at a time (the plain versions materialise the item's
+    n x n distances), concatenated."""
+    outs = [fn(*(t[i:i + 1] for t in tensors)) for i in range(len(tensors[0]))]
+    if isinstance(outs[0], (list, tuple)):
+        return [torch.cat(parts) for parts in zip(*outs)]
+    return torch.cat(outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clouds,n", LARGE_CLOUDS)
+@pytest.mark.parametrize("cq,cout", EDGE_WIDTHS)
+def test_knn_kernels_exact_on_large_clouds(dev, clouds, n, cq, cout):
+    """B3 and B6 at 40 x 4,096 and 8 x 16,384, k = 40, integer features
+    (exact distances, ties across chunks): the selection index-equal to
+    plain, B3 and B6's mx / mn bit-equal, s1 / s2 within 1e-4 (1 + |ref|)
+    and du within that plus 1e-6 of its terms' magnitudes (`du_scale`: f32
+    sums over up to ~1,500 rows in another order), the plain versions an
+    item at a time."""
+    from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda as ev
+    g = torch.Generator().manual_seed(100 + cq)
+    x = torch.randint(-4, 5, (clouds, n, cq), generator=g).bfloat16().to(dev)
+    u = rand(g, clouds, n, cout, device=dev).bfloat16()
+    rows = clouds * n
+    slots = [torch.empty(rows, 8, dtype=torch.uint8, device=dev) for _ in range(2)]
+    idx = torch.empty(rows, MAIN_K, dtype=torch.int32, device=dev)
+    _build.knn_edge_reduce_fwd(x.reshape(rows, cq), torch.zeros(rows, 8, dtype=torch.bfloat16,
+                                                                device=dev),
+                               *[torch.empty(rows, 8, device=dev) for _ in range(4)], *slots, idx,
+                               n_items=clouds, k=MAIN_K)
+    ref_idx = _per_item(lambda xi: edgeconv_cuda.knn_indices(xi, MAIN_K).sort(-1).values, x)
+    assert torch.equal(idx.reshape(clouds, n, MAIN_K).long(), ref_idx)
+    torch.testing.assert_close(edgeconv_cuda.edge_neighbor_max(x, u, MAIN_K),
+                               _per_item(lambda xi, ui: edgeconv_cuda.edge_neighbor_max_plain(
+                                   xi, ui, MAIN_K), x, u), rtol=0, atol=0)
+    cots = [rand(g, clouds, n, cout, device=dev) for _ in range(4)]
+
+    def b6(fn, xi, ui, *ci):
+        ui = ui.detach().clone().requires_grad_()
+        o = fn(xi, ui, MAIN_K)
+        torch.autograd.backward(o, list(ci))
+        return [a.detach() for a in o] + [ui.grad]
+
+    got = b6(ev.edge_knn_reduce, x, u.float(), *cots)
+    ref = _per_item(lambda *a: b6(ev.edge_knn_reduce_plain, *a), x, u.float(), *cots)
+    for a, b in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(got[2:4], ref[2:4]):
+        assert float(((a - b).abs() / (1 + b.abs())).max()) <= 1e-4
+    scale = ev.du_scale(ref_idx, u.float(), cots)
+    assert bool(((got[4] - ref[4]).abs() <= 1e-4 * (1 + ref[4].abs()) + 1e-6 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["integer", "crowded", "clustered", "equal"])
+def test_knn_chunk_walk_on_crowded_clouds(dev, kind):
+    """The chunked walk (one pass with a falling threshold) on 3 x 4,500
+    points: integer features; one point 2,000 times among them (its rows
+    fall back to the radix select over the chunks); one far point 2,048
+    times before a cluster (the cluster's rows fall back too, their first
+    chunks' threshold letting the far point's ties past the cap); every
+    point equal (the first k by index). Index-equal to plain, B3
+    bit-equal."""
+    g = torch.Generator().manual_seed(110)
+    n, cq = 4500, 6
+    x = torch.randint(-4, 5, (3, n, cq), generator=g)
+    if kind == "crowded":
+        x[:, :2000] = x[:, :1]
+        x = x[:, torch.randperm(n, generator=g)]
+    elif kind == "clustered":
+        x[:, :2048] = x[:, :1] + 40
+    elif kind == "equal":
+        x = x[:, :1].expand(3, n, cq)
+    x = x.bfloat16().to(dev).contiguous()
+    u = rand(g, 3, n, 64, device=dev).bfloat16()
+    ref_idx = _per_item(lambda xi: edgeconv_cuda.knn_indices(xi, MAIN_K).sort(-1).values, x)
+    ref = _per_item(lambda xi, ui: edgeconv_cuda.edge_neighbor_max_plain(xi, ui, MAIN_K), x, u)
+    assert torch.equal(_selected(x, MAIN_K)[0], ref_idx)
+    torch.testing.assert_close(edgeconv_cuda.edge_neighbor_max(x, u, MAIN_K), ref, rtol=0, atol=0)
+    if kind == "equal":
+        assert torch.equal(ref_idx, torch.arange(MAIN_K, device=dev).expand(3, n, MAIN_K))
+
+
+@pytest.mark.cuda
+def test_knn_edge_reduce_backward_refuses_past_shared_memory(dev):
+    """B6's reverse lists keep n counters in shared memory: a cloud past the
+    opt-in limit raises before any launch, naming it."""
+    from flowcompare_tpu_torch import routes
+    n = 60000
+    assert routes.knn_bwd_smem_bytes(n, 8) > routes.SMEM_LIMIT
+    u = torch.zeros(n, 8, dtype=torch.bfloat16, device=dev)
+    f32 = [torch.zeros(n, 8, device=dev) for _ in range(5)]
+    slots = [torch.zeros(n, 8, dtype=torch.uint8, device=dev) for _ in range(2)]
+    idx = torch.zeros(n, 8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        _build.knn_edge_reduce_bwd(u, *f32[:4], *slots, idx, f32[4], n_items=1, k=8)
+
+
 def _rel(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-12))
 
@@ -713,6 +816,43 @@ def test_sa_group_exact_on_integer_coordinates(dev, dtype, n, m, c):
     assert float(got[:, :, 0, :3].abs().max()) == 0.0
     torch.testing.assert_close(got[:, :, 0, 3:], torch.gather(
         feats, 1, idx[..., None].expand(-1, -1, c)), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clouds,n", [(50, 8192), (4, 16384)])
+def test_sa_select_large_clouds_match_plain(dev, clouds, n):
+    """B9's selection past the 4,458 points whose rows fit shared memory
+    (the cloud read from global memory, the distances recomputed a sweep):
+    the four levels in one launch (B8's centres at 8,192, random subsets
+    past B8's 12,662 points), index-equal to plain on integer coordinates
+    (crowded ties), at most 1e-3 of the rows off on random ones; the plain
+    version an item at a time."""
+    from flowcompare_tpu_torch import routes
+    from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda as sg
+    g = torch.Generator().manual_seed(32)
+    ms = [n // 4 ** (i + 1) for i in range(4)]
+    for kind in ("integer", "random"):
+        x = (torch.randint(-30, 31, (clouds, n, 3), generator=g).float() if kind == "integer"
+             else torch.randn(clouds, n, 3, generator=g)).to(dev)
+        if routes.fps_levels_smem(n, ms) <= routes.SMEM_LIMIT:
+            idx, out = fps_cuda.furthest_point_sampling_levels(x, ms)
+        else:   # past B8's clouds: each level's centres a random subset of the last
+            idx, out, pts = [], [], x
+            for m in ms:
+                pick = torch.stack([torch.randperm(pts.shape[1], generator=g)[:m]
+                                    for _ in range(clouds)]).to(dev)
+                idx.append(pick)
+                pts = torch.gather(pts, 1, pick[..., None].expand(-1, -1, 3))
+                out.append(pts)
+        levels = list(zip(out, idx, [x, *out]))
+        before = sg.SA_SELECT_LAUNCHES
+        sels = sg.sa_select_levels(levels, 32)
+        torch.cuda.synchronize()
+        assert sg.SA_SELECT_LAUNCHES == before + 1
+        for lv, sel in zip(levels, sels):
+            ref = _per_item(lambda a, b, c: sg.sa_select_plain(a, b, c, 32), *lv)
+            differ = float((sel.long() != ref).any(-1).float().mean())
+            assert differ == 0.0 if kind == "integer" else differ <= 1e-3, (kind, differ)
 
 
 @pytest.mark.cuda
@@ -1850,7 +1990,7 @@ def test_shared_memory_mirrors_equal_the_library(dev):
     from flowcompare_tpu_torch import routes
     lib = _build.library()
     ns = [1, 7, 31, 32, 33, 80, 256, 640, 1250, 2047, 2048, 2049, 3200, 3213, 4458, 4459,
-          8000, 12661, 15000]
+          8000, 12661, 15000, 16384, 58000]
     for n in ns:
         for cq in (1, 2, 6, 8, 15, 16, 17, 64, 128, 255, 256, 257):
             assert routes.knn_smem_bytes(n, cq) == lib.fc_knn_edge_max_smem(n, cq), (n, cq)
@@ -1860,6 +2000,8 @@ def test_shared_memory_mirrors_equal_the_library(dev):
             assert routes.fps_levels_smem(n, levels) == lib.fc_fps_levels_smem(
                 n, len(levels), *m4), (n, levels)
         assert routes.sa_select_smem(n) == lib.fc_sa_select_smem(n), n
+        for k in (1, 8, 40, 64):
+            assert routes.knn_bwd_smem_bytes(n, k) == lib.fc_knn_edge_reduce_bwd_smem(n, k), (n, k)
     for c in (0, 3, 61, 64, 128, 256, 509, 1000, 2045, 4000):
         for k in (1, 8, 32, 64):
             for esize in (2, 4):

@@ -99,17 +99,32 @@ def test_model_routes_are_read_only_and_the_gates():
 
 
 def test_gate_limits_at_their_edges():
-    """The documented limits: k <= min(n, 64); B9's selection up to 4,458
-    points; 16 distance rows of up to 3,200 points at 128 features."""
+    """The documented limits: k <= min(n, 64); B3 and B6 on clouds of any
+    size (whole distance rows in shared memory up to 3,200 points at 128
+    features, a chunk's rows past it), the DGCNN presets on their kernels at
+    3,201, 4,096 and 16,384 points; B9's selection on any cloud (its rows
+    in shared memory up to 4,458 points, none past it); PAConv's limit
+    B8's, 12,662 points, refused at 12,663 with B8 named."""
     cfg = ft.get_config("dulcet-universe")
     assert routes.model_routes({**cfg, "n_neighbors": 64})["encoder"] == "kernels"
     assert routes.model_routes({**cfg, "n_neighbors": 65})["encoder"] != "kernels"
+    assert routes.model_routes({**cfg, "n_neighbors": 80})["encoder"].startswith("plain: ")
     assert routes.model_routes({**cfg, "n_samples_context": 30})["encoder"] != "kernels"
-    assert routes.sa_select_smem(4458) <= routes.SMEM_LIMIT < routes.sa_select_smem(4459)
-    assert routes.knn_smem_bytes(3200, 128) <= routes.SMEM_LIMIT < routes.knn_smem_bytes(3201, 128)
-    paconv = ft.get_config("good-surf")
-    assert routes.model_routes({**paconv, "n_samples_context": 4458})["encoder"] == "kernels"
-    assert routes.model_routes({**paconv, "n_samples_context": 4459})["encoder"] != "kernels"
+    whole, chunked = routes.knn_smem_bytes(3200, 128), routes.knn_smem_bytes(3201, 128)
+    assert whole <= routes.SMEM_LIMIT and chunked <= routes.SMEM_LIMIT // 2 < whole
+    assert routes.knn_smem_bytes(16384, 128) == chunked
+    for preset in ("dulcet-universe", "swept-energy", "helpful-sponge"):
+        dgcnn = ft.get_config(preset)
+        for n in (1250, 3201, 4096, 16384):
+            assert routes.model_routes({**dgcnn, "n_samples_context": n})["encoder"] == "kernels"
+    assert routes.sa_select_smem(4458) <= routes.SMEM_LIMIT
+    assert routes.sa_select_smem(4459) == routes.sa_select_smem(100000) < routes.SMEM_LIMIT // 8
+    for preset in ("good-surf", "summer-terrain"):
+        paconv = ft.get_config(preset)
+        for n in (4459, 8192, 12662):
+            assert routes.model_routes({**paconv, "n_samples_context": n})["encoder"] == "kernels"
+        refused = routes.model_routes({**paconv, "n_samples_context": 12663})["encoder"]
+        assert refused.startswith("plain: ") and "in B8 " in refused, refused
 
 
 def _case_config(case: str, dtype: str = "bfloat16"):
