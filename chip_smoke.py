@@ -289,7 +289,20 @@ Phases, each of which raises on failure (nothing is caught):
    against plain, the training check at B=2, train(max_steps=4), B4 at 40
    x 4,096 against plain in 10 launches a call, B8 / B9 launches as on
    good-surf's paths. The kernels line's B3, B4, B6 and B9 entries carry
-   these readings under "by_cloud", with the launches of those paths.
+   these readings under "by_cloud", with the launches of those paths;
+28. any cloud and batch (`phase_cloud_sizes`' good-surf at 16,384 context
+   points, then `phase_b8_large`, `phase_b6_large` and
+   `phase_cloud_training`): good-surf at 16,384 as the run above (B8's
+   large clouds' kernel once an embed), train(max_steps=4) at the preset's
+   batch or the largest that fits (`fitting_batch`); B8 alone at 25 x
+   16,384 and 2 x 65,536 index-equal to plain beside its chain floor and
+   bound; B6 forward and backward at 2 x 57,344 (four widths) and 44 x
+   55,000 (C = 64; items 0, 21, 43 held to plain), past its old shared
+   memory and int32 scratch; dulcet-universe at 57,344 context points: the
+   training check at B=2 against plain and train(max_steps=4) at B=20 or
+   the largest batch that fits. The kernels line's B6 and B8 entries carry
+   these readings under "by_cloud", with the launches of dulcet's train and
+   good-surf's eval at those sizes.
 
 Prints, last, one JSON line of per-kernel results (B1-B10 with B9's
 gather as `sa_gather`, gemm_bf16,
@@ -1387,11 +1400,18 @@ def kernel_trace(fn, trace: str) -> tuple:
             if e.get("cat") == "kernel" and "dur" in e], traced_ms
 
 
-def traced_kernels(fn, reps: int = 10, name: str = "") -> list:
+TRACE_ATTEMPTS = 8
+
+
+def traced_kernels(fn, reps: int = 10, name: str = "", pool: bool = False) -> list:
     """The device kernels torch.profiler records over reps calls of fn
-    (after a warm-up call) whose names match `name`. The profiler now and
-    then returns a trace without them, at times twice in a row: it traces
-    again, up to four times."""
+    (after a warm-up call) whose names match `name`; fn launches at least
+    one such kernel a call. The profiler now and then returns a trace
+    without them or with some of them, at times four times in a row: it
+    traces again until a trace holds reps of them, up to TRACE_ATTEMPTS
+    times. With `pool` the matching kernels of every trace are kept and
+    it stops once reps of them are in hand, for a mean over a kernel's
+    durations, which needs no whole trace."""
     fn()
     torch.cuda.synchronize()
 
@@ -1399,16 +1419,21 @@ def traced_kernels(fn, reps: int = 10, name: str = "") -> list:
         for _ in range(reps):
             fn()
 
-    for attempt in range(4):
+    pooled = []
+    for attempt in range(TRACE_ATTEMPTS):
         if attempt:
-            log(f"  the profiler recorded no device kernels {name}; tracing again "
-                f"({attempt + 1} of 4)")
+            log(f"  the profiler recorded {len(kernels)} device kernels {name} of {reps} calls; "
+                f"tracing again ({attempt + 1} of {TRACE_ATTEMPTS})")
             torch.cuda.synchronize()
         kernels, _ = kernel_trace(calls, "chip_smoke_device_ms_trace.json")
         kernels = [e for e in kernels if re.search(name, e["name"])]
-        if kernels:
+        if pool:
+            pooled += kernels
+            kernels = pooled
+        if len(kernels) >= reps:
             return kernels
-    raise AssertionError(f"the profiler recorded no device kernels {name}")
+    raise AssertionError(f"the profiler recorded {len(kernels)} device kernels {name} of "
+                         f"{reps} calls in {TRACE_ATTEMPTS} traces")
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -2056,8 +2081,9 @@ def kernel_mean_ms(fn, name: str, reps: int = 10) -> float:
     """The mean duration of the kernels matching `name` in a torch.profiler
     trace of reps calls of fn: a call's device ms where fn launches one such
     kernel. The profiler now and then drops a kernel from a trace, which a
-    sum over the calls (`device_ms`) would count as no time."""
-    durs = [e["dur"] for e in traced_kernels(fn, reps, name)]
+    sum over the calls (`device_ms`) would count as no time, so the
+    kernels of several traces are pooled."""
+    durs = [e["dur"] for e in traced_kernels(fn, reps, name, pool=True)]
     return sum(durs) / len(durs) / 1e3
 
 
@@ -3037,13 +3063,20 @@ def phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves"),
     ft.data_init_from_batch(ft.init_train_state(model), batch, eps=eps_init)
     snapshot = {k: v.clone() for k, v in model.state_dict().items()}
     groups = ("embedder", "augmenter", "layers", "final_block")
-    results = []
+    results, peaks = [], []
     for plain in (False, True):
         model.load_state_dict(snapshot)
         model.plain = plain
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        at_rest = torch.cuda.memory_allocated()
+        log(f"  training check ({'plain' if plain else 'kernels'}): {at_rest / 2 ** 30:.2f} GiB "
+            f"allocated before the step")
+        torch.cuda.reset_peak_memory_stats()
         reset_counters()
         _, row = ft.train_step(ft.init_train_state(model), batch, eps=eps)
         torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - at_rest) / 2 ** 30)
         grads = {gname: torch.cat([p.grad.float().reshape(-1) for name, p in
                                    model.named_parameters() if name.startswith(gname + ".")])
                  for gname in groups}
@@ -3064,8 +3097,21 @@ def phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves"),
     assert min(cos.values()) >= 0.99, f"gradient directions differ: {cos}"
     assert all(ck[k] >= 1 for k in need), ck
     assert all(cp[k] == 0 for k in need), cp
-    out = {"kernels": rk, "plain": rp, "cosine": cos, "launches": ck}
+    out = {"kernels": rk, "plain": rp, "cosine": cos, "launches": ck,
+           "step_peak_gib": {"kernels": peaks[0], "plain": peaks[1]}}
     return {**out, "chains": chains} if with_chains else out
+
+
+def fitting_batch(model, check: dict, want: int) -> int:
+    """The largest batch up to `want` whose training step fits 95% of the
+    card: the kernels step's memory above rest at the training check's B=2,
+    a half of it an item, beside the weights' Adam moments (two copies) and
+    what is allocated now."""
+    per_item = check["step_peak_gib"]["kernels"] / TRAIN_CHECK_B
+    weights = sum(p.numel() * p.element_size() for p in model.parameters()) / 2 ** 30
+    room = (0.95 * torch.cuda.get_device_properties(0).total_memory
+            - torch.cuda.memory_allocated()) / 2 ** 30 - 2 * weights
+    return max(1, min(want, int(room // per_item)))
 
 
 def phase_train_main(ft, model, device, batch: int = TIME_B,
@@ -4141,7 +4187,8 @@ def phase_head_widths(ft, device) -> dict:
 
 # The paths past the clouds whose distance rows fit shared memory, at full
 # width and depth: (preset, context points, eval batch)
-CLOUD_RUNS = (("dulcet-universe", 4096, TIME_B), ("good-surf", 8192, GS_B))
+CLOUD_RUNS = (("dulcet-universe", 4096, TIME_B), ("good-surf", 8192, GS_B),
+              ("good-surf", 16384, GS_B))
 LARGE_KNN = ((40, 4096), (8, 16384))      # B3 / B6: (clouds, points)
 LARGE_SA = (50, 8192)                     # B9: (clouds, points), PAConv's four levels
 PLAIN_BYTES = 2 ** 30                     # the plain versions' distances a call, at most
@@ -4199,11 +4246,7 @@ def phase_large_clouds(device) -> dict:
         return torch.randn(shape, generator=g).to(device)
 
     def b6(fn, x, u, *cots):
-        with torch.enable_grad():
-            u = u.detach().requires_grad_()
-            outs = fn(x, u, k)
-            torch.autograd.backward(outs, list(cots))
-        return [o.detach() for o in outs] + [u.grad]
+        return _b6_run(fn, x, u, cots, k)
 
     def selected(x):
         b, n, cq = x.shape
@@ -4303,6 +4346,190 @@ def phase_large_clouds(device) -> dict:
     return out
 
 
+LARGE_FPS = ((25, 16384), (2, 65536))    # B8 past shared memory: (clouds, points)
+B6_LARGE = (2, 57344)                     # B6's backward past its old 55,552 points
+B6_BATCH = (44, 55000, 64, (0, 21, 43))   # (items, points, C, items held to plain)
+# the kernels B6's backward launches once a group of items, in their order
+B6_BWD_KERNELS = ("knn_rev_count_kernel", "knn_rev_scan_kernel", "knn_rev_place_kernel",
+                  "knn_rev_rank_kernel", "knn_edge_reduce_bwd_kernel")
+
+
+def phase_b8_large(device) -> dict:
+    """B8 past the 12,662 points whose level clouds fit shared memory (the
+    large clouds' kernel) at 25 x 16,384 and 2 x 65,536 random f32 clouds
+    over PAConv's four levels: indices and coordinates equal to the plain
+    chain, one launch a call; wall and device ms beside plain, the bound
+    (9 f32 operations a point a pick) and the chain floor (the picks times
+    `_build.fps_round_probe`'s round). Returns {"<clouds>x<points>": reading}."""
+    from flowcompare_tpu_torch.ops import _build, fps_cuda
+
+    g = torch.Generator().manual_seed(SEED + 42)
+    probe = torch.zeros(1, dtype=torch.int32, device=device)
+    rounds = 20000
+    round_ms = time_ms(lambda: _build.fps_round_probe(rounds, probe), reps=3) / rounds
+    out = {}
+    for clouds, n in LARGE_FPS:
+        ms = [n // 4 ** (i + 1) for i in range(4)]
+        plan = fps_cuda.fps_plan(n, ms)
+        assert plan["kernel"] == "big", plan
+        x = torch.randn(clouds, n, 3, generator=g).to(device)
+        before = fps_cuda.FPS_LAUNCHES
+        idx, pts = fps_cuda.furthest_point_sampling_levels(x, ms)
+        torch.cuda.synchronize()
+        assert fps_cuda.FPS_LAUNCHES == before + 1
+        ref_idx, ref_pts = fps_cuda.furthest_point_sampling_levels_plain(x, ms)
+        differ = sum(int((a != b).sum()) + int((c != d).sum())
+                     for a, b, c, d in zip(idx, ref_idx, pts, ref_pts))
+        assert differ == 0, f"B8 picks differ from plain at {clouds}x{n}: {differ}"
+        sizes = [n, *ms[:-1]]
+        r = _paconv_reading(lambda: fps_cuda.furthest_point_sampling_levels(x, ms),
+                            lambda: fps_cuda.furthest_point_sampling_levels_plain(x, ms),
+                            "fps_levels_big_kernel",
+                            clouds * sum((m - 1) * nn * 9 for nn, m in zip(sizes, ms)),
+                            nbytes(x, idx, pts))
+        picks = sum(ms) - len(ms)
+        key = f"{clouds}x{n}"
+        out[key] = {"shapes": f"{key}, four levels", "max_abs_err": 0.0, "ms": r["wall_ms"],
+                    "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "launches": 0,
+                    "chain_floor_ms": picks * round_ms, "picks": picks,
+                    "spill_points": plan["spill"], "smem": plan["smem"]}
+        log(f"B8 large clouds' kernel {key} -> {ms} in one launch: indices and coordinates "
+            f"equal to plain; {json.dumps(out[key])}")
+        del x, idx, pts, ref_idx, ref_pts
+        torch.cuda.empty_cache()
+    return out
+
+
+def _b6_run(fn, x, u, cots, k):
+    """B6's four outputs and du (autograd) of fn at u."""
+    with torch.enable_grad():
+        uu = u.detach().clone().requires_grad_()
+        outs = fn(x, uu, k)
+        torch.autograd.backward(outs, list(cots))
+    return [o.detach() for o in outs] + [uu.grad]
+
+
+def phase_b6_large(device) -> dict:
+    """B6 forward and backward against plain past the clouds and batches its
+    reverse lists refused before: 2 x 57,344 points at the four EdgeConv
+    widths and 44 x 55,000 at C = 64 (k = 40; 44 items overflowed the
+    lists' int32 scratch), integer features (exact distances): the
+    selection index-equal to plain, mx / mn bit-equal, s1 / s2 within 1e-4
+    (1 + |ref|), du within that plus 1e-6 of its terms' magnitudes
+    (`b6_off`); at 44 x 55,000 items 0, 21 and 43 held to plain item by
+    item (the items are independent). Wall ms of forward + backward, the
+    backward's device ms, plain's ms (an item at a time), the bound.
+    Returns {"<items>x<points>": reading}."""
+    from flowcompare_tpu_torch.ops import _build, edgeconv_cuda as ec, edgeconv_vjp_cuda as ev
+
+    g = torch.Generator().manual_seed(SEED + 43)
+    k = 40
+    b, n = B6_LARGE
+    items, n44, c44, held = B6_BATCH
+    cases = [(f"{b}x{n}", b, n, EDGE_WIDTHS, tuple(range(b))),
+             (f"{items}x{n44}", items, n44, [(c44, c44)], held)]
+    out = {}
+    for key, clouds, nn, widths, check in cases:
+        t = {"err": 0.0, "ms": 0.0, "bwd_ms": 0.0, "plain": 0.0, "flops": 0, "moved": 0}
+        for cq, cout in widths:
+            x = torch.randint(-4, 5, (clouds, nn, cq), generator=g).to(device).bfloat16()
+            u = torch.randn(clouds, nn, cout, generator=g).to(device).bfloat16().float()
+            cots = [torch.randn(clouds, nn, cout, generator=g).to(device) for _ in range(4)]
+            before = ev.EDGE_KNN_REDUCE_LAUNCHES
+            got = _b6_run(ev.edge_knn_reduce, x, u, cots, k)
+            torch.cuda.synchronize()
+            assert ev.EDGE_KNN_REDUCE_LAUNCHES == before + 2
+            plain_s = 0.0
+            for i in check:
+                sl = slice(i, i + 1)
+                t0 = time.perf_counter()
+                ref = _b6_run(ev.edge_knn_reduce_plain, x[sl], u[sl], [c[sl] for c in cots], k)
+                torch.cuda.synchronize()
+                plain_s += time.perf_counter() - t0
+                near = ec.knn_indices(x[sl], k)
+                off = int(b6_off([a[sl] for a in got], ref,
+                                 ev.du_scale(near, u[sl], [c[sl] for c in cots])).sum())
+                exact = max(float((a[sl] - r).abs().max()) for a, r in zip(got[:2], ref[:2]))
+                assert exact == 0.0 and off == 0, f"B6 at {key}, {cq}, item {i}: {exact}, {off}"
+                t["err"] = max(t["err"], max(float((a[sl] - r).abs().max())
+                                             for a, r in zip(got, ref)))
+                del ref, near
+            t["plain"] += 1e3 * plain_s       # the items held to plain, an item at a time
+            t["ms"] += time_ms(lambda: _b6_run(ev.edge_knn_reduce, x, u, cots, k), reps=2)
+            saved = _b6_saved(x, u, k)
+            du = torch.empty(clouds * nn, cout, device=device)
+            flat = [c.reshape(-1, cout) for c in cots]
+            groups = len(_build.knn_bwd_groups(clouds, nn, k))
+            t["bwd_ms"] += groups * sum(kernel_mean_ms(lambda: _build.knn_edge_reduce_bwd(
+                saved[0], *flat, *saved[1:], du, n_items=clouds, k=k), kernel, reps=3)
+                for kernel in B6_BWD_KERNELS)
+            t["flops"] += knn_flops(clouds, nn, cq)
+            t["moved"] += nbytes(x) + clouds * nn * cout * 2 + 9 * clouds * nn * cout * 4
+            del x, u, cots, got, saved, du, flat
+            torch.cuda.empty_cache()
+        entry = _large_entry(f"{key}, {'four widths' if len(widths) > 1 else f'C={c44}'}, k={k}",
+                             t["err"], t["ms"], t["plain"], t["flops"], t["moved"])
+        entry.update(backward_device_ms=t["bwd_ms"], items_held=list(check),
+                     plain_ms_covers=f"items {list(check)}, an item at a time")
+        out[key] = entry
+        log(f"B6 at {key}: integer inputs index-equal and exact on items {list(check)} "
+            f"(max|err| {t['err']}); backward device {t['bwd_ms']:.3f} ms; {json.dumps(entry)}")
+    return out
+
+
+def _b6_saved(x, u, k: int) -> tuple:
+    """The forward's saved state for a backward alone: u as bf16 rows, the
+    slot maps and the selected indices."""
+    from flowcompare_tpu_torch.ops import _build
+
+    b, n, cq = x.shape
+    c = u.shape[-1]
+    rows = b * n
+    ub = u.to(torch.bfloat16).reshape(rows, c).contiguous()
+    f32 = [torch.empty(rows, c, device=x.device) for _ in range(4)]
+    slots = [torch.empty(rows, c, dtype=torch.uint8, device=x.device) for _ in range(2)]
+    idx = torch.empty(rows, k, dtype=torch.int32, device=x.device)
+    _build.knn_edge_reduce_fwd(x.reshape(rows, cq), ub, *f32, *slots, idx, n_items=b, k=k)
+    return ub, *slots, idx
+
+
+CLOUD_TRAINING = (("dulcet-universe", 57344, TIME_B),)
+
+
+def phase_cloud_training(ft, device) -> dict:
+    """dulcet-universe at 57,344 context points (56 x 1,024, past B6's old
+    55,552), bf16, full width, 115 layers, every part of `model.routes` on
+    its kernels: the training check at B=2 against plain (|d nats| <= 0.01,
+    grad norm within 5%, cosine >= 0.99, 11 launches a layer inside B5) and
+    train(max_steps=4) at B=20 or the largest batch that fits
+    (`fitting_batch`), counters set to 0 just before each and read after.
+    Returns {"<preset> <points>": run}."""
+    out = {}
+    for preset, nc, batch in CLOUD_TRAINING:
+        t0 = time.perf_counter()
+        model = make_model(ft, device, preset=preset, n_samples_context=nc)
+        assert all(r == "kernels" for r in model.routes.values()), (preset, dict(model.routes))
+        label = f"{preset} at {nc} points"
+        check = phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves"),
+                                  with_chains=True)
+        b5 = check_b5_launches(check.pop("chains"), f"the training check at {label}", True)
+        train_b = fitting_batch(model, check, batch)
+        log(f"{label}: train(max_steps=4) at B={train_b} (the preset's {batch}; the training "
+            f"check's step took {check['step_peak_gib']['kernels']:.2f} GiB at "
+            f"B={TRAIN_CHECK_B})")
+        torch.cuda.empty_cache()
+        train_main, _ = phase_train_main(ft, model, device, batch=train_b,
+                                         need=("B5", "B6", "B1 with saves", "B3"))
+        run = {"label": label, "train_check": check, "b5": b5, "train_main": train_main,
+               "train_batch": train_b, "phase_s": time.perf_counter() - t0}
+        out[f"{preset} {nc}"] = run
+        log(f"{label}: {run['phase_s']:.1f} s")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_cloud_sizes(ft, device) -> dict:
     """dulcet-universe at 4,096 context points (B4 with B3 inside in eval
     and sampling, B6 in training: the chunked walk) and good-surf at 8,192
@@ -4315,8 +4542,9 @@ def phase_cloud_sizes(ft, device) -> dict:
     1 x 4000 against the plain samples of the same z (|d nats| <= 0.01);
     the training check at B=2 (|d nats| <= 0.01, grad norm within 5%,
     cosine >= 0.99) with 11 launches a layer inside B5; train(max_steps=4)
-    at the preset's batch; and, at 4,096, B4 on 40 clouds against its plain
-    version. Each phase's counters are set to 0 just before it and read
+    at the preset's batch or the largest that fits (`fitting_batch`); and,
+    at 4,096, B4 on 40 clouds against its plain version. Returns
+    {"<preset> <points>": run}. Each phase's counters are set to 0 just before it and read
     just after."""
     out = {}
     for preset, nc, batch in CLOUD_RUNS:
@@ -4349,10 +4577,17 @@ def phase_cloud_sizes(ft, device) -> dict:
         if paconv:
             check_paconv_launches(check["launches"], f"{label}'s train_step", eval_embeds=0,
                                   train_embeds=1)
-        train_main, _ = phase_train_main(ft, model, device, batch=batch,
+        train_b = fitting_batch(model, check, batch)
+        log(f"{label}: train(max_steps=4) at B={train_b} (the preset's {batch}; the training "
+            f"check's step took {check['step_peak_gib']['kernels']:.2f} GiB at "
+            f"B={TRAIN_CHECK_B})")
+        train_main, _ = phase_train_main(ft, model, device, batch=train_b,
                                          need=need if paconv else (*need, "B3"))
+        if paconv:
+            check_paconv_launches(train_main["launches"], f"{label}'s train(max_steps=4)",
+                                  eval_embeds=3, train_embeds=4)
         run = {"label": label, "eval_launches": launches, "timing": timing, "sample": sample,
-               "train_check": check, "b5": b5, "train_main": train_main}
+               "train_check": check, "b5": b5, "train_main": train_main, "train_batch": train_b}
         if not paconv:
             from flowcompare_tpu_torch.core.mlp import cast_tree
 
@@ -4365,7 +4600,7 @@ def phase_cloud_sizes(ft, device) -> dict:
                                      f"at {2 * TIME_B} clouds of {nc}")
             assert run["b4"]["launches_per_call"] == B4_LAUNCHES, run["b4"]
         run["phase_s"] = time.perf_counter() - t0
-        out[preset] = run
+        out[f"{preset} {nc}"] = run
         log(f"{label}: {run['phase_s']:.1f} s")
         del model
         torch.cuda.empty_cache()
@@ -5187,14 +5422,29 @@ def main() -> int:
         large = phase_large_clouds(device)
     torch.cuda.empty_cache()
     cloud_sizes = phase_cloud_sizes(ft, device)
+    with torch.no_grad():
+        b8_large = phase_b8_large(device)
+    torch.cuda.empty_cache()
+    b6_large = phase_b6_large(device)
+    torch.cuda.empty_cache()
+    cloud_training = phase_cloud_training(ft, device)
     log(f"cloud-size phases: {time.perf_counter() - t0:.1f} s")
     # the readings past shared memory's whole rows, with the launches of the
     # paths that run them: dulcet-universe at 4,096 points (eval: B4, B3;
     # train(max_steps=4): B6) and good-surf at 8,192 (eval: B9)
-    dul, gs = cloud_sizes["dulcet-universe"], cloud_sizes["good-surf"]
+    dul, gs = cloud_sizes["dulcet-universe 4096"], cloud_sizes["good-surf 8192"]
     large["B3"]["40x4096"]["launches"] = dul["eval_launches"]["B3"]
     large["B6"]["40x4096"]["launches"] = dul["train_main"]["launches"]["B6"]
     large["B9"]["50x8192"]["launches"] = gs["eval_launches"]["B9"]
+    # B8 and B6's backward past their old limits, with the launches of the
+    # paths that run them: good-surf's eval at 16,384 points (B8) and
+    # dulcet-universe's train(max_steps=4) at 57,344 (B6)
+    gs16, dul57 = cloud_sizes["good-surf 16384"], cloud_training["dulcet-universe 57344"]
+    for reading in b8_large.values():
+        reading["launches"] = gs16["eval_launches"]["B8"]
+    for reading in b6_large.values():
+        reading["launches"] = dul57["train_main"]["launches"]["B6"]
+    large["B6"].update(b6_large)
     for key in ("B3", "B6"):
         entries[key]["by_cloud"] = large[key]
     entries["B4"]["by_cloud"] = {"40x4096": {
@@ -5205,6 +5455,7 @@ def main() -> int:
     paconv_entries, good_surf = good_surf_phases(ft, device)
     entries.update(paconv_entries)
     entries["B9"]["by_cloud"] = large["B9"]
+    entries["B8"]["by_cloud"] = b8_large
     torch.cuda.empty_cache()
     global_checks, helpful_sponge, b5_global = helpful_sponge_phases(ft, device)
     for key, chk in global_checks.items():
@@ -5247,6 +5498,7 @@ def main() -> int:
                       "variants": variants, "c1": c1, "demo": demo, "ddp": ddp,
                       "head_widths": head_widths,
                       "cloud_sizes": cloud_sizes, "large_clouds": large,
+                      "cloud_training": cloud_training, "b8_large": b8_large,
                       "model_axis": model_axis,
                       "b10": b10_entry_point, "gemm": gemm_cases, "attention": attention_cases,
                       "fused_layers": fused_cases, "main_path_bounds": main_bounds,

@@ -15,14 +15,28 @@
 //
 // Backward, du_j = sum over rows i that selected j of
 //   ds1_i + 2 u_j ds2_i + dmx_i [argmax slot of i is j] + dmn_i [argmin slot of i is j].
-// Deterministic, with no atomics on the sums, and spread over the card:
-// 1. knn_rev_count: per tile of REV_ROWS rows, how many of its rows selected
-//    each j (a block a tile and item; integer counts in shared memory);
-// 2. knn_rev_scan: per item, the tiles' counts of each j scanned in tile
-//    order, then an exclusive scan over j: where each (tile, j) starts;
-// 3. knn_rev_fill: per tile, its rows in increasing i append (i << 6 | slot)
-//    at their j's cursor, so each j's list stays in increasing i;
-// 4. knn_edge_reduce_bwd: a warp takes one j and one slab of 64 channels and
+// Deterministic, with no atomics on the sums, and spread over the card. The
+// reverse lists are a counting sort of the selected entries by j, in
+// scratch linear in the rows (2 n + 1 + 2 n k ints an item) and with no
+// shared memory that grows with n, so any cloud and batch take them:
+// 1. knn_rev_count: a block a tile of REV_TILE rows counts its entries'
+//    j in shared memory, a window of REV_WINDOW j at a time (the window
+//    walks the cloud), each entry keeping its place among the tile's
+//    entries of its j; then one atomicAdd a (tile, j) on j's count reserves
+//    the tile's places in j's list (integer counts only), and each entry's
+//    place in its list is the tile's base plus its own;
+// 2. knn_rev_scan: per item, the counts' exclusive scan over j, walked in
+//    chunks of 4,096 by one block with a running carry: off[j] .. off[j + 1]
+//    is the list of j;
+// 3. knn_rev_place: each entry (i << 6 | slot) at off[j] plus its place,
+//    no atomics: the lists hold their entries in the atomics' order;
+// 4. knn_rev_rank: a thread a list position counts the entries of its list
+//    below its own (entries are distinct: a row selects j once) and writes
+//    it there, so each list is in increasing i whatever the atomics' order
+//    (L loads a thread for a list of L: about k on a spread cloud, spread
+//    over the list's threads on a hub; n for the k lists of an all-duplicate
+//    cloud);
+// 5. knn_edge_reduce_bwd: a warp takes one j and one slab of 64 channels and
 //    walks j's list, 16 bytes a lane (16 lanes an entry, the two half-warps
 //    entries p and p + 1, added at the end). dmx and dmn are read only where
 //    a lane's 4 channels hold the entry's argmax or argmin slot (one entry in
@@ -30,24 +44,26 @@
 //    channel) and the two slot bytes, not all four cotangent rows; the slabs
 //    of one j go to neighbouring warps, so the blocks in flight cover one or
 //    two items and read from L2.
+// The lists hold the same entries in the same order as any build that keeps
+// each list in increasing i, so du is bit-equal to the earlier tiled build.
 // The lists (a random cloud's neighbours share no order) give a tile nothing
 // to share: the gathers of ds1 and ds2 from L2 bound the backward.
 //
 // Clouds past whole distance rows in shared memory take the forward's
-// chunked kernel (knn::select_chunked, as knn_edge_max does). The backward's
-// list kernels keep n counters (and 64 rows of k indices) in shared memory:
-// fc_knn_edge_reduce_bwd refuses a cloud past the opt-in limit (about 58,000
-// points) before launching, and its scratch grows as (n / 64) n ints an item.
+// chunked kernel (knn::select_chunked, as knn_edge_max does). A launch takes
+// up to 65,535 items (the grid's y); the wrapper walks larger batches, and
+// batches whose scratch passes 2^28 ints, in groups of items.
 //
 // What bounds it on the H100: the forward is knn_edge_max's (the u gathers
 // from L2) plus its five outputs; the backward the L2 gathers above
 // (about 10 bytes a channel per selected entry).
+#include <climits>
+
 #include "knn_select.cuh"
 
 namespace {
 
 constexpr int MAX_COUT = 256;
-constexpr int REV_ROWS = 64;  // rows of a reverse-list tile
 constexpr int SLAB = 64;      // channels one backward warp sums
 
 __device__ __forceinline__ void store8(float* p, const float v[8]) {
@@ -203,107 +219,130 @@ __global__ void __launch_bounds__(knn::THREADS, 2)
       [&](int, int gr, const int* list) { reduce_row(a, item, gr, list); });
 }
 
-// tile_cnt[(item * tiles + t) * n + j] = rows of tile t that selected j.
+constexpr int REV_TILE = 128;     // rows a count block takes
+constexpr int REV_WINDOW = 8192;  // j a count block counts at once (32 KB of shared memory)
+
+// Per tile of REV_TILE rows: pos[e] = the place of entry e among the item's
+// entries of its j (the tile's base in j's list, reserved by one atomicAdd
+// a (tile, j), plus its place among the tile's), cnt[j] the item's count.
 __global__ void __launch_bounds__(256) knn_rev_count_kernel(const int* __restrict__ idx, int n,
-                                                            int k, int tiles,
-                                                            int* __restrict__ tile_cnt) {
-  extern __shared__ int cnt[];  // n
-  const int t = blockIdx.x, item = blockIdx.y;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) cnt[j] = 0;
-  __syncthreads();
-  const int i0 = t * REV_ROWS, rows = min(REV_ROWS, n - i0);
+                                                            int k, int* __restrict__ cnt,
+                                                            int* __restrict__ pos) {
+  __shared__ int local[REV_WINDOW];
+  const int item = blockIdx.y, tid = threadIdx.x;
+  const int i0 = blockIdx.x * REV_TILE, entries = min(REV_TILE, n - i0) * k;
   const int* ii = idx + ((size_t)item * n + i0) * k;
-  // integer counts only: the sums never take an atomic
-  for (int e = threadIdx.x; e < rows * k; e += blockDim.x) atomicAdd(&cnt[ii[e]], 1);
-  __syncthreads();
-  int* out = tile_cnt + ((size_t)item * tiles + t) * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) out[j] = cnt[j];
-}
-
-// Per item: tile_cnt becomes where each (tile, j) starts in the item's rev
-// (the lists of j in tile order, the lists in j order), off[j] .. off[j + 1]
-// the list of j.
-__global__ void __launch_bounds__(1024) knn_rev_scan_kernel(int* __restrict__ tile_cnt, int n,
-                                                            int tiles, int* __restrict__ off) {
-  extern __shared__ int tot[];  // n, then 32 warp sums
-  int* wsum = tot + n;
-  const int item = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int* tc = tile_cnt + (size_t)item * tiles * n;
-  for (int j = tid; j < n; j += blockDim.x) {
-    int run = 0;
-    for (int t = 0; t < tiles; ++t) {
-      const int c = tc[(size_t)t * n + j];
-      tc[(size_t)t * n + j] = run;
-      run += c;
-    }
-    tot[j] = run;
-  }
-  __syncthreads();
-  // exclusive scan of tot: a chunk a thread, then over the threads
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int b = min(n, tid * per), e = min(n, b + per);
-  int sum = 0;
-  for (int j = b; j < e; ++j) sum += tot[j];
-  int incl = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(knn::FULL, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) wsum[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = lane < (int)(blockDim.x >> 5) ? wsum[lane] : 0;
-    int wi = w;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(knn::FULL, wi, o);
-      if (lane >= o) wi += v;
-    }
-    wsum[lane] = wi - w;  // exclusive
-  }
-  __syncthreads();
-  int run = wsum[warp] + incl - sum;
-  for (int j = b; j < e; ++j) {
-    const int c = tot[j];
-    tot[j] = run;
-    run += c;
-  }
-  __syncthreads();
-  int* oi = off + (size_t)item * (n + 1);
-  for (int j = tid; j < n; j += blockDim.x) {
-    const int base = tot[j];
-    oi[j] = base;
-    for (int t = 0; t < tiles; ++t) tc[(size_t)t * n + j] += base;
-  }
-  if (tid == blockDim.x - 1) oi[n] = run;
-}
-
-// Per tile, rows in increasing i: rev[cursor[j]++] = i << 6 | slot. A row's k
-// indices are distinct, so its k threads never share a cursor.
-__global__ void __launch_bounds__(knn::MAX_K) knn_rev_fill_kernel(
-    const int* __restrict__ idx, const int* __restrict__ tile_pos, int n, int k, int tiles,
-    int* __restrict__ rev) {
-  extern __shared__ int fs[];
-  int* cursor = fs;        // n
-  int* staged = fs + n;    // REV_ROWS * k
-  const int t = blockIdx.x, item = blockIdx.y, tid = threadIdx.x;
-  const int i0 = t * REV_ROWS, rows = min(REV_ROWS, n - i0);
-  const int* pos = tile_pos + ((size_t)item * tiles + t) * n;
-  const int* ii = idx + ((size_t)item * n + i0) * k;
-  for (int j = tid; j < n; j += blockDim.x) cursor[j] = pos[j];
-  for (int e = tid; e < rows * k; e += blockDim.x) staged[e] = ii[e];
-  __syncthreads();
-  int* ri = rev + (size_t)item * n * k;
-  for (int r = 0; r < rows; ++r) {
-    if (tid < k) {
-      const int j = staged[r * k + tid];
-      const int p = cursor[j];
-      cursor[j] = p + 1;
-      ri[p] = ((i0 + r) << 6) | tid;
+  int* pi = pos + ((size_t)item * n + i0) * k;
+  int* ci = cnt + (size_t)item * n;
+  for (int w0 = 0; w0 < n; w0 += REV_WINDOW) {
+    const int wn = min(REV_WINDOW, n - w0);
+    for (int j = tid; j < wn; j += blockDim.x) local[j] = 0;
+    __syncthreads();
+    for (int e = tid; e < entries; e += blockDim.x) {
+      const int j = ii[e] - w0;
+      if (j >= 0 && j < wn) pi[e] = atomicAdd(&local[j], 1);
     }
     __syncthreads();
+    for (int j = tid; j < wn; j += blockDim.x) {
+      const int c = local[j];
+      if (c != 0) local[j] = atomicAdd(&ci[w0 + j], c);  // integer counts only
+    }
+    __syncthreads();
+    for (int e = tid; e < entries; e += blockDim.x) {
+      const int j = ii[e] - w0;
+      if (j >= 0 && j < wn) pi[e] += local[j];
+    }
+    __syncthreads();  // local is cleared by the next window
   }
+}
+
+// Per item, one block: off[j] = sum of cnt[j'] over j' < j (off[n] the
+// total), walked in chunks of REV_SCAN_CHUNK with a running carry.
+constexpr int REV_SCAN_THREADS = 1024;
+constexpr int REV_SCAN_CHUNK = 4 * REV_SCAN_THREADS;
+
+__global__ void __launch_bounds__(REV_SCAN_THREADS) knn_rev_scan_kernel(
+    const int* __restrict__ cnt, int n, int* __restrict__ off) {
+  __shared__ int wsum[32];
+  __shared__ int chunk_total;
+  const int item = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* c = cnt + (size_t)item * n;
+  int* o = off + (size_t)item * (n + 1);
+  int carry = 0;
+  for (int base = 0; base < n; base += REV_SCAN_CHUNK) {
+    const int j0 = base + 4 * tid;
+    int v[4], sum = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v[q] = j0 + q < n ? c[j0 + q] : 0;
+      sum += v[q];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(knn::FULL, incl, d);
+      if (lane >= d) incl += t;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int w = wsum[lane];
+      int wi = w;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(knn::FULL, wi, d);
+        if (lane >= d) wi += t;
+      }
+      wsum[lane] = wi - w;  // exclusive
+      if (lane == 31) chunk_total = wi;
+    }
+    __syncthreads();
+    int run = carry + wsum[warp] + incl - sum;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (j0 + q < n) o[j0 + q] = run;
+      run += v[q];
+    }
+    carry += chunk_total;
+    __syncthreads();  // wsum and chunk_total are rewritten by the next chunk
+  }
+  if (tid == 0) o[n] = carry;
+}
+
+// pool[off[j] + pos[e]] = i << 6 | slot for every selected entry e = i k +
+// slot: each list holds its entries, in the atomics' order.
+__global__ void __launch_bounds__(256) knn_rev_place_kernel(const int* __restrict__ idx,
+                                                            const int* __restrict__ pos,
+                                                            const int* __restrict__ off, int n,
+                                                            int k, int* __restrict__ pool) {
+  const int item = blockIdx.y;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n * k) return;
+  const size_t at = (size_t)item * n * k + e;
+  const int i = e / k;
+  pool[(size_t)item * n * k + off[(size_t)item * (n + 1) + idx[at]] + pos[at]] =
+      (i << 6) | (e - i * k);
+}
+
+// A thread a list position p: the entry there goes to off[j] + the number
+// of its list's entries below it, so rev holds each list in increasing i
+// (i << 6 | slot orders as i does: a row selects j once). The threads of a
+// warp mostly share a list, so its loads are broadcasts.
+__global__ void __launch_bounds__(256) knn_rev_rank_kernel(const int* __restrict__ idx,
+                                                           const int* __restrict__ off,
+                                                           const int* __restrict__ pool, int n,
+                                                           int k, int* __restrict__ rev) {
+  const int item = blockIdx.y;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n * k) return;
+  const int* lists = pool + (size_t)item * n * k;
+  const int e = lists[p];
+  const int j = idx[((size_t)item * n + (e >> 6)) * k + (e & 63)];
+  const int* oi = off + (size_t)item * (n + 1);
+  const int p0 = oi[j], p1 = oi[j + 1];
+  int rank = 0;
+  for (int q = p0; q < p1; ++q) rank += lists[q] < e;
+  rev[(size_t)item * n * k + p0 + rank] = e;
 }
 
 __device__ __forceinline__ void load4(const float* p, int valid, bool vec, float v[4]) {
@@ -417,24 +456,15 @@ int launch_fwd_ks(const FwdArgs& a, dim3 grid, cudaStream_t st) {
   return launch_fwd(knn_edge_reduce_fwd_chunked_kernel<KS>, a, grid, st);
 }
 
-// Dynamic shared memory of the backward's list kernels: count (n ints),
-// scan (n + 32), fill (n + REV_ROWS k).
-inline size_t bwd_smem_bytes(int n, int k) {
-  return sizeof(int) * ((size_t)n + (size_t)max(32, REV_ROWS * k));
-}
-
 }  // namespace
 
-// Ints of scratch knn_edge_reduce_bwd needs: the tiles' counts, the list
-// offsets and the lists; -1 past 2^31 - 1.
-FC_API int fc_knn_edge_reduce_bwd_scratch(int n_items, int n, int k) {
-  const long long tiles = (n + REV_ROWS - 1) / REV_ROWS;
-  const long long ints = (long long)n_items * (tiles * n + (n + 1) + (long long)n * k);
+// Ints of scratch knn_edge_reduce_bwd needs an item: the counts, the list
+// offsets, the entries' places (then the ordered lists) and the unordered
+// lists; -1 past 2^31 - 1.
+FC_API int fc_knn_edge_reduce_bwd_scratch(int n, int k) {
+  const long long ints = 2LL * n + 1 + 2LL * n * k;
   return ints > 0x7fffffffLL ? -1 : (int)ints;
 }
-
-// The largest dynamic shared memory of the backward's list kernels.
-FC_API int fc_knn_edge_reduce_bwd_smem(int n, int k) { return (int)bwd_smem_bytes(n, k); }
 
 FC_API int fc_knn_edge_reduce_fwd(const void* x, int ldx, int cq, const void* u, int ldu, int cout,
                                   void* mx, void* mn, void* s1, void* s2, void* amax, void* amin,
@@ -464,31 +494,26 @@ FC_API int fc_knn_edge_reduce_bwd(const void* u, int ldu, int cout, const void* 
                                   const void* amax, const void* amin, const void* idx,
                                   void* scratch, void* du, int n_items, int n, int k,
                                   void* stream) {
-  if (k < 1 || k > knn::MAX_K || k > n || cout > MAX_COUT ||
-      bwd_smem_bytes(n, k) > (size_t)knn::SMEM_OPTIN)
+  // entries i << 6 | slot and an item's n k entries are int32
+  if (k < 1 || k > knn::MAX_K || k > n || cout > MAX_COUT || n_items < 1 || n_items > 65535 ||
+      n >= (1 << 25) || (long long)n * k > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int tiles = (n + REV_ROWS - 1) / REV_ROWS;
-  int* tile_cnt = (int*)scratch;
-  int* off = tile_cnt + (size_t)n_items * tiles * n;
-  int* rev = off + (size_t)n_items * (n + 1);
-  const size_t fill_bytes = sizeof(int) * ((size_t)n + (size_t)REV_ROWS * k);
-  cudaError_t err = cudaFuncSetAttribute(knn_rev_count_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)(sizeof(int) * n));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(knn_rev_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)(sizeof(int) * (n + 32)));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(knn_rev_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)fill_bytes);
+  // scratch: the counts, the list offsets, each entry's place in its list
+  // (then the ordered lists, rev) and the lists in the atomics' order
+  int* cnt = (int*)scratch;
+  int* off = cnt + (size_t)n_items * n;
+  int* pos = off + (size_t)n_items * (n + 1);
+  int* pool = pos + (size_t)n_items * n * k;
+  int* rev = pos;
+  cudaError_t err = cudaMemsetAsync(cnt, 0, sizeof(int) * (size_t)n_items * n, st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 tgrid(tiles, n_items);
-  knn_rev_count_kernel<<<tgrid, 256, sizeof(int) * n, st>>>((const int*)idx, n, k, tiles,
-                                                             tile_cnt);
-  knn_rev_scan_kernel<<<n_items, 1024, sizeof(int) * (n + 32), st>>>(tile_cnt, n, tiles, off);
-  knn_rev_fill_kernel<<<tgrid, knn::MAX_K, fill_bytes, st>>>((const int*)idx, tile_cnt, n, k,
-                                                              tiles, rev);
+  const dim3 egrid((unsigned)(((long long)n * k + 255) / 256), n_items);
+  knn_rev_count_kernel<<<dim3((n + REV_TILE - 1) / REV_TILE, n_items), 256, 0, st>>>(
+      (const int*)idx, n, k, cnt, pos);
+  knn_rev_scan_kernel<<<n_items, REV_SCAN_THREADS, 0, st>>>(cnt, n, off);
+  knn_rev_place_kernel<<<egrid, 256, 0, st>>>((const int*)idx, pos, off, n, k, pool);
+  knn_rev_rank_kernel<<<egrid, 256, 0, st>>>((const int*)idx, off, pool, n, k, rev);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // every row is contiguous (rows, cout): 16-byte chunks when cout % 4 == 0

@@ -656,19 +656,22 @@ class FlowCompareModel(nn.Module):
         else:
             x, ldj = self._augment_fwd(params["augmenter"], aug_eps, x, context, extra_context)
         ldj = ldj.float()
+        # the plain stack under autograd recomputes each layer in the
+        # backward, as the JAX package's scan does
+        remat = torch.is_grad_enabled()
         if kernels:
+            folded = self._folded(params, extra_dim)
             if self.plain:
-                layers = flow_layer_cuda.fused_flow_layers_plain
-            elif training:
-                layers = flow_layer_vjp_cuda.fused_flow_layers_trainable
+                x, ldj = flow_layer_cuda.fused_flow_layers_plain(
+                    x, ldj, context, extra_context, folded, nonlin=self.nonlin_name, remat=remat)
             else:
-                layers = flow_layer_cuda.fused_flow_layers
-            x, ldj = layers(x, ldj, context, extra_context, self._folded(params, extra_dim),
-                            nonlin=self.nonlin_name)
+                layers = (flow_layer_vjp_cuda.fused_flow_layers_trainable if training
+                          else flow_layer_cuda.fused_flow_layers)
+                x, ldj = layers(x, ldj, context, extra_context, folded, nonlin=self.nonlin_name)
         elif self._can_fold_scan():
             x, ldj = flow_layer_cuda.folded_scan_core(
                 x, ldj, context, extra_context, self._folded(params, extra_dim),
-                nonlin=self.nonlin, dtype=self.compute_dtype)
+                nonlin=self.nonlin, dtype=self.compute_dtype, remat=remat)
         else:
             x, ldj = self._layers_unfolded(params, x, ldj, context, extra_context, cif_eps)
         return ldj + standard_normal_logprob(x)

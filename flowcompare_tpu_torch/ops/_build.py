@@ -108,10 +108,11 @@ _SIGNATURES = {
     "fc_knn_edge_reduce_fwd": [_V, _I, _I, _V, _I, _I, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I,
                                _V],
     "fc_knn_edge_reduce_bwd": [_V, _I, _I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _V],
-    "fc_knn_edge_reduce_bwd_scratch": [_I, _I, _I],
-    "fc_knn_edge_reduce_bwd_smem": [_I, _I],
-    "fc_fps_levels": [_V, _I, _I, _I, _I, _I, _I, _I, *[_V] * 8, _V],
+    "fc_knn_edge_reduce_bwd_scratch": [_I, _I],
+    "fc_fps_levels": [_V, _I, _I, _I, _I, _I, _I, _I, *[_V] * 8, _V, _V],
     "fc_fps_levels_smem": [_I] * 6,
+    "fc_fps_levels_spill": [_I] * 6,
+    "fc_fps_levels_threads": [_I] * 6,
     "fc_fps_round_probe": [_I, _V, _V],
     "fc_sa_select": [_I, _I, _I, _V, _V, _V, _V, _V, _V, _V],
     "fc_sa_select_smem": [_I],
@@ -925,6 +926,7 @@ def augment_epilogue(st: torch.Tensor, x: torch.Tensor, eps: torch.Tensor,
 
 
 SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block may opt into on the H100
+GRID_ITEMS = 65535        # items a launch of B6 takes at most (the grid's y)
 
 
 def _knn_pairs(x: torch.Tensor) -> torch.Tensor:
@@ -1000,13 +1002,38 @@ def knn_edge_reduce_fwd(x: torch.Tensor, u: torch.Tensor, mx: torch.Tensor, mn: 
     lib = library()
     if lib.fc_knn_edge_max_smem(n, cq) > SMEM_LIMIT:
         raise ValueError(f"knn_edge_reduce: n={n}, cq={cq} exceed shared memory")
-    f32 = [_contig(t, f"knn_edge_reduce.{nm}", torch.float32, (rows, cout))
-           for t, nm in ((mx, "mx"), (mn, "mn"), (s1, "s1"), (s2, "s2"))]
-    slots = [_contig(t, f"knn_edge_reduce.{nm}", torch.uint8, (rows, cout))
-             for t, nm in ((amax, "amax"), (amin, "amin"))]
-    _check("knn_edge_reduce_fwd", lib.fc_knn_edge_reduce_fwd(
-        x.data_ptr(), ldx, cq, u.data_ptr(), ldu, cout, *f32, *slots,
-        _contig(idx, "knn_edge_reduce.idx", torch.int32, (rows, k)), n_items, n, k, _stream()))
+    for t, nm in ((mx, "mx"), (mn, "mn"), (s1, "s1"), (s2, "s2")):
+        _contig(t, f"knn_edge_reduce.{nm}", torch.float32, (rows, cout))
+    for t, nm in ((amax, "amax"), (amin, "amin")):
+        _contig(t, f"knn_edge_reduce.{nm}", torch.uint8, (rows, cout))
+    _contig(idx, "knn_edge_reduce.idx", torch.int32, (rows, k))
+    for a in range(0, n_items, GRID_ITEMS):   # a launch's items at most
+        b = min(a + GRID_ITEMS, n_items)
+        r = slice(a * n, b * n)
+        _check("knn_edge_reduce_fwd", lib.fc_knn_edge_reduce_fwd(
+            x[r].data_ptr(), ldx, cq, u[r].data_ptr(), ldu, cout,
+            *(t[r].data_ptr() for t in (mx, mn, s1, s2, amax, amin, idx)), b - a, n, k,
+            _stream()))
+
+
+# The scratch ints of one group of items in B6's backward (1 GiB): larger
+# batches run in groups.
+BWD_GROUP_INTS = 1 << 28
+
+
+def knn_bwd_scratch_ints(n: int, k: int) -> int:
+    """Ints of B6's backward scratch an item (`fc_knn_edge_reduce_bwd_scratch`):
+    the counts (n), the list offsets (n + 1), the unordered lists and the
+    ordered ones (n k each)."""
+    return 2 * n + 1 + 2 * n * k
+
+
+def knn_bwd_groups(n_items: int, n: int, k: int) -> list:
+    """B6's backward walks its batch in groups of items: (start, stop) of
+    each, at most GRID_ITEMS items and BWD_GROUP_INTS ints of scratch a group
+    (one item where an item alone takes more)."""
+    per = max(1, min(GRID_ITEMS, BWD_GROUP_INTS // knn_bwd_scratch_ints(n, k)))
+    return [(i, min(i + per, n_items)) for i in range(0, n_items, per)]
 
 
 def knn_edge_reduce_bwd(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.Tensor,
@@ -1014,41 +1041,45 @@ def knn_edge_reduce_bwd(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.Tensor,
                         amin: torch.Tensor, idx: torch.Tensor, du: torch.Tensor, *,
                         n_items: int, k: int) -> None:
     """du (f32, (rows, C)) of `knn_edge_reduce_fwd` from the four cotangents,
-    through per-item reverse neighbour lists built tile by tile across the
-    card (no atomics on the sums; scratch allocated here)."""
-    ldu = _rows(u, "knn_edge_reduce_bwd.u", torch.bfloat16)
+    through per-item reverse neighbour lists (a counting sort by j across the
+    card, each list ordered by i; no atomics on the sums), a group of items
+    (`knn_bwd_groups`) a launch sequence, the scratch allocated here once for
+    the largest group."""
+    _rows(u, "knn_edge_reduce_bwd.u", torch.bfloat16)
     rows, cout = u.shape
     n = rows // n_items
     shape = (rows, cout)
-    cots = [_contig(t, f"knn_edge_reduce_bwd.{nm}", torch.float32, shape)
-            for t, nm in ((dmx, "dmx"), (dmn, "dmn"), (ds1, "ds1"), (ds2, "ds2"))]
-    slots = [_contig(t, f"knn_edge_reduce_bwd.{nm}", torch.uint8, shape)
-             for t, nm in ((amax, "amax"), (amin, "amin"))]
+    for t, nm in ((dmx, "dmx"), (dmn, "dmn"), (ds1, "ds1"), (ds2, "ds2"), (du, "du")):
+        _contig(t, f"knn_edge_reduce_bwd.{nm}", torch.float32, shape)
+    for t, nm in ((amax, "amax"), (amin, "amin")):
+        _contig(t, f"knn_edge_reduce_bwd.{nm}", torch.uint8, shape)
+    _contig(idx, "knn_edge_reduce_bwd.idx", torch.int32, (rows, k))
     if rows % n_items or not 1 <= k <= min(n, 64) or cout > 256:
         raise ValueError(f"knn_edge_reduce_bwd: needs 1 <= k <= min(n, 64) and C <= 256 "
                          f"(k={k}, n={n}, C={cout})")
     lib = library()
-    smem = lib.fc_knn_edge_reduce_bwd_smem(n, k)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"knn_edge_reduce_bwd: n={n}, k={k} need {smem} bytes of shared memory "
-                         f"in the reverse lists' kernels, more than the {SMEM_LIMIT} a block has")
-    # the reverse lists: per tile counts, then offsets, then lists (int32)
-    ints = lib.fc_knn_edge_reduce_bwd_scratch(n_items, n, k)
-    if ints < 0:
-        raise ValueError(f"knn_edge_reduce_bwd: the reverse lists of {n_items} x {n} rows, "
-                         f"k={k} need more than 2^31 - 1 ints of scratch")
-    scratch = torch.empty(ints, dtype=torch.int32, device=u.device)
-    _check("knn_edge_reduce_bwd", lib.fc_knn_edge_reduce_bwd(
-        u.data_ptr(), ldu, cout, *cots, *slots,
-        _contig(idx, "knn_edge_reduce_bwd.idx", torch.int32, (rows, k)), scratch.data_ptr(),
-        _contig(du, "knn_edge_reduce_bwd.du", torch.float32, shape), n_items, n, k, _stream()))
+    per = lib.fc_knn_edge_reduce_bwd_scratch(n, k)
+    if per < 0 or n >= 1 << 25:
+        raise ValueError(f"knn_edge_reduce_bwd: a cloud of n={n} points, k={k} passes the "
+                         f"int32 entries of its reverse lists")
+    groups = knn_bwd_groups(n_items, n, k)
+    scratch = torch.empty(per * max(b - a for a, b in groups), dtype=torch.int32,
+                          device=u.device)
+    for a, b in groups:
+        r = slice(a * n, b * n)
+        _check("knn_edge_reduce_bwd", lib.fc_knn_edge_reduce_bwd(
+            u[r].data_ptr(), u.stride(0), cout, dmx[r].data_ptr(), dmn[r].data_ptr(),
+            ds1[r].data_ptr(), ds2[r].data_ptr(), amax[r].data_ptr(), amin[r].data_ptr(),
+            idx[r].data_ptr(), scratch.data_ptr(), du[r].data_ptr(), b - a, n, k, _stream()))
 
 
 def fps_levels(xyz: torch.Tensor, idx: list, out: list) -> None:
     """Farthest-point sampling of up to four chained levels in one launch:
     idx[l] (B, m_l) int64 the picks of level l among the points of level l's
     cloud (xyz (B, N, 3) f32 at level 0, out[l - 1] after), out[l] (B, m_l,
-    3) f32 their coordinates."""
+    3) f32 their coordinates. Clouds past shared memory take the large
+    clouds' kernel, whose global tier (`fc_fps_levels_spill` points of 16
+    bytes a cloud) is allocated here."""
     if xyz.dim() != 3 or xyz.shape[2] != 3 or not 1 <= len(idx) == len(out) <= 4:
         raise ValueError(f"fps_levels: xyz {tuple(xyz.shape)}, {len(idx)} levels")
     b, n, _ = xyz.shape
@@ -1057,11 +1088,9 @@ def fps_levels(xyz: torch.Tensor, idx: list, out: list) -> None:
         raise ValueError(f"fps_levels: needs n >= 1 and every m >= 1 (n={n}, m={ms})")
     lib = library()
     m4 = ms + [1] * (4 - len(ms))
-    smem = lib.fc_fps_levels_smem(n, len(ms), *m4)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fps_levels: n={n}, m={ms} need {smem} bytes of shared memory, more "
-                         f"than the {SMEM_LIMIT} a block has (the level clouds at 12 bytes a "
-                         f"point, the running minima past 2048 points at 4)")
+    spill = lib.fc_fps_levels_spill(n, len(ms), *m4)
+    scratch = (torch.empty(b * spill * 4, dtype=torch.float32, device=xyz.device)
+               if spill > 0 else None)
     ptrs = [_contig(t, f"fps_levels.idx[{l}]", torch.int64, (b, m)) for l, (t, m) in
             enumerate(zip(idx, ms))]
     ptrs += [None] * (4 - len(ms))
@@ -1070,7 +1099,7 @@ def fps_levels(xyz: torch.Tensor, idx: list, out: list) -> None:
     ptrs += [None] * (4 - len(ms))
     _check("fps_levels", lib.fc_fps_levels(
         _contig(xyz, "fps_levels.xyz", torch.float32, (b, n, 3)), b, n, len(ms), *m4, *ptrs,
-        _stream()))
+        None if scratch is None else scratch.data_ptr(), _stream()))
 
 
 def fps_round_probe(rounds: int, out: torch.Tensor) -> None:

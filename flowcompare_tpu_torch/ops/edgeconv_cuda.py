@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .knn import row_blocks
 
 # Launch counter of the knn_edge_max kernel, bumped at its one launch site
 # (the B3 wrapper and the B4 encoder chain both launch through it).
@@ -24,12 +25,18 @@ EDGE_NEIGHBOR_MAX_LAUNCHES = 0
 def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     """(B, N, Cq) -> int64 (B, N, k): each row's exact kNN by f32 distances
     from bf16 features, nearest first, equal distances in index order (the
-    kernels' selection, in plain PyTorch)."""
+    kernels' selection, in plain PyTorch), the rows sorted a block at a time
+    (`knn.row_blocks`: at most `knn.SORT_BYTES` of sort a block)."""
     xf = x.detach().to(torch.bfloat16).float()
     nrm = (xf * xf).sum(-1)
-    d = (nrm[:, :, None] - 2.0 * torch.matmul(xf, xf.transpose(1, 2))
-         + nrm[:, None, :]).clamp_min(0.0)
-    return torch.sort(d, dim=-1, stable=True).indices[..., :k]
+    b, n, _ = xf.shape
+    parts = []
+    for rows in row_blocks(n, n, b):
+        d = (nrm[:, rows, None] - 2.0 * torch.matmul(xf[:, rows], xf.transpose(1, 2))
+             + nrm[:, None, :]).clamp_min(0.0)
+        # a copy: a view would keep the block's whole (B, rows, N) sort alive
+        parts.append(torch.sort(d, dim=-1, stable=True).indices[..., :k].contiguous())
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
 
 
 # The radix select's digits, from bit 30 down (csrc/knn_select.cuh select_row).

@@ -35,38 +35,56 @@ def edge_knn_reduce_plain(x: torch.Tensor, u: torch.Tensor, k: int):
     return sel.max(2).values, sel.min(2).values, sel.sum(2), (sel * sel).sum(2)
 
 
-# Rows of a reverse-list tile (csrc/knn_edge_reduce.cu REV_ROWS).
-REV_ROWS = 64
+# csrc/knn_edge_reduce.cu: rows of a count block's tile, j it counts at once
+REV_TILE, REV_WINDOW = 128, 8192
 
 
-def reverse_lists_tiled(idx: torch.Tensor, tile: int = REV_ROWS) -> tuple:
-    """The backward's reverse neighbour lists as its three kernels build
-    them, in PyTorch: idx (B, N, k) -> (off (B, N + 1), rev (B, N * k)), the
-    list of j at rev[off[j]:off[j + 1]], entries i << 6 | slot in increasing
-    i. knn_rev_count counts per tile of `tile` rows how many rows selected
-    each j; knn_rev_scan scans those counts over the tiles and the totals
-    over j; knn_rev_fill walks each tile's rows in increasing i and appends
-    at j's cursor (here: an entry's place among its tile's entries of the
-    same j, by a stable sort, which is the order the cursor gives)."""
+def reverse_lists_emulated(idx: torch.Tensor, fill_seed: int = 0) -> tuple:
+    """The backward's reverse neighbour lists as its kernels build them, in
+    PyTorch: idx (B, N, k) -> (off (B, N + 1), rev (B, N * k)), the list of
+    j at rev[off[j]:off[j + 1]], entries i << 6 | slot in increasing i.
+    knn_rev_count: per tile of REV_TILE rows and window of REV_WINDOW j,
+    each entry's place among the tile's entries of its j (the shared-memory
+    atomics' order: random here, from `fill_seed`), then each (tile, j)'s
+    base in j's list from an atomicAdd on j's count (the tiles in a random
+    order); knn_rev_scan: the counts' exclusive scan; knn_rev_place: each
+    entry at off[j] + base + place; knn_rev_rank: each entry at off[j] + its
+    rank among its list's entries. The lists do not depend on the atomics'
+    order."""
     b, n, k = idx.shape
-    idx = idx.long()
-    tiles = -(-n // tile)
-    counts = torch.zeros(b, tiles, n, dtype=torch.long)
-    for t in range(tiles):
-        sub = idx[:, t * tile:(t + 1) * tile].reshape(b, -1)
-        counts[:, t].scatter_add_(1, sub, torch.ones_like(sub))
-    tile_start = counts.cumsum(1) - counts
-    off = torch.cat([torch.zeros(b, 1, dtype=torch.long), counts.sum(1).cumsum(1)], 1)
-    pos = tile_start + off[:, None, :n]
-    entry = (torch.arange(n)[:, None] << 6 | torch.arange(k)[None, :]).expand(b, n, k)
+    idx = idx.long().reshape(b, n * k)
+    gen = torch.Generator().manual_seed(fill_seed)
+    entry = (torch.arange(n)[:, None] << 6 | torch.arange(k)[None, :]).reshape(-1)
+    tile_of = torch.arange(n * k) // k // REV_TILE
+    tiles = -(-n // REV_TILE)
+    off = torch.zeros(b, n + 1, dtype=torch.long)
     rev = torch.empty(b, n * k, dtype=torch.long)
-    for t in range(tiles):
-        sub = idx[:, t * tile:(t + 1) * tile].reshape(b, -1)
-        order = torch.argsort(sub, dim=1, stable=True)
-        sj = sub.gather(1, order)
-        rank = torch.arange(sj.shape[1]) - torch.searchsorted(sj, sj, right=False)
-        dest = pos[:, t].gather(1, sj) + rank
-        rev.scatter_(1, dest, entry[:, t * tile:(t + 1) * tile].reshape(b, -1).gather(1, order))
+    for bi in range(b):
+        js = idx[bi]
+        pos = torch.empty(n * k, dtype=torch.long)
+        count = torch.zeros(n, dtype=torch.long)
+        # the count: tiles reserve their places in each j's list in the
+        # atomics' order (a random order of tiles); a window at a time
+        for t in torch.randperm(tiles, generator=gen).tolist():
+            for w0 in range(0, n, REV_WINDOW):
+                mine = ((tile_of == t) & (js >= w0) & (js < w0 + REV_WINDOW)).nonzero()[:, 0]
+                mine = mine[torch.randperm(len(mine), generator=gen)]   # smem atomics' order
+                sj = js[mine]
+                by_j = torch.argsort(sj, stable=True)
+                ranked = sj[by_j]
+                place = torch.arange(len(mine)) - torch.searchsorted(ranked, ranked)
+                pos[mine[by_j]] = count[ranked] + place
+                count += torch.bincount(sj, minlength=n)
+        off[bi, 1:] = count.cumsum(0)
+        pool = torch.empty(n * k, dtype=torch.long)
+        pool[off[bi, js] + pos] = entry                          # the place kernel
+        owner = js[(pool >> 6) * k + (pool & 63)]                # the rank kernel
+        rank = torch.zeros(n * k, dtype=torch.long)
+        for q in range(int(count.max())):
+            other = off[bi, owner] + q
+            live = other < off[bi, owner + 1]
+            rank += live & (pool[other.clamp_max(n * k - 1)] < pool)
+        rev[bi, off[bi, owner] + rank] = pool
     return off, rev
 
 
@@ -81,7 +99,7 @@ def edge_knn_reduce_bwd_emulated(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.
     slot], then the two halves added. The kernel fuses ds1 + 2 u ds2 into
     one multiply-add; here it rounds twice. u is read at bf16 precision.
     All tensors (B, N, C) but off (B, N + 1) and rev (B, N * k) from
-    `reverse_lists_tiled`."""
+    `reverse_lists_emulated`."""
     b, n, c = ds1.shape
     length = off[:, 1:] - off[:, :-1]                                # (B, N)
     longest = int(length.max())
@@ -99,6 +117,22 @@ def edge_knn_reduce_bwd_emulated(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.
         g = g + torch.where(amin[sel].long() == slot[:, :, pos, None], dmn[sel], 0.0)
         acc[pos % 2] = torch.where(live[:, :, pos, None], acc[pos % 2] + g, acc[pos % 2])
     return acc[0] + acc[1]
+
+
+def edge_knn_reduce_bwd_by_groups(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.Tensor,
+                                  ds1: torch.Tensor, ds2: torch.Tensor, amax: torch.Tensor,
+                                  amin: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """du (B, N, C) as `_build.knn_edge_reduce_bwd` computes it, in PyTorch:
+    the items in its groups (`_build.knn_bwd_groups`), each group's lists
+    (`reverse_lists_emulated`) and sums (`edge_knn_reduce_bwd_emulated`)."""
+    b, n, k = idx.shape
+    du = torch.empty(ds1.shape)
+    for seed, (lo, hi) in enumerate(_build.knn_bwd_groups(b, n, k)):
+        r = slice(lo, hi)
+        off, rev = reverse_lists_emulated(idx[r], fill_seed=seed)
+        du[r] = edge_knn_reduce_bwd_emulated(u[r], dmx[r], dmn[r], ds1[r], ds2[r], amax[r],
+                                             amin[r], off, rev)
+    return du
 
 
 def du_scale(idx: torch.Tensor, u: torch.Tensor, cots) -> torch.Tensor:
@@ -167,11 +201,11 @@ def edge_knn_reduce(x: torch.Tensor, u: torch.Tensor, k: int):
     threshold, ties in index order; the rows walked in chunks past 3,200
     points) and writes mx, mn, s1, s2, the first
     max/min slots and the selected indices; the backward builds per-item
-    reverse neighbour lists across the card (counts per 64-row tile, a scan,
-    a fill that keeps each list in increasing i: `reverse_lists_tiled`) and
-    sums each u row's gradient over its list in a fixed order
-    (`edge_knn_reduce_bwd_emulated`), with no atomics on the sums, so it is
-    deterministic.
+    reverse neighbour lists across the card (a counting sort by j with
+    integer atomics on the counts, each list then ordered by i:
+    `reverse_lists_emulated`) and sums each u row's gradient over its list
+    in a fixed order (`edge_knn_reduce_bwd_emulated`), with no atomics on
+    the sums, so it is deterministic.
 
     What bounds it on the H100: the forward, like B3, by the gathers of u
     from L2, plus its five outputs; the backward by the gathers of the
@@ -179,8 +213,10 @@ def edge_knn_reduce(x: torch.Tensor, u: torch.Tensor, k: int):
     lists share no tile) and their slot bytes; dmx and dmn are read only
     where a slot matches. The TPU kernel's (B, N, N) rank matrix is not
     kept: the saved state is the (B, N, k) indices and two byte-wide slot
-    maps. The lists' kernels hold n counters in shared memory: clouds past
-    about 58,000 points raise (`routes.knn_bwd_smem_bytes`)."""
+    maps. The lists take 2 n + 1 + 2 n k ints of scratch an item and no
+    shared memory that grows with n, so any cloud and batch run; the batch
+    runs in groups of items (`_build.knn_bwd_groups`:
+    `edge_knn_reduce_bwd_by_groups`)."""
     if not x.is_cuda:
         return edge_knn_reduce_plain(x, u, k)
     return _EdgeKnnReduce.apply(x, u, k)

@@ -39,6 +39,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..core.initializers import matmul_f32
 from ..core.mlp import gelu
@@ -297,26 +298,39 @@ def _layer(folded: dict, l: int) -> dict:
 
 def folded_scan_core(x: torch.Tensor, ldj: torch.Tensor, context: torch.Tensor,
                      extra: Optional[torch.Tensor], folded: dict, *,
-                     nonlin: Callable, dtype=None, eps_affine: float = 1e-8):
+                     nonlin: Callable, dtype=None, eps_affine: float = 1e-8,
+                     remat: bool = False):
     """The folded layer stack as a loop over layers: the spec of B1.
 
     x (B, N, LAT) f32, ldj (B, N) f32, context (B, Nc, E) (without attention
     the broadcast embedding (B, N, E)), extra (B, N, e) or None.
     dtype=torch.bfloat16 is the kernels' precision policy (bf16 matmul
     operands with f32 accumulation; LayerNorm and softmax statistics, the x
-    carry and ldj in f32); dtype=None is float32 throughout."""
+    carry and ldj in f32); dtype=None is float32 throughout. remat=True
+    recomputes each layer in the backward instead of keeping its
+    activations, as the JAX package's scan does (`remat=True`): a layer's
+    attention keeps B x N x Nc f32 scores, 470 MB at B=2 over 57,344
+    context points."""
     split = x.shape[-1] // 2
     h, acc = x.float(), ldj.float()
     ctx_c = _cast(context, dtype)
     extra_c = _cast(extra, dtype) if extra is not None else None
-    for l in range(folded["lu_ldj_f"].shape[0]):
-        st = _layer(folded, l)
+
+    def step(st, h):
         x1, x2 = h[..., :split], h[..., split:]
         sc, t = _coupling_scale_shift(st, _cast(x1, dtype), extra_c, ctx_c, folded["n_cpl"],
                                       nonlin, dtype, eps_affine)
-        acc = acc + torch.log(sc).sum(-1) + st["lu_ldj_f"]
         y = torch.cat([x1, x2 * sc + t], -1)
         h = matmul_f32(_cast(y, dtype), _cast(st["lu_w_f"], dtype).T) + st["lu_b"][0].float()
+        return h, torch.log(sc).sum(-1)
+
+    for l in range(folded["lu_ldj_f"].shape[0]):
+        st = _layer(folded, l)
+        if remat:
+            h, log_sc = torch.utils.checkpoint.checkpoint(step, st, h, use_reentrant=False)
+        else:
+            h, log_sc = step(st, h)
+        acc = acc + log_sc + st["lu_ldj_f"]
     return h, acc
 
 
@@ -378,13 +392,14 @@ def layer_slice(folded: dict, l: int) -> dict:
 
 
 def fused_flow_layers_plain(x, ldj, context, extra, folded, *, eps_affine: float = 1e-8,
-                            save: bool = False, nonlin: str = "GELU"):
-    """Plain version of B1: `folded_scan_core` under the bf16 policy. With
-    save=True also the (L, B*N, LAT) bf16 entry carry of every layer."""
+                            save: bool = False, nonlin: str = "GELU", remat: bool = False):
+    """Plain version of B1: `folded_scan_core` under the bf16 policy (remat:
+    each layer recomputed in the backward). With save=True also the (L,
+    B*N, LAT) bf16 entry carry of every layer."""
     require_gelu(nonlin)
     if not save:
         return folded_scan_core(x, ldj, context, extra, folded, nonlin=gelu,
-                                dtype=torch.bfloat16, eps_affine=eps_affine)
+                                dtype=torch.bfloat16, eps_affine=eps_affine, remat=remat)
     b, n, lat = x.shape
     saves = []
     for l in range(folded["lu_ldj_f"].shape[0]):

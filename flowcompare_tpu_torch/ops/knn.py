@@ -12,6 +12,7 @@ are TPU workarounds, and torch autograd's gather backward takes their place.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -27,19 +28,38 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return xx - 2.0 * inner + yy
 
 
+# Bytes of (distance, sorted distance, int64 index) entries a plain kNN
+# sort holds at once: larger problems sort query rows a block at a time.
+SORT_BYTES = 2 ** 30
+
+
+def row_blocks(rows: int, cols: int, batch: int) -> list:
+    """Slices of `rows` query rows whose (batch, rows, cols) sort takes at
+    most SORT_BYTES (16 bytes an entry): one slice for every shape the tests
+    run, several for clouds of tens of thousands of points."""
+    step = max(1, SORT_BYTES // (16 * max(1, batch) * max(1, cols)))
+    return [slice(r, min(r + step, rows)) for r in range(0, rows, step)]
+
+
 def knn_indices(query: torch.Tensor, points: torch.Tensor, k: int,
                 self_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """query (..., M, D), points (..., N, D) -> int64 (..., M, k): the k
     nearest points of each query, nearest first, equal distances in index
     order. `self_idx` (..., M) is each query's own index among the points
     (FPS centres): it pins slot 0 to the centre whatever its rounded
-    distance. When k > N the tail is padded with index 0."""
+    distance. When k > N the tail is padded with index 0. Query rows are
+    sorted a block at a time (`row_blocks`)."""
     n = points.shape[-2]
-    d = pairwise_sqdist(query, points)
-    if self_idx is not None:
-        is_self = torch.arange(n, device=d.device) == self_idx[..., None]
-        d = torch.where(is_self, float("-inf"), d)
-    idx = torch.sort(d, dim=-1, stable=True).indices[..., :min(k, n)]
+    batch = math.prod(query.shape[:-2])
+    parts = []
+    for rows in row_blocks(query.shape[-2], n, batch):
+        d = pairwise_sqdist(query[..., rows, :], points)
+        if self_idx is not None:
+            is_self = torch.arange(n, device=d.device) == self_idx[..., rows, None]
+            d = torch.where(is_self, float("-inf"), d)
+        # a copy: a view would keep the block's whole sort alive
+        parts.append(torch.sort(d, dim=-1, stable=True).indices[..., :min(k, n)].contiguous())
+    idx = parts[0] if len(parts) == 1 else torch.cat(parts, -2)
     if k > n:
         idx = torch.cat([idx, idx.new_zeros(idx.shape[:-1] + (k - n,))], -1)
     return idx

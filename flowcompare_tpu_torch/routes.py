@@ -7,12 +7,13 @@ B2, B5 and B7 takes the head widths D = heads * dim_head in ATTENTION_DS
 widths up to 512 and 3 to 10 products a launch; B3 and B6 take k <=
 min(n, 64) neighbours of at most 256 channels, on clouds of any size (16
 distance rows of the cloud in shared memory up to 3,200 points, walked in
-chunks past it), and B6's backward clouds whose reverse lists' counters fit
-shared memory (about 58,000 points); B8 holds its clouds in shared memory
-(up to 12,662 points over PAConv's four levels), B9 takes any cloud (in
-shared memory up to 4,458 points, read from L2 past it). A configuration
-outside them runs, part by part, the path the JAX package takes off the
-TPU, and the other parts stay on their kernels:
+chunks past it) and batches of any size (B6's backward builds its reverse
+lists in scratch linear in the rows, a group of items at a time); B8 takes
+any cloud (its level clouds in shared memory up to 12,662 points over
+PAConv's four levels, past it in registers, a shared tier and L2), and B9
+too (in shared memory up to 4,458 points, read from L2 past it). A
+configuration outside them runs, part by part, the path the JAX package
+takes off the TPU, and the other parts stay on their kernels:
 
 * "stack" (B1, B5, B7): `flow_layer_cuda.folded_scan_core` for eval and
   training, the unfolded reverse for sampling;
@@ -21,14 +22,12 @@ TPU, and the other parts stay on their kernels:
   B3, B6), or PAConv's plain FPS and kNN grouping (B8, B9).
 
 `model_routes(config)` gives each part "kernels" or "plain: <reason>". It
-needs no CUDA device and no compiled library: the shared-memory sizes are
-Python mirrors of the library's own formulas (`knn_smem_bytes`,
-`knn_bwd_smem_bytes`, `fps_levels_smem`, `sa_select_smem`,
-`sa_gather_smem`), which a card test holds equal to
-`fc_knn_edge_max_smem`, `fc_knn_edge_reduce_bwd_smem`,
-`fc_fps_levels_smem`, `fc_sa_select_smem` and `fc_sa_gather_smem`. The
-kernels keep their own checks: a shape these gates let through and a
-kernel refuses still raises.
+needs no CUDA device and no compiled library, and reads no batch size:
+the shared-memory sizes are Python mirrors of the library's own formulas
+(`knn_smem_bytes`, `sa_select_smem`, `sa_gather_smem`), which a card test
+holds equal to `fc_knn_edge_max_smem`, `fc_sa_select_smem` and
+`fc_sa_gather_smem`. The kernels keep their own checks: a shape these
+gates let through and a kernel refuses still raises.
 
 The routes are the shapes' verdict only. The compute dtype and the
 nonlinearity are the model's policy on top of them (bf16 and GELU for B1,
@@ -47,35 +46,12 @@ from .ops.sa_group_cuda import sa_select_smem
 
 KNN_MAX_K, KNN_MAX_C = 64, 256   # B3 / B6 / B9: neighbours, and B3 / B6 channels
 
-# csrc/knn_edge_reduce.cu: rows of a reverse-list tile
-_REV_ROWS = 64
 # csrc/sa_group.cu: gather warps, elements of a gather tile
 _GA_WARPS, _GA_TILE = 4, 2048
-# csrc/fps.cu: warps a block, points a block holds in registers
-_FPS_NW, _FPS_POINTS = 4, 2048
 
 
 def _up(n: int, m: int) -> int:
     return -(-n // m) * m
-
-
-def knn_bwd_smem_bytes(n: int, k: int) -> int:
-    """B6's backward: the largest of its reverse lists' kernels' shared
-    memory (knn_edge_reduce.cu `bwd_smem_bytes`), n counters and 64 rows of
-    k indices."""
-    return 4 * (n + max(32, _REV_ROWS * k))
-
-
-def fps_levels_smem(n: int, ms) -> int:
-    """B8's shared memory for one launch over the levels ms of an n-point
-    cloud (fps.cu `plan`): the two alternating level clouds at 12 bytes a
-    point, the running minima past 2,048 points at 4, and the warps' keys."""
-    size, spill, pts = [1, 1], 0, n
-    for l, m in enumerate(ms):
-        size[l & 1] = max(size[l & 1], pts)
-        spill = max(spill, pts - _FPS_POINTS)
-        pts = m
-    return 8 * 2 * _FPS_NW + 4 * (3 * (size[0] + size[1]) + spill)
 
 
 def sa_gather_smem(c: int, k: int, esize: int) -> int:
@@ -183,10 +159,6 @@ def _dgcnn_route(c: dict) -> str:
     if smem > SMEM_LIMIT:
         return (f"plain: clouds of {n} points need {smem} bytes of shared memory in B3 and B6 "
                 f"(more than {SMEM_LIMIT})")
-    smem = knn_bwd_smem_bytes(n, k)
-    if smem > SMEM_LIMIT:
-        return (f"plain: clouds of {n} points need {smem} bytes of shared memory in B6's "
-                f"reverse lists (more than {SMEM_LIMIT})")
     head = None if c["global"] else _mlp_shapes(512, c["hidden_dims_embedder_out"],
                                                 c["input_embedding_dim"])
     try:
@@ -200,11 +172,10 @@ def _paconv_route(c: dict) -> str:
     n = c["n_samples_context"]
     if NSAMPLE > KNN_MAX_K:
         return f"plain: PAConv's k = {NSAMPLE} (B9 takes k <= {KNN_MAX_K})"
-    ms = [n // 4 ** (i + 1) for i in range(4)]
-    for what, smem in (("B8", fps_levels_smem(n, ms)), ("B9's selection", sa_select_smem(n))):
-        if smem > SMEM_LIMIT:
-            return (f"plain: clouds of {n} points need {smem} bytes of shared memory in {what} "
-                    f"(more than {SMEM_LIMIT})")
+    smem = sa_select_smem(n)
+    if smem > SMEM_LIMIT:
+        return (f"plain: clouds of {n} points need {smem} bytes of shared memory in B9's "
+                f"selection (more than {SMEM_LIMIT})")
     esize = 2 if c.get("compute_dtype") == "bfloat16" else 4
     widths = [spec[0] for spec in SA_MLPS(c["input_dim"] - 3)]
     smem = max(sa_gather_smem(w, NSAMPLE, esize) for w in widths)

@@ -20,13 +20,25 @@ points span three to five chunks here. Held, on numpy clouds from a seed:
   package's `edge_neighbor_max` / `edge_knn_reduce` in interpret mode;
 - `sa_select_emulated` on the recomputing path against `sa_select_plain`
   and `sa_group_fused` in interpret mode, and past 4,458 points;
+- B6's backward on any cloud and batch: its reverse lists (a counting sort
+  by j, each list then ordered by i: `reverse_lists_emulated`) walked in
+  groups of items (`_build.knn_bwd_groups`, shrunk through `monkeypatch`
+  so a batch of five spans three groups), du against the plain gradient
+  and the Pallas backward in interpret mode; every group's scratch inside
+  int32 at the batches that overflowed it before;
+- B8 past 12,662 points (the large clouds' kernel, `fps_cuda.fps_plan`):
+  with its threads, register counts and shared memory shrunk through
+  `monkeypatch`, a few hundred points span its registers, shared tier and
+  global tier, and `fps_levels_emulated` is index-equal to the plain chain,
+  to `furthest_point_sampling` and to `fps_pallas` in interpret mode;
 - the tiny bf16 dulcet-universe (200 context points: four chunks of 64)
   and good-surf with the emulations in place of the kernels' selection,
   against the JAX package's `inner_loop` (log-probs rtol 2e-2 / atol 1.0,
   nats within 1e-2: the bf16 bounds of tests/test_torch_port_slice.py).
 
 tests/test_torch_port_cuda.py holds the kernels themselves to their plain
-versions on the card at 4,096, 8,192 and 16,384 points.
+versions on the card at 4,096, 8,192 and 16,384 points, B8 at 16,384 and
+65,536 and B6's backward at 57,344 points and past one group of items.
 """
 
 import copy
@@ -42,10 +54,12 @@ import jax.numpy as jnp
 import flowcompare_tpu_torch as ft
 from flowcompare_tpu.model import inner_loop as jax_inner_loop
 from flowcompare_tpu.ops import edgeconv_pallas as jep
+from flowcompare_tpu.ops import fps as jfps
 from flowcompare_tpu.ops.edgeconv_vjp_pallas import edge_knn_reduce as j_edge_knn_reduce
+from flowcompare_tpu.ops.fps_pallas import fps_pallas
 from flowcompare_tpu.ops.sa_group_pallas import sa_group_fused
 from flowcompare_tpu_torch.encoders import paconv
-from flowcompare_tpu_torch.ops import edgeconv_cuda as ec, edgeconv_vjp_cuda as ev
+from flowcompare_tpu_torch.ops import _build, edgeconv_cuda as ec, edgeconv_vjp_cuda as ev
 from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda as sg
 from test_torch_port_knn_select import cloud
 from torch_port_fixtures import (N_POINTS, PACONV_CONTEXT, model_pair, n, normal, paconv_pair,
@@ -214,6 +228,136 @@ def test_du_scale_bounds_the_plain_gradient():
             np.testing.assert_allclose(n(du), n(scale), rtol=1e-5, atol=1e-5)
 
 
+# ----------------------------------------------------- B6's backward, B8
+
+@pytest.mark.parametrize("n_items,nn,k", [(44, 55000, 40), (442, 16384, 40), (20, 57344, 40),
+                                          (70000, 50, 40), (1, 1 << 22, 64)])
+def test_knn_bwd_groups_keep_the_scratch_in_int32(n_items, nn, k):
+    """The batches whose reverse lists passed 2^31 - 1 ints of scratch (44
+    items of 55,000 points, 442 of 16,384) and more run in groups of items,
+    in order, each within GRID_ITEMS items and 2^31 - 1 ints; an item whose
+    scratch alone passes the group's budget is a group of its own."""
+    groups = _build.knn_bwd_groups(n_items, nn, k)
+    assert groups[0][0] == 0 and groups[-1][1] == n_items
+    assert all(a[1] == b[0] for a, b in zip(groups, groups[1:]))
+    per = _build.knn_bwd_scratch_ints(nn, k)
+    for lo, hi in groups:
+        assert 1 <= hi - lo <= _build.GRID_ITEMS
+        assert (hi - lo) * per <= max(_build.BWD_GROUP_INTS, per) < 2 ** 31
+
+
+def _b6_backward_case(kind: str, nn: int, b: int, c: int, k: int, seed: int):
+    x = t(np.concatenate([clouds(kind, nn, 6, seed=seed + i) for i in range(3)])[:b])
+    rng = np.random.default_rng(seed + 1)
+    u = t(rng.normal(size=(b, nn, c)).astype(np.float32)).bfloat16().float()  # as B6 reads it
+    # bf16-exact cotangents: the Pallas backward casts them to bf16 for its MXU sums
+    cots = [t(rng.normal(size=(b, nn, c)).astype(np.float32)).bfloat16().float()
+            for _ in range(4)]
+    return x.bfloat16(), u, cots
+
+
+@pytest.mark.parametrize("kind,nn,k", [("straddle", 300, 40), ("duplicates", 250, 8),
+                                       ("equal", 120, 16)])
+def test_b6_backward_in_groups_matches_plain_and_pallas(monkeypatch, kind, nn, k):
+    """B6's backward as the wrapper runs it, with the group budget shrunk to
+    two items' scratch: five items in three groups, each group's lists
+    built by the counting sort (the fill in a random order) and ordered by
+    i, du summed as the kernel sums it; against autograd of
+    `edge_knn_reduce_plain` and the Pallas backward in interpret mode, to
+    1e-5 relative (f32 sums in another order; bf16-exact cotangents, which
+    the Pallas kernel reads at bf16)."""
+    b, c = 5, 24
+    monkeypatch.setattr(_build, "BWD_GROUP_INTS", 2 * _build.knn_bwd_scratch_ints(nn, k) + 1)
+    assert _build.knn_bwd_groups(b, nn, k) == [(0, 2), (2, 4), (4, 5)]
+    x, u, cots = _b6_backward_case(kind, nn, b, c, k, seed=nn + k)
+    uu = u.clone().requires_grad_()
+    torch.autograd.backward(ev.edge_knn_reduce_plain(x, uu, k), cots)
+    idx = ec.knn_indices(x, k).sort(-1).values
+    sel = torch.stack([u[i][idx[i]] for i in range(b)])
+    amax, amin = sel.argmax(2).to(torch.uint8), sel.argmin(2).to(torch.uint8)
+    got = ev.edge_knn_reduce_bwd_by_groups(u, *cots, amax, amin, idx)
+    np.testing.assert_allclose(n(got), n(uu.grad), rtol=1e-5, atol=1e-5)
+    _, vjp = jax.vjp(lambda v: j_edge_knn_reduce(jnp.asarray(n(x.float()), jnp.bfloat16), v, k,
+                                                 interpret=True), jnp.asarray(n(u)))
+    (ref,) = vjp(tuple(jnp.asarray(n(g)) for g in cots))
+    np.testing.assert_allclose(n(got), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("fill_seed", [0, 1, 2])
+@pytest.mark.parametrize("tile,window", [(128, 8192), (16, 32)], ids=["kernel", "shrunk"])
+def test_reverse_lists_do_not_depend_on_the_fill_order(monkeypatch, fill_seed, tile, window):
+    """The count's atomics give each entry a place in its list in any order;
+    ranking each list gives the same lists, each in increasing i, as the
+    sequential construction the kernels replaced: an all-equal cloud (k
+    lists of every row) and a duplicated one, with the count's tiles and
+    windows as built and shrunk (150 points: ten tiles of 16 rows, five
+    windows of 32 j)."""
+    monkeypatch.setattr(ev, "REV_TILE", tile)
+    monkeypatch.setattr(ev, "REV_WINDOW", window)
+    for kind in ("equal", "duplicates"):
+        x = t(clouds(kind, 150, 6, seed=5)).bfloat16()
+        idx = ec.knn_indices(x, 12).sort(-1).values
+        off, rev = ev.reverse_lists_emulated(idx, fill_seed)
+        for bi in range(2):
+            for j in range(150):
+                lst = rev[bi, off[bi, j]:off[bi, j + 1]]
+                assert bool((lst[1:] > lst[:-1]).all())
+                assert torch.equal(lst >> 6, (idx[bi] == j).any(-1).nonzero()[:, 0])
+
+
+def test_fps_plan_from_the_shapes():
+    """The small kernel and its launch up to 12,662 points over PAConv's levels
+    (the presets' 1,250 included); the large clouds' kernel past it, all on
+    chip at 16,384 points, a global tier at 65,536."""
+    levels = lambda nn: [nn // 4 ** (i + 1) for i in range(4)]  # noqa: E731
+    for nn in (1250, 8192, 12662):
+        plan = fps_cuda.fps_plan(nn, levels(nn))
+        assert plan["kernel"] == "small" and plan["threads"] == 128 and plan["spill"] == 0
+        assert plan["smem"] <= _build.SMEM_LIMIT
+    for nn, spilled in ((12663, False), (16384, False), (65536, True)):
+        plan = fps_cuda.fps_plan(nn, levels(nn))
+        assert plan["kernel"] == "big" and plan["threads"] == 512
+        assert plan["smem"] <= _build.SMEM_LIMIT and (plan["spill"] > 0) == spilled
+
+
+def _shrink_fps(monkeypatch):
+    """The large clouds' kernel at 64 threads, two points a thread in
+    registers and a shared tier of 128 points: 600 points take all three
+    tiers."""
+    monkeypatch.setattr(fps_cuda, "FPS_BIG_THREADS", 64)
+    monkeypatch.setattr(fps_cuda, "FPS_BIG_PERS", (1, 2))
+    monkeypatch.setattr(_build, "SMEM_LIMIT", fps_cuda._big_slots() + 16 * 128)
+
+
+@pytest.mark.parametrize("kind", ["random", "duplicated", "grid", "equal"])
+def test_fps_large_cloud_kernel_matches_plain_and_jax(monkeypatch, kind):
+    """The large clouds' kernel, shrunk: level 0 of 600 points in registers
+    (128), the shared tier (128) and the global one (344), the winning
+    warp's kept coordinates as the next centre; every level's picks and
+    coordinates equal to the plain chain's, and level by level to the JAX
+    package's `furthest_point_sampling` and `fps_pallas` (interpret)."""
+    _shrink_fps(monkeypatch)
+    nn = 600
+    ms = [nn // 4 ** (i + 1) for i in range(4)]
+    plan = fps_cuda.fps_plan(nn, ms)
+    assert plan["kernel"] == "big" and plan["spill"] == nn - 256
+    assert plan["levels"][0] == (2, 256)
+    x = _sa_cloud(kind, nn, 53) if kind != "equal" else np.ones((2, nn, 3), np.float32)
+    idx, out, parities = fps_cuda.fps_levels_emulated(t(x), ms)
+    ref_idx, ref_out = fps_cuda.furthest_point_sampling_levels_plain(t(x), ms)
+    for level in range(4):
+        assert torch.equal(idx[level], ref_idx[level]), level
+        assert torch.equal(out[level], ref_out[level]), level
+    assert parities == [i % 2 for i in range(sum(m - 1 for m in ms))]
+    cloud = jnp.asarray(x)
+    for level, m in enumerate(ms):
+        ref = jfps.furthest_point_sampling(cloud, m)
+        np.testing.assert_array_equal(idx[level].numpy(), np.asarray(ref))
+        np.testing.assert_array_equal(idx[level].numpy(),
+                                      np.asarray(fps_pallas(cloud, m, interpret=True)))
+        cloud = jnp.take_along_axis(cloud, ref[..., None].astype(jnp.int32), 1)
+
+
 # ------------------------------------------------------------------ B9
 
 def _sa_chain(x: np.ndarray) -> list:
@@ -317,7 +461,7 @@ def test_dulcet_on_the_chunked_selection_matches_jax(dulcet_pair, monkeypatch, c
     assert len(calls) == 4 and all(s[1] == N_CONTEXT_LARGE for s in calls)
 
 
-def test_good_surf_on_the_recomputing_selection_matches_jax(monkeypatch):
+def _good_surf_on_emulations(monkeypatch):
     """The tiny bf16 good-surf with B8's levels, B9's selection on the path
     that reads the cloud from global memory and B9's gathers replaced by
     their kernels' emulations: `inner_loop` against the JAX package's."""
@@ -342,3 +486,22 @@ def test_good_surf_on_the_recomputing_selection_matches_jax(monkeypatch):
     cfg, jm, jp, js, pm = paconv_pair("good-surf", "bfloat16")
     _check_inner_loop(cfg, jm, jp, js, pm, PACONV_CONTEXT, 52)
     assert calls == {"fps": 1, "select": 1, "gather": 4}
+
+
+def test_good_surf_on_the_recomputing_selection_matches_jax(monkeypatch):
+    """`_good_surf_on_emulations` with B8's small kernel."""
+    plan = fps_cuda.fps_plan(PACONV_CONTEXT, [PACONV_CONTEXT // 4 ** (i + 1) for i in range(4)])
+    assert plan["kernel"] == "small"
+    _good_surf_on_emulations(monkeypatch)
+
+
+def test_good_surf_on_the_large_cloud_fps_matches_jax(monkeypatch):
+    """`_good_surf_on_emulations` with B8's large clouds' kernel, shrunk (32
+    threads, one point a thread in registers, a shared tier of 32) so the
+    256-point context spans registers, the shared tier and the global one."""
+    monkeypatch.setattr(fps_cuda, "FPS_BIG_THREADS", 32)
+    monkeypatch.setattr(fps_cuda, "FPS_BIG_PERS", (1,))
+    monkeypatch.setattr(_build, "SMEM_LIMIT", fps_cuda._big_slots() + 16 * 32)
+    plan = fps_cuda.fps_plan(PACONV_CONTEXT, [PACONV_CONTEXT // 4 ** (i + 1) for i in range(4)])
+    assert plan["kernel"] == "big" and plan["spill"] > 0, plan
+    _good_surf_on_emulations(monkeypatch)

@@ -465,19 +465,69 @@ def test_knn_chunk_walk_on_crowded_clouds(dev, kind):
         assert torch.equal(ref_idx, torch.arange(MAIN_K, device=dev).expand(3, n, MAIN_K))
 
 
+def _b6_grads(fn, x, u, cots, k):
+    """B6's four outputs and du (through autograd) of fn at u."""
+    u = u.detach().clone().requires_grad_()
+    outs = fn(x, u, k)
+    torch.autograd.backward(outs, list(cots))
+    return [o.detach() for o in outs] + [u.grad]
+
+
+def _b6_held(got, ref, ref_idx, u, cots):
+    """B6 against plain, item for item: mx / mn bit-equal, s1 / s2 within
+    1e-4 (1 + |ref|), du within that plus 1e-6 of its terms' magnitudes
+    (`du_scale`)."""
+    from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda as ev
+    for a, b in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(got[2:4], ref[2:4]):
+        assert float(((a - b).abs() / (1 + b.abs())).max()) <= 1e-4
+    scale = ev.du_scale(ref_idx, u, cots)
+    assert bool(((got[4] - ref[4]).abs() <= 1e-4 * (1 + ref[4].abs()) + 1e-6 * scale).all())
+
+
 @pytest.mark.cuda
-def test_knn_edge_reduce_backward_refuses_past_shared_memory(dev):
-    """B6's reverse lists keep n counters in shared memory: a cloud past the
-    opt-in limit raises before any launch, naming it."""
-    from flowcompare_tpu_torch import routes
-    n = 60000
-    assert routes.knn_bwd_smem_bytes(n, 8) > routes.SMEM_LIMIT
-    u = torch.zeros(n, 8, dtype=torch.bfloat16, device=dev)
-    f32 = [torch.zeros(n, 8, device=dev) for _ in range(5)]
-    slots = [torch.zeros(n, 8, dtype=torch.uint8, device=dev) for _ in range(2)]
-    idx = torch.zeros(n, 8, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        _build.knn_edge_reduce_bwd(u, *f32[:4], *slots, idx, f32[4], n_items=1, k=8)
+def test_knn_edge_reduce_backward_past_55552_points(dev):
+    """B6's backward on 2 x 57,344 points, k = 40, where its reverse lists'
+    counters passed shared memory before they became a counting sort:
+    integer features, against plain item by item (`_b6_held`), one forward
+    and one backward launch."""
+    from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda as ev
+    g = torch.Generator().manual_seed(91)
+    b, n, c = 2, 57344, 16
+    x = torch.randint(-4, 5, (b, n, 6), generator=g).bfloat16().to(dev)
+    u = rand(g, b, n, c, device=dev).bfloat16().float()
+    cots = [rand(g, b, n, c, device=dev) for _ in range(4)]
+    before = ev.EDGE_KNN_REDUCE_LAUNCHES
+    got = _b6_grads(ev.edge_knn_reduce, x, u, cots, MAIN_K)
+    torch.cuda.synchronize()
+    assert ev.EDGE_KNN_REDUCE_LAUNCHES == before + 2
+    ref = _per_item(lambda *a: _b6_grads(ev.edge_knn_reduce_plain, a[0], a[1], a[2:], MAIN_K),
+                    x, u, *cots)
+    ref_idx = _per_item(lambda xi: edgeconv_cuda.knn_indices(xi, MAIN_K), x)
+    _b6_held(got, ref, ref_idx, u, cots)
+
+
+@pytest.mark.cuda
+def test_knn_edge_reduce_backward_in_groups_of_items(dev, monkeypatch):
+    """A batch past one group of items (the group's budget shrunk to two
+    items' scratch: 5 items in three groups): du bit-equal to the batch in
+    one group (the items are independent and each list's order is fixed)
+    and held to plain item by item."""
+    from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda as ev
+    g = torch.Generator().manual_seed(92)
+    b, n, c = 5, 2000, 64
+    x = torch.randint(-4, 5, (b, n, 6), generator=g).bfloat16().to(dev)
+    u = rand(g, b, n, c, device=dev).bfloat16().float()
+    cots = [rand(g, b, n, c, device=dev) for _ in range(4)]
+    whole = _b6_grads(ev.edge_knn_reduce, x, u, cots, MAIN_K)
+    monkeypatch.setattr(_build, "BWD_GROUP_INTS", 2 * _build.knn_bwd_scratch_ints(n, MAIN_K))
+    assert len(_build.knn_bwd_groups(b, n, MAIN_K)) == 3
+    got = _b6_grads(ev.edge_knn_reduce, x, u, cots, MAIN_K)
+    torch.cuda.synchronize()
+    assert torch.equal(got[4], whole[4])
+    ref = _b6_grads(ev.edge_knn_reduce_plain, x, u, cots, MAIN_K)
+    _b6_held(got, ref, edgeconv_cuda.knn_indices(x, MAIN_K), u, cots)
 
 
 def _rel(a, b):
@@ -733,7 +783,8 @@ def test_fps_levels_index_equal_to_plain(dev, n, items):
 def test_fps_levels_counts_one_launch_and_takes_large_clouds(dev):
     """The entry point launches once for all levels; a cloud past the
     registers' 2,048 points keeps the rest in shared memory; one past shared
-    memory is refused with the limit named."""
+    memory (20,000 points at one level) takes the large clouds' kernel, in
+    one launch, index-equal to plain."""
     from flowcompare_tpu_torch.ops import fps_cuda
     g = torch.Generator().manual_seed(30)
     x = rand(g, 3, 1250, 6, device=dev)
@@ -745,8 +796,13 @@ def test_fps_levels_counts_one_launch_and_takes_large_clouds(dev):
     big = rand(g, 2, 14000, 3, device=dev)
     torch.testing.assert_close(fps_cuda.furthest_point_sampling(big, 64),
                                fps_cuda.furthest_point_sampling_plain(big, 64), rtol=0, atol=0)
-    with pytest.raises(ValueError, match="shared memory"):
-        fps_cuda.furthest_point_sampling(rand(g, 1, 20000, 3, device=dev), 8)
+    past = rand(g, 1, 20000, 3, device=dev)
+    assert fps_cuda.fps_plan(20000, [8])["kernel"] == "big"
+    before = fps_cuda.FPS_LAUNCHES
+    got = fps_cuda.furthest_point_sampling(past, 8)
+    assert fps_cuda.FPS_LAUNCHES == before + 1
+    torch.testing.assert_close(got, fps_cuda.furthest_point_sampling_plain(past, 8), rtol=0,
+                               atol=0)
 
 
 @pytest.mark.cuda
@@ -823,27 +879,16 @@ def test_sa_group_exact_on_integer_coordinates(dev, dtype, n, m, c):
 def test_sa_select_large_clouds_match_plain(dev, clouds, n):
     """B9's selection past the 4,458 points whose rows fit shared memory
     (the cloud read from global memory, the distances recomputed a sweep):
-    the four levels in one launch (B8's centres at 8,192, random subsets
-    past B8's 12,662 points), index-equal to plain on integer coordinates
+    the four levels in one launch on B8's centres, index-equal to plain on integer coordinates
     (crowded ties), at most 1e-3 of the rows off on random ones; the plain
     version an item at a time."""
-    from flowcompare_tpu_torch import routes
     from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda as sg
     g = torch.Generator().manual_seed(32)
     ms = [n // 4 ** (i + 1) for i in range(4)]
     for kind in ("integer", "random"):
         x = (torch.randint(-30, 31, (clouds, n, 3), generator=g).float() if kind == "integer"
              else torch.randn(clouds, n, 3, generator=g)).to(dev)
-        if routes.fps_levels_smem(n, ms) <= routes.SMEM_LIMIT:
-            idx, out = fps_cuda.furthest_point_sampling_levels(x, ms)
-        else:   # past B8's clouds: each level's centres a random subset of the last
-            idx, out, pts = [], [], x
-            for m in ms:
-                pick = torch.stack([torch.randperm(pts.shape[1], generator=g)[:m]
-                                    for _ in range(clouds)]).to(dev)
-                idx.append(pick)
-                pts = torch.gather(pts, 1, pick[..., None].expand(-1, -1, 3))
-                out.append(pts)
+        idx, out = fps_cuda.furthest_point_sampling_levels(x, ms)
         levels = list(zip(out, idx, [x, *out]))
         before = sg.SA_SELECT_LAUNCHES
         sels = sg.sa_select_levels(levels, 32)
@@ -1983,30 +2028,70 @@ def test_relu_bf16_log_prob_is_the_folded_scan_on_the_card(dev):
 
 @pytest.mark.cuda
 def test_shared_memory_mirrors_equal_the_library(dev):
-    """`routes`' Python mirrors of the kernels' shared-memory formulas give
-    the library's own numbers over a grid of shapes: B3/B6's per (n, C),
-    B8's per n over the four PAConv levels and one, B9's selection per n
-    and its gather per (C, k, element size)."""
+    """The Python mirrors of the kernels' launch formulas give the library's
+    own numbers over a grid of shapes: `routes`' shared memory of B3/B6 per
+    (n, C), B9's selection per n and its gather per (C, k, element size);
+    `fps_cuda.fps_plan`'s kernel (by its threads), shared memory and global
+    tier for B8 per n over the four PAConv levels and one; and
+    `_build.knn_bwd_scratch_ints`, B6's backward's scratch an item."""
     from flowcompare_tpu_torch import routes
+    from flowcompare_tpu_torch.ops import fps_cuda
     lib = _build.library()
     ns = [1, 7, 31, 32, 33, 80, 256, 640, 1250, 2047, 2048, 2049, 3200, 3213, 4458, 4459,
-          8000, 12661, 15000, 16384, 58000]
+          8000, 12661, 12662, 12663, 15000, 16384, 22528, 22529, 55552, 57344, 58000, 65536]
     for n in ns:
         for cq in (1, 2, 6, 8, 15, 16, 17, 64, 128, 255, 256, 257):
             assert routes.knn_smem_bytes(n, cq) == lib.fc_knn_edge_max_smem(n, cq), (n, cq)
         ms = [max(1, n // 4 ** (i + 1)) for i in range(4)]
         for levels in (ms, ms[:1]):
             m4 = levels + [1] * (4 - len(levels))
-            assert routes.fps_levels_smem(n, levels) == lib.fc_fps_levels_smem(
-                n, len(levels), *m4), (n, levels)
+            plan = fps_cuda.fps_plan(n, levels)
+            assert (plan["smem"], plan["threads"], plan["spill"]) == (
+                lib.fc_fps_levels_smem(n, len(levels), *m4),
+                lib.fc_fps_levels_threads(n, len(levels), *m4),
+                lib.fc_fps_levels_spill(n, len(levels), *m4)), (n, levels)
+            assert plan["smem"] <= routes.SMEM_LIMIT
         assert routes.sa_select_smem(n) == lib.fc_sa_select_smem(n), n
         for k in (1, 8, 40, 64):
-            assert routes.knn_bwd_smem_bytes(n, k) == lib.fc_knn_edge_reduce_bwd_smem(n, k), (n, k)
+            if k <= n:
+                assert _build.knn_bwd_scratch_ints(n, k) == lib.fc_knn_edge_reduce_bwd_scratch(
+                    n, k), (n, k)
     for c in (0, 3, 61, 64, 128, 256, 509, 1000, 2045, 4000):
         for k in (1, 8, 32, 64):
             for esize in (2, 4):
                 assert routes.sa_gather_smem(c, k, esize) == lib.fc_sa_gather_smem(c, k, esize), \
                     (c, k, esize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clouds,n,kind", [(3, 12663, "random"), (25, 16384, "random"),
+                                           (4, 16384, "duplicated"), (4, 16384, "integer"),
+                                           (2, 65536, "random"), (2, 65536, "integer")])
+def test_fps_large_clouds_match_plain(dev, clouds, n, kind):
+    """B8 past the 12,662 points whose level clouds fit shared memory (the
+    large clouds' kernel: registers, a shared tier, at 65,536 a global one):
+    the four PAConv levels in one launch, indices and coordinates equal to
+    the plain chain on random clouds, clouds of duplicated halves and
+    integer grids (ties at every pick)."""
+    from flowcompare_tpu_torch.ops import fps_cuda
+    g = torch.Generator().manual_seed(33 + n)
+    ms = [n // 4 ** (i + 1) for i in range(4)]
+    assert fps_cuda.fps_plan(n, ms)["kernel"] == "big"
+    if kind == "integer":
+        x = torch.randint(-20, 21, (clouds, n, 3), generator=g).float()
+    else:
+        x = torch.randn(clouds, n, 3, generator=g)
+        if kind == "duplicated":
+            x = torch.cat([x[:, :n // 2]] * 2, 1)
+    x = x.to(dev)
+    before = fps_cuda.FPS_LAUNCHES
+    idx, out = fps_cuda.furthest_point_sampling_levels(x, ms)
+    torch.cuda.synchronize()
+    assert fps_cuda.FPS_LAUNCHES == before + 1
+    ref_idx, ref_out = fps_cuda.furthest_point_sampling_levels_plain(x, ms)
+    for level in range(4):
+        assert torch.equal(idx[level], ref_idx[level]), (level, kind)
+        assert torch.equal(out[level], ref_out[level]), (level, kind)
 
 
 @pytest.mark.cuda

@@ -13,9 +13,9 @@ emulation of each new algorithm beside the plain versions, step for step
   `knn_indices` and against the JAX package's `edge_neighbor_max` /
   `edge_knn_reduce` in interpret mode, on tie-heavy inputs made with numpy
   from a seed;
-- the backward's reverse lists built tile by tile
-  (`edgeconv_vjp_cuda.reverse_lists_tiled`) against the sequential
-  construction the earlier kernel ran, and its order of summation
+- the backward's reverse lists built by a counting sort and ordered by i
+  (`edgeconv_vjp_cuda.reverse_lists_emulated`) against the sequential
+  construction an earlier kernel ran, and its order of summation
   (`edge_knn_reduce_bwd_emulated`) against `edge_knn_reduce_plain`'s
   gradient and against the sequential order, 1e-5 relative in f32.
 
@@ -191,13 +191,16 @@ def reverse_lists_sequential(idx: torch.Tensor) -> tuple:
     return off, rev
 
 
-@pytest.mark.parametrize("n,k,tile", [(150, 8, 64), (200, 40, 64), (64, 64, 64), (97, 16, 16)])
-def test_reverse_lists_tiled_match_sequential(n, k, tile):
-    """Counts per tile, a scan over tiles and j, then a fill per tile give
-    the same lists, each in increasing i, as the one-block construction."""
+@pytest.mark.parametrize("n,k,fill_seed", [(150, 8, 64), (200, 40, 64), (64, 64, 64),
+                                           (97, 16, 16)])
+def test_reverse_lists_tiled_match_sequential(n, k, fill_seed):
+    """Counts by j, their scan, a fill in the atomics' order (a random one
+    from `fill_seed`) and each list ordered by rank give the same lists,
+    each in increasing i, as the one-block construction. (The name is the
+    earlier tiled build's, which these lists replaced.)"""
     x = t(cloud("duplicates", n, 6, seed=n + k)).bfloat16()
     idx = ec.knn_indices(x, k).sort(-1).values
-    off, rev = ev.reverse_lists_tiled(idx, tile)
+    off, rev = ev.reverse_lists_emulated(idx, fill_seed)
     off_s, rev_s = reverse_lists_sequential(idx)
     assert torch.equal(off, off_s) and torch.equal(rev, rev_s)
 
@@ -244,7 +247,7 @@ def test_backward_order_matches_plain_gradient(c):
     outs = ev.edge_knn_reduce_plain(x, uu, k)
     torch.autograd.backward(outs, cots)
     idx, amax, amin = _plain_forward_state(x, u, k)
-    off, rev = ev.reverse_lists_tiled(idx)
+    off, rev = ev.reverse_lists_emulated(idx)
     got = ev.edge_knn_reduce_bwd_emulated(u, *cots, amax, amin, off, rev)
     scale = float(uu.grad.abs().max())
     assert float((got - uu.grad).abs().max()) <= 1e-5 * scale

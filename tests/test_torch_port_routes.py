@@ -101,10 +101,13 @@ def test_model_routes_are_read_only_and_the_gates():
 def test_gate_limits_at_their_edges():
     """The documented limits: k <= min(n, 64); B3 and B6 on clouds of any
     size (whole distance rows in shared memory up to 3,200 points at 128
-    features, a chunk's rows past it), the DGCNN presets on their kernels at
-    3,201, 4,096 and 16,384 points; B9's selection on any cloud (its rows
-    in shared memory up to 4,458 points, none past it); PAConv's limit
-    B8's, 12,662 points, refused at 12,663 with B8 named."""
+    features, a chunk's rows past it; B6's backward with no shared-memory
+    limit since its reverse lists left shared memory), the DGCNN presets on
+    their kernels at 3,201, 4,096, 16,384, 55,553 and 57,344 points; B9's
+    selection on any cloud (its rows in shared memory up to 4,458 points,
+    none past it); B8 on any cloud (the large clouds' kernel past 12,662
+    points), so the PAConv presets on their kernels at 12,663, 16,384 and
+    65,536 points too."""
     cfg = ft.get_config("dulcet-universe")
     assert routes.model_routes({**cfg, "n_neighbors": 64})["encoder"] == "kernels"
     assert routes.model_routes({**cfg, "n_neighbors": 65})["encoder"] != "kernels"
@@ -115,16 +118,29 @@ def test_gate_limits_at_their_edges():
     assert routes.knn_smem_bytes(16384, 128) == chunked
     for preset in ("dulcet-universe", "swept-energy", "helpful-sponge"):
         dgcnn = ft.get_config(preset)
-        for n in (1250, 3201, 4096, 16384):
+        for n in (1250, 3201, 4096, 16384, 55553, 57344):
             assert routes.model_routes({**dgcnn, "n_samples_context": n})["encoder"] == "kernels"
     assert routes.sa_select_smem(4458) <= routes.SMEM_LIMIT
     assert routes.sa_select_smem(4459) == routes.sa_select_smem(100000) < routes.SMEM_LIMIT // 8
     for preset in ("good-surf", "summer-terrain"):
         paconv = ft.get_config(preset)
-        for n in (4459, 8192, 12662):
+        for n in (4459, 8192, 12662, 12663, 16384, 65536):
             assert routes.model_routes({**paconv, "n_samples_context": n})["encoder"] == "kernels"
-        refused = routes.model_routes({**paconv, "n_samples_context": 12663})["encoder"]
-        assert refused.startswith("plain: ") and "in B8 " in refused, refused
+
+
+@pytest.mark.parametrize("preset,n", [("dulcet-universe", 55000), ("dulcet-universe", 16384),
+                                      ("good-surf", 16384)])
+def test_routes_read_no_batch_size(preset, n):
+    """`model_routes` is a function of the shapes, not of the batch: the
+    same verdicts at any batch_size, including the 44 and 442 items a rank
+    whose backward scratch passed 2^31 - 1 ints before B6's lists left
+    their per-tile counts (the batch now runs in groups of items,
+    `_build.knn_bwd_groups`)."""
+    cfg = {**ft.get_config(preset), "n_samples_context": n}
+    want = routes.model_routes(cfg)
+    assert want["encoder"] == "kernels"
+    for b in (1, 2, 20, 44, 442, 10 ** 6):
+        assert routes.model_routes({**cfg, "batch_size": b}) == want, b
 
 
 def _case_config(case: str, dtype: str = "bfloat16"):

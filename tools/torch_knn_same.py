@@ -3,8 +3,9 @@
 1,250-point shapes on the card, and their device times: B3 (knn_edge_max)
 at 40 clouds, each EdgeConv width; B6 (knn_edge_reduce) forward (its five
 outputs and the selected indices) and backward (du) at 40 clouds, each
-width; B9's selection of the four PAConv levels at 50 clouds and its
-gathers, on inputs made from a seed.
+width; B8's picks and centres of the four PAConv levels at 50 clouds
+(fps_levels); B9's selection of those levels and its gathers, on inputs
+made from a seed.
 
     python3 tools/torch_knn_same.py --tree DIR --out FILE
     python3 tools/torch_knn_same.py --compare FILE_A FILE_B
@@ -13,7 +14,9 @@ The first form imports the port from DIR (a checkout, e.g. an earlier
 commit's `git archive` unpacked into build/), runs the kernels, saves their
 outputs with torch.save and prints each kernel's device ms (torch.profiler,
 10 calls after a warm-up): B3 and B6's forward and backward summed over the
-four widths, B9's selection for the four levels. Run it once a tree, each
+four widths, B8's four levels, B9's selection for the four levels, and the
+backward's split by kernel (the reverse lists' kernels and the sums). The
+backward's device ms counts kernels, not the memset of its counts. Run it once a tree, each
 in a process of its own, and alternate the trees in one call (parent,
 change, change, parent) to compare the times. The second form prints, for
 every output, whether the two files hold it bit for bit and the largest
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -41,7 +45,7 @@ def run(tree: Path, out: Path) -> None:
     from flowcompare_tpu_torch.ops import _build, fps_cuda, sa_group_cuda as sg
     assert Path(_build.__file__).resolve().is_relative_to(tree.resolve()), _build.__file__
     sys.path.insert(1, str(REPO))
-    from chip_smoke import device_ms
+    from chip_smoke import device_ms, traced_kernels
 
     dev = torch.device("cuda")
     results, ms = {}, {"B3": 0.0, "B6 forward": 0.0, "B6 backward": 0.0}
@@ -72,10 +76,19 @@ def run(tree: Path, out: Path) -> None:
             results[f"B6 {key} {name}"] = t.cpu()
         ms["B3"] += device_ms(b3)
         ms["B6 forward"] += device_ms(fwd)
-        ms["B6 backward"] += device_ms(bwd)
+        for e in traced_kernels(bwd, 10):
+            name = re.search(r"knn_\w+", e["name"])
+            key = f"B6 backward: {name.group(0) if name else e['name'][:40]}"
+            ms[key] = ms.get(key, 0.0) + e["dur"] / 10 / 1e3
+            ms["B6 backward"] += e["dur"] / 10 / 1e3
     g = torch.Generator().manual_seed(9)
     xyz = torch.randn(SA_CLOUDS, N, 3, generator=g).to(dev)
-    idx, centres = fps_cuda.furthest_point_sampling_levels(xyz, [m for _, m, _ in SA_LEVELS])
+    ms_fps = [m for _, m, _ in SA_LEVELS]
+    idx, centres = fps_cuda.furthest_point_sampling_levels(xyz, ms_fps)
+    for l, (i, c) in enumerate(zip(idx, centres)):
+        results[f"B8 level {l} picks"] = i.cpu()
+        results[f"B8 level {l} centres"] = c.cpu()
+    ms["B8"] = device_ms(lambda: fps_cuda.furthest_point_sampling_levels(xyz, ms_fps))
     levels = list(zip(centres, idx, [xyz, *centres]))
     sels = sg.sa_select_levels(levels, SA_K)
     for l, ((new_xyz, _, pts), sel, (n, m, c)) in enumerate(zip(levels, sels, SA_LEVELS)):
