@@ -219,7 +219,7 @@ Phases, each of which raises on failure (nothing is caught):
 22. routes from the shapes (`phase_c1`, after the variants): three bf16
    dulcet-universe configs at 2 layers and full width that the kernels
    refuse part by part (D = 256, 4 heads of 64: the stack and the
-   augmenter; a 1,024-wide
+   augmenter; a 1,040-wide
    coupling MLP: the stack and the augmenter; k = 80: the encoder), each
    printing `model.routes`; log_prob, one train_step after the data init
    and make_sample of 1 x 4000 at B=2 on CUDA against plain=True (|d nats|
@@ -302,7 +302,28 @@ Phases, each of which raises on failure (nothing is caught):
    training check at B=2 against plain and train(max_steps=4) at B=20 or
    the largest batch that fits. The kernels line's B6 and B8 entries carry
    these readings under "by_cloud", with the launches of dulcet's train and
-   good-surf's eval at those sizes.
+   good-surf's eval at those sizes;
+29. the fused layer kernels past 512 columns (`phase_wide`, after the head
+   widths; the fused-layer and B5 phases add w1024's shapes): w1024,
+   dulcet-universe at twice its MLP widths (W1024: the coupling MLPs, the
+   augmenter's conditioner and net and the embedder's head 1,024 wide),
+   bf16, 115 layers, every part on its kernels: the eval main path (2
+   items of B=20) against plain, eval timing with the plain route's inner
+   loop, make_sample of 1 x 4000 against plain and its ms, the training
+   check at B=2, train(max_steps=4) at B=20 or `fitting_batch`, the launch
+   and fold checks, B4 / B2 / the DGCNN tail / B2's net against plain at
+   this width, and B2's conditioner (the wide conditioner kernel) against
+   plain and the per-product route; the fused-layer phase runs w1024's
+   coupling kernels at 40,960 and 20,480 rows against FUSED_LIMITS, the B5
+   phase its kernels at 20,480 rows against B5_PROBE_LIMITS. The kernels
+   line's conditioner (B2's, from this phase), coupling_layer,
+   coupling_inverse, coupling_record, coupling_bwd, dgcnn_tail and
+   augment_net entries carry the wide kernels' readings under "by_width",
+   with the launches of w1024's paths. w1024's conditioner pre-MLP stays
+   256 wide, so B1's conditioner and B5's conditioner_record and
+   conditioner_bwd run their one-pass kernels there: their w1024 readings
+   are under "one_pass_in_w1024" (tools/torch_b5_wide.py times B5's wide
+   conditioner kinds).
 
 Prints, last, one JSON line of per-kernel results (B1-B10 with B9's
 gather as `sa_gather`, gemm_bf16,
@@ -314,7 +335,8 @@ their headline shapes;
 B1, B2, B4, B5 and B7 carry their helpful-sponge branch's check under
 "global", B10 its second shape; cross_attention, cross_attention_bwd and
 B10 list their head widths under "widths" and the D = 32 and 128 readings
-under "by_width"), the nvidia-smi line and {"ok": true,
+under "by_width"; the fused layer kernels their 1,024-wide readings under
+"by_width"), the nvidia-smi line and {"ok": true,
 "device": {...}}.
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
@@ -393,6 +415,22 @@ def perturb_identity_leaves(model, gen: torch.Generator) -> None:
             elif name.endswith("bn.scale"):
                 p.copy_((torch.sign(torch.randn(p.shape, generator=gen))
                          * (0.5 + torch.rand(p.shape, generator=gen))).to(p.device))
+
+
+# dulcet-universe at twice its MLP widths: the coupling MLPs, the
+# augmenter's conditioner and net, and the embedder's head 1,024 wide (the
+# wide fused kernels: products past 512 columns), every other key the
+# preset's; "w1024" in the phases below. The tests' copy is
+# tests/torch_port_widths.py (this script runs without the tests).
+W1024 = {"hidden_dims": [1024] * 3, "net_augmenter_dist_hidden_dims": [1024] * 3,
+         "hidden_dims_embedder_out": [1024] * 6}
+
+
+def smoke_config(ft, name: str) -> dict:
+    """A preset's config, or "w1024": dulcet-universe with W1024's widths."""
+    if name == "w1024":
+        return {**ft.get_config("dulcet-universe"), **W1024}
+    return ft.get_config(name)
 
 
 def make_model(ft, device, preset: str = "dulcet-universe", **overrides):
@@ -1744,7 +1782,10 @@ FUSED_CASES = (("dulcet-universe", 40960, "dulcet eval item, B=20 x 1024, both d
                ("dulcet-universe", 20480, "dulcet training step, B=20 x 1024"),
                ("dulcet-universe", SAMPLE_N, "a sample, 1 x 4000"),
                ("helpful-sponge", 51200, "helpful-sponge eval item, B=25 x 1024, both "
-                                         "directions"))
+                                         "directions"),
+               ("w1024", 40960, "w1024 eval item, B=20 x 1024, both directions (the wide "
+                                "coupling kernels)"),
+               ("w1024", 20480, "w1024 training step, B=20 x 1024"))
 
 
 def _stack_ops(stack, rows: int, products: int) -> int:
@@ -1766,13 +1807,16 @@ def phase_fused_layers(ft, device) -> dict:
     cast and epilogue launches a layer took before the fusion) against it too,
     within FUSED_LIMITS (`check_fused`); the kernel's device time (kernel
     durations from torch.profiler), the plain version's, the per-product
-    route's, the bound, and launches per layer on both routes."""
+    route's, the bound, and launches per layer on both routes. Then the same
+    at w1024's eval and training rows (its coupling products 1,024 wide: the
+    wide kernels), whose readings the entries carry under "by_width" (the
+    conditioner's, one-pass at w1024, under "one_pass_in_w1024")."""
     from flowcompare_tpu_torch.ops import _build, flow_layer_cuda as flc
 
     bf = torch.bfloat16
     out, entries = {}, {}
-    for preset in ("dulcet-universe", "helpful-sponge"):
-        cfg = ft.get_config(preset)
+    for preset in ("dulcet-universe", "helpful-sponge", "w1024"):
+        cfg = smoke_config(ft, preset)
         cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
         model = ft.FlowCompareModel(cfg, device=device,
                                     generator=torch.Generator().manual_seed(SEED))
@@ -1969,6 +2013,16 @@ def phase_fused_layers(ft, device) -> dict:
                          "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                          "bound_by": c["bound_by"], "library_ms": None,
                          "per_product_ms": c.get("per_product_ms")}
+        w1024 = {f"{rows} rows": {"shapes": f"w1024, {rows} rows", **{
+            k: out[f"w1024 {rows}"][key][k] for k in (
+                "max_abs_err", "device_ms", "plain_ms", "per_product_ms", "bound_ms",
+                "bound_by", "launches_per_layer")}} for rows in (40960, 20480)}
+        if name == "conditioner":
+            # B1's pre-MLP stays 256 wide in w1024: the one-pass kernel (main()
+            # puts B2's wide conditioner from phase_wide under by_width)
+            entries[name]["one_pass_in_w1024"] = w1024
+        else:
+            entries[name]["by_width"] = {"1024": w1024}
     return entries, out
 
 
@@ -2680,7 +2734,8 @@ def _b5_kernel_bounds(fv_args) -> dict:
     return out
 
 
-def phase_b5_fused(ft, device, preset: str, batch: int) -> dict:
+def phase_b5_fused(ft, device, preset: str, batch: int, overrides: dict = None,
+                   label: str = None) -> dict:
     """B5's fused per-layer kernels at a preset's full width on two layers
     over its training rows (batch x 1024): each kernel against its plain
     version on the same inputs (`_b5_probe`, the last layer's launches),
@@ -2688,10 +2743,12 @@ def phase_b5_fused(ft, device, preset: str, batch: int) -> dict:
     the bound; B5 against its plain version (the max-error bounds of
     phase_b5 and B5_LIMITS) and two calls bit-equal; the per-product chain
     (`_bwd_per_product`, the comparison route) timed beside it and the
-    launches a layer of both from the counters."""
+    launches a layer of both from the counters. `overrides` change the
+    preset's widths (W1024: the wide kernels), `label` names the run."""
     from flowcompare_tpu_torch.ops import _build, flow_layer_cuda as flc, flow_layer_vjp_cuda as fv
 
-    small = make_model(ft, device, preset=preset, n_flow_layers=2)
+    small = make_model(ft, device, preset=preset, n_flow_layers=2, **(overrides or {}))
+    preset = label or preset
     cfg = small.config
     folded = small._folded(small.params(), cfg["extra_context_dim"])
     g = torch.Generator().manual_seed(SEED + 50)
@@ -3274,11 +3331,11 @@ def _kernel_group(name: str) -> str:
     products, the folds) as one group; the rest is PyTorch's own."""
     if re.search(r"xmma|cutlass|sgemm|gemv|gemmSN|splitKreduce", name):
         return "library GEMM (cuBLAS)"
-    fused = re.search(r"fused_layer_kernel<(\d)>", name)
+    fused = re.search(r"fused_layer_kernel<(\d)[,>]", name)
     if fused:
         return ("conditioner", "coupling_layer", "coupling_inverse", "coupling_record",
                 "dgcnn_tail", "augment_net")[int(fused.group(1))]
-    fused_bwd = re.search(r"fused_layer_bwd_kernel<(\d)>", name)
+    fused_bwd = re.search(r"fused_layer_bwd_kernel<(\d)[,>]", name)
     if fused_bwd:
         return ("coupling_bwd", "conditioner_bwd")[int(fused_bwd.group(1))]
     found = re.search(r"(\w+_kernel)", name)
@@ -4183,6 +4240,104 @@ def phase_head_widths(ft, device) -> dict:
     return out
 
 
+# ---------------------------------------------- the wide fused layer kernels
+
+def phase_wide(ft, device) -> dict:
+    """w1024 (dulcet-universe at twice its MLP widths, bf16, 115 layers, its
+    own B=20), every part of `model.routes` on its kernels, the 1,024-wide
+    products of B1, B2, B4's tail, B5 and B7 on the wide fused kernels: the
+    eval main path through evaluate_on_test (2 items of B=20) against the
+    plain path (|d nats| <= 0.01, change maps >= 99.9%; 4 launches a layer in
+    B1 with no per-product MLP gemm, B4 in 10 launches a call, B2 in 5, folds
+    once); eval timing at B=20 with one item's inner loop on the plain route
+    (its first full-depth reading at 1,024); make_sample of 1 x 4000 against
+    the plain samples of the same z (|d nats| <= 0.01; 4 launches a layer in
+    B7) and its ms; the training check at B=2 (|d nats| <= 0.01, grad norm
+    within 5%, cosine >= 0.99; 11 launches a layer in B5); train(max_steps=4)
+    at B=20 or the largest batch that fits (`fitting_batch`); B4, B2, the
+    DGCNN tail and B2's net at this width against their plain versions
+    (`phase_b4_b2_kernels`: 40 clouds, 40,960 rows); and B2's conditioner
+    (the wide conditioner kernel, a 1,024-wide pre-MLP) on 40,960 rows
+    against plain (q within two bf16 roundings of its scale) and against the
+    per-product route it replaced (at most 0.5% of q's elements apart: at
+    1,024 wide q's roundings flip against plain's summation order for the
+    route and the kernel alike). Each phase's counters are set to 0 just
+    before it and read just after."""
+    from flowcompare_tpu_torch.ops import _build, flow_layer_cuda as flc
+
+    t0 = time.perf_counter()
+    model = make_model(ft, device, **W1024)
+    cfg = model.config
+    assert all(r == "kernels" for r in model.routes.values()), dict(model.routes)
+    log(f"w1024: routes {dict(model.routes)}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    items = eval_items(cfg, TIME_B, 2, SEED + 3)
+    launches = phase_main_path(ft, model, device, items=items)
+    b4, b2 = launches["b4_b2"]["fused_dgcnn_encoder"], launches["b4_b2"]["fused_augmenter"]
+    assert b4["launches_per_call"] == [B4_LAUNCHES], b4
+    assert b2["launches_per_call"] == [B2_LAUNCHES], b2
+    timing = phase_timing(ft, model, device)
+    sample = phase_sample_main(ft, model, device)
+    g = torch.Generator(device=device).manual_seed(SEED + 22)
+    x0 = torch.randn((1, cfg["n_samples_context"], 6), generator=g, device=device)
+    extra = torch.randn((1, 1), generator=g, device=device)
+    sample["make_sample_ms"] = time_ms(lambda: ft.make_sample(model, SAMPLE_N, x0, extra,
+                                                              generator=g), reps=3)
+    check = phase_train_check(ft, model, device, with_chains=True)
+    b5 = check_b5_launches(check.pop("chains"), "the training check at w1024", True)
+    train_b = fitting_batch(model, check, TIME_B)
+    train_main, _ = phase_train_main(ft, model, device, batch=train_b)
+    with torch.no_grad():
+        kernels = phase_b4_b2_kernels(model, device, torch.Generator().manual_seed(SEED + 60))
+        # B2's conditioner over its 1,024-wide pre-MLP: the wide kernel,
+        # against plain and against the per-product route
+        w = flc.augmenter_weights(model.params()["augmenter"], input_dim=6, extra_dim=1)
+        rows = 2 * TIME_B * cfg["sample_size"]
+        gc = torch.Generator().manual_seed(SEED + 61)
+        xin = torch.randn(rows, w.width, generator=gc).to(device).bfloat16()
+        q, q_ref, q_pp = (flc.bf16_rows(rows, w.cw, device) for _ in range(3))
+        call = lambda: _build.conditioner(xin, 6, w.cond_stack, 0, q)  # noqa: E731
+        call()
+        flc.conditioner_plain(xin, 6, w.cond_stack.layer(0), q_ref)
+        pairs = w.cond_stack.layer(0)
+        q_f = torch.empty(rows, pairs[-2][0].shape[1], device=device)
+        q_n = flc.bf16_rows(rows, q_f.shape[1], device)
+        hs = [flc.bf16_rows(rows, 1024, device) for _ in range(3)]
+
+        def per_product():
+            _build.mlp_chain(xin[:, :6], pairs[:-1], q_f, hs)
+            _build.row_norm(q_f, q_n)
+            _build.gemm(q_n, pairs[-1][0], q_pp, bias=pairs[-1][1])
+
+        per_product()
+        torch.cuda.synchronize()
+        stats = {"plain": error_stats(q, q_ref), "per_product": error_stats(q, q_pp),
+                 "per_product_vs_plain": error_stats(q_pp, q_ref)}
+        k = len(w.cond_stack.pairs)
+        cond = {"rows": rows, "stats": stats, "max_abs_err": stats["plain"]["max_abs"],
+                "device_ms": device_ms(call), "per_product_ms": device_ms(per_product),
+                "plain_ms": time_ms(lambda: flc.conditioner_plain(
+                    xin, 6, w.cond_stack.layer(0), q_ref), reps=2),
+                "launches_per_call": 1, "per_product_launches_per_call": k + 1}
+        cond["bound_ms"], cond["bound_by"] = bound(
+            _stack_ops(w.cond_stack, rows, k),
+            _fused_bytes(w.cond_stack, rows, 2 * 6, 2 * w.cw, k))
+        log(f"w1024: B2's conditioner (wide kernel) on {rows} rows: {cond}")
+        assert stats["plain"]["max_over_max_ref"] <= 2 * 2 ** -8, stats
+        assert stats["per_product"]["share_over_quarter_ulp"] <= 0.005, stats
+    out = {"eval_launches": launches, "timing": timing, "sample": sample, "train_check": check,
+           "b5": b5, "train_main": train_main, "train_batch": train_b, "kernels": kernels,
+           "b2_conditioner": cond, "b2_calls": b2["calls"],
+           "phase_s": time.perf_counter() - t0}
+    log(f"w1024: {out['phase_s']:.1f} s; eval item {timing['item_s'] * 1e3:.2f} ms "
+        f"(one item's inner loop {timing['inner_loop_ms']:.2f} ms, plain "
+        f"{timing['plain_inner_loop_ms']:.2f} ms), make_sample {sample['make_sample_ms']:.2f} "
+        f"ms, train {train_main['ms_per_step']:.2f} ms a step at B={train_b}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------ clouds past shared memory
 
 # The paths past the clouds whose distance rows fit shared memory, at full
@@ -4614,7 +4769,7 @@ def phase_cloud_sizes(ft, device) -> dict:
 C1_B = 2
 C1_CASES = (
     ("D = 256", {"cross_heads": 4}, ("stack", "augmenter")),
-    ("1,024-wide coupling MLP", {"hidden_dims": [1024, 1024, 1024]}, ("stack", "augmenter")),
+    ("1,040-wide coupling MLP", {"hidden_dims": [1040, 1040, 1040]}, ("stack", "augmenter")),
     ("k = 80", {"n_neighbors": 80}, ("encoder",)),
 )
 # the kernels of each part, by the counters: none may launch where the part
@@ -4636,7 +4791,7 @@ def _c1_check_launches(name: str, routes: dict, path: str, launches: dict) -> No
 
 def phase_c1(ft, device) -> dict:
     """Configs outside the kernels' shapes on the card (ROADMAP queue C1):
-    D = 256 (4 heads of 64), a 1,024-wide coupling MLP and k = 80, each a bf16
+    D = 256 (4 heads of 64), a 1,040-wide coupling MLP and k = 80, each a bf16
     dulcet-universe at 2 layers and full width, B=2. Each prints its routes
     and must refuse the expected parts; its log_prob (inner_loop eval), one
     train_step after the data init and one make_sample of 1 x 4000 run on
@@ -5357,6 +5512,9 @@ def main() -> int:
         fused_entries, fused_cases = phase_fused_layers(ft, device)
         torch.cuda.empty_cache()
         b5_fused = phase_b5_fused(ft, device, "dulcet-universe", TIME_B)
+        torch.cuda.empty_cache()
+        b5_wide = phase_b5_fused(ft, device, "dulcet-universe", TIME_B, overrides=W1024,
+                                 label="w1024")
     b5_entries = b5_kernel_entries(b5_fused)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5416,6 +5574,28 @@ def main() -> int:
         for dw, run in head_widths.items():
             attention_entries[key]["by_width"][dw]["launches"] = run[
                 "attention_launches" if key == "cross_attention" else "attention_bwd_launches"]
+    torch.cuda.empty_cache()
+    wide = phase_wide(ft, device)
+    # the wide kernels' readings, with the launches of w1024's paths: its
+    # eval (conditioner, coupling_layer, dgcnn_tail, augment_net), its
+    # make_sample (coupling_inverse) and its train(max_steps=4) (B5's)
+    wide_launches = {"coupling_layer": wide["eval_launches"]["coupling_layer"],
+                     "coupling_inverse": wide["sample"]["launches"]["coupling_inverse"]}
+    for key, n in wide_launches.items():
+        for reading in fused_entries[key]["by_width"]["1024"].values():
+            reading["launches"] = n
+    for reading in fused_entries["conditioner"]["one_pass_in_w1024"].values():
+        reading["launches"] = wide["eval_launches"]["conditioner"] - wide["b2_calls"]
+    c = wide["b2_conditioner"]
+    fused_entries["conditioner"]["by_width"] = {"1024": {f"{c['rows']} rows": {
+        "shapes": f"w1024's B2 conditioner (1,024-wide pre-MLP), {c['rows']} rows",
+        **{k: c[k] for k in ("max_abs_err", "device_ms", "plain_ms", "per_product_ms",
+                             "bound_ms", "bound_by")},
+        "launches_per_layer": c["launches_per_call"], "launches": wide["b2_calls"]}}}
+    for key in ("dgcnn_tail", "augment_net"):
+        entries[key]["by_width"] = {"1024": {
+            **check_entry(wide["kernels"][key], "w1024 at a B=20 item's shapes"),
+            "launches": wide["eval_launches"][key]}}
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -5503,13 +5683,21 @@ def main() -> int:
                       "b10": b10_entry_point, "gemm": gemm_cases, "attention": attention_cases,
                       "fused_layers": fused_cases, "main_path_bounds": main_bounds,
                       "knn_split": knn_split,
-                      "b5_fused": b5_fused,
+                      "b5_fused": b5_fused, "b5_fused_w1024": b5_wide, "w1024": wide,
                       "wall_s": time.perf_counter() - T_START}))
     entries.update(gemm_entries)
     entries.update(attention_entries)
     entries.update(fused_entries)
     for key, chk in b5_global.items():
         b5_entries[key]["global"] = chk
+    for key, entry in b5_kernel_entries(b5_wide).items():
+        # w1024's pre-MLP stays 256 wide: its conditioner kinds run one-pass
+        reading = {**check_entry(entry, f"w1024, 2 layers x {b5_wide['rows']} rows"),
+                   "launches": wide["train_main"]["launches"][key]}
+        if key in ("conditioner_record", "conditioner_bwd"):
+            b5_entries[key]["one_pass_in_w1024"] = reading
+        else:
+            b5_entries[key]["by_width"] = {"1024": reading}
     entries.update(b5_entries)
     print(json.dumps({"kernels": [entries[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6",
                                                        "B7", "B8", "B9", "sa_gather", "B10",

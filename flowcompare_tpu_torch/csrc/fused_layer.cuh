@@ -1,11 +1,15 @@
 // What the fused layer kernels share: the forward and record kernels of
 // fused_layer.cu (B1, B7, B5's recompute) and the backward kernels of
 // fused_layer_bwd.cu (B5). A block owns BM = 64 rows; four consumer
-// warpgroups each own up to 128 output columns of a product; a producer
-// warp streams every product's weights, WB K-rows x all output columns a
-// stage, through a ring of STAGES stages; activations live in shared
-// memory as bf16 in wgmma's 128-byte-swizzled K-major layout (atoms of 64
-// columns x 64 rows).
+// warpgroups each own up to 128 output columns of a product's pass (PASS_W
+// = 512 columns; a product wider than that runs in passes); a producer warp
+// streams every pass's weights, WB K-rows x the pass's output columns a
+// stage, through a ring of STAGES stages; activations are bf16 in wgmma's
+// 128-byte-swizzled K-major layout (atoms of 64 columns x 64 rows), in
+// shared memory (two buffers, products up to PASS_W wide) or, in the wide
+// kernels (any width up to MAXW), the product's input alone in shared
+// memory and the tile's two activation buffers in device scratch
+// (SCRATCH_TILE_BYTES a tile), each output copied back in by one bulk copy.
 #pragma once
 
 #include "hopper.cuh"
@@ -18,14 +22,50 @@ constexpr int CWG = 4;            // consumer warpgroups
 constexpr int CONSUMERS = CWG * 128;
 constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
 constexpr int STAGES = 3;
-constexpr int MAXW = 512;         // widest product (K and N)
+constexpr int PASS_W = 512;       // output columns a pass; the one-pass kernels' widest product
+constexpr int PASS_CHUNKS = PASS_W / 64;
+constexpr int MAXW = 1024;        // widest product (K and N) of the wide kernels
 constexpr int MAX_PRODUCTS = 10;
 constexpr int BOX_BYTES = 64 * WB * 2;    // 64 output columns x 32 K rows
 constexpr int ATOM_BYTES = BM * 128;      // 64 rows x 64 bf16, 128-byte swizzle
-constexpr int ACT_BYTES = BM * MAXW * 2;
-constexpr int STAGE_BYTES = WB * MAXW * 2;
+constexpr int ACT_BYTES = BM * PASS_W * 2;
+constexpr int WIDE_ACT_BYTES = BM * MAXW * 2;   // the wide kernels' input buffer, 2 ACT_BYTES
+constexpr int STAGE_BYTES = WB * PASS_W * 2;
 constexpr int RED_BYTES = CWG * BM * 4;   // one f32 per row and warpgroup
 constexpr int SMEM_BYTES = 2 * ACT_BYTES + STAGES * STAGE_BYTES + RED_BYTES + 1024;
+constexpr long long SCRATCH_TILE_BYTES = 2LL * WIDE_ACT_BYTES;
+static_assert(WIDE_ACT_BYTES == 2 * ACT_BYTES, "the wide input buffer takes both buffers' place");
+
+// Pass j of a product with n output columns: its chunks of 64 columns
+// [PASS_CHUNKS j, PASS_CHUNKS j + nch), cpw of them a warpgroup, and where
+// its values start in a tile's block of the accumulator-order records
+// (frag_ptr's k; every pass before it is whole, 2 chunks a warpgroup).
+struct PassSpan {
+  int nch, cpw, k0;
+};
+
+__device__ __forceinline__ int pass_count(int n) { return (n + PASS_W - 1) / PASS_W; }
+
+__device__ __forceinline__ PassSpan pass_span(int n, int j) {
+  const int nch = min(PASS_CHUNKS, (n + 63) / 64 - PASS_CHUNKS * j);
+  return {nch, (nch + CWG - 1) / CWG, 8 * (PASS_CHUNKS / CWG) * j};
+}
+
+// Whether a product of a plan (fused_layer.cu's Plan, fused_layer_bwd.cu's
+// BwdPlan) is wider than one pass: the wide kernel's launch.
+template <class PlanT>
+bool plan_is_wide(const PlanT& plan) {
+  for (int p = 0; p < plan.n_products; ++p)
+    if (plan.prod[p].k > PASS_W || plan.prod[p].n > PASS_W) return true;
+  return false;
+}
+
+// The chunks a warpgroup owns over all passes of an n-column output: the
+// size, in units of 64 KB, of a tile's block of accumulator-order records.
+__host__ __device__ __forceinline__ int frag_cpw(int n) {
+  const int nch = (n + 63) / 64, whole = nch / PASS_CHUNKS, rest = nch % PASS_CHUNKS;
+  return whole * (PASS_CHUNKS / CWG) + (rest + CWG - 1) / CWG;
+}
 
 __device__ __forceinline__ uint8_t* act_at(uint8_t* base, int row, int col) {
   const int cc = col & 63;
@@ -116,10 +156,11 @@ __device__ __forceinline__ void add_bias_res(float (&acc)[64], int cnt, int c0,
 // B5's f32 rows in the accumulator's order ("fragment" layout): float4 k of
 // a consumer thread's sums (acc[4 k .. 4 k + 3]) in tile b at float4 index
 // (b * 8 cpw + k) * CONSUMERS + thread, so a warp's 16-byte accesses are
-// contiguous and a tile's values are one contiguous block of cpw x 64 KB.
+// contiguous and a tile's values are one contiguous block of cpw x 64 KB;
+// cpw is frag_cpw(n), and pass j's float4s start at its k0 (pass_span).
 // The recompute writes a product's values so and the backward reads them
 // back from the same thread, whose columns are the same in both (the same
-// output width gives the same chunks per warpgroup, cpw).
+// output width gives the same passes and chunks per warpgroup).
 __device__ __forceinline__ float4* frag_ptr(const float* base, int cpw, int k) {
   return const_cast<float4*>(reinterpret_cast<const float4*>(base)) +
          ((size_t)blockIdx.x * 8 * cpw + k) * CONSUMERS + threadIdx.x % CONSUMERS;
@@ -127,10 +168,11 @@ __device__ __forceinline__ float4* frag_ptr(const float* base, int cpw, int k) {
 
 // A hidden product's epilogue in B5's recompute, acc holding its f32
 // pre-activations: GELU'(acc), the factor the backward multiplies its
-// gradient by, in the accumulator's order (frag_ptr), and GELU(acc) in bf16
-// into the activation buffer O, from one erff an element.
+// gradient by, in the accumulator's order (frag_ptr, from the pass's k0),
+// and GELU(acc) in bf16 into the activation buffer O, from one erff an
+// element.
 __device__ __forceinline__ void gelu_record(const float (&acc)[64], int cnt, int c0, float* base,
-                                            int cpw, uint8_t* O) {
+                                            int cpw, int k0, uint8_t* O) {
   const int t = threadIdx.x % 128;
   const int fr = (t / 32) * 16 + (t % 32) / 4, fc = 2 * (t % 4);
 #pragma unroll
@@ -139,7 +181,7 @@ __device__ __forceinline__ void gelu_record(const float (&acc)[64], int cnt, int
       float2 g[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) g[q] = gelu_erf_and_grad(acc[4 * k + q]);
-      *frag_ptr(base, cpw, k) = make_float4(g[0].y, g[1].y, g[2].y, g[3].y);
+      *frag_ptr(base, cpw, k0 + k) = make_float4(g[0].y, g[1].y, g[2].y, g[3].y);
       const int col = (c0 + k / 8) * 64 + 8 * (k % 8) + fc;
       st_pair(O, fr, col, g[0].x, g[1].x);
       st_pair(O, fr + 8, col, g[2].x, g[3].x);
@@ -190,28 +232,28 @@ __device__ __forceinline__ void release(uint64_t* bar) {
 }
 
 
-// The producer's side of one product: its weights, WB K-rows a stage, from
-// the 3-D tensor map (n, k, layers) at `layer`, through the ring; `it`
-// counts the ring's fills.
-__device__ __forceinline__ void produce_weights(const CUtensorMap* map, int k, int n, int layer,
-                                                uint8_t* ring, uint64_t* full, uint64_t* empty,
-                                                int& it) {
+// The producer's side of one pass of a product: its weights' output chunks
+// [c_first, c_first + nch), WB K-rows a stage, from the 3-D tensor map (n,
+// k, layers) at `layer`, through the ring; `it` counts the ring's fills.
+__device__ __forceinline__ void produce_weights(const CUtensorMap* map, int k, int c_first,
+                                                int nch, int layer, uint8_t* ring,
+                                                uint64_t* full, uint64_t* empty, int& it) {
   prefetch_tensor_map(map);
-  const int nch = (n + 63) / 64, kt = (k + WB - 1) / WB;
+  const int kt = (k + WB - 1) / WB;
   for (int t = 0; t < kt; ++t, ++it) {
     const int s = it % STAGES;
     mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
     uint8_t* stage = ring + s * STAGE_BYTES;
     mbar_expect_tx(&full[s], nch * BOX_BYTES);
     for (int c = 0; c < nch; ++c)
-      tma_load_3d(stage + c * BOX_BYTES, map, &full[s], 64 * c, WB * t, layer);
+      tma_load_3d(stage + c * BOX_BYTES, map, &full[s], 64 * (c_first + c), WB * t, layer);
   }
 }
 
-// A consumer warpgroup's side of one product: acc (its cnt chunks of 64
-// output columns from chunk c0, m64n64 / m64n128 layout) = A (64 x k bf16,
-// swizzled) @ the product's weights, stage by stage as they arrive; each
-// stage is handed back once this warpgroup's products on it are done.
+// A consumer warpgroup's side of one pass: acc (its cnt chunks of 64
+// output columns from the pass's chunk c0, m64n64 / m64n128 layout) = A (64
+// x k bf16, swizzled) @ the pass's weights, stage by stage as they arrive;
+// each stage is handed back once this warpgroup's products on it are done.
 __device__ __forceinline__ void consume_weights(float (&acc)[64], const uint8_t* A, int k,
                                                 int c0, int cnt, uint8_t* ring, uint64_t* full,
                                                 uint64_t* empty, int& it) {

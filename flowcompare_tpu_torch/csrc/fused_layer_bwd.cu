@@ -56,6 +56,13 @@
 //  * row sums (the LayerNorm's four statistics) through the 1 KB exchange,
 //    the warpgroups in order, as the forward;
 //  * every element of a row past M is set to 0 before anything reads it.
+// Past 512 columns the wide kernel (WIDE = true; up to 1,024) takes
+// fused_layer.cu's layout: the product's input in shared memory, the tile's
+// two bf16 buffers in device scratch, each product's output columns in
+// passes of 512, a pass's GELU' and residual blocks streamed after its
+// weights (the records' pass-by-pass order, fused_layer.cuh's pass_span),
+// and the next product's input brought back by one bulk copy; the head (the
+// LayerNorm's and the affine's transposes) takes one pass.
 // Rounding points are the per-product chain's: g and each dp in bf16 as
 // product operands, everything else in f32.
 #include <cstring>
@@ -101,6 +108,7 @@ struct BwdRows {
   int ld_src, ld_src_b, ld_g, ld_x, ld_y, ld_extra, ld_cond;
   int accumulate_cond, M, src_cols, split, half, xe, xc, cond;
   float eps;
+  uint8_t* scratch;      // the wide kernel's activation buffers, SCRATCH_TILE_BYTES a tile
 };
 
 // f(row, col, h, v0, v1) with v0, v1 references to this thread's sums at
@@ -180,15 +188,20 @@ __device__ __forceinline__ void prefetch_rows(const void* base, int ld, int elt,
                  : "memory");
 }
 
-__device__ __forceinline__ int chunks_per_wg(int n) { return ((n + 63) / 64 + CWG - 1) / CWG; }
-
-template <int KIND>
+template <int KIND, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
     fused_layer_bwd_kernel(const __grid_constant__ BwdPlan plan, const BwdRows io) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], sbar;
   uint8_t* smem = align1024(smem_raw);
+  // as fused_layer.cu: the one-pass kernel's two buffers in shared memory;
+  // the wide kernel's in the tile's scratch, its input buffer S in their place
+  uint8_t* const S = smem;
   uint8_t* act[2] = {smem, smem + ACT_BYTES};
+  if (WIDE) {
+    act[0] = io.scratch + (size_t)blockIdx.x * SCRATCH_TILE_BYTES;
+    act[1] = act[0] + WIDE_ACT_BYTES;
+  }
   uint8_t* ring = smem + 2 * ACT_BYTES;
   float* red = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);
   const int m0 = blockIdx.x * BM, M = io.M;
@@ -198,13 +211,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], EMPTY_ARRIVALS);
     }
+    mbar_init(&sbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   if (wg == CWG) {
-    // the producer: each product's weights and, after a hidden product's
-    // weights, the tile's blocks of its recorded GELU' (and residual
+    // the producer: each pass's weights and, after a hidden product's pass's
+    // weights, the tile's blocks of the pass's recorded GELU' (and residual
     // gradient) in ring-stage chunks of 4 float4 a consumer thread, which
     // its epilogue reads from shared memory; the head's f32 rows into L2
     if (threadIdx.x == CONSUMERS) {
@@ -213,25 +227,31 @@ __global__ void __launch_bounds__(THREADS, 1)
         prefetch_rows(p0.pre, p0.ld_pre, 4, m0, M);
         prefetch_rows(io.x, io.ld_x, 2, m0, M);
       } else {
-        prefetch_frag(p0.pre, chunks_per_wg(p0.n));
+        prefetch_frag(p0.pre, frag_cpw(p0.n));
       }
       int it = 0;
       for (int p = 0; p < plan.n_products; ++p) {
         const BwdProduct& pr = plan.prod[p];
-        produce_weights(&plan.w[p], pr.k, pr.n, plan.layer, ring, full, empty, it);
-        if (p == 0 || p == plan.n_products - 1) continue;
-        const int cpw = chunks_per_wg(pr.n);
-        const size_t block = (size_t)blockIdx.x * cpw * 65536;
-        for (int c = 0; c < 2 * cpw; ++c) {
-          for (int r = 0; r < (pr.res_in != nullptr ? 2 : 1); ++r) {
-            const float* src = r ? pr.res_in : pr.pre;
-            const int s = it % STAGES;
-            mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-            mbar_expect_tx(&full[s], STAGE_BYTES);
-            bulk_copy(ring + s * STAGE_BYTES,
-                      reinterpret_cast<const char*>(src) + block + (size_t)c * STAGE_BYTES,
-                      STAGE_BYTES, &full[s]);
-            ++it;
+        const int passes = WIDE ? pass_count(pr.n) : 1;
+        for (int j = 0; j < passes; ++j) {
+          const PassSpan ps = WIDE ? pass_span(pr.n, j) : PassSpan{(pr.n + 63) / 64,
+                                                                   frag_cpw(pr.n), 0};
+          produce_weights(&plan.w[p], pr.k, PASS_CHUNKS * j, ps.nch, plan.layer, ring, full,
+                          empty, it);
+          if (p == 0 || p == plan.n_products - 1) continue;
+          const size_t block =
+              ((size_t)blockIdx.x * frag_cpw(pr.n) * 8 + ps.k0) * CONSUMERS * sizeof(float4);
+          for (int c = 0; c < 2 * ps.cpw; ++c) {
+            for (int r = 0; r < (pr.res_in != nullptr ? 2 : 1); ++r) {
+              const float* src = r ? pr.res_in : pr.pre;
+              const int s = it % STAGES;
+              mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+              mbar_expect_tx(&full[s], STAGE_BYTES);
+              bulk_copy(ring + s * STAGE_BYTES,
+                        reinterpret_cast<const char*>(src) + block + (size_t)c * STAGE_BYTES,
+                        STAGE_BYTES, &full[s]);
+              ++it;
+            }
           }
         }
       }
@@ -242,9 +262,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const int tid = threadIdx.x;
   const int split = io.split, half = io.half;
-  // the head's input tile: src (f32) -> bf16 in act[0], zero to the next 64
-  // columns and past M; its per-tile column sums; coupling: bf16(g) out
+  // the head's input tile: src (f32) -> bf16 in act[0] (the wide kernel's
+  // S), zero to the next 64 columns and past M; its per-tile column sums;
+  // coupling: bf16(g) out
   {
+    uint8_t* const in_buf = WIDE ? S : act[0];
     const int cols = io.src_cols, padded = (cols + 63) / 64 * 64;
     for (int c = tid; c < padded; c += CONSUMERS) {
       float sum = 0.f;
@@ -255,7 +277,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const float v = in ? io.src[(size_t)gr * io.ld_src + c] : 0.f;
         sum += v;
         const bf16 b = f2bf(v);
-        *reinterpret_cast<bf16*>(act_at(act[0], row, c)) = b;
+        *reinterpret_cast<bf16*>(act_at(in_buf, row, c)) = b;
       }
       if (c < cols) io.src_colsum[(size_t)blockIdx.x * cols + c] = sum;
     }
@@ -268,226 +290,245 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int row = e / chunks, c = 8 * (e % chunks), gr = m0 + row;
         if (gr < M)
           *reinterpret_cast<uint4*>(io.src_b + (size_t)gr * io.ld_src_b + c) =
-              *reinterpret_cast<const uint4*>(act_at(act[0], row, c));
+              *reinterpret_cast<const uint4*>(act_at(in_buf, row, c));
       }
     }
   }
 
   int it = 0, a = 0;
+  uint32_t s_phase = 0;
   for (int p = 0; p < plan.n_products; ++p) {
     const BwdProduct& pr = plan.prod[p];
     const int n = pr.n;
     const bool head = p == 0, tail = p == plan.n_products - 1;
-    const int nch = (n + 63) / 64, cpw = (nch + CWG - 1) / CWG, c0 = wg * cpw;
-    const int cnt = min(max(nch - c0, 0), cpw);
-    float acc[64];
-    consume_weights(acc, act[a], pr.k, c0, cnt, ring, full, empty, it);
-    // every warpgroup is done with act[a]: it is the column sums' scratch now
-    named_barrier(1, CONSUMERS);
+    // a product wider than PASS_W (the wide kernel's hidden products and
+    // the tail) in passes
+    const int passes = WIDE ? pass_count(n) : 1;
+    const int cpw_all = frag_cpw(n);
     uint8_t* O = act[1 - a];
-    float* scratch = reinterpret_cast<float*>(act[a]) + wg * 512;
     float* cs = pr.colsum == nullptr ? nullptr : pr.colsum + (size_t)blockIdx.x * pr.cs_n;
-
-    if (tail) {
-      // the input's gradient: x1's added to the carry gradient; coupling:
-      // extra's added, the cond columns' written or added. Each group of
-      // four elements loads what it adds to before any of its stores.
-      const int t = tid % 128, fr = (t / 32) * 16 + (t % 32) / 4, fc = 2 * (t % 4);
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        if (k >= 8 * cnt) continue;
-        const int col = (c0 + k / 8) * 64 + 8 * (k % 8) + fc;
-        float* dst[4];
-        float old[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int gr = m0 + fr + 8 * (q >> 1), c = col + (q & 1);
-          dst[q] = nullptr;
-          if (gr < M) {
-            if (c < split)
-              dst[q] = io.g_next + (size_t)gr * io.ld_g + c;
-            else if (KIND == COUPLING_BWD && c < io.xe && io.dextra != nullptr)
-              dst[q] = io.dextra + (size_t)gr * io.ld_extra + c - split;
-            else if (KIND == COUPLING_BWD && c >= io.xc && c < io.xc + io.cond)
-              dst[q] = io.dcond + (size_t)gr * io.ld_cond + c - io.xc;
-          }
-          // everything adds but the attention's da, which is written
-          const bool add =
-              dst[q] != nullptr && !(KIND == COUPLING_BWD && c >= io.xc && !io.accumulate_cond);
-          old[q] = add ? *dst[q] : 0.f;
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (dst[q] != nullptr) *dst[q] = old[q] + acc[4 * k + q];
-      }
-    } else if (head && KIND == COUPLING_BWD) {
-      // dy -> the affine's transpose at the save. dy1 goes straight into the
-      // carry gradient; dy2 is staged in f32, row-major, over this product's
-      // A buffer (free now; half <= 256 columns fit its 64 KB), then a
-      // row-major pass, `groups` threads a column and a band of rows each,
-      // reads [s | t] and x2 coalesced, writes y and dy2 * scale coalesced,
-      // d[s | t] in plain order into O (ds_i at column i, dt_i = dy2_i at
-      // half + i), and each band's column sums of ds and dt (the head's
-      // colsum rows: `groups` a tile, in band order).
-      float* dy2s = reinterpret_cast<float*>(act[a]);
-      for_acc_pairs(acc, cnt, c0, [&](int row, int col, int, float& v0, float& v1) {
-        const int gr = m0 + row;
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int c = col + b;
-          const float v = b ? v1 : v0;
-          if (c < split) {
-            if (gr < M) io.g_next[(size_t)gr * io.ld_g + c] = v;
-          } else if (c < n) {
-            dy2s[row * half + c - split] = v;
-          }
-        }
-      });
+    for (int j = 0; j < passes; ++j) {
+      const PassSpan ps = WIDE ? pass_span(n, j) : PassSpan{(n + 63) / 64, cpw_all, 0};
+      const int nch = ps.nch, cpw = ps.cpw, cl = wg * cpw;
+      const int cnt = min(max(nch - cl, 0), cpw), c0 = PASS_CHUNKS * j + cl;
+      float acc[64];
+      consume_weights(acc, WIDE ? S : act[a], pr.k, cl, cnt, ring, full, empty, it);
+      // every warpgroup is done with this pass's products: act[a] (the wide
+      // kernel's scratch copy of S) is the column sums' scratch now
       named_barrier(1, CONSUMERS);
-      for (int e = tid; e < BM * split; e += CONSUMERS) {
-        const int gr = m0 + e / split, c = e % split;
-        if (gr < M) io.y[(size_t)gr * io.ld_y + c] = io.x[(size_t)gr * io.ld_x + c];
-      }
-      const int groups = CONSUMERS / half, band = (BM + groups - 1) / groups;
-      if (tid < groups * half) {
-        const int i = tid % half, grp = tid / half;
-        const int r0 = grp * band, r1 = min(BM, r0 + band);
-        const float keep = 1.f - io.eps;
-        float sum_ds = 0.f, sum_dt = 0.f;
-        for (int row = r0; row < r1; row += 2) {
-          // both rows' inputs first, so their latencies overlap
-          float2 st[2];
-          float x2[2], dl[2];
+      float* scratch = reinterpret_cast<float*>(act[a]) + wg * 512;
+
+      if (tail) {
+        // the input's gradient: x1's added to the carry gradient; coupling:
+        // extra's added, the cond columns' written or added. Each group of
+        // four elements loads what it adds to before any of its stores.
+        const int t = tid % 128, fr = (t / 32) * 16 + (t % 32) / 4, fc = 2 * (t % 4);
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int gr = m0 + row + u;
-            const bool ok = row + u < r1 && gr < M;
-            st[u] = ok ? *reinterpret_cast<const float2*>(pr.pre + (size_t)gr * pr.ld_pre + 2 * i)
-                       : make_float2(0.f, 0.f);
-            x2[u] = ok ? bf2f(io.x[(size_t)gr * io.ld_x + split + i]) : 0.f;
-            dl[u] = ok ? io.dldj[gr] : 0.f;
-          }
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            if (row + u >= r1) break;
-            const int gr = m0 + row + u;
-            float ds = 0.f, dt = 0.f;
-            if (gr < M) {
-              dt = dy2s[(row + u) * half + i];
-              const float sig = 1.f / (1.f + expf(-st[u].x));
-              const float sc = (2.f * sig - 1.f) * keep + 1.f;
-              io.y[(size_t)gr * io.ld_y + split + i] = f2bf(x2[u] * sc + st[u].y);
-              io.g_next[(size_t)gr * io.ld_g + split + i] = dt * sc;
-              ds = (dt * x2[u] + dl[u] / sc) * keep * 2.f * sig * (1.f - sig);
-            }
-            *reinterpret_cast<bf16*>(act_at(O, row + u, i)) = f2bf(ds);
-            *reinterpret_cast<bf16*>(act_at(O, row + u, half + i)) = f2bf(dt);
-            sum_ds += ds;
-            sum_dt += dt;
-          }
-        }
-        float* out = pr.colsum + ((size_t)blockIdx.x * groups + grp) * pr.cs_n;
-        out[i] = sum_ds;
-        out[half + i] = sum_dt;
-      }
-      // O's columns past 2 half, up to the next product's last stage, are zero
-      const int w2 = 2 * half, pad = (w2 + 63) / 64 * 64 - w2;
-      for (int e = tid; e < BM * pad; e += CONSUMERS)
-        *reinterpret_cast<bf16*>(act_at(O, e / pad, w2 + e % pad)) = f2bf(0.f);
-    } else if (head) {
-      // dqn -> the LayerNorm's transpose from the recorded normalised row
-      // xhat (the accumulator's order) and 1 / std (rstd):
-      // rstd * (g - mean(g) - xhat * mean(g * xhat))
-      const int t = tid % 128, fr = (t / 32) * 16 + (t % 32) / 4, fc = 2 * (t % 4);
-      float rstd[2], gs[2] = {0.f, 0.f}, gxs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) rstd[h] = m0 + fr + 8 * h < M ? io.ln_rstd[m0 + fr + 8 * h] : 0.f;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        if (k < 8 * cnt) {
-          const float4 x4 = *frag_ptr(pr.pre, cpw, k);
-          const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-          const int col = (c0 + k / 8) * 64 + 8 * (k % 8) + fc;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            float& v = acc[4 * k + q];
-            if (m0 + fr + 8 * (q >> 1) < M && col + (q & 1) < n) {
-              gs[q >> 1] += v;
-              gxs[q >> 1] += v * x[q];
-            } else {
-              v = 0.f;
-            }
-          }
-        }
-      }
-      row_totals(gs, red);
-      row_totals(gxs, red);
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        if (k < 8 * cnt) {
-          const float4 x4 = *frag_ptr(pr.pre, cpw, k);
-          const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-          const int col = (c0 + k / 8) * 64 + 8 * (k % 8) + fc;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int h = q >> 1;
-            float& v = acc[4 * k + q];
-            if (m0 + fr + 8 * h < M && col + (q & 1) < n)
-              v = rstd[h] * (v - gs[h] / n - x[q] * (gxs[h] / n));
-          }
-          st_pair(O, fr, col, acc[4 * k], acc[4 * k + 1]);
-          st_pair(O, fr + 8, col, acc[4 * k + 2], acc[4 * k + 3]);
-        }
-      }
-      col_sums(acc, cnt, c0, scratch, cs, [&](int c) { return c < n ? c : -1; });
-    } else {
-      // a hidden product: dp = (dh + the residual's gradient) * GELU', both
-      // recorded in the accumulator's order and brought into the ring by the
-      // producer: chunk c holds float4 4 c .. 4 c + 3 of every consumer
-      // thread (thread t's float4 4 c + u at u * CONSUMERS + t)
-      const int t = tid % 128, fr = (t / 32) * 16 + (t % 32) / 4, fc = 2 * (t % 4);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (c >= 2 * cpw) continue;
-        const int sx = it % STAGES;
-        mbar_wait(&full[sx], (it / STAGES) & 1);
-        ++it;
-        int sr = -1;
-        if (pr.res_in != nullptr) {
-          sr = it % STAGES;
-          mbar_wait(&full[sr], (it / STAGES) & 1);
-          ++it;
-        }
-        const float4* xs = reinterpret_cast<const float4*>(ring + sx * STAGE_BYTES) + tid;
-        const float4* rs = reinterpret_cast<const float4*>(ring + max(sr, 0) * STAGE_BYTES) + tid;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int k = 4 * c + u;
+        for (int k = 0; k < 16; ++k) {
           if (k >= 8 * cnt) continue;
-          const float4 x4 = xs[u * CONSUMERS];
-          const float4 r4 = sr >= 0 ? rs[u * CONSUMERS] : make_float4(0.f, 0.f, 0.f, 0.f);
-          const float x[4] = {x4.x, x4.y, x4.z, x4.w}, r[4] = {r4.x, r4.y, r4.z, r4.w};
           const int col = (c0 + k / 8) * 64 + 8 * (k % 8) + fc;
+          float* dst[4];
+          float old[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            float& v = acc[4 * k + q];
-            v = m0 + fr + 8 * (q >> 1) < M && col + (q & 1) < n ? (r[q] + v) * x[q] : 0.f;
+            const int gr = m0 + fr + 8 * (q >> 1), c = col + (q & 1);
+            dst[q] = nullptr;
+            if (gr < M) {
+              if (c < split)
+                dst[q] = io.g_next + (size_t)gr * io.ld_g + c;
+              else if (KIND == COUPLING_BWD && c < io.xe && io.dextra != nullptr)
+                dst[q] = io.dextra + (size_t)gr * io.ld_extra + c - split;
+              else if (KIND == COUPLING_BWD && c >= io.xc && c < io.xc + io.cond)
+                dst[q] = io.dcond + (size_t)gr * io.ld_cond + c - io.xc;
+            }
+            // everything adds but the attention's da, which is written
+            const bool add =
+                dst[q] != nullptr && !(KIND == COUPLING_BWD && c >= io.xc && !io.accumulate_cond);
+            old[q] = add ? *dst[q] : 0.f;
           }
-          if (pr.res_out != nullptr)
-            *frag_ptr(pr.res_out, cpw, k) =
-                make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
-          st_pair(O, fr, col, acc[4 * k], acc[4 * k + 1]);
-          st_pair(O, fr + 8, col, acc[4 * k + 2], acc[4 * k + 3]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (dst[q] != nullptr) *dst[q] = old[q] + acc[4 * k + q];
         }
-        release(&empty[sx]);
-        if (sr >= 0) release(&empty[sr]);
+      } else if (head && KIND == COUPLING_BWD) {
+        // dy -> the affine's transpose at the save. dy1 goes straight into the
+        // carry gradient; dy2 is staged in f32, row-major, over this product's
+        // A buffer (free now; half <= 256 columns fit its 64 KB), then a
+        // row-major pass, `groups` threads a column and a band of rows each,
+        // reads [s | t] and x2 coalesced, writes y and dy2 * scale coalesced,
+        // d[s | t] in plain order into O (ds_i at column i, dt_i = dy2_i at
+        // half + i), and each band's column sums of ds and dt (the head's
+        // colsum rows: `groups` a tile, in band order).
+        float* dy2s = reinterpret_cast<float*>(act[a]);
+        for_acc_pairs(acc, cnt, c0, [&](int row, int col, int, float& v0, float& v1) {
+          const int gr = m0 + row;
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const int c = col + b;
+            const float v = b ? v1 : v0;
+            if (c < split) {
+              if (gr < M) io.g_next[(size_t)gr * io.ld_g + c] = v;
+            } else if (c < n) {
+              dy2s[row * half + c - split] = v;
+            }
+          }
+        });
+        named_barrier(1, CONSUMERS);
+        for (int e = tid; e < BM * split; e += CONSUMERS) {
+          const int gr = m0 + e / split, c = e % split;
+          if (gr < M) io.y[(size_t)gr * io.ld_y + c] = io.x[(size_t)gr * io.ld_x + c];
+        }
+        const int groups = CONSUMERS / half, band = (BM + groups - 1) / groups;
+        if (tid < groups * half) {
+          const int i = tid % half, grp = tid / half;
+          const int r0 = grp * band, r1 = min(BM, r0 + band);
+          const float keep = 1.f - io.eps;
+          float sum_ds = 0.f, sum_dt = 0.f;
+          for (int row = r0; row < r1; row += 2) {
+            // both rows' inputs first, so their latencies overlap
+            float2 st[2];
+            float x2[2], dl[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int gr = m0 + row + u;
+              const bool ok = row + u < r1 && gr < M;
+              st[u] = ok ? *reinterpret_cast<const float2*>(pr.pre + (size_t)gr * pr.ld_pre + 2 * i)
+                         : make_float2(0.f, 0.f);
+              x2[u] = ok ? bf2f(io.x[(size_t)gr * io.ld_x + split + i]) : 0.f;
+              dl[u] = ok ? io.dldj[gr] : 0.f;
+            }
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              if (row + u >= r1) break;
+              const int gr = m0 + row + u;
+              float ds = 0.f, dt = 0.f;
+              if (gr < M) {
+                dt = dy2s[(row + u) * half + i];
+                const float sig = 1.f / (1.f + expf(-st[u].x));
+                const float sc = (2.f * sig - 1.f) * keep + 1.f;
+                io.y[(size_t)gr * io.ld_y + split + i] = f2bf(x2[u] * sc + st[u].y);
+                io.g_next[(size_t)gr * io.ld_g + split + i] = dt * sc;
+                ds = (dt * x2[u] + dl[u] / sc) * keep * 2.f * sig * (1.f - sig);
+              }
+              *reinterpret_cast<bf16*>(act_at(O, row + u, i)) = f2bf(ds);
+              *reinterpret_cast<bf16*>(act_at(O, row + u, half + i)) = f2bf(dt);
+              sum_ds += ds;
+              sum_dt += dt;
+            }
+          }
+          float* out = pr.colsum + ((size_t)blockIdx.x * groups + grp) * pr.cs_n;
+          out[i] = sum_ds;
+          out[half + i] = sum_dt;
+        }
+        // O's columns past 2 half, up to the next product's last stage, are zero
+        const int w2 = 2 * half, pad = (w2 + 63) / 64 * 64 - w2;
+        for (int e = tid; e < BM * pad; e += CONSUMERS)
+          *reinterpret_cast<bf16*>(act_at(O, e / pad, w2 + e % pad)) = f2bf(0.f);
+      } else if (head) {
+        // dqn -> the LayerNorm's transpose from the recorded normalised row
+        // xhat (the accumulator's order) and 1 / std (rstd):
+        // rstd * (g - mean(g) - xhat * mean(g * xhat))
+        const int t = tid % 128, fr = (t / 32) * 16 + (t % 32) / 4, fc = 2 * (t % 4);
+        float rstd[2], gs[2] = {0.f, 0.f}, gxs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) rstd[h] = m0 + fr + 8 * h < M ? io.ln_rstd[m0 + fr + 8 * h] : 0.f;
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          if (k < 8 * cnt) {
+            const float4 x4 = *frag_ptr(pr.pre, cpw, k);
+            const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+            const int col = (c0 + k / 8) * 64 + 8 * (k % 8) + fc;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              float& v = acc[4 * k + q];
+              if (m0 + fr + 8 * (q >> 1) < M && col + (q & 1) < n) {
+                gs[q >> 1] += v;
+                gxs[q >> 1] += v * x[q];
+              } else {
+                v = 0.f;
+              }
+            }
+          }
+        }
+        row_totals(gs, red);
+        row_totals(gxs, red);
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          if (k < 8 * cnt) {
+            const float4 x4 = *frag_ptr(pr.pre, cpw, k);
+            const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+            const int col = (c0 + k / 8) * 64 + 8 * (k % 8) + fc;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int h = q >> 1;
+              float& v = acc[4 * k + q];
+              if (m0 + fr + 8 * h < M && col + (q & 1) < n)
+                v = rstd[h] * (v - gs[h] / n - x[q] * (gxs[h] / n));
+            }
+            st_pair(O, fr, col, acc[4 * k], acc[4 * k + 1]);
+            st_pair(O, fr + 8, col, acc[4 * k + 2], acc[4 * k + 3]);
+          }
+        }
+        col_sums(acc, cnt, c0, scratch, cs, [&](int c) { return c < n ? c : -1; });
+      } else {
+        // a hidden product: dp = (dh + the residual's gradient) * GELU', both
+        // recorded in the accumulator's order and brought into the ring by the
+        // producer: chunk c holds float4 4 c .. 4 c + 3 of every consumer
+        // thread (thread t's float4 4 c + u at u * CONSUMERS + t)
+        const int t = tid % 128, fr = (t / 32) * 16 + (t % 32) / 4, fc = 2 * (t % 4);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (c >= 2 * cpw) continue;
+          const int sx = it % STAGES;
+          mbar_wait(&full[sx], (it / STAGES) & 1);
+          ++it;
+          int sr = -1;
+          if (pr.res_in != nullptr) {
+            sr = it % STAGES;
+            mbar_wait(&full[sr], (it / STAGES) & 1);
+            ++it;
+          }
+          const float4* xs = reinterpret_cast<const float4*>(ring + sx * STAGE_BYTES) + tid;
+          const float4* rs = reinterpret_cast<const float4*>(ring + max(sr, 0) * STAGE_BYTES) + tid;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int k = 4 * c + u;
+            if (k >= 8 * cnt) continue;
+            const float4 x4 = xs[u * CONSUMERS];
+            const float4 r4 = sr >= 0 ? rs[u * CONSUMERS] : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float x[4] = {x4.x, x4.y, x4.z, x4.w}, r[4] = {r4.x, r4.y, r4.z, r4.w};
+            const int col = (c0 + k / 8) * 64 + 8 * (k % 8) + fc;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              float& v = acc[4 * k + q];
+              v = m0 + fr + 8 * (q >> 1) < M && col + (q & 1) < n ? (r[q] + v) * x[q] : 0.f;
+            }
+            if (pr.res_out != nullptr)
+              *frag_ptr(pr.res_out, cpw_all, ps.k0 + k) =
+                  make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+            st_pair(O, fr, col, acc[4 * k], acc[4 * k + 1]);
+            st_pair(O, fr + 8, col, acc[4 * k + 2], acc[4 * k + 3]);
+          }
+          release(&empty[sx]);
+          if (sr >= 0) release(&empty[sr]);
+        }
+        // the residual gradient written here comes back through a bulk copy
+        if (pr.res_out != nullptr) fence_proxy_async_global();
+        col_sums(acc, cnt, c0, scratch, cs, [&](int c) { return c < n ? c : -1; });
       }
-      // the residual gradient written here comes back through a bulk copy
-      if (pr.res_out != nullptr) fence_proxy_async_global();
-      col_sums(acc, cnt, c0, scratch, cs, [&](int c) { return c < n ? c : -1; });
     }
     fence_proxy_async();
+    // the wide kernel's stores of O, before the bulk copy reads them
+    if (WIDE) fence_proxy_async_global();
     named_barrier(1, CONSUMERS);
+    if (WIDE && !tail) {
+      // the next product's input, O, into S
+      if (tid == 0) {
+        const uint32_t bytes = (uint32_t)((plan.prod[p + 1].k + 63) / 64 * ATOM_BYTES);
+        mbar_expect_tx(&sbar, bytes);
+        bulk_copy(S, O, bytes, &sbar);
+      }
+    }
     if (pr.d_out != nullptr) {
       // dp in bf16 for the weight gradients, 16 bytes a thread from O
       const int chunks = (n + 7) / 8;
@@ -498,21 +539,36 @@ __global__ void __launch_bounds__(THREADS, 1)
               *reinterpret_cast<const uint4*>(act_at(O, row, c));
       }
     }
+    if (WIDE && !tail) {
+      mbar_wait(&sbar, s_phase);
+      s_phase ^= 1;
+    }
     a = 1 - a;
   }
 }
 
-template <int KIND>
-cudaError_t launch_bwd(const BwdPlan& plan, const BwdRows& io, cudaStream_t stream) {
+template <int KIND, bool WIDE>
+cudaError_t launch_bwd_kind(const BwdPlan& plan, const BwdRows& io, cudaStream_t stream) {
   static bool smem_set = false;   // the shared-memory opt-in, once per kernel
   if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_layer_bwd_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    const cudaError_t err = cudaFuncSetAttribute(fused_layer_bwd_kernel<KIND, WIDE>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 SMEM_BYTES);
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  fused_layer_bwd_kernel<KIND><<<(io.M + BM - 1) / BM, THREADS, SMEM_BYTES, stream>>>(plan, io);
+  fused_layer_bwd_kernel<KIND, WIDE>
+      <<<(io.M + BM - 1) / BM, THREADS, SMEM_BYTES, stream>>>(plan, io);
   return cudaGetLastError();
+}
+
+// The one-pass kernel where every product's K and N are at most PASS_W,
+// the wide kernel (whose scratch io must hold) otherwise.
+template <int KIND>
+cudaError_t launch_bwd(const BwdPlan& plan, const BwdRows& io, cudaStream_t stream) {
+  if (!plan_is_wide(plan)) return launch_bwd_kind<KIND, false>(plan, io, stream);
+  if (io.scratch == nullptr) return cudaErrorInvalidValue;
+  return launch_bwd_kind<KIND, true>(plan, io, stream);
 }
 
 }  // namespace
@@ -527,7 +583,9 @@ cudaError_t launch_bwd(const BwdPlan& plan, const BwdRows& io, cudaStream_t stre
 // res_out[p] the f32 residual gradient read and written (frag_ptr's
 // order), d_out[p] / ld_d[p] the bf16 dp out and colsum[p] its (tiles,
 // cs_n[p]) column sums; 0 where none. The head reads src (M x src_cols
-// f32). Everything else as in BwdRows.
+// f32). Everything else as in BwdRows. Products take K and N up to MAXW
+// (past PASS_W the wide kernel, given `scratch` of fc_fused_scratch_bytes(M)
+// bytes, fused_layer.cu); the head's output at most PASS_W.
 FC_API int fc_fused_layer_bwd(int kind, int n_products, const uint64_t* w, const int* w_ld,
                               const int* w_layers, const int* k, const int* n,
                               const uint64_t* pre, const int* ld_pre, const uint64_t* res_in,
@@ -538,9 +596,9 @@ FC_API int fc_fused_layer_bwd(int kind, int n_products, const uint64_t* w, const
                               const void* x, int ld_x, const void* dldj, void* y, int ld_y,
                               void* dextra, int ld_extra, void* dcond, int ld_cond,
                               int accumulate_cond, int split, int half, int xe, int xc, int cond,
-                              const void* ln_rstd, float eps, void* stream) {
+                              const void* ln_rstd, float eps, void* scratch, void* stream) {
   if (kind < 0 || kind > 1 || n_products < 3 || n_products > MAX_PRODUCTS || M < 1 ||
-      src_cols < 1 || src_cols > MAXW || k[0] != src_cols)
+      src_cols < 1 || src_cols > PASS_W || k[0] != src_cols || n[0] > PASS_W)
     return (int)cudaErrorInvalidValue;
   BwdPlan plan;
   memset(&plan, 0, sizeof(plan));
@@ -573,7 +631,7 @@ FC_API int fc_fused_layer_bwd(int kind, int n_products, const uint64_t* w, const
                    (const bf16*)x, (const float*)dldj, (bf16*)y, (float*)dextra, (float*)dcond,
                    (const float*)ln_rstd,
                    ld_src, ld_src_b, ld_g, ld_x, ld_y, ld_extra, ld_cond, accumulate_cond, M,
-                   src_cols, split, half, xe, xc, cond, eps};
+                   src_cols, split, half, xe, xc, cond, eps, (uint8_t*)scratch};
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(kind == COUPLING_BWD ? launch_bwd<COUPLING_BWD>(plan, io, s)
                                     : launch_bwd<CONDITIONER_BWD>(plan, io, s));

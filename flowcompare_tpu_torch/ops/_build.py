@@ -120,11 +120,12 @@ _SIGNATURES = {
     "fc_sa_gather_smem": [_I, _I, _I],
     "fc_fused_layer": [_I, _I, _I, _V, _V, _V, _V, _V, _V, _I, _I, _V, _I, _I, _I, _I, _I,
                        _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _F, _V, _V, _V, _V, _V, _I, _V,
-                       _V],
+                       _V, _V],
     "fc_fused_layer_bwd": [_I, _I, *[_V] * 13, _I, _I, _V, _I, _I, _V, _I, _V, _V, _I, _V, _I,
-                           _V, _V, _I, _V, _I, _V, _I, _I, _I, _I, _I, _I, _I, _V, _F, _V],
-    "fc_dgcnn_tail": [_I, *[_V] * 7, _V, _I, _I, _V, _I, _V],
-    "fc_augment_net": [_I, *[_V] * 6, _V, _I, _I, _I, _V, _I, _V, _I, _I, _V, _I, _V, _V],
+                           _V, _V, _I, _V, _I, _V, _I, _I, _I, _I, _I, _I, _I, _V, _F, _V, _V],
+    "fc_dgcnn_tail": [_I, *[_V] * 7, _V, _I, _I, _V, _I, _V, _V],
+    "fc_augment_net": [_I, *[_V] * 6, _V, _I, _I, _I, _V, _I, _V, _I, _I, _V, _I, _V, _V,
+                       _V],
     "fc_gemm_tn_grouped": [_I, *[_V] * 10, _V],
     "fc_grad_reduce": [_I, *[_V] * 7, _I, _V],
 }
@@ -239,6 +240,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.fc_error_string.argtypes = [_I]
         lib.fc_error_string.restype = ctypes.c_char_p
+        lib.fc_fused_scratch_bytes.argtypes = [_I]
+        lib.fc_fused_scratch_bytes.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
 
@@ -1196,9 +1199,27 @@ def mlp_chain(a: torch.Tensor, pairs: list, out: torch.Tensor, bufs: list) -> No
 
 # ------------------------------------------------ the fused layer kernels
 
-# the widest product (K and N) and the most products a launch takes: the
-# limits fc_fused_layer checks (csrc/fused_layer.cu's MAXW, MAX_PRODUCTS)
-FUSED_MAXW, FUSED_MAX_PRODUCTS = 512, 10
+# the widest product (K and N), the widest a pass of output columns (and
+# a one-pass kernel's product) and the most products a launch takes: the
+# limits fc_fused_layer checks (csrc/fused_layer.cuh's MAXW, PASS_W,
+# MAX_PRODUCTS). The products that end in a row's statistics or a row-wise
+# epilogue (the LayerNorm's, [s | t], the LinearLU, B2's output passes, B5's
+# head) take one pass; a stack with a product past FUSED_PASS_W runs the
+# wide kernels, which take device scratch (`fused_scratch`).
+FUSED_MAXW, FUSED_PASS_W, FUSED_MAX_PRODUCTS = 1024, 512, 10
+
+
+def wide_shapes(shapes) -> bool:
+    """Whether a stack of (K, N) products needs the wide kernels."""
+    return any(k > FUSED_PASS_W or n > FUSED_PASS_W for k, n in shapes)
+
+
+def fused_scratch(rows: int, wide: bool, device) -> Optional[torch.Tensor]:
+    """The wide kernels' activation buffers for `rows` rows (256 KB a 64-row
+    tile, `fc_fused_scratch_bytes`), or None for a one-pass stack."""
+    if not wide:
+        return None
+    return torch.empty(library().fc_fused_scratch_bytes(rows), dtype=torch.uint8, device=device)
 
 
 class FusedStack:
@@ -1220,6 +1241,7 @@ class FusedStack:
                 raise ValueError(f"FusedStack: weight {tuple(w.shape)} {w.dtype} strides "
                                  f"{w.stride()} / bias {tuple(b.shape)} not in the layout")
         self.pairs, self.n_mlp = pairs, n_mlp
+        self.wide = wide_shapes((w.shape[1], w.shape[2]) for w, _ in pairs)
         n = len(pairs)
 
         def arr(ctype, values):
@@ -1242,43 +1264,60 @@ class FusedStack:
         return [(w[l], b[l]) for w, b in self.pairs]
 
 
+def _frag_passes(cols: int) -> list:
+    """(first chunk, chunks a warpgroup, first float4 k) of each pass of
+    FUSED_PASS_W output columns (csrc/fused_layer.cuh's pass_span)."""
+    nch, per = -(-cols // 64), FUSED_PASS_W // 64
+    return [(per * j, -(-min(per, nch - per * j) // 4), 8 * (per // 4) * j)
+            for j in range(-(-nch // per))]
+
+
+def frag_cpw(cols: int) -> int:
+    """A tile's block of accumulator-order records in units of 64 KB (the
+    chunks a warpgroup owns over all passes; csrc/fused_layer.cuh's frag_cpw)."""
+    return sum(cpw for _, cpw, _ in _frag_passes(cols))
+
+
 def fragment_rows(rows: int, cols: int, device) -> torch.Tensor:
     """An (rows, cols) f32 view for values the fused kernels write and read
     in their accumulator's order (csrc/fused_layer.cuh's frag_ptr: a 64-row
     tile of a product whose output has cols columns is a block of 64 x 256
-    cpw floats, cpw its warpgroups' 64-column chunks each); the plain
-    versions use the view row-major. The buffer under it has 256 cpw columns
-    and its rows rounded up to 64."""
-    cpw = -(-(-(-cols // 64)) // 4)
-    buf = torch.empty(-(-rows // 64) * 64, 256 * cpw, dtype=torch.float32, device=device)
+    cpw floats, cpw its warpgroups' 64-column chunks each over its passes,
+    `frag_cpw`); the plain versions use the view row-major. The buffer under
+    it has 256 cpw columns and its rows rounded up to 64."""
+    buf = torch.empty(-(-rows // 64) * 64, 256 * frag_cpw(cols), dtype=torch.float32,
+                      device=device)
     return buf[:rows, :cols]
 
 
 def fragment_index(rows: int, cols: int, device) -> torch.Tensor:
     """For each element (r, c) of a `fragment_rows` matrix, the index of
     its value in the flat buffer under it as the CUDA kernels lay it out:
-    float4 k of consumer thread t in tile b at (b * 8 cpw + k) * 512 + t,
-    holding rows fr and fr + 8, columns col and col + 1 of warpgroup t //
-    128's chunk c0 + k // 8 (wgmma's m64nN fragment). For checks that read
-    a kernel's records row-major."""
-    cpw = -(-(-(-cols // 64)) // 4)
+    in pass j (`_frag_passes`), float4 k0_j + k of consumer thread t in tile
+    b at (b * 8 cpw + k0_j + k) * 512 + t, holding rows fr and fr + 8,
+    columns col and col + 1 of warpgroup t // 128's chunk c0 + k // 8 of the
+    pass (wgmma's m64nN fragment). For checks that read a kernel's records
+    row-major."""
+    cpw_all = frag_cpw(cols)
     t = torch.arange(512, device=device)
     tt, wg = t % 128, t // 128
     fr, fc = (tt // 32) * 16 + (tt % 32) // 4, 2 * (tt % 4)
-    k = torch.arange(8 * cpw, device=device)
     q = torch.arange(4, device=device)
-    row = fr[:, None, None] + 8 * (q >> 1)[None, None, :]
-    col = ((wg[:, None, None] * cpw + (k // 8)[None, :, None]) * 64 + 8 * (k % 8)[None, :, None]
-           + fc[:, None, None] + (q & 1)[None, None, :])
-    row, col = torch.broadcast_tensors(row, col)
-    flat = ((k[None, :, None] * 512 + t[:, None, None]) * 4 + q[None, None, :]).expand_as(row)
     tiles = -(-rows // 64)
     b = torch.arange(tiles, device=device)[:, None, None, None]
-    rows_all = b * 64 + row[None]
-    flat_all = b * (8 * cpw * 512 * 4) + flat[None]
-    keep = (rows_all < rows) & (col[None] < cols)
     index = torch.empty(rows, cols, dtype=torch.long, device=device)
-    index[rows_all[keep], col.expand_as(rows_all)[keep]] = flat_all[keep]
+    for first, cpw, k0 in _frag_passes(cols):
+        k = torch.arange(8 * cpw, device=device)
+        row = fr[:, None, None] + 8 * (q >> 1)[None, None, :]
+        col = ((first + wg[:, None, None] * cpw + (k // 8)[None, :, None]) * 64
+               + 8 * (k % 8)[None, :, None] + fc[:, None, None] + (q & 1)[None, None, :])
+        row, col = torch.broadcast_tensors(row, col)
+        flat = (((k0 + k)[None, :, None] * 512 + t[:, None, None]) * 4
+                + q[None, None, :]).expand_as(row)
+        rows_all = b * 64 + row[None]
+        flat_all = b * (8 * cpw_all * 512 * 4) + flat[None]
+        keep = (rows_all < rows) & (col[None] < cols)
+        index[rows_all[keep], col.expand_as(rows_all)[keep]] = flat_all[keep]
     return index
 
 
@@ -1352,12 +1391,14 @@ def _fused_launch(kind: int, stack: FusedStack, n_products: int, layer: int, tai
             raise ValueError("fused_layer.x1_src: expected the layer's (M, >= split) bf16 save")
         x1_p = x1_src.data_ptr()
     rec = record.args if record is not None else [None] * 4
+    scratch = fused_scratch(rows, stack.wide, xin.device)
     rc = library().fc_fused_layer(kind, n_products, stack.n_mlp, *stack.args, layer,
                                   tail_layer, xin.data_ptr(), ldxin, stack.in_cols, split, half,
                                   rows, x_p, ldx, y_p, ldy, ldj_p, lu_p, save_p, ldsave, q_p, ldq,
                                   float(eps), *rec, x1_p, ldx1,
                                   None if ln_rstd is None else _vec(ln_rstd, "fused_layer.ln_rstd",
-                                                                    rows), _stream())
+                                                                    rows),
+                                  None if scratch is None else scratch.data_ptr(), _stream())
     if rc:
         _check(f"fused_layer (kind {kind})", rc)
 
@@ -1448,9 +1489,11 @@ def dgcnn_tail(feats: torch.Tensor, stack: FusedStack, scale: torch.Tensor,
     ldo = _rows(out, "dgcnn_tail.out", torch.bfloat16)
     if not tma_readable(feats.data_ptr(), ldf) or not tma_readable(out.data_ptr(), ldo):
         raise ValueError("dgcnn_tail: feats and out need 16-byte rows and bases")
+    scratch = fused_scratch(feats.shape[0], stack.wide, feats.device)
     rc = library().fc_dgcnn_tail(len(stack.pairs), *stack.args,
                                  _vec(scale, "dgcnn_tail.scale", n0), feats.data_ptr(), ldf,
-                                 feats.shape[0], out.data_ptr(), ldo, _stream())
+                                 feats.shape[0], out.data_ptr(), ldo,
+                                 None if scratch is None else scratch.data_ptr(), _stream())
     if rc:
         _check("dgcnn_tail", rc)
     DGCNN_TAIL_LAUNCHES += 1
@@ -1482,11 +1525,13 @@ def augment_net(xin: torch.Tensor, stack: FusedStack, x: torch.Tensor, eps: torc
     ldxin = _rows(xin, "augment_net.xin", torch.bfloat16)
     if not tma_readable(xin.data_ptr(), ldxin):
         raise ValueError("augment_net: TMA cannot read the packed rows")
+    scratch = fused_scratch(rows, stack.wide, xin.device)
     rc = library().fc_augment_net(
         len(stack.pairs), *stack.args, xin.data_ptr(), ldxin, rows, in_dim, x.data_ptr(),
         _rows(x, "augment_net.x", torch.float32), eps.data_ptr(),
         _rows(eps, "augment_net.eps", torch.float32), aug, z.data_ptr(),
-        _rows(z, "augment_net.z", torch.float32), _vec(ldj, "augment_net.ldj", rows), _stream())
+        _rows(z, "augment_net.z", torch.float32), _vec(ldj, "augment_net.ldj", rows),
+        None if scratch is None else scratch.data_ptr(), _stream())
     if rc:
         _check("augment_net", rc)
     AUGMENT_NET_LAUNCHES += 1
@@ -1575,6 +1620,7 @@ class BwdStack:
                 raise ValueError("BwdStack: column sums must be contiguous f32")
         self.weights, self.pre, self.res_in, self.res_out = weights, pre, res_in, res_out
         self.d_out, self.colsum = d_out, colsum
+        self.wide = wide_shapes((w.shape[1], w.shape[2]) for w in weights)
 
         def ptr(t):
             return 0 if t is None else t.data_ptr()
@@ -1625,13 +1671,14 @@ def _bwd_launch(kind: int, stack: BwdStack, l: int, src, src_b, src_colsum, g_ne
     c_p, ld_c = mat(dcond, "dcond", torch.float32)
     dldj_p = None if dldj is None else _vec(dldj, "fused_layer_bwd.dldj", rows)
     cond = 0 if dcond is None else dcond.shape[1]
+    scratch = fused_scratch(rows, stack.wide, src.device)
     rc = library().fc_fused_layer_bwd(
         kind, len(stack.weights), *stack.args, l, rows, src.data_ptr(), ld_src, cols, sb_p,
         ld_sb, _vec(src_colsum, "fused_layer_bwd.src_colsum", src_colsum.numel()),
         g_next.data_ptr(), ld_g, x_p, ld_x, dldj_p, y_p, ld_y, e_p, ld_e, c_p, ld_c,
         int(accumulate_cond), split, half, xe, xc, cond,
         None if ln_rstd is None else _vec(ln_rstd, "fused_layer_bwd.ln_rstd", rows), float(eps),
-        _stream())
+        None if scratch is None else scratch.data_ptr(), _stream())
     if rc:
         _check(f"fused_layer_bwd (kind {kind})", rc)
 

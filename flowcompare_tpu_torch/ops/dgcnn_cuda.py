@@ -109,8 +109,9 @@ def fused_dgcnn_encoder_plain(x: torch.Tensor, params: dict, state: dict, *,
 def dgcnn_tail_plan(conv5: tuple, head: Optional[list]) -> dict:
     """What B4's tail kernel (csrc/fused_layer.cu, kind dgcnn_tail) runs, from
     shapes alone: conv5's (K, N), the head's (K, N) per product or None
-    (head=False). It takes widths up to 512 (the kernel's shared row tile),
-    at most 10 products, each reading the width the one before gave, and an
+    (head=False). It takes widths up to 1,024 (`_build.FUSED_MAXW`; past 512
+    the wide kernel, its row tile's activations in device scratch), at most
+    10 products, each reading the width the one before gave, and an
     output width that is a multiple of 8 (16-byte rows); other shapes raise
     ValueError, and there is no other route for them."""
     shapes = [tuple(conv5)] + [tuple(w) for w in (head or [])]

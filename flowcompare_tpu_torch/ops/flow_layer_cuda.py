@@ -574,21 +574,30 @@ def _fits(shapes: list) -> bool:
     return all(1 <= k <= _build.FUSED_MAXW and 1 <= n <= _build.FUSED_MAXW for k, n in shapes)
 
 
+FUSED_LIMITS_TEXT = (f"the fused layer kernels take widths <= {_build.FUSED_MAXW}, the "
+                     f"LayerNorm's row and the latent <= {_build.FUSED_PASS_W}, "
+                     f"3-{_build.FUSED_MAX_PRODUCTS} products")
+
+
 def fused_route(pre: Optional[list], q: Optional[tuple], cpl: list, tail: tuple, split: int,
                 lat: int) -> dict:
     """Which layer parts take the fused kernels of csrc/fused_layer.cu, from
     shapes alone: `pre` the pre-MLP's (K, N) per product (None without
     attention), `q` the query product's, `cpl` the coupling MLP's (the first
     over the packed rows), `tail` the LinearLU's. A part is fused when every
-    width is at most 512 (the kernels' shared-memory buffers), its products
-    (with the tail) number 3 to 10, and, for the coupling, the last product
-    gives [s | t] for the lat - split columns of the affine. A part that is
-    refused has no other route: `_CouplingChain` raises."""
-    n_max = _build.FUSED_MAX_PRODUCTS
+    width is at most FUSED_MAXW (1,024; past FUSED_PASS_W, 512, the wide
+    kernels), the products that end in a row-wise epilogue take one pass
+    (the LayerNorm's row, [s | t] and the LinearLU at most 512: the latent
+    at most 512), its products (with the tail) number 3 to 10, and, for the
+    coupling, the last product gives [s | t] for the lat - split columns of
+    the affine. A part that is refused has no other route: `_CouplingChain`
+    raises."""
+    n_max, one_pass = _build.FUSED_MAX_PRODUCTS, _build.FUSED_PASS_W
     cond = (pre is not None and 2 <= len(pre) and len(pre) + 1 <= n_max
-            and _fits(pre + [q]) and pre[0][0] == split and q[0] == pre[-1][1])
+            and _fits(pre + [q]) and pre[-1][1] <= one_pass and pre[0][0] == split
+            and q[0] == pre[-1][1])
     coupling = (2 <= len(cpl) and len(cpl) + 1 <= n_max and _fits(cpl + [tail])
-                and cpl[-1][1] == 2 * (lat - split) and tail == (lat, lat))
+                and lat <= one_pass and cpl[-1][1] == 2 * (lat - split) and tail == (lat, lat))
     return {"conditioner": bool(cond), "coupling": bool(coupling)}
 
 
@@ -604,14 +613,15 @@ def augment_net_plan(net: list, in_cols: int, aug: int) -> dict:
     the first over the packed rows (`in_cols` = K0), the last giving
     [mean | log_std] (N = 2 aug). The output layer runs as two column passes
     of (mean_i, log_std_i) pairs, the first ceil(aug / 2) pairs and the
-    rest, each at most 256 pairs (512 columns, the kernel's widest product);
-    every other width at most 512, at most 10 products with the passes.
+    rest, each at most 256 pairs (512 columns, one pass of the kernel);
+    every other width at most 1,024 (`_build.FUSED_MAXW`), at most 10
+    products with the passes.
     Returns {"products", "passes": [(first pair, pairs), ...]}; other shapes
     raise ValueError, and there is no other route for them."""
     first = -(-aug // 2)
     passes = [(0, first), (first, aug - first)]
     ok = (len(net) >= 2 and net[0][0] == in_cols and net[-1][1] == 2 * aug
-          and 1 <= aug - first and first <= _build.FUSED_MAXW // 2
+          and 1 <= aug - first and first <= _build.FUSED_PASS_W // 2
           and len(net) + 1 <= _build.FUSED_MAX_PRODUCTS
           and all(1 <= k <= _build.FUSED_MAXW for k, _ in net)
           and all(1 <= n <= _build.FUSED_MAXW for _, n in net[:-1])
@@ -966,8 +976,9 @@ def fused_augmenter(x: torch.Tensor, eps: torch.Tensor, context: torch.Tensor,
     (`_build.conditioner`, pre-MLP, LayerNorm and q on a row tile kept on
     chip), ctx @ wkv, the cross attention into the packed rows' attention
     columns, and `_build.augment_net`: the net 72 -> 512 -> 512 -> 512 ->
-    588 on a 64-row tile kept in shared memory, its output layer in two
-    column passes whose epilogue forms z2 and ldj on the registers.
+    588 on a 64-row tile kept in shared memory (or, past 512 columns, in
+    the wide kernel's scratch), its output layer in two column passes whose
+    epilogue forms z2 and ldj on the registers.
 
     What bounds it on the H100: the net's products (about 1.7 MFLOP a
     point) and the conditioner's, and the attention over Nc context rows,

@@ -658,7 +658,11 @@ def _bwd_fused(saves, dz, dldj, context, extra, folded, eps_affine, ops=None):
     cpl_h = [bfm(c) for c in widths[:-1]]
     cpl_rec = _build.Record(cpl_pre, cpl_h + [None])
     cdp_b, dst_b = [bfm(c) for c in widths[:-1]], bfm(2 * half)
-    scratch = frag(max(widths[:-1]))
+    # the residual gradient's scratch, shared by the coupling's and the
+    # conditioner's backward: as wide as either's widest hidden product
+    # (the kernels lay a width's records out by its own passes)
+    hidden = widths[:-1] + ([w.shape[-1] for w, _ in folded["pre"]][:-1] if has_attn else [])
+    scratch = frag(max(hidden))
     cpl_bwd, cpl_sums = _bwd_stack(
         flc._pad_cols(folded["lu_w_f"].to(bf)),
         [transposed(w) for w, _ in folded["cpl_rest"][::-1]], flc._pad_cols(packed.transpose(1, 2)),

@@ -4,7 +4,8 @@ shapes alone.
 The kernels carry fixed limits (ROADMAP queue B): the cross attention of B1,
 B2, B5 and B7 takes the head widths D = heads * dim_head in ATTENTION_DS
 (32, 64 and 128, one kernel instance each); the fused layer kernels take
-widths up to 512 and 3 to 10 products a launch; B3 and B6 take k <=
+widths up to 1,024 (the LayerNorm's row and the latent up to 512) and 3 to
+10 products a launch; B3 and B6 take k <=
 min(n, 64) neighbours of at most 256 channels, on clouds of any size (16
 distance rows of the cloud in shared memory up to 3,200 points, walked in
 chunks past it) and batches of any size (B6's backward builds its reverse
@@ -41,7 +42,8 @@ from .encoders.paconv import NSAMPLE, SA_MLPS
 from .ops._build import ATTENTION_DS, SMEM_LIMIT
 from .ops.dgcnn_cuda import dgcnn_tail_plan
 from .ops.edgeconv_cuda import knn_smem_bytes
-from .ops.flow_layer_cuda import augment_net_plan, fused_route, packed_input_layout
+from .ops.flow_layer_cuda import (FUSED_LIMITS_TEXT, augment_net_plan, fused_route,
+                                  packed_input_layout)
 from .ops.sa_group_cuda import sa_select_smem
 
 KNN_MAX_K, KNN_MAX_C = 64, 256   # B3 / B6 / B9: neighbours, and B3 / B6 channels
@@ -109,11 +111,9 @@ def stack_route(c: dict) -> str:
             return reason
     route = fused_route(s["pre"], s["q"], s["cpl"], s["tail"], s["split"], s["lat"])
     if not c["global"] and not route["conditioner"]:
-        return (f"plain: the conditioner's products {s['pre'] + [s['q']]} (the fused layer "
-                f"kernels take widths <= 512, 3-10 products)")
+        return f"plain: the conditioner's products {s['pre'] + [s['q']]} ({FUSED_LIMITS_TEXT})"
     if not route["coupling"]:
-        return (f"plain: the coupling's products {s['cpl'] + [s['tail']]} (the fused layer "
-                f"kernels take widths <= 512, 3-10 products)")
+        return f"plain: the coupling's products {s['cpl'] + [s['tail']]} ({FUSED_LIMITS_TEXT})"
     return "kernels"
 
 
@@ -131,8 +131,7 @@ def augmenter_route(c: dict) -> str:
     pre = _mlp_shapes(in_dim, c["hidden_dims"], c["attn_input_dim"])
     q = (c["attn_input_dim"], d)
     if not fused_route(pre, q, [], (0, 0), in_dim, 0)["conditioner"]:
-        return (f"plain: the augmenter's conditioner {pre + [q]} (the fused layer kernels "
-                f"take widths <= 512, 3-10 products)")
+        return f"plain: the augmenter's conditioner {pre + [q]} ({FUSED_LIMITS_TEXT})"
     aug = c["latent_dim"] - in_dim
     _, xc, _ = packed_input_layout(in_dim, c["extra_context_dim"], d)
     net = _mlp_shapes(xc + d, c["net_augmenter_dist_hidden_dims"], 2 * aug)

@@ -55,10 +55,11 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
 
 
-def _config(attention: bool, extra: bool):
+def _config(attention: bool, extra: bool, **overrides):
     """tests/test_flow_layer_vjp.py's single-grid-step configuration (L = 4,
     B = 1, N = 16, where the Pallas kernel in interpret mode is exact), with
-    attention or the global conditioner, with the extra column or not."""
+    attention or the global conditioner, with the extra column or not;
+    `overrides` change its keys (the wide layers' file: 1,024-wide MLPs)."""
     cfg = fc.get_config("dulcet-universe")
     cfg.update(dict(
         input_dim=4, latent_dim=8, cif_latent_dim=8, n_flow_layers=4,
@@ -68,6 +69,7 @@ def _config(attention: bool, extra: bool):
         input_embedding_dim=4, cross_dim_head=8,
         input_embedder="idenity" if attention else "DGCNNembedderGlobal",
         extra_z_value_context=extra, sample_size=16, n_samples_context=24, n_neighbors=4))
+    cfg.update(overrides)
     return fc.configs.derive(cfg)
 
 
@@ -81,10 +83,10 @@ def _to_torch_folded(jf):
     return {k: conv(v) for k, v in jf.items()}
 
 
-def _case(attention: bool, extra: bool):
+def _case(attention: bool, extra: bool, **overrides):
     """The folded stacks (JAX and port), the bf16 saves of a forward walk,
     context, extra and cotangents, all from one seed."""
-    cfg = _config(attention, extra)
+    cfg = _config(attention, extra, **overrides)
     model = fc.FlowCompareModel(cfg, remat=False)
     params, _ = model.init_params(jax.random.PRNGKey(0))
     prep = model._prepare_layers(params["layers"])

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 import flowcompare_tpu_torch as ft
 from flowcompare_tpu_torch.core.mlp import cast_tree
 from flowcompare_tpu_torch.ops import _build, dgcnn_cuda, edgeconv_cuda, flow_layer_cuda as flc
+from torch_port_widths import preset_config
 
 torch.set_num_threads(2)
 N_POINTS, N_CONTEXT, K = 64, 80, 8
@@ -1555,7 +1556,7 @@ def fused_setup(dev, preset: str, rows: int, seed: int = 40):
     fused-route chains over `rows` rows (one item), the packed rows filled
     with random x1, extra and cond columns; (chain, inverse chain, split,
     lat, folded)."""
-    cfg = ft.get_config(preset)
+    cfg = preset_config(preset)
     cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
     model = ft.FlowCompareModel(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     perturb_identity_leaves(model, torch.Generator().manual_seed(1))
@@ -1582,7 +1583,7 @@ def fused_setup(dev, preset: str, rows: int, seed: int = 40):
 
 
 FUSED_CASES = [("dulcet-universe", 4000), ("dulcet-universe", 1037), ("swept-energy", 4000),
-               ("helpful-sponge", 1000), ("good-surf", 40960)]
+               ("helpful-sponge", 1000), ("good-surf", 40960), ("w1024", 4000), ("w1024", 1037)]
 
 
 def ulp_shares(got: torch.Tensor, ref: torch.Tensor) -> tuple:
@@ -1616,7 +1617,8 @@ def test_fused_layer_kernels_match_plain(dev, preset, rows):
     coupling_inverse (layer 1 with the chained LU inverse of layer 0, and
     layer 0 writing x) against their plain versions on the same packed rows,
     at the shipped widths (with and without extra, helpful-sponge's seven
-    products), 4000 rows and rows that are not a multiple of 64. Same
+    products), 4000 rows and rows that are not a multiple of 64, and the
+    wide kernels at 1,024-wide coupling products (w1024). Same
     rounding points, another accumulation order: q within 2 bf16 roundings,
     the f32 carries within 2e-2 of their scale, ldj within 1e-2 (B1's
     two-layer bound), and every output within SHARE_LIMITS."""
@@ -1686,16 +1688,12 @@ def test_fused_layer_kernels_match_plain(dev, preset, rows):
     assert counted == (2 * fwd.has_attn, 4, 2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("preset", ["dulcet-universe", "helpful-sponge"])
-def test_fused_route_chains_match_plain_and_launch_four_per_layer(dev, preset):
-    """B1 (with saves) and B7 at full width over 1 x 4000 points through the
-    fused route: against their plain versions, and per layer one conditioner,
-    one ctx @ wkv gemm and one cross attention with attention (none without)
-    beside one coupling_layer / coupling_inverse: no per-product MLP gemm
-    (the gemms are ctx @ wkv per layer and B7's top LU inverse)."""
+def _chains_against_plain(dev, preset: str, limits: tuple) -> None:
+    """B1 (with saves) and B7 over two layers at 1 x 4000 points against
+    their plain versions, and their launches; `limits` are the shares of z,
+    x (B7), ldj and the saves more than a quarter bf16 ulp off plain."""
     fwd, _, split, lat, folded = fused_setup(dev, preset, 4000)
-    cfg = ft.get_config(preset)
+    cfg = preset_config(preset)
     ed = int(cfg["extra_z_value_context"])
     model = ft.FlowCompareModel({**cfg, "compute_dtype": "bfloat16", "n_flow_layers": 2},
                                 device=dev, generator=torch.Generator().manual_seed(0))
@@ -1727,12 +1725,71 @@ def test_fused_route_chains_match_plain_and_launch_four_per_layer(dev, preset):
     assert float((saves.float() - sr.float()).abs().max()) <= 1e-2 * scale
     xr = flc.fused_flow_layers_inverse_plain(0.6 * x, ctx, extra, folded_inv)
     assert float((xi - xr).abs().max()) <= 1e-2 * max(1.0, float(xr.abs().max()))
-    # over two layers (tools/torch_fused_layer_faults.py at this shape): as
-    # built at most 1.8% of z, 2.9% of x, 3.4% of ldj and 0.7% of the saves
-    # over a quarter ulp; the carry rounded to bf16 14% of z and 46% of x,
-    # [s | t] in bf16 29% of ldj
-    for got, ref, limit in ((z, zr, 0.06), (xi, xr, 0.06), (l, lr, 0.08), (saves, sr, 0.05)):
+    for got, ref, limit in zip((z, xi, l, saves), (zr, xr, lr, sr), limits):
         assert ulp_shares(got, ref)[0] <= limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["dulcet-universe", "helpful-sponge"])
+def test_fused_route_chains_match_plain_and_launch_four_per_layer(dev, preset):
+    """B1 (with saves) and B7 at full width over 1 x 4000 points through the
+    fused route: against their plain versions, and per layer one conditioner,
+    one ctx @ wkv gemm and one cross attention with attention (none without)
+    beside one coupling_layer / coupling_inverse: no per-product MLP gemm
+    (the gemms are ctx @ wkv per layer and B7's top LU inverse). Over two
+    layers (tools/torch_fused_layer_faults.py at this shape): as built at
+    most 1.8% of z, 2.9% of x, 3.4% of ldj and 0.7% of the saves over a
+    quarter ulp; the carry rounded to bf16 14% of z and 46% of x, [s | t] in
+    bf16 29% of ldj."""
+    _chains_against_plain(dev, preset, (0.06, 0.06, 0.08, 0.05))
+
+
+@pytest.mark.cuda
+def test_wide_route_chains_match_plain_and_launch_four_per_layer(dev):
+    """The same at twice dulcet-universe's MLP widths (w1024: the coupling's
+    products 1,024 wide, the wide kernels), same launches and error bounds.
+    A 1,024-wide MLP flips about three times as many bf16 roundings against
+    plain's summation order as a 512-wide one, the kernel and the
+    per-product gemm route alike (one coupling layer at 4,000 rows: 0.45%
+    of ldj over a quarter ulp on both, 0.16% at 512; H100 80GB HBM3 at 700
+    W), so ldj's two-layer share is held at 0.15. At this shape
+    (tools/torch_fused_layer_faults.py --only w1024, same card): 8.8% as
+    built; [s | t] rounded to bf16 50%, the LayerNorm's input in bf16 39%,
+    and the carry in bf16 15% of z and 46% of x (both held at 0.06)."""
+    _chains_against_plain(dev, "w1024", (0.06, 0.06, 0.15, 0.05))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1037, 4000])
+def test_wide_conditioner_matches_plain_as_the_per_product_route(dev, rows):
+    """The conditioner kernel over a 1,024-wide pre-MLP (pre1024: the wide
+    kernel) against its plain version within two bf16 roundings of q's
+    scale, and against the per-product route (the pre-MLP's gemms, row_norm
+    and the q gemm, the launches it replaced) within 0.5% of q's elements:
+    at this width q's roundings flip against plain's summation order on 6.1%
+    of the elements for the route and the kernel alike (0.7% at 256 wide),
+    and the two differ on 0.015% (H100 80GB HBM3 at 700 W)."""
+    fwd, _, split, _, folded = fused_setup(dev, "pre1024", rows)
+    bf = torch.bfloat16
+    assert fwd.cond_stack.wide
+    q_ref = torch.empty_like(fwd.q)
+    flc.conditioner_plain(fwd.xin, split, fwd.cond_stack.layer(0), q_ref)
+    _build.conditioner(fwd.xin, split, fwd.cond_stack, 0, fwd.q)
+    pre = flc._bf16_stack(folded["pre"])
+    wq = flc._pad_cols(folded["wq_f"].to(bf))
+    bq = folded["bq_f"].float().reshape(2, -1).contiguous()
+    q_f = torch.empty(rows, pre[-1][0].shape[-1], device=dev)
+    q_n = flc.bf16_rows(rows, q_f.shape[1], dev)
+    hs = [flc.bf16_rows(rows, 1024, dev) for _ in range(3)]
+    q_pp = torch.empty_like(fwd.q)
+    _build.mlp_chain(fwd.xin[:, :split], flc._at(pre, 0), q_f, hs)
+    _build.row_norm(q_f, q_n)
+    _build.gemm(q_n, wq[0], q_pp, bias=bq[0])
+    torch.cuda.synchronize()
+    assert float((fwd.q.float() - q_ref.float()).abs().max()) <= \
+        2 * 2 ** -8 * float(q_ref.float().abs().max())
+    assert ulp_shares(fwd.q, q_pp)[0] <= 0.005
+    assert ulp_shares(fwd.q, q_ref)[0] <= ulp_shares(q_pp, q_ref)[0] + 0.005
 
 
 # ------------------------------------------- B5's fused per-layer kernels
@@ -1755,7 +1812,8 @@ def counted(fn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("preset,rows", [("dulcet-universe", 1037), ("swept-energy", 4000),
-                                         ("helpful-sponge", 1000)])
+                                         ("helpful-sponge", 1000), ("w1024", 1037),
+                                         ("pre1024", 1037)])
 def test_b5_fused_kernels_match_the_per_product_chain(dev, preset, rows):
     """B5 at a preset's full widths (two layers, one item; with and without
     extra and attention): the fused per-layer kernels against the
@@ -1765,7 +1823,7 @@ def test_b5_fused_kernels_match_the_per_product_chain(dev, preset, rows):
     with attention (no per-product MLP gemm: the two gemms are ctx @ wkv and
     dctx += dkv wkv^T) and 4 without, with no gemm_tn and no colsum."""
     from flowcompare_tpu_torch.ops import flow_layer_vjp_cuda as fv
-    cfg = ft.get_config(preset)
+    cfg = preset_config(preset)
     cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
     model = ft.FlowCompareModel(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     perturb_identity_leaves(model, torch.Generator().manual_seed(1))
@@ -1806,7 +1864,7 @@ def test_b5_fused_kernels_match_the_per_product_chain(dev, preset, rows):
 def preset_model(dev, preset: str) -> ft.FlowCompareModel:
     """A preset at full width on the card, the flow cut to two layers (B2
     and B4 read none of it)."""
-    cfg = ft.get_config(preset)
+    cfg = preset_config(preset)
     cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
     model = ft.FlowCompareModel(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     perturb_identity_leaves(model, torch.Generator().manual_seed(1))
@@ -1822,7 +1880,8 @@ def b4_b2_launches() -> int:
             + _build.CROSS_ATTENTION_WMMA_LAUNCHES)
 
 
-TAIL_CASES = [("dulcet-universe", True), ("helpful-sponge", False), ("swept-energy", True)]
+TAIL_CASES = [("dulcet-universe", True), ("helpful-sponge", False), ("swept-energy", True),
+              ("w1024", True)]
 
 
 @pytest.mark.cuda
@@ -1850,7 +1909,7 @@ def test_dgcnn_tail_matches_plain(dev, preset, head, rows):
 
 
 AUG_CASES = [("dulcet-universe", 1037), ("dulcet-universe", 3750), ("helpful-sponge", 1037),
-             ("helpful-sponge", 3750), ("swept-energy", 3750)]
+             ("helpful-sponge", 3750), ("swept-energy", 3750), ("w1024", 1037), ("w1024", 3750)]
 
 
 @pytest.mark.cuda
@@ -1928,7 +1987,8 @@ def test_fused_dgcnn_encoder_full_width_ragged_matches_plain(dev):
                                             ("dulcet-universe", 3, 1250),
                                             ("helpful-sponge", 1, 1037),
                                             ("helpful-sponge", 3, 1250),
-                                            ("swept-energy", 1, 1037)])
+                                            ("swept-energy", 1, 1037),
+                                            ("w1024", 3, 1250)])
 def test_fused_augmenter_full_width_ragged_matches_plain(dev, preset, items, n):
     """B2 at the shipped widths (with extra context and without, the
     context per point or the broadcast embedding) at row counts that are
@@ -1955,6 +2015,36 @@ def test_fused_augmenter_full_width_ragged_matches_plain(dev, preset, items, n):
     assert flc.AUGMENTER_FOLDS == folds + 1
     assert float((z - zr).abs().max()) <= 0.02
     assert float(((ldj - lr).abs() / lr.abs().clamp_min(1.0)).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_wide_fused_kernels_refuse_past_their_limits(dev):
+    """A stack the gates refuse and the kernels cannot take raises from the
+    kernel's own check, never runs a plain version: a 1,040-wide coupling
+    product, and a 600-wide [s | t] (one pass takes 512 columns); and the
+    scratch the wide kernels take is 256 KB a 64-row tile."""
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(60)
+    rows, split, lat = 200, 150, 300
+
+    def stack(widths, last):
+        dims = [224] + widths + [last]
+        pairs = [(flc._pad_cols(rand(g, 1, k, n, device=dev).to(bf) / 16),
+                  torch.zeros(1, n, device=dev)) for k, n in zip(dims[:-1], dims[1:])]
+        pairs.append((flc._pad_cols(rand(g, 1, lat, lat, device=dev).to(bf) / 16),
+                      torch.zeros(1, lat, device=dev)))
+        return _build.FusedStack(pairs, len(pairs) - 1)
+
+    xin = torch.zeros(rows, 224, dtype=bf, device=dev)
+    x, ldj, lu = rand(g, rows, lat, device=dev), torch.zeros(rows, device=dev), torch.zeros(
+        1, device=dev)
+    _build.coupling_layer(xin, split, stack([1024, 1024], 300), 0, x, ldj, lu, eps_affine=1e-8)
+    for widths, last in (([1040, 1040], 300), ([512, 512], 600)):
+        with pytest.raises(RuntimeError, match="fused_layer"):
+            _build.coupling_layer(xin, split, stack(widths, last), 0, x, ldj, lu, eps_affine=1e-8)
+    torch.cuda.synchronize()
+    assert _build.library().fc_fused_scratch_bytes(rows) == 4 * 256 * 1024
+    assert _build.library().fc_fused_scratch_bytes(64) == 256 * 1024
 
 
 def flow_kernel_launches() -> tuple:
@@ -2097,7 +2187,7 @@ def test_fps_large_clouds_match_plain(dev, clouds, n, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("overrides,refused", [
     ({"cross_heads": 4}, {"stack", "augmenter"}),             # D = 4 x 64 = 256
-    ({"hidden_dims": [1024, 1024, 1024]}, {"stack", "augmenter"}),
+    ({"hidden_dims": [1040, 1040, 1040]}, {"stack", "augmenter"}),
     ({"n_neighbors": 72}, {"encoder"})])
 def test_refused_parts_run_plain_on_the_card(dev, overrides, refused):
     """A config the kernels refuse part by part (ROADMAP queue C1) runs on

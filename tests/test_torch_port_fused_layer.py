@@ -106,8 +106,15 @@ def test_route_refuses_what_the_kernels_cannot_hold():
     cpl, tail = [(216, 512), (512, 512), (512, 512), (512, 300)], (300, 300)
     assert flc.fused_route(pre, q, cpl, tail, 150, 300) == {"conditioner": True,
                                                             "coupling": True}
-    wide = [(216, 640), (640, 640), (640, 640), (640, 300)]
+    # products up to 1,024 wide take the wide kernels; past it no kernel
+    for w in (640, 1024):
+        wide = [(216, w), (w, w), (w, w), (w, 300)]
+        assert flc.fused_route(pre, q, wide, tail, 150, 300)["coupling"]
+    wide = [(216, 1040), (1040, 1040), (1040, 1040), (1040, 300)]
     assert not flc.fused_route(pre, q, wide, tail, 150, 300)["coupling"]
+    # the LinearLU's latent and [s | t] take one pass (<= 512)
+    big = [(216, 512), (512, 512), (512, 512), (512, 600)]
+    assert not flc.fused_route(pre, q, big, (600, 600), 300, 600)["coupling"]
     deep = [(216, 512)] + [(512, 512)] * 9 + [(512, 300)]       # 11 products + the tail
     assert not flc.fused_route(pre, q, deep, tail, 150, 300)["coupling"]
     assert not flc.fused_route(pre, q, cpl[:-1] + [(512, 200)], tail, 150, 300)["coupling"]

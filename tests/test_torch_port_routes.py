@@ -5,8 +5,9 @@ config's shapes; a refused part takes the JAX package's path off the TPU.
 Held here: every preset reads "kernels" for every part; so do the stack
 and the augmenter at each attention head width the kernels take (D = 32,
 64, 128), while D = 48 and D = 256 read "plain: ..." naming those widths;
-the three C1 configs (D = 256, a 1,024-wide coupling MLP, k = 80) read
-"plain: ..." on the right parts; the shapes the gate reasons about are the folds' own
+the three C1 configs (D = 256, a 1,040-wide coupling MLP, k = 80) read
+"plain: ..." on the right parts, while the 1,024-wide MLPs (the stack's,
+the augmenter's and the embedder head's, `w1024`) read "kernels"; the shapes the gate reasons about are the folds' own
 (`stack_shapes` against `fold_stacks`, the augmenter's against
 `AugmenterWeights`, the DGCNN's against `EncoderWeights`); the shared
 memory mirrors at the kernels' documented limits; and, for tiny models of
@@ -31,13 +32,14 @@ from flowcompare_tpu.model import inner_loop as jax_inner_loop
 from flowcompare_tpu_torch import routes
 from flowcompare_tpu_torch.ops import dgcnn_cuda, flow_layer_cuda as flc
 from torch_port_fixtures import N_POINTS, model_pair, n, normal, t, tiny_config
+from torch_port_widths import W1024
 
 torch.set_num_threads(2)
 
 PRESETS = ["dulcet-universe", "good-surf", "helpful-sponge", "summer-terrain", "swept-energy"]
 C1_CASES = {
     "d256": ({"cross_heads": 4}, {"stack", "augmenter"}),
-    "mlp1024": ({"hidden_dims": [1024, 1024, 1024]}, {"stack", "augmenter"}),
+    "mlp1040": ({"hidden_dims": [1040, 1040, 1040]}, {"stack", "augmenter"}),
     "k80": ({"n_neighbors": 80}, {"encoder"}),
 }
 
@@ -62,6 +64,32 @@ def test_c1_configs_refuse_the_right_parts(case):
     got = routes.model_routes(cfg)
     assert _refused(cfg) == refused, got
     assert all(got[p].startswith("plain: ") for p in refused)
+
+
+@pytest.mark.parametrize("overrides", [W1024, {"hidden_dims": [1024] * 3}],
+                         ids=["w1024", "hidden1024"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlps_up_to_1024_take_the_kernels(overrides, dtype):
+    """dulcet-universe at twice its MLP widths (`w1024`), and with its
+    coupling MLPs alone at 1,024, reads "kernels" for every part: the fused
+    layer kernels take products up to 1,024 wide."""
+    cfg = ft.get_config("dulcet-universe")
+    cfg.update(compute_dtype=dtype, **overrides)
+    assert routes.model_routes(cfg) == {p: "kernels" for p in ("stack", "augmenter", "encoder")}
+
+
+def test_widths_past_1024_read_plain_naming_the_limit():
+    """Past 1,024 columns the stack, the augmenter and the embedder's head
+    read "plain: ..." naming the fused layer kernels' limits."""
+    cfg = ft.get_config("dulcet-universe")
+    got = routes.model_routes({**cfg, "hidden_dims": [1040] * 3})
+    for part in ("stack", "augmenter"):
+        assert got[part].startswith("plain: ") and "widths <= 1024" in got[part], got[part]
+    assert got["encoder"] == "kernels"
+    head = routes.model_routes({**cfg, "hidden_dims_embedder_out": [1040] * 6})
+    assert head["encoder"].startswith("plain: ") and head["stack"] == "kernels"
+    net = routes.model_routes({**cfg, "net_augmenter_dist_hidden_dims": [1040] * 3})
+    assert net["augmenter"].startswith("plain: ") and net["stack"] == "kernels"
 
 
 @pytest.mark.parametrize("heads,dim_head", [(1, 32), (1, 64), (2, 64)])
@@ -148,7 +176,7 @@ def _case_config(case: str, dtype: str = "bfloat16"):
     cfg.update(C1_CASES[case][0])
     if case == "k80":
         cfg["n_neighbors"] = 72            # past B3's 64, within the tiny cloud's 80
-    if case == "mlp1024":
+    if case == "mlp1040":
         cfg["n_flow_layers"] = 2
     return jax_derive(cfg)
 

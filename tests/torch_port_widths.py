@@ -1,0 +1,26 @@
+"""MLP widths past the presets', for the wide fused layer kernels (products
+past 512 columns), shared by the port's CPU and card tests. Imports no JAX.
+
+"w1024" is dulcet-universe at twice its MLP widths: the coupling MLPs, the
+augmenter's conditioner and net, and the embedder's head 1,024 wide, every
+other key the preset's. "pre1024" is dulcet-universe with a 1,024-wide
+conditioner pre-MLP (B1's and B5's conditioner kinds past 512).
+chip_smoke.py keeps its own copy of W1024 (it runs from a checkout without
+the tests).
+"""
+
+from __future__ import annotations
+
+import flowcompare_tpu_torch as ft
+
+W1024 = {"hidden_dims": [1024] * 3, "net_augmenter_dist_hidden_dims": [1024] * 3,
+         "hidden_dims_embedder_out": [1024] * 6}
+PRE1024 = {"pre_attention_mlp_hidden_dims": [1024] * 3}
+WIDE_CONFIGS = {"w1024": W1024, "pre1024": PRE1024}
+
+
+def preset_config(preset: str) -> dict:
+    """A preset's config, or dulcet-universe with a WIDE_CONFIGS entry's widths."""
+    if preset in WIDE_CONFIGS:
+        return {**ft.get_config("dulcet-universe"), **WIDE_CONFIGS[preset]}
+    return ft.get_config(preset)

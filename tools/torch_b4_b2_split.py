@@ -33,6 +33,7 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -42,6 +43,12 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 
 
+def _fused_kind(name: str, kind: int) -> bool:
+    """Whether a kernel name is fused_layer.cu's kernel of this kind (its one-
+    pass or wide instance, or an earlier tree's untemplated one)."""
+    return re.search(rf"fused_layer_kernel<{kind}[,>]", name) is not None
+
+
 def _label_b4(names: list) -> list:
     """The part of B4's chain each kernel (in launch order) belongs to."""
     out, stage, after = [], 0, 0
@@ -49,7 +56,7 @@ def _label_b4(names: list) -> list:
         if "knn_edge_max" in name:
             out.append("B3")
             stage += 1
-        elif "fused_layer_kernel<4>" in name:
+        elif _fused_kind(name, 4):
             out.append("tail: conv5 + head (one launch)")
         elif "gemm_bf16" in name:
             if stage < 4:
@@ -68,9 +75,9 @@ def _label_b2(names: list) -> list:
     """The part of B2's chain each kernel (in launch order) belongs to."""
     out, attended = [], False
     for name in names:
-        if "fused_layer_kernel<0>" in name:
+        if _fused_kind(name, 0):
             out.append("conditioner")
-        elif "fused_layer_kernel<5>" in name:
+        elif _fused_kind(name, 5):
             out.append("net + epilogue (one launch)")
         elif "cross_attention" in name:
             out.append("attention")

@@ -5,10 +5,12 @@ fault planted in a copy of the kernel's source, so the checks of
 chip_smoke.py's fused-layer phase and tests/test_torch_port_cuda.py can sit
 between the two.
 
-    python3 tools/torch_fused_layer_faults.py [--workdir DIR] [--out FILE]
+    python3 tools/torch_fused_layer_faults.py [--workdir DIR] [--out FILE] [--only TEXT]
 
 Faults, each built from a copy of csrc/ under --workdir (default: a new
-temporary directory):
+temporary directory), planted in the fused_layer* source that holds the
+anchor (the kernel body is csrc/fused_layer_kernel.cuh, shared by the
+one-pass and the wide kernels):
   carry_bf16  the f32 carry rounded to bf16 where it is stored (B1's x,
               B7's y and, at layer 0, x): the rounding B7 must never do
   st_bf16     [s | t] rounded to bf16 before the affine (the chain keeps
@@ -19,7 +21,9 @@ temporary directory):
 Cases: chip_smoke.py's fused-layer shapes with its weights (LinearLU,
 ActNorm and BatchNorm moved off identity by 1e-3 to 1e-2) and the card
 tests' shapes with theirs (moved by 0.1): each kernel on two full-width
-layers, and B1 with saves and B7 through their entry points at 1 x 4000.
+layers, and B1 with saves and B7 through their entry points at 1 x 4000;
+"w1024" is dulcet-universe at twice its MLP widths (chip_smoke.W1024, the
+wide kernels). --only keeps the cases whose name holds TEXT.
 Each output's error is `chip_smoke.error_stats` of the kernel's result
 against the plain version's, the worst over the layers. Prints one line a
 variant and case, and writes every number as JSON to --out. Needs one
@@ -45,7 +49,7 @@ import chip_smoke  # noqa: E402
 import flowcompare_tpu_torch as ft  # noqa: E402
 from flowcompare_tpu_torch.ops import _build, flow_layer_cuda as flc  # noqa: E402
 
-# (anchor, replacement) pairs in fused_layer.cu; each anchor occurs once
+# (anchor, replacement) pairs in csrc/fused_layer*; each anchor occurs once
 BF = "__bfloat162float(f2bf({}))"
 FAULTS = {
     "carry_bf16": [
@@ -64,13 +68,13 @@ FAULTS = {
          f"          v1 = {BF.format('v1')};\n"),
     ],
     "ln_bf16": [
-        ("[&](int, int, int h, float v0, float v1) {\n          s1[h] += v0 + v1;",
-         f"[&](int, int, int h, float v0, float v1) {{\n          v0 = {BF.format('v0')};\n"
-         f"          v1 = {BF.format('v1')};\n          s1[h] += v0 + v1;"),
-        ("[&](int row, int col, int h, float v0, float v1) {\n          st_pair(O, row, col, "
+        ("[&](int, int, int h, float v0, float v1) {\n            s1[h] += v0 + v1;",
+         f"[&](int, int, int h, float v0, float v1) {{\n            v0 = {BF.format('v0')};\n"
+         f"            v1 = {BF.format('v1')};\n            s1[h] += v0 + v1;"),
+        ("[&](int row, int col, int h, float v0, float v1) {\n            st_pair(Y, row, col, "
          "col < n ? (v0 - mean[h]) * inv[h] : 0.f,",
-         f"[&](int row, int col, int h, float v0, float v1) {{\n          v0 = {BF.format('v0')};"
-         f"\n          v1 = {BF.format('v1')};\n          st_pair(O, row, col, "
+         f"[&](int row, int col, int h, float v0, float v1) {{\n            v0 = {BF.format('v0')};"
+         f"\n            v1 = {BF.format('v1')};\n            st_pair(Y, row, col, "
          "col < n ? (v0 - mean[h]) * inv[h] : 0.f,"),
     ],
 }
@@ -79,9 +83,10 @@ LAYER_CASES = [("smoke", "dulcet-universe", 40960), ("smoke", "dulcet-universe",
                ("smoke", "dulcet-universe", chip_smoke.SAMPLE_N),
                ("smoke", "helpful-sponge", 51200), ("test", "dulcet-universe", 4000),
                ("test", "dulcet-universe", 1037), ("test", "swept-energy", 4000),
-               ("test", "helpful-sponge", 1000), ("test", "good-surf", 40960)]
+               ("test", "helpful-sponge", 1000), ("test", "good-surf", 40960),
+               ("smoke", "w1024", 40960), ("test", "w1024", 4000)]
 CHAIN_CASES = [("smoke", "dulcet-universe"), ("smoke", "helpful-sponge"),
-               ("test", "dulcet-universe"), ("test", "helpful-sponge")]
+               ("test", "dulcet-universe"), ("test", "helpful-sponge"), ("test", "w1024")]
 
 
 def perturb_test(model, gen) -> None:
@@ -100,7 +105,7 @@ def perturb_test(model, gen) -> None:
 
 
 def make_model(setup: str, preset: str, dev):
-    cfg = ft.get_config(preset)
+    cfg = chip_smoke.smoke_config(ft, preset)
     cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
     seed = chip_smoke.SEED if setup == "smoke" else 0
     model = ft.FlowCompareModel(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
@@ -223,12 +228,24 @@ def use_sources(csrc: Path, build_dir: Path) -> None:
     _build.library()
 
 
+def plant(csrc: Path, fault: list) -> None:
+    """Each (anchor, replacement) of `fault` in the one fused_layer* source
+    of `csrc` that holds its anchor, once."""
+    for anchor, planted in fault:
+        hits = [(p, p.read_text()) for p in sorted(csrc.glob("fused_layer*"))
+                if anchor in p.read_text()]
+        assert len(hits) == 1 and hits[0][1].count(anchor) == 1, anchor
+        path, text = hits[0]
+        path.write_text(text.replace(anchor, planted))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--workdir", type=Path, default=None,
                         help="where the faults' copies of csrc/ are built (default: a new "
                              "temporary directory, removed at the end)")
     parser.add_argument("--out", type=Path, default=REPO / "chiprun_out" / "fused_faults.json")
+    parser.add_argument("--only", default="", help="run only the cases whose name holds this")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -238,8 +255,10 @@ def main() -> int:
     work = args.workdir or Path(tempfile.mkdtemp(prefix="fused_faults_"))
     src_dir, build_dir = _build.CSRC, _build.BUILD_DIR
     _build.library()
-    layer_cases = {f"{s} {p} {r}": layer_case(s, p, r, dev) for s, p, r in LAYER_CASES}
-    chain_cases = {f"{s} {p} chains 4000": chain_case(s, p, dev) for s, p in CHAIN_CASES}
+    layer_cases = {f"{s} {p} {r}": layer_case(s, p, r, dev) for s, p, r in LAYER_CASES
+                   if args.only in f"{s} {p} {r}"}
+    chain_cases = {f"{s} {p} chains 4000": chain_case(s, p, dev) for s, p in CHAIN_CASES
+                   if args.only in f"{s} {p} chains 4000"}
     results = {}
     try:
         for variant in ["as built", *FAULTS]:
@@ -248,12 +267,7 @@ def main() -> int:
             else:
                 csrc = work / variant / "csrc"
                 shutil.copytree(src_dir, csrc, dirs_exist_ok=True)
-                path = csrc / "fused_layer.cu"
-                text = path.read_text()
-                for anchor, planted in FAULTS[variant]:
-                    assert text.count(anchor) == 1, (variant, anchor)
-                    text = text.replace(anchor, planted)
-                path.write_text(text)
+                plant(csrc, FAULTS[variant])
                 use_sources(csrc, work / variant / "build")
             for name, c in layer_cases.items():
                 results[f"{variant} | {name}"] = run_layers(c)
