@@ -220,7 +220,7 @@ Phases, each of which raises on failure (nothing is caught):
    dulcet-universe configs at 2 layers and full width that the kernels
    refuse part by part (D = 256, 4 heads of 64: the stack and the
    augmenter; a 1,040-wide
-   coupling MLP: the stack and the augmenter; k = 80: the encoder), each
+   coupling MLP: the stack and the augmenter; k = 257: the encoder), each
    printing `model.routes`; log_prob, one train_step after the data init
    and make_sample of 1 x 4000 at B=2 on CUDA against plain=True (|d nats|
    <= 0.01), the refused parts' kernels never launched and the others'
@@ -323,7 +323,22 @@ Phases, each of which raises on failure (nothing is caught):
    256 wide, so B1's conditioner and B5's conditioner_record and
    conditioner_bwd run their one-pass kernels there: their w1024 readings
    are under "one_pass_in_w1024" (tools/torch_b5_wide.py times B5's wide
-   conditioner kinds).
+   conditioner kinds);
+30. the kNN kernels past 64 neighbours (`phase_knn_k` after the kernel
+   phases, `phase_k128` after `phase_wide`): k128, dulcet-universe with n_neighbors = 128 (bf16,
+   115 layers, every part on its kernels, B3 and B6 on the radix select
+   for every row): the eval main path (2 items of B=20) against plain, eval
+   timing with the plain route's inner loop, make_sample of 1 x 4000
+   against plain and its ms, the training check at B=2, train(max_steps=4)
+   at B=20 or `fitting_batch`, B4 in 10 launches a call and against its
+   plain version at 40 clouds with k = 128 and 256; then B3 and B6
+   (forward and backward) at 40 x 1,250 with k = 65, 128 and 256 and at 40
+   x 4,096 (the chunked walk) with k = 128, the four EdgeConv widths, and
+   B9's selection at 50 clouds of 1,250 with k = 128, each against its
+   plain version (exact on integer inputs, within the row budgets on
+   random ones) with its wall and device ms beside its bound. The kernels
+   line's B3, B4, B6 and B9 entries carry these readings under "by_k", with
+   the launches of k128's eval (B3, B4) and train (B6).
 
 Prints, last, one JSON line of per-kernel results (B1-B10 with B9's
 gather as `sa_gather`, gemm_bf16,
@@ -1474,12 +1489,44 @@ def traced_kernels(fn, reps: int = 10, name: str = "", pool: bool = False) -> li
                          f"{reps} calls in {TRACE_ATTEMPTS} traces")
 
 
+DEVICE_MS_TRACES = 3
+
+
 def device_ms(fn, reps: int = 10) -> float:
-    """Device time per call of fn: the durations of the kernels it launches
-    over reps calls (torch.profiler, after a warm-up call), summed, over reps.
-    Unlike time_ms it leaves out the gaps where the device waits for the
-    host, which decide a short call's wall time."""
-    return sum(e["dur"] for e in traced_kernels(fn, reps)) / 1e3 / reps
+    """Device time per call of fn: for each kernel it launches, the mean
+    duration of its records in torch.profiler traces of reps calls (after
+    a warm-up call) times its launches a call, summed. Unlike time_ms it
+    leaves out the gaps where the device waits for the host, which decide
+    a short call's wall time. The profiler now and then drops a kernel's
+    record from a trace, at times from every trace of a stretch: a kernel's
+    launches a call are the most one trace holds over reps (rounded), its
+    mean over every trace taken, so a dropped record shifts neither. Traces
+    are taken until one holds whole calls (each kernel a multiple of reps
+    times), at most DEVICE_MS_TRACES."""
+    fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    durs, most = {}, {}
+    for attempt in range(DEVICE_MS_TRACES):
+        kernels, _ = kernel_trace(calls, "chip_smoke_device_ms_trace.json")
+        counts = {}
+        for e in kernels:
+            durs.setdefault(e["name"], []).append(e["dur"])
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+        for name, c in counts.items():
+            most[name] = max(most.get(name, 0), c)
+        if kernels and all(c % reps == 0 for c in counts.values()):
+            break
+        if attempt + 1 < DEVICE_MS_TRACES:
+            log(f"  the profiler recorded {len(kernels)} device kernels of {reps} calls, not "
+                f"whole calls; tracing again ({attempt + 2} of {DEVICE_MS_TRACES})")
+    assert most, (f"the profiler recorded no device kernel of {reps} calls in "
+                  f"{DEVICE_MS_TRACES} traces")
+    return sum(sum(d) / len(d) * round(most[name] / reps) for name, d in durs.items()) / 1e3
 
 
 def sdpa_flash(q, k, v, items: int, scale: float, backward: bool = False) -> dict:
@@ -4338,6 +4385,103 @@ def phase_wide(ft, device) -> dict:
     return out
 
 
+# ------------------------------------------- the kNN kernels past 64 neighbours
+
+K128 = {"n_neighbors": 128}            # k128: dulcet-universe at 128 neighbours
+KNN_K_CASES = ((40, 1250, 65), (40, 1250, 128), (40, 1250, 256), (40, 4096, 128))
+SA_K_CASE = (50, 1250, 128)            # B9's selection: (clouds, points, k)
+
+
+def phase_k128(ft, device) -> dict:
+    """k128 (dulcet-universe with n_neighbors = 128, bf16, 115 layers, its
+    own B=20; every part of `model.routes` on its kernels, B3 and B6 on the
+    radix select for every row): the eval main path through
+    evaluate_on_test (2 items of B=20) against the plain path (|d nats| <=
+    0.01, change maps >= 99.9%; B4 in 10 launches a call); eval timing at
+    B=20 with one item's inner loop on the plain route (the gather
+    formulation's (2B, N, k, 2C) edge tensors); make_sample of 1 x 4000
+    against the plain samples of the same z (|d nats| <= 0.01) and its ms;
+    the training check at B=2 (|d nats| <= 0.01, grad norm within 5%,
+    cosine >= 0.99); train(max_steps=4) at B=20 or the largest batch that
+    fits (`fitting_batch`); B4 at a B=20 item's 40 clouds with k = 128 and
+    256 against its plain version. Each path's counters are set to 0 just
+    before it and read just after."""
+    from flowcompare_tpu_torch.core.mlp import cast_tree
+
+    t0 = time.perf_counter()
+    model = make_model(ft, device, **K128)
+    cfg = model.config
+    assert cfg["n_neighbors"] == 128
+    assert all(r == "kernels" for r in model.routes.values()), dict(model.routes)
+    log(f"k128: routes {dict(model.routes)}")
+    items = eval_items(cfg, TIME_B, 2, SEED + 3)
+    launches = phase_main_path(ft, model, device, items=items)
+    b4 = launches["b4_b2"]["fused_dgcnn_encoder"]
+    assert b4["launches_per_call"] == [B4_LAUNCHES], b4
+    timing = phase_timing(ft, model, device)
+    sample = phase_sample_main(ft, model, device)
+    g = torch.Generator(device=device).manual_seed(SEED + 22)
+    x0 = torch.randn((1, cfg["n_samples_context"], 6), generator=g, device=device)
+    extra = torch.randn((1, 1), generator=g, device=device)
+    sample["make_sample_ms"] = time_ms(lambda: ft.make_sample(model, SAMPLE_N, x0, extra,
+                                                              generator=g), reps=3)
+    check = phase_train_check(ft, model, device, with_chains=True)
+    b5 = check_b5_launches(check.pop("chains"), "the training check at k128", True)
+    train_b = fitting_batch(model, check, TIME_B)
+    train_main, _ = phase_train_main(ft, model, device, batch=train_b)
+    gx = torch.Generator().manual_seed(SEED + 23)
+    x = torch.randn(2 * TIME_B, cfg["n_samples_context"], 6, generator=gx).to(device)
+    params = cast_tree(model.params()["embedder"], torch.bfloat16)
+    state = model.state.tree()["embedder"]
+    with torch.no_grad():
+        b4k = {k: check_b4(x, params, state, k, True, f"at {2 * TIME_B} clouds, k={k}")
+               for k in (128, 256)}
+    out = {"eval_launches": launches, "timing": timing, "sample": sample, "train_check": check,
+           "b5": b5, "train_main": train_main, "train_batch": train_b, "b4": b4k,
+           "phase_s": time.perf_counter() - t0}
+    log(f"k128: {out['phase_s']:.1f} s; eval item {timing['item_s'] * 1e3:.2f} ms (one item's "
+        f"inner loop {timing['inner_loop_ms']:.2f} ms, plain {timing['plain_inner_loop_ms']:.2f} "
+        f"ms), make_sample {sample['make_sample_ms']:.2f} ms, train "
+        f"{train_main['ms_per_step']:.2f} ms a step at B={train_b} (peak "
+        f"{train_main['peak_mem_gib']:.2f} GiB)")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_knn_k(device) -> dict:
+    """B3 and B6 past the pool's 64 neighbours (`knn_widths`: the four
+    EdgeConv widths, integer inputs exact, random ones within the 1% row
+    budget, ms through the wrappers and of the kernels' launches alone
+    beside plain's and the bound) at 40 x 1,250
+    with k = 65, 128 and 256 and at 40 x 4,096 (the chunked walk) with k =
+    128; B9's selection at 50 clouds of 1,250 with k = 128
+    (`sa_select_reading`). Returns {"B3" | "B6" | "B9": {"k=<k> <clouds>x<points>":
+    reading}}."""
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED + 44)
+    out = {"B3": {}, "B6": {}, "B9": {}}
+    for clouds, n, k in KNN_K_CASES:
+        key = f"k={k} {clouds}x{n}"
+        # the plain versions' (k, C) gathers: f32 and their products, up to 256 wide
+        pair = knn_widths(device, g, clouds, n, k, plain_item_bytes=max(4 * n * n,
+                                                                        16 * n * k * 256),
+                          device_times=True)
+        for name, t in zip(("B3", "B6"), pair):
+            entry = _large_entry(f"{clouds}x{n}, four widths, k={k}", t["err"], t["ms"],
+                                 t["plain"], t["flops"], t["moved"])
+            entry.update(device_ms=t["device"], random_rows_differing=t["worst"])
+            out[name][key] = entry
+            log(f"{name} at {key}, four widths: integer inputs index-equal and exact (max|err| "
+                f"{t['err']}), random-input rows differing {t['worst']} (budget 0.01); "
+                f"{json.dumps(entry)}")
+    clouds, n, k = SA_K_CASE
+    out["B9"][f"k={k} {clouds}x{n}"] = sa_select_reading(device, g, clouds, n, k)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"kNN kernels past 64 neighbours: {out['phase_s']:.1f} s")
+    return out
+
+
 # ------------------------------------------------ clouds past shared memory
 
 # The paths past the clouds whose distance rows fit shared memory, at full
@@ -4349,11 +4493,11 @@ LARGE_SA = (50, 8192)                     # B9: (clouds, points), PAConv's four 
 PLAIN_BYTES = 2 ** 30                     # the plain versions' distances a call, at most
 
 
-def by_items(fn, n: int, *tensors):
+def by_items(fn, n: int, *tensors, item_bytes: int = None):
     """fn over slices of the items of `tensors` whose n x n f32 distances
-    take at most PLAIN_BYTES (the plain versions materialise them),
-    concatenated."""
-    step = max(1, PLAIN_BYTES // (4 * n * n))
+    (or `item_bytes` an item) take at most PLAIN_BYTES (the plain versions
+    materialise them), concatenated."""
+    step = max(1, PLAIN_BYTES // (item_bytes or 4 * n * n))
     outs = [fn(*(t[i:i + step] for t in tensors)) for i in range(0, len(tensors[0]), step)]
     if isinstance(outs[0], (list, tuple)):
         return [torch.cat(parts) for parts in zip(*outs)]
@@ -4379,23 +4523,33 @@ def _large_entry(shapes: str, err: float, ms: float, plain_ms: float, flops, mov
             "bound_ms": bound_ms, "bound_by": bound_by, "launches": 0}
 
 
-def phase_large_clouds(device) -> dict:
-    """B3, B6 and B9 past the clouds whose rows fit shared memory, against
-    their plain versions (run an item slice at a time): B3 and B6 at 40 x
-    4,096 and 8 x 16,384 points at the four EdgeConv widths, k = 40 (the
-    chunked walk), B9's selection at 50 x 8,192 (the cloud read from global
-    memory) over PAConv's four levels. Integer inputs: B6's selected
-    indices equal to plain's, B3's output and B6's mx / mn bit-equal, s1 /
-    s2 within 1e-4 (1 + |ref|), du within that plus 1e-6 of its terms'
-    magnitudes (`b6_off`), B9's slot lists equal; random inputs:
-    at most 1% of rows differ in B3 and B6 and 1e-3 in B9 (a near-tied k-th
-    neighbour may flip with the f32 sum order). Returns
-    {"B3" | "B6" | "B9": {"<clouds>x<points>": reading}}."""
-    from flowcompare_tpu_torch.ops import _build, edgeconv_cuda as ec, edgeconv_vjp_cuda as ev
-    from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda as sg
+def _knn_selected(x, k: int):
+    """B6's forward kernel's selected indices (ascending) for x."""
+    from flowcompare_tpu_torch.ops import _build
 
-    g = torch.Generator().manual_seed(SEED + 40)
-    k = 40
+    b, n, cq = x.shape
+    rows = b * n
+    outs = [torch.empty(rows, 8, device=x.device) for _ in range(4)]
+    slots = [torch.empty(rows, 8, dtype=torch.uint8, device=x.device) for _ in range(2)]
+    idx = torch.empty(rows, k, dtype=torch.int32, device=x.device)
+    u = torch.zeros(rows, 8, dtype=torch.bfloat16, device=x.device)
+    _build.knn_edge_reduce_fwd(x.reshape(rows, cq), u, *outs, *slots, idx, n_items=b, k=k)
+    return idx.reshape(b, n, k).long()
+
+
+def knn_widths(device, g, clouds: int, n: int, k: int, plain_item_bytes=None,
+               device_times: bool = False) -> tuple:
+    """B3 and B6 (forward and backward) at clouds x n with k neighbours over
+    the four EdgeConv widths against their plain versions (an item slice a
+    call: `by_items`, `plain_item_bytes` an item where the plain versions'
+    (k, C) gathers outgrow their distances). Integer inputs: B6's selected
+    indices equal to plain's, B3's output and B6's mx / mn bit-equal, s1 /
+    s2 and du within `b6_off`; random inputs: at most 1% of rows differ in
+    B3 and B6 (a near-tied k-th neighbour may flip with the f32 sum order).
+    -> (B3's, B6's) sums over the widths: max |err| on the integer inputs,
+    the random rows' worst share, ms (CUDA events), plain ms, operations,
+    bytes and, with `device_times`, the kernels' ms alone (`knn_launch_ms`)."""
+    from flowcompare_tpu_torch.ops import edgeconv_cuda as ec, edgeconv_vjp_cuda as ev
 
     def rand(*shape):
         return torch.randn(shape, generator=g).to(device)
@@ -4403,82 +4557,81 @@ def phase_large_clouds(device) -> dict:
     def b6(fn, x, u, *cots):
         return _b6_run(fn, x, u, cots, k)
 
-    def selected(x):
-        b, n, cq = x.shape
-        rows = b * n
-        outs = [torch.empty(rows, 8, device=device) for _ in range(4)]
-        slots = [torch.empty(rows, 8, dtype=torch.uint8, device=device) for _ in range(2)]
-        idx = torch.empty(rows, k, dtype=torch.int32, device=device)
-        u = torch.zeros(rows, 8, dtype=torch.bfloat16, device=device)
-        _build.knn_edge_reduce_fwd(x.reshape(rows, cq), u, *outs, *slots, idx, n_items=b, k=k)
-        return idx.reshape(b, n, k).long()
+    def sliced(fn, *tensors):
+        return by_items(fn, n, *tensors, item_bytes=plain_item_bytes)
 
-    out = {"B3": {}, "B6": {}, "B9": {}}
-    for clouds, n in LARGE_KNN:
-        key = f"{clouds}x{n}"
-        t3 = {"err": 0.0, "worst": 0.0, "ms": 0.0, "plain": 0.0, "flops": 0, "moved": 0}
-        t6 = {"err": 0.0, "worst": 0.0, "ms": 0.0, "plain": 0.0, "flops": 0, "moved": 0}
-        for cq, cout in EDGE_WIDTHS:
-            xi = torch.randint(-4, 5, (clouds, n, cq), generator=g).to(device).bfloat16()
-            u = rand(clouds, n, cout).bfloat16()
-            got_idx = selected(xi)
-            ref_idx = by_items(lambda x: ec.knn_indices(x, k).sort(-1).values, n, xi)
-            assert torch.equal(got_idx, ref_idx), f"B6's selection not exact at {key}, {cq}"
-            got = ec.edge_neighbor_max(xi, u, k)
-            ref = by_items(lambda x, v: ec.edge_neighbor_max_plain(x, v, k), n, xi, u)
-            t3["err"] = max(t3["err"], float((got.float() - ref.float()).abs().max()))
-            cots = [rand(clouds, n, cout) for _ in range(4)]
-            got = b6(ev.edge_knn_reduce, xi, u.float(), *cots)
-            ref = by_items(lambda *a: b6(ev.edge_knn_reduce_plain, *a), n, xi, u.float(), *cots)
-            exact = max(float((a - b).abs().max()) for a, b in zip(got[:2], ref[:2]))
-            off = int(b6_off(got, ref, ev.du_scale(ref_idx, u.float(), cots)).sum())
-            assert exact == 0.0 and off == 0, f"B6 at {key}, {cq}: {exact}, {off} entries off"
-            t6["err"] = max(t6["err"], max(float((a - b).abs().max()) for a, b in zip(got, ref)))
-            del got, ref
-            x = rand(clouds, n, cq).bfloat16()
-            got = ec.edge_neighbor_max(x, u, k)
-            ref = by_items(lambda a, v: ec.edge_neighbor_max_plain(a, v, k), n, x, u)
-            t3["worst"] = max(t3["worst"], float((got != ref).any(-1).float().mean()))
-            got = b6(ev.edge_knn_reduce, x, u.float(), *cots)
-            ref = by_items(lambda *a: b6(ev.edge_knn_reduce_plain, *a), n, x, u.float(), *cots)
-            near = by_items(lambda a: ec.knn_indices(a, k), n, x)
-            off = b6_off(got, ref, ev.du_scale(near, u.float(), cots)).any(0).any(-1)
-            t6["worst"] = max(t6["worst"], float(off.float().mean()))
-            del got, ref
-            for t, fn, plain in (
-                    (t3, lambda: ec.edge_neighbor_max(x, u, k),
-                     lambda: by_items(lambda a, v: ec.edge_neighbor_max_plain(a, v, k), n, x, u)),
-                    (t6, lambda: b6(ev.edge_knn_reduce, x, u.float(), *cots),
-                     lambda: by_items(lambda *a: b6(ev.edge_knn_reduce_plain, *a), n, x,
-                                      u.float(), *cots))):
-                t["ms"] += time_ms(fn)
-                t["plain"] += time_ms(plain, reps=1)
-                t["flops"] += knn_flops(clouds, n, cq)
-            t3["moved"] += nbytes(x, u) + clouds * n * cout * 2
-            t6["moved"] += nbytes(x) + clouds * n * cout * 2 + 9 * clouds * n * cout * 4
-            torch.cuda.empty_cache()
-        for name, t in (("B3", t3), ("B6", t6)):
-            budget = 0.01
-            assert t["worst"] <= budget, f"{name} rows differing {t['worst']} > {budget} at {key}"
-            out[name][key] = _large_entry(f"{key}, four widths, k={k}", t["err"], t["ms"],
-                                          t["plain"], t["flops"], t["moved"])
-            out[name][key]["random_rows_differing"] = t["worst"]
-            log(f"{name} at {key}, four widths, k={k}: integer inputs index-equal and exact "
-                f"(max|err| {t['err']}), random-input rows differing {t['worst']} (budget "
-                f"{budget}); {json.dumps(out[name][key])}")
+    t3 = {"err": 0.0, "worst": 0.0, "ms": 0.0, "plain": 0.0, "flops": 0, "moved": 0,
+          "device": 0.0}
+    t6 = dict(t3)
+    key = f"{clouds}x{n}, k={k}"
+    for cq, cout in EDGE_WIDTHS:
+        xi = torch.randint(-4, 5, (clouds, n, cq), generator=g).to(device).bfloat16()
+        u = rand(clouds, n, cout).bfloat16()
+        got_idx = _knn_selected(xi, k)
+        ref_idx = sliced(lambda x: ec.knn_indices(x, k).sort(-1).values, xi)
+        assert torch.equal(got_idx, ref_idx), f"B6's selection not exact at {key}, {cq}"
+        got = ec.edge_neighbor_max(xi, u, k)
+        ref = sliced(lambda x, v: ec.edge_neighbor_max_plain(x, v, k), xi, u)
+        t3["err"] = max(t3["err"], float((got.float() - ref.float()).abs().max()))
+        assert t3["err"] == 0.0, f"B3 not exact at {key}, {cq}"
+        cots = [rand(clouds, n, cout) for _ in range(4)]
+        got = b6(ev.edge_knn_reduce, xi, u.float(), *cots)
+        ref = sliced(lambda *a: b6(ev.edge_knn_reduce_plain, *a), xi, u.float(), *cots)
+        exact = max(float((a - b).abs().max()) for a, b in zip(got[:2], ref[:2]))
+        off = int(b6_off(got, ref, ev.du_scale(ref_idx, u.float(), cots)).sum())
+        assert exact == 0.0 and off == 0, f"B6 at {key}, {cq}: {exact}, {off} entries off"
+        t6["err"] = max(t6["err"], max(float((a - b).abs().max()) for a, b in zip(got, ref)))
+        del got, ref
+        x = rand(clouds, n, cq).bfloat16()
+        got = ec.edge_neighbor_max(x, u, k)
+        ref = sliced(lambda a, v: ec.edge_neighbor_max_plain(a, v, k), x, u)
+        t3["worst"] = max(t3["worst"], float((got != ref).any(-1).float().mean()))
+        got = b6(ev.edge_knn_reduce, x, u.float(), *cots)
+        ref = sliced(lambda *a: b6(ev.edge_knn_reduce_plain, *a), x, u.float(), *cots)
+        near = sliced(lambda a: ec.knn_indices(a, k), x)
+        off = b6_off(got, ref, ev.du_scale(near, u.float(), cots)).any(0).any(-1)
+        t6["worst"] = max(t6["worst"], float(off.float().mean()))
+        del got, ref
+        for t, fn, plain in (
+                (t3, lambda: ec.edge_neighbor_max(x, u, k),
+                 lambda: sliced(lambda a, v: ec.edge_neighbor_max_plain(a, v, k), x, u)),
+                (t6, lambda: b6(ev.edge_knn_reduce, x, u.float(), *cots),
+                 lambda: sliced(lambda *a: b6(ev.edge_knn_reduce_plain, *a), x, u.float(),
+                                *cots))):
+            t["ms"] += time_ms(fn)
+            t["plain"] += time_ms(plain, reps=1)
+            t["flops"] += knn_flops(clouds, n, cq)
+        if device_times:
+            b3_ms, b6_ms = knn_launch_ms(x, u, cots, k)
+            t3["device"] += b3_ms
+            t6["device"] += b6_ms
+        t3["moved"] += nbytes(x, u) + clouds * n * cout * 2
+        t6["moved"] += nbytes(x) + clouds * n * cout * 2 + 9 * clouds * n * cout * 4
+        torch.cuda.empty_cache()
+    for name, t in (("B3", t3), ("B6", t6)):
+        assert t["worst"] <= 0.01, f"{name} rows differing {t['worst']} > 0.01 at {key}"
+    return t3, t6
 
-    clouds, n = LARGE_SA
-    key = f"{clouds}x{n}"
+
+def sa_select_reading(device, g, clouds: int, n: int, k: int) -> dict:
+    """B9's selection of PAConv's four levels of clouds x n points (B8's
+    centres) with k slots, in one launch, against `sa_select_plain` (an item
+    slice a call): integer coordinates index-equal, at most 1e-3 of the rows
+    off on random ones (a near-tied k-th neighbour); its wall and device
+    ms, plain's ms and the bound, timed on the random clouds."""
+    from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda as sg
+
+    key = f"{clouds}x{n}, k={k}"
     ms = [n // 4 ** (i + 1) for i in range(4)]
     for kind in ("integer", "random"):
         x = (torch.randint(-30, 31, (clouds, n, 3), generator=g).float() if kind == "integer"
              else torch.randn(clouds, n, 3, generator=g)).to(device)
         idx, centres = fps_cuda.furthest_point_sampling_levels(x, ms)
         levels = list(zip(centres, idx, [x, *centres]))
-        sels = sg.sa_select_levels(levels, SA_K)
+        sels = sg.sa_select_levels(levels, k)
         worst = err = 0.0
         for (new_xyz, lidx, xyz), sel in zip(levels, sels):
-            ref = by_items(lambda a, b, c: sg.sa_select_plain(a, b, c, SA_K), xyz.shape[1],
+            ref = by_items(lambda a, b, c: sg.sa_select_plain(a, b, c, k), xyz.shape[1],
                            new_xyz, lidx, xyz)
             worst = max(worst, float((sel.long() != ref).any(-1).float().mean()))
             err = max(err, float((sel.long() - ref).abs().max()))
@@ -4486,18 +4639,43 @@ def phase_large_clouds(device) -> dict:
             assert worst == 0.0, f"B9's selection not exact on integer coordinates at {key}"
             int_err = err   # the slot lists' max |kernel - plain| on integer coordinates
     assert worst <= 1e-3, f"B9 rows differing {worst} > 1e-3 at {key}"
-    r = _paconv_reading(lambda: sg.sa_select_levels(levels, SA_K),
-                        lambda: [by_items(lambda a, b, c: sg.sa_select_plain(a, b, c, SA_K),
+    r = _paconv_reading(lambda: sg.sa_select_levels(levels, k),
+                        lambda: [by_items(lambda a, b, c: sg.sa_select_plain(a, b, c, k),
                                           lv[2].shape[1], *lv) for lv in levels],
                         "sa_select_kernel",
                         clouds * sum(m * nn * 8 for nn, m in zip([n, *ms], ms)),
                         nbytes(levels, sels))
-    out["B9"][key] = {"shapes": f"{key}, four levels, k={SA_K}", "max_abs_err": int_err,
-                      "ms": r["wall_ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
-                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "launches": 0,
-                      "random_rows_differing": worst}
+    reading = {"shapes": f"{key}, four levels", "max_abs_err": int_err, "ms": r["wall_ms"],
+               "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "launches": 0,
+               "random_rows_differing": worst}
     log(f"B9 sa_select at {key}, four levels in one launch: integer coordinates index-equal, "
-        f"random rows differing {worst} (budget 1e-3); {json.dumps(out['B9'][key])}")
+        f"random rows differing {worst} (budget 1e-3); {json.dumps(reading)}")
+    return reading
+
+
+def phase_large_clouds(device) -> dict:
+    """B3, B6 and B9 past the clouds whose rows fit shared memory, against
+    their plain versions (run an item slice at a time): B3 and B6 at 40 x
+    4,096 and 8 x 16,384 points at the four EdgeConv widths, k = 40 (the
+    chunked walk; `knn_widths`), B9's selection at 50 x 8,192 (the cloud
+    read from global memory) over PAConv's four levels
+    (`sa_select_reading`). Returns {"B3" | "B6" | "B9": {"<clouds>x<points>":
+    reading}}."""
+    g = torch.Generator().manual_seed(SEED + 40)
+    k = 40
+    out = {"B3": {}, "B6": {}, "B9": {}}
+    for clouds, n in LARGE_KNN:
+        key = f"{clouds}x{n}"
+        for name, t in zip(("B3", "B6"), knn_widths(device, g, clouds, n, k)):
+            out[name][key] = _large_entry(f"{key}, four widths, k={k}", t["err"], t["ms"],
+                                          t["plain"], t["flops"], t["moved"])
+            out[name][key]["random_rows_differing"] = t["worst"]
+            log(f"{name} at {key}, four widths, k={k}: integer inputs index-equal and exact "
+                f"(max|err| {t['err']}), random-input rows differing {t['worst']} (budget "
+                f"0.01); {json.dumps(out[name][key])}")
+    clouds, n = LARGE_SA
+    out["B9"][f"{clouds}x{n}"] = sa_select_reading(device, g, clouds, n, SA_K)
     return out
 
 
@@ -4631,6 +4809,33 @@ def phase_b6_large(device) -> dict:
         log(f"B6 at {key}: integer inputs index-equal and exact on items {list(check)} "
             f"(max|err| {t['err']}); backward device {t['bwd_ms']:.3f} ms; {json.dumps(entry)}")
     return out
+
+
+def knn_launch_ms(x, u, cots, k: int) -> tuple:
+    """B3's kernel and B6's forward and backward kernels launched through
+    `_build` alone (no wrapper, no autograd), their ms by CUDA events
+    (`time_ms`: the launches back to back, so the host adds only their
+    launch gaps) -> (B3 ms, B6 forward + backward ms). CUDA events, not
+    torch.profiler: after the earlier phases the profiler traced none of
+    these kernels in eight traces running."""
+    from flowcompare_tpu_torch.ops import _build
+
+    b, n, cq = x.shape
+    c = u.shape[-1]
+    rows = b * n
+    ub, amax, amin, idx = _b6_saved(x, u.float(), k)
+    out = torch.empty(rows, c, dtype=torch.bfloat16, device=x.device)
+    b3_ms = time_ms(lambda: _build.knn_edge_max(x.reshape(rows, cq), ub, out, n_items=b, k=k))
+    f32 = [torch.empty(rows, c, device=x.device) for _ in range(4)]
+    flat = [t.reshape(rows, c) for t in cots]
+    du = torch.empty(rows, c, device=x.device)
+
+    def b6():
+        _build.knn_edge_reduce_fwd(x.reshape(rows, cq), ub, *f32, amax, amin, idx, n_items=b,
+                                   k=k)
+        _build.knn_edge_reduce_bwd(ub, *flat, amax, amin, idx, du, n_items=b, k=k)
+
+    return b3_ms, time_ms(b6)
 
 
 def _b6_saved(x, u, k: int) -> tuple:
@@ -4770,7 +4975,7 @@ C1_B = 2
 C1_CASES = (
     ("D = 256", {"cross_heads": 4}, ("stack", "augmenter")),
     ("1,040-wide coupling MLP", {"hidden_dims": [1040, 1040, 1040]}, ("stack", "augmenter")),
-    ("k = 80", {"n_neighbors": 80}, ("encoder",)),
+    ("k = 257", {"n_neighbors": 257}, ("encoder",)),
 )
 # the kernels of each part, by the counters: none may launch where the part
 # is refused, each part on its kernels launches on the path that runs it
@@ -4791,7 +4996,7 @@ def _c1_check_launches(name: str, routes: dict, path: str, launches: dict) -> No
 
 def phase_c1(ft, device) -> dict:
     """Configs outside the kernels' shapes on the card (ROADMAP queue C1):
-    D = 256 (4 heads of 64), a 1,040-wide coupling MLP and k = 80, each a bf16
+    D = 256 (4 heads of 64), a 1,040-wide coupling MLP and k = 257, each a bf16
     dulcet-universe at 2 layers and full width, B=2. Each prints its routes
     and must refuse the expected parts; its log_prob (inner_loop eval), one
     train_step after the data init and one make_sample of 1 x 4000 run on
@@ -5525,6 +5730,9 @@ def main() -> int:
         main_bounds = phase_main_bounds(model)
         entries = phase_kernels(ft, model, device)
         knn_split = phase_knn_split()
+        # past 64 neighbours (B9's reading on torch.profiler, whose traces
+        # drop kernels more often later in the run)
+        knn_k = phase_knn_k(device)
     launches = phase_main_path(ft, model, device)
     timing = phase_timing(ft, model, device)
     eval_profile = phase_eval_profile(ft, model, device, TIME_B, "chip_smoke_eval_trace.json")
@@ -5598,6 +5806,21 @@ def main() -> int:
             "launches": wide["eval_launches"][key]}}
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    k128 = phase_k128(ft, device)
+    log(f"k128 phase: {time.perf_counter() - t0:.1f} s")
+    # the readings past 64 neighbours, with the launches of k128's paths:
+    # its eval (B3, B4) and its train(max_steps=4) (B6); no path runs B9
+    # past PAConv's k = 32
+    k128_launches = {"B3": k128["eval_launches"]["B3"],
+                     "B6": k128["train_main"]["launches"]["B6"]}
+    for key, n in k128_launches.items():
+        knn_k[key]["k=128 40x1250"]["launches"] = n
+    entries["B4"]["by_k"] = {f"k={k} 40x1250": {
+        **check_entry(r, f"40 clouds x 1250, k={k}"), "device_ms": r["device_ms"],
+        "launches": k128["eval_launches"]["B4"] if k == 128 else 0,
+        "launches_per_call": r["launches_per_call"]} for k, r in k128["b4"].items()}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     with torch.no_grad():
         large = phase_large_clouds(device)
     torch.cuda.empty_cache()
@@ -5627,6 +5850,7 @@ def main() -> int:
     large["B6"].update(b6_large)
     for key in ("B3", "B6"):
         entries[key]["by_cloud"] = large[key]
+        entries[key]["by_k"] = knn_k[key]
     entries["B4"]["by_cloud"] = {"40x4096": {
         **check_entry(dul["b4"], "40 clouds x 4096"), "device_ms": dul["b4"]["device_ms"],
         "launches": dul["eval_launches"]["B4"],
@@ -5635,6 +5859,7 @@ def main() -> int:
     paconv_entries, good_surf = good_surf_phases(ft, device)
     entries.update(paconv_entries)
     entries["B9"]["by_cloud"] = large["B9"]
+    entries["B9"]["by_k"] = knn_k["B9"]
     entries["B8"]["by_cloud"] = b8_large
     torch.cuda.empty_cache()
     global_checks, helpful_sponge, b5_global = helpful_sponge_phases(ft, device)
@@ -5684,6 +5909,7 @@ def main() -> int:
                       "fused_layers": fused_cases, "main_path_bounds": main_bounds,
                       "knn_split": knn_split,
                       "b5_fused": b5_fused, "b5_fused_w1024": b5_wide, "w1024": wide,
+                      "k128": k128, "knn_k": knn_k,
                       "wall_s": time.perf_counter() - T_START}))
     entries.update(gemm_entries)
     entries.update(attention_entries)

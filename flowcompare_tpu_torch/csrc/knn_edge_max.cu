@@ -16,6 +16,8 @@
 // their maxima merged by shuffles. No one-hot matmul and no pad rows: the GPU
 // gathers, and bounds are checked.
 //
+// Any 1 <= k <= min(n, 256): past k = 64 every row takes the radix select.
+//
 // Clouds whose 16 distance rows do not fit shared memory (past 3,200 points
 // at 128 features) take knn_edge_max_chunked_kernel: the same selection
 // walking the row in chunks (knn::select_chunked, one pass with a falling
@@ -25,9 +27,9 @@
 // query row, about 2 GB over the four widths of a B=20 eval item) and the
 // candidates' B fragments (re-read from L2 by each 16-row block); the
 // distance products are a few microseconds of tensor-core time an item and
-// the selection 2-5 sweeps a row over shared memory. Both grow as n^2 with
-// the cloud: at 4,096 points the candidates' reads (n / 16 blocks, each
-// reading the item's n rows) lead.
+// the selection 2-5 sweeps a row over shared memory (the radix select's past
+// k = 64). Both grow as n^2 with the cloud: at 4,096 points the candidates'
+// reads (n / 16 blocks, each reading the item's n rows) lead.
 #include "knn_select.cuh"
 
 namespace {
@@ -130,7 +132,7 @@ __global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_max_kernel(
   knn::distances<KS>(x + (size_t)item * n * ldx, ldx, cq, n, row0, s);
 
   unsigned* scratch = s.scratch + warp * 2 * knn::CAP;
-  int* list = s.sel + warp * knn::MAX_K;
+  int* list = knn::list_at(s.sel + warp * knn::POOL, scratch, k);
   for (int rr = 0; rr < knn::QR / knn::WARPS; ++rr) {
     const int r = warp * (knn::QR / knn::WARPS) + rr;
     const int gr = row0 + r;

@@ -7,7 +7,8 @@
 // mx, mn, s1 = sum u_j, s2 = sum u_j^2 (f32, from bf16 u), the selected
 // indices in ascending order (the Pallas kernel's selection-rank order) and,
 // per channel, the first-occurrence slot of the max and of the min in that
-// order (torch.max's tie rule). The k rows of u are gathered from L2 as
+// order (torch.max's tie rule), one byte each: so k <= 256 (slots 0-255,
+// every byte value a slot). The k rows of u are gathered from L2 as
 // knn_edge_max gathers them (knn::gather_lanes: neighbour slots g, g + P, ...
 // in lane group g), the groups merged by shuffles (the max / min keep the
 // lower slot on ties). The TPU
@@ -28,8 +29,9 @@
 // 2. knn_rev_scan: per item, the counts' exclusive scan over j, walked in
 //    chunks of 4,096 by one block with a running carry: off[j] .. off[j + 1]
 //    is the list of j;
-// 3. knn_rev_place: each entry (i << 6 | slot) at off[j] plus its place,
-//    no atomics: the lists hold their entries in the atomics' order;
+// 3. knn_rev_place: each entry (i << sh | slot) at off[j] plus its place,
+//    no atomics: the lists hold their entries in the atomics' order (sh,
+//    the slot's bits: 6 up to k = 64, 8 past it; so n < 2^(31 - sh));
 // 4. knn_rev_rank: a thread a list position counts the entries of its list
 //    below its own (entries are distinct: a row selects j once) and writes
 //    it there, so each list is in increasing i whatever the atomics' order
@@ -193,7 +195,7 @@ __global__ void __launch_bounds__(knn::THREADS, 2) knn_edge_reduce_fwd_kernel(FW
   knn::distances<KS>(x + (size_t)item * n * ldx, ldx, cq, n, row0, s);
 
   unsigned* scratch = s.scratch + warp * 2 * knn::CAP;
-  int* list = s.sel + warp * knn::MAX_K;
+  int* list = knn::list_at(s.sel + warp * knn::POOL, scratch, k);
   for (int rr = 0; rr < knn::QR / knn::WARPS; ++rr) {
     const int r = warp * (knn::QR / knn::WARPS) + rr;
     const int gr = row0 + r;
@@ -309,35 +311,37 @@ __global__ void __launch_bounds__(REV_SCAN_THREADS) knn_rev_scan_kernel(
   if (tid == 0) o[n] = carry;
 }
 
-// pool[off[j] + pos[e]] = i << 6 | slot for every selected entry e = i k +
+// pool[off[j] + pos[e]] = i << sh | slot for every selected entry e = i k +
 // slot: each list holds its entries, in the atomics' order.
 __global__ void __launch_bounds__(256) knn_rev_place_kernel(const int* __restrict__ idx,
                                                             const int* __restrict__ pos,
                                                             const int* __restrict__ off, int n,
-                                                            int k, int* __restrict__ pool) {
+                                                            int k, int sh,
+                                                            int* __restrict__ pool) {
   const int item = blockIdx.y;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n * k) return;
   const size_t at = (size_t)item * n * k + e;
   const int i = e / k;
   pool[(size_t)item * n * k + off[(size_t)item * (n + 1) + idx[at]] + pos[at]] =
-      (i << 6) | (e - i * k);
+      (i << sh) | (e - i * k);
 }
 
 // A thread a list position p: the entry there goes to off[j] + the number
 // of its list's entries below it, so rev holds each list in increasing i
-// (i << 6 | slot orders as i does: a row selects j once). The threads of a
+// (i << sh | slot orders as i does: a row selects j once). The threads of a
 // warp mostly share a list, so its loads are broadcasts.
 __global__ void __launch_bounds__(256) knn_rev_rank_kernel(const int* __restrict__ idx,
                                                            const int* __restrict__ off,
                                                            const int* __restrict__ pool, int n,
-                                                           int k, int* __restrict__ rev) {
+                                                           int k, int sh,
+                                                           int* __restrict__ rev) {
   const int item = blockIdx.y;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n * k) return;
   const int* lists = pool + (size_t)item * n * k;
   const int e = lists[p];
-  const int j = idx[((size_t)item * n + (e >> 6)) * k + (e & 63)];
+  const int j = idx[((size_t)item * n + (e >> sh)) * k + (e & ((1 << sh) - 1))];
   const int* oi = off + (size_t)item * (n + 1);
   const int p0 = oi[j], p1 = oi[j + 1];
   int rank = 0;
@@ -357,7 +361,9 @@ __device__ __forceinline__ void load4(const float* p, int valid, bool vec, float
 
 __device__ __forceinline__ unsigned load4b(const unsigned char* p, int valid, bool vec) {
   if (vec) return *reinterpret_cast<const unsigned*>(p);
-  unsigned w = 0xffffffffu;  // past cout: never a slot
+  // past cout 0xff: no slot below 255; at k = 256 slot 255 matches it, but
+  // the sums of channels past cout are never stored
+  unsigned w = 0xffffffffu;
   for (int e = 0; e < valid; ++e) w = (w & ~(0xffu << (8 * e))) | ((unsigned)p[e] << (8 * e));
   return w;
 }
@@ -371,7 +377,8 @@ __device__ __forceinline__ unsigned slot_hits(unsigned w, int slot) {
 // channels each take one list entry, the two half-warps entries p and p + 1
 // (group g the entries g, g + 2, ...), added at the end (one xor-16 shuffle).
 // Consecutive warps take the slabs of one j, so blocks in flight cover one or
-// two items' rows and the gathers stay in L2.
+// two items' rows and the gathers stay in L2. SH: the entries' slot bits.
+template <int SH>
 __global__ void __launch_bounds__(256) knn_edge_reduce_bwd_kernel(
     const bf16* __restrict__ u, int ldu, int cout, const float* __restrict__ dmx,
     const float* __restrict__ dmn, const float* __restrict__ ds1, const float* __restrict__ ds2,
@@ -399,8 +406,8 @@ __global__ void __launch_bounds__(256) knn_edge_reduce_bwd_kernel(
 #pragma unroll 2
     for (int p = oi[j] + half; p < p1; p += 2) {
       const int e = ri[p];
-      const int slot = e & 63;
-      const size_t o = ((size_t)item * n + (e >> 6)) * cout + ch;
+      const int slot = e & ((1 << SH) - 1);
+      const size_t o = ((size_t)item * n + (e >> SH)) * cout + ch;
       float a[4], b[4];
       load4(ds1 + o, valid, vec, a);
       load4(ds2 + o, valid, vec, b);
@@ -494,9 +501,10 @@ FC_API int fc_knn_edge_reduce_bwd(const void* u, int ldu, int cout, const void* 
                                   const void* amax, const void* amin, const void* idx,
                                   void* scratch, void* du, int n_items, int n, int k,
                                   void* stream) {
-  // entries i << 6 | slot and an item's n k entries are int32
+  // entries i << sh | slot and an item's n k entries are int32
+  const int sh = k > knn::POOL ? 8 : 6;
   if (k < 1 || k > knn::MAX_K || k > n || cout > MAX_COUT || n_items < 1 || n_items > 65535 ||
-      n >= (1 << 25) || (long long)n * k > 0x7fffffffLL)
+      n >= (1 << (31 - sh)) || (long long)n * k > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   // scratch: the counts, the list offsets, each entry's place in its list
@@ -512,8 +520,8 @@ FC_API int fc_knn_edge_reduce_bwd(const void* u, int ldu, int cout, const void* 
   knn_rev_count_kernel<<<dim3((n + REV_TILE - 1) / REV_TILE, n_items), 256, 0, st>>>(
       (const int*)idx, n, k, cnt, pos);
   knn_rev_scan_kernel<<<n_items, REV_SCAN_THREADS, 0, st>>>(cnt, n, off);
-  knn_rev_place_kernel<<<egrid, 256, 0, st>>>((const int*)idx, pos, off, n, k, pool);
-  knn_rev_rank_kernel<<<egrid, 256, 0, st>>>((const int*)idx, off, pool, n, k, rev);
+  knn_rev_place_kernel<<<egrid, 256, 0, st>>>((const int*)idx, pos, off, n, k, sh, pool);
+  knn_rev_rank_kernel<<<egrid, 256, 0, st>>>((const int*)idx, off, pool, n, k, sh, rev);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // every row is contiguous (rows, cout): 16-byte chunks when cout % 4 == 0
@@ -523,7 +531,8 @@ FC_API int fc_knn_edge_reduce_bwd(const void* u, int ldu, int cout, const void* 
                    (reinterpret_cast<uintptr_t>(amin) & 3u) == 0;
   const int slabs = (cout + SLAB - 1) / SLAB;
   dim3 grid((n * slabs + 7) / 8, n_items);
-  knn_edge_reduce_bwd_kernel<<<grid, 256, 0, st>>>(
+  auto bwd = sh == 6 ? knn_edge_reduce_bwd_kernel<6> : knn_edge_reduce_bwd_kernel<8>;
+  bwd<<<grid, 256, 0, st>>>(
       (const bf16*)u, ldu, cout, (const float*)dmx, (const float*)dmn, (const float*)ds1,
       (const float*)ds2, (const unsigned char*)amax, (const unsigned char*)amin, off, rev,
       (float*)du, n, k, slabs, vec);

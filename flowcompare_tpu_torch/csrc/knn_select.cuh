@@ -58,6 +58,12 @@
 //   and for the admit pass, the whole block in step. A recomputed distance
 //   is bit-identical to the first (the same mma.sync k-steps, the same fmaf
 //   norms), so the walk selects the whole-row path's set.
+// - k past the pool (64 < k <= MAX_K = 256): the pool's k-th smallest no
+//   longer bounds the row's, so every row takes the radix select from the
+//   start (the chunked walk its recomputing passes, with no pool pass before
+//   them). Its list of k then lies in the upper half of the warp's 2 CAP
+//   words of scratch, which the radix select (its histogram the lower BINS
+//   words) leaves free, so no launch's shared memory depends on k.
 #pragma once
 
 #include "common.cuh"
@@ -68,8 +74,8 @@ namespace knn {
 constexpr int QR = 16;        // query rows per block: one m16 tile
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_K = 64;
-constexpr int POOL = 64;      // pool values of a row: two per source
+constexpr int MAX_K = 256;     // the largest k (B6 keeps a selection slot in a byte)
+constexpr int POOL = 64;      // pool values of a row: two per source; the pool's largest k
 constexpr int BINS = 256;     // histogram bins of the radix select
 constexpr int CAP = 256;      // candidates a warp holds (indices, then bit patterns)
 constexpr unsigned FULL = 0xffffffffu;
@@ -83,13 +89,16 @@ __host__ __device__ inline int ksteps(int cq) { return (cq + 15) / 16; }
 __host__ __device__ inline int dist_ld(int n) { return (n + 31) / 32 * 32 + 8; }
 __host__ __device__ inline int q_ld(int cq) { return 16 * ksteps(cq) + 8; }
 
+static_assert(2 * CAP - BINS >= MAX_K, "a list past the pool fits beside a histogram");
+
 // Shared memory of a select block: dist (QR x dist_ld f32), pool (QR x
 // POOL), qs (QR x q_ld bf16), per warp 2 CAP words of scratch (the
-// candidates, or the radix select's histogram) and a selection list (MAX_K).
+// candidates, or the radix select's histogram) and a selection list of POOL
+// (a list past the pool lies in the scratch: list_at).
 inline size_t whole_smem_bytes(int n, int cq) {
   return sizeof(float) * (size_t)QR * dist_ld(n) + sizeof(unsigned) * QR * POOL +
          sizeof(bf16) * (size_t)QR * q_ld(cq) + sizeof(unsigned) * WARPS * 2 * CAP +
-         sizeof(int) * WARPS * MAX_K;
+         sizeof(int) * WARPS * POOL;
 }
 
 // Whether the whole distance rows fit: else the block walks the row in chunks.
@@ -100,11 +109,18 @@ inline bool whole_rows(int n, int cq) { return whole_smem_bytes(n, cq) <= (size_
 inline size_t chunked_smem_bytes(int cq) {
   return sizeof(float) * (size_t)QR * dist_ld(CHUNK) + sizeof(unsigned) * QR * POOL +
          sizeof(bf16) * (size_t)QR * q_ld(cq) + sizeof(unsigned) * WARPS * RPW * 2 * CAP +
-         sizeof(int) * WARPS * RPW * MAX_K;
+         sizeof(int) * WARPS * RPW * POOL;
 }
 
 inline size_t smem_bytes(int n, int cq) {
   return whole_rows(n, cq) ? whole_smem_bytes(n, cq) : chunked_smem_bytes(cq);
+}
+
+// The selection list of a row whose 2 CAP words of scratch are `scratch`:
+// its own POOL entries `own` up to k = POOL; past it (the radix select
+// alone, its histogram the lower BINS words) the scratch's upper half.
+__device__ __forceinline__ int* list_at(int* own, unsigned* scratch, int k) {
+  return k > POOL ? reinterpret_cast<int*>(scratch + BINS) : own;
 }
 
 struct Smem {
@@ -344,7 +360,7 @@ __device__ __forceinline__ void distances(const bf16* __restrict__ xi, int ldx, 
   __syncthreads();
 }
 
-// The k-th smallest (k <= 64) of the warp's 64 values v0 (element lane) and
+// The k-th smallest (k <= POOL) of the warp's 64 values v0 (element lane) and
 // v1 (element lane + 32): a bitonic sort across the warp.
 __device__ __forceinline__ unsigned kth_of_pool(unsigned v0, unsigned v1, int k) {
   const int lane = threadIdx.x & 31;
@@ -540,8 +556,9 @@ __device__ __forceinline__ void rank_candidates(int cnt, int k, const unsigned* 
   __syncwarp();
 }
 
-// One warp: the exact k (1 <= k <= 64) smallest of a row of n bit patterns
-// get(j), their indices into list[0..k), ascending. t, the k-th smallest of
+// One warp: the exact k (1 <= k <= MAX_K) smallest of a row of n bit
+// patterns get(j), their indices into list[0..k), ascending. Past the pool
+// (k > POOL) the radix select alone, from the start. Else t, the k-th smallest of
 // the 64 pool values p0 (lane) and p1 (lane + 32), which are entries of the
 // row, bounds the k-th smallest of the row from above; one sweep gathers the
 // candidates d <= t (a few more than k on spread distances) into scratch,
@@ -552,6 +569,7 @@ __device__ __forceinline__ void rank_candidates(int cnt, int k, const unsigned* 
 template <class Get>
 __device__ __forceinline__ int select_row_of(Get get, int n, int k, unsigned p0, unsigned p1,
                                              unsigned* scratch, int* list) {
+  if (k > POOL) return radix_select(get, n, k, scratch, list);
   const unsigned t = kth_of_pool(p0, p1, k);
   int cnt = 0;
   sweep(get, 0, n, t, cnt, scratch, scratch + CAP);
@@ -609,7 +627,8 @@ __device__ __forceinline__ void drop_above(unsigned t, int& cnt, unsigned* cand,
 // row0.. of item xi over its n points, CHUNK columns at a time (the rows of a
 // chunk in s.dist; s carved with rows = RPW), then emit(r, gr, list) for
 // each live row r (point gr = row0 + r) of the calling warp (one pass with a
-// falling threshold, header). Every thread of the block must call it.
+// falling threshold, header; for k > POOL no such pass: every row takes the
+// radix select over the chunks). Every thread of the block must call it.
 template <int KS, class Emit>
 __device__ __forceinline__ void select_chunked(const bf16* __restrict__ xi, int ldx, int cq,
                                                int n, int k, int row0, const Smem& s,
@@ -625,16 +644,16 @@ __device__ __forceinline__ void select_chunked(const bf16* __restrict__ xi, int 
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     cand[i] = s.scratch + (warp * RPW + i) * 2 * CAP;
-    list[i] = s.sel + (warp * RPW + i) * MAX_K;
+    list[i] = list_at(s.sel + (warp * RPW + i) * POOL, cand[i], k);
     cnt[i] = 0;
-    fall[i] = false;
+    fall[i] = k > POOL && row0 + warp * RPW + i < n;  // past the pool: the radix select
   }
   const int r0 = warp * RPW;
   auto row_of = [&](int i, int c0) {
     const unsigned* dr = reinterpret_cast<const unsigned*>(s.dist + (r0 + i) * s.ldd);
     return [dr, c0](int j) { return dr[j - c0]; };
   };
-  for (int c0 = 0; c0 < n; c0 += CHUNK) {
+  for (int c0 = 0; c0 < (k > POOL ? 0 : n); c0 += CHUNK) {
     const int c1 = min(c0 + CHUNK, n);
     tiles<KS, true, true>(xi, ldx, cq, n, c0, c1, s, a, m);
     write_pool(m, s);
@@ -660,9 +679,9 @@ __device__ __forceinline__ void select_chunked(const bf16* __restrict__ xi, int 
     mine |= fall[i];
   }
   if (__syncthreads_or(mine)) {
-    // crowded ties: the radix select, each digit pass and the admit pass a
-    // walk over the chunks, recomputed; a row's histogram is its candidates'
-    // words
+    // crowded ties, or k past the pool: the radix select, each digit pass
+    // and the admit pass a walk over the chunks, recomputed; a row's
+    // histogram is its candidates' words
     Radix rs[RPW];
     bool active[RPW];
 #pragma unroll

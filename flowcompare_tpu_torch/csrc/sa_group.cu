@@ -10,7 +10,8 @@
 //      distance; slots 1..k-1 are the k - 1 nearest other points, exact, the
 //      ties at the k-th distance taken in index order, written in ascending
 //      index order (select_row_pinned of knn_select.cuh);
-//   3. when k > n the slots past n hold point 0;
+//   3. when k > n the slots past n hold point 0 (k <= 256: past the pool's
+//      64 the selection is the radix select alone);
 //   4. out[b, m, s] = [x_p - c (f32, then rounded to nearest even in the
 //      output dtype) | feats_p], p the point of slot s.
 // A centre index outside [0, n) gives a row of NaN (no out-of-range access).
@@ -94,12 +95,13 @@ int select_rows(int items, int mc, int sms) {
   return blocks >= 8LL * sms ? 4 : blocks >= 4LL * sms ? 2 : 1;
 }
 
-// The warps' candidates and lists; with rows, the points as float4 and a
-// distance row a warp before them.
+// The warps' candidates and lists (of knn::POOL: a list past the pool lies
+// in the candidates' words, knn::list_at); with rows, the points as float4
+// and a distance row a warp before them.
 inline size_t select_smem_of(int n, bool rows) {
   const size_t row_bytes = rows ? sizeof(float) * ((size_t)4 * n + (size_t)SEL_WARPS * n) : 0;
   return row_bytes + sizeof(unsigned) * SEL_WARPS * 2 * knn::CAP +
-         sizeof(int) * SEL_WARPS * knn::MAX_K;
+         sizeof(int) * SEL_WARPS * knn::POOL;
 }
 
 // Whether clouds of n points fit shared memory with their distance rows (n
@@ -124,9 +126,9 @@ __device__ __forceinline__ unsigned centre_bits(const float* __restrict__ xi, in
 
 // One centre's slot list with the cloud read from global memory: the pool
 // (each lane's two nearest others, lane = j mod 32, as the rows' path keeps
-// it) from a first sweep of the recomputed distances, then knn::select_row_of
-// over the same distances recomputed (the radix fallback recomputes them
-// for each pass too). One warp.
+// it) from a first sweep of the recomputed distances (none past the pool's
+// k), then knn::select_row_of over the same distances recomputed (the radix
+// select recomputes them for each pass too). One warp.
 __device__ __forceinline__ void select_centre(const SelLevel& L, int item, int ci, int k,
                                               const float* __restrict__ xi, unsigned* scratch,
                                               int* list) {
@@ -144,10 +146,12 @@ __device__ __forceinline__ void select_centre(const SelLevel& L, int item, int c
   const int self = (int)self_ll;
   // the centre's own entry all ones: never in the pool, never taken
   auto get = [=](int j) { return j == self ? knn::FULL : centre_bits(xi, j, cx, cy, cz, cn); };
-  unsigned p0 = knn::FULL, p1 = knn::FULL;
-#pragma unroll 4
-  for (int j = lane; j < n; j += 32) knn::keep2(p0, p1, get(j));
   const int taken = min(k, n) - 1;
+  unsigned p0 = knn::FULL, p1 = knn::FULL;
+  if (taken <= knn::POOL) {
+#pragma unroll 4
+    for (int j = lane; j < n; j += 32) knn::keep2(p0, p1, get(j));
+  }
   if (taken > 0) knn::select_row_of(get, n, taken, p0, p1, scratch, list);
   for (int s = lane; s < k; s += 32) sel[s] = s == 0 ? self : (s <= taken ? list[s - 1] : 0);
   __syncwarp();  // the list serves the warp's next centre
@@ -166,12 +170,14 @@ __global__ void __launch_bounds__(SEL_THREADS) sa_select_kernel(SelArgs a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* xi = L.xyz + (size_t)item * n * 3;
   if (!a.rows) {
-    unsigned* scratch = reinterpret_cast<unsigned*>(smem);
-    int* list = reinterpret_cast<int*>(scratch + SEL_WARPS * 2 * knn::CAP) + warp * knn::MAX_K;
+    unsigned* scratch = reinterpret_cast<unsigned*>(smem) + warp * 2 * knn::CAP;
+    int* own = reinterpret_cast<int*>(reinterpret_cast<unsigned*>(smem) +
+                                      SEL_WARPS * 2 * knn::CAP) + warp * knn::POOL;
+    int* list = knn::list_at(own, scratch, min(k, L.n) - 1);
     for (int r = 0; r < L.rpw; ++r) {
       const int ci = (blk * L.rpw + r) * SEL_WARPS + warp;
       if (ci >= L.mc) break;
-      select_centre(L, item, ci, k, xi, scratch + warp * 2 * knn::CAP, list);
+      select_centre(L, item, ci, k, xi, scratch, list);
     }
     return;
   }
@@ -187,7 +193,8 @@ __global__ void __launch_bounds__(SEL_THREADS) sa_select_kernel(SelArgs a) {
   __syncthreads();  // no block barrier below
 
   unsigned* dr = dist + (size_t)warp * n;
-  int* list = lists + warp * knn::MAX_K;
+  int* list = knn::list_at(lists + warp * knn::POOL, scratch + warp * 2 * knn::CAP,
+                           min(k, n) - 1);
   for (int r = 0; r < L.rpw; ++r) {
     const int ci = (blk * L.rpw + r) * SEL_WARPS + warp;
     if (ci >= L.mc) break;
@@ -248,7 +255,8 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
 }
 
 // Rows of a gather group for output rows of w elements (k = 32: one group of
-// 32 rows up to w = 64, 24 + 8 at w = 67, groups of 8 past w = 256).
+// 32 rows up to w = 64, 24 + 8 at w = 67, groups of 8 past w = 256; a larger
+// k takes more groups of the same rows).
 inline int group_rows(int w, int k) {
   const int g = (GA_TILE / w) & ~7;
   return min(k, min(32, max(8, g)));

@@ -930,6 +930,17 @@ def augment_epilogue(st: torch.Tensor, x: torch.Tensor, eps: torch.Tensor,
 
 SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block may opt into on the H100
 GRID_ITEMS = 65535        # items a launch of B6 takes at most (the grid's y)
+# neighbours B3, B6 and B9 take at most: B6 keeps a selection slot in a byte
+# (csrc/knn_select.cuh MAX_K); past 64, the pool's, every row takes the radix
+# select
+KNN_MAX_K = 256
+
+
+def knn_slot_bits(k: int) -> int:
+    """Bits of the slot in B6's backward list entries i << bits | slot
+    (csrc/knn_edge_reduce.cu): 6 up to k = 64, 8 past it; an item's points
+    must then stay below 2^(31 - bits)."""
+    return 6 if k <= 64 else 8
 
 
 def _knn_pairs(x: torch.Tensor) -> torch.Tensor:
@@ -955,8 +966,8 @@ def knn_edge_max(x: torch.Tensor, u: torch.Tensor, out: torch.Tensor, *,
     if rows % n_items or u.shape[0] != rows or out.shape != (rows, cout):
         raise ValueError("knn_edge_max: shape mismatch")
     n = rows // n_items
-    if not 1 <= k <= min(n, 64) or cout > 256:
-        raise ValueError(f"knn_edge_max: needs 1 <= k <= min(n, 64) and cout <= 256 "
+    if not 1 <= k <= min(n, KNN_MAX_K) or cout > 256:
+        raise ValueError(f"knn_edge_max: needs 1 <= k <= min(n, {KNN_MAX_K}) and cout <= 256 "
                          f"(k={k}, n={n}, cout={cout})")
     lib = library()
     if lib.fc_knn_edge_max_smem(n, cq) > SMEM_LIMIT:
@@ -999,8 +1010,8 @@ def knn_edge_reduce_fwd(x: torch.Tensor, u: torch.Tensor, mx: torch.Tensor, mn: 
     if rows % n_items or u.shape[0] != rows:
         raise ValueError("knn_edge_reduce: shape mismatch")
     n = rows // n_items
-    if not 1 <= k <= min(n, 64) or cout > 256:
-        raise ValueError(f"knn_edge_reduce: needs 1 <= k <= min(n, 64) and C <= 256 "
+    if not 1 <= k <= min(n, KNN_MAX_K) or cout > 256:
+        raise ValueError(f"knn_edge_reduce: needs 1 <= k <= min(n, {KNN_MAX_K}) and C <= 256 "
                          f"(k={k}, n={n}, C={cout})")
     lib = library()
     if lib.fc_knn_edge_max_smem(n, cq) > SMEM_LIMIT:
@@ -1057,12 +1068,12 @@ def knn_edge_reduce_bwd(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.Tensor,
     for t, nm in ((amax, "amax"), (amin, "amin")):
         _contig(t, f"knn_edge_reduce_bwd.{nm}", torch.uint8, shape)
     _contig(idx, "knn_edge_reduce_bwd.idx", torch.int32, (rows, k))
-    if rows % n_items or not 1 <= k <= min(n, 64) or cout > 256:
-        raise ValueError(f"knn_edge_reduce_bwd: needs 1 <= k <= min(n, 64) and C <= 256 "
-                         f"(k={k}, n={n}, C={cout})")
+    if rows % n_items or not 1 <= k <= min(n, KNN_MAX_K) or cout > 256:
+        raise ValueError(f"knn_edge_reduce_bwd: needs 1 <= k <= min(n, {KNN_MAX_K}) and "
+                         f"C <= 256 (k={k}, n={n}, C={cout})")
     lib = library()
     per = lib.fc_knn_edge_reduce_bwd_scratch(n, k)
-    if per < 0 or n >= 1 << 25:
+    if per < 0 or n >= 1 << (31 - knn_slot_bits(k)):
         raise ValueError(f"knn_edge_reduce_bwd: a cloud of n={n} points, k={k} passes the "
                          f"int32 entries of its reverse lists")
     groups = knn_bwd_groups(n_items, n, k)
@@ -1120,8 +1131,8 @@ def sa_select(levels: list, sel: list, *, k: int) -> None:
     slots 1.. its nearest other points ascending, point 0 past N_l."""
     if not 1 <= len(levels) == len(sel) <= 4:
         raise ValueError(f"sa_select: {len(levels)} levels, {len(sel)} outputs")
-    if not 1 <= k <= 64:
-        raise ValueError(f"sa_select: needs 1 <= k <= 64 (k={k})")
+    if not 1 <= k <= KNN_MAX_K:
+        raise ValueError(f"sa_select: needs 1 <= k <= {KNN_MAX_K} (k={k})")
     b = levels[0][2].shape[0]
     lib = library()
     arrays = [[] for _ in range(6)]
@@ -1153,8 +1164,9 @@ def sa_gather(sel: torch.Tensor, new_xyz: torch.Tensor, xyz: torch.Tensor, feats
     c = feats.shape[-1]
     if feats.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"sa_gather: features must be bf16 or f32, got {feats.dtype}")
-    if not 1 <= k <= 64 or n < 1 or mc < 1:
-        raise ValueError(f"sa_gather: needs 1 <= k <= 64, N >= 1, M >= 1 (k={k}, N={n}, M={mc})")
+    if not 1 <= k <= KNN_MAX_K or n < 1 or mc < 1:
+        raise ValueError(f"sa_gather: needs 1 <= k <= {KNN_MAX_K}, N >= 1, M >= 1 "
+                         f"(k={k}, N={n}, M={mc})")
     lib = library()
     if lib.fc_sa_gather_smem(c, k, feats.element_size()) > SMEM_LIMIT:
         raise ValueError(f"sa_gather: rows of 3 + {c} elements exceed shared memory")

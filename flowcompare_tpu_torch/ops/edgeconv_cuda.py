@@ -120,8 +120,10 @@ SELECT_CAP = 256
 # Columns of a chunk of the kernels' walk over rows that do not fit shared
 # memory whole (knn_select.cuh CHUNK).
 KNN_CHUNK = 1024
-# knn_select.cuh: query rows a block, warps, pool entries a row, the largest k
-_QR, _WARPS, _POOL, _MAX_K = 16, 8, 64, 64
+# knn_select.cuh: query rows a block, warps, pool entries a row (the pool's
+# largest k, and a list's entries: a list past it lies in the upper half of
+# its warp's candidates, beside the radix select's 256-bin histogram)
+_QR, _WARPS, _POOL = 16, 8, 64
 
 
 def _up(n: int, m: int) -> int:
@@ -130,11 +132,12 @@ def _up(n: int, m: int) -> int:
 
 def whole_smem_bytes(n: int, cq: int) -> int:
     """B3's and B6's shared memory with whole distance rows (knn_select.cuh
-    `whole_smem_bytes`): 16 f32 distance rows padded to 8 mod 32 words, a
-    pool of 64 a row, 16 bf16 query rows of whole 16-feature steps plus 8,
-    and per warp 2 x 256 words of candidates and a list of 64."""
+    `whole_smem_bytes`), the same at every k: 16 f32 distance rows padded to
+    8 mod 32 words, a pool of 64 a row, 16 bf16 query rows of whole
+    16-feature steps plus 8, and per warp 2 x 256 words of candidates and a
+    list of 64."""
     return (4 * _QR * (_up(n, 32) + 8) + 4 * _QR * _POOL + 2 * _QR * (_up(cq, 16) + 8)
-            + 4 * _WARPS * 2 * SELECT_CAP + 4 * _WARPS * _MAX_K)
+            + 4 * _WARPS * 2 * SELECT_CAP + 4 * _WARPS * _POOL)
 
 
 def chunked_smem_bytes(cq: int) -> int:
@@ -142,13 +145,13 @@ def chunked_smem_bytes(cq: int) -> int:
     per warp the candidates and lists of its two rows."""
     rpw = _QR // _WARPS
     return (4 * _QR * (KNN_CHUNK + 8) + 4 * _QR * _POOL + 2 * _QR * (_up(cq, 16) + 8)
-            + 4 * _WARPS * rpw * 2 * SELECT_CAP + 4 * _WARPS * rpw * _MAX_K)
+            + 4 * _WARPS * rpw * 2 * SELECT_CAP + 4 * _WARPS * rpw * _POOL)
 
 
 def knn_chunk(n: int, cq: int):
-    """The kernels' walk for clouds of n points of cq features: None (whole
-    rows in shared memory, up to 3,200 points at 128 features) or
-    KNN_CHUNK."""
+    """The kernels' walk for clouds of n points of cq features, at any k:
+    None (whole rows in shared memory, up to 3,200 points at 128 features)
+    or KNN_CHUNK."""
     return None if whole_smem_bytes(n, cq) <= _build.SMEM_LIMIT else KNN_CHUNK
 
 
@@ -188,7 +191,8 @@ def knn_select_emulated(bits: torch.Tensor, k: int, sources: torch.Tensor,
     sources' two smallest entries, all-ones where a source has fewer), t its
     k-th smallest, the candidates d <= t, the k smallest of them by (d,
     index); rows with more than SELECT_CAP candidates take
-    `radix_select_emulated`. Entries with bit 31 set are never taken.
+    `radix_select_emulated`, and so does every row past the pool (k > 64),
+    with no pool walk before it. Entries with bit 31 set are never taken.
 
     With `chunk` (whole 8-column tiles) the row is walked as
     `select_chunked` walks it, in one pass with a falling threshold: after
@@ -198,11 +202,15 @@ def knn_select_emulated(bits: torch.Tensor, k: int, sources: torch.Tensor,
     the chunks). It ends with the candidates d <= t of the whole row's
     pool. `sources` are the walk's (`pool_sources`).
     -> (indices (R, k) int64 ascending, walks (R,) over each row: one, the
-    fallback's passes added; candidates (R,): the most a row held at once,
-    past the cap as counted)."""
+    fallback's passes added (past the pool the radix select's alone);
+    candidates (R,): the most a row held at once, past the cap as counted
+    (none past the pool))."""
     rows, n = bits.shape
-    live = (bits >> 31) == 0
     most = torch.zeros(rows, dtype=torch.long, device=bits.device)
+    if k > _POOL:
+        idx, sweeps = radix_select_emulated(bits, k, chunk)
+        return idx, sweeps, most
+    live = (bits >> 31) == 0
     for c0, c1 in _chunks(n, chunk):
         t = _pool_kth(bits[:, :c1], live[:, :c1], sources[:c1], k)
         count = (live[:, :c1] & (bits[:, :c1] <= t[:, None])).sum(1)   # kept, and the chunk's
@@ -260,9 +268,10 @@ def edge_neighbor_max(x: torch.Tensor, u: torch.Tensor, k: int) -> torch.Tensor:
     distance rows on the tensor cores (mma.sync, bf16 products exact in f32)
     into shared memory with a pool of 64 entries a row, takes the entries at
     or below the pool's k-th smallest in one sweep and ranks them (a radix
-    select where ties crowd that threshold; `knn_select_emulated` is the
-    same algorithm in PyTorch), ties in index order, and gathers the k
-    selected rows of u 16 bytes a lane. Clouds whose 16 distance rows do
+    select where ties crowd that threshold, and for every row once k passes
+    the pool's 64; `knn_select_emulated` is the same algorithm in PyTorch),
+    ties in index order, and gathers the k selected rows of u 16 bytes a
+    lane. Takes 1 <= k <= min(N, 256). Clouds whose 16 distance rows do
     not fit shared memory (past 3,200 points at 128 features, `knn_chunk`)
     walk the rows in chunks of KNN_CHUNK columns, one pass with a falling
     threshold: the same selection. Bound on the H100 by

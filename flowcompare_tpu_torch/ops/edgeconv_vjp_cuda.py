@@ -42,7 +42,8 @@ REV_TILE, REV_WINDOW = 128, 8192
 def reverse_lists_emulated(idx: torch.Tensor, fill_seed: int = 0) -> tuple:
     """The backward's reverse neighbour lists as its kernels build them, in
     PyTorch: idx (B, N, k) -> (off (B, N + 1), rev (B, N * k)), the list of
-    j at rev[off[j]:off[j + 1]], entries i << 6 | slot in increasing i.
+    j at rev[off[j]:off[j + 1]], entries i << bits | slot in increasing i
+    (bits `_build.knn_slot_bits(k)`: 6 up to k = 64, 8 past it).
     knn_rev_count: per tile of REV_TILE rows and window of REV_WINDOW j,
     each entry's place among the tile's entries of its j (the shared-memory
     atomics' order: random here, from `fill_seed`), then each (tile, j)'s
@@ -52,9 +53,10 @@ def reverse_lists_emulated(idx: torch.Tensor, fill_seed: int = 0) -> tuple:
     rank among its list's entries. The lists do not depend on the atomics'
     order."""
     b, n, k = idx.shape
+    sh = _build.knn_slot_bits(k)
     idx = idx.long().reshape(b, n * k)
     gen = torch.Generator().manual_seed(fill_seed)
-    entry = (torch.arange(n)[:, None] << 6 | torch.arange(k)[None, :]).reshape(-1)
+    entry = (torch.arange(n)[:, None] << sh | torch.arange(k)[None, :]).reshape(-1)
     tile_of = torch.arange(n * k) // k // REV_TILE
     tiles = -(-n // REV_TILE)
     off = torch.zeros(b, n + 1, dtype=torch.long)
@@ -78,7 +80,7 @@ def reverse_lists_emulated(idx: torch.Tensor, fill_seed: int = 0) -> tuple:
         off[bi, 1:] = count.cumsum(0)
         pool = torch.empty(n * k, dtype=torch.long)
         pool[off[bi, js] + pos] = entry                          # the place kernel
-        owner = js[(pool >> 6) * k + (pool & 63)]                # the rank kernel
+        owner = js[(pool >> sh) * k + (pool & (1 << sh) - 1)]    # the rank kernel
         rank = torch.zeros(n * k, dtype=torch.long)
         for q in range(int(count.max())):
             other = off[bi, owner] + q
@@ -101,13 +103,14 @@ def edge_knn_reduce_bwd_emulated(u: torch.Tensor, dmx: torch.Tensor, dmn: torch.
     All tensors (B, N, C) but off (B, N + 1) and rev (B, N * k) from
     `reverse_lists_emulated`."""
     b, n, c = ds1.shape
+    sh = _build.knn_slot_bits(rev.shape[1] // n)
     length = off[:, 1:] - off[:, :-1]                                # (B, N)
     longest = int(length.max())
     q = torch.arange(longest)
     p = off[:, :-1, None] + q                                        # (B, N, longest)
     live = q < length[..., None]
     e = rev.gather(1, torch.where(live, p, 0).reshape(b, -1)).reshape(b, n, longest)
-    i, slot = e >> 6, e & 63
+    i, slot = e >> sh, e & (1 << sh) - 1
     uj = u.to(torch.bfloat16).float()
     acc = [torch.zeros(b, n, c), torch.zeros(b, n, c)]
     for pos in range(longest):
@@ -194,7 +197,9 @@ def edge_knn_reduce(x: torch.Tensor, u: torch.Tensor, k: int):
     Pallas kernels of `edge_knn_reduce` (edgeconv_vjp_pallas.py, `_fwd_kernel`
     and `_bwd_kernel`).
 
-    x (B, N, Cq), u (B, N, C <= 256), k <= 64. A CPU tensor runs
+    x (B, N, Cq), u (B, N, C <= 256), 1 <= k <= min(N, 256) (the first
+    max / min slots are bytes; past k = 64 the selection is the radix
+    select alone). A CPU tensor runs
     `edge_knn_reduce_plain`; a CUDA tensor runs csrc/knn_edge_reduce.cu
     inside an autograd.Function: the forward kernel selects as B3 does
     (tensor-core distance rows in shared memory, one sweep under the pool's

@@ -173,16 +173,17 @@ def centre_distance_bits(new_xyz: torch.Tensor, xyz: torch.Tensor) -> torch.Tens
     return d.contiguous().view(torch.int32).long()
 
 
-# csrc/sa_group.cu: the candidates a warp holds, the largest k
-_CAP, _MAX_K = 256, 64
+# csrc/sa_group.cu: the candidates a warp holds; the pool's largest k, and a
+# list's entries (a list past it lies in the candidates' words)
+_CAP, _POOL = 256, 64
 
 
 def select_smem_of(n: int, rows: bool) -> int:
-    """The selection's shared memory (sa_group.cu `select_smem_of`): each
-    warp's candidates and list, and with `rows` the points as float4 and a
-    distance row a warp before them."""
+    """The selection's shared memory (sa_group.cu `select_smem_of`), the
+    same at every k: each warp's candidates and list, and with `rows` the
+    points as float4 and a distance row a warp before them."""
     return (4 * (4 * n + SEL_WARPS * n) if rows else 0) + 4 * SEL_WARPS * 2 * _CAP \
-        + 4 * SEL_WARPS * _MAX_K
+        + 4 * SEL_WARPS * _POOL
 
 
 def select_rows_fit(n: int) -> bool:
@@ -208,8 +209,9 @@ def sa_select_emulated(levels: list, k: int, sms: int, rows_in_smem=None) -> tup
     (min(k, N) - 1 when N < k); slot 0 the centre, the rest point 0.
     `rows_in_smem` is the kernel's path (default: as the launch decides from
     its largest cloud, `select_rows_fit`): with False the pool takes a sweep of
-    its own over the recomputed distances, and the selection's sweeps
-    (the radix fallback's too) recompute them again.
+    its own over the recomputed distances (none where k - 1 passes the pool's
+    64: the radix select alone), and the selection's sweeps (the radix
+    select's too) recompute them again.
     -> ([sel_l int64 (B, M_l, k)], the sweeps over each row)."""
     if rows_in_smem is None:
         rows_in_smem = select_rows_fit(max(xyz.shape[1] for _, _, xyz in levels))
@@ -234,7 +236,7 @@ def sa_select_emulated(levels: list, k: int, sms: int, rows_in_smem=None) -> tup
         if kr > 0:
             got, sw, _ = knn_select_emulated(bits, kr, torch.arange(n) % 32)
             sel[:, 1:kr + 1] = got
-            sw = sw + (not rows_in_smem)
+            sw = sw + (not rows_in_smem and kr <= _POOL)
         sels.append(sel.reshape(items, mcs[level], k))
         sweeps.append(sw.reshape(items, mcs[level]))
     return sels, sweeps

@@ -5,14 +5,15 @@ The kernels carry fixed limits (ROADMAP queue B): the cross attention of B1,
 B2, B5 and B7 takes the head widths D = heads * dim_head in ATTENTION_DS
 (32, 64 and 128, one kernel instance each); the fused layer kernels take
 widths up to 1,024 (the LayerNorm's row and the latent up to 512) and 3 to
-10 products a launch; B3 and B6 take k <=
-min(n, 64) neighbours of at most 256 channels, on clouds of any size (16
-distance rows of the cloud in shared memory up to 3,200 points, walked in
-chunks past it) and batches of any size (B6's backward builds its reverse
+10 products a launch; B3 and B6 take k <= min(n, 256) neighbours of at most
+256 channels (B6 keeps a neighbour's slot in a byte; past k = 64 the
+selection is the radix select alone), on clouds of any size (16 distance
+rows of the cloud in shared memory up to 3,200 points at 128 features,
+walked in chunks past it) and batches of any size (B6's backward builds its reverse
 lists in scratch linear in the rows, a group of items at a time); B8 takes
 any cloud (its level clouds in shared memory up to 12,662 points over
 PAConv's four levels, past it in registers, a shared tier and L2), and B9
-too (in shared memory up to 4,458 points, read from L2 past it). A
+too (in shared memory up to 4,458 points, read from L2 past it; k <= 256). A
 configuration outside them runs, part by part, the path the JAX package
 takes off the TPU, and the other parts stay on their kernels:
 
@@ -39,14 +40,14 @@ from __future__ import annotations
 
 from .encoders.dgcnn import _EDGE_DIMS
 from .encoders.paconv import NSAMPLE, SA_MLPS
-from .ops._build import ATTENTION_DS, SMEM_LIMIT
+from .ops._build import ATTENTION_DS, KNN_MAX_K, SMEM_LIMIT
 from .ops.dgcnn_cuda import dgcnn_tail_plan
 from .ops.edgeconv_cuda import knn_smem_bytes
 from .ops.flow_layer_cuda import (FUSED_LIMITS_TEXT, augment_net_plan, fused_route,
                                   packed_input_layout)
 from .ops.sa_group_cuda import sa_select_smem
 
-KNN_MAX_K, KNN_MAX_C = 64, 256   # B3 / B6 / B9: neighbours, and B3 / B6 channels
+KNN_MAX_C = 256   # B3 / B6 channels (KNN_MAX_K: B3 / B6 / B9 neighbours)
 
 # csrc/sa_group.cu: gather warps, elements of a gather tile
 _GA_WARPS, _GA_TILE = 4, 2048

@@ -531,6 +531,116 @@ def test_knn_edge_reduce_backward_in_groups_of_items(dev, monkeypatch):
     _b6_held(got, ref, edgeconv_cuda.knn_indices(x, MAIN_K), u, cots)
 
 
+# Past the pool's 64 neighbours every row takes the radix select, up to the
+# 256 that B6's byte slots hold: 3 clouds of 1,250 points (whole rows) and of
+# 4,096 (the chunked walk)
+KS_PAST_POOL = [65, 128, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1250, 4096], ids=["whole rows", "chunks"])
+@pytest.mark.parametrize("cq,cout", [(6, 64), (128, 256)])
+@pytest.mark.parametrize("k", KS_PAST_POOL)
+def test_knn_kernels_exact_past_64_neighbours(dev, k, cq, cout, n):
+    """B3 and B6 at k = 65, 128 and 256 on integer features: the selection
+    index-equal to plain, B3's output and B6's mx / mn bit-equal, s1 / s2
+    and du within `_b6_held`'s bounds; one launch each way. At k = 256 a
+    row's first max can sit in slot 255, which its backward finds."""
+    from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda as ev
+    g = torch.Generator().manual_seed(120 + k + cq)
+    x = torch.randint(-4, 5, (3, n, cq), generator=g).bfloat16().to(dev)
+    u = rand(g, 3, n, cout, device=dev).bfloat16().float()
+    ref_idx = _per_item(lambda xi: edgeconv_cuda.knn_indices(xi, k).sort(-1).values, x)
+    assert torch.equal(_selected(x, k)[0], ref_idx)
+    before = edgeconv_cuda.EDGE_NEIGHBOR_MAX_LAUNCHES
+    torch.testing.assert_close(edgeconv_cuda.edge_neighbor_max(x, u, k),
+                               _per_item(lambda xi, ui: edgeconv_cuda.edge_neighbor_max_plain(
+                                   xi, ui, k), x, u), rtol=0, atol=0)
+    assert edgeconv_cuda.EDGE_NEIGHBOR_MAX_LAUNCHES == before + 1
+    cots = [rand(g, 3, n, cout, device=dev) for _ in range(4)]
+    before = ev.EDGE_KNN_REDUCE_LAUNCHES
+    got = _b6_grads(ev.edge_knn_reduce, x, u, cots, k)
+    torch.cuda.synchronize()
+    assert ev.EDGE_KNN_REDUCE_LAUNCHES == before + 2
+    ref = _per_item(lambda *a: _b6_grads(ev.edge_knn_reduce_plain, a[0], a[1], a[2:], k),
+                    x, u, *cots)
+    _b6_held(got, ref, ref_idx, u, cots)
+
+
+@pytest.mark.cuda
+def test_knn_edge_reduce_slot_255_round_trips(dev):
+    """k = 256 with the last point of each cloud made every channel's
+    largest u: each row that selects it has its first max in slot 255 (its
+    list's highest index), the forward stores 255 and the backward routes
+    dmx to that point; du against plain."""
+    from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda as ev
+    g = torch.Generator().manual_seed(125)
+    b, n, c, k = 2, 1250, 64, 256
+    x = torch.randint(-4, 5, (b, n, 6), generator=g).bfloat16().to(dev)
+    u = rand(g, b, n, c, device=dev).bfloat16().float()
+    u[:, n - 1] = 9.0
+    cots = [rand(g, b, n, c, device=dev) for _ in range(4)]
+    rows = b * n
+    slots = [torch.empty(rows, c, dtype=torch.uint8, device=dev) for _ in range(2)]
+    idx = torch.empty(rows, k, dtype=torch.int32, device=dev)
+    _build.knn_edge_reduce_fwd(x.reshape(rows, 6), u.bfloat16().reshape(rows, c),
+                               *[torch.empty(rows, c, device=dev) for _ in range(4)], *slots,
+                               idx, n_items=b, k=k)
+    torch.cuda.synchronize()
+    hit = idx[:, -1] == n - 1
+    assert bool(hit.any()) and bool((slots[0][hit] == 255).all())
+    got = _b6_grads(ev.edge_knn_reduce, x, u, cots, k)
+    ref = _b6_grads(ev.edge_knn_reduce_plain, x, u, cots, k)
+    _b6_held(got, ref, edgeconv_cuda.knn_indices(x, k), u, cots)
+
+
+@pytest.mark.cuda
+def test_knn_edge_reduce_backward_in_groups_at_k256(dev, monkeypatch):
+    """B6's backward at k = 256 (list entries i << 8 | slot) with the group
+    budget shrunk to two items' scratch: 5 items in three groups, du
+    bit-equal to the batch in one group and held to plain."""
+    from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda as ev
+    g = torch.Generator().manual_seed(126)
+    b, n, c, k = 5, 1250, 64, 256
+    x = torch.randint(-4, 5, (b, n, 6), generator=g).bfloat16().to(dev)
+    u = rand(g, b, n, c, device=dev).bfloat16().float()
+    cots = [rand(g, b, n, c, device=dev) for _ in range(4)]
+    whole = _b6_grads(ev.edge_knn_reduce, x, u, cots, k)
+    monkeypatch.setattr(_build, "BWD_GROUP_INTS", 2 * _build.knn_bwd_scratch_ints(n, k))
+    assert len(_build.knn_bwd_groups(b, n, k)) == 3
+    got = _b6_grads(ev.edge_knn_reduce, x, u, cots, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[4], whole[4])
+    ref = _b6_grads(ev.edge_knn_reduce_plain, x, u, cots, k)
+    _b6_held(got, ref, edgeconv_cuda.knn_indices(x, k), u, cots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1250, 4500], ids=["rows in shared memory", "from global memory"])
+@pytest.mark.parametrize("k", KS_PAST_POOL)
+def test_sa_group_exact_past_64_neighbours(dev, k, n):
+    """B9 at k = 65, 128 and 256 over the four SA levels of 4 clouds on
+    integer coordinates, in one selection launch (a launch whose largest
+    cloud passes 4,458 points reads it from global memory): the slot lists
+    equal plain's (the levels with fewer points than k hold point 0 past
+    them), the gathered groups too."""
+    from flowcompare_tpu_torch.ops import fps_cuda, sa_group_cuda as sg
+    g = torch.Generator().manual_seed(127 + k)
+    x = torch.randint(-8, 9, (4, n, 3), generator=g).float().to(dev)
+    ms = [n // 4 ** (i + 1) for i in range(4)]
+    idxs, outs = fps_cuda.furthest_point_sampling_levels_plain(x, ms)
+    levels = list(zip(outs, idxs, [x, *outs]))
+    assert sg.select_rows_fit(n) == (n == 1250)
+    sels = sg.sa_select_levels(levels, k)
+    torch.cuda.synchronize()
+    for (new_xyz, idx, xyz), sel in zip(levels, sels):
+        ref = sg.sa_select_plain(new_xyz, idx, xyz, k)
+        assert torch.equal(sel.long(), ref)
+        feats = rand(g, 4, xyz.shape[1], 16, device=dev).bfloat16()
+        assert torch.equal(sg.sa_gather(sel, new_xyz, xyz, feats),
+                           sg.sa_gather_plain(ref, new_xyz, xyz, feats))
+
+
 def _rel(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-12))
 
@@ -2120,7 +2230,9 @@ def test_relu_bf16_log_prob_is_the_folded_scan_on_the_card(dev):
 def test_shared_memory_mirrors_equal_the_library(dev):
     """The Python mirrors of the kernels' launch formulas give the library's
     own numbers over a grid of shapes: `routes`' shared memory of B3/B6 per
-    (n, C), B9's selection per n and its gather per (C, k, element size);
+    (n, C) and B9's selection per n (neither depends on k: a list past the
+    pool's 64 lies in its warp's candidate words), B9's gather per (C, k up
+    to 256, element size);
     `fps_cuda.fps_plan`'s kernel (by its threads), shared memory and global
     tier for B8 per n over the four PAConv levels and one; and
     `_build.knn_bwd_scratch_ints`, B6's backward's scratch an item."""
@@ -2142,12 +2254,12 @@ def test_shared_memory_mirrors_equal_the_library(dev):
                 lib.fc_fps_levels_spill(n, len(levels), *m4)), (n, levels)
             assert plan["smem"] <= routes.SMEM_LIMIT
         assert routes.sa_select_smem(n) == lib.fc_sa_select_smem(n), n
-        for k in (1, 8, 40, 64):
+        for k in (1, 8, 40, 64, 65, 128, 256):
             if k <= n:
                 assert _build.knn_bwd_scratch_ints(n, k) == lib.fc_knn_edge_reduce_bwd_scratch(
                     n, k), (n, k)
     for c in (0, 3, 61, 64, 128, 256, 509, 1000, 2045, 4000):
-        for k in (1, 8, 32, 64):
+        for k in (1, 8, 32, 64, 65, 128, 256):
             for esize in (2, 4):
                 assert routes.sa_gather_smem(c, k, esize) == lib.fc_sa_gather_smem(c, k, esize), \
                     (c, k, esize)
@@ -2188,12 +2300,12 @@ def test_fps_large_clouds_match_plain(dev, clouds, n, kind):
 @pytest.mark.parametrize("overrides,refused", [
     ({"cross_heads": 4}, {"stack", "augmenter"}),             # D = 4 x 64 = 256
     ({"hidden_dims": [1040, 1040, 1040]}, {"stack", "augmenter"}),
-    ({"n_neighbors": 72}, {"encoder"})])
+    ({"n_neighbors": 257, "n_samples_context": 260}, {"encoder"})])   # past B3 / B6's 256
 def test_refused_parts_run_plain_on_the_card(dev, overrides, refused):
     """A config the kernels refuse part by part (ROADMAP queue C1) runs on
     CUDA tensors: `log_prob`, one training step and `sample` equal the
     model with plain=True within 0.01 nats, and the refused parts' kernels
-    never launch."""
+    never launch. The context clouds are the config's size."""
     from flowcompare_tpu_torch.model import inner_loop
     from flowcompare_tpu_torch.ops import edgeconv_vjp_cuda, flow_layer_vjp_cuda
     model = tiny_model(dev, **overrides)
@@ -2207,8 +2319,8 @@ def test_refused_parts_run_plain_on_the_card(dev, overrides, refused):
     watched = [c for part in refused for c in counters[part]]
     before = [getattr(m, a) for m, a in watched]
     g = torch.Generator().manual_seed(71)
-    batch = (rand(g, 2, N_CONTEXT, 6, device=dev), rand(g, 2, N_POINTS, 6, device=dev),
-             rand(g, 2, 1, device=dev))
+    batch = (rand(g, 2, model.config["n_samples_context"], 6, device=dev),
+             rand(g, 2, N_POINTS, 6, device=dev), rand(g, 2, 1, device=dev))
     eps = rand(g, 2, N_POINTS, 26, device=dev)
     z = rand(g, 1, 200, 32, device=dev)
     nats, steps, xs = [], [], []

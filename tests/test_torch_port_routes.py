@@ -5,7 +5,7 @@ config's shapes; a refused part takes the JAX package's path off the TPU.
 Held here: every preset reads "kernels" for every part; so do the stack
 and the augmenter at each attention head width the kernels take (D = 32,
 64, 128), while D = 48 and D = 256 read "plain: ..." naming those widths;
-the three C1 configs (D = 256, a 1,040-wide coupling MLP, k = 80) read
+the three C1 configs (D = 256, a 1,040-wide coupling MLP, k = 257) read
 "plain: ..." on the right parts, while the 1,024-wide MLPs (the stack's,
 the augmenter's and the embedder head's, `w1024`) read "kernels"; the shapes the gate reasons about are the folds' own
 (`stack_shapes` against `fold_stacks`, the augmenter's against
@@ -40,7 +40,7 @@ PRESETS = ["dulcet-universe", "good-surf", "helpful-sponge", "summer-terrain", "
 C1_CASES = {
     "d256": ({"cross_heads": 4}, {"stack", "augmenter"}),
     "mlp1040": ({"hidden_dims": [1040, 1040, 1040]}, {"stack", "augmenter"}),
-    "k80": ({"n_neighbors": 80}, {"encoder"}),
+    "k257": ({"n_neighbors": 257}, {"encoder"}),
 }
 
 
@@ -127,7 +127,8 @@ def test_model_routes_are_read_only_and_the_gates():
 
 
 def test_gate_limits_at_their_edges():
-    """The documented limits: k <= min(n, 64); B3 and B6 on clouds of any
+    """The documented limits: k <= min(n, 256) (64, 65, 128 and 256 on the
+    kernels; 257, and k past the cloud, plain); B3 and B6 on clouds of any
     size (whole distance rows in shared memory up to 3,200 points at 128
     features, a chunk's rows past it; B6's backward with no shared-memory
     limit since its reverse lists left shared memory), the DGCNN presets on
@@ -137,10 +138,12 @@ def test_gate_limits_at_their_edges():
     points), so the PAConv presets on their kernels at 12,663, 16,384 and
     65,536 points too."""
     cfg = ft.get_config("dulcet-universe")
-    assert routes.model_routes({**cfg, "n_neighbors": 64})["encoder"] == "kernels"
-    assert routes.model_routes({**cfg, "n_neighbors": 65})["encoder"] != "kernels"
-    assert routes.model_routes({**cfg, "n_neighbors": 80})["encoder"].startswith("plain: ")
+    for k in (64, 65, 128, 256):
+        assert routes.model_routes({**cfg, "n_neighbors": k})["encoder"] == "kernels"
+    assert routes.model_routes({**cfg, "n_neighbors": 257})["encoder"].startswith("plain: ")
     assert routes.model_routes({**cfg, "n_samples_context": 30})["encoder"] != "kernels"
+    assert routes.model_routes({**cfg, "n_neighbors": 128,
+                                "n_samples_context": 100})["encoder"].startswith("plain: ")
     whole, chunked = routes.knn_smem_bytes(3200, 128), routes.knn_smem_bytes(3201, 128)
     assert whole <= routes.SMEM_LIMIT and chunked <= routes.SMEM_LIMIT // 2 < whole
     assert routes.knn_smem_bytes(16384, 128) == chunked
@@ -174,8 +177,8 @@ def test_routes_read_no_batch_size(preset, n):
 def _case_config(case: str, dtype: str = "bfloat16"):
     cfg = tiny_config(dtype)
     cfg.update(C1_CASES[case][0])
-    if case == "k80":
-        cfg["n_neighbors"] = 72            # past B3's 64, within the tiny cloud's 80
+    if case == "k257":
+        cfg["n_samples_context"] = 260     # a cloud that holds k = 257, past B3's 256
     if case == "mlp1040":
         cfg["n_flow_layers"] = 2
     return jax_derive(cfg)
