@@ -86,12 +86,13 @@ Phases, each of which raises on failure (nothing is caught):
 12. B10 (run first, before any model is built): the fused attention core
    (TMA + wgmma, p in three bf16 terms) against its plain version at the
    flow's attention shapes (q (20, 1024, D) against 1250 keys, at each head
-   width D = 32, 64 and 128) and at helpful-sponge's augmenter shape ((25,
-   1024, 64) against 1024 keys), with
+   width D of ATTENTION_SWEEP, 8 to 512) and at helpful-sponge's augmenter
+   shape ((25, 1024, 64) against 1024 keys), with
    the kernel's, the plain version's and scaled_dot_product_attention's
-   times (flash, on 4-D views), each one's share of outputs more than half
-   a bf16 ulp off plain (the kernel's within B10_SHARE_LIMIT and below
-   flash's) and the bound; its entry point
+   times (on 4-D views, with the first backend that takes the width: flash
+   up to 256, then memory-efficient attention), each one's share of outputs
+   more than half a bf16 ulp off plain (the kernel's within B10_SHARE_LIMIT,
+   and below flash's where flash ran) and the bound; its entry point
    `apply_cross_attention(fused=True)` against fused=False, forward and
    autograd backward, with the launch counters around the fused call;
 13. helpful-sponge (the global DGCNN and the global conditioner, bf16, full
@@ -119,8 +120,9 @@ Phases, each of which raises on failure (nothing is caught):
    chains took the WMMA route, and that none outside them did either (B4's
    first EdgeConv stage reads the cloud cast into 8 bf16 columns);
 15. attention (run third, before any model is built): the chains' cross
-   attention, csrc/cross_attention.cu and cross_attention_bwd.cu, at each
-   head width D = 32, 64 and 128, on the
+   attention, csrc/cross_attention.cu and cross_attention_bwd.cu (and their
+   *_wide.cu kernels past D = 128), at each head width D of
+   ATTENTION_SWEEP (8 to 512), on the
    TMA + wgmma route against the plain versions at dulcet's eval launch and
    training shape (20 x 1024 queries x 1250 keys, with m and den),
    helpful-sponge's augmenter (25 x 1024 x 1024), a sample (1 x 4000 x
@@ -129,11 +131,12 @@ Phases, each of which raises on failure (nothing is caught):
    1e-2), m and den within 1e-4; dq, dk, dv with cosine >= 0.9999 and max
    error <= 1e-2 of max |ref|; every output a view into rows of NaN whose
    columns past D (2 D for [dk | dv]) must stay NaN. At the three main
-   shapes (at D = 32 and 128 the eval launch and the sample), the device time
-   (the kernels' durations in a torch.profiler trace) of both routes, of
-   the plain version and of flash
-   scaled_dot_product_attention on 4-D views (forward, and the backward
-   alone: the library yardstick), a call's time through the wrapper (CUDA
+   shapes (at the other tile widths the eval launch and the sample, between
+   them the eval launch), the device time (the kernels' durations in a
+   torch.profiler trace) of both routes (WMMA up to D = 128), of the plain
+   version and of scaled_dot_product_attention on 4-D views with the first
+   backend that takes the width (forward, and the backward alone: the
+   library yardstick), a call's time through the wrapper (CUDA
    events, the host included) and the bound. Every main path then shows
    0 WMMA attention launches, and the wgmma forward (eval, make_sample,
    train) and backward (train) launched wherever the path has attention;
@@ -218,7 +221,7 @@ Phases, each of which raises on failure (nothing is caught):
    card's name and power limit;
 22. routes from the shapes (`phase_c1`, after the variants): three bf16
    dulcet-universe configs at 2 layers and full width that the kernels
-   refuse part by part (D = 256, 4 heads of 64: the stack and the
+   refuse part by part (D = 576, 9 heads of 64: the stack and the
    augmenter; a 1,040-wide
    coupling MLP: the stack and the augmenter; k = 257: the encoder), each
    printing `model.routes`; log_prob, one train_step after the data init
@@ -268,16 +271,17 @@ Phases, each of which raises on failure (nothing is caught):
    launched in each step;
 26. the attention kernels' other head widths (`phase_head_widths`, after
    the data phase, the dulcet-universe model freed first): dulcet-universe
-   in bf16 at full width and 115 layers at D = 32 (cross_dim_head 32) and
-   D = 128 (cross_heads 2 x 64), every part of `model.routes` on its
-   kernels: the eval main path through evaluate_on_test (2 items of B=20)
+   in bf16 at full width and 115 layers at D = 32 (cross_dim_head 32),
+   D = 128 (cross_heads 2 x 64), D = 256 (4 x 64) and D = 512 (8 x 64),
+   every part of `model.routes` on its kernels (the attention's wide
+   kernels past D = 128): the eval main path through evaluate_on_test (2 items of B=20)
    against the plain path (|d nats| <= 0.01, change maps >= 99.9%; B1-B4
    launched, 4 launches a layer in B1, no WMMA attention), make_sample of
    1 x 4000 against the plain samples of the same z (|d nats| <= 0.01, 4
    launches a layer in B7) and the training check at B=2 (|d nats| <= 0.01,
    grad norm within 5%, cosine >= 0.99; 11 launches a layer in B5), each
    with the counters set to 0 just before and read after. Their attention
-   launches fill the kernels line's D = 32 and 128 entries;
+   launches fill the kernels line's D = 32, 128, 256 and 512 entries;
 27. clouds past shared memory (`phase_large_clouds`, then
    `phase_cloud_sizes`, after the head widths): B3 and B6 at 40 x 4,096 and
    8 x 16,384 points (the chunked walk) and B9's
@@ -349,8 +353,8 @@ grad_reduce, and B4's and B2's dgcnn_tail, augment_net and pack_rows at
 their headline shapes;
 B1, B2, B4, B5 and B7 carry their helpful-sponge branch's check under
 "global", B10 its second shape; cross_attention, cross_attention_bwd and
-B10 list their head widths under "widths" and the D = 32 and 128 readings
-under "by_width"; the fused layer kernels their 1,024-wide readings under
+B10 list their head widths under "widths" and the readings at the widths
+other than 64 under "by_width"; the fused layer kernels their 1,024-wide readings under
 "by_width"), the nvidia-smi line and {"ok": true,
 "device": {...}}.
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -387,8 +391,12 @@ PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 989e12, 67e12, 3.35e12
 # the clock at which the data sheet's bf16 peak is 528 tensor cores' 1,024
 # operations a clock
 PEAK_EX2_PER_S = 16 * 132 * 1.83e9
-# the head widths of the attention kernels (flowcompare_tpu_torch/ops/_build.py)
-ATTENTION_DS = (32, 64, 128)
+# the head widths the attention kernels are checked at: every tile width of
+# flowcompare_tpu_torch/ops/_build.py (32, 64, 128, 256, 512) and widths
+# between them (20: v = kv[:, D:] off 16-byte alignment)
+ATTENTION_TILES = (32, 64, 128, 256, 512)
+ATTENTION_SWEEP = (8, 20, 32, 48, 64, 96, 128, 192, 256, 384, 512)
+ATTENTION_WMMA_MAX_D = 128
 EDGE_WIDTHS = [(6, 64), (64, 64), (64, 128), (128, 256)]
 # (N, M, C) of PAConv's four set-abstraction levels on the 1250-point context
 SA_LEVELS = [(1250, 312, 3), (312, 78, 64), (78, 19, 128), (19, 4, 256)]
@@ -1312,16 +1320,18 @@ B10_SHARE_LIMIT = 3e-4
 
 def phase_b10(device) -> tuple:
     """B10, the fused attention core, at the flow's attention shapes (q
-    (20, 1024, D) against k/v (20, 1250, D)) at each head width D the
-    kernel takes, and at D = 64 also helpful-sponge's augmenter shape ((25,
-    1024, 64) against 1024 keys), bf16, k and v the column halves of one
-    [k | v] tensor: the wgmma kernel against its plain version (p at f32
+    (20, 1024, D) against k/v (20, 1250, D)) at each head width D of
+    ATTENTION_SWEEP, and at D = 64 also helpful-sponge's augmenter shape
+    ((25, 1024, 64) against 1024 keys), bf16, k and v the column halves of
+    one [k | v] tensor: the wgmma kernel against its plain version (p at f32
     precision on both sides: at most one bf16 ulp of the output apart), its
-    time, the plain version's, flash scaled_dot_product_attention's on the
-    same q/k/v and scale (the library yardstick, never the port's; it rounds
-    p to bf16), and each one's share of outputs more than half a bf16 ulp
-    off the plain version (`error_stats`): the kernel's must lie within
-    B10_SHARE_LIMIT and below flash's. The bound: one q k^T and two bf16 P V
+    time, the plain version's, scaled_dot_product_attention's on the same
+    q/k/v and scale with the first backend of SDPA_BACKENDS that takes them
+    (the library yardstick, never the port's; flash, up to D = 256 at
+    multiples of 8, rounds p to bf16), and each one's share of outputs more
+    than half a bf16 ulp off the plain version (`error_stats`): the kernel's
+    must lie within B10_SHARE_LIMIT, and below flash's where flash ran. The
+    bound: one q k^T and two bf16 P V
     products (p in two bf16 terms, the least that keeps p past bf16 on the
     tensor cores) at the bf16 peak, or the exponentials (one a score) at
     the ex2 rate, or the bytes; the bound with the PV product at the f32
@@ -1330,14 +1340,13 @@ def phase_b10(device) -> tuple:
     autograd backward, with the launch counters set to 0 just before the
     fused call and read after."""
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
     from flowcompare_tpu_torch.core import attention
     from flowcompare_tpu_torch.ops import attention_cuda as ac
 
     g = torch.Generator().manual_seed(SEED + 40)
     entries, by_width = [], {}
     cases = [(64, TIME_B, 1024, 1250), (64, GS_B, 1024, 1024)] + [
-        (dw, TIME_B, 1024, 1250) for dw in ATTENTION_DS if dw != 64]
+        (dw, TIME_B, 1024, 1250) for dw in ATTENTION_SWEEP if dw != 64]
     for dw, items, nq, nkv in cases:
         scale = dw ** -0.5
         q = torch.randn(items, nq, dw, generator=g).to(device).bfloat16()
@@ -1349,16 +1358,14 @@ def phase_b10(device) -> tuple:
         d = (got.float() - ref).abs()
         beyond_ulp = float((d - 2.0 ** -7 * ref.abs()).max())
         q2, k2, v2 = q.reshape(-1, dw), k.reshape(-1, dw), v.reshape(-1, dw)
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            flash_out = F.scaled_dot_product_attention(q.unsqueeze(1), k.unsqueeze(1),
-                                                       v.unsqueeze(1), scale=scale)
+        lib_out, lib_backend = sdpa_output(q, k, v, scale)
         torch.cuda.synchronize()
         stats = {"kernel": error_stats(got, ref),
-                 "flash": error_stats(flash_out.reshape(ref.shape), ref)}
+                 "library": error_stats(lib_out.reshape(ref.shape), ref)}
         ms = device_ms(lambda: ac.fused_attention_core(q, k, v, scale))
         pms = time_ms(lambda: ac.fused_attention_core_plain(q, k, v, scale), reps=2)
-        flash = sdpa_flash(q2, k2, v2, items, scale)
-        lms = flash["ms"]
+        library = sdpa_library(q2, k2, v2, items, scale)
+        lms = library["ms"]
         kc, vc = k.contiguous(), v.contiguous()
         lms_contiguous = time_ms(lambda: F.scaled_dot_product_attention(q, kc, vc, scale=scale))
         products = 2 * items * nq * nkv * dw
@@ -1370,7 +1377,8 @@ def phase_b10(device) -> tuple:
             3 * products, items * nq * nkv, nbytes(q, k, v, got))
         f32_pv_bound = bound([(products, PEAK_BF16_FLOPS), (products, PEAK_F32_FLOPS)],
                              nbytes(q, k, v, got))[0]
-        entry.update(d=dw, library=flash, library_3d_default_ms=lms_contiguous,
+        entry.update(d=dw, library=library, library_output_backend=lib_backend,
+                     library_3d_default_ms=lms_contiguous,
                      f32_pv_bound_ms=f32_pv_bound, share_limit=B10_SHARE_LIMIT,
                      share_over_half_ulp={key: st["share_over_half_ulp"]
                                           for key, st in stats.items()},
@@ -1378,24 +1386,27 @@ def phase_b10(device) -> tuple:
         log(f"B10 fused_attention_core q {tuple(q.shape)} k/v {tuple(k.shape)} bf16: max|err| "
             f"{entry['max_abs_err']}, beyond one bf16 ulp {beyond_ulp} (tolerance 1e-5); shares "
             f"of outputs more than half a bf16 ulp off plain: {entry['share_over_half_ulp']} "
-            f"(the kernel's within {B10_SHARE_LIMIT} and below flash's); device {ms} ms, plain "
-            f"{pms} ms, scaled_dot_product_attention (flash, 4-D) {flash}, 3-D on contiguous k "
-            f"and v with the default backend {lms_contiguous} ms; bound {entry['bound_ms']} ms "
+            f"(the library's from SDPA's {lib_backend}; the kernel's within {B10_SHARE_LIMIT}, "
+            f"and below flash's where flash ran); device {ms} ms, plain {pms} ms, "
+            f"scaled_dot_product_attention (4-D) {library}, 3-D on contiguous k and v with the "
+            f"default backend {lms_contiguous} ms; bound {entry['bound_ms']} ms "
             f"({entry['bound_by']}, {entry['bound_unit']}: q k^T and two bf16 P V at the bf16 "
             f"peak, or one ex2 a score; with P V at the f32 rate {f32_pv_bound} ms)")
         assert beyond_ulp <= 1e-5, f"B10 disagrees with its plain version at D = {dw}"
         assert stats["kernel"]["share_over_half_ulp"] <= B10_SHARE_LIMIT, \
             "B10 puts more outputs over half a bf16 ulp off plain than B10_SHARE_LIMIT"
-        assert stats["kernel"]["share_over_half_ulp"] < stats["flash"]["share_over_half_ulp"], \
-            "B10 rounds p no better than flash attention"
+        if lib_backend == "FLASH_ATTENTION":
+            assert (stats["kernel"]["share_over_half_ulp"]
+                    < stats["library"]["share_over_half_ulp"]), \
+                "B10 rounds p no better than flash attention"
         if dw == 64:
             entries.append(entry)
         else:
             by_width[str(dw)] = {key: entry[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_unit",
-                "library_ms", "share_over_half_ulp")}
+                "library_ms", "share_over_half_ulp", "library")}
             by_width[str(dw)]["shape"] = f"q {tuple(q.shape)}, k/v {tuple(k.shape)}"
-        del q, kv, k, v, kc, vc, got, ref, d, flash_out
+        del q, kv, k, v, kc, vc, got, ref, d, lib_out
 
     # the entry point at the flow's attention shape
     p = attention.init_cross_attention(g, out_dim=512, query_dim=256, context_dim=64)
@@ -1429,7 +1440,7 @@ def phase_b10(device) -> tuple:
                                                    "helpful-sponge's augmenter")
     for key in ("library_ms", "library", "library_3d_default_ms", "share_over_half_ulp"):
         entries[0]["global"][key] = entries[1][key]
-    entries[0]["widths"] = list(ATTENTION_DS)
+    entries[0]["widths"] = list(ATTENTION_SWEEP)
     entries[0]["by_width"] = by_width
     return entries[0], {"entry_point": {"launches": cf["B10"], "forward_rel_err": rel,
                                         "gradient_cosines": cos}}
@@ -1529,42 +1540,68 @@ def device_ms(fn, reps: int = 10) -> float:
     return sum(sum(d) / len(d) * round(most[name] / reps) for name, d in durs.items()) / 1e3
 
 
-def sdpa_flash(q, k, v, items: int, scale: float, backward: bool = False) -> dict:
-    """scaled_dot_product_attention with the flash backend forced, on 4-D
-    views (items, 1, n, 64) of (items*n, 64) q, k and v (the library
-    yardstick, never the port's): the device ms of the forward, or with
-    `backward` of torch.autograd.grad alone over a retained graph, and the
-    call's ms with the host included (CUDA events). k and v are first given
-    as the strided column halves of [k | v]; where flash refuses them, as
-    contiguous copies, and the result says which."""
+# scaled_dot_product_attention's backends in the order the yardstick tries
+# them: flash takes head widths that are multiples of 8 up to 256 only
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "MATH")
+
+
+def sdpa_library(q, k, v, items: int, scale: float, backward: bool = False) -> dict:
+    """scaled_dot_product_attention on 4-D views (items, 1, n, D) of (items*n,
+    D) q, k and v (the library yardstick, never the port's), with the first
+    backend of SDPA_BACKENDS that takes them forced: the device ms of the
+    forward, or with `backward` of torch.autograd.grad alone over a retained
+    graph, and the call's ms with the host included (CUDA events). k and v
+    are first given as the strided column halves of [k | v]; where a
+    backend refuses them, as contiguous copies. The result names the
+    backend and the layout."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     def four_d(t):
         return t.unflatten(0, (items, t.shape[0] // items)).unsqueeze(1)
 
-    for layout in ("strided", "contiguous copies"):
-        kk, vv = (k, v) if layout == "strided" else (k.contiguous(), v.contiguous())
-        q4, k4, v4 = four_d(q), four_d(kk), four_d(vv)
-        try:
-            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-                if not backward:
-                    def call():
-                        F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-                else:
-                    leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
-                    out = F.scaled_dot_product_attention(*leaves, scale=scale)
-                    cot = torch.randn_like(out)
+    refused = []
+    for backend in SDPA_BACKENDS:
+        for layout in ("strided", "contiguous copies"):
+            kk, vv = (k, v) if layout == "strided" else (k.contiguous(), v.contiguous())
+            q4, k4, v4 = four_d(q), four_d(kk), four_d(vv)
+            try:
+                with sdpa_kernel(getattr(SDPBackend, backend)):
+                    if not backward:
+                        def call():
+                            F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+                    else:
+                        leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+                        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+                        cot = torch.randn_like(out)
 
-                    def call():
-                        torch.autograd.grad(out, leaves, cot, retain_graph=True)
-                return {"ms": device_ms(call), "call_ms": time_ms(call, reps=20),
-                        "backend": "FLASH_ATTENTION", "kv": layout}
-        except RuntimeError as err:
-            refusal = str(err).splitlines()[0][:200]
-            log(f"  flash SDPA refused {layout} k/v: {refusal}")
-    return {"ms": None, "call_ms": None, "backend": "FLASH_ATTENTION refused both layouts",
-            "kv": None}
+                        def call():
+                            torch.autograd.grad(out, leaves, cot, retain_graph=True)
+                    return {"ms": device_ms(call), "call_ms": time_ms(call, reps=20),
+                            "backend": backend, "kv": layout, "refused_by": refused}
+            except RuntimeError as err:
+                refused.append(f"{backend} ({layout})")
+                log(f"  SDPA {backend} refused {layout} k/v: {str(err).splitlines()[0][:200]}")
+    return {"ms": None, "call_ms": None, "backend": None, "kv": None, "refused_by": refused}
+
+
+def sdpa_output(q, k, v, scale: float) -> tuple:
+    """scaled_dot_product_attention's output on 4-D views of (items, n, D)
+    q, k and v with the first backend of SDPA_BACKENDS that takes them, and
+    that backend's name."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in SDPA_BACKENDS:
+        for kk, vv in ((k, v), (k.contiguous(), v.contiguous())):
+            try:
+                with sdpa_kernel(getattr(SDPBackend, backend)):
+                    out = F.scaled_dot_product_attention(q.unsqueeze(1), kk.unsqueeze(1),
+                                                         vv.unsqueeze(1), scale=scale)
+                return out.squeeze(1), backend
+            except RuntimeError:
+                continue
+    raise RuntimeError("scaled_dot_product_attention took no backend")
 
 
 # (label, items, queries, keys, m and den written, next items large)
@@ -1576,9 +1613,10 @@ ATTENTION_CASES = (
     ("cross-item: items after the first hold large queries and keys", 3, 70, 90, True, True),
     ("cross-item at the presets' 1250 keys", 3, 70, 1250, True, True),
 )
-# the cases timed at D = 32 and 128 (every case without large items is
-# timed at D = 64): the eval and training launch and the sample of a
-# dulcet-universe at those widths (helpful-sponge's augmenter has D = 64)
+# the cases timed at the other tile widths (every case without large items
+# is timed at D = 64): the eval and training launch and the sample of a
+# dulcet-universe at those widths (helpful-sponge's augmenter has D = 64);
+# at the widths between tiles the eval and training launch alone
 ATTENTION_TIMED_OTHER_WIDTHS = (0, 2)
 # columns of NaN on either side of the outputs' D (dq), 2 D (dkv) columns
 SENTINEL = 8
@@ -1599,7 +1637,7 @@ def _sentinels_intact(full: torch.Tensor) -> bool:
 def phase_attention() -> tuple:
     """The cross attention of the B1, B2, B5 and B7 chains (csrc/
     cross_attention.cu, csrc/cross_attention_bwd.cu) at each head width D
-    the kernels take (ATTENTION_DS): the TMA + wgmma forward and backward
+    of ATTENTION_SWEEP: the TMA + wgmma forward and backward
     against their plain versions at the main path's shapes and at two
     cross-item cases (a tile read across an item boundary would show
     there), on the route the wrapper picks: the forward within one bf16
@@ -1608,11 +1646,12 @@ def phase_attention() -> tuple:
     the plain forward's m and den). Every output is a view into wider rows
     of NaN (`SENTINEL` columns on either side, as the forward's output is a
     column slice of the packed coupling rows): those columns must stay NaN.
-    At the main shapes (at D = 32 and 128 those of
-    ATTENTION_TIMED_OTHER_WIDTHS), the device ms (`device_ms`) of the wgmma
-    route, of the WMMA route, of the plain version and of
-    scaled_dot_product_attention with the flash backend (forward, and the
-    backward alone), a call's ms through the wrapper with the host included,
+    At the main shapes (at the other tile widths those of
+    ATTENTION_TIMED_OTHER_WIDTHS, between them the first), the device ms
+    (`device_ms`) of the wgmma route, of the WMMA route (up to D = 128), of
+    the plain version and of scaled_dot_product_attention with the first
+    backend that takes the width (`sdpa_library`; forward, and the backward
+    alone), a call's ms through the wrapper with the host included,
     and the bound (`attention_bound`): the necessary products (2 forward, 5
     backward) at the bf16 peak, or one exponential a score at the ex2 rate,
     or the bytes."""
@@ -1620,14 +1659,15 @@ def phase_attention() -> tuple:
 
     g = torch.Generator().manual_seed(SEED + 60)
     cases = []
-    for dw in ATTENTION_DS:
+    for dw in ATTENTION_SWEEP:
         for idx, (label, items, nq, nkv, with_m, big_next) in enumerate(ATTENTION_CASES):
-            timed = not big_next and (dw == 64 or idx in ATTENTION_TIMED_OTHER_WIDTHS)
+            timed = not big_next and (dw == 64 or idx in (
+                ATTENTION_TIMED_OTHER_WIDTHS if dw in ATTENTION_TILES else (0,)))
             cases.append(_attention_case(_build, g, dw, label, items, nq, nkv, with_m, big_next,
                                          timed))
     assert all(c["within_tolerance"] for c in cases), "the cross attention disagrees with plain"
     assert all(c["sentinels_intact"] for c in cases), "an output column past D was written"
-    heads = {dw: next(c for c in cases if c["d"] == dw) for dw in ATTENTION_DS}
+    heads = {dw: next(c for c in cases if c["d"] == dw) for dw in ATTENTION_SWEEP}
     head = heads[64]
 
     def entry(name, source, replaces, prefix, err_key, serves):
@@ -1641,7 +1681,7 @@ def phase_attention() -> tuple:
                 "launches": 0, **numbers(head), "library": head[f"{prefix}library"],
                 "speedup_vs_wmma": head[f"{prefix}wmma_ms"] / head[f"{prefix}ms"],
                 "shape": f"{head['items']} x {head['nq']} queries x {head['nkv']} keys, d = 64",
-                "serves": serves, "widths": list(ATTENTION_DS),
+                "serves": serves, "widths": list(ATTENTION_SWEEP),
                 "by_width": {str(dw): {**numbers(c), "launches": 0,
                                        "shape": f"{c['items']} x {c['nq']} x {c['nkv']}, d = {dw}"}
                              for dw, c in heads.items() if dw != 64},
@@ -1661,21 +1701,45 @@ def phase_attention() -> tuple:
     return entries, cases
 
 
+def _attention_f64(q, k, v, out, *, n_items: int, m_out, den_out) -> None:
+    """`cross_attention_plain`'s contract evaluated in float64 from the same
+    bf16 operands, written as the plain version writes it."""
+    d = q.shape[1]
+    qf, kf, vf = (t.double().reshape(n_items, -1, d) for t in (q, k, v))
+    s = qf @ kf.transpose(1, 2)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    den = e.sum(-1, keepdim=True)
+    out.copy_(((e.bfloat16().double() @ vf) / den).reshape(-1, d))
+    m_out.copy_(m.reshape(-1))
+    den_out.copy_(den.reshape(-1))
+
+
 def _attention_case(_build, g, dw: int, label: str, items: int, nq: int, nkv: int,
                     with_m: bool, big_next: bool, timed: bool) -> dict:
     """One case of `phase_attention` at head width dw: q scaled by 1 /
     sqrt(dw) as the folds scale it; with big_next the items after the
     first hold large queries and keys whose scores are about 1,150 x
-    sqrt(64 / dw) (the queries' offset 3 x (64 / dw)^1.5): a dw-term f32
-    score rounds by about ulp(|s|) x sqrt(dw), so at every width as much as
-    at D = 64, where the m and den bounds were set."""
+    sqrt(64 / dw) (the queries' offset 3 x (64 / dw)^1.5) and values of
+    standard size, and the forward is held to its contract evaluated in
+    float64, as the card test's `attention_inputs` and
+    `attention_forward_f64` do (at such scores the plain version's own f32
+    sums drift from the exact ones as dw grows). q and kv are laid out as
+    the chains lay them out: rows of whole 16 bytes, kv as [k | 0 | v] with
+    v at dw rounded up to a multiple of 8 (`kv_layout`)."""
+    from flowcompare_tpu_torch.ops.flow_layer_cuda import bf16_rows, kv_layout
+
     q = torch.randn(items * nq, dw, generator=g) / dw ** 0.5
     kv = torch.randn(items * nkv, 2 * dw, generator=g)
     if big_next:
         q[nq:] = q[nq:] * 4 + 3 * (64 / dw) ** 1.5
-        kv[nkv:] = kv[nkv:] * 4 + 6
-    q, kv = q.bfloat16().cuda(), kv.bfloat16().cuda()
-    k, v = kv[:, :dw], kv[:, dw:]
+        kv[nkv:, :dw] = kv[nkv:, :dw] * 4 + 6
+    v0, width = kv_layout(dw)
+    laid = torch.zeros(items * nkv, width)
+    laid[:, :dw], laid[:, v0:] = kv[:, :dw], kv[:, dw:]
+    q = bf16_rows(items * nq, dw, "cuda").copy_(q.bfloat16().cuda())
+    kv = bf16_rows(items * nkv, width, "cuda").copy_(laid.bfloat16().cuda())
+    k, v = kv[:, :dw], kv[:, v0:v0 + dw]
     rows_q, rows_k = items * nq, items * nkv
     sentinels = []   # the wider NaN rows around the checked calls' outputs
 
@@ -1688,7 +1752,8 @@ def _attention_case(_build, g, dw: int, label: str, items: int, nq: int, nkv: in
         fn(q, k, v, out, n_items=items, m_out=m, den_out=den, **kw)
         return out, m, den
 
-    ref_out, ref_m, ref_den = forward(_build.cross_attention_plain)
+    ref_out, ref_m, ref_den = forward(_attention_f64 if big_next else
+                                      _build.cross_attention_plain)
     got_out, got_m, got_den = forward(_build.cross_attention, m_den=with_m, keep=True)
     if not with_m:
         _, got_m, got_den = forward(_build.cross_attention, keep=True)
@@ -1698,7 +1763,7 @@ def _attention_case(_build, g, dw: int, label: str, items: int, nq: int, nkv: in
     m_rel = float(((got_m - ref_m).abs() / ref_m.abs().clamp_min(1.0)).max())
     den_rel = float(((got_den - ref_den).abs() / ref_den).max())
     da = torch.randn(rows_q, dw, generator=g).cuda()
-    du = torch.empty(rows_q, dw, device="cuda", dtype=torch.bfloat16)
+    du = bf16_rows(rows_q, dw, "cuda")
     ddn = torch.empty(rows_q, device="cuda")
     _build.attn_bwd_prep(da, ref_out, ref_den, du, ddn)
 
@@ -1740,15 +1805,17 @@ def _attention_case(_build, g, dw: int, label: str, items: int, nq: int, nkv: in
             _build.attention_bwd(q, k, v, du, ddn, ref_m, *gb, n_items=items, route=route)
 
         case.update({
-            "ms": device_ms(lambda: fwd("wgmma")), "wmma_ms": device_ms(lambda: fwd("wmma")),
+            "ms": device_ms(lambda: fwd("wgmma")),
+            "wmma_ms": device_ms(lambda: fwd("wmma")) if dw <= ATTENTION_WMMA_MAX_D else None,
             "call_ms": time_ms(lambda: fwd("wgmma"), reps=20),
             "plain_ms": device_ms(lambda: forward(_build.cross_attention_plain), reps=3),
-            "library": sdpa_flash(q, k, v, items, 1.0),
+            "library": sdpa_library(q, k, v, items, 1.0),
             "bwd_ms": device_ms(lambda: bwd("wgmma")),
-            "bwd_wmma_ms": device_ms(lambda: bwd("wmma")),
+            "bwd_wmma_ms": (device_ms(lambda: bwd("wmma")) if dw <= ATTENTION_WMMA_MAX_D
+                            else None),
             "bwd_call_ms": time_ms(lambda: bwd("wgmma"), reps=10),
             "bwd_plain_ms": device_ms(lambda: backward(_build.attention_bwd_plain), reps=3),
-            "bwd_library": sdpa_flash(q, k, v, items, 1.0, backward=True)})
+            "bwd_library": sdpa_library(q, k, v, items, 1.0, backward=True)})
         scores = items * nq * nkv
         products = 2 * scores * dw
         case["bound_ms"], case["bound_by"], case["bound_unit"] = attention_bound(
@@ -1763,10 +1830,10 @@ def _attention_case(_build, g, dw: int, label: str, items: int, nq: int, nkv: in
         + ("" if not timed else
            f"device ms: forward {case['ms']} (a call through the wrapper "
            f"{case['call_ms']}), WMMA route {case['wmma_ms']}, plain "
-           f"{case['plain_ms']}, flash SDPA {case['library']}, bound {case['bound_ms']} "
+           f"{case['plain_ms']}, SDPA {case['library']}, bound {case['bound_ms']} "
            f"({case['bound_by']}, {case['bound_unit']}); backward {case['bwd_ms']} (a call "
            f"{case['bwd_call_ms']}), WMMA route "
-           f"{case['bwd_wmma_ms']}, plain {case['bwd_plain_ms']}, flash SDPA backward "
+           f"{case['bwd_wmma_ms']}, plain {case['bwd_plain_ms']}, SDPA backward "
            f"{case['bwd_library']}, bound {case['bwd_bound_ms']} ({case['bwd_bound_by']}, "
            f"{case['bwd_bound_unit']})"))
     return case
@@ -4248,12 +4315,16 @@ def phase_variants(ft, device, dulcet_item_s: float) -> dict:
 # dulcet-universe at the attention kernels' head widths other than its own
 # 64, at full width and depth: (label, width, overrides)
 HEAD_WIDTH_RUNS = (("D = 32 (cross_dim_head 32, the JAX demo's)", 32, {"cross_dim_head": 32}),
-                   ("D = 128 (cross_heads 2 x cross_dim_head 64)", 128, {"cross_heads": 2}))
+                   ("D = 128 (cross_heads 2 x cross_dim_head 64)", 128, {"cross_heads": 2}),
+                   ("D = 256 (cross_heads 4 x cross_dim_head 64)", 256, {"cross_heads": 4}),
+                   ("D = 512 (cross_heads 8 x cross_dim_head 64)", 512, {"cross_heads": 8}))
 
 
 def phase_head_widths(ft, device) -> dict:
-    """dulcet-universe (bf16, full width, 115 layers) at D = 32 and D = 128,
-    every part of `model.routes` on its kernels: the eval main path through
+    """dulcet-universe (bf16, full width, 115 layers) at D = 32, 128, 256
+    and 512 (HEAD_WIDTH_RUNS), every part of `model.routes` on its kernels
+    (past D = 128 the attention's wide kernels, *_wide.cu): the eval main
+    path through
     evaluate_on_test (2 items of B=20, both directions) against the plain
     path on the same noise (|d nats| <= 0.01, change maps >= 99.9%), with
     B1-B4 launched, 4 launches a layer inside B1 (`check_flow_launches`) and
@@ -4973,7 +5044,7 @@ def phase_cloud_sizes(ft, device) -> dict:
 # kernels' shape limits, and the parts each must send to the plain route
 C1_B = 2
 C1_CASES = (
-    ("D = 256", {"cross_heads": 4}, ("stack", "augmenter")),
+    ("D = 576", {"cross_heads": 9}, ("stack", "augmenter")),
     ("1,040-wide coupling MLP", {"hidden_dims": [1040, 1040, 1040]}, ("stack", "augmenter")),
     ("k = 257", {"n_neighbors": 257}, ("encoder",)),
 )
@@ -4996,7 +5067,7 @@ def _c1_check_launches(name: str, routes: dict, path: str, launches: dict) -> No
 
 def phase_c1(ft, device) -> dict:
     """Configs outside the kernels' shapes on the card (ROADMAP queue C1):
-    D = 256 (4 heads of 64), a 1,040-wide coupling MLP and k = 257, each a bf16
+    D = 576 (9 heads of 64), a 1,040-wide coupling MLP and k = 257, each a bf16
     dulcet-universe at 2 layers and full width, B=2. Each prints its routes
     and must refuse the expected parts; its log_prob (inner_loop eval), one
     train_step after the data init and one make_sample of 1 x 4000 run on

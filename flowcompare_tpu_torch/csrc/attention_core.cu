@@ -1,6 +1,8 @@
-// attention_core: softmax(q k^T * scale) v with head dimension D in {32,
-// 64, 128} (one template instance each, chosen by fc_attention_core's `d`;
-// any other width returns cudaErrorInvalidValue) and the probabilities
+// attention_core: softmax(q k^T * scale) v with head dimension 1 <= D <=
+// 512 (fc_attention_core's `d`, on the smallest tile of 32, 64, 128, 256 or
+// 512 columns that holds it, one template instance a tile, the two widest
+// in attention_core_wide.cu; a width past 512 returns
+// cudaErrorInvalidValue) and the probabilities
 // kept at f32 precision through the PV product, the port of
 // the Pallas kernel fused_attention_core (ops/attention_pallas.py, body
 // _kernel).
@@ -46,8 +48,8 @@
 //    the shares and holds the kernel's to B10_SHARE_LIMIT);
 //  * masked keys (>= nkv; nkv = 1250 is 19 tiles and 34 keys) are left out
 //    of the maximum and the sum and get p = 0; TMA zero-fills the rows
-//    past an item's keys and queries (and the 32 columns past D = 32, whose
-//    P V results are never stored); rows >= nq are never stored.
+//    past an item's keys and queries (and the columns past D, whose P V
+//    results are never stored); rows >= nq are never stored.
 //
 // What bounds it on the H100: operations. One q k^T and the three bf16 PV
 // products, 4 x 2 x D a score, over the bf16 peak (with the PV product as
@@ -86,8 +88,9 @@ template <int D>
 __global__ void __launch_bounds__(CORE_THREADS, CORE_MIN_BLOCKS)
     attention_core_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
-                                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
-                                int ldo, int nq, int nkv, float scale) {
+                                const __grid_constant__ CUtensorMap tv,
+                                bf16* __restrict__ out, int ldo, int nq, int nkv, float scale,
+                                int d) {
   using W = AttWidth<D>;
   constexpr int STAGES = CORE_STAGES, TB = W::TILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
@@ -237,28 +240,39 @@ __global__ void __launch_bounds__(CORE_THREADS, CORE_MIN_BLOCKS)
     release_stage(&empty[st]);
   }
 
-  // epilogue: bf16(O) in pairs, rows < nq and columns < D only
+  // epilogue: bf16(O) in pairs, rows < nq and columns < d only (every
+  // store a pair at the tile's own width, as cross_attention.cu's)
+  const bool pairs = pair_aligned(out, ldo), whole = pairs && d == D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + frag_row(t) + 8 * h;
     if (row >= nq) continue;
     bf16* orow = out + ((size_t)item * nq + row) * ldo + fc;
+    if (whole) {
 #pragma unroll
-    for (int x = 0; x < W::BOXES; ++x)
+      for (int x = 0; x < W::BOXES; ++x)
 #pragma unroll
-      for (int jj = 0; jj < W::BOX_COLS / 8; ++jj)
-        *reinterpret_cast<uint32_t*>(orow + x * ATT_BOX + 8 * jj) =
-            pack_bf16(acc[x][4 * jj + 2 * h], acc[x][4 * jj + 2 * h + 1]);
+        for (int jj = 0; jj < W::BOX_COLS / 8; ++jj)
+          *reinterpret_cast<uint32_t*>(orow + x * ATT_BOX + 8 * jj) =
+              pack_bf16(acc[x][4 * jj + 2 * h], acc[x][4 * jj + 2 * h + 1]);
+    } else {
+#pragma unroll
+      for (int x = 0; x < W::BOXES; ++x)
+#pragma unroll
+        for (int jj = 0; jj < W::BOX_COLS / 8; ++jj)
+          store2(orow + x * ATT_BOX + 8 * jj, fc + x * ATT_BOX + 8 * jj, d,
+                 acc[x][4 * jj + 2 * h], acc[x][4 * jj + 2 * h + 1], pairs);
+    }
   }
 }
 
 template <int D>
 int launch_core(const void* q, int ldq, const void* k, int ldk, const void* v, int ldv, void* out,
-                int ldo, int n_items, int nq, int nkv, float scale, cudaStream_t stream) {
+                int ldo, int n_items, int nq, int nkv, float scale, int d, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = att_tensor_map<D>(&tq, q, n_items, nq, ldq);
-  if (err == cudaSuccess) err = att_tensor_map<D>(&tk, k, n_items, nkv, ldk);
-  if (err == cudaSuccess) err = att_tensor_map<D>(&tv, v, n_items, nkv, ldv);
+  cudaError_t err = att_tensor_map(&tq, q, n_items, nq, d, ldq);
+  if (err == cudaSuccess) err = att_tensor_map(&tk, k, n_items, nkv, d, ldk);
+  if (err == cudaSuccess) err = att_tensor_map(&tv, v, n_items, nkv, d, ldv);
   if (err != cudaSuccess) return (int)err;
   static bool smem_set = false;   // the shared-memory opt-in, once a width
   if (!smem_set) {
@@ -269,28 +283,33 @@ int launch_core(const void* q, int ldq, const void* k, int ldk, const void* v, i
   }
   const dim3 grid((nq + ATT_TILE - 1) / ATT_TILE, n_items);
   attention_core_wgmma_kernel<D><<<grid, CORE_THREADS, Core<D>::SMEM, stream>>>(
-      tq, tk, tv, (bf16*)out, ldo, nq, nkv, scale);
+      tq, tk, tv, (bf16*)out, ldo, nq, nkv, scale, d);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The wgmma route: q, k and v TMA-readable (16-byte bases, row strides a
-// multiple of 8), out written in 4-byte pairs (a 4-byte base, ldo even).
-// Other operands return cudaErrorMisalignedAddress: there is no other route
-// on the main path. A head width d other than 32, 64 or 128 returns
+// The wgmma route: q, k and v TMA-readable (row strides a multiple of 8;
+// other operands return cudaErrorMisalignedAddress: there is no other
+// route); out is written in pairs where its alignment allows it, else an
+// element at a time. A head width d outside [1, 512] returns
 // cudaErrorInvalidValue.
 FC_API int fc_attention_core(const void* q, int ldq, const void* k, int ldk, const void* v,
                              int ldv, void* out, int ldo, int n_items, int nq, int nkv,
                              float scale, int d, void* stream) {
   if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(out) & 3u) || (ldo & 1)) return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 32: return launch_core<32>(q, ldq, k, ldk, v, ldv, out, ldo, n_items, nq, nkv, scale, st);
-    case 64: return launch_core<64>(q, ldq, k, ldk, v, ldv, out, ldo, n_items, nq, nkv, scale, st);
-    case 128:
-      return launch_core<128>(q, ldq, k, ldk, v, ldv, out, ldo, n_items, nq, nkv, scale, st);
+#define FC_CORE(DT) \
+  launch_core<DT>(q, ldq, k, ldk, v, ldv, out, ldo, n_items, nq, nkv, scale, d, st)
+  switch (att_tile(d)) {
+    case 32: return FC_CORE(32);
+    case 64: return FC_CORE(64);
+    case 128: return FC_CORE(128);
+    case 256:
+    case 512:
+      return attention_core_wide(q, ldq, k, ldk, v, ldv, out, ldo, n_items, nq, nkv, scale, d,
+                                 st);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FC_CORE
 }

@@ -1,7 +1,8 @@
-// cross_attention: one-head softmax(q k^T) v with head dimension D in
-// {32, 64, 128} (one template instance each, chosen by the entry points'
-// `d`; any other width returns cudaErrorInvalidValue), the
-// attention step of the Pallas kernels fused_flow_layers_t (B1,
+// cross_attention: one-head softmax(q k^T) v with head dimension 1 <= D
+// <= 512 (the entry points' `d`; a width runs on the smallest tile of 32,
+// 64, 128, 256 or 512 columns that holds it, one template instance a tile,
+// the two widest in cross_attention_wide.cu; a width past 512 returns
+// cudaErrorInvalidValue), the attention step of the Pallas kernels fused_flow_layers_t (B1,
 // _attention_cond_t, flowcompare_tpu/ops/flow_layer_pallas.py:800),
 // fused_augmenter (B2, _attention_cond, :239) and
 // fused_flow_layers_inverse_t (B7), and of B5's per-layer recompute. The
@@ -60,11 +61,15 @@
 //    masked by index (left out of the maximum, e = 0);
 //  * ragged stores: the output is a column slice of the packed coupling
 //    rows (row stride `ldo`); rows >= nq of an item and columns past D are
-//    never written (at D = 32 the P V product's 32 zero columns stay in
-//    registers);
-//  * alignment: TMA needs 16-byte bases and rows of whole 16 bytes; the
-//    wrapper sends other operands to the WMMA kernel below
-//    (cross_attention_wmma_kernel, fc_cross_attention_wmma), counted apart;
+//    never written (the P V product's zero columns past D stay in
+//    registers; an odd D's last column is stored alone);
+//  * alignment: TMA needs rows of whole 16 bytes; a base off 16-byte
+//    alignment (v = kv[:, D:] at D not a multiple of 8) is read through a
+//    map from the aligned address below it (att_tensor_map). The wrapper
+//    sends rows of other strides to the WMMA kernel below
+//    (cross_attention_wmma_kernel, fc_cross_attention_wmma, D <= 128),
+//    counted apart. An out whose rows cannot take bf16 pairs is written an
+//    element at a time;
 //  * a ring fault traps (mbar_wait) instead of hanging the card.
 #include <mma.h>
 
@@ -78,7 +83,8 @@ constexpr int QB = 64;    // query rows per block
 constexpr int KT = 64;    // keys per tile
 constexpr int LDP = KT + 8;   // 72 bf16 per row of P
 
-// The WMMA route's shared memory at head width D: q, k and v tiles of
+// The WMMA route's shared memory at tile width D (32, 64 or 128; a head
+// width below it runs with its columns zero-filled): q, k and v tiles of
 // (D + 8)-element rows, then a warp's f32 scores (and, at the end, its
 // output rows) of max(64, D) + 4 columns, which P (bf16) reuses.
 template <int D>
@@ -90,13 +96,14 @@ struct WmmaFwd {
 
 // The WMMA route, for operands TMA cannot read: a block of 4 warps takes 64
 // query rows (16 a warp); key/value tiles of 64 rows go through shared
-// memory with synchronous loads; both products are WMMA 16x16x16, and each
-// score tile is stored to shared memory and read back per lane.
+// memory with synchronous loads (columns d..D-1 zero-filled); both products
+// are WMMA 16x16x16, and each score tile is stored to shared memory and
+// read back per lane.
 template <int D>
 __global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
     const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k, const bf16* __restrict__ v,
     int ldkv, bf16* __restrict__ out, int ldo, float* __restrict__ m_out,
-    float* __restrict__ den_out, int nq, int nkv) {
+    float* __restrict__ den_out, int nq, int nkv, int d) {
   constexpr int LDT = WmmaFwd<D>::LDT, LDS_F = WmmaFwd<D>::LDS_F;
   extern __shared__ uint8_t smem_raw[];
   bf16* const Qs = reinterpret_cast<bf16*>(align1024(smem_raw));
@@ -114,7 +121,7 @@ __global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
   const bool kv_vec = ((reinterpret_cast<uintptr_t>(k) & 15u) == 0) &&
                       ((reinterpret_cast<uintptr_t>(v) & 15u) == 0) && (ldkv % 8 == 0);
 
-  load_tile_bf16<QB, D>(Qs, LDT, qi, ldq, q0, 0, nq, D, q_vec);
+  load_tile_bf16<QB, D>(Qs, LDT, qi, ldq, q0, 0, nq, d, q_vec);
   __syncthreads();
   wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[D / 16];
 #pragma unroll
@@ -146,7 +153,7 @@ __global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
   // pass 1: exact row maximum over all keys
   float m = -INFINITY;
   for (int j0 = 0; j0 < nkv; j0 += KT) {
-    load_tile_bf16<KT, D>(Ks, LDT, ki, ldkv, j0, 0, nkv, D, kv_vec);
+    load_tile_bf16<KT, D>(Ks, LDT, ki, ldkv, j0, 0, nkv, d, kv_vec);
     __syncthreads();
     scores();
     for (int c = 0; c < 32; ++c)
@@ -161,8 +168,8 @@ __global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
   for (int db = 0; db < D / 16; ++db) wmma::fill_fragment(o[db], 0.0f);
   float sum = 0.f;
   for (int j0 = 0; j0 < nkv; j0 += KT) {
-    load_tile_bf16<KT, D>(Ks, LDT, ki, ldkv, j0, 0, nkv, D, kv_vec);
-    load_tile_bf16<KT, D>(Vs, LDT, vi, ldkv, j0, 0, nkv, D, kv_vec);
+    load_tile_bf16<KT, D>(Ks, LDT, ki, ldkv, j0, 0, nkv, d, kv_vec);
+    load_tile_bf16<KT, D>(Vs, LDT, vi, ldkv, j0, 0, nkv, d, kv_vec);
     __syncthreads();
     scores();
     float e[32];
@@ -199,7 +206,8 @@ __global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
   const int oc0 = (lane & 1) * (D / 2);  // this lane's half of the D output columns
   if (row < nq) {
     bf16* orow = out + ((size_t)item * nq + row) * ldo;
-    for (int c = 0; c < D / 2; ++c) orow[oc0 + c] = f2bf(S[r * LDS_F + oc0 + c] / sum);
+    for (int c = 0; c < D / 2; ++c)
+      if (oc0 + c < d) orow[oc0 + c] = f2bf(S[r * LDS_F + oc0 + c] / sum);
     if (m_out != nullptr && (lane & 1) == 0) {
       m_out[(size_t)item * nq + row] = m;
       den_out[(size_t)item * nq + row] = sum;
@@ -209,7 +217,7 @@ __global__ void __launch_bounds__(128) cross_attention_wmma_kernel(
 
 template <int D>
 int launch_wmma(const void* q, int ldq, const void* k, const void* v, int ldkv, void* out,
-                int ldo, void* m_out, void* den_out, int n_items, int nq, int nkv,
+                int ldo, void* m_out, void* den_out, int n_items, int nq, int nkv, int d,
                 cudaStream_t stream) {
   static bool smem_set = false;   // the shared-memory opt-in, once a width
   if (!smem_set) {
@@ -222,7 +230,7 @@ int launch_wmma(const void* q, int ldq, const void* k, const void* v, int ldkv, 
   dim3 grid((nq + QB - 1) / QB, n_items);
   cross_attention_wmma_kernel<D><<<grid, 128, WmmaFwd<D>::SMEM, stream>>>(
       (const bf16*)q, ldq, (const bf16*)k, (const bf16*)v, ldkv, (bf16*)out, ldo, (float*)m_out,
-      (float*)den_out, nq, nkv);
+      (float*)den_out, nq, nkv, d);
   return (int)cudaGetLastError();
 }
 
@@ -233,17 +241,15 @@ FC_API int fc_cross_attention_wmma(const void* q, int ldq, const void* k, const 
                                    int n_items, int nq, int nkv, int d, void* stream) {
   if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 32:
-      return launch_wmma<32>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv, st);
-    case 64:
-      return launch_wmma<64>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv, st);
-    case 128:
-      return launch_wmma<128>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv,
-                              st);
-    default:
-      return (int)cudaErrorInvalidValue;
+#define FC_FWD_WMMA(DT) \
+  launch_wmma<DT>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv, d, st)
+  switch (att_tile(d)) {
+    case 32: return FC_FWD_WMMA(32);
+    case 64: return FC_FWD_WMMA(64);
+    case 128: return FC_FWD_WMMA(128);
+    default: return (int)cudaErrorInvalidValue;   // past 128: the wgmma route only
   }
+#undef FC_FWD_WMMA
 }
 
 namespace {
@@ -268,9 +274,9 @@ template <int D>
 __global__ void __launch_bounds__(FWD_THREADS, Fwd<D>::MIN_BLOCKS)
     cross_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
-                                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
-                                 int ldo, float* __restrict__ m_out,
-                                 float* __restrict__ den_out, int nq, int nkv) {
+                                 const __grid_constant__ CUtensorMap tv,
+                                 bf16* __restrict__ out, int ldo, float* __restrict__ m_out,
+                                 float* __restrict__ den_out, int nq, int nkv, int d) {
   using W = AttWidth<D>;
   constexpr int STAGES = FWD_STAGES, TB = W::TILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
@@ -395,8 +401,11 @@ __global__ void __launch_bounds__(FWD_THREADS, Fwd<D>::MIN_BLOCKS)
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
 
-  // epilogue: bf16(O / sum) in pairs, rows < nq and columns < D only; m
-  // and den
+  // epilogue: bf16(O / sum) in pairs, rows < nq and columns < d only; m
+  // and den. At the tile's own width with rows that take pairs, every
+  // store is a pair (the other widths' guards cost the sample's short
+  // launch 3-6% at D = 64 and 128 on the H100)
+  const bool pairs = pair_aligned(out, ldo), whole = pairs && d == D;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + frag_row(t) + 8 * half;
@@ -404,12 +413,21 @@ __global__ void __launch_bounds__(FWD_THREADS, Fwd<D>::MIN_BLOCKS)
     const float l = half ? l1 : l0;
     const size_t r = (size_t)blockIdx.y * nq + row;
     bf16* orow = out + r * ldo + fc;
+    if (whole) {
 #pragma unroll
-    for (int x = 0; x < W::BOXES; ++x)
+      for (int x = 0; x < W::BOXES; ++x)
 #pragma unroll
-      for (int jj = 0; jj < W::BOX_COLS / 8; ++jj)
-        *reinterpret_cast<uint32_t*>(orow + x * ATT_BOX + 8 * jj) =
-            pack_bf16(acc[x][4 * jj + 2 * half] / l, acc[x][4 * jj + 2 * half + 1] / l);
+        for (int jj = 0; jj < W::BOX_COLS / 8; ++jj)
+          *reinterpret_cast<uint32_t*>(orow + x * ATT_BOX + 8 * jj) =
+              pack_bf16(acc[x][4 * jj + 2 * half] / l, acc[x][4 * jj + 2 * half + 1] / l);
+    } else {
+#pragma unroll
+      for (int x = 0; x < W::BOXES; ++x)
+#pragma unroll
+        for (int jj = 0; jj < W::BOX_COLS / 8; ++jj)
+          store2(orow + x * ATT_BOX + 8 * jj, fc + x * ATT_BOX + 8 * jj, d,
+                 acc[x][4 * jj + 2 * half] / l, acc[x][4 * jj + 2 * half + 1] / l, pairs);
+    }
     if (m_out != nullptr && fc == 0) {
       m_out[r] = half ? mx1 : mx0;
       den_out[r] = l;
@@ -419,12 +437,12 @@ __global__ void __launch_bounds__(FWD_THREADS, Fwd<D>::MIN_BLOCKS)
 
 template <int D>
 int launch_wgmma(const void* q, int ldq, const void* k, const void* v, int ldkv, void* out,
-                 int ldo, void* m_out, void* den_out, int n_items, int nq, int nkv,
+                 int ldo, void* m_out, void* den_out, int n_items, int nq, int nkv, int d,
                  cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = att_tensor_map<D>(&tq, q, n_items, nq, ldq);
-  if (err == cudaSuccess) err = att_tensor_map<D>(&tk, k, n_items, nkv, ldkv);
-  if (err == cudaSuccess) err = att_tensor_map<D>(&tv, v, n_items, nkv, ldkv);
+  cudaError_t err = att_tensor_map(&tq, q, n_items, nq, d, ldq);
+  if (err == cudaSuccess) err = att_tensor_map(&tk, k, n_items, nkv, d, ldkv);
+  if (err == cudaSuccess) err = att_tensor_map(&tv, v, n_items, nkv, d, ldkv);
   if (err != cudaSuccess) return (int)err;
   static bool smem_set = false;   // the shared-memory opt-in, once a width
   if (!smem_set) {
@@ -435,31 +453,32 @@ int launch_wgmma(const void* q, int ldq, const void* k, const void* v, int ldkv,
   }
   const dim3 grid((nq + ATT_TILE - 1) / ATT_TILE, n_items);
   cross_attention_wgmma_kernel<D><<<grid, FWD_THREADS, Fwd<D>::SMEM, stream>>>(
-      tq, tk, tv, (bf16*)out, ldo, (float*)m_out, (float*)den_out, nq, nkv);
+      tq, tk, tv, (bf16*)out, ldo, (float*)m_out, (float*)den_out, nq, nkv, d);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The wgmma route: q, k and v TMA-readable (16-byte bases, row strides a
-// multiple of 8), out written in 4-byte pairs (a 4-byte base, ldo even).
-// Misaligned operands return cudaErrorMisalignedAddress; a head width d
-// other than 32, 64 or 128 returns cudaErrorInvalidValue.
+// The wgmma route: q, k and v TMA-readable (row strides a multiple of 8;
+// other operands return cudaErrorMisalignedAddress); out is written in
+// pairs where its alignment allows it, else an element at a time. A head
+// width d outside [1, 512] returns cudaErrorInvalidValue.
 FC_API int fc_cross_attention(const void* q, int ldq, const void* k, const void* v, int ldkv,
                               void* out, int ldo, void* m_out, void* den_out, int n_items, int nq,
                               int nkv, int d, void* stream) {
   if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(out) & 3u) || (ldo & 1)) return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 32:
-      return launch_wgmma<32>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv, st);
-    case 64:
-      return launch_wgmma<64>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv, st);
-    case 128:
-      return launch_wgmma<128>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv,
-                               st);
-    default:
-      return (int)cudaErrorInvalidValue;
+#define FC_FWD_WGMMA(DT) \
+  launch_wgmma<DT>(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv, d, st)
+  switch (att_tile(d)) {
+    case 32: return FC_FWD_WGMMA(32);
+    case 64: return FC_FWD_WGMMA(64);
+    case 128: return FC_FWD_WGMMA(128);
+    case 256:
+    case 512:
+      return cross_attention_wide(q, ldq, k, v, ldkv, out, ldo, m_out, den_out, n_items, nq, nkv,
+                                  d, st);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef FC_FWD_WGMMA
 }

@@ -1,6 +1,8 @@
 // cross_attention_bwd: the backward of cross_attention (one head of width
-// D in {32, 64, 128}, one template instance each, chosen by the entry
-// points' `d`; any other width returns cudaErrorInvalidValue) inside
+// 1 <= D <= 512, the entry points' `d`, on the smallest tile of 32, 64,
+// 128, 256 or 512 columns that holds it, one template instance a tile, the
+// two widest in cross_attention_bwd_wide.cu; a width past 512 returns
+// cudaErrorInvalidValue) inside
 // flow_layers_bwd (B5), the port of the attention part of the Pallas
 // backward kernel's per-layer jax.vjp (flowcompare_tpu/ops/
 // flow_layer_vjp_pallas.py, _bwd_kernel_impl over _layer_fwd_math).
@@ -68,9 +70,14 @@
 //    blocks (two warpgroups sharing each streamed tile) were slower too, and
 //    so was skipping the index mask on full tiles;
 //  * the outputs are never written past their D columns (dq) or 2 D
-//    columns (dkv): at D = 32 the products' zero columns stay in registers;
-//  * alignment: operands TMA cannot read take the WMMA kernels below
-//    (fc_attention_bwd_wmma), counted apart by the wrapper;
+//    columns (dkv): the products' zero columns past D stay in registers,
+//    and pairs that an odd D leaves unaligned (dv from column D) are
+//    stored one element at a time;
+//  * alignment: operands whose rows are not whole 16 bytes take the WMMA
+//    kernels below (fc_attention_bwd_wmma, D <= 128), counted apart by the
+//    wrapper; a base off 16-byte alignment is read at a column offset
+//    (att_tensor_map), and outputs whose rows cannot take pairs are
+//    written an element at a time;
 //  * a ring fault traps (mbar_wait) instead of hanging the card.
 #include <mma.h>
 
@@ -89,7 +96,8 @@ using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_majo
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// The WMMA route's shared memory at head width D: two 64-row tiles of
+// The WMMA route's shared memory at tile width D (32, 64 or 128; a head
+// width d below it runs with its columns zero-filled): two 64-row tiles of
 // (D + 8)-element rows, a warp's f32 tile of max(64, D) + 4 columns (16
 // rows; scores, and the output rows at the end; the tile staging at the
 // start), a warp's bf16 P, and (dkv) the query tile's m and ddn.
@@ -149,9 +157,9 @@ __device__ __forceinline__ void accumulate_p_tile(FragC* acc, const bf16* p, con
 // into D / 16 A fragments.
 template <int D>
 __device__ __forceinline__ void load_rows(FragA* frag, bf16* stage, const bf16* g, int ld,
-                                          int row0, int nrows, bool vec) {
+                                          int row0, int nrows, int d, bool vec) {
   constexpr int LDT = WmmaBwd<D>::LDT;
-  load_tile_bf16<64, D>(stage, LDT, g, ld, row0, 0, nrows, D, vec);
+  load_tile_bf16<64, D>(stage, LDT, g, ld, row0, 0, nrows, d, vec);
   __syncthreads();
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -160,12 +168,13 @@ __device__ __forceinline__ void load_rows(FragA* frag, bf16* stage, const bf16* 
   __syncthreads();
 }
 
-// Write a warp's 16 x D accumulator (through its f32 tile S) to row `orow`
-// of out (f32) and out_b (bf16) at column col0, each lane half a row;
-// orow == (size_t)-1 skips.
+// Write the first d columns of a warp's 16 x D accumulator (through its f32
+// tile S) to row `orow` of out (f32) and out_b (bf16) at column col0, each
+// lane half a row; orow == (size_t)-1 skips.
 template <int D>
 __device__ __forceinline__ void store_rows(const FragC* acc, float* S, size_t orow, float* out,
-                                           int ldo, bf16* out_b, int ldob, int col0, int lane) {
+                                           int ldo, bf16* out_b, int ldob, int col0, int d,
+                                           int lane) {
   constexpr int LDS_F = WmmaBwd<D>::LDS_F;
 #pragma unroll
   for (int db = 0; db < D / 16; ++db)
@@ -173,7 +182,7 @@ __device__ __forceinline__ void store_rows(const FragC* acc, float* S, size_t or
   __syncwarp();
   if (orow != (size_t)-1) {
     const int r = lane >> 1, c0 = (lane & 1) * (D / 2);
-    for (int c = 0; c < D / 2; ++c) {
+    for (int c = 0; c < D / 2 && c0 + c < d; ++c) {
       const float val = S[r * LDS_F + c0 + c];
       out[orow * ldo + col0 + c0 + c] = val;
       out_b[orow * ldob + col0 + c0 + c] = f2bf(val);
@@ -187,7 +196,7 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_wmma_kernel(
     const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k, const bf16* __restrict__ v,
     int ldkv, const bf16* __restrict__ du, int lddu, const float* __restrict__ ddn,
     const float* __restrict__ mrow, float* __restrict__ dq, int lddq, bf16* __restrict__ dq_b,
-    int lddqb, int nq, int nkv) {
+    int lddqb, int nq, int nkv, int d) {
   constexpr int LDT = WmmaBwd<D>::LDT, LDS_F = WmmaBwd<D>::LDS_F;
   extern __shared__ uint8_t smem_raw[];
   bf16* const Ks = reinterpret_cast<bf16*>(align1024(smem_raw));
@@ -205,8 +214,8 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_wmma_kernel(
 
   bf16* stage = reinterpret_cast<bf16*>(Ss);  // 64 x LDT bf16 fits in the f32 tiles
   FragA fq[D / 16], fdu[D / 16];
-  load_rows<D>(fq, stage, q + (size_t)item * nq * ldq, ldq, q0, nq, vec_ok(q, ldq));
-  load_rows<D>(fdu, stage, du + (size_t)item * nq * lddu, lddu, q0, nq, vec_ok(du, lddu));
+  load_rows<D>(fq, stage, q + (size_t)item * nq * ldq, ldq, q0, nq, d, vec_ok(q, ldq));
+  load_rows<D>(fdu, stage, du + (size_t)item * nq * lddu, lddu, q0, nq, d, vec_ok(du, lddu));
 
   float* S = Ss + warp * 16 * LDS_F;
   bf16* P = Ps + warp * 16 * LDP;
@@ -220,8 +229,8 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_wmma_kernel(
 #pragma unroll
   for (int db = 0; db < D / 16; ++db) wmma::fill_fragment(o[db], 0.0f);
   for (int j0 = 0; j0 < nkv; j0 += KT) {
-    load_tile_bf16<KT, D>(Ks, LDT, ki, ldkv, j0, 0, nkv, D, kv_vec);
-    load_tile_bf16<KT, D>(Vs, LDT, vi, ldkv, j0, 0, nkv, D, kv_vec);
+    load_tile_bf16<KT, D>(Ks, LDT, ki, ldkv, j0, 0, nkv, d, kv_vec);
+    load_tile_bf16<KT, D>(Vs, LDT, vi, ldkv, j0, 0, nkv, d, kv_vec);
     __syncthreads();
     rows_by_tile_t<D>(fq, Ks, S);  // s = q k^T
     float e[32];
@@ -237,7 +246,7 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_wmma_kernel(
     __syncthreads();
   }
   store_rows<D>(o, S, row < nq ? (size_t)item * nq + row : (size_t)-1, dq, lddq, dq_b, lddqb, 0,
-                lane);
+                d, lane);
 }
 
 template <int D>
@@ -245,7 +254,7 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_wmma_kernel(
     const bf16* __restrict__ q, int ldq, const bf16* __restrict__ k, const bf16* __restrict__ v,
     int ldkv, const bf16* __restrict__ du, int lddu, const float* __restrict__ ddn,
     const float* __restrict__ mrow, float* __restrict__ dkv, int lddkv,
-    bf16* __restrict__ dkv_b, int lddkvb, int nq, int nkv) {
+    bf16* __restrict__ dkv_b, int lddkvb, int nq, int nkv, int d) {
   constexpr int LDT = WmmaBwd<D>::LDT, LDS_F = WmmaBwd<D>::LDS_F;
   extern __shared__ uint8_t smem_raw[];
   bf16* const Qs = reinterpret_cast<bf16*>(align1024(smem_raw));
@@ -266,8 +275,8 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_wmma_kernel(
   bf16* stage = reinterpret_cast<bf16*>(Ss);
   const bool kv_vec = vec_ok(k, ldkv) && vec_ok(v, ldkv);
   FragA fk[D / 16], fv[D / 16];
-  load_rows<D>(fk, stage, k + (size_t)item * nkv * ldkv, ldkv, k0, nkv, kv_vec);
-  load_rows<D>(fv, stage, v + (size_t)item * nkv * ldkv, ldkv, k0, nkv, kv_vec);
+  load_rows<D>(fk, stage, k + (size_t)item * nkv * ldkv, ldkv, k0, nkv, d, kv_vec);
+  load_rows<D>(fv, stage, v + (size_t)item * nkv * ldkv, ldkv, k0, nkv, d, kv_vec);
 
   float* S = Ss + warp * 16 * LDS_F;
   bf16* P = Ps + warp * 16 * LDP;
@@ -281,8 +290,8 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_wmma_kernel(
     wmma::fill_fragment(dv[db], 0.0f);
   }
   for (int i0 = 0; i0 < nq; i0 += QB) {
-    load_tile_bf16<QB, D>(Qs, LDT, qi, ldq, i0, 0, nq, D, q_vec);
-    load_tile_bf16<QB, D>(DUs, LDT, dui, lddu, i0, 0, nq, D, du_vec);
+    load_tile_bf16<QB, D>(Qs, LDT, qi, ldq, i0, 0, nq, d, q_vec);
+    load_tile_bf16<QB, D>(DUs, LDT, dui, lddu, i0, 0, nq, d, du_vec);
     if (tid < QB) {
       const bool ok = i0 + tid < nq;
       ms[tid] = ok ? mrow[(size_t)item * nq + i0 + tid] : 0.f;
@@ -309,15 +318,15 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_wmma_kernel(
   }
   const int key = k0 + warp * 16 + r;
   const size_t orow = key < nkv ? (size_t)item * nkv + key : (size_t)-1;
-  store_rows<D>(dk, S, orow, dkv, lddkv, dkv_b, lddkvb, 0, lane);
-  store_rows<D>(dv, S, orow, dkv, lddkv, dkv_b, lddkvb, D, lane);
+  store_rows<D>(dk, S, orow, dkv, lddkv, dkv_b, lddkvb, 0, d, lane);
+  store_rows<D>(dv, S, orow, dkv, lddkv, dkv_b, lddkvb, d, d, lane);
 }
 
 template <int D>
 int launch_bwd_wmma(const void* q, int ldq, const void* k, const void* v, int ldkv,
                     const void* du, int lddu, const void* ddn, const void* mrow, void* dq,
                     int lddq, void* dq_b, int lddqb, void* dkv, int lddkv, void* dkv_b,
-                    int lddkvb, int n_items, int nq, int nkv, cudaStream_t stream) {
+                    int lddkvb, int n_items, int nq, int nkv, int d, cudaStream_t stream) {
   static bool smem_set = false;   // the shared-memory opt-ins, once a width
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_wmma_kernel<D>,
@@ -332,13 +341,14 @@ int launch_bwd_wmma(const void* q, int ldq, const void* k, const void* v, int ld
   dim3 gq((nq + QB - 1) / QB, n_items);
   attn_bwd_dq_wmma_kernel<D><<<gq, 128, WmmaBwd<D>::SMEM, stream>>>(
       (const bf16*)q, ldq, (const bf16*)k, (const bf16*)v, ldkv, (const bf16*)du, lddu,
-      (const float*)ddn, (const float*)mrow, (float*)dq, lddq, (bf16*)dq_b, lddqb, nq, nkv);
+      (const float*)ddn, (const float*)mrow, (float*)dq, lddq, (bf16*)dq_b, lddqb, nq, nkv, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 gk((nkv + KT - 1) / KT, n_items);
   attn_bwd_dkv_wmma_kernel<D><<<gk, 128, WmmaBwd<D>::SMEM, stream>>>(
       (const bf16*)q, ldq, (const bf16*)k, (const bf16*)v, ldkv, (const bf16*)du, lddu,
-      (const float*)ddn, (const float*)mrow, (float*)dkv, lddkv, (bf16*)dkv_b, lddkvb, nq, nkv);
+      (const float*)ddn, (const float*)mrow, (float*)dkv, lddkv, (bf16*)dkv_b, lddkvb, nq, nkv,
+      d);
   return (int)cudaGetLastError();
 }
 
@@ -353,12 +363,12 @@ FC_API int fc_attention_bwd_wmma(const void* q, int ldq, const void* k, const vo
   const cudaStream_t st = (cudaStream_t)stream;
 #define FC_BWD_WMMA(D)                                                                      \
   launch_bwd_wmma<D>(q, ldq, k, v, ldkv, du, lddu, ddn, mrow, dq, lddq, dq_b, lddqb, dkv,   \
-                     lddkv, dkv_b, lddkvb, n_items, nq, nkv, st)
-  switch (d) {
+                     lddkv, dkv_b, lddkvb, n_items, nq, nkv, d, st)
+  switch (att_tile(d)) {
     case 32: return FC_BWD_WMMA(32);
     case 64: return FC_BWD_WMMA(64);
     case 128: return FC_BWD_WMMA(128);
-    default: return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;   // past 128: the wgmma route only
   }
 #undef FC_BWD_WMMA
 }
@@ -382,34 +392,10 @@ struct Bwd {
   static_assert(BWD_MIN_BLOCKS * SMEM <= 232448, "the rings exceed the SM's shared memory");
 };
 
-// Stores this thread's part of a 64 x 64 f32 accumulator (its first COLS
-// columns) as f32 pairs into `out` and bf16 pairs into `out_b` at rows
-// row0 + [0, 64) (rows >= nrows skipped) and column col0 of row-major
-// matrices.
-template <int COLS>
-__device__ __forceinline__ void store_tile(const float (&acc)[32], int t, int row0, int nrows,
-                                           size_t row_base, float* out, int ldo, bf16* out_b,
-                                           int ldob, int col0) {
-  const int fc = frag_col(t);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + frag_row(t) + 8 * half;
-    if (row >= nrows) continue;
-    const size_t r = row_base + row;
-    float* o = out + r * ldo + col0 + fc;
-    bf16* ob = out_b + r * ldob + col0 + fc;
-#pragma unroll
-    for (int j = 0; j < COLS / 8; ++j) {
-      const float x = acc[4 * j + 2 * half], y = acc[4 * j + 2 * half + 1];
-      *reinterpret_cast<float2*>(o + 8 * j) = make_float2(x, y);
-      *reinterpret_cast<uint32_t*>(ob + 8 * j) = pack_bf16(x, y);
-    }
-  }
-}
-
 template <int D>
 __device__ __forceinline__ void attn_bwd_dq_block(const CUtensorMap& tq, const CUtensorMap& tk,
                                                   const CUtensorMap& tv, const CUtensorMap& tdu,
+                                                  int d,
                                                   const float* __restrict__ ddn,
                                                   const float* __restrict__ mrow,
                                                   float* __restrict__ dq, int lddq,
@@ -513,12 +499,13 @@ __device__ __forceinline__ void attn_bwd_dq_block(const CUtensorMap& tq, const C
 #pragma unroll
   for (int x = 0; x < W::BOXES; ++x)
     store_tile<W::BOX_COLS>(acc[x], t, q0, nq, (size_t)item * nq, dq, lddq, dq_b, lddqb,
-                            x * ATT_BOX);
+                            x * ATT_BOX, d - x * ATT_BOX);
 }
 
 template <int D>
 __device__ __forceinline__ void attn_bwd_dkv_block(const CUtensorMap& tq, const CUtensorMap& tk,
                                                    const CUtensorMap& tv, const CUtensorMap& tdu,
+                                                   int d,
                                                    const float* __restrict__ ddn,
                                                    const float* __restrict__ mrow,
                                                    float* __restrict__ dkv, int lddkv,
@@ -632,8 +619,10 @@ __device__ __forceinline__ void attn_bwd_dkv_block(const CUtensorMap& tq, const 
     release_stage(&empty[st]);
   }
   const size_t base = (size_t)item * nkv;
-  store_tile<W::BOX_COLS>(dk, t, k0, nkv, base, dkv, lddkv, dkv_b, lddkvb, box * ATT_BOX);
-  store_tile<W::BOX_COLS>(dv, t, k0, nkv, base, dkv, lddkv, dkv_b, lddkvb, D + box * ATT_BOX);
+  store_tile<W::BOX_COLS>(dk, t, k0, nkv, base, dkv, lddkv, dkv_b, lddkvb, box * ATT_BOX,
+                          d - box * ATT_BOX);
+  store_tile<W::BOX_COLS>(dv, t, k0, nkv, base, dkv, lddkv, dkv_b, lddkvb, d + box * ATT_BOX,
+                          d - box * ATT_BOX);
 }
 
 // One launch for both kernels' blocks: blocks [0, dq_blocks) of each item
@@ -644,33 +633,29 @@ __global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
     attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap tdu,
+                          const __grid_constant__ CUtensorMap tdu, int d,
                           const float* __restrict__ ddn, const float* __restrict__ mrow,
                           float* __restrict__ dq, int lddq, bf16* __restrict__ dq_b, int lddqb,
                           float* __restrict__ dkv, int lddkv, bf16* __restrict__ dkv_b,
                           int lddkvb, int nq, int nkv, int dq_blocks) {
   if ((int)blockIdx.x < dq_blocks)
-    attn_bwd_dq_block<D>(tq, tk, tv, tdu, ddn, mrow, dq, lddq, dq_b, lddqb, nq, nkv,
+    attn_bwd_dq_block<D>(tq, tk, tv, tdu, d, ddn, mrow, dq, lddq, dq_b, lddqb, nq, nkv,
                          blockIdx.x);
   else
-    attn_bwd_dkv_block<D>(tq, tk, tv, tdu, ddn, mrow, dkv, lddkv, dkv_b, lddkvb, nq, nkv,
-                          blockIdx.x - dq_blocks);
-}
-
-bool pairs_ok(const void* p, int ld, int elt) {
-  return (reinterpret_cast<uintptr_t>(p) % (2 * elt)) == 0 && ld % 2 == 0;
+    attn_bwd_dkv_block<D>(tq, tk, tv, tdu, d, ddn, mrow, dkv, lddkv, dkv_b, lddkvb, nq,
+                          nkv, blockIdx.x - dq_blocks);
 }
 
 template <int D>
 int launch_bwd_wgmma(const void* q, int ldq, const void* k, const void* v, int ldkv,
                      const void* du, int lddu, const void* ddn, const void* mrow, void* dq,
                      int lddq, void* dq_b, int lddqb, void* dkv, int lddkv, void* dkv_b,
-                     int lddkvb, int n_items, int nq, int nkv, cudaStream_t stream) {
+                     int lddkvb, int n_items, int nq, int nkv, int d, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdu;
-  cudaError_t err = att_tensor_map<D>(&tq, q, n_items, nq, ldq);
-  if (err == cudaSuccess) err = att_tensor_map<D>(&tk, k, n_items, nkv, ldkv);
-  if (err == cudaSuccess) err = att_tensor_map<D>(&tv, v, n_items, nkv, ldkv);
-  if (err == cudaSuccess) err = att_tensor_map<D>(&tdu, du, n_items, nq, lddu);
+  cudaError_t err = att_tensor_map(&tq, q, n_items, nq, d, ldq);
+  if (err == cudaSuccess) err = att_tensor_map(&tk, k, n_items, nkv, d, ldkv);
+  if (err == cudaSuccess) err = att_tensor_map(&tv, v, n_items, nkv, d, ldkv);
+  if (err == cudaSuccess) err = att_tensor_map(&tdu, du, n_items, nq, d, lddu);
   if (err != cudaSuccess) return (int)err;
   static bool smem_set = false;   // the shared-memory opt-in, once a width
   if (!smem_set) {
@@ -682,33 +667,34 @@ int launch_bwd_wgmma(const void* q, int ldq, const void* k, const void* v, int l
   const int dq_blocks = (nq + ATT_TILE - 1) / ATT_TILE;
   const dim3 grid(dq_blocks + Bwd<D>::DKV_SPLIT * ((nkv + ATT_TILE - 1) / ATT_TILE), n_items);
   attn_bwd_wgmma_kernel<D><<<grid, BWD_THREADS, Bwd<D>::SMEM, stream>>>(
-      tq, tk, tv, tdu, (const float*)ddn, (const float*)mrow, (float*)dq, lddq, (bf16*)dq_b,
+      tq, tk, tv, tdu, d, (const float*)ddn, (const float*)mrow, (float*)dq, lddq, (bf16*)dq_b,
       lddqb, (float*)dkv, lddkv, (bf16*)dkv_b, lddkvb, nq, nkv, dq_blocks);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The wgmma route: q, k, v and du TMA-readable (16-byte bases, row strides
-// a multiple of 8), the outputs written in pairs (bases aligned to a pair,
-// even row strides). Misaligned operands return cudaErrorMisalignedAddress;
-// a head width d other than 32, 64 or 128 returns cudaErrorInvalidValue.
+// The wgmma route: q, k, v and du TMA-readable (row strides a multiple of
+// 8; other operands return cudaErrorMisalignedAddress); the outputs are
+// written in pairs where their alignment allows it, else an element at a
+// time. A head width d outside [1, 512] returns cudaErrorInvalidValue.
 FC_API int fc_attention_bwd(const void* q, int ldq, const void* k, const void* v, int ldkv,
                             const void* du, int lddu, const void* ddn, const void* mrow, void* dq,
                             int lddq, void* dq_b, int lddqb, void* dkv, int lddkv, void* dkv_b,
                             int lddkvb, int n_items, int nq, int nkv, int d, void* stream) {
   if (n_items < 1 || nq < 1 || nkv < 1) return (int)cudaErrorInvalidValue;
-  if (!pairs_ok(dq, lddq, 4) || !pairs_ok(dq_b, lddqb, 2) || !pairs_ok(dkv, lddkv, 4) ||
-      !pairs_ok(dkv_b, lddkvb, 2))
-    return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = (cudaStream_t)stream;
 #define FC_BWD_WGMMA(D)                                                                     \
   launch_bwd_wgmma<D>(q, ldq, k, v, ldkv, du, lddu, ddn, mrow, dq, lddq, dq_b, lddqb, dkv,  \
-                      lddkv, dkv_b, lddkvb, n_items, nq, nkv, st)
-  switch (d) {
+                      lddkv, dkv_b, lddkvb, n_items, nq, nkv, d, st)
+  switch (att_tile(d)) {
     case 32: return FC_BWD_WGMMA(32);
     case 64: return FC_BWD_WGMMA(64);
     case 128: return FC_BWD_WGMMA(128);
+    case 256:
+    case 512:
+      return attention_bwd_wide(q, ldq, k, v, ldkv, du, lddu, ddn, mrow, dq, lddq, dq_b, lddqb,
+                                dkv, lddkv, dkv_b, lddkvb, n_items, nq, nkv, d, st);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FC_BWD_WGMMA

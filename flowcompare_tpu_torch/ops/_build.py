@@ -621,24 +621,30 @@ def row_norm(x: torch.Tensor, out: torch.Tensor, eps: float = 1e-5) -> None:
 
 
 # the head widths D of the attention kernels (csrc/cross_attention.cu,
-# cross_attention_bwd.cu, attention_core.cu: one template instance each)
-ATTENTION_DS = (32, 64, 128)
+# cross_attention_bwd.cu, attention_core.cu and their *_wide.cu twins):
+# every 1 <= D <= ATTENTION_MAX_D, each on the smallest tile of 32, 64, 128,
+# 256 or 512 columns that holds it (`att_tile`, one template instance a
+# tile), the WMMA route up to ATTENTION_WMMA_MAX_D
+ATTENTION_MAX_D = 512
+ATTENTION_WMMA_MAX_D = 128
 
 
-def _pairs_ok(t: torch.Tensor) -> bool:
-    """Whether t's rows can be written two elements at a time: a base
-    aligned to a pair and an even row stride."""
-    return t.data_ptr() % (2 * t.element_size()) == 0 and t.stride(0) % 2 == 0
+def attention_readable(t: torch.Tensor) -> bool:
+    """Whether the attention kernels' TMA can read a bf16 operand: a
+    16-byte-aligned base and rows of whole 16 bytes. The chains' v is one at
+    every head width: they lay kv out as [k | 0 | v] with v at D rounded up
+    to a multiple of 8 (`flow_layer_cuda.kv_layout`)."""
+    return tma_readable(t.data_ptr(), t.stride(0))
 
 
-def attention_route(reads: list, writes: list) -> str:
-    """The cross attention's route, from alignment alone: "wgmma" (TMA +
-    wgmma, csrc/cross_attention.cu and cross_attention_bwd.cu) when TMA can
-    read every bf16 operand in `reads` and every output in `writes` can be
-    written in pairs, else "wmma" (the WMMA kernels of the same files)."""
-    ok = (all(tma_readable(t.data_ptr(), t.stride(0)) for t in reads)
-          and all(_pairs_ok(t) for t in writes))
-    return "wgmma" if ok else "wmma"
+def attention_route(reads: list) -> str:
+    """The cross attention's route, from the bf16 operands it reads alone:
+    "wgmma" (TMA + wgmma, csrc/cross_attention.cu and cross_attention_bwd.cu)
+    when TMA can read every one (`attention_readable`), else "wmma" (the
+    WMMA kernels of the same files, head widths up to
+    ATTENTION_WMMA_MAX_D). Both routes write any output's rows: in pairs
+    where their alignment allows it, else an element at a time."""
+    return "wgmma" if all(attention_readable(t) for t in reads) else "wmma"
 
 
 def _per_item(t: torch.Tensor, n_items: int) -> torch.Tensor:
@@ -667,14 +673,28 @@ def cross_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_width(what: str, q: torch.Tensor, *others: torch.Tensor) -> int:
     """The head width D of q, checked against the other (rows, D) operands
-    and against the widths the attention kernels take (ATTENTION_DS)."""
+    and against the widths the attention kernels take (1 <= D <=
+    ATTENTION_MAX_D)."""
     d = q.shape[-1]
     widths = [t.shape[-1] for t in (q, *others)]
     if len(set(widths)) > 1:
         raise ValueError(f"{what}: operands of head widths {widths}")
-    if d not in ATTENTION_DS:
-        raise ValueError(f"{what}: the kernels take head widths D in {ATTENTION_DS}, got {d}")
+    if not 1 <= d <= ATTENTION_MAX_D:
+        raise ValueError(f"{what}: the kernels take head widths 1 <= D <= {ATTENTION_MAX_D}, "
+                         f"got {d}")
     return d
+
+
+def _attention_chosen(route: Optional[str], natural: str, d: int, what: str) -> str:
+    """`_choose_route` for the attention kernels, refusing the WMMA route
+    past ATTENTION_WMMA_MAX_D (the wgmma kernels take every width)."""
+    chosen = _choose_route(route, natural, what)
+    if chosen == "wmma" and d > ATTENTION_WMMA_MAX_D:
+        raise ValueError(f"{what}: the WMMA route takes head widths D <= "
+                         f"{ATTENTION_WMMA_MAX_D}, got {d}: give every bf16 operand a "
+                         f"16-byte-aligned base and rows of whole 16 bytes, for the wgmma "
+                         f"route")
+    return chosen
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -683,12 +703,12 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     den_out: Optional[torch.Tensor] = None,
                     route: Optional[str] = None) -> None:
     """Per item: out = softmax(q k^T) v, q (items*nq, D), k/v (items*nkv, D),
-    D in ATTENTION_DS; with m_out/den_out also each row's f32 maximum and
-    denominator.
+    1 <= D <= ATTENTION_MAX_D; with m_out/den_out also each row's f32
+    maximum and denominator.
 
     Two routes, one contract (`cross_attention_plain`): the TMA + wgmma
-    kernel when TMA can read q, k and v and out can be written in pairs
-    (`attention_route`), otherwise the WMMA kernel. `route` forces one (for
+    kernel when TMA can read q, k and v (`attention_route`), otherwise the
+    WMMA kernel (D <= ATTENTION_WMMA_MAX_D; past it the wrapper raises). `route` forces one (for
     measurements and tests); each route counts its launches
     (CROSS_ATTENTION_WGMMA_LAUNCHES, CROSS_ATTENTION_WMMA_LAUNCHES). A CPU
     q runs the plain version and counts nothing. Only out's D columns are
@@ -712,7 +732,7 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m_p = _vec(m_out, "cross_attention.m_out", q.shape[0])
         den_p = _vec(den_out, "cross_attention.den_out", q.shape[0])
     nq, nkv = q.shape[0] // n_items, k.shape[0] // n_items
-    chosen = _choose_route(route, attention_route([q, k, v], [out]), "cross_attention")
+    chosen = _attention_chosen(route, attention_route([q, k, v]), d, "cross_attention")
     args = (q.data_ptr(), ldq, k.data_ptr(), v.data_ptr(), ldk, out.data_ptr(), ldo, m_p, den_p,
             n_items, nq, nkv, d)
     if chosen == "wgmma":
@@ -728,10 +748,10 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
                    n_items: int, scale: float) -> None:
     """Per item: out = softmax(q k^T * scale) v with p at f32 precision (B10),
-    q (items*nq, D), k and v (items*nkv, D) bf16, D in ATTENTION_DS, each with
-    its own row stride. The TMA + wgmma kernel (p split into three bf16 terms
-    for the tensor cores) takes operands TMA can read and an out written in
-    pairs, and raises on others."""
+    q (items*nq, D), k and v (items*nkv, D) bf16, 1 <= D <= ATTENTION_MAX_D,
+    each with its own row stride. The TMA + wgmma kernel (p split into three
+    bf16 terms for the tensor cores) takes operands TMA can read
+    (`attention_readable`), and raises on others."""
     ldq = _rows(q, "attention_core.q", torch.bfloat16)
     ldk = _rows(k, "attention_core.k", torch.bfloat16)
     ldv = _rows(v, "attention_core.v", torch.bfloat16)
@@ -740,9 +760,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     if (k.shape[0] != v.shape[0] or out.shape[0] != q.shape[0] or q.shape[0] % n_items
             or k.shape[0] % n_items or k.shape[0] == 0 or q.shape[0] == 0):
         raise ValueError("attention_core: rows not divisible by items, or no rows")
-    if attention_route([q, k, v], [out]) != "wgmma":
+    if attention_route([q, k, v]) != "wgmma":
         raise ValueError("attention_core: TMA cannot read q, k or v (16-byte-aligned base "
-                         "and row stride needed), or out cannot be written in pairs")
+                         "and row stride needed)")
     _check("attention_core", library().fc_attention_core(
         q.data_ptr(), ldq, k.data_ptr(), ldk, v.data_ptr(), ldv, out.data_ptr(), ldo, n_items,
         q.shape[0] // n_items, k.shape[0] // n_items, float(scale), d, _stream()))
@@ -772,11 +792,11 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.T
                   dkv: torch.Tensor, dkv_b: torch.Tensor, *, n_items: int,
                   route: Optional[str] = None) -> None:
     """The backward of `cross_attention` from du = da / den and ddn (see
-    attn_bwd_prep): dq (items*nq, D) and [dk | dv] (items*nkv, 2 D), D in
-    ATTENTION_DS, each in f32 and in bf16. Routes as `cross_attention`'s (TMA + wgmma when TMA can
-    read q, k, v and du and the outputs can be written in pairs; WMMA
-    otherwise); `route` forces one; counted as ATTENTION_BWD_WGMMA_LAUNCHES /
-    ATTENTION_BWD_WMMA_LAUNCHES.
+    attn_bwd_prep): dq (items*nq, D) and [dk | dv] (items*nkv, 2 D), 1 <= D
+    <= ATTENTION_MAX_D, each in f32 and in bf16. Routes as `cross_attention`'s
+    (TMA + wgmma when TMA can read q, k, v and du; WMMA otherwise, up to
+    ATTENTION_WMMA_MAX_D); `route` forces one; counted as
+    ATTENTION_BWD_WGMMA_LAUNCHES / ATTENTION_BWD_WMMA_LAUNCHES.
     A CPU q runs `attention_bwd_plain` and counts nothing."""
     global ATTENTION_BWD_WGMMA_LAUNCHES, ATTENTION_BWD_WMMA_LAUNCHES
     if not q.is_cuda:
@@ -798,8 +818,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.T
             or rq == 0 or rk == 0):
         raise ValueError("attention_bwd: shape mismatch")
     nq, nkv = rq // n_items, rk // n_items
-    chosen = _choose_route(route, attention_route([q, k, v, du], [dq, dq_b, dkv, dkv_b]),
-                           "attention_bwd")
+    chosen = _attention_chosen(route, attention_route([q, k, v, du]), d, "attention_bwd")
     args = (q.data_ptr(), ldq, k.data_ptr(), v.data_ptr(), ldk, du.data_ptr(), lddu,
             _vec(ddn, "attention_bwd.ddn", rq), _vec(m, "attention_bwd.m", rq),
             dq.data_ptr(), lddq, dq_b.data_ptr(), lddqb, dkv.data_ptr(), lddkv,

@@ -15,8 +15,9 @@ once to q's dtype.
   The CPU tests hold it against the plain version and the Pallas kernel.
 * `fused_attention_core` is a `torch.autograd.Function`. Its forward runs
   the plain version on CPU tensors and launches `csrc/attention_core.cu` on
-  CUDA tensors (bf16, D in `_build.ATTENTION_DS` = 32, 64 or 128, operands
-  TMA can read; anything else raises). Its backward is the
+  CUDA tensors (bf16, 1 <= D <= `_build.ATTENTION_MAX_D` = 512; an operand
+  TMA cannot read, a base off 16-byte alignment or rows not of whole 16
+  bytes, is first copied into rows it can; anything else raises). Its backward is the
   JAX package's `_bwd` as written: s and p recomputed in f32 with plain
   products, then dv, dp, ds, dq and dk, returned in the inputs' dtypes. The
   JAX package computes that backward outside any Pallas kernel, so plain
@@ -62,14 +63,24 @@ def fused_attention_core_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out.to(q.dtype)
 
 
+def _rows16(t: torch.Tensor) -> torch.Tensor:
+    """A (rows, D) matrix as the kernel's TMA reads it: t itself where its
+    base is 16-byte aligned and its rows whole 16 bytes, else a copy into
+    rows padded to 8 elements (v = kv[..., D:] at D no multiple of 8)."""
+    if t.stride(-1) == 1 and _build.attention_readable(t):
+        return t
+    rows, d = t.shape
+    return torch.empty(rows, -(-d // 8) * 8, dtype=t.dtype, device=t.device)[:, :d].copy_(t)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """attention_core.cu on CUDA tensors; raises on what the kernel does not take."""
     global FUSED_ATTENTION_CORE_LAUNCHES
     b, nq, d = q.shape
     nkv = k.shape[1]
-    if d not in _build.ATTENTION_DS or k.shape[-1] != d or v.shape[-1] != d:
-        raise ValueError(f"fused_attention_core: the CUDA kernel takes D in "
-                         f"{_build.ATTENTION_DS}, got q "
+    if not 1 <= d <= _build.ATTENTION_MAX_D or k.shape[-1] != d or v.shape[-1] != d:
+        raise ValueError(f"fused_attention_core: the CUDA kernel takes D in [1, "
+                         f"{_build.ATTENTION_MAX_D}], got q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError(f"fused_attention_core: the CUDA kernel takes bf16, got "
@@ -78,8 +89,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
         raise ValueError(f"fused_attention_core: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     out = torch.empty(b * nq, d, dtype=q.dtype, device=q.device)
-    _build.attention_core(q.reshape(b * nq, d), k.reshape(b * nkv, d), v.reshape(b * nkv, d),
-                          out, n_items=b, scale=scale)
+    _build.attention_core(_rows16(q.reshape(b * nq, d)), _rows16(k.reshape(b * nkv, d)),
+                          _rows16(v.reshape(b * nkv, d)), out, n_items=b, scale=scale)
     FUSED_ATTENTION_CORE_LAUNCHES += 1
     return out.reshape(b, nq, d)
 
@@ -116,8 +127,9 @@ def fused_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B, Nq, D), k and v (B, Nkv, D) (k and v may be column slices of one
     [k | v] tensor). A CPU tensor runs `fused_attention_core_plain`; a CUDA
-    tensor launches attention_core (bf16, D = 32, 64 or 128), one block per
-    64 query rows of an item: q k^T on wgmma, p in f32 split into three bf16 terms
+    tensor launches attention_core (bf16, 1 <= D <= 512), one block per 64
+    query rows of an item (and per 128 output columns past D = 128): q k^T
+    on wgmma, p in f32 split into three bf16 terms
     whose PV products run on wgmma into one f32 sum, so p keeps about 24
     bits where flash attention's bf16 p keeps 8.
 

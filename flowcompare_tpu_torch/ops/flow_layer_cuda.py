@@ -534,6 +534,29 @@ def bf16_rows(rows: int, cols: int, device) -> torch.Tensor:
     return torch.empty(rows, _round8(cols), dtype=torch.bfloat16, device=device)[:, :cols]
 
 
+def kv_layout(d: int) -> tuple:
+    """(v0, width) of the rows ctx @ wkv writes for a head of width d: k in
+    columns [0, d), zeros in [d, v0), v in [v0, v0 + d), with v0 = d rounded
+    up to a multiple of 8 so that v starts 16-byte aligned and the attention
+    kernels' TMA reads it at every d (`kv_weights` places wkv's columns to
+    match). At a d that is a multiple of 8 the rows are [k | v]."""
+    v0 = _round8(d)
+    return v0, v0 + d
+
+
+def kv_weights(wkv: torch.Tensor) -> torch.Tensor:
+    """wkv (..., E, 2 d) as bf16 columns in `kv_layout`: [wk | 0 | wv], its
+    rows padded by `_pad_cols`."""
+    d = wkv.shape[-1] // 2
+    v0, width = kv_layout(d)
+    w = wkv.to(torch.bfloat16)
+    if v0 != d:
+        gap = torch.zeros(*w.shape[:-1], width, dtype=w.dtype, device=w.device)
+        gap[..., :d], gap[..., v0:] = w[..., :d], w[..., d:]
+        w = gap
+    return _pad_cols(w)
+
+
 def _bf16_stack(pairs):
     """Stacked (w, b) layers as bf16 weights (L, in, out), their rows padded
     by `_pad_cols`, and contiguous f32 biases (L, out), converted once per
@@ -723,10 +746,11 @@ class _CouplingChain:
             self.h = [bf16_rows(rows, max(w.shape[-1] for w, _ in self.cpl_rest), dev)
                       for _ in range(3)]
         if self.has_attn:
-            self.wkv = _pad_cols(folded["wkv"].to(bf))
+            self.wkv = kv_weights(folded["wkv"])
             self.ctx2 = _pad_cols(context.reshape(b * nc, e_dim).to(bf))
             self.q = bf16_rows(rows, self.cw, dev)
-            self.kv = bf16_rows(b * nc, 2 * self.cw, dev)
+            self.v0, kv_width = kv_layout(self.cw)
+            self.kv = bf16_rows(b * nc, kv_width, dev)
             wq = _pad_cols(folded["wq_f"].to(bf))
             bq = folded["bq_f"].float().reshape(n_layers, -1).contiguous()
             self.cond_stack = _build.FusedStack(_bf16_stack(folded["pre"]) + [(wq, bq)],
@@ -755,7 +779,7 @@ class _CouplingChain:
         d = self.cw
         _build.conditioner(self.xin, self.split, self.cond_stack, l, self.q)
         _build.gemm(self.ctx2, self.wkv[l], self.kv)
-        _build.cross_attention(self.q, self.kv[:, :d], self.kv[:, d:],
+        _build.cross_attention(self.q, self.kv[:, :d], self.kv[:, self.v0:self.v0 + d],
                                self.xin[:, self.xc:self.xc + d], n_items=self.items)
 
 
@@ -916,7 +940,7 @@ class AugmenterWeights:
         bq = folded["bq_f"].float().reshape(1, -1).contiguous()
         self.cond_stack = _build.FusedStack(_bf16_stack(folded["pre"]) + [(wq, bq)],
                                             len(folded["pre"]))
-        self.wkv = _pad_cols(folded["wkv"].to(bf))
+        self.wkv = kv_weights(folded["wkv"])
         w_in = _pad_cols(packed_input_weights(folded["cpl_in_xe"].to(bf), folded["cpl_in_c"]))
         b_in = folded["cpl_in_b"].float().reshape(1, -1).contiguous()
         rest = folded["cpl_rest"]
@@ -1008,14 +1032,15 @@ def _augmenter_chain(x, eps, context, extra, w: AugmenterWeights):
         ctx2 = _pad_cols(ctx2.to(bf))
     xin = torch.empty(rows, w.width, dtype=bf, device=dev)
     q = bf16_rows(rows, d, dev)
-    kv = bf16_rows(b * nc, 2 * d, dev)
+    v0, kv_width = kv_layout(d)
+    kv = bf16_rows(b * nc, kv_width, dev)
     z = torch.empty(rows, in_dim + aug, dtype=torch.float32, device=dev)
     ldj = torch.empty(rows, dtype=torch.float32, device=dev)
     sources = [x.float()] + ([extra.float()] if extra is not None else [])
     _build.pack_rows(xin[:, :w.xc], *sources)
     _build.conditioner(xin, in_dim, w.cond_stack, 0, q)
     _build.gemm(ctx2, w.wkv[0], kv)
-    _build.cross_attention(q, kv[:, :d], kv[:, d:], xin[:, w.xc:w.xc + d], n_items=b)
+    _build.cross_attention(q, kv[:, :d], kv[:, v0:v0 + d], xin[:, w.xc:w.xc + d], n_items=b)
     _build.augment_net(xin, w.net_stack, x.reshape(rows, in_dim).float(),
                        eps.reshape(rows, aug).float(), z, ldj)
     return z.reshape(b, n, in_dim + aug), ldj.reshape(b, n)

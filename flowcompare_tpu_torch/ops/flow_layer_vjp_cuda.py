@@ -351,6 +351,7 @@ class _AttnBwd:
         self.wq = flc._pad_cols(folded["wq_f"].to(bf))
         self.bq = folded["bq_f"].float().reshape(n_layers, -1).contiguous()
         self.wkv = flc._pad_cols(folded["wkv"].to(bf))
+        self.wkv_kv = flc.kv_weights(folded["wkv"])
         self.d = d = self.wq.shape[-1]
         self.ctx2 = flc._pad_cols(context.reshape(b * nc, e_dim).to(bf))
         self.pre_w = [w.shape[-1] for w, _ in self.pre]
@@ -363,7 +364,8 @@ class _AttnBwd:
         def bfm(c):
             return flc.bf16_rows(rows, c, dev)
 
-        self.kv = flc.bf16_rows(b * nc, 2 * d, dev)
+        self.v0, kv_width = flc.kv_layout(d)
+        self.kv = flc.bf16_rows(b * nc, kv_width, dev)
         self.pre_p, self.pre_h = [f32m(c) for c in self.pre_w[:-1]], [bfm(c) for c in self.pre_w[:-1]]
         self.q_in, self.qn, self.q = f32m(a_dim), bfm(a_dim), bfm(d)
         self.m_row = torch.empty(rows, dtype=f32, device=dev)
@@ -388,9 +390,10 @@ class _AttnBwd:
                             self.q_in)
         _build.row_norm(self.q_in, self.qn)
         _build.gemm(self.qn, self.wq[l], self.q, bias=self.bq[l])
-        _build.gemm(self.ctx2, self.wkv[l], self.kv)
-        _build.cross_attention(self.q, self.kv[:, :d], self.kv[:, d:], xin[:, xc:xc + d],
-                               n_items=self.items, m_out=self.m_row, den_out=self.den)
+        _build.gemm(self.ctx2, self.wkv_kv[l], self.kv)
+        _build.cross_attention(self.q, self.kv[:, :d], self.kv[:, self.v0:self.v0 + d],
+                               xin[:, xc:xc + d], n_items=self.items, m_out=self.m_row,
+                               den_out=self.den)
 
     def backward(self, l: int, xin, split: int, xc: int, dctx, g_next, grads, ws) -> None:
         """From self.da, the gradient of the attention columns xin[:, xc:xc+d]."""
@@ -400,8 +403,8 @@ class _AttnBwd:
         pre_gb = [grads[f"pre_b{i}"][l].view(-1) for i in range(len(self.pre))]
         # 4. the cross attention and the kv projection
         _build.attn_bwd_prep(self.da, xin[:, xc:xc + d], self.den, self.du, self.ddn)
-        _build.attention_bwd(self.q, self.kv[:, :d], self.kv[:, d:], self.du, self.ddn,
-                             self.m_row, self.dq, self.dq_b, self.dkv, self.dkv_b,
+        _build.attention_bwd(self.q, self.kv[:, :d], self.kv[:, self.v0:self.v0 + d], self.du,
+                             self.ddn, self.m_row, self.dq, self.dq_b, self.dkv, self.dkv_b,
                              n_items=self.items)
         _build.gemm_tn(self.ctx2, self.dkv_b, grads["wkv"][l], ws["tn"])
         _build.gemm(self.dkv_b, self.wkv[l], dctx, trans_b=True, accumulate=True)
@@ -702,8 +705,10 @@ def _bwd_fused(saves, dz, dldj, context, extra, folded, eps_affine, ops=None):
             transposed(folded["pre"][0][0]), pre_pre[-1], pre_pre[:-1], pdp_b[-1], pdp_b[:-1],
             scratch, rows)
         wkv = flc._pad_cols(folded["wkv"].to(bf))
+        wkv_kv = flc.kv_weights(folded["wkv"])     # ctx @ wkv in kv_layout's columns
         ctx2 = flc._pad_cols(context.reshape(b * nc, e_dim).to(bf))
-        q, kv = bfm(d), flc.bf16_rows(b * nc, 2 * d, dev)
+        v0, kv_width = flc.kv_layout(d)
+        q, kv = bfm(d), flc.bf16_rows(b * nc, kv_width, dev)
         m_row, den, ddn = (torch.empty(rows, dtype=f32, device=dev) for _ in range(3))
         da, du, dq, dq_b = f32m(d), bfm(d), f32m(d), bfm(d)
         dkv = torch.empty(b * nc, 2 * d, dtype=f32, device=dev)
@@ -731,9 +736,9 @@ def _bwd_fused(saves, dz, dldj, context, extra, folded, eps_affine, ops=None):
         # 1. the recompute of layer l at its bf16 entry carry
         if has_attn:
             ops.conditioner_record(xin, split, cond_fwd, l, q, cond_rec, xs, ln_rstd)
-            ops.gemm(ctx2, wkv[l], kv)
-            ops.cross_attention(q, kv[:, :d], kv[:, d:], xin[:, xc:xc + d], n_items=b,
-                                   m_out=m_row, den_out=den)
+            ops.gemm(ctx2, wkv_kv[l], kv)
+            ops.cross_attention(q, kv[:, :d], kv[:, v0:v0 + d], xin[:, xc:xc + d], n_items=b,
+                                m_out=m_row, den_out=den)
             ops.coupling_record(xin, split, cpl_fwd, l, cpl_rec)
         else:
             ops.coupling_record(xin, split, cpl_fwd, l, cpl_rec, x1_src=xs)
@@ -744,8 +749,8 @@ def _bwd_fused(saves, dz, dldj, context, extra, folded, eps_affine, ops=None):
         if has_attn:
             # 3.-4. the cross attention, the kv projection, the conditioner
             ops.attn_bwd_prep(da, xin[:, xc:xc + d], den, du, ddn)
-            ops.attention_bwd(q, kv[:, :d], kv[:, d:], du, ddn, m_row, dq, dq_b, dkv, dkv_b,
-                                 n_items=b)
+            ops.attention_bwd(q, kv[:, :d], kv[:, v0:v0 + d], du, ddn, m_row, dq, dq_b, dkv,
+                              dkv_b, n_items=b)
             ops.gemm(dkv_b, wkv[l], dctx, trans_b=True, accumulate=True)
             ops.conditioner_bwd(cond_bwd, l, dq, dq_sums, g_next, ln_rstd, split=split)
         # 5. the weight and bias gradients of layer l

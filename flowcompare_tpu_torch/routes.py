@@ -2,8 +2,9 @@
 shapes alone.
 
 The kernels carry fixed limits (ROADMAP queue B): the cross attention of B1,
-B2, B5 and B7 takes the head widths D = heads * dim_head in ATTENTION_DS
-(32, 64 and 128, one kernel instance each); the fused layer kernels take
+B2, B5 and B7 takes every head width 1 <= D = heads * dim_head <=
+ATTENTION_MAX_D (512; one kernel instance a tile of 32, 64, 128, 256 or 512
+columns, the smallest that holds D); the fused layer kernels take
 widths up to 1,024 (the LayerNorm's row and the latent up to 512) and 3 to
 10 products a launch; B3 and B6 take k <= min(n, 256) neighbours of at most
 256 channels (B6 keeps a neighbour's slot in a byte; past k = 64 the
@@ -40,7 +41,7 @@ from __future__ import annotations
 
 from .encoders.dgcnn import _EDGE_DIMS
 from .encoders.paconv import NSAMPLE, SA_MLPS
-from .ops._build import ATTENTION_DS, KNN_MAX_K, SMEM_LIMIT
+from .ops._build import ATTENTION_MAX_D, KNN_MAX_K, SMEM_LIMIT
 from .ops.dgcnn_cuda import dgcnn_tail_plan
 from .ops.edgeconv_cuda import knn_smem_bytes
 from .ops.flow_layer_cuda import (FUSED_LIMITS_TEXT, augment_net_plan, fused_route,
@@ -95,10 +96,9 @@ def stack_shapes(c: dict) -> dict:
 
 def _attention_reason(c: dict) -> str:
     d = _head_width(c)
-    if d not in ATTENTION_DS:
-        widths = ", ".join(map(str, ATTENTION_DS))
+    if not 1 <= d <= ATTENTION_MAX_D:
         return (f"plain: attention head width {c['cross_heads']} x {c['cross_dim_head']} = {d} "
-                f"(the cross-attention kernels take {widths})")
+                f"(the cross-attention kernels take 1 <= D <= {ATTENTION_MAX_D})")
     return ""
 
 

@@ -53,11 +53,15 @@ def _within_bf16_ulps(got, ref, ulps=1):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 16, 32, 128])
+@pytest.mark.parametrize("d", [64, 16, 32, 128, 20, 256, 512])
 def test_fused_attention_core_plain_matches_pallas_interpret(interpret, d, dtype):
+    """Past D = 128 at the model's temperature, D^-0.5 (apply_cross_attention's
+    inner_dim^-0.5): 64^-0.5 there would spread the scores sqrt(D / 64)
+    times as wide as the tolerance below was set for."""
     (jq, jk, jv), (q, k, v) = _qkv(0, d, dtype)
-    ref = n(attention_pallas.fused_attention_core(jq, jk, jv, SCALE))
-    got = attention_cuda.fused_attention_core(q, k, v, SCALE)
+    scale = SCALE if d <= 128 else d ** -0.5
+    ref = n(attention_pallas.fused_attention_core(jq, jk, jv, scale))
+    got = attention_cuda.fused_attention_core(q, k, v, scale)
     assert got.dtype == q.dtype and got.shape == (2, 70, d)
     if dtype == "float32":
         # the same three f32 steps: exp and summation order only

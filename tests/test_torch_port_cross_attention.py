@@ -9,8 +9,10 @@ backward from du = da / den and ddn (`attn_bwd_prep_plain`), dv = bf16(e)^T
 du, dS = bf16(e (du v^T + ddn)), dq = dS k, dk = dS^T q, in f32 and bf16.
 Here they are held against the JAX package on the same numpy inputs at
 ragged shapes (3 items of 70 queries against 90 or 34 keys, so no size is a
-multiple of a 64-row tile) and at each head width the kernels take (D = 32,
-64 and 128, `_build.ATTENTION_DS`): the forward against max-subtracted softmax
+multiple of a 64-row tile) and at head widths across the kernels' range
+(1 <= D <= 512: D = 8, 20, 32, 64, 96, 128, 256 and 512, so every tile width
+and widths between them, v = kv[:, D:] off 16-byte alignment at D = 20):
+the forward against max-subtracted softmax
 attention in jnp and the package's own `_attn_core` (the B5 kernel's
 attention, flow_layer_vjp_pallas.py); the backward against `jax.vjp` of the
 f32 function and of `_attn_core`. Tolerances: the operands are bf16 and e
@@ -18,8 +20,8 @@ is rounded to bf16 for its products, so outputs agree to 1e-2 relative
 (one bf16 rounding) and gradients to a cosine >= 0.9999 with a max error
 <= 1e-2 of max |ref|. The wrappers run these plain versions on CPU tensors
 without counting a launch; the route rule is a function of pointers and
-strides alone. tests/test_torch_port_cuda.py holds the kernels against the
-plain versions on the card.
+strides of the operands read alone. tests/test_torch_port_cuda.py holds the
+kernels against the plain versions on the card.
 """
 
 import numpy as np
@@ -31,11 +33,13 @@ import jax.numpy as jnp
 
 from flowcompare_tpu.ops.flow_layer_vjp_pallas import _attn_core
 from flowcompare_tpu_torch.ops import _build
+from flowcompare_tpu_torch.ops import flow_layer_cuda as flc
 
 torch.set_num_threads(2)
 # (items, queries, keys, head width D); the D = 64 cases keep their ids
+HEAD_WIDTHS = (8, 20, 32, 64, 96, 128, 256, 512)
 SHAPES = [pytest.param(3, 70, nkv, d, id=f"3-70-{nkv}" + ("" if d == 64 else f"-d{d}"))
-          for d in _build.ATTENTION_DS for nkv in (90, 34)]
+          for d in HEAD_WIDTHS for nkv in (90, 34)]
 
 
 def _inputs(items, nq, nkv, seed, d=64):
@@ -146,29 +150,34 @@ def _view(cols, offset, width=64):
     return torch.empty(100, cols, dtype=torch.bfloat16)[:, offset:offset + width]
 
 
-@pytest.mark.parametrize("q_view,kv_cols,out_view,route", [
-    ((64, 0), 128, (216, 152), "wgmma"),     # the chains' q, kv halves and xin columns
-    ((64, 0), 128, (276, 208), "wgmma"),
-    ((72, 1), 128, (216, 152), "wmma"),      # q 2 bytes off a 16-byte boundary
-    ((64, 0), 130, (216, 152), "wmma"),      # k and v rows of 260 bytes
-    ((64, 0), 128, (215, 152), "wmma"),      # out rows of an odd stride: no bf16 pairs
+@pytest.mark.parametrize("q_view,kv_cols,route", [
+    ((64, 0), 128, "wgmma"),     # the chains' q and kv halves
+    ((136, 8), 128, "wgmma"),
+    ((72, 1), 128, "wmma"),      # q 2 bytes off a 16-byte boundary
+    ((64, 0), 130, "wmma"),      # k and v rows of 260 bytes
+    ((65, 1), 128, "wmma"),      # q rows of 130 bytes
 ])
-def test_attention_route_is_decided_by_alignment_alone(q_view, kv_cols, out_view, route):
+def test_attention_route_is_decided_by_alignment_alone(q_view, kv_cols, route):
+    """The route reads the operands' bases and row strides alone: TMA reads
+    16-byte-aligned bases and rows of whole 16 bytes. Outputs take no part:
+    the kernels write rows that cannot take pairs an element at a time."""
     q = _view(*q_view)
     kv = torch.empty(100, kv_cols, dtype=torch.bfloat16)
     k, v = kv[:, :64], kv[:, 64:128]
-    out = _view(*out_view)
-    assert _build.attention_route([q, k, v], [out]) == route
+    assert _build.attention_route([q, k, v]) == route
 
 
-@pytest.mark.parametrize("d", _build.ATTENTION_DS)
+@pytest.mark.parametrize("d", HEAD_WIDTHS)
 def test_attention_route_at_each_head_width(d):
     """The chains' layout at each head width takes the wgmma route: q in rows
-    of whole 16 bytes, k and v the halves of one (rows, 2 D) matrix (v 2 D
-    bytes in), out the D columns at an 8-aligned offset of the packed rows;
-    out one element off that offset takes the WMMA route."""
-    q = torch.empty(100, d, dtype=torch.bfloat16)
-    kv = torch.empty(100, 2 * d, dtype=torch.bfloat16)
-    rows = torch.empty(100, d + 160, dtype=torch.bfloat16)
-    assert _build.attention_route([q, kv[:, :d], kv[:, d:]], [rows[:, 152:152 + d]]) == "wgmma"
-    assert _build.attention_route([q, kv[:, :d], kv[:, d:]], [rows[:, 153:153 + d]]) == "wmma"
+    padded to whole 16 bytes (`bf16_rows`), k and v in rows [k | 0 | v]
+    with v at D rounded up to a multiple of 8 (`kv_layout`); v as the
+    second half of a (rows, 2 D) matrix takes the WMMA route unless D is a
+    multiple of 8 (its base 2 D bytes in)."""
+    q = flc.bf16_rows(100, d, "cpu")
+    v0, width = flc.kv_layout(d)
+    kv = flc.bf16_rows(100, width, "cpu")
+    assert _build.attention_route([q, kv[:, :d], kv[:, v0:v0 + d]]) == "wgmma"
+    halves = flc.bf16_rows(100, 2 * d, "cpu")
+    assert _build.attention_route([q, halves[:, :d], halves[:, d:]]) == (
+        "wgmma" if d % 8 == 0 else "wmma")

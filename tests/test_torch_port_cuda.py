@@ -24,7 +24,7 @@ import torch.nn.functional as F
 import flowcompare_tpu_torch as ft
 from flowcompare_tpu_torch.core.mlp import cast_tree
 from flowcompare_tpu_torch.ops import _build, dgcnn_cuda, edgeconv_cuda, flow_layer_cuda as flc
-from torch_port_widths import preset_config
+from torch_port_widths import ATTENTION_SWEEP, preset_config
 
 torch.set_num_threads(2)
 N_POINTS, N_CONTEXT, K = 64, 80, 8
@@ -106,21 +106,25 @@ def test_gemm_bf16_matches_plain(dev, m, k, n, epi):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", _build.ATTENTION_DS)
+@pytest.mark.parametrize("d", ATTENTION_SWEEP)
 def test_cross_attention_matches_plain(dev, d):
-    """At each head width, into a column slice of wider packed rows as the
-    chains write it: the D columns within one bf16 rounding of the plain
-    math, the NaN columns on either side untouched."""
+    """At each head width, from q and kv laid out as the chains lay them out
+    (rows of whole 16 bytes, kv as [k | 0 | v], `flc.kv_layout`) into a
+    column slice of wider packed rows as the chains write it: the D columns
+    within one bf16 rounding of the plain math, the NaN columns on either
+    side untouched."""
     g = torch.Generator().manual_seed(1)
-    q = rand(g, 3 * 70, d, device=dev).bfloat16()
-    kv = rand(g, 3 * 90, 2 * d, device=dev).bfloat16()
+    q = flc.bf16_rows(3 * 70, d, dev).copy_(rand(g, 3 * 70, d, device=dev))
+    v0, width = flc.kv_layout(d)
+    kv = flc.bf16_rows(3 * 90, width, dev).copy_(rand(g, 3 * 90, width, device=dev))
+    k, v = kv[:, :d], kv[:, v0:v0 + d]
     rows = torch.full((3 * 70, d + 72), float("nan"), device=dev, dtype=torch.bfloat16)
     out = rows[:, 8:8 + d]
-    _build.cross_attention(q, kv[:, :d], kv[:, d:], out, n_items=3)
+    _build.cross_attention(q, k, v, out, n_items=3)
     torch.cuda.synchronize()
-    s = q.float().view(3, 70, d) @ kv[:, :d].float().view(3, 90, d).transpose(1, 2)
+    s = q.float().view(3, 70, d) @ k.float().reshape(3, 90, d).transpose(1, 2)
     e = torch.exp(s - s.amax(-1, keepdim=True))
-    ref = (e.bfloat16().float() @ kv[:, d:].float().view(3, 90, d)) / e.sum(-1, keepdim=True)
+    ref = (e.bfloat16().float() @ v.float().reshape(3, 90, d)) / e.sum(-1, keepdim=True)
     torch.testing.assert_close(out.float().view(3, 70, d), ref.bfloat16().float(),
                                rtol=1e-2, atol=1e-2)
     assert bool(rows[:, :8].isnan().all() and rows[:, 8 + d:].isnan().all())
@@ -1128,7 +1132,7 @@ def _attention_ref(q, k, v, scale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", _build.ATTENTION_DS)
+@pytest.mark.parametrize("d", ATTENTION_SWEEP)
 @pytest.mark.parametrize("nq,nkv", [(70, 90), (1024, 1250), (64, 1), (1000, 1250), (1, 65)])
 def test_fused_attention_core_matches_plain(dev, nq, nkv, d):
     """B10 forward against its plain version at each head width, k and v as
@@ -1180,8 +1184,8 @@ def test_fused_attention_core_keeps_p_at_f32_precision(dev):
 @pytest.mark.cuda
 def test_fused_attention_core_backward_and_d_raises(dev):
     """B10's autograd backward (the JAX _bwd: an f32 recompute) against
-    autograd through the f32 softmax; a D outside ATTENTION_DS raises on
-    CUDA tensors."""
+    autograd through the f32 softmax; a D past ATTENTION_MAX_D (512) raises
+    on CUDA tensors."""
     from flowcompare_tpu_torch.ops import attention_cuda as ac
     g = torch.Generator().manual_seed(31)
     q, k, v = (rand(g, 2, n, 64, device=dev).bfloat16().requires_grad_() for n in (70, 90, 90))
@@ -1191,7 +1195,7 @@ def test_fused_attention_core_backward_and_d_raises(dev):
     for a, b in zip(got, ref):
         assert a.dtype == torch.bfloat16
         torch.testing.assert_close(a.float(), b.bfloat16().float(), rtol=1e-2, atol=1e-3)
-    for d in (48, 256):
+    for d in (513, 1024):
         qd = rand(g, 2, 70, d, device=dev).bfloat16()
         kd = rand(g, 2, 90, d, device=dev).bfloat16()
         with pytest.raises(ValueError, match="D in"):
@@ -1478,21 +1482,29 @@ ATTENTION_SHAPES = [(items, nq, nkv) for items in (1, 3, 20) for nq in (70, 4000
 
 def attention_inputs(dev, items, nq, nkv, seed, big_next=False, d=64):
     """q (items*nq, d) scaled as the folds scale it (1 / sqrt(d)), kv
-    (items*nkv, 2 d) bf16 with k and v its column halves; with big_next
+    (items*nkv, 2 d) bf16 with k and v its column halves, laid out as the
+    chains lay them out: q in rows of whole 16 bytes, kv as [k | 0 | v]
+    (`flc.kv_layout`: v at d rounded up to a multiple of 8); with big_next
     every item after the first holds large queries and keys, so a tile read
     across an item boundary shows in the first item's maximum and output.
     Their scores are about 1,150 x sqrt(64 / d) (the queries' offset 3 x
-    (64 / d)^1.5): a d-term f32 score rounds by about ulp(|s|) x sqrt(d),
-    so at every width as much as at d = 64, where the m and den bounds were
-    set."""
+    (64 / d)^1.5); their values keep a standard size, so one flipped bf16
+    rounding of e cannot move an output that cancels them by 1e-2. At such
+    scores the plain version's own f32 sums drift from the exact ones as d
+    grows (its den up to 1.7e-4 off float64 at d >= 256 on the H100, the
+    kernels' 2-6e-5): hold such inputs to `attention_forward_f64`."""
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(items * nq, d, generator=g) / d ** 0.5
     kv = torch.randn(items * nkv, 2 * d, generator=g)
     if big_next:
         q[nq:] = q[nq:] * 4 + 3 * (64 / d) ** 1.5
-        kv[nkv:] = kv[nkv:] * 4 + 6
-    q, kv = q.bfloat16().to(dev), kv.bfloat16().to(dev)
-    return q, kv, kv[:, :d], kv[:, d:]
+        kv[nkv:, :d] = kv[nkv:, :d] * 4 + 6
+    v0, width = flc.kv_layout(d)
+    q = flc.bf16_rows(items * nq, d, dev).copy_(q.bfloat16().to(dev))
+    laid = torch.zeros(items * nkv, width, dtype=torch.bfloat16)
+    laid[:, :d], laid[:, v0:] = kv[:, :d].bfloat16(), kv[:, d:].bfloat16()
+    kv = flc.bf16_rows(items * nkv, width, dev).copy_(laid.to(dev))
+    return q, kv, kv[:, :d], kv[:, v0:v0 + d]
 
 
 def attention_forward(fn, q, k, v, items, **kw):
@@ -1501,6 +1513,20 @@ def attention_forward(fn, q, k, v, items, **kw):
     den = torch.full_like(m, float("nan"))
     fn(q, k, v, out, n_items=items, m_out=m, den_out=den, **kw)
     return out, m, den
+
+
+def attention_forward_f64(q, k, v, items):
+    """`cross_attention_plain`'s contract evaluated in float64 from the same
+    bf16 operands: out = bf16((bf16(e) v) / den), e = exp(q k^T - m), m the
+    row maximum, den = sum(e), as `attention_forward` returns them."""
+    d = q.shape[1]
+    qf, kf, vf = (t.double().reshape(items, -1, d) for t in (q, k, v))
+    s = qf @ kf.transpose(1, 2)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    den = e.sum(-1, keepdim=True)
+    out = ((e.bfloat16().double() @ vf) / den).reshape(-1, d)
+    return out.bfloat16(), m.reshape(-1).float(), den.reshape(-1).float()
 
 
 def assert_attention_forward_close(got, ref):
@@ -1515,7 +1541,7 @@ def assert_attention_forward_close(got, ref):
 def attention_backward(fn, q, k, v, m, den, out, items, seed, **kw):
     g = torch.Generator().manual_seed(seed)
     da = torch.randn(q.shape, generator=g).to(q.device)
-    du = torch.empty(q.shape, device=q.device, dtype=torch.bfloat16)
+    du = flc.bf16_rows(*q.shape, q.device)
     ddn = torch.empty(q.shape[0], device=q.device)
     _build.attn_bwd_prep(da, out, den, du, ddn)
     nkv, d = k.shape
@@ -1540,7 +1566,7 @@ def assert_attention_backward_close(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", _build.ATTENTION_DS)
+@pytest.mark.parametrize("d", ATTENTION_SWEEP)
 @pytest.mark.parametrize("items,nq,nkv", ATTENTION_SHAPES)
 def test_cross_attention_wgmma_matches_plain(dev, items, nq, nkv, d):
     """The wgmma forward with m/den (B5's recompute) and without (B1, B2,
@@ -1559,7 +1585,7 @@ def test_cross_attention_wgmma_matches_plain(dev, items, nq, nkv, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", _build.ATTENTION_DS)
+@pytest.mark.parametrize("d", ATTENTION_SWEEP)
 @pytest.mark.parametrize("items,nq,nkv", ATTENTION_SHAPES)
 def test_attention_bwd_wgmma_matches_plain(dev, items, nq, nkv, d):
     """The wgmma backward (dq and [dk | dv] kernels) against the plain
@@ -1577,15 +1603,17 @@ def test_attention_bwd_wgmma_matches_plain(dev, items, nq, nkv, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", _build.ATTENTION_DS)
+@pytest.mark.parametrize("route,d", [(route, d) for d in ATTENTION_SWEEP for route in (
+    "wgmma", "wmma") if route == "wgmma" or d <= _build.ATTENTION_WMMA_MAX_D])
 @pytest.mark.parametrize("nq,nkv", [(70, 34), (70, 90), (100, 1250)])
-@pytest.mark.parametrize("route", ["wgmma", "wmma"])
 def test_attention_does_not_read_across_items(dev, nq, nkv, route, d):
     """Items after the first hold large queries and keys: a key tile or a
     query tile read past an item's last row would change the first item's
-    maximum, output and gradients. Both routes, each head width."""
+    maximum, output and gradients. Each head width of the sweep on the
+    wgmma route, and on the WMMA route up to ATTENTION_WMMA_MAX_D (128); the
+    forward held to its contract in float64 (`attention_inputs`)."""
     q, kv, k, v = attention_inputs(dev, 3, nq, nkv, seed=nq + nkv, big_next=True, d=d)
-    ref = attention_forward(_build.cross_attention_plain, q, k, v, 3)
+    ref = attention_forward_f64(q, k, v, 3)
     rb = attention_backward(_build.attention_bwd_plain, q, k, v, ref[1], ref[2], ref[0], 3, 2)
     got = attention_forward(_build.cross_attention, q, k, v, 3, route=route)
     assert_attention_forward_close(got, ref)
@@ -1621,11 +1649,11 @@ def test_attention_unaligned_view_takes_wmma_route(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 48, 256])
+@pytest.mark.parametrize("d", [513, 576, 1024])
 def test_attention_wrappers_refuse_other_widths(dev, d):
-    """A head width outside ATTENTION_DS raises ValueError in the forward,
-    the backward and B10 on CUDA tensors, on either route, and launches
-    nothing: no plain version stands in."""
+    """A head width past ATTENTION_MAX_D (512) raises ValueError in the
+    forward, the backward and B10 on CUDA tensors, on either route, and
+    launches nothing: no plain version stands in."""
     q, kv, k, v = attention_inputs(dev, 2, 70, 90, seed=8, d=d)
     counters = ("CROSS_ATTENTION_WGMMA_LAUNCHES", "CROSS_ATTENTION_WMMA_LAUNCHES",
                 "ATTENTION_BWD_WGMMA_LAUNCHES", "ATTENTION_BWD_WMMA_LAUNCHES")
@@ -1639,6 +1667,69 @@ def test_attention_wrappers_refuse_other_widths(dev, d):
     with pytest.raises(ValueError, match="head widths"):
         _build.attention_core(q, k, v, torch.empty_like(q), n_items=2, scale=1.0)
     assert [getattr(_build, c) for c in counters] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [129, 256, 512])
+def test_attention_wmma_route_refuses_past_128(dev, d):
+    """The WMMA kernels take D <= ATTENTION_WMMA_MAX_D (128): forcing them
+    at a wider head, or handing the wrappers a q whose rows TMA cannot read
+    there, raises ValueError and launches nothing."""
+    q, kv, k, v = attention_inputs(dev, 2, 70, 90, seed=10, d=d)
+    out, m, den = attention_forward(_build.cross_attention_plain, q, k, v, 2)
+    counters = ("CROSS_ATTENTION_WGMMA_LAUNCHES", "CROSS_ATTENTION_WMMA_LAUNCHES",
+                "ATTENTION_BWD_WGMMA_LAUNCHES", "ATTENTION_BWD_WMMA_LAUNCHES")
+    before = [getattr(_build, c) for c in counters]
+    base = torch.zeros(q.shape[0], d + 1, device=dev, dtype=torch.bfloat16)
+    base[:, :d] = q
+    for view, route in ((q, "wmma"), (base[:, :d], None)):
+        with pytest.raises(ValueError, match="WMMA route"):
+            attention_forward(_build.cross_attention, view, k, v, 2, route=route)
+        with pytest.raises(ValueError, match="WMMA route"):
+            attention_backward(_build.attention_bwd, view, k, v, m, den, out, 2, 9, route=route)
+    assert [getattr(_build, c) for c in counters] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [21, 64, 129, 447])
+def test_attention_outputs_at_any_alignment(dev, d):
+    """Outputs whose rows start an odd element in (or have an odd stride)
+    cannot be written in pairs: the wgmma kernels write them an element at a
+    time, within the same bounds, and touch no column outside them."""
+    q, kv, k, v = attention_inputs(dev, 3, 70, 90, seed=11 + d, d=d)
+    ref = attention_forward(_build.cross_attention_plain, q, k, v, 3)
+    rb = attention_backward(_build.attention_bwd_plain, q, k, v, ref[1], ref[2], ref[0], 3, 5)
+    rows_q, rows_k = q.shape[0], k.shape[0]
+
+    def nan_rows(rows, cols, dtype):
+        full = torch.full((rows, cols + 11), float("nan"), device=dev, dtype=dtype)
+        return full, full[:, 5:5 + cols]
+
+    before = _build.CROSS_ATTENTION_WGMMA_LAUNCHES, _build.ATTENTION_BWD_WGMMA_LAUNCHES
+    full_o, out = nan_rows(rows_q, d, torch.bfloat16)
+    m, den = torch.empty(rows_q, device=dev), torch.empty(rows_q, device=dev)
+    _build.cross_attention(q, k, v, out, n_items=3, m_out=m, den_out=den)
+    fulls, bufs = zip(*(nan_rows(r, c, dt) for r, c, dt in (
+        (rows_q, d, torch.float32), (rows_q, d, torch.bfloat16),
+        (rows_k, 2 * d, torch.float32), (rows_k, 2 * d, torch.bfloat16))))
+    _build.attention_bwd(q, k, v, *rb_inputs(q, ref, 5), *bufs, n_items=3)
+    torch.cuda.synchronize()
+    assert (_build.CROSS_ATTENTION_WGMMA_LAUNCHES - before[0],
+            _build.ATTENTION_BWD_WGMMA_LAUNCHES - before[1]) == (1, 1)
+    assert_attention_forward_close((out, m, den), ref)
+    assert_attention_backward_close(bufs, rb)
+    for full in (full_o, *fulls):
+        assert bool(full[:, :5].isnan().all() and full[:, -6:].isnan().all())
+
+
+def rb_inputs(q, ref, seed):
+    """du, ddn and m as `attention_backward` hands them to the kernels."""
+    g = torch.Generator().manual_seed(seed)
+    da = torch.randn(q.shape, generator=g).to(q.device)
+    du = flc.bf16_rows(*q.shape, q.device)
+    ddn = torch.empty(q.shape[0], device=q.device)
+    _build.attn_bwd_prep(da, ref[0], ref[2], du, ddn)
+    return du, ddn, ref[1]
 
 
 @pytest.mark.cuda
@@ -2298,7 +2389,7 @@ def test_fps_large_clouds_match_plain(dev, clouds, n, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("overrides,refused", [
-    ({"cross_heads": 4}, {"stack", "augmenter"}),             # D = 4 x 64 = 256
+    ({"cross_heads": 9}, {"stack", "augmenter"}),             # D = 9 x 64 = 576
     ({"hidden_dims": [1040, 1040, 1040]}, {"stack", "augmenter"}),
     ({"n_neighbors": 257, "n_samples_context": 260}, {"encoder"})])   # past B3 / B6's 256
 def test_refused_parts_run_plain_on_the_card(dev, overrides, refused):

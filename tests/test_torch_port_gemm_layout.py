@@ -229,15 +229,14 @@ class EmulatedLaunches:
         mean = x.mean(-1, keepdim=True)
         out.copy_((x - mean) * torch.rsqrt((x * x).mean(-1, keepdim=True) - mean * mean + eps))
 
-    def _attention_route(self, reads, writes):
+    def _attention_route(self, reads):
         """An attention launch's head width and the route its operands would
         take."""
-        self.attention_routes.append((reads[0].shape[1],
-                                      _build.attention_route(reads, writes)))
+        self.attention_routes.append((reads[0].shape[1], _build.attention_route(reads)))
 
     def cross_attention(self, q, k, v, out, *, n_items, m_out=None, den_out=None):
         self.attention.append("cross_attention")
-        self._attention_route([q, k, v], [out])
+        self._attention_route([q, k, v])
         _build.cross_attention_plain(q, k, v, out, n_items=n_items, m_out=m_out, den_out=den_out)
 
     @staticmethod
@@ -286,7 +285,7 @@ class EmulatedLaunches:
 
     def attention_bwd(self, q, k, v, du, ddn, m, dq, dq_b, dkv, dkv_b, *, n_items):
         self.attention.append("attention_bwd")
-        self._attention_route([q, k, v, du], [dq, dq_b, dkv, dkv_b])
+        self._attention_route([q, k, v, du])
         _build.attention_bwd_plain(q, k, v, du, ddn, m, dq, dq_b, dkv, dkv_b, n_items=n_items)
 
     @staticmethod
@@ -332,12 +331,14 @@ def test_chains_take_the_wgmma_route_at_the_shipped_widths(emulated, preset):
     _check_chains(emulated, preset)
 
 
-@pytest.mark.parametrize("overrides", [{"cross_dim_head": 32}, {"cross_heads": 2}],
-                         ids=["d32", "d128"])
+@pytest.mark.parametrize("overrides", [{"cross_dim_head": 32}, {"cross_heads": 2},
+                                       {"cross_dim_head": 20}, {"cross_heads": 8}],
+                         ids=["d32", "d128", "d20", "d512"])
 def test_chains_take_the_wgmma_route_at_each_head_width(emulated, overrides):
     """The checks of the shipped widths on dulcet-universe at the attention
-    head widths D = 32 and D = 128: the chains' q, kv halves and packed-row
-    columns at those widths give every attention launch the wgmma route."""
+    head widths D = 32, 128, 20 and 512: the chains' q, kv halves and
+    packed-row columns at those widths give every attention launch the
+    wgmma route (at D = 20, v = kv[:, 20:] is read at a column offset)."""
     _check_chains(emulated, "dulcet-universe", **overrides)
 
 
@@ -416,5 +417,5 @@ def _check_chains(emulated, preset, **overrides):
         assert float(((la.reshape(1, 32) - lr2).abs() / lr2.abs().clamp_min(1.0)).max()) <= 1e-4
     assert set(emulated.routes) == {"wgmma"}
     d = cfg["cross_heads"] * cfg["cross_dim_head"]
-    assert d in _build.ATTENTION_DS
+    assert 1 <= d <= _build.ATTENTION_MAX_D
     assert emulated.attention_routes and set(emulated.attention_routes) == {(d, "wgmma")}

@@ -1,11 +1,13 @@
 """Port parity at the attention kernels' other head widths, on the CPU.
 
-The cross attention of B1, B2, B5 and B7 takes the head widths D = heads x
-dim_head in `_build.ATTENTION_DS` (32, 64, 128). Held here, for the tiny
-bf16 dulcet-universe of tests/torch_port_fixtures.py at D = 32
-(cross_dim_head 32, the JAX demo's width) and D = 128 (cross_heads 2 x
+The cross attention of B1, B2, B5 and B7 takes every head width 1 <= D =
+heads x dim_head <= `_build.ATTENTION_MAX_D` (512). Held here, for the tiny
+bf16 dulcet-universe of tests/torch_port_fixtures.py at D = 20
+(cross_dim_head 20: v = kv[:, D:] starts off 16-byte alignment), D = 32
+(cross_dim_head 32, the JAX demo's width), D = 128 (cross_heads 2 x
 cross_dim_head 64; the reference's heads only widen the one attention
-stream): every part of `model.routes` reads "kernels", and on the same
+stream) and D = 256 (cross_heads 4 x 64, past the kernels' one-block
+tiles): every part of `model.routes` reads "kernels", and on the same
 weights (`load_jax_params`) and noise the port's kernel route (on CPU
 tensors the plain versions of B4, B2, B1, B5 and B7) agrees with the JAX
 package: `inner_loop` (log-probs rtol 2e-2 / atol 1.0 and nats within
@@ -38,7 +40,8 @@ from torch_port_fixtures import N_CONTEXT, N_POINTS, model_pair, n, normal, t, t
 torch.set_num_threads(2)
 
 # head width -> the tiny config's attention overrides
-WIDTHS = {32: {"cross_dim_head": 32}, 128: {"cross_heads": 2, "cross_dim_head": 64}}
+WIDTHS = {20: {"cross_dim_head": 20}, 32: {"cross_dim_head": 32},
+          128: {"cross_heads": 2, "cross_dim_head": 64}, 256: {"cross_heads": 4, "cross_dim_head": 64}}
 
 
 def _config(d: int):
@@ -67,7 +70,7 @@ def pair(request):
 
 def test_every_part_takes_the_kernels(pair):
     d, cfg, _, _, _, pm = pair
-    assert d in _build.ATTENTION_DS
+    assert 1 <= d <= _build.ATTENTION_MAX_D
     assert dict(pm.routes) == {"stack": "kernels", "augmenter": "kernels", "encoder": "kernels"}
     assert pm._kernel_route() and pm._kernel_route("augmenter")
 

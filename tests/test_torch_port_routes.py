@@ -38,7 +38,7 @@ torch.set_num_threads(2)
 
 PRESETS = ["dulcet-universe", "good-surf", "helpful-sponge", "summer-terrain", "swept-energy"]
 C1_CASES = {
-    "d256": ({"cross_heads": 4}, {"stack", "augmenter"}),
+    "d576": ({"cross_heads": 9}, {"stack", "augmenter"}),
     "mlp1040": ({"hidden_dims": [1040, 1040, 1040]}, {"stack", "augmenter"}),
     "k257": ({"n_neighbors": 257}, {"encoder"}),
 }
@@ -92,33 +92,35 @@ def test_widths_past_1024_read_plain_naming_the_limit():
     assert net["augmenter"].startswith("plain: ") and net["stack"] == "kernels"
 
 
-@pytest.mark.parametrize("heads,dim_head", [(1, 32), (1, 64), (2, 64)])
+@pytest.mark.parametrize("heads,dim_head", [(1, 32), (1, 64), (2, 64), (1, 8), (1, 20), (3, 32),
+                                            (4, 64), (8, 64), (1, 1), (1, 96), (1, 512)])
 def test_attention_head_widths_take_the_kernels(heads, dim_head):
-    """D = 32, 64 and 128 (`ATTENTION_DS`): the stack and the augmenter
-    read "kernels" on dulcet-universe under bf16."""
+    """Every D = heads x dim_head from 1 to `ATTENTION_MAX_D` (512): the
+    stack and the augmenter read "kernels" on dulcet-universe under bf16."""
     cfg = ft.get_config("dulcet-universe")
     cfg.update(compute_dtype="bfloat16", cross_heads=heads, cross_dim_head=dim_head)
-    assert heads * dim_head in routes.ATTENTION_DS
+    assert 1 <= heads * dim_head <= routes.ATTENTION_MAX_D
     assert routes.model_routes(cfg) == {p: "kernels" for p in ("stack", "augmenter", "encoder")}
 
 
-@pytest.mark.parametrize("heads,dim_head", [(1, 48), (4, 64)])
+@pytest.mark.parametrize("heads,dim_head", [(9, 64), (1, 520), (1, 513)])
 def test_other_head_widths_read_plain_naming_the_set(heads, dim_head):
-    """D = 48 and D = 256 send the stack and the augmenter to the plain
-    route with a reason that names the widths the kernels take; the
-    encoder stays on its kernels."""
+    """D = 576, 520 and 513, past `ATTENTION_MAX_D`, send the stack and the
+    augmenter to the plain route with a reason that names the widths the
+    kernels take; the encoder stays on its kernels."""
     cfg = ft.get_config("dulcet-universe")
     cfg.update(compute_dtype="bfloat16", cross_heads=heads, cross_dim_head=dim_head)
     got = routes.model_routes(cfg)
     assert got["encoder"] == "kernels"
     for part in ("stack", "augmenter"):
         assert got[part] == (f"plain: attention head width {heads} x {dim_head} = "
-                             f"{heads * dim_head} (the cross-attention kernels take 32, 64, 128)")
+                             f"{heads * dim_head} (the cross-attention kernels take 1 <= D <= "
+                             f"512)")
 
 
 def test_model_routes_are_read_only_and_the_gates():
     cfg = tiny_config("bfloat16")
-    cfg["cross_heads"] = 4                 # D = 4 x 64 = 256: no attention kernel
+    cfg["cross_heads"] = 9                 # D = 9 x 64 = 576: no attention kernel
     model = ft.FlowCompareModel(cfg, device="cpu")
     assert dict(model.routes) == routes.model_routes(model.config)
     with pytest.raises(TypeError):
@@ -136,8 +138,14 @@ def test_gate_limits_at_their_edges():
     selection on any cloud (its rows in shared memory up to 4,458 points,
     none past it); B8 on any cloud (the large clouds' kernel past 12,662
     points), so the PAConv presets on their kernels at 12,663, 16,384 and
-    65,536 points too."""
+    65,536 points too; the cross attention at head widths up to 512 (1 x
+    512 and 8 x 64 on the kernels, 1 x 513 plain)."""
     cfg = ft.get_config("dulcet-universe")
+    for heads, dim_head in ((1, 512), (8, 64)):
+        assert routes.model_routes({**cfg, "cross_heads": heads, "cross_dim_head": dim_head,
+                                    "compute_dtype": "bfloat16"})["stack"] == "kernels"
+    wide = routes.model_routes({**cfg, "cross_heads": 1, "cross_dim_head": 513})
+    assert wide["stack"].startswith("plain: ") and "512" in wide["stack"]
     for k in (64, 65, 128, 256):
         assert routes.model_routes({**cfg, "n_neighbors": k})["encoder"] == "kernels"
     assert routes.model_routes({**cfg, "n_neighbors": 257})["encoder"].startswith("plain: ")
@@ -203,7 +211,7 @@ def test_gate_shapes_are_the_folds_shapes(case):
                               extra_dim=cfg["extra_context_dim"])
     if model.routes["augmenter"] == "kernels":
         flc.AugmenterWeights(fold, input_dim=cfg["input_dim"])
-    elif cfg["cross_heads"] * cfg["cross_dim_head"] in routes.ATTENTION_DS:
+    elif cfg["cross_heads"] * cfg["cross_dim_head"] <= routes.ATTENTION_MAX_D:
         with pytest.raises(ValueError):
             flc.AugmenterWeights(fold, input_dim=cfg["input_dim"])
     dgcnn_cuda.EncoderWeights(params["embedder"], model.state.tree()["embedder"])

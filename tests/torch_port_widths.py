@@ -1,5 +1,6 @@
 """MLP widths past the presets', for the wide fused layer kernels (products
-past 512 columns), shared by the port's CPU and card tests. Imports no JAX.
+past 512 columns), and the attention head widths the kernels are held at,
+shared by the port's CPU and card tests. Imports no JAX.
 
 "w1024" is dulcet-universe at twice its MLP widths: the coupling MLPs, the
 augmenter's conditioner and net, and the embedder's head 1,024 wide, every
@@ -17,6 +18,12 @@ W1024 = {"hidden_dims": [1024] * 3, "net_augmenter_dist_hidden_dims": [1024] * 3
          "hidden_dims_embedder_out": [1024] * 6}
 PRE1024 = {"pre_attention_mlp_hidden_dims": [1024] * 3}
 WIDE_CONFIGS = {"w1024": W1024, "pre1024": PRE1024}
+
+# head widths D = heads x dim_head: every tile width of the attention
+# kernels (32, 64, 128, 256, 512) and widths between them, among them
+# widths that are no multiple of 8 (v = kv[:, D:] then starts off 16-byte
+# alignment) and odd ones (a row's last column stored alone)
+ATTENTION_SWEEP = (8, 20, 21, 32, 48, 64, 96, 128, 129, 192, 256, 384, 447, 512)
 
 
 def preset_config(preset: str) -> dict:
