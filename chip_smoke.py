@@ -219,11 +219,11 @@ Phases, each of which raises on failure (nothing is caught):
    checks at full width (`phase_sample_main`, `phase_train_check`: B7 and
    B5 with extra=None); each subcommand's wall seconds printed beside the
    card's name and power limit;
-22. routes from the shapes (`phase_c1`, after the variants): three bf16
+22. routes from the shapes (`phase_c1`, after the variants): four bf16
    dulcet-universe configs at 2 layers and full width that the kernels
    refuse part by part (D = 576, 9 heads of 64: the stack and the
-   augmenter; a 1,040-wide
-   coupling MLP: the stack and the augmenter; k = 257: the encoder), each
+   augmenter; a 2,056-wide coupling MLP: the stack and the augmenter; a
+   1,026-wide latent: the stack; k = 257: the encoder), each
    printing `model.routes`; log_prob, one train_step after the data init
    and make_sample of 1 x 4000 at B=2 on CUDA against plain=True (|d nats|
    <= 0.01), the refused parts' kernels never launched and the others'
@@ -238,7 +238,8 @@ Phases, each of which raises on failure (nothing is caught):
    by layer on the D = 64 run's checkpoint, kernels and plain;
 24. data parallelism (`phase_ddp`, after the demo): this script's
    `--ddp-worker` ranks under `python -m torch.distributed.run`, at
-   dulcet-universe's full width and depth and a global batch of 20: (a) a
+   dulcet-universe's full width, CUT_LAYERS (23) layers and a global batch
+   of 20: (a) a
    world-size-1 NCCL group, train(mesh=make_mesh(), max_steps=2) against
    train() from the same seed (losses, grad norms and weights within 1e-6;
    B5, B6 and B1 with saves launched under the mesh); (b) two gloo ranks on
@@ -255,7 +256,7 @@ Phases, each of which raises on failure (nothing is caught):
 25. the mesh's 'model' axis (`phase_model_axis`, after `phase_ddp`): this
    script's `--model-axis-worker` ranks under `python -m
    torch.distributed.run`, gloo ranks sharing the one card, at
-   dulcet-universe's full width and depth and a global batch of 20, the
+   dulcet-universe's full width, CUT_LAYERS layers and a global batch of 20, the
    wide weights and their Adam moments held as slices between steps and
    gathered for the kernels: (a) 1 x 2, each rank on all 20 rows, the data
    init and two train_steps against rank 0's one process (losses, grad
@@ -271,7 +272,7 @@ Phases, each of which raises on failure (nothing is caught):
    launched in each step;
 26. the attention kernels' other head widths (`phase_head_widths`, after
    the data phase, the dulcet-universe model freed first): dulcet-universe
-   in bf16 at full width and 115 layers at D = 32 (cross_dim_head 32),
+   in bf16 at full width and CUT_LAYERS layers at D = 32 (cross_dim_head 32),
    D = 128 (cross_heads 2 x 64), D = 256 (4 x 64) and D = 512 (8 x 64),
    every part of `model.routes` on its kernels (the attention's wide
    kernels past D = 128): the eval main path through evaluate_on_test (2 items of B=20)
@@ -287,8 +288,8 @@ Phases, each of which raises on failure (nothing is caught):
    8 x 16,384 points (the chunked walk) and B9's
    selection at 50 x 8,192 (the cloud from global memory) against their
    plain versions, index-equal on integer inputs; then dulcet-universe at
-   4,096 context points and good-surf at 8,192, bf16, full width, 115
-   layers, every part on its kernels: the eval main path (2 items of the
+   4,096 context points and good-surf at 8,192, bf16, full width,
+   CUT_LAYERS layers, every part on its kernels: the eval main path (2 items of the
    preset's B=20 / 25) against plain, eval timing, make_sample of 1 x 4000
    against plain, the training check at B=2, train(max_steps=4), B4 at 40
    x 4,096 against plain in 10 launches a call, B8 / B9 launches as on
@@ -308,10 +309,12 @@ Phases, each of which raises on failure (nothing is caught):
    these readings under "by_cloud", with the launches of dulcet's train and
    good-surf's eval at those sizes;
 29. the fused layer kernels past 512 columns (`phase_wide`, after the head
-   widths; the fused-layer and B5 phases add w1024's shapes): w1024,
-   dulcet-universe at twice its MLP widths (W1024: the coupling MLPs, the
-   augmenter's conditioner and net and the embedder's head 1,024 wide),
-   bf16, 115 layers, every part on its kernels: the eval main path (2
+   widths, run for w1024 and then w2048; the fused-layer and B5 phases add
+   their shapes): w1024, dulcet-universe at twice its MLP widths (W1024:
+   the coupling MLPs, the augmenter's conditioner and net and the
+   embedder's head 1,024 wide), and w2048 (W2048: those MLPs 2,048 wide,
+   the latent and the LayerNorm's row 1,024, held to FUSED_LIMITS_W2048 and
+   B5's w2048 bands), bf16, 115 layers, every part on its kernels: the eval main path (2
    items of B=20) against plain, eval timing with the plain route's inner
    loop, make_sample of 1 x 4000 against plain and its ms, the training
    check at B=2, train(max_steps=4) at B=20 or `fitting_batch`, the launch
@@ -323,7 +326,9 @@ Phases, each of which raises on failure (nothing is caught):
    line's conditioner (B2's, from this phase), coupling_layer,
    coupling_inverse, coupling_record, coupling_bwd, dgcnn_tail and
    augment_net entries carry the wide kernels' readings under "by_width",
-   with the launches of w1024's paths. w1024's conditioner pre-MLP stays
+   with the launches of w1024's paths, and under "2048" w2048's (its B1 and
+   B2 conditioners and B5's conditioner kinds on their wide kernels too, a
+   1,024-wide LayerNorm row). w1024's conditioner pre-MLP stays
    256 wide, so B1's conditioner and B5's conditioner_record and
    conditioner_bwd run their one-pass kernels there: their w1024 readings
    are under "one_pass_in_w1024" (tools/torch_b5_wide.py times B5's wide
@@ -354,8 +359,9 @@ their headline shapes;
 B1, B2, B4, B5 and B7 carry their helpful-sponge branch's check under
 "global", B10 its second shape; cross_attention, cross_attention_bwd and
 B10 list their head widths under "widths" and the readings at the widths
-other than 64 under "by_width"; the fused layer kernels their 1,024-wide readings under
-"by_width"), the nvidia-smi line and {"ok": true,
+other than 64 under "by_width"; the fused layer kernels their 1,024- and
+2,048-wide readings under "by_width", keyed "1024" and "2048"), the
+nvidia-smi line and {"ok": true,
 "device": {...}}.
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
@@ -381,6 +387,12 @@ GS_B = 25                         # good-surf's batch (its preset), for timing a
 TRAIN_CHECK_B = 2                 # the training check's batch; timing uses TIME_B
 SAMPLE_N = 4000                   # points of one sample, as the trainer and eval dumps take
 SAMPLE_STD = 0.6                  # the sampler's latent scale (make_sample's default)
+# The flow's depth in the phases that exercise something other than the
+# flow kernels at depth: the meshes, the head widths' attention and the
+# clouds past shared memory. Their kernels and checks do not depend on the
+# depth; at 115 layers they took about 480 s of an 1,142 s run (the limit
+# is 1,200). The main paths, w1024, w2048 and k128 keep 115.
+CUT_LAYERS = 23
 REPO = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 # H100 SXM dense bf16 tensor-core peak, f32 peak outside the tensor cores and
@@ -443,16 +455,24 @@ def perturb_identity_leaves(model, gen: torch.Generator) -> None:
 # dulcet-universe at twice its MLP widths: the coupling MLPs, the
 # augmenter's conditioner and net, and the embedder's head 1,024 wide (the
 # wide fused kernels: products past 512 columns), every other key the
-# preset's; "w1024" in the phases below. The tests' copy is
-# tests/torch_port_widths.py (this script runs without the tests).
+# preset's; "w1024" in the phases below. "w2048": those MLPs at four times
+# the preset's widths, the latent and the LayerNorm's row (attn_input_dim)
+# at 1,024 (cif_latent_dim follows the latent: no CIF blocks, as the
+# preset): products with K = 2,048 (the wide kernels' input in two halves),
+# row-wise epilogues over two passes, B2's output in four. The tests' copy
+# is tests/torch_port_widths.py (this script runs without the tests).
 W1024 = {"hidden_dims": [1024] * 3, "net_augmenter_dist_hidden_dims": [1024] * 3,
          "hidden_dims_embedder_out": [1024] * 6}
+W2048 = {"hidden_dims": [2048] * 3, "net_augmenter_dist_hidden_dims": [2048] * 3,
+         "hidden_dims_embedder_out": [2048] * 6, "latent_dim": 1024, "attn_input_dim": 1024,
+         "cif_latent_dim": 1024}
+WIDE_RUNS = {"w1024": W1024, "w2048": W2048}
 
 
 def smoke_config(ft, name: str) -> dict:
-    """A preset's config, or "w1024": dulcet-universe with W1024's widths."""
-    if name == "w1024":
-        return {**ft.get_config("dulcet-universe"), **W1024}
+    """A preset's config, or a WIDE_RUNS name: dulcet-universe at its widths."""
+    if name in WIDE_RUNS:
+        return {**ft.get_config("dulcet-universe"), **WIDE_RUNS[name]}
     return ft.get_config(name)
 
 
@@ -759,13 +779,15 @@ def phase_b4_b2_kernels(model, device, g) -> dict:
     net = lambda: _build.augment_net(xin, aw.net_stack, x2, eps2, z, ldj)  # noqa: E731
     net()
     torch.cuda.synchronize()
-    zr, lr = flc.augment_net_plain(xin, aw.net_stack.layer(0), x2, eps2)
+    zr, lr = flc.augment_net_plain(xin, aw.net_stack.layer(0), x2, eps2,
+                                   n_out=aw.net_stack.n_out)
     errz = float((z - zr).abs().max())
     rel = float(((ldj - lr).abs() / lr.abs().clamp_min(1.0)).max())
     out["augment_net"] = kernel_entry(
         "augment_net (B2's net and epilogue)", "flowcompare_tpu_torch/csrc/fused_layer.cu",
         "flowcompare_tpu/ops/flow_layer_pallas.py:1504", errz, device_ms(net),
-        time_ms(lambda: flc.augment_net_plain(xin, aw.net_stack.layer(0), x2, eps2), reps=2),
+        time_ms(lambda: flc.augment_net_plain(xin, aw.net_stack.layer(0), x2, eps2,
+                                              n_out=aw.net_stack.n_out), reps=2),
         sum(2 * rows * wt.shape[1] * wt.shape[2] for wt, _ in aw.net_stack.pairs),
         nbytes(xin[:, :aw.net_stack.in_cols], x2, eps2, z, ldj,
                [(wt[0, :, :wt.shape[2]], bt) for wt, bt in aw.net_stack.pairs]))
@@ -1899,7 +1921,11 @@ FUSED_CASES = (("dulcet-universe", 40960, "dulcet eval item, B=20 x 1024, both d
                                          "directions"),
                ("w1024", 40960, "w1024 eval item, B=20 x 1024, both directions (the wide "
                                 "coupling kernels)"),
-               ("w1024", 20480, "w1024 training step, B=20 x 1024"))
+               ("w1024", 20480, "w1024 training step, B=20 x 1024"),
+               ("w2048", 40960, "w2048 eval item, B=20 x 1024, both directions (K = 2,048 in "
+                                "two halves, the LayerNorm's row and the latent over two "
+                                "passes)"),
+               ("w2048", 20480, "w2048 training step, B=20 x 1024"))
 
 
 def _stack_ops(stack, rows: int, products: int) -> int:
@@ -1912,7 +1938,8 @@ def _fused_bytes(stack, rows: int, cols_in: int, cols_out: int, products: int) -
     return rows * (cols_in + cols_out) + weights
 
 
-def phase_fused_layers(ft, device) -> dict:
+def phase_fused_layers(ft, device,
+                       presets=("dulcet-universe", "helpful-sponge", "w1024", "w2048")) -> dict:
     """The fused layer kernels (csrc/fused_layer.cu) at the main path's
     shapes: dulcet-universe's eval item (40,960 rows), training step (20,480)
     and sample (4,000), and helpful-sponge's eval item (51,200, seven
@@ -1923,13 +1950,17 @@ def phase_fused_layers(ft, device) -> dict:
     durations from torch.profiler), the plain version's, the per-product
     route's, the bound, and launches per layer on both routes. Then the same
     at w1024's eval and training rows (its coupling products 1,024 wide: the
-    wide kernels), whose readings the entries carry under "by_width" (the
-    conditioner's, one-pass at w1024, under "one_pass_in_w1024")."""
+    wide kernels) and w2048's (products 2,048 wide, the LayerNorm's row and
+    the latent 1,024: every kind on its wide kernel, within FUSED_LIMITS
+    too), whose readings the entries carry under "by_width"
+    (the conditioner's, one-pass at w1024, under "one_pass_in_w1024";
+    w2048's B1 conditioner under "2048"). `presets` narrows the runs (the
+    entries need all four)."""
     from flowcompare_tpu_torch.ops import _build, flow_layer_cuda as flc
 
     bf = torch.bfloat16
     out, entries = {}, {}
-    for preset in ("dulcet-universe", "helpful-sponge", "w1024"):
+    for preset in presets:
         cfg = smoke_config(ft, preset)
         cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
         model = ft.FlowCompareModel(cfg, device=device,
@@ -2114,6 +2145,8 @@ def phase_fused_layers(ft, device) -> dict:
             del fwd, inv, pp
             torch.cuda.empty_cache()
         del model
+    if "dulcet-universe 40960" not in out:
+        return entries, out
     dulcet = out["dulcet-universe 40960"]
     for name, key, replaces in (("conditioner", "conditioner", "1018"),
                                 ("coupling_layer", "coupling_layer", "1018"),
@@ -2127,16 +2160,19 @@ def phase_fused_layers(ft, device) -> dict:
                          "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                          "bound_by": c["bound_by"], "library_ms": None,
                          "per_product_ms": c.get("per_product_ms")}
-        w1024 = {f"{rows} rows": {"shapes": f"w1024, {rows} rows", **{
-            k: out[f"w1024 {rows}"][key][k] for k in (
+        wide = {run: {f"{rows} rows": {"shapes": f"{run}, {rows} rows", **{
+            k: out[f"{run} {rows}"][key][k] for k in (
                 "max_abs_err", "device_ms", "plain_ms", "per_product_ms", "bound_ms",
                 "bound_by", "launches_per_layer")}} for rows in (40960, 20480)}
+            for run in ("w1024", "w2048")}
         if name == "conditioner":
             # B1's pre-MLP stays 256 wide in w1024: the one-pass kernel (main()
-            # puts B2's wide conditioner from phase_wide under by_width)
-            entries[name]["one_pass_in_w1024"] = w1024
+            # puts B2's wide conditioner from phase_wide under by_width);
+            # w2048's LayerNorm row of 1,024 takes the wide kernel
+            entries[name]["one_pass_in_w1024"] = wide["w1024"]
+            entries[name]["by_width"] = {"2048": wide["w2048"]}
         else:
-            entries[name]["by_width"] = {"1024": w1024}
+            entries[name]["by_width"] = {"1024": wide["w1024"], "2048": wide["w2048"]}
     return entries, out
 
 
@@ -2611,10 +2647,11 @@ def b5_stats(got, ref) -> dict:
     return stats
 
 
-def check_b5(what: str, got, ref) -> dict:
-    """b5_stats held to B5_LIMITS."""
+def check_b5(what: str, got, ref, limits: dict = None) -> dict:
+    """b5_stats held to `limits` (B5_LIMITS by default)."""
     stats = b5_stats(got, ref)
-    over = {name: {k: (s[k], v) for k, v in B5_LIMITS[name].items() if not s[k] <= v}
+    limits = limits or B5_LIMITS
+    over = {name: {k: (s[k], v) for k, v in limits[name].items() if not s[k] <= v}
             for name, s in stats.items()}
     over = {k: v for k, v in over.items() if v}
     assert not over, f"{what}: {over} over the limits ({stats})"
@@ -2636,21 +2673,43 @@ B5_PROBE_LIMITS = {"rows": {"share_over_one_ulp": 0.03, "max_over_scale": 0.02},
                    "grad_reduce": {"ulps_max": 0.05}}
 
 
-def check_b5_probes(what: str, probes: dict, attention: bool) -> None:
-    """_b5_probe's readings held to B5_PROBE_LIMITS; every kernel of the
-    branch checked."""
+def check_b5_probes(what: str, probes: dict, attention: bool, limits: dict = None) -> None:
+    """_b5_probe's readings held to `limits` (B5_PROBE_LIMITS by default);
+    every kernel of the branch checked."""
+    table = limits or B5_PROBE_LIMITS
     want = set(B5_KERNELS) - (set() if attention else {"conditioner_record",
                                                        "conditioner_bwd"})
     assert set(probes) == want, f"{what}: kernels checked {sorted(probes)}, not {sorted(want)}"
     over = {}
     for name, result in probes.items():
-        limits = B5_PROBE_LIMITS.get(name, B5_PROBE_LIMITS["rows"])
+        kernel_limits = table.get(name, table["rows"])
         for out, st in result["stats"].items():
-            bad = {k: (st[k], v) for k, v in limits.items() if not st[k] <= v}
+            bad = {k: (st[k], v) for k, v in kernel_limits.items() if not st[k] <= v}
             if bad:
                 over[f"{name} {out}"] = bad
-    assert not over, f"{what}: {over} over B5_PROBE_LIMITS"
+    assert not over, f"{what}: {over} over the probe limits"
 
+
+# w2048's bands (2,048-wide MLPs, a 1,024-wide latent and LayerNorm row),
+# read on an H100 80GB HBM3 at 700 W at phase_b5_fused's shapes (two
+# layers, 20 x 1024 rows; PERF.md §6): tools/torch_b5_faults.py --only w2048
+# as built, over a quarter / half an ulp, dx 3.96% / 2.36%, dctx 70.6% /
+# 50.5%, dextra 34.6% / 19.2%, the weights 81.1% / 65.3%, where
+# tools/torch_b5_wide.py read the per-product route they replaced at 3.98%
+# / 2.37%, 70.0% / 49.9%, 35.0% / 19.4%, 82.0% / 65.6% (the bands set at
+# 512 hold neither); with dp rounded to bf16, 11.6% / 7.8%, 80.2% / 63.9%,
+# 70.1% / 50.3%, 85.2% / 71.9%; with the carry gradient rounded to bf16,
+# 49.7% / 6.7% of dx. Each band lies between. The grouped weight
+# gradients' partials read 0.58 f32 ulp (0.513 at w1024) against plain: a
+# deeper sum's f32 rounding; a partial rounded to bf16 would read about
+# 2^15 ulps, so their band at 2,048 is one ulp. The presets' bands above
+# stay as they were.
+B5_LIMITS_W2048 = {"dx": {"share_over_quarter_ulp": 0.07, "share_over_half_ulp": 0.05},
+                   "dctx": {"share_over_quarter_ulp": 0.75, "share_over_half_ulp": 0.57},
+                   "dextra": {"share_over_quarter_ulp": 0.50, "share_over_half_ulp": 0.35},
+                   "weights": {"share_over_quarter_ulp": 0.835, "share_over_half_ulp": 0.69}}
+B5_PROBE_LIMITS_W2048 = {**B5_PROBE_LIMITS, "gemm_tn_grouped": {"ulps_max": 1.0}}
+B5_LIMITS_BY_RUN = {"w2048": (B5_LIMITS_W2048, B5_PROBE_LIMITS_W2048)}
 
 B5_KERNELS = ("conditioner_record", "coupling_record", "coupling_bwd", "conditioner_bwd",
               "gemm_tn_grouped", "grad_reduce")
@@ -2858,7 +2917,8 @@ def phase_b5_fused(ft, device, preset: str, batch: int, overrides: dict = None,
     phase_b5 and B5_LIMITS) and two calls bit-equal; the per-product chain
     (`_bwd_per_product`, the comparison route) timed beside it and the
     launches a layer of both from the counters. `overrides` change the
-    preset's widths (W1024: the wide kernels), `label` names the run."""
+    preset's widths (W1024, W2048: the wide kernels), `label` names the run
+    (w2048's is held to its own bands, B5_LIMITS_BY_RUN)."""
     from flowcompare_tpu_torch.ops import _build, flow_layer_cuda as flc, flow_layer_vjp_cuda as fv
 
     small = make_model(ft, device, preset=preset, n_flow_layers=2, **(overrides or {}))
@@ -2892,7 +2952,8 @@ def phase_b5_fused(ft, device, preset: str, batch: int, overrides: dict = None,
            if b is not None}
     wts = {k: rel_err(got[3][k], r) for k, r in ref[3].items()}
     fused_ref = fv.flow_layers_bwd_fused_plain(*args)
-    stats = check_b5(f"B5 {preset}", got, fused_ref)
+    limits, probe_limits = B5_LIMITS_BY_RUN.get(preset, (None, None))
+    stats = check_b5(f"B5 {preset}", got, fused_ref, limits)
     chain = fv._bwd_per_product(*args, 1e-8)
     chain_stats = b5_stats(chain, fused_ref)
     reset_counters()
@@ -2941,7 +3002,7 @@ def phase_b5_fused(ft, device, preset: str, batch: int, overrides: dict = None,
                k: v for k, v in prof.items() if k != "by_kernel"}, "kernels": kernels}
     log(f"B5 fused kernels {preset} 2 layers x {batch * n} rows: {json.dumps(out)}")
     assert max(act.values()) <= 0.03 and max(wts.values()) <= 0.05, "B5 disagrees with plain"
-    check_b5_probes(f"B5 {preset}", probes, attention)
+    check_b5_probes(f"B5 {preset}", probes, attention, probe_limits)
     assert equal, "two B5 calls differ"
     assert per_layer["fused"] == (11 if attention else 4), per_layer
     assert fused_launches["colsum"] == 0 and fused_launches["gemm_tn wgmma"] == 0
@@ -2974,10 +3035,29 @@ def _b5_gradient_bound(name: str, args, got) -> tuple:
     return bound([(4 * elems, PEAK_F32_FLOPS)], 4 * 5 * elems)
 
 
+def nats_tolerance(nats_plain: float) -> float:
+    """The |d nats| bound of a check against the plain path: 0.01 per 15
+    nats of the plain path's own, at least 0.01. The presets' random
+    weights read 3.2-14.7 nats (so 0.01); w2048's read 92.9-141.9, bits an
+    input dimension of log-probabilities summed over a 1,024-wide latent
+    (1,018 of its dimensions the augmenter's noise), where the bf16 plain
+    path itself lies 13.28 nats (eval) and 3.33 (a training step) from the
+    same model in f32, against dulcet-universe's 2.11 and 1.26
+    (tools/torch_wide_floor.py). At w2048 the kernels as built read 0.0730
+    (eval) and 0.0417 (training check) against 0.0875 and 0.0619 here; the
+    carry rounded to bf16 reads 0.1120 and 0.0632, while [s | t] or the
+    LayerNorm's input in bf16 read 0.0721-0.0752 and 0.0428-0.0460, within
+    the as-built gap: the fused-layer phase's shares catch those
+    (tools/torch_fused_layer_faults.py --nats w2048; H100 80GB HBM3 at 700
+    W; PERF.md §6)."""
+    return 0.01 * max(1.0, abs(nats_plain) / 15)
+
+
 def phase_main_path(ft, model, device, need=("B1", "B2", "B3", "B4"), items=None):
-    """Full-depth eval through evaluate_on_test; kernel path vs plain path.
-    `need` are the kernels the path must launch; `items` the eval batches
-    (default: two of EVAL_B random clouds)."""
+    """Full-depth eval through evaluate_on_test; kernel path vs plain path
+    (|d nats| within `nats_tolerance`). `need` are the kernels the path must
+    launch; `items` the eval batches (default: two of EVAL_B random
+    clouds)."""
     items = items if items is not None else eval_items(model.config, EVAL_B, 2, SEED + 3)
     batch = len(items[0][1])
     noise = make_noise(device)
@@ -3009,10 +3089,11 @@ def phase_main_path(ft, model, device, need=("B1", "B2", "B3", "B4"), items=None
     assert all(m.shape == (batch, model.config["sample_size"]) for m in maps_k)
     agree = float(torch.cat([(a > 0) == (b > 0) for a, b in zip(maps_k, maps_p)])
                   .float().mean())
+    tol = nats_tolerance(nats_p)
     log(f"main path (plain): nats {nats_p}, changed fractions {fr_p}; |d nats| "
-        f"{abs(nats_k - nats_p)} (tolerance 0.01), change-map agreement {agree} "
+        f"{abs(nats_k - nats_p)} (tolerance {tol}), change-map agreement {agree} "
         f"(tolerance >= 0.999)")
-    assert abs(nats_k - nats_p) <= 0.01, "nats disagree with the plain path"
+    assert abs(nats_k - nats_p) <= tol, "nats disagree with the plain path"
     assert agree >= 0.999, "change maps disagree with the plain path"
     return launches
 
@@ -3067,7 +3148,8 @@ def phase_timing(ft, model, device, batch: int = TIME_B):
 def phase_sample_main(ft, model, device, need=("B7", "B4", "B3")):
     """The sampling main path: one full-depth make_sample of 1 x 4000 points
     through the kernels, with the launch counters set to 0 just before and
-    read after, and through the plain versions on the same z."""
+    read after, and through the plain versions on the same z (|d nats|
+    within `nats_tolerance`)."""
     from flowcompare_tpu_torch.model import broadcast_embedding, inner_loop
     from flowcompare_tpu_torch.ops import flow_layer_cuda as flc
 
@@ -3115,12 +3197,13 @@ def phase_sample_main(ft, model, device, need=("B7", "B4", "B3")):
            "nats_kernels": nats_k, "nats_plain": nats_p, "abs_d_nats": abs(nats_k - nats_p),
            "round_trip_max_abs": float(rt.max()), "round_trip_mean_abs": float(rt.mean()),
            "round_trip_rel": float(rt.max() / z.abs().max())}
+    tol = nats_tolerance(nats_p)
     log(f"sampling main path {cfg['input_embedder']} make_sample 1x{SAMPLE_N}, full depth: "
-        f"{out} (|d nats| tolerance 0.01)")
+        f"{out} (|d nats| tolerance {tol})")
     assert xk.shape == (1, SAMPLE_N, cfg["input_dim"]) and torch.isfinite(xk).all()
     assert torch.isfinite(xp).all() and np.isfinite([nats_k, nats_p]).all()
     assert all(launches[k] >= 1 for k in need), f"a kernel never ran: {launches}"
-    assert abs(nats_k - nats_p) <= 0.01, "sample nats disagree with the plain path"
+    assert abs(nats_k - nats_p) <= tol, "sample nats disagree with the plain path"
     return out
 
 
@@ -3223,8 +3306,9 @@ def _to_device(batch, device):
 def phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves"),
                       with_chains: bool = False):
     """Data init, then one train_step through the kernels and one through the
-    plain versions from the same state, batch and noise, at B=2; with
-    `with_chains` also the kernels step's ChainRoutes counts ("chains")."""
+    plain versions from the same state, batch and noise, at B=2 (|d nats|
+    within `nats_tolerance`); with `with_chains` also the kernels step's
+    ChainRoutes counts ("chains")."""
     cfg = model.config
     batch = _to_device(train_batches(cfg, TRAIN_CHECK_B, 1, SEED + 10)[0], device)
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
@@ -3257,13 +3341,14 @@ def phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves"),
     (rk, ck, gk, chains), (rp, cp, gp, _) = results
     cos = {gname: float(torch.nn.functional.cosine_similarity(gk[gname], gp[gname], dim=0))
            for gname in groups}
+    tol = nats_tolerance(rp["nats"])
     log(f"training check {cfg['input_embedder']} B={TRAIN_CHECK_B}: kernels {rk}, plain {rp}; "
         f"|d nats| "
-        f"{abs(rk['nats'] - rp['nats'])} (tolerance 0.01), grad_norm ratio "
+        f"{abs(rk['nats'] - rp['nats'])} (tolerance {tol}), grad_norm ratio "
         f"{rk['grad_norm'] / rp['grad_norm']} (tolerance 5%), gradient cosine {cos} "
         f"(tolerance >= 0.99); launches kernels {ck}, plain {cp}")
     assert all(np.isfinite([rk["loss"], rp["loss"], rk["grad_norm"], rp["grad_norm"]]))
-    assert abs(rk["nats"] - rp["nats"]) <= 0.01, "training nats disagree with the plain path"
+    assert abs(rk["nats"] - rp["nats"]) <= tol, "training nats disagree with the plain path"
     assert abs(rk["grad_norm"] - rp["grad_norm"]) <= 0.05 * rp["grad_norm"], "grad norms differ"
     assert min(cos.values()) >= 0.99, f"gradient directions differ: {cos}"
     assert all(ck[k] >= 1 for k in need), ck
@@ -3286,10 +3371,16 @@ def fitting_batch(model, check: dict, want: int) -> int:
 
 
 def phase_train_main(ft, model, device, batch: int = TIME_B,
-                     need=("B5", "B6", "B1 with saves", "B3")):
+                     need=("B5", "B6", "B1 with saves", "B3"), finite_samples: bool = True):
     """The training main path: train() at the preset's batch, four steps (the
     first a warm-up) with a sample after every second batch, with the launch
-    counters set to 0 just before and read after."""
+    counters set to 0 just before and read after. With finite_samples False
+    (w2048) only the first sample is held finite: three steps from w2048's
+    random weights leave a model that samples off the float range on either
+    route (tools/torch_wide_floor.py --train-samples 3 on an H100 80GB HBM3
+    at 700 W: 65.75% of the second sample's values finite through the
+    kernels, 65.65% through the plain route, the first sample wholly finite
+    on both)."""
     from flowcompare_tpu_torch.train.metrics import MetricWriter
 
     rows = []
@@ -3333,7 +3424,9 @@ def phase_train_main(ft, model, device, batch: int = TIME_B,
     assert len(rows) == 4 and all(np.isfinite(losses)), losses
     assert all(launches[k] >= 1 for k in need), launches
     assert sorted(samples) == ["sample_smoke_1.npz", "sample_smoke_3.npz"], sorted(samples)
-    assert all(g.shape == (SAMPLE_N, 6) and np.isfinite(g).all() for g in samples.values())
+    assert all(g.shape == (SAMPLE_N, 6) for g in samples.values())
+    held = samples.values() if finite_samples else [samples["sample_smoke_1.npz"]]
+    assert all(np.isfinite(g).all() for g in held)
     assert launches["B7"] == 2, launches
     return out, data
 
@@ -4321,7 +4414,7 @@ HEAD_WIDTH_RUNS = (("D = 32 (cross_dim_head 32, the JAX demo's)", 32, {"cross_di
 
 
 def phase_head_widths(ft, device) -> dict:
-    """dulcet-universe (bf16, full width, 115 layers) at D = 32, 128, 256
+    """dulcet-universe (bf16, full width, CUT_LAYERS layers) at D = 32, 128, 256
     and 512 (HEAD_WIDTH_RUNS), every part of `model.routes` on its kernels
     (past D = 128 the attention's wide kernels, *_wide.cu): the eval main
     path through
@@ -4337,7 +4430,7 @@ def phase_head_widths(ft, device) -> dict:
     out = {}
     for label, dw, overrides in HEAD_WIDTH_RUNS:
         t0 = time.perf_counter()
-        model = make_model(ft, device, **overrides)
+        model = make_model(ft, device, n_flow_layers=CUT_LAYERS, **overrides)
         cfg = model.config
         assert cfg["cross_heads"] * cfg["cross_dim_head"] == dw, (label, cfg["cross_heads"])
         assert all(r == "kernels" for r in model.routes.values()), (label, dict(model.routes))
@@ -4360,36 +4453,46 @@ def phase_head_widths(ft, device) -> dict:
 
 # ---------------------------------------------- the wide fused layer kernels
 
-def phase_wide(ft, device) -> dict:
-    """w1024 (dulcet-universe at twice its MLP widths, bf16, 115 layers, its
-    own B=20), every part of `model.routes` on its kernels, the 1,024-wide
-    products of B1, B2, B4's tail, B5 and B7 on the wide fused kernels: the
+def phase_wide(ft, device, name: str = "w1024") -> dict:
+    """A WIDE_RUNS config at full width and depth (bf16, 115 layers, its own
+    B=20): w1024 (dulcet-universe at twice its MLP widths) or w2048 (four
+    times, with a 1,024-wide latent and LayerNorm row: 2,048-deep products
+    in two halves, the row-wise epilogues over two passes, B2's output in
+    four), every part of `model.routes` on its kernels, the wide products
+    of B1, B2, B4's tail, B5 and B7 on the wide fused kernels: the
     eval main path through evaluate_on_test (2 items of B=20) against the
-    plain path (|d nats| <= 0.01, change maps >= 99.9%; 4 launches a layer in
+    plain path (|d nats| within `nats_tolerance`, 0.01 per 15 nats of the
+    plain path's, so 0.01 at w1024 and about 0.09 at w2048; change maps >=
+    99.9%; 4 launches a layer in
     B1 with no per-product MLP gemm, B4 in 10 launches a call, B2 in 5, folds
     once); eval timing at B=20 with one item's inner loop on the plain route
     (its first full-depth reading at 1,024); make_sample of 1 x 4000 against
-    the plain samples of the same z (|d nats| <= 0.01; 4 launches a layer in
-    B7) and its ms; the training check at B=2 (|d nats| <= 0.01, grad norm
+    the plain samples of the same z (|d nats| within `nats_tolerance`; 4
+    launches a layer in B7) and its ms; the training check at B=2 (|d nats|
+    within `nats_tolerance`, grad norm
     within 5%, cosine >= 0.99; 11 launches a layer in B5); train(max_steps=4)
-    at B=20 or the largest batch that fits (`fitting_batch`); B4, B2, the
+    at B=20 or the largest batch that fits (`fitting_batch`; w2048's second
+    sample, after three steps, is not held finite: see phase_train_main);
+    B4, B2, the
     DGCNN tail and B2's net at this width against their plain versions
     (`phase_b4_b2_kernels`: 40 clouds, 40,960 rows); and B2's conditioner
-    (the wide conditioner kernel, a 1,024-wide pre-MLP) on 40,960 rows
-    against plain (q within two bf16 roundings of its scale) and against the
-    per-product route it replaced (at most 0.5% of q's elements apart: at
-    1,024 wide q's roundings flip against plain's summation order for the
-    route and the kernel alike). Each phase's counters are set to 0 just
-    before it and read just after."""
+    (the wide conditioner kernel, a 1,024- or 2,048-wide pre-MLP) on 40,960
+    rows against plain (q within two bf16 roundings of its scale) and
+    against the per-product route it replaced (at most 0.5% of q's elements
+    apart: at 1,024 wide q's roundings flip against plain's summation order
+    for the route and the kernel alike). Each phase's counters are set to 0
+    just before it and read just after."""
     from flowcompare_tpu_torch.ops import _build, flow_layer_cuda as flc
 
     t0 = time.perf_counter()
-    model = make_model(ft, device, **W1024)
+    model = make_model(ft, device, **WIDE_RUNS[name])
     cfg = model.config
     assert all(r == "kernels" for r in model.routes.values()), dict(model.routes)
-    log(f"w1024: routes {dict(model.routes)}, "
+    log(f"{name}: routes {dict(model.routes)}, "
         f"{sum(p.numel() for p in model.parameters())} parameters")
     items = eval_items(cfg, TIME_B, 2, SEED + 3)
+    # w2048: only its first train sample is held finite (phase_train_main)
+    w2048 = name == "w2048"
     launches = phase_main_path(ft, model, device, items=items)
     b4, b2 = launches["b4_b2"]["fused_dgcnn_encoder"], launches["b4_b2"]["fused_augmenter"]
     assert b4["launches_per_call"] == [B4_LAUNCHES], b4
@@ -4402,13 +4505,13 @@ def phase_wide(ft, device) -> dict:
     sample["make_sample_ms"] = time_ms(lambda: ft.make_sample(model, SAMPLE_N, x0, extra,
                                                               generator=g), reps=3)
     check = phase_train_check(ft, model, device, with_chains=True)
-    b5 = check_b5_launches(check.pop("chains"), "the training check at w1024", True)
+    b5 = check_b5_launches(check.pop("chains"), f"the training check at {name}", True)
     train_b = fitting_batch(model, check, TIME_B)
-    train_main, _ = phase_train_main(ft, model, device, batch=train_b)
+    train_main, _ = phase_train_main(ft, model, device, batch=train_b, finite_samples=not w2048)
     with torch.no_grad():
         kernels = phase_b4_b2_kernels(model, device, torch.Generator().manual_seed(SEED + 60))
-        # B2's conditioner over its 1,024-wide pre-MLP: the wide kernel,
-        # against plain and against the per-product route
+        # B2's conditioner over its wide pre-MLP: the wide kernel, against
+        # plain and against the per-product route
         w = flc.augmenter_weights(model.params()["augmenter"], input_dim=6, extra_dim=1)
         rows = 2 * TIME_B * cfg["sample_size"]
         gc = torch.Generator().manual_seed(SEED + 61)
@@ -4420,7 +4523,8 @@ def phase_wide(ft, device) -> dict:
         pairs = w.cond_stack.layer(0)
         q_f = torch.empty(rows, pairs[-2][0].shape[1], device=device)
         q_n = flc.bf16_rows(rows, q_f.shape[1], device)
-        hs = [flc.bf16_rows(rows, 1024, device) for _ in range(3)]
+        hs = [flc.bf16_rows(rows, max(wt.shape[1] for wt, _ in pairs[:-2]), device)
+              for _ in range(3)]
 
         def per_product():
             _build.mlp_chain(xin[:, :6], pairs[:-1], q_f, hs)
@@ -4440,14 +4544,14 @@ def phase_wide(ft, device) -> dict:
         cond["bound_ms"], cond["bound_by"] = bound(
             _stack_ops(w.cond_stack, rows, k),
             _fused_bytes(w.cond_stack, rows, 2 * 6, 2 * w.cw, k))
-        log(f"w1024: B2's conditioner (wide kernel) on {rows} rows: {cond}")
+        log(f"{name}: B2's conditioner (wide kernel) on {rows} rows: {cond}")
         assert stats["plain"]["max_over_max_ref"] <= 2 * 2 ** -8, stats
         assert stats["per_product"]["share_over_quarter_ulp"] <= 0.005, stats
     out = {"eval_launches": launches, "timing": timing, "sample": sample, "train_check": check,
            "b5": b5, "train_main": train_main, "train_batch": train_b, "kernels": kernels,
            "b2_conditioner": cond, "b2_calls": b2["calls"],
            "phase_s": time.perf_counter() - t0}
-    log(f"w1024: {out['phase_s']:.1f} s; eval item {timing['item_s'] * 1e3:.2f} ms "
+    log(f"{name}: {out['phase_s']:.1f} s; eval item {timing['item_s'] * 1e3:.2f} ms "
         f"(one item's inner loop {timing['inner_loop_ms']:.2f} ms, plain "
         f"{timing['plain_inner_loop_ms']:.2f} ms), make_sample {sample['make_sample_ms']:.2f} "
         f"ms, train {train_main['ms_per_step']:.2f} ms a step at B={train_b}")
@@ -4557,8 +4661,12 @@ def phase_knn_k(device) -> dict:
 
 # The paths past the clouds whose distance rows fit shared memory, at full
 # width and depth: (preset, context points, eval batch)
+# (preset, context points, the training batch at most): at 16,384 points
+# good-surf's training takes the 19 its full-depth run fit, since at
+# CUT_LAYERS `fitting_batch`'s estimate from the B=2 step picked 24, past
+# what the encoder's kNN sort of the larger clouds then needed
 CLOUD_RUNS = (("dulcet-universe", 4096, TIME_B), ("good-surf", 8192, GS_B),
-              ("good-surf", 16384, GS_B))
+              ("good-surf", 16384, 19))
 LARGE_KNN = ((40, 4096), (8, 16384))      # B3 / B6: (clouds, points)
 LARGE_SA = (50, 8192)                     # B9: (clouds, points), PAConv's four levels
 PLAIN_BYTES = 2 ** 30                     # the plain versions' distances a call, at most
@@ -4925,12 +5033,12 @@ def _b6_saved(x, u, k: int) -> tuple:
     return ub, *slots, idx
 
 
-CLOUD_TRAINING = (("dulcet-universe", 57344, TIME_B),)
+CLOUD_TRAINING = (("dulcet-universe", 57344, 19),)   # its full-depth run's batch, as above
 
 
 def phase_cloud_training(ft, device) -> dict:
     """dulcet-universe at 57,344 context points (56 x 1,024, past B6's old
-    55,552), bf16, full width, 115 layers, every part of `model.routes` on
+    55,552), bf16, full width, CUT_LAYERS layers, every part of `model.routes` on
     its kernels: the training check at B=2 against plain (|d nats| <= 0.01,
     grad norm within 5%, cosine >= 0.99, 11 launches a layer inside B5) and
     train(max_steps=4) at B=20 or the largest batch that fits
@@ -4939,14 +5047,15 @@ def phase_cloud_training(ft, device) -> dict:
     out = {}
     for preset, nc, batch in CLOUD_TRAINING:
         t0 = time.perf_counter()
-        model = make_model(ft, device, preset=preset, n_samples_context=nc)
+        model = make_model(ft, device, preset=preset, n_samples_context=nc,
+                           n_flow_layers=CUT_LAYERS)
         assert all(r == "kernels" for r in model.routes.values()), (preset, dict(model.routes))
         label = f"{preset} at {nc} points"
         check = phase_train_check(ft, model, device, need=("B5", "B6", "B1 with saves"),
                                   with_chains=True)
         b5 = check_b5_launches(check.pop("chains"), f"the training check at {label}", True)
         train_b = fitting_batch(model, check, batch)
-        log(f"{label}: train(max_steps=4) at B={train_b} (the preset's {batch}; the training "
+        log(f"{label}: train(max_steps=4) at B={train_b} (at most {batch}; the training "
             f"check's step took {check['step_peak_gib']['kernels']:.2f} GiB at "
             f"B={TRAIN_CHECK_B})")
         torch.cuda.empty_cache()
@@ -4964,8 +5073,8 @@ def phase_cloud_training(ft, device) -> dict:
 def phase_cloud_sizes(ft, device) -> dict:
     """dulcet-universe at 4,096 context points (B4 with B3 inside in eval
     and sampling, B6 in training: the chunked walk) and good-surf at 8,192
-    (B8, and B9 reading the cloud from global memory), bf16, full width, 115
-    layers, every part of `model.routes` on its kernels: the eval main path
+    (B8, and B9 reading the cloud from global memory), bf16, full width,
+    CUT_LAYERS layers, every part of `model.routes` on its kernels: the eval main path
     through evaluate_on_test (2 items of the preset's B=20 / 25, both
     directions) against the plain path on the same noise (|d nats| <= 0.01,
     change maps >= 99.9%), B4 in 10 launches a call or B8 / B9 in one and
@@ -4980,7 +5089,8 @@ def phase_cloud_sizes(ft, device) -> dict:
     out = {}
     for preset, nc, batch in CLOUD_RUNS:
         t0 = time.perf_counter()
-        model = make_model(ft, device, preset=preset, n_samples_context=nc)
+        model = make_model(ft, device, preset=preset, n_samples_context=nc,
+                           n_flow_layers=CUT_LAYERS)
         cfg = model.config
         assert cfg["n_samples_context"] == nc
         assert all(r == "kernels" for r in model.routes.values()), (preset, dict(model.routes))
@@ -5009,7 +5119,7 @@ def phase_cloud_sizes(ft, device) -> dict:
             check_paconv_launches(check["launches"], f"{label}'s train_step", eval_embeds=0,
                                   train_embeds=1)
         train_b = fitting_batch(model, check, batch)
-        log(f"{label}: train(max_steps=4) at B={train_b} (the preset's {batch}; the training "
+        log(f"{label}: train(max_steps=4) at B={train_b} (at most {batch}; the training "
             f"check's step took {check['step_peak_gib']['kernels']:.2f} GiB at "
             f"B={TRAIN_CHECK_B})")
         train_main, _ = phase_train_main(ft, model, device, batch=train_b,
@@ -5045,7 +5155,8 @@ def phase_cloud_sizes(ft, device) -> dict:
 C1_B = 2
 C1_CASES = (
     ("D = 576", {"cross_heads": 9}, ("stack", "augmenter")),
-    ("1,040-wide coupling MLP", {"hidden_dims": [1040, 1040, 1040]}, ("stack", "augmenter")),
+    ("2,056-wide coupling MLP", {"hidden_dims": [2056, 2056, 2056]}, ("stack", "augmenter")),
+    ("1,026-wide latent", {"latent_dim": 1026, "cif_latent_dim": 1026}, ("stack",)),
     ("k = 257", {"n_neighbors": 257}, ("encoder",)),
 )
 # the kernels of each part, by the counters: none may launch where the part
@@ -5067,7 +5178,9 @@ def _c1_check_launches(name: str, routes: dict, path: str, launches: dict) -> No
 
 def phase_c1(ft, device) -> dict:
     """Configs outside the kernels' shapes on the card (ROADMAP queue C1):
-    D = 576 (9 heads of 64), a 1,040-wide coupling MLP and k = 257, each a bf16
+    D = 576 (9 heads of 64), a 2,056-wide coupling MLP (past the fused
+    layer kernels' 2,048), a 1,026-wide latent (past their row-wise 1,024)
+    and k = 257, each a bf16
     dulcet-universe at 2 layers and full width, B=2. Each prints its routes
     and must refuse the expected parts; its log_prob (inner_loop eval), one
     train_step after the data init and one make_sample of 1 x 4000 run on
@@ -5313,7 +5426,7 @@ def ddp_worker_nccl(ft) -> dict:
     data = train_batches(ft.get_config("dulcet-universe"), DDP_B, DDP_STEPS, SEED + 61)
     out = {}
     for name, m in (("mesh", mesh), ("one_process", None)):
-        model = make_model(ft, device)
+        model = make_model(ft, device, n_flow_layers=CUT_LAYERS)
         rows, launches = _ddp_train_rows(ft, model, device, data, m)
         out[name] = {"rows": rows, "launches": launches,
                      "weights": _flat(p for p in model.parameters()).cpu()}
@@ -5387,7 +5500,7 @@ def ddp_worker_gloo(ft) -> dict:
     mesh = make_mesh(device="cuda:0")
     assert mesh.n_data == 2 and torch.distributed.get_backend() == "gloo", mesh
     device = mesh.device
-    model = make_model(ft, device)
+    model = make_model(ft, device, n_flow_layers=CUT_LAYERS)
     cfg = model.config
     batch = _to_device(train_batches(cfg, DDP_B, 1, SEED + 62)[0], device)
     gen = torch.Generator(device=device).manual_seed(SEED + 63)
@@ -5408,7 +5521,7 @@ def ddp_worker_gloo(ft) -> dict:
     torch.distributed.all_gather(gathered, stats)
     assert all(torch.equal(g, gathered[0]) for g in gathered), "BatchNorm statistics differ"
     if mesh.is_main:
-        one_model = make_model(ft, device)
+        one_model = make_model(ft, device, n_flow_layers=CUT_LAYERS)
         nats_one, fracs_one = ft.evaluate_on_test(one_model, items, noise=make_noise(device))
         one_state = ft.data_init_from_batch(ft.init_train_state(one_model), batch, eps=eps_init)
         init_one = _actnorm_init(one_model)
@@ -5460,7 +5573,7 @@ def ddp_worker(mode: str) -> int:
 
 def phase_ddp(smi: str) -> dict:
     """Data parallelism on the card at dulcet-universe's full width and
-    depth: (a) a world-size-1 NCCL group and (b) two gloo ranks on the one
+    CUT_LAYERS layers: (a) a world-size-1 NCCL group and (b) two gloo ranks on the one
     card, each a torch.distributed.run of this script's ddp_worker; a
     failing rank fails the run."""
     DDP_DIR.mkdir(parents=True, exist_ok=True)
@@ -5591,7 +5704,7 @@ def model_axis_worker_a(ft, mesh) -> dict:
     weights bit-equal."""
     from flowcompare_tpu_torch.train.mesh import shard_params
     device = mesh.device
-    model = make_model(ft, device)
+    model = make_model(ft, device, n_flow_layers=CUT_LAYERS)
     batches, eps = _ma_inputs(model.config, device, SEED + 70)
     shard_params(model, mesh)
     state = ft.data_init_from_batch(ft.init_train_state(model), batches[0], eps=eps[0],
@@ -5603,7 +5716,7 @@ def model_axis_worker_a(ft, mesh) -> dict:
     torch.distributed.barrier()
     out = {"rank": mesh.rank, **_ma_summary(run)}
     if mesh.is_main:
-        one_model = make_model(ft, device)
+        one_model = make_model(ft, device, n_flow_layers=CUT_LAYERS)
         one_state = ft.data_init_from_batch(ft.init_train_state(one_model), batches[0],
                                             eps=eps[0])
         one = _ma_steps(ft, one_state, batches[1:], eps[1:], None)
@@ -5631,7 +5744,7 @@ def model_axis_worker_b(ft, mesh) -> dict:
     from flowcompare_tpu_torch.train import save_checkpoint
     from flowcompare_tpu_torch.train.mesh import gathered, shard_batch, shard_noise, shard_params
     device = mesh.device
-    model = make_model(ft, device)
+    model = make_model(ft, device, n_flow_layers=CUT_LAYERS)
     cfg = model.config
     batches, eps = _ma_inputs(cfg, device, SEED + 72)
     items = eval_items(cfg, EVAL_B, DDP_EVAL_ITEMS, SEED + 74)
@@ -5643,7 +5756,7 @@ def model_axis_worker_b(ft, mesh) -> dict:
     out = {"rank": mesh.rank, "sharded_leaves": len(model.sharded)}
     one_init = None
     if mesh.is_main:
-        one_model = make_model(ft, device)
+        one_model = make_model(ft, device, n_flow_layers=CUT_LAYERS)
         nats_one, fracs_one = ft.evaluate_on_test(one_model, items, noise=make_noise(device))
         one_state = ft.data_init_from_batch(ft.init_train_state(one_model), batches[0],
                                             eps=eps[0])
@@ -5716,7 +5829,7 @@ def model_axis_worker(mode: str) -> int:
 
 def phase_model_axis(smi: str) -> dict:
     """The 'model' axis on the card at dulcet-universe's full width and
-    depth: (a) 1 x 2 and (b) 2 x 2 gloo meshes on the one card, each a
+    CUT_LAYERS layers: (a) 1 x 2 and (b) 2 x 2 gloo meshes on the one card, each a
     torch.distributed.run of this script's model_axis_worker; a failing
     rank fails the run."""
     MA_DIR.mkdir(parents=True, exist_ok=True)
@@ -5791,6 +5904,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         b5_wide = phase_b5_fused(ft, device, "dulcet-universe", TIME_B, overrides=W1024,
                                  label="w1024")
+        torch.cuda.empty_cache()
+        b5_w2048 = phase_b5_fused(ft, device, "dulcet-universe", TIME_B, overrides=W2048,
+                                  label="w2048")
     b5_entries = b5_kernel_entries(b5_fused)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5855,26 +5971,36 @@ def main() -> int:
                 "attention_launches" if key == "cross_attention" else "attention_bwd_launches"]
     torch.cuda.empty_cache()
     wide = phase_wide(ft, device)
-    # the wide kernels' readings, with the launches of w1024's paths: its
-    # eval (conditioner, coupling_layer, dgcnn_tail, augment_net), its
-    # make_sample (coupling_inverse) and its train(max_steps=4) (B5's)
-    wide_launches = {"coupling_layer": wide["eval_launches"]["coupling_layer"],
-                     "coupling_inverse": wide["sample"]["launches"]["coupling_inverse"]}
-    for key, n in wide_launches.items():
-        for reading in fused_entries[key]["by_width"]["1024"].values():
-            reading["launches"] = n
+    torch.cuda.empty_cache()
+    wide2 = phase_wide(ft, device, "w2048")
+    # the wide kernels' readings, with the launches of w1024's and w2048's
+    # paths: their eval (conditioner, coupling_layer, dgcnn_tail,
+    # augment_net), their make_sample (coupling_inverse) and their
+    # train(max_steps=4) (B5's)
+    for width, run in (("1024", wide), ("2048", wide2)):
+        run_launches = {"coupling_layer": run["eval_launches"]["coupling_layer"],
+                        "coupling_inverse": run["sample"]["launches"]["coupling_inverse"]}
+        for key, n in run_launches.items():
+            for reading in fused_entries[key]["by_width"][width].values():
+                reading["launches"] = n
     for reading in fused_entries["conditioner"]["one_pass_in_w1024"].values():
         reading["launches"] = wide["eval_launches"]["conditioner"] - wide["b2_calls"]
-    c = wide["b2_conditioner"]
-    fused_entries["conditioner"]["by_width"] = {"1024": {f"{c['rows']} rows": {
-        "shapes": f"w1024's B2 conditioner (1,024-wide pre-MLP), {c['rows']} rows",
-        **{k: c[k] for k in ("max_abs_err", "device_ms", "plain_ms", "per_product_ms",
-                             "bound_ms", "bound_by")},
-        "launches_per_layer": c["launches_per_call"], "launches": wide["b2_calls"]}}}
+    # w2048's B1 conditioner (its 1,024-wide LayerNorm row) from the
+    # fused-layer phase, beside B2's conditioners of both runs
+    for reading in fused_entries["conditioner"]["by_width"]["2048"].values():
+        reading["launches"] = wide2["eval_launches"]["conditioner"] - wide2["b2_calls"]
+    for width, label, run in (("1024", "w1024", wide), ("2048", "w2048", wide2)):
+        c = run["b2_conditioner"]
+        fused_entries["conditioner"]["by_width"].setdefault(width, {})[f"B2 {c['rows']} rows"] = {
+            "shapes": f"{label}'s B2 conditioner ({width}-wide pre-MLP), {c['rows']} rows",
+            **{k: c[k] for k in ("max_abs_err", "device_ms", "plain_ms", "per_product_ms",
+                                 "bound_ms", "bound_by")},
+            "launches_per_layer": c["launches_per_call"], "launches": run["b2_calls"]}
     for key in ("dgcnn_tail", "augment_net"):
-        entries[key]["by_width"] = {"1024": {
-            **check_entry(wide["kernels"][key], "w1024 at a B=20 item's shapes"),
-            "launches": wide["eval_launches"][key]}}
+        entries[key]["by_width"] = {width: {
+            **check_entry(run["kernels"][key], f"{label} at a B=20 item's shapes"),
+            "launches": run["eval_launches"][key]}
+            for width, label, run in (("1024", "w1024", wide), ("2048", "w2048", wide2))}
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     k128 = phase_k128(ft, device)
@@ -5980,6 +6106,7 @@ def main() -> int:
                       "fused_layers": fused_cases, "main_path_bounds": main_bounds,
                       "knn_split": knn_split,
                       "b5_fused": b5_fused, "b5_fused_w1024": b5_wide, "w1024": wide,
+                      "b5_fused_w2048": b5_w2048, "w2048": wide2,
                       "k128": k128, "knn_k": knn_k,
                       "wall_s": time.perf_counter() - T_START}))
     entries.update(gemm_entries)
@@ -5995,6 +6122,12 @@ def main() -> int:
             b5_entries[key]["one_pass_in_w1024"] = reading
         else:
             b5_entries[key]["by_width"] = {"1024": reading}
+    for key, entry in b5_kernel_entries(b5_w2048).items():
+        # w2048: every kind on its wide kernel (its conditioner's LayerNorm
+        # row 1,024), held to its own bands (B5_LIMITS_BY_RUN)
+        b5_entries[key].setdefault("by_width", {})["2048"] = {
+            **check_entry(entry, f"w2048, 2 layers x {b5_w2048['rows']} rows"),
+            "launches": wide2["train_main"]["launches"][key]}
     entries.update(b5_entries)
     print(json.dumps({"kernels": [entries[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6",
                                                        "B7", "B8", "B9", "sa_gather", "B10",

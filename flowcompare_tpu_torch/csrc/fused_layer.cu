@@ -35,12 +35,13 @@
 //                    flow_layer_pallas.py:1504) over the packed rows
 //                    [x | extra | pad | attn]: 72 -> 512 -> 512 -> 512, then
 //                    the last product, its (mean_i, log_std_i) columns
-//                    interleaved, in two column passes of at most 256 pairs
-//                    (588 > PASS_W); each pass's epilogue runs on the registers
+//                    interleaved, in column passes of at most 256 pairs
+//                    (two at 588 > PASS_W columns, four at 2,036), one
+//                    product a pass; each pass's epilogue runs on the registers
 //                    against the pass's eps columns staged in shared memory:
 //                    z2 = mean + eps exp(log_std) and this row's share of
 //                    ldj = sum(log 2pi / 2 + log_std + eps^2 / 2), summed
-//                    over both passes and the four warpgroups through the
+//                    over every pass and the four warpgroups through the
 //                    exchange; z = [x | z2] and ldj in f32
 //
 // Both read their input rows once and keep every activation of their MLP
@@ -104,28 +105,59 @@
 // which one shared ring walked in order guarantees.
 //
 // Products wider than 512 columns (the wide kernels, WIDE = true; every
-// width up to MAXW = 1,024): two 64 x 1,024 bf16 activations (128 KB each)
+// width up to MAXW = 2,048): two 64 x 1,024 bf16 activations (128 KB each)
 // and the ring do not fit the 227 KB a block may hold. Of the two layouts
 // that fit, this one keeps one block a tile: the product's input, S, takes
-// the two buffers' 128 KB of shared memory; the tile's two activation
-// buffers move to device scratch (SCRATCH_TILE_BYTES = 256 KB a tile,
-// indexed by tile over the launch: 160 MB at 40,960 rows; whether a running
-// tile's lines stay in the 50 MB L2 is not measured); a product's output
-// columns run in passes of PASS_W = 512 (each pass its own weight fills, the
-// epilogue writing bf16 pairs to the scratch, the residual read from it), and
-// once every pass is done one bulk copy brings the next product's input back
-// into S. The other layout, a cluster of two blocks each owning half of every
-// product's columns, would have to move the peer's half of each input
-// through distributed shared memory into wgmma's operands and split the
-// LayerNorm's and the affine's row sums across blocks; this one keeps every
-// row reduction, [s | t]'s pairs and the accumulator-order records in one
-// block, the one-pass kernels' code and rounding unchanged (the one-pass
-// kernels, WIDE = false, still run every product up to 512 wide, bit for
-// bit as before). Its cost is the scratch's round trips, about 1 MB a tile
-// a layer beside 5.4 MB of weights at 1,024 wide. The products
-// that end in a row-wise epilogue (the LayerNorm's row, [s | t] and the
-// affine, the LinearLU tail, B2's output passes) take one pass: y and x2
-// stage in S once its last product is done.
+// the two buffers' 128 KB of shared memory (S_COLS = 1,024 columns of it);
+// the tile's two activation buffers move to device scratch (indexed by tile
+// over the launch, SCRATCH_TILE_BYTES = 648 KB a tile with the stash below:
+// 415 MB at 40,960 rows; whether a running tile's lines stay in the 50 MB L2
+// is not measured); a product's output columns run in passes of PASS_W =
+// 512 (each pass its own weight fills, the epilogue writing bf16 pairs to
+// the scratch, the residual read from it), and once every pass is done one
+// bulk copy brings the next product's input back into S. The other layout,
+// a cluster of two blocks each owning half of every product's columns,
+// would have to move the peer's half of each input through distributed
+// shared memory into wgmma's operands and split the LayerNorm's and the
+// affine's row sums across blocks; this one keeps every row reduction,
+// [s | t]'s pairs and the accumulator-order records in one block, the
+// one-pass kernels' code and rounding unchanged (the one-pass kernels, WIDE
+// = false, still run every product up to 512 wide, bit for bit as before).
+//
+// The wide kernels come in two tiers (fused_layer.cuh's Tier): WIDE_TIER
+// (fused_layer_wide.cu) runs every plan whose K fit S and whose row-wise
+// epilogues take one pass, its code as it was before the wider tier; WIDER_TIER
+// (fused_layer_wider.cu) runs the rest, with the paths below. The wider
+// paths' state (a pass's sums over the passes, the halves' bookkeeping)
+// costs registers: the kernels hold 96 a thread, and built into one
+// instance they doubled its spills and cost the 1,024-wide launches 12-25%.
+//
+// A K past S_COLS (hidden products 2,048 wide) takes its input in two
+// halves: each pass sums its first 1,024 K rows from S, S is refilled with
+// the input's other half from the scratch (one 128 KB bulk copy, after a
+// barrier), and the pass adds the rest on in the same accumulators, so a
+// pass's sums run over K in order, as one walk would. The weights stream
+// through the ring as before; a 2,048 x 2,048 product of a tile reads 8 MB
+// of weights and now also 8 x 128 KB of its input (the first half is
+// copied back each pass after the first), the cost of keeping one block a
+// tile. Streaming the input's K slices through the ring beside the weights
+// would put 4 KB of it in every stage, whose 128-byte swizzle would need
+// 64-column boxes (two stages) or another descriptor mode; a cluster pair
+// sharing the input through distributed shared memory has the cost above.
+//
+// Row-wise epilogues past one pass (up to ROW_W = 1,024 columns: the
+// LayerNorm's row, [s | t] and the latent): the LayerNorm sums each
+// thread's two rows over the passes (a thread owns the same rows in every
+// pass), keeps a pass before the last in the tile's stash (f32, 128 KB,
+// each thread its own elements) and normalises every pass once the row's
+// statistics are known; [s | t]'s passes hold whole pairs, so the affine
+// runs pass by pass with x2 / y2 read from the f32 rows where they lie (S
+// still holds the input), y written to the scratch with its x1 columns and
+// the ldj's log-scales summed on over the passes; the LinearLU (or LU
+// inverse) writes each pass's f32 columns from its registers, as the
+// one-pass tail's staged 4-column stores would (the staging takes S and the
+// ring, busy until the last pass); B2's output layer is one product a pass
+// of at most 256 pairs. One-pass epilogues keep their staging, bit for bit.
 //
 // Rounding points are the per-product chain's: bf16 between products, the
 // f32 add of the bf16 residual, [s | t] and the LayerNorm statistics in f32,
@@ -136,13 +168,26 @@
 
 namespace {
 
+// Whether a wide plan needs the wider tier: a K past S_COLS (the input in
+// halves), or a row-wise epilogue past one pass (the LayerNorm's row, [s |
+// t] or the LinearLU's latent: the products from the last MLP one on).
+bool plan_is_wider(const Plan& plan, int kind) {
+  for (int p = 0; p < plan.n_products; ++p)
+    if (plan.prod[p].k > S_COLS) return true;
+  if (kind != CONDITIONER && kind != COUPLING && kind != COUPLING_INVERSE) return false;
+  for (int p = plan.n_mlp - 1; p < plan.n_products; ++p)
+    if (plan.prod[p].n > PASS_W) return true;
+  return false;
+}
+
 // The one-pass kernel where every product's K and N are at most PASS_W,
-// the wide kernel (whose scratch io must hold) otherwise.
+// the wide or the wider kernel (whose scratch io must hold) otherwise.
 template <int KIND>
 cudaError_t launch(const Plan& plan, const Rows& io, cudaStream_t stream) {
-  if (!plan_is_wide(plan)) return launch_kind<KIND, false>(plan, io, stream);
+  if (!plan_is_wide(plan)) return launch_kind<KIND, ONE_PASS>(plan, io, stream);
   if (io.scratch == nullptr) return cudaErrorInvalidValue;
-  return launch_wide(KIND, plan, io, stream);
+  return plan_is_wider(plan, KIND) ? launch_wider(KIND, plan, io, stream)
+                                   : launch_wide(KIND, plan, io, stream);
 }
 
 // The plan's products: product p's weight map (n, k, L) and its bias, at
@@ -165,14 +210,17 @@ cudaError_t fill_plan(Plan& plan, int n_products, int n_mlp, const uint64_t* w, 
                     rec_h == nullptr ? nullptr : reinterpret_cast<bf16*>(rec_h[p]),
                     rec_pre == nullptr ? 0 : ld_pre[p], rec_h == nullptr ? 0 : ld_h[p], nullptr};
   }
-  return cudaSuccess;
+  // the first product reads the packed rows whole from S
+  return k[0] <= S_COLS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // The device scratch the wide kernels take for M rows (SCRATCH_TILE_BYTES
-// a 64-row tile): the `scratch` of every entry point below when a product
-// is wider than PASS_W (512) columns, ignored otherwise.
+// a 64-row tile: two 64 x 2,048 bf16 activations, the stash of a row-wise
+// epilogue and the backward's column-sum partials): the `scratch` of every
+// entry point below when a product is wider than PASS_W (512) columns,
+// ignored otherwise.
 FC_API long long fc_fused_scratch_bytes(int M) {
   return M < 1 ? 0 : (long long)((M + BM - 1) / BM) * SCRATCH_TILE_BYTES;
 }
@@ -193,10 +241,10 @@ FC_API long long fc_fused_scratch_bytes(int M) {
 // (M f32): hidden products record GELU' at their f32 pre-activations in
 // frag_ptr's order, the LayerNorm the normalised f32 row likewise and each
 // row's 1 / std; other calls pass nulls. Products take K and N up to MAXW
-// (1,024; past PASS_W the wide kernel, given `scratch` of
-// fc_fused_scratch_bytes(M) bytes); the last MLP product (the LayerNorm's
-// row, [s | t]), the coupling's tail and its latent split + half take at
-// most PASS_W.
+// (2,048; past PASS_W the wide kernel, given `scratch` of
+// fc_fused_scratch_bytes(M) bytes), the first (the packed rows, in_cols) K
+// up to S_COLS (1,024); the last MLP product (the LayerNorm's row, [s |
+// t]), the tail and the latent split + half take at most ROW_W (1,024).
 FC_API int fc_fused_layer(int kind, int n_products, int n_mlp,
                           const uint64_t* w, const int* w_ld, const int* w_layers, const int* k,
                           const int* n, const uint64_t* bias, int layer, int tail_layer,
@@ -208,9 +256,9 @@ FC_API int fc_fused_layer(int kind, int n_products, int n_mlp,
                           void* scratch, void* stream) {
   if (kind < 0 || kind > 3 || n_products < 2 || n_products > MAX_PRODUCTS || n_mlp < 2 ||
       n_mlp > n_products ||
-      n_products - n_mlp > 1 || M < 1 || in_cols > MAXW || split + half > PASS_W ||
-      k[0] != in_cols || n[n_mlp - 1] > PASS_W ||
-      (kind != CONDITIONER && n_products > n_mlp && (k[n_mlp] > PASS_W || n[n_mlp] > PASS_W)))
+      n_products - n_mlp > 1 || M < 1 || in_cols > S_COLS || split + half > ROW_W ||
+      k[0] != in_cols || n[n_mlp - 1] > ROW_W ||
+      (n_products > n_mlp && (k[n_mlp] > ROW_W || n[n_mlp] > ROW_W)))
     return (int)cudaErrorInvalidValue;
   if (kind != COUPLING_INVERSE && n_products != n_mlp + (kind == COUPLING_RECORD ? 0 : 1))
     return (int)cudaErrorInvalidValue;
@@ -243,7 +291,7 @@ FC_API int fc_fused_layer(int kind, int n_products, int n_mlp,
 // residual every second hidden product); the last product's bf16 output
 // into out (16-byte rows and base, its width a multiple of 8). Weight
 // stacks and scratch as fc_fused_layer's, at layer 0; every product up to
-// MAXW.
+// MAXW, conv5's K up to S_COLS.
 FC_API int fc_dgcnn_tail(int n_products, const uint64_t* w, const int* w_ld, const int* w_layers,
                          const int* k, const int* n, const uint64_t* bias, const void* scale,
                          const void* xin, int ldxin, int M, void* out, int ldout, void* scratch,
@@ -269,25 +317,29 @@ FC_API int fc_dgcnn_tail(int n_products, const uint64_t* w, const int* w_ld, con
 }
 
 // B2's net (kind 5) over M packed rows xin (bf16, TMA-readable, the first
-// product's k columns): GELU after every product before the last two, a
-// residual every second hidden one; the last two products are the output
+// product's k columns): GELU after every product before the last n_out, a
+// residual every second hidden one; the last n_out products are the output
 // layer's column passes, (mean_i, log_std_i) interleaved, n[p] / 2 pairs
-// each and aug in all. z (M, in_dim + aug, f32) = [x | mean + eps *
-// exp(log_std)] and ldj (M) = sum(log 2pi / 2 + log_std + eps^2 / 2), from x
-// (M, in_dim) and eps (M, aug) f32. Weight stacks and scratch as
-// fc_fused_layer's, at layer 0; the net's products up to MAXW, each output
-// pass up to PASS_W.
-FC_API int fc_augment_net(int n_products, const uint64_t* w, const int* w_ld,
+// each and aug in all, each reading the last hidden output. z (M, in_dim +
+// aug, f32) = [x | mean + eps * exp(log_std)] and ldj (M) = sum(log 2pi / 2
+// + log_std + eps^2 / 2), from x (M, in_dim) and eps (M, aug) f32. Weight
+// stacks and scratch as fc_fused_layer's, at layer 0; the net's products up
+// to MAXW (the first's K up to S_COLS), each output pass up to PASS_W.
+FC_API int fc_augment_net(int n_products, int n_out, const uint64_t* w, const int* w_ld,
                           const int* w_layers, const int* k, const int* n, const uint64_t* bias,
                           const void* xin, int ldxin, int M, int in_dim, const void* x, int ldx,
                           const void* eps, int ldeps, int aug, void* z, int ldz, void* ldj,
                           void* scratch, void* stream) {
-  if (n_products < 3 || n_products > MAX_PRODUCTS || M < 1 || in_dim < 1 ||
-      n[n_products - 1] % 2 || n[n_products - 2] % 2 || n[n_products - 1] > PASS_W ||
-      n[n_products - 2] > PASS_W ||
-      n[n_products - 1] / 2 + n[n_products - 2] / 2 != aug || k[n_products - 1] != k[n_products - 2])
+  if (n_out < 1 || n_products - n_out < 2 || n_products > MAX_PRODUCTS || M < 1 || in_dim < 1)
     return (int)cudaErrorInvalidValue;
-  for (int p = 1; p < n_products - 1; ++p)
+  int pairs = 0;
+  for (int p = n_products - n_out; p < n_products; ++p) {
+    if (n[p] % 2 || n[p] > PASS_W || k[p] != n[n_products - n_out - 1])
+      return (int)cudaErrorInvalidValue;
+    pairs += n[p] / 2;
+  }
+  if (pairs != aug) return (int)cudaErrorInvalidValue;
+  for (int p = 1; p < n_products - n_out; ++p)
     if (k[p] != n[p - 1]) return (int)cudaErrorInvalidValue;
   Plan plan;
   cudaError_t err = fill_plan(plan, n_products, n_products, w, w_ld, w_layers, k, n, bias, 0, 0,
@@ -306,5 +358,6 @@ FC_API int fc_augment_net(int n_products, const uint64_t* w, const int* w_ld,
   io.z = (float*)z;
   io.ldz = ldz;
   io.scratch = (uint8_t*)scratch;
+  plan.n_out = n_out;
   return (int)launch<AUGMENT>(plan, io, (cudaStream_t)stream);
 }

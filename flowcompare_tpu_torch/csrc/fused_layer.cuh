@@ -8,8 +8,10 @@
 // 128-byte-swizzled K-major layout (atoms of 64 columns x 64 rows), in
 // shared memory (two buffers, products up to PASS_W wide) or, in the wide
 // kernels (any width up to MAXW), the product's input alone in shared
-// memory and the tile's two activation buffers in device scratch
-// (SCRATCH_TILE_BYTES a tile), each output copied back in by one bulk copy.
+// memory, S_COLS columns of it at a time (a deeper product's K in two
+// halves, S refilled between them), and the tile's two activation buffers
+// in device scratch (SCRATCH_TILE_BYTES a tile), each output copied back
+// into S by one bulk copy.
 #pragma once
 
 #include "hopper.cuh"
@@ -24,17 +26,35 @@ constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
 constexpr int STAGES = 3;
 constexpr int PASS_W = 512;       // output columns a pass; the one-pass kernels' widest product
 constexpr int PASS_CHUNKS = PASS_W / 64;
-constexpr int MAXW = 1024;        // widest product (K and N) of the wide kernels
+constexpr int MAXW = 2048;        // widest product (K and N) of the wide kernels
+constexpr int ROW_W = 1024;       // widest row-wise epilogue (the LayerNorm's row, the latent)
+constexpr int S_COLS = 1024;      // K columns of a product's input S holds
 constexpr int MAX_PRODUCTS = 10;
 constexpr int BOX_BYTES = 64 * WB * 2;    // 64 output columns x 32 K rows
 constexpr int ATOM_BYTES = BM * 128;      // 64 rows x 64 bf16, 128-byte swizzle
 constexpr int ACT_BYTES = BM * PASS_W * 2;
-constexpr int WIDE_ACT_BYTES = BM * MAXW * 2;   // the wide kernels' input buffer, 2 ACT_BYTES
+constexpr int S_BYTES = BM * S_COLS * 2;        // the wide kernels' input buffer, 2 ACT_BYTES
+constexpr int WIDE_ACT_BYTES = BM * MAXW * 2;   // a wide activation buffer in the scratch
 constexpr int STAGE_BYTES = WB * PASS_W * 2;
 constexpr int RED_BYTES = CWG * BM * 4;   // one f32 per row and warpgroup
 constexpr int SMEM_BYTES = 2 * ACT_BYTES + STAGES * STAGE_BYTES + RED_BYTES + 1024;
-constexpr long long SCRATCH_TILE_BYTES = 2LL * WIDE_ACT_BYTES;
-static_assert(WIDE_ACT_BYTES == 2 * ACT_BYTES, "the wide input buffer takes both buffers' place");
+// a tile's scratch: the two activation buffers, then the stash (a row-wise
+// epilogue's f32 passes before its last, each thread's own elements, while
+// the row's statistics are summed) and the backward's column-sum partials
+constexpr int STASH_BYTES = (ROW_W / PASS_W - 1) * BM * PASS_W * 4;
+constexpr int CSUM_BYTES = CWG * 512 * 4;
+constexpr long long STASH_OFFSET = 2LL * WIDE_ACT_BYTES;
+constexpr long long SCRATCH_TILE_BYTES = STASH_OFFSET + STASH_BYTES + CSUM_BYTES;
+static_assert(S_BYTES == 2 * ACT_BYTES, "the wide input buffer takes both buffers' place");
+static_assert(ROW_W <= S_COLS && S_COLS % WB == 0 && 2 * S_COLS == MAXW,
+              "a row-wise epilogue's output fits S, and a product's K two halves of it");
+
+// The kernels' instances: the one-pass kernel (every product's K and N at
+// most PASS_W), the wide one (past it; every K at most S_COLS and every
+// row-wise epilogue in one pass) and the wider one (a K
+// past S_COLS or a row-wise epilogue past one pass), whose paths cost
+// registers the wide one's launches at 1,024 columns would pay for too.
+enum Tier { ONE_PASS = 0, WIDE_TIER = 1, WIDER_TIER = 2 };
 
 // Pass j of a product with n output columns: its chunks of 64 columns
 // [PASS_CHUNKS j, PASS_CHUNKS j + nch), cpw of them a warpgroup, and where
@@ -189,6 +209,31 @@ __device__ __forceinline__ void gelu_record(const float (&acc)[64], int cnt, int
   }
 }
 
+// A row-wise epilogue's pass j before its last, kept in the tile's stash
+// (the wider kernels) until the row's statistics are known: this consumer
+// thread's cnt chunks of acc, as float4s of its own, and back.
+__device__ __forceinline__ void stash_pass(float4* stash, int j, const float (&acc)[64],
+                                           int cnt) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    if (k < 8 * cnt)
+      stash[(j * 16 + k) * CONSUMERS + threadIdx.x] =
+          make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+}
+
+__device__ __forceinline__ void unstash_pass(const float4* stash, int j, float (&acc)[64],
+                                             int cnt) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    if (k < 8 * cnt) {
+      const float4 v = stash[(j * 16 + k) * CONSUMERS + threadIdx.x];
+      acc[4 * k] = v.x;
+      acc[4 * k + 1] = v.y;
+      acc[4 * k + 2] = v.z;
+      acc[4 * k + 3] = v.w;
+    }
+}
+
 // Orders this thread's generic-proxy writes to global memory before later
 // asynchronous-proxy reads of it (the bulk copies below, issued by the
 // producer after the ring's barriers have passed these writes on).
@@ -204,6 +249,17 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// S (the wide kernels' input buffer) = K columns [S_COLS h, S_COLS h +
+// S_COLS) of a k-column activation buffer in the tile's scratch, one bulk
+// copy completing on bar (its caller waits there); every thread's stores to
+// the buffer are fenced (fence_proxy_async_global) and past a barrier.
+__device__ __forceinline__ void copy_to_s(uint8_t* S, const uint8_t* buf, int k, int h,
+                                          uint64_t* bar) {
+  const uint32_t bytes = (uint32_t)((min(S_COLS, k - S_COLS * h) + 63) / 64 * ATOM_BYTES);
+  mbar_expect_tx(bar, bytes);
+  bulk_copy(S, buf + (size_t)h * S_BYTES, bytes, bar);
 }
 
 // A tile's fragment block into L2 (the producer's, one product ahead).
@@ -254,11 +310,15 @@ __device__ __forceinline__ void produce_weights(const CUtensorMap* map, int k, i
 // output columns from the pass's chunk c0, m64n64 / m64n128 layout) = A (64
 // x k bf16, swizzled) @ the pass's weights, stage by stage as they arrive;
 // each stage is handed back once this warpgroup's products on it are done.
+// With add, acc += instead: the next K rows of a pass, after the stages
+// before them (the second half of a K deeper than S_COLS).
 __device__ __forceinline__ void consume_weights(float (&acc)[64], const uint8_t* A, int k,
                                                 int c0, int cnt, uint8_t* ring, uint64_t* full,
-                                                uint64_t* empty, int& it) {
+                                                uint64_t* empty, int& it, bool add = false) {
+  if (!add) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  }
   fence_acc(acc);
   const int kt = (k + WB - 1) / WB;
   for (int kk = 0; kk < kt; ++kk, ++it) {

@@ -1,9 +1,12 @@
 // The forward and record kernels of fused_layer.cu (see its header for what
-// they compute and how), shared by the two translation units that
-// instantiate them: fused_layer.cu the one-pass kernels (WIDE = false) and
-// fused_layer_wide.cu the wide ones (WIDE = true), which nvcc compiles in
-// parallel. The plan and row tables are in a named namespace so that both
-// units pass the same types to `fused_layer::launch_wide`.
+// they compute and how), shared by the three translation units that
+// instantiate them, which nvcc compiles in parallel: fused_layer.cu the
+// one-pass kernels (tier ONE_PASS), fused_layer_wide.cu the wide ones
+// (WIDE_TIER: products past PASS_W, K up to S_COLS, row-wise epilogues in
+// one pass) and fused_layer_wider.cu the wider ones (WIDER_TIER: a K past
+// S_COLS in halves, row-wise epilogues over passes). The plan and row
+// tables are in a named namespace so that the units pass the same types to
+// `fused_layer::launch_wide`.
 #pragma once
 
 #include "fused_layer.cuh"
@@ -37,6 +40,7 @@ struct Plan {
   CUtensorMap x1;                // their x1 columns (y's first half)
   Product prod[MAX_PRODUCTS];
   int n_products, n_mlp;
+  int n_out;                     // augment_net: the output layer's column passes, the last products
 };
 
 struct Rows {
@@ -59,8 +63,10 @@ struct Rows {
   uint8_t* scratch;    // the wide kernels' activation buffers, SCRATCH_TILE_BYTES a tile
 };
 
-// The wide kernel of `kind` (fused_layer_wide.cu).
+// The wide kernel of `kind` (fused_layer_wide.cu) and the wider one
+// (fused_layer_wider.cu).
 cudaError_t launch_wide(int kind, const Plan& plan, const Rows& io, cudaStream_t stream);
+cudaError_t launch_wider(int kind, const Plan& plan, const Rows& io, cudaStream_t stream);
 
 }  // namespace fused_layer
 
@@ -93,9 +99,12 @@ __device__ __forceinline__ void record_rows(const Product& pr, const uint8_t* O,
   }
 }
 
-template <int KIND, bool WIDE>
+template <int KIND, int TIER>
 __global__ void __launch_bounds__(THREADS, 1)
     fused_layer_kernel(const __grid_constant__ Plan plan, const Rows io) {
+  // the wider tier's paths are compiled into its own instances alone: each
+  // costs the wide kernel's registers (96 a thread, with spills)
+  constexpr bool WIDE = TIER >= WIDE_TIER, WIDER = TIER == WIDER_TIER;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], abar, ybar, sbar;
   uint8_t* smem = align1024(smem_raw);
@@ -108,6 +117,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     act[0] = io.scratch + (size_t)blockIdx.x * SCRATCH_TILE_BYTES;
     act[1] = act[0] + WIDE_ACT_BYTES;
   }
+  // the wide kernels' stash of a row-wise epilogue's earlier passes
+  float4* const stash = WIDER ? reinterpret_cast<float4*>(act[0] + STASH_OFFSET) : nullptr;
   uint8_t* const in_buf = WIDE ? S : act[1];
   uint8_t* ring = smem + 2 * ACT_BYTES;
   float* red = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);
@@ -163,9 +174,24 @@ __global__ void __launch_bounds__(THREADS, 1)
     int it = 0;
     int a = 1, r = 0, ybuf = 0;
     int s_holds = -1;                 // wide: the buffer whose copy S holds (-1: the input)
+    int s_half = 0;                   // wider: which S_COLS columns of it
     uint32_t s_phase = 0;             // wide: the parity of S's next bulk copy
     float lsum_aug[2] = {0.f, 0.f};   // augment_net: this thread's rows' ldj terms
     int pofs = 0;                     // augment_net: the pairs of the passes before
+    // wider: this thread's two rows' sums over the passes of a row-wise
+    // epilogue, the affine's log-scales and the LayerNorm's sum and sum of
+    // squares
+    float lsum_w[2] = {0.f, 0.f}, ln_s1[2] = {0.f, 0.f}, ln_s2[2] = {0.f, 0.f};
+    // wider: S := half h of buffer b (every consumer calls it, past a
+    // barrier after S's last reader)
+    const auto hold = [&](int b, int h, int k) {
+      if (b == s_holds && h == s_half) return;
+      if (tid == 0) copy_to_s(S, act[b], k, h, &sbar);
+      mbar_wait(&sbar, s_phase);
+      s_phase ^= 1;
+      s_holds = b;
+      s_half = h;
+    };
     // the last MLP product's output goes to a bf16 y tile (all but layer 0 of
     // the inverse walk, which writes x)
     const bool to_y = KIND == COUPLING || plan.n_products > plan.n_mlp;
@@ -202,7 +228,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       // augment_net's output passes: the pass's eps columns, f32, into the
       // buffer the input does not use (free since the last product's barrier)
-      const bool aug_out = KIND == AUGMENT && p >= plan.n_mlp - 2;
+      const bool aug_out = KIND == AUGMENT && p >= plan.n_products - plan.n_out;
       const int P = n / 2;
       float* E = reinterpret_cast<float*>(act[1 - a]);
       if (aug_out) {
@@ -241,7 +267,19 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int nch = ps.nch, cpw = ps.cpw, cl = wg * cpw;
         const int cnt = min(max(nch - cl, 0), cpw), c0 = PASS_CHUNKS * j + cl;
         float acc[64];
-        consume_weights(acc, A, pr.k, cl, cnt, ring, full, empty, it);
+        if (WIDER && pr.k > S_COLS) {
+          // a K deeper than S: the input's first S_COLS columns, then S
+          // refilled with the rest, each pass (such an input is act[a]: the
+          // first product's and a tail's K are at most S_COLS)
+          named_barrier(1, CONSUMERS);
+          hold(a, 0, pr.k);
+          consume_weights(acc, S, S_COLS, cl, cnt, ring, full, empty, it);
+          named_barrier(1, CONSUMERS);
+          hold(a, 1, pr.k);
+          consume_weights(acc, S, pr.k - S_COLS, cl, cnt, ring, full, empty, it, true);
+        } else {
+          consume_weights(acc, A, pr.k, cl, cnt, ring, full, empty, it);
+        }
 
         if (dgcnn_end) {
           // conv5 with its folded BatchNorm, leaky(v * a5 + b5) rounded as the
@@ -286,7 +324,7 @@ __global__ void __launch_bounds__(THREADS, 1)
               st_pair(O, row, col, gelu_erf(v0), gelu_erf(v1));
             });
           }
-        } else if (KIND == CONDITIONER && last) {
+        } else if (KIND == CONDITIONER && last && !WIDER) {
           // LayerNorm of the f32 row (plain statistics; scale and bias are in wq_f)
           if (pr.pre != nullptr) {
             add_bias_res(acc, cnt, c0, bias, n, nullptr);
@@ -343,6 +381,75 @@ __global__ void __launch_bounds__(THREADS, 1)
             st_pair(Y, row, col, col < n ? (v0 - mean[h]) * inv[h] : 0.f,
                     col + 1 < n ? (v1 - mean[h]) * inv[h] : 0.f);
           });
+        } else if (KIND == CONDITIONER && last) {
+          // LayerNorm of the f32 row (plain statistics; scale and bias are in
+          // wq_f). A row wider than a pass: each thread's sums over its two
+          // rows run on over the passes, and a pass before the last waits in
+          // the stash (this thread's own elements) until they are known
+          add_bias_res(acc, cnt, c0, bias, n, nullptr);
+          for_pairs(acc, cnt, c0, nullptr, n, [&](int, int, int h, float v0, float v1) {
+            ln_s1[h] += v0 + v1;
+            ln_s2[h] += v0 * v0 + v1 * v1;
+          });
+          if (j + 1 < passes) {
+            stash_pass(stash, j, acc, cnt);
+            continue;
+          }
+          const int fr = (t / 32) * 16 + (t % 32) / 4;
+          // the row sums over the four warpgroups' columns, one quantity at a
+          // time through the 1 KB exchange
+          const auto row_total = [&](float (&v)[2]) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              v[h] = quad_sum(v[h]);
+              if (t % 4 == 0) red[wg * BM + fr + 8 * h] = v[h];
+            }
+            named_barrier(1, CONSUMERS);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float total = 0.f;
+              for (int w = 0; w < CWG; ++w) total += red[w * BM + fr + 8 * h];
+              v[h] = total;
+            }
+            named_barrier(1, CONSUMERS);
+          };
+          row_total(ln_s1);
+          row_total(ln_s2);
+          float mean[2], inv[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            mean[h] = ln_s1[h] / n;
+            inv[h] = rsqrtf(ln_s2[h] / n - mean[h] * mean[h] + 1e-5f);
+          }
+          if (pr.pre != nullptr && wg == 0 && t % 4 == 0) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (m0 + fr + 8 * h < M) io.ln_rstd[m0 + fr + 8 * h] = inv[h];
+          }
+          // a pass's normalised row: bf16 into Y and, for B5's recompute, in
+          // f32 (xhat) in the accumulator's order
+          uint8_t* Y = act[ybuf];
+          const auto normalise = [&](int cnt_j, int c0_j, int k0_j) {
+            if (pr.pre != nullptr) {
+#pragma unroll
+              for (int k = 0; k < 16; ++k)
+                if (k < 8 * cnt_j)
+                  *frag_ptr(pr.pre, cpw_all, k0_j + k) = make_float4(
+                      (acc[4 * k] - mean[0]) * inv[0], (acc[4 * k + 1] - mean[0]) * inv[0],
+                      (acc[4 * k + 2] - mean[1]) * inv[1], (acc[4 * k + 3] - mean[1]) * inv[1]);
+            }
+            for_pairs(acc, cnt_j, c0_j, nullptr, n, [&](int row, int col, int h, float v0, float v1) {
+              st_pair(Y, row, col, col < n ? (v0 - mean[h]) * inv[h] : 0.f,
+                      col + 1 < n ? (v1 - mean[h]) * inv[h] : 0.f);
+            });
+          };
+          normalise(cnt, c0, ps.k0);
+          for (int jj = 0; jj < j; ++jj) {
+            const PassSpan pj = pass_span(n, jj);
+            const int cnt_j = min(max(pj.nch - wg * pj.cpw, 0), pj.cpw);
+            unstash_pass(stash, jj, acc, cnt_j);
+            normalise(cnt_j, PASS_CHUNKS * jj + wg * pj.cpw, pj.k0);
+          }
         } else if (KIND == CONDITIONER) {
           // q = qn @ wq_f + bq_f, in bf16
           for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int, float v0, float v1) {
@@ -357,7 +464,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int, float v0, float v1) {
             record_pair(pr, m0 + row, M, col, v0, v1);
           });
-        } else if (last) {
+        } else if (last && !WIDER) {
           // [s | t] interleaved: the affine (forward) or its inverse on the
           // registers. The tile's x2 (forward) or y2 (inverse), f32, staged
           // once every warpgroup's products are done, read coalesced: over
@@ -434,7 +541,117 @@ __global__ void __launch_bounds__(THREADS, 1)
               if (gr < M) io.x[(size_t)gr * io.ldx + c] = io.y[(size_t)gr * io.ldy + c];
             }
           }
+        } else if (last) {
+          // [s | t] interleaved: the affine (forward) or its inverse on the
+          // registers, each pass holding whole pairs. One pass: the tile's
+          // x2 (forward) or y2 (inverse), f32, staged once every warpgroup's
+          // products are done, read coalesced: over the A buffer, or in the
+          // wide kernels over S's second half, whose first half takes y (S is
+          // free now), its x1 columns loaded here. More passes (the wide
+          // kernels, a latent past PASS_W): S holds the input until the last
+          // pass, so x2 / y2 is read from the f32 rows where it lies and y
+          // goes to the scratch (act[ybuf]), its x1 columns copied there
+          const bool staged = passes == 1;
+          float* X2 = reinterpret_cast<float*>(S + ACT_BYTES);
+          const float* src = (KIND == COUPLING ? io.x : io.y) + split;
+          const int lds = KIND == COUPLING ? io.ldx : io.ldy;
+          if (staged) {
+            named_barrier(1, CONSUMERS);
+            if (to_y && tid == 0) {
+              const int atoms = (split + 63) / 64;
+              mbar_expect_tx(&ybar, atoms * ATOM_BYTES);
+              for (int c = 0; c < atoms; ++c)
+                tma_load(S + c * ATOM_BYTES, &plan.x1, &ybar, 64 * c, m0);
+            }
+            // four loads in flight a thread before their stores
+            for (int e0 = tid; e0 < BM * half; e0 += 4 * CONSUMERS) {
+              float v[4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const int e = e0 + k * CONSUMERS, gr = m0 + e / half;
+                v[k] = e < BM * half && gr < M ? src[(size_t)gr * lds + e % half] : 0.f;
+              }
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                if (e0 + k * CONSUMERS < BM * half) X2[e0 + k * CONSUMERS] = v[k];
+            }
+            named_barrier(1, CONSUMERS);
+            if (to_y) mbar_wait(&ybar, 0);
+          }
+          uint8_t* Y = staged ? S : act[ybuf];
+          if (!staged && j == 0 && to_y) {
+            for (int e = tid; e < BM * split; e += CONSUMERS) {
+              const int row = e / split, c = e % split, gr = m0 + row;
+              *reinterpret_cast<bf16*>(act_at(Y, row, c)) =
+                  gr < M ? io.xin[(size_t)gr * io.ldxin + c] : f2bf(0.f);
+            }
+          }
+          for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int h, float v0, float v1) {
+            const int i = col >> 1;
+            if (i >= half) return;
+            const float sc = sigmoid_scale(v0, io.eps);
+            const int gr = m0 + row;
+            float out = 0.f;
+            if (gr < M) {
+              const float x2 = staged ? X2[row * half + i] : src[(size_t)gr * lds + i];
+              if (KIND == COUPLING) {
+                out = x2 * sc + v1;
+                lsum_w[h] += logf(sc);
+              } else {
+                out = __fdiv_rn(x2 - v1, sc);
+                if (!to_y) io.x[(size_t)gr * io.ldx + split + i] = out;
+              }
+            }
+            if (to_y) *reinterpret_cast<bf16*>(act_at(Y, row, split + i)) = f2bf(out);
+          });
+          if (to_y && (staged || j == 0)) {
+            // zero y's pad columns up to the LinearLU's last K stage
+            const int pad = (lat + WB - 1) / WB * WB - lat;
+            for (int e = tid; e < BM * pad; e += CONSUMERS)
+              *reinterpret_cast<bf16*>(act_at(Y, e / pad, lat + e % pad)) = f2bf(0.f);
+          }
+          if (j + 1 < passes) continue;
+          if (KIND == COUPLING) {
+            const int fr = (t / 32) * 16 + (t % 32) / 4;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float v = quad_sum(lsum_w[h]);
+              if (t % 4 == 0) red[wg * BM + fr + 8 * h] = v;
+            }
+            named_barrier(1, CONSUMERS);
+            if (tid < BM && m0 + tid < M) {
+              float v = 0.f;
+              for (int w = 0; w < CWG; ++w) v += red[w * BM + tid];
+              io.ldj[m0 + tid] = (io.ldj[m0 + tid] + v) + io.lu_ldj[0];
+            }
+          } else if (!to_y) {
+            // layer 0 of the walk: x1 = y1 in f32
+            for (int e = tid; e < BM * split; e += CONSUMERS) {
+              const int gr = m0 + e / split, c = e % split;
+              if (gr < M) io.x[(size_t)gr * io.ldx + c] = io.y[(size_t)gr * io.ldy + c];
+            }
+          }
         } else {
+          if (WIDER && passes > 1) {
+            // a latent past one pass: the LinearLU (forward) or the next
+            // layer's LU inverse a pass at a time from the registers (the
+            // ring is still filling and S holds y until the last pass) into
+            // the f32 rows, the packed rows' bf16 x1 columns and the save row
+            float* dst = KIND == COUPLING ? io.x : io.y;
+            const int ldd = KIND == COUPLING ? io.ldx : io.ldy;
+            bf16* save = KIND == COUPLING ? io.save : nullptr;
+            for_pairs(acc, cnt, c0, bias, n, [&](int row, int col, int, float v0, float v1) {
+              const int gr = m0 + row;
+              if (gr >= M || col >= lat) return;
+              const float v[2] = {v0, v1};
+              for (int k = 0; k < 2 && col + k < lat; ++k) {
+                dst[(size_t)gr * ldd + col + k] = v[k];
+                if (col + k < split) io.xin[(size_t)gr * io.ldxin + col + k] = f2bf(v[k]);
+                if (save != nullptr) save[(size_t)gr * io.ldsave + col + k] = f2bf(v[k]);
+              }
+            });
+            continue;
+          }
           // the LinearLU (forward) or the next layer's LU inverse: the f32 tile
           // staged over the activation buffers and the ring (every product is
           // done and nothing is loaded after this one), then written row by
@@ -489,7 +706,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // the wide kernels' activation stores, before a bulk copy reads them
       if (WIDE) fence_proxy_async_global();
       named_barrier(1, CONSUMERS);
-      if (WIDE && p + 1 < plan.n_products) {
+      if (WIDE && !WIDER && p + 1 < plan.n_products) {
         // the next product's input into S (a copy of it stays in the
         // scratch for a later residual), unless S holds it already or the
         // affine wrote y there
@@ -505,6 +722,15 @@ __global__ void __launch_bounds__(THREADS, 1)
           s_phase ^= 1;
           s_holds = next;
         }
+      }
+      if (WIDER && p + 1 < plan.n_products) {
+        // the next product's input (its first S_COLS columns) into S (a
+        // copy of it stays in the scratch for a later residual or half),
+        // unless S holds it already or the one-pass affine wrote y there
+        const int next = p + 1 == plan.n_mlp ? ybuf : a;
+        const bool y_in_s =
+            (KIND == COUPLING || KIND == COUPLING_INVERSE) && last && passes == 1;
+        if (!y_in_s) hold(next, 0, plan.prod[p + 1].k);
       }
       // B5's recompute: the activation (or the normalised row) the epilogue
       // wrote, now complete
@@ -550,16 +776,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int KIND, bool WIDE>
+template <int KIND, int TIER>
 cudaError_t launch_kind(const Plan& plan, const Rows& io, cudaStream_t stream) {
   static bool smem_set = false;   // the shared-memory opt-in, once per kernel
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_layer_kernel<KIND, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        fused_layer_kernel<KIND, TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  fused_layer_kernel<KIND, WIDE>
+  fused_layer_kernel<KIND, TIER>
       <<<(io.M + BM - 1) / BM, THREADS, SMEM_BYTES, stream>>>(plan, io);
   return cudaGetLastError();
 }

@@ -124,7 +124,7 @@ _SIGNATURES = {
     "fc_fused_layer_bwd": [_I, _I, *[_V] * 13, _I, _I, _V, _I, _I, _V, _I, _V, _V, _I, _V, _I,
                            _V, _V, _I, _V, _I, _V, _I, _I, _I, _I, _I, _I, _I, _V, _F, _V, _V],
     "fc_dgcnn_tail": [_I, *[_V] * 7, _V, _I, _I, _V, _I, _V, _V],
-    "fc_augment_net": [_I, *[_V] * 6, _V, _I, _I, _I, _V, _I, _V, _I, _I, _V, _I, _V, _V,
+    "fc_augment_net": [_I, _I, *[_V] * 6, _V, _I, _I, _I, _V, _I, _V, _I, _I, _V, _I, _V, _V,
                        _V],
     "fc_gemm_tn_grouped": [_I, *[_V] * 10, _V],
     "fc_grad_reduce": [_I, *[_V] * 7, _I, _V],
@@ -1234,10 +1234,14 @@ def mlp_chain(a: torch.Tensor, pairs: list, out: torch.Tensor, bufs: list) -> No
 # a one-pass kernel's product) and the most products a launch takes: the
 # limits fc_fused_layer checks (csrc/fused_layer.cuh's MAXW, PASS_W,
 # MAX_PRODUCTS). The products that end in a row's statistics or a row-wise
-# epilogue (the LayerNorm's, [s | t], the LinearLU, B2's output passes, B5's
-# head) take one pass; a stack with a product past FUSED_PASS_W runs the
-# wide kernels, which take device scratch (`fused_scratch`).
-FUSED_MAXW, FUSED_PASS_W, FUSED_MAX_PRODUCTS = 1024, 512, 10
+# epilogue (the LayerNorm's row, [s | t] and the latent, the LinearLU, B5's
+# head) take at most FUSED_ROW_W columns (two passes; ROW_W), B2's output
+# passes one pass each, and a launch's first product reads at most
+# FUSED_IN_W columns of packed rows (S_COLS); a stack with a product past
+# FUSED_PASS_W runs the wide kernels, which take device scratch
+# (`fused_scratch`).
+FUSED_MAXW, FUSED_PASS_W, FUSED_MAX_PRODUCTS = 2048, 512, 10
+FUSED_ROW_W = FUSED_IN_W = 1024
 
 
 def wide_shapes(shapes) -> bool:
@@ -1246,8 +1250,10 @@ def wide_shapes(shapes) -> bool:
 
 
 def fused_scratch(rows: int, wide: bool, device) -> Optional[torch.Tensor]:
-    """The wide kernels' activation buffers for `rows` rows (256 KB a 64-row
-    tile, `fc_fused_scratch_bytes`), or None for a one-pass stack."""
+    """The wide kernels' scratch for `rows` rows (648 KB a 64-row tile: two
+    64 x 2,048 bf16 activations, a row-wise epilogue's stash and the
+    backward's column-sum partials, `fc_fused_scratch_bytes`), or None for
+    a one-pass stack."""
     if not wide:
         return None
     return torch.empty(library().fc_fused_scratch_bytes(rows), dtype=torch.uint8, device=device)
@@ -1257,10 +1263,12 @@ class FusedStack:
     """A stack of products in the fused kernels' layout: per product a bf16
     weight stack (L, K, N) whose rows TMA can read (`flow_layer_cuda._pad_cols`)
     and an f32 bias (L, N); the first `n_mlp` are the MLP, one more the tail
-    (q, the LinearLU or the LU inverse). The pointer and shape arrays the C
-    entry point reads are built once here, not once per layer."""
+    (q, the LinearLU or the LU inverse), or, for B2's net, every product is
+    the MLP's and the last `n_out` are its output layer's column passes. The
+    pointer and shape arrays the C entry point reads are built once here,
+    not once per layer."""
 
-    def __init__(self, pairs: list, n_mlp: int):
+    def __init__(self, pairs: list, n_mlp: int, n_out: int = 0):
         if not 1 <= n_mlp <= len(pairs) <= min(n_mlp + 1, FUSED_MAX_PRODUCTS):
             raise ValueError(f"FusedStack: {len(pairs)} products with {n_mlp} in the MLP")
         for w, b in pairs:
@@ -1271,7 +1279,7 @@ class FusedStack:
                     or not b.is_contiguous()):
                 raise ValueError(f"FusedStack: weight {tuple(w.shape)} {w.dtype} strides "
                                  f"{w.stride()} / bias {tuple(b.shape)} not in the layout")
-        self.pairs, self.n_mlp = pairs, n_mlp
+        self.pairs, self.n_mlp, self.n_out = pairs, n_mlp, n_out
         self.wide = wide_shapes((w.shape[1], w.shape[2]) for w, _ in pairs)
         n = len(pairs)
 
@@ -1535,7 +1543,7 @@ def augment_net(xin: torch.Tensor, stack: FusedStack, x: torch.Tensor, eps: torc
     """B2's ConditionalNormal net and its epilogue over the packed rows xin
     (M, >= K0) bf16 [x | extra | pad | attn]: GELU after every product but
     the output layer, a residual every second hidden product; the output
-    layer as the stack's last two products, column passes of (mean_i,
+    layer as the stack's last `n_out` products, column passes of (mean_i,
     log_std_i) pairs (`flow_layer_cuda.augment_net_plan`). z (M, in + aug)
     f32 = [x | mean + eps * exp(log_std)], ldj (M) f32 = sum(log 2pi / 2 +
     log_std + eps^2 / 2), from x (M, in) and eps (M, aug) f32. One launch
@@ -1543,13 +1551,15 @@ def augment_net(xin: torch.Tensor, stack: FusedStack, x: torch.Tensor, eps: torc
     global AUGMENT_NET_LAUNCHES
     rows, in_dim = x.shape
     aug = eps.shape[1]
+    if stack.n_out < 1:
+        raise ValueError("augment_net: the stack names no output passes (FusedStack n_out)")
     if (xin.shape[0] != rows or xin.shape[1] < stack.in_cols or eps.shape[0] != rows
             or tuple(z.shape) != (rows, in_dim + aug) or ldj.numel() != rows):
         raise ValueError(f"augment_net: xin {tuple(xin.shape)}, x {tuple(x.shape)}, eps "
                          f"{tuple(eps.shape)}, z {tuple(z.shape)}, ldj {tuple(ldj.shape)}")
     if not xin.is_cuda:
         from .flow_layer_cuda import augment_net_plain
-        zr, lr = augment_net_plain(xin, stack.layer(0), x, eps)
+        zr, lr = augment_net_plain(xin, stack.layer(0), x, eps, n_out=stack.n_out)
         z.copy_(zr)
         ldj.copy_(lr.reshape(ldj.shape))
         return
@@ -1558,7 +1568,7 @@ def augment_net(xin: torch.Tensor, stack: FusedStack, x: torch.Tensor, eps: torc
         raise ValueError("augment_net: TMA cannot read the packed rows")
     scratch = fused_scratch(rows, stack.wide, xin.device)
     rc = library().fc_augment_net(
-        len(stack.pairs), *stack.args, xin.data_ptr(), ldxin, rows, in_dim, x.data_ptr(),
+        len(stack.pairs), stack.n_out, *stack.args, xin.data_ptr(), ldxin, rows, in_dim, x.data_ptr(),
         _rows(x, "augment_net.x", torch.float32), eps.data_ptr(),
         _rows(eps, "augment_net.eps", torch.float32), aug, z.data_ptr(),
         _rows(z, "augment_net.z", torch.float32), _vec(ldj, "augment_net.ldj", rows),

@@ -109,13 +109,14 @@ def fused_dgcnn_encoder_plain(x: torch.Tensor, params: dict, state: dict, *,
 def dgcnn_tail_plan(conv5: tuple, head: Optional[list]) -> dict:
     """What B4's tail kernel (csrc/fused_layer.cu, kind dgcnn_tail) runs, from
     shapes alone: conv5's (K, N), the head's (K, N) per product or None
-    (head=False). It takes widths up to 1,024 (`_build.FUSED_MAXW`; past 512
-    the wide kernel, its row tile's activations in device scratch), at most
-    10 products, each reading the width the one before gave, and an
-    output width that is a multiple of 8 (16-byte rows); other shapes raise
-    ValueError, and there is no other route for them."""
+    (head=False). It takes widths up to 2,048 (`_build.FUSED_MAXW`; past 512
+    the wide kernel, its row tile's activations in device scratch), conv5's
+    input up to 1,024 (`_build.FUSED_IN_W`), at most 10 products, each
+    reading the width the one before gave, and an output width that is a
+    multiple of 8 (16-byte rows); other shapes raise ValueError, and there
+    is no other route for them."""
     shapes = [tuple(conv5)] + [tuple(w) for w in (head or [])]
-    ok = (len(shapes) <= _build.FUSED_MAX_PRODUCTS
+    ok = (len(shapes) <= _build.FUSED_MAX_PRODUCTS and shapes[0][0] <= _build.FUSED_IN_W
           and all(1 <= kk <= _build.FUSED_MAXW and 1 <= nn <= _build.FUSED_MAXW
                   for kk, nn in shapes)
           and all(shapes[i][0] == shapes[i - 1][1] for i in range(1, len(shapes)))

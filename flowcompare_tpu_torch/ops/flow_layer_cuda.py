@@ -598,8 +598,8 @@ def _fits(shapes: list) -> bool:
 
 
 FUSED_LIMITS_TEXT = (f"the fused layer kernels take widths <= {_build.FUSED_MAXW}, the "
-                     f"LayerNorm's row and the latent <= {_build.FUSED_PASS_W}, "
-                     f"3-{_build.FUSED_MAX_PRODUCTS} products")
+                     f"LayerNorm's row, the latent and the packed input <= "
+                     f"{_build.FUSED_ROW_W}, 3-{_build.FUSED_MAX_PRODUCTS} products")
 
 
 def fused_route(pre: Optional[list], q: Optional[tuple], cpl: list, tail: tuple, split: int,
@@ -608,19 +608,21 @@ def fused_route(pre: Optional[list], q: Optional[tuple], cpl: list, tail: tuple,
     shapes alone: `pre` the pre-MLP's (K, N) per product (None without
     attention), `q` the query product's, `cpl` the coupling MLP's (the first
     over the packed rows), `tail` the LinearLU's. A part is fused when every
-    width is at most FUSED_MAXW (1,024; past FUSED_PASS_W, 512, the wide
-    kernels), the products that end in a row-wise epilogue take one pass
-    (the LayerNorm's row, [s | t] and the LinearLU at most 512: the latent
-    at most 512), its products (with the tail) number 3 to 10, and, for the
-    coupling, the last product gives [s | t] for the lat - split columns of
-    the affine. A part that is refused has no other route: `_CouplingChain`
-    raises."""
-    n_max, one_pass = _build.FUSED_MAX_PRODUCTS, _build.FUSED_PASS_W
+    width is at most FUSED_MAXW (2,048; past FUSED_PASS_W, 512, the wide
+    kernels), the products that end in a row-wise epilogue take at most
+    FUSED_ROW_W (1,024, two passes: the LayerNorm's row, [s | t] and the
+    LinearLU, so the latent), the first product reads at most FUSED_IN_W
+    (1,024) packed columns, its products (with the tail) number 3 to 10,
+    and, for the coupling, the last product gives [s | t] for the lat -
+    split columns of the affine. A part that is refused has no other route:
+    `_CouplingChain` raises."""
+    n_max, row_w, in_w = _build.FUSED_MAX_PRODUCTS, _build.FUSED_ROW_W, _build.FUSED_IN_W
     cond = (pre is not None and 2 <= len(pre) and len(pre) + 1 <= n_max
-            and _fits(pre + [q]) and pre[-1][1] <= one_pass and pre[0][0] == split
-            and q[0] == pre[-1][1])
+            and _fits(pre + [q]) and pre[-1][1] <= row_w and pre[0][0] == split
+            and split <= in_w and q[0] == pre[-1][1])
     coupling = (2 <= len(cpl) and len(cpl) + 1 <= n_max and _fits(cpl + [tail])
-                and lat <= one_pass and cpl[-1][1] == 2 * (lat - split) and tail == (lat, lat))
+                and cpl[0][0] <= in_w and lat <= row_w and cpl[-1][1] == 2 * (lat - split)
+                and tail == (lat, lat))
     return {"conditioner": bool(cond), "coupling": bool(coupling)}
 
 
@@ -634,25 +636,28 @@ def augment_net_plan(net: list, in_cols: int, aug: int) -> dict:
     """What B2's net kernel (csrc/fused_layer.cu, kind augment_net) runs,
     from shapes alone: `net` the ConditionalNormal net's (K, N) per product,
     the first over the packed rows (`in_cols` = K0), the last giving
-    [mean | log_std] (N = 2 aug). The output layer runs as two column passes
-    of (mean_i, log_std_i) pairs, the first ceil(aug / 2) pairs and the
-    rest, each at most 256 pairs (512 columns, one pass of the kernel);
-    every other width at most 1,024 (`_build.FUSED_MAXW`), at most 10
-    products with the passes.
+    [mean | log_std] (N = 2 aug). The output layer runs as column passes of
+    (mean_i, log_std_i) pairs, max(2, ceil(aug / 256)) of them, each of
+    ceil(aug / passes) pairs but the last (at most 256 pairs, 512 columns:
+    one pass of the kernel); every other width at most 2,048
+    (`_build.FUSED_MAXW`), the packed rows at most 1,024 (`FUSED_IN_W`), at
+    most 10 products with the passes.
     Returns {"products", "passes": [(first pair, pairs), ...]}; other shapes
     raise ValueError, and there is no other route for them."""
-    first = -(-aug // 2)
-    passes = [(0, first), (first, aug - first)]
-    ok = (len(net) >= 2 and net[0][0] == in_cols and net[-1][1] == 2 * aug
-          and 1 <= aug - first and first <= _build.FUSED_PASS_W // 2
-          and len(net) + 1 <= _build.FUSED_MAX_PRODUCTS
+    n_out = max(2, -(-aug // (_build.FUSED_PASS_W // 2)))
+    per = -(-aug // n_out)
+    passes = [(per * j, min(per, aug - per * j)) for j in range(n_out)]
+    ok = (len(net) >= 2 and net[0][0] == in_cols and in_cols <= _build.FUSED_IN_W
+          and net[-1][1] == 2 * aug and passes[-1][1] >= 1
+          and per <= _build.FUSED_PASS_W // 2
+          and len(net) - 1 + n_out <= _build.FUSED_MAX_PRODUCTS
           and all(1 <= k <= _build.FUSED_MAXW for k, _ in net)
           and all(1 <= n <= _build.FUSED_MAXW for _, n in net[:-1])
           and all(net[i][0] == net[i - 1][1] for i in range(1, len(net))))
     if not ok:
         raise ValueError(f"the augmenter's net kernel cannot take these shapes: net {net}, "
                          f"packed rows of {in_cols}, aug {aug}")
-    return {"products": len(net) + 1, "passes": passes}
+    return {"products": len(net) - 1 + n_out, "passes": passes}
 
 
 def interleave_passes(w: torch.Tensor, passes: list) -> list:
@@ -664,17 +669,17 @@ def interleave_passes(w: torch.Tensor, passes: list) -> list:
 
 
 def augment_net_plain(xin: torch.Tensor, pairs: list, x: torch.Tensor,
-                      eps: torch.Tensor) -> tuple:
+                      eps: torch.Tensor, n_out: int = 2) -> tuple:
     """Plain version of `_build.augment_net` at the kernel's rounding points:
     the net over the packed rows' first K0 columns (bf16 between products,
     GELU, a residual every second hidden product), the output layer's column
-    passes (`interleave_passes`) in f32, then z = [x | mean + eps *
-    exp(log_std)] and ldj = sum(log 2pi / 2 + log_std + eps^2 / 2). `pairs`
-    are the kernel stack's (w (K, N), b (N)) at one layer."""
+    passes (`interleave_passes`, the last n_out pairs) in f32, then z = [x |
+    mean + eps * exp(log_std)] and ldj = sum(log 2pi / 2 + log_std + eps^2 /
+    2). `pairs` are the kernel stack's (w (K, N), b (N)) at one layer."""
     bf = torch.bfloat16
     h = _cast(gelu(_lin(xin[:, :pairs[0][0].shape[0]], pairs[0], bf)), bf)
-    h = _res_hidden(h, pairs[1:-2], gelu, bf)
-    st = torch.cat([_lin(h, wb, bf) for wb in pairs[-2:]], 1)
+    h = _res_hidden(h, pairs[1:-n_out], gelu, bf)
+    st = torch.cat([_lin(h, wb, bf) for wb in pairs[-n_out:]], 1)
     mean, log_std = st[:, 0::2], st[:, 1::2]
     z2 = mean + eps * torch.exp(log_std)
     ldj = (0.5 * _LOG_2PI + log_std + 0.5 * eps * eps).sum(-1)
@@ -922,7 +927,7 @@ class AugmenterWeights:
     and their kernel layout: the conditioner's `FusedStack` (pre-MLP and q),
     wkv, and the net's `FusedStack` over the packed rows [x | extra | pad |
     attn] (`packed_input_layout`; the first weight with zero rows at the
-    pad), its output layer's columns as `augment_net_plan`'s two passes of
+    pad), its output layer's columns as `augment_net_plan`'s passes of
     interleaved (mean_i, log_std_i) pairs. Shapes the kernels refuse raise."""
 
     def __init__(self, folded: dict, *, input_dim: int):
@@ -951,7 +956,8 @@ class AugmenterWeights:
         passes = list(zip(interleave_passes(w_out, plan["passes"]),
                           interleave_passes(b_out, plan["passes"])))
         self.net_stack = _build.FusedStack(
-            [(w_in, b_in)] + _bf16_stack(rest[:-1]) + _bf16_stack(passes), plan["products"])
+            [(w_in, b_in)] + _bf16_stack(rest[:-1]) + _bf16_stack(passes), plan["products"],
+            n_out=len(passes))
 
 
 def _fold_once(sources: list, key, make) -> AugmenterWeights:

@@ -5,8 +5,9 @@ The kernels carry fixed limits (ROADMAP queue B): the cross attention of B1,
 B2, B5 and B7 takes every head width 1 <= D = heads * dim_head <=
 ATTENTION_MAX_D (512; one kernel instance a tile of 32, 64, 128, 256 or 512
 columns, the smallest that holds D); the fused layer kernels take
-widths up to 1,024 (the LayerNorm's row and the latent up to 512) and 3 to
-10 products a launch; B3 and B6 take k <= min(n, 256) neighbours of at most
+widths up to 2,048 (the LayerNorm's row, the latent and a launch's packed
+input rows up to 1,024; B2's output layer in column passes of at most 256
+pairs) and 3 to 10 products a launch; B3 and B6 take k <= min(n, 256) neighbours of at most
 256 channels (B6 keeps a neighbour's slot in a byte; past k = 64 the
 selection is the radix select alone), on clouds of any size (16 distance
 rows of the cloud in shared memory up to 3,200 points at 128 features,

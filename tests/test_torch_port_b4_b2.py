@@ -337,7 +337,7 @@ def test_plans_accept_every_preset(preset):
 
 
 @pytest.mark.parametrize("conv5,head", [
-    ((512, 1040), None),                      # wider than the wide kernels' 1,024
+    ((512, 2056), None),                      # wider than the wide kernels' 2,048
     ((1040, 512), None),                      # a concat wider than 1,024
     ((512, 512), [(512, 512)] * 9 + [(512, 64)]),   # 11 products
     ((512, 512), [(256, 512), (512, 64)]),    # a product that skips a width
@@ -349,8 +349,9 @@ def test_dgcnn_tail_plan_refuses(conv5, head):
 
 
 @pytest.mark.parametrize("net,in_cols,aug", [
-    ([(72, 512), (512, 512), (512, 1026)], 72, 513),    # a pass of 257 pairs
-    ([(72, 1040), (1040, 588)], 72, 294),                # a hidden width of 1,040
+    # five passes of 256 pairs beside six products: 11
+    ([(72, 512)] + [(512, 512)] * 5 + [(512, 2560)], 72, 1280),
+    ([(72, 2056), (2056, 588)], 72, 294),                # a hidden width of 2,056
     ([(72, 512), (512, 588)], 80, 294),                  # packed rows of another width
     ([(72, 512), (256, 588)], 72, 294),                  # a broken chain
     ([(72, 512), (512, 590)], 72, 294),                  # not [mean | log_std]

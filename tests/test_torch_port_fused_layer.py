@@ -106,19 +106,23 @@ def test_route_refuses_what_the_kernels_cannot_hold():
     cpl, tail = [(216, 512), (512, 512), (512, 512), (512, 300)], (300, 300)
     assert flc.fused_route(pre, q, cpl, tail, 150, 300) == {"conditioner": True,
                                                             "coupling": True}
-    # products up to 1,024 wide take the wide kernels; past it no kernel
-    for w in (640, 1024):
+    # products up to 2,048 wide take the wide kernels; past it no kernel
+    for w in (640, 1024, 2048):
         wide = [(216, w), (w, w), (w, w), (w, 300)]
         assert flc.fused_route(pre, q, wide, tail, 150, 300)["coupling"]
-    wide = [(216, 1040), (1040, 1040), (1040, 1040), (1040, 300)]
+    wide = [(216, 2056), (2056, 2056), (2056, 2056), (2056, 300)]
     assert not flc.fused_route(pre, q, wide, tail, 150, 300)["coupling"]
-    # the LinearLU's latent and [s | t] take one pass (<= 512)
+    # the LinearLU's latent and [s | t] take two passes (<= 1,024)
     big = [(216, 512), (512, 512), (512, 512), (512, 600)]
-    assert not flc.fused_route(pre, q, big, (600, 600), 300, 600)["coupling"]
+    assert flc.fused_route(pre, q, big, (600, 600), 300, 600)["coupling"]
+    big = [(216, 512), (512, 512), (512, 512), (512, 1026)]
+    assert not flc.fused_route(pre, q, big, (1026, 1026), 513, 1026)["coupling"]
     deep = [(216, 512)] + [(512, 512)] * 9 + [(512, 300)]       # 11 products + the tail
     assert not flc.fused_route(pre, q, deep, tail, 150, 300)["coupling"]
     assert not flc.fused_route(pre, q, cpl[:-1] + [(512, 200)], tail, 150, 300)["coupling"]
-    assert not flc.fused_route([(150, 600)] + [(600, 600)] * 3, (600, 64), cpl, tail, 150,
+    assert flc.fused_route([(150, 600)] + [(600, 600)] * 3, (600, 64), cpl, tail, 150,
+                           300)["conditioner"]
+    assert not flc.fused_route([(150, 1040)] + [(1040, 1040)] * 3, (1040, 64), cpl, tail, 150,
                                300)["conditioner"]
     assert not flc.fused_route(None, None, cpl, tail, 150, 300)["conditioner"]
 

@@ -5,9 +5,12 @@ config's shapes; a refused part takes the JAX package's path off the TPU.
 Held here: every preset reads "kernels" for every part; so do the stack
 and the augmenter at each attention head width the kernels take (D = 32,
 64, 128), while D = 48 and D = 256 read "plain: ..." naming those widths;
-the three C1 configs (D = 256, a 1,040-wide coupling MLP, k = 257) read
-"plain: ..." on the right parts, while the 1,024-wide MLPs (the stack's,
-the augmenter's and the embedder head's, `w1024`) read "kernels"; the shapes the gate reasons about are the folds' own
+the three C1 configs (D = 576, a 2,056-wide coupling MLP, k = 257) read
+"plain: ..." on the right parts, while the 1,024- and 2,048-wide MLPs (the
+stack's, the augmenter's and the embedder head's, `w1024`, and `w2048` with
+its 1,024-wide latent and LayerNorm row) read "kernels"; the fused layer
+gates at their edges (K and N 2,048 / 2,049, the row-wise widths 1,024 /
+1,025 / 1,026, B2's 1,018 augmented dims); the shapes the gate reasons about are the folds' own
 (`stack_shapes` against `fold_stacks`, the augmenter's against
 `AugmenterWeights`, the DGCNN's against `EncoderWeights`); the shared
 memory mirrors at the kernels' documented limits; and, for tiny models of
@@ -32,14 +35,14 @@ from flowcompare_tpu.model import inner_loop as jax_inner_loop
 from flowcompare_tpu_torch import routes
 from flowcompare_tpu_torch.ops import dgcnn_cuda, flow_layer_cuda as flc
 from torch_port_fixtures import N_POINTS, model_pair, n, normal, t, tiny_config
-from torch_port_widths import W1024
+from torch_port_widths import W1024, W2048
 
 torch.set_num_threads(2)
 
 PRESETS = ["dulcet-universe", "good-surf", "helpful-sponge", "summer-terrain", "swept-energy"]
 C1_CASES = {
     "d576": ({"cross_heads": 9}, {"stack", "augmenter"}),
-    "mlp1040": ({"hidden_dims": [1040, 1040, 1040]}, {"stack", "augmenter"}),
+    "mlp2056": ({"hidden_dims": [2056, 2056, 2056]}, {"stack", "augmenter"}),
     "k257": ({"n_neighbors": 257}, {"encoder"}),
 }
 
@@ -66,30 +69,40 @@ def test_c1_configs_refuse_the_right_parts(case):
     assert all(got[p].startswith("plain: ") for p in refused)
 
 
-@pytest.mark.parametrize("overrides", [W1024, {"hidden_dims": [1024] * 3}],
-                         ids=["w1024", "hidden1024"])
+@pytest.mark.parametrize("overrides", [W1024, {"hidden_dims": [1024] * 3}, W2048,
+                                       {"hidden_dims": [2048] * 3}],
+                         ids=["w1024", "hidden1024", "w2048", "hidden2048"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mlps_up_to_1024_take_the_kernels(overrides, dtype):
-    """dulcet-universe at twice its MLP widths (`w1024`), and with its
-    coupling MLPs alone at 1,024, reads "kernels" for every part: the fused
-    layer kernels take products up to 1,024 wide."""
+    """dulcet-universe at twice its MLP widths (`w1024`), at four times them
+    with a 1,024-wide latent and LayerNorm row (`w2048`), and with its
+    coupling MLPs alone at 1,024 or 2,048, reads "kernels" for every part:
+    the fused layer kernels take products up to 2,048 wide and row-wise
+    epilogues up to 1,024."""
     cfg = ft.get_config("dulcet-universe")
     cfg.update(compute_dtype=dtype, **overrides)
     assert routes.model_routes(cfg) == {p: "kernels" for p in ("stack", "augmenter", "encoder")}
 
 
 def test_widths_past_1024_read_plain_naming_the_limit():
-    """Past 1,024 columns the stack, the augmenter and the embedder's head
-    read "plain: ..." naming the fused layer kernels' limits."""
+    """Past the fused layer kernels' limits (products 2,048 wide, row-wise
+    epilogues 1,024) the stack, the augmenter and the embedder's head read
+    "plain: ..." naming them: MLPs 2,049 wide, a latent of 1,026, a
+    LayerNorm row of 1,026."""
     cfg = ft.get_config("dulcet-universe")
-    got = routes.model_routes({**cfg, "hidden_dims": [1040] * 3})
+    got = routes.model_routes({**cfg, "hidden_dims": [2049] * 3})
     for part in ("stack", "augmenter"):
-        assert got[part].startswith("plain: ") and "widths <= 1024" in got[part], got[part]
+        assert got[part].startswith("plain: ") and "widths <= 2048" in got[part], got[part]
     assert got["encoder"] == "kernels"
-    head = routes.model_routes({**cfg, "hidden_dims_embedder_out": [1040] * 6})
+    head = routes.model_routes({**cfg, "hidden_dims_embedder_out": [2049] * 6})
     assert head["encoder"].startswith("plain: ") and head["stack"] == "kernels"
-    net = routes.model_routes({**cfg, "net_augmenter_dist_hidden_dims": [1040] * 3})
+    net = routes.model_routes({**cfg, "net_augmenter_dist_hidden_dims": [2049] * 3})
     assert net["augmenter"].startswith("plain: ") and net["stack"] == "kernels"
+    lat = routes.model_routes({**cfg, "latent_dim": 1026})
+    assert lat["stack"].startswith("plain: the coupling's") and "latent" in lat["stack"]
+    row = routes.model_routes({**cfg, "attn_input_dim": 1026})
+    for part in ("stack", "augmenter"):
+        assert "LayerNorm's row" in row[part] and "<= 1024" in row[part], row[part]
 
 
 @pytest.mark.parametrize("heads,dim_head", [(1, 32), (1, 64), (2, 64), (1, 8), (1, 20), (3, 32),
@@ -144,6 +157,26 @@ def test_gate_limits_at_their_edges():
     for heads, dim_head in ((1, 512), (8, 64)):
         assert routes.model_routes({**cfg, "cross_heads": heads, "cross_dim_head": dim_head,
                                     "compute_dtype": "bfloat16"})["stack"] == "kernels"
+    # the fused layer kernels: products up to 2,048 (K and N), row-wise
+    # epilogues (the LayerNorm's row, [s | t] and the latent) up to 1,024,
+    # B2's output layer in passes of at most 256 pairs (1,018 augmented dims)
+    every = {p: "kernels" for p in ("stack", "augmenter", "encoder")}
+    for key, ok, past in (("hidden_dims", 2048, 2049), ("net_augmenter_dist_hidden_dims", 2048,
+                                                        2049),
+                          ("hidden_dims_embedder_out", 2048, 2056)):
+        n_hidden = len(cfg[key])
+        assert routes.model_routes({**cfg, key: [ok] * n_hidden}) == every
+        assert routes.model_routes({**cfg, key: [past] * n_hidden}) != every
+    for key in ("attn_input_dim", "latent_dim"):
+        assert routes.model_routes({**cfg, key: 1024}) == every
+        for past in (1025, 1026):
+            assert routes.model_routes({**cfg, key: past})["stack"].startswith("plain: ")
+    assert routes.model_routes({**cfg, "latent_dim": 1024, "input_dim": 6})["augmenter"] == \
+        "kernels"
+    plan = flc.augment_net_plan([(72, 512), (512, 2036)], 72, 1018)
+    assert plan["passes"] == [(0, 255), (255, 255), (510, 255), (765, 253)]
+    assert flc.augment_net_plan([(72, 512), (512, 588)], 72, 294)["passes"] == [(0, 147),
+                                                                                 (147, 147)]
     wide = routes.model_routes({**cfg, "cross_heads": 1, "cross_dim_head": 513})
     assert wide["stack"].startswith("plain: ") and "512" in wide["stack"]
     for k in (64, 65, 128, 256):
@@ -187,7 +220,7 @@ def _case_config(case: str, dtype: str = "bfloat16"):
     cfg.update(C1_CASES[case][0])
     if case == "k257":
         cfg["n_samples_context"] = 260     # a cloud that holds k = 257, past B3's 256
-    if case == "mlp1040":
+    if case == "mlp2056":
         cfg["n_flow_layers"] = 2
     return jax_derive(cfg)
 

@@ -43,15 +43,16 @@ def tiny_config(compute_dtype: str = "float32") -> dict:
     return jax_derive(cfg)
 
 
-def _perturb(params: dict, state: dict, rng: np.random.Generator) -> None:
-    """Move the identity-initialised leaves off their init, in place."""
+def _perturb(params: dict, state: dict, rng: np.random.Generator, lu_noise: float = 0.1) -> None:
+    """Move the identity-initialised leaves off their init, in place: the
+    LinearLU's lower and upper entries by up to `lu_noise`."""
     def walk(tree, path=()):
         if isinstance(tree, dict):
             for k, v in tree.items():
                 if isinstance(v, (dict, list)):
                     walk(v, path + (k,))
                 elif v is not None:
-                    tree[k] = _noise(path + (k,), v, rng)
+                    tree[k] = _noise(path + (k,), v, rng, lu_noise)
         elif isinstance(tree, list):
             for v in tree:
                 walk(v, path)
@@ -73,10 +74,10 @@ def _perturb(params: dict, state: dict, rng: np.random.Generator) -> None:
     walk_state(state["embedder"])
 
 
-def _noise(path, v, rng):
+def _noise(path, v, rng, lu_noise=0.1):
     name = path[-1]
     if name in ("lower_entries", "upper_entries"):
-        return (v + rng.uniform(-0.1, 0.1, v.shape)).astype(np.float32)
+        return (v + rng.uniform(-lu_noise, lu_noise, v.shape)).astype(np.float32)
     if name in ("unconstrained_upper_diag", "shift", "log_scale"):
         return (v + rng.normal(0, 0.1, v.shape)).astype(np.float32)
     if path[-2:] == ("bn", "scale"):
@@ -137,11 +138,12 @@ def paconv_pair(preset: str = "good-surf", compute_dtype: str = "float32", seed:
     return port_init_pair(tiny_paconv_config(preset, compute_dtype), seed)
 
 
-def port_init_pair(cfg: dict, seed: int = 0):
+def port_init_pair(cfg: dict, seed: int = 0, lu_noise: float = 0.1):
     """model_pair for `cfg`, with the port's seeded init as the shared
     weights: the JAX pytrees (None leaves included) take their structure
     from `jax.eval_shape(init_params)` and their leaves from the port's
-    state_dict, then are perturbed and loaded back into the port."""
+    state_dict, then are perturbed (`_perturb`) and loaded back into the
+    port."""
     jm = JaxModel(cfg, remat=False)
     shapes = jax.eval_shape(jm.init_params, jax.random.PRNGKey(seed))
     pm = ft.FlowCompareModel(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
@@ -153,7 +155,7 @@ def port_init_pair(cfg: dict, seed: int = 0):
             treedef, [own[prefix + _path_key(p)].reshape(s.shape) for p, s in leaves])
 
     params, state = fill(shapes[0], ""), fill(shapes[1], "state.")
-    _perturb(params, state, np.random.default_rng(seed))
+    _perturb(params, state, np.random.default_rng(seed), lu_noise)
     ft.load_jax_params(pm, params, state)
     to_jax = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
     return cfg, jm, to_jax(params), to_jax(state), pm

@@ -2,13 +2,14 @@
 """How far B5 (flowcompare_tpu_torch's flow_layers_bwd, its fused per-layer
 kernels in csrc/fused_layer.cu's record mode and csrc/fused_layer_bwd.cu)
 lands from its plain version on the card: as built, and with one rounding
-fault planted in a copy of fused_layer_bwd.cu, so the limits of
+fault planted in a copy of the backward kernels' source, so the limits of
 chip_smoke.py's B5_LIMITS can sit between the two.
 
-    python3 tools/torch_b5_faults.py [--workdir DIR] [--out FILE]
+    python3 tools/torch_b5_faults.py [--workdir DIR] [--out FILE] [--only TEXT]
 
 Faults, each built from a copy of csrc/ under --workdir (default: a new
-temporary directory):
+temporary directory), planted in the fused_layer* source that holds the
+anchor (the backward kernels' body is csrc/fused_layer_bwd_kernel.cuh):
   dp_bf16     every hidden product's f32 output gradient dp rounded to bf16
               (the per-product chain and the kernels keep it in f32 for the
               residual's gradient and the bias gradients)
@@ -18,7 +19,9 @@ temporary directory):
 Cases: chip_smoke.py's phase_b5_fused shapes (dulcet-universe at 20 x 1024
 rows, helpful-sponge at 25 x 1024, two full-width layers, chip_smoke's
 weights) and the card tests' (dulcet-universe, swept-energy and
-helpful-sponge at one item of 1,037 / 4,000 / 1,000 rows, their weights).
+helpful-sponge at one item of 1,037 / 4,000 / 1,000 rows, their weights);
+"w2048" (chip_smoke.W2048: 2,048-wide MLPs, a 1,024-wide latent and
+LayerNorm row) at both. --only keeps the cases whose name holds TEXT.
 Each reading is `chip_smoke.b5_stats` of flow_layers_bwd against the fused
 route's plain version (`flow_layers_bwd_fused_plain`, every launch's plain
 version: the kernels' own rounding points) from the same saves. Prints one
@@ -46,10 +49,10 @@ import chip_smoke  # noqa: E402
 import flowcompare_tpu_torch as ft  # noqa: E402
 from flowcompare_tpu_torch.ops import _build, flow_layer_cuda as flc  # noqa: E402
 from flowcompare_tpu_torch.ops import flow_layer_vjp_cuda as fv  # noqa: E402
-from torch_fused_layer_faults import perturb_test, use_sources  # noqa: E402
+from torch_fused_layer_faults import perturb_test, plant, use_sources  # noqa: E402
 
 BF = "__bfloat162float(f2bf({}))"
-# (anchor, replacement) pairs in fused_layer_bwd.cu; each anchor occurs once
+# (anchor, replacement) pairs in the backward kernels; each anchor occurs once
 FAULTS = {
     "dp_bf16": [
         ("? (r[q] + v) * x[q] : 0.f;", f"? {BF.format('(r[q] + v) * x[q]')} : 0.f;"),
@@ -64,12 +67,13 @@ FAULTS = {
 
 CASES = [("smoke", "dulcet-universe", 20, 1024), ("smoke", "helpful-sponge", 25, 1024),
          ("test", "dulcet-universe", 1, 1037), ("test", "swept-energy", 1, 4000),
-         ("test", "helpful-sponge", 1, 1000)]
+         ("test", "helpful-sponge", 1, 1000), ("smoke", "w2048", 20, 1024),
+         ("test", "w2048", 1, 1037)]
 
 
 def case(setup: str, preset: str, items: int, n: int, dev) -> tuple:
     """B5's arguments: two full-width layers, B1's saves at random x."""
-    cfg = ft.get_config(preset)
+    cfg = chip_smoke.smoke_config(ft, preset)
     cfg.update(compute_dtype="bfloat16", n_flow_layers=2, sample_size=n)
     seed = chip_smoke.SEED if setup == "smoke" else 0
     model = ft.FlowCompareModel(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
@@ -95,6 +99,7 @@ def main() -> int:
                         help="where the faults' copies of csrc/ are built (default: a new "
                              "temporary directory, removed at the end)")
     parser.add_argument("--out", type=Path, default=REPO / "build" / "b5_faults.json")
+    parser.add_argument("--only", default="", help="run only the cases whose name holds this")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -104,7 +109,8 @@ def main() -> int:
     work = args.workdir or Path(tempfile.mkdtemp(prefix="b5_faults_"))
     src_dir, build_dir = _build.CSRC, _build.BUILD_DIR
     _build.library()
-    cases = {f"{s} {p} {b}x{n}": case(s, p, b, n, dev) for s, p, b, n in CASES}
+    cases = {f"{s} {p} {b}x{n}": case(s, p, b, n, dev) for s, p, b, n in CASES
+             if args.only in f"{s} {p} {b}x{n}"}
     refs = {name: fv.flow_layers_bwd_fused_plain(*c) for name, c in cases.items()}
     results = {}
     try:
@@ -114,12 +120,7 @@ def main() -> int:
             else:
                 csrc = work / variant / "csrc"
                 shutil.copytree(src_dir, csrc, dirs_exist_ok=True)
-                path = csrc / "fused_layer_bwd.cu"
-                text = path.read_text()
-                for anchor, planted in FAULTS[variant]:
-                    assert text.count(anchor) == 1, (variant, anchor)
-                    text = text.replace(anchor, planted)
-                path.write_text(text)
+                plant(csrc, FAULTS[variant])
                 use_sources(csrc, work / variant / "build")
             for name, c in cases.items():
                 with torch.no_grad():

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""B5's fused per-layer kernels at 1,024-wide MLPs on the card: the wide
-conditioner kinds' device times, and how far the kernels and the
+"""B5's fused per-layer kernels at 1,024- and 2,048-wide MLPs on the card:
+the wide conditioner kinds' device times, and how far the kernels and the
 per-product route they replaced each land from B5's plain version.
 
-    python3 tools/torch_b5_wide.py [--out FILE]
+    python3 tools/torch_b5_wide.py [--out FILE] [--only TEXT]
 
 Runs chip_smoke.py's `phase_b5_fused` (two layers of dulcet-universe at
 full width over its 20,480 training rows) at three widths:
@@ -12,6 +12,10 @@ full width over its 20,480 training rows) at three widths:
   pre1024         the conditioner's pre-MLP 1,024 wide (conditioner_record
                   and conditioner_bwd on their wide kernels)
   w1024 pre1024   both
+  w2048           chip_smoke.W2048: the coupling MLP 2,048 wide (K in two
+                  halves), the latent and the conditioner's LayerNorm row
+                  1,024 (the heads over two passes)
+--only keeps the widths whose name holds TEXT.
 Where chip_smoke.py holds B5 to B5_LIMITS and its kernels to
 B5_PROBE_LIMITS (bands read at the presets' widths), this script records
 each band's verdict instead of raising, beside the same shares of the
@@ -41,7 +45,7 @@ from flowcompare_tpu_torch.ops import _build  # noqa: E402
 
 PRE1024 = {"pre_attention_mlp_hidden_dims": [1024] * 3}
 WIDTHS = {"w1024": chip_smoke.W1024, "pre1024": PRE1024,
-          "w1024 pre1024": {**chip_smoke.W1024, **PRE1024}}
+          "w1024 pre1024": {**chip_smoke.W1024, **PRE1024}, "w2048": chip_smoke.W2048}
 SHARES = ("share_over_quarter_ulp", "share_over_half_ulp")
 
 
@@ -55,7 +59,7 @@ def over_limits(stats: dict) -> dict:
 def run(label: str, overrides: dict, dev) -> dict:
     probe_verdict = {}
 
-    def record_probes(what, probes, attention):
+    def record_probes(what, probes, attention, *limits):
         try:
             check_probes(what, probes, attention)
             probe_verdict["over"] = None
@@ -63,7 +67,7 @@ def run(label: str, overrides: dict, dev) -> dict:
             probe_verdict["over"] = str(err)
 
     check_b5, check_probes = chip_smoke.check_b5, chip_smoke.check_b5_probes
-    chip_smoke.check_b5 = lambda what, got, ref: chip_smoke.b5_stats(got, ref)
+    chip_smoke.check_b5 = lambda what, got, ref, *limits: chip_smoke.b5_stats(got, ref)
     chip_smoke.check_b5_probes = record_probes
     try:
         with torch.no_grad():
@@ -88,6 +92,7 @@ def run(label: str, overrides: dict, dev) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", type=Path, default=REPO / "chiprun_out" / "b5_wide.json")
+    parser.add_argument("--only", default="", help="run only the widths whose name holds this")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -99,6 +104,8 @@ def main() -> int:
     chip_smoke.CHAIN_ROUTES = chip_smoke.ChainRoutes()
     results = {}
     for label, overrides in WIDTHS.items():
+        if args.only not in label:
+            continue
         results[label] = run(label, overrides, dev)
         print(label, json.dumps(results[label]), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -6,6 +6,7 @@ chip_smoke.py's fused-layer phase and tests/test_torch_port_cuda.py can sit
 between the two.
 
     python3 tools/torch_fused_layer_faults.py [--workdir DIR] [--out FILE] [--only TEXT]
+                                              [--phase RUN] [--nats RUN]
 
 Faults, each built from a copy of csrc/ under --workdir (default: a new
 temporary directory), planted in the fused_layer* source that holds the
@@ -23,7 +24,16 @@ ActNorm and BatchNorm moved off identity by 1e-3 to 1e-2) and the card
 tests' shapes with theirs (moved by 0.1): each kernel on two full-width
 layers, and B1 with saves and B7 through their entry points at 1 x 4000;
 "w1024" is dulcet-universe at twice its MLP widths (chip_smoke.W1024, the
-wide kernels). --only keeps the cases whose name holds TEXT.
+wide kernels), "w2048" at four times with a 1,024-wide latent and LayerNorm
+row (chip_smoke.W2048: K in two halves, the row-wise epilogues over two
+passes). --only keeps the cases whose name holds TEXT (--only none: no
+case). --nats RUN (e.g. w2048) also reads, for each variant, chip_smoke.py's
+RUN model at full depth: its eval main path's and its training check's
+|d nats| (and grad norm ratio) against the plain route, the checks that
+`chip_smoke.nats_tolerance` bounds. --phase RUN (e.g.
+w2048) first runs chip_smoke.py's fused-layer phase at RUN's shapes alone
+with its limits read instead of held: each kind's and the per-product
+route's statistics against plain, and both routes' device ms.
 Each output's error is `chip_smoke.error_stats` of the kernel's result
 against the plain version's, the worst over the layers. Prints one line a
 variant and case, and writes every number as JSON to --out. Needs one
@@ -49,13 +59,15 @@ import chip_smoke  # noqa: E402
 import flowcompare_tpu_torch as ft  # noqa: E402
 from flowcompare_tpu_torch.ops import _build, flow_layer_cuda as flc  # noqa: E402
 
-# (anchor, replacement) pairs in csrc/fused_layer*; each anchor occurs once
+# (anchor, replacement) pairs in csrc/fused_layer*, planted wherever they stand
 BF = "__bfloat162float(f2bf({}))"
 FAULTS = {
     "carry_bf16": [
         ("*reinterpret_cast<float2*>(T + row * ldt + col) = make_float2(v0, v1);",
          f"*reinterpret_cast<float2*>(T + row * ldt + col) = make_float2({BF.format('v0')}, "
          f"{BF.format('v1')});"),
+        ("dst[(size_t)gr * ldd + col + k] = v[k];",
+         f"dst[(size_t)gr * ldd + col + k] = {BF.format('v[k]')};"),
         ("if (!to_y) io.x[(size_t)gr * io.ldx + split + i] = out;",
          f"if (!to_y) io.x[(size_t)gr * io.ldx + split + i] = {BF.format('out')};"),
         ("if (gr < M) io.x[(size_t)gr * io.ldx + c] = io.y[(size_t)gr * io.ldy + c];",
@@ -76,6 +88,14 @@ FAULTS = {
          f"[&](int row, int col, int h, float v0, float v1) {{\n            v0 = {BF.format('v0')};"
          f"\n            v1 = {BF.format('v1')};\n            st_pair(Y, row, col, "
          "col < n ? (v0 - mean[h]) * inv[h] : 0.f,"),
+        ("[&](int, int, int h, float v0, float v1) {\n            ln_s1[h] += v0 + v1;",
+         f"[&](int, int, int h, float v0, float v1) {{\n            v0 = {BF.format('v0')};\n"
+         f"            v1 = {BF.format('v1')};\n            ln_s1[h] += v0 + v1;"),
+        ("[&](int row, int col, int h, float v0, float v1) {\n              st_pair(Y, row, col, "
+         "col < n ? (v0 - mean[h]) * inv[h] : 0.f,",
+         f"[&](int row, int col, int h, float v0, float v1) {{\n              v0 = "
+         f"{BF.format('v0')};\n              v1 = {BF.format('v1')};\n              "
+         "st_pair(Y, row, col, col < n ? (v0 - mean[h]) * inv[h] : 0.f,"),
     ],
 }
 
@@ -84,18 +104,21 @@ LAYER_CASES = [("smoke", "dulcet-universe", 40960), ("smoke", "dulcet-universe",
                ("smoke", "helpful-sponge", 51200), ("test", "dulcet-universe", 4000),
                ("test", "dulcet-universe", 1037), ("test", "swept-energy", 4000),
                ("test", "helpful-sponge", 1000), ("test", "good-surf", 40960),
-               ("smoke", "w1024", 40960), ("test", "w1024", 4000)]
+               ("smoke", "w1024", 40960), ("test", "w1024", 4000), ("smoke", "w2048", 40960),
+               ("test", "w2048", 4000)]
 CHAIN_CASES = [("smoke", "dulcet-universe"), ("smoke", "helpful-sponge"),
-               ("test", "dulcet-universe"), ("test", "helpful-sponge"), ("test", "w1024")]
+               ("test", "dulcet-universe"), ("test", "helpful-sponge"), ("test", "w1024"),
+               ("test", "w2048")]
 
 
-def perturb_test(model, gen) -> None:
+def perturb_test(model, gen, lu: float = 0.1) -> None:
     """tests/test_torch_port_cuda.py's perturb_identity_leaves."""
     with torch.no_grad():
         for name, p in model.state_dict().items():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("lower_entries", "upper_entries", "unconstrained_upper_diag",
-                        "shift", "log_scale", "mean"):
+            if leaf in ("lower_entries", "upper_entries"):
+                p.add_(lu * torch.randn(p.shape, generator=gen).to(p.device))
+            elif leaf in ("unconstrained_upper_diag", "shift", "log_scale", "mean"):
                 p.add_(0.1 * torch.randn(p.shape, generator=gen).to(p.device))
             elif leaf == "var":
                 p.copy_(0.5 + torch.rand(p.shape, generator=gen).to(p.device))
@@ -104,13 +127,24 @@ def perturb_test(model, gen) -> None:
                          * (0.5 + torch.rand(p.shape, generator=gen))).to(p.device))
 
 
-def make_model(setup: str, preset: str, dev):
+def b7_lu_noise(lat: int) -> float:
+    """tests/test_torch_port_cuda.py's b7_lu_noise: the chains' B7 moves the
+    LinearLU's entries by 0.1 x sqrt(300 / lat) past a latent of 300."""
+    return 0.1 * min(1.0, (300 / lat) ** 0.5)
+
+
+def make_model(setup: str, preset: str, dev, b7: bool = False):
+    """A case's two-layer model; with `b7`, the test setup's LinearLU moved
+    by `b7_lu_noise` (the chains' B7)."""
     cfg = chip_smoke.smoke_config(ft, preset)
     cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
     seed = chip_smoke.SEED if setup == "smoke" else 0
     model = ft.FlowCompareModel(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
-    perturb = chip_smoke.perturb_identity_leaves if setup == "smoke" else perturb_test
-    perturb(model, torch.Generator().manual_seed(seed + 1))
+    if setup == "smoke":
+        chip_smoke.perturb_identity_leaves(model, torch.Generator().manual_seed(seed + 1))
+    else:
+        perturb_test(model, torch.Generator().manual_seed(seed + 1),
+                     lu=b7_lu_noise(cfg["latent_dim"]) if b7 else 0.1)
     ed = int(cfg["using_extra_context"])
     with torch.no_grad():
         folded, folded_inv = model._folded(model.params(), ed), model._folded_inverse(
@@ -200,7 +234,8 @@ def run_layers(c: dict) -> dict:
 
 
 def chain_case(setup: str, preset: str, dev) -> dict:
-    cfg, model, folded, folded_inv = make_model(setup, preset, dev)
+    cfg, model, folded, _ = make_model(setup, preset, dev)
+    _, _, _, folded_inv = make_model(setup, preset, dev, b7=True)
     ctx, extra, rand = inputs(cfg, model, 4000, torch.Generator().manual_seed(42), dev)
     x = rand(1, 4000, cfg["latent_dim"])
     return {"folded": folded, "folded_inv": folded_inv, "ctx": ctx, "extra": extra, "x": x,
@@ -222,6 +257,70 @@ def run_chain(c: dict) -> dict:
             "B1 saves": chip_smoke.error_stats(saves, sr), "B7 x": chip_smoke.error_stats(xi, xr)}
 
 
+def nats_case(run: str, dev) -> dict:
+    """chip_smoke.py's `run` model at full depth (chip_smoke.WIDE_RUNS) with
+    the inputs of its eval main path (two items of B=20 and its noise) and
+    of its training check (B=2 after the data init), and the plain route's
+    nats on both, read once: the plain route runs no kernel."""
+    model = chip_smoke.make_model(ft, dev, **chip_smoke.WIDE_RUNS[run])
+    cfg = model.config
+    items = chip_smoke.eval_items(cfg, chip_smoke.TIME_B, 2, chip_smoke.SEED + 3)
+    noise = chip_smoke.make_noise(dev)
+    batch = chip_smoke._to_device(chip_smoke.train_batches(cfg, chip_smoke.TRAIN_CHECK_B, 1,
+                                                           chip_smoke.SEED + 10)[0], dev)
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 11)
+    shape = (chip_smoke.TRAIN_CHECK_B, cfg["sample_size"], cfg["latent_dim"] - cfg["input_dim"])
+    eps_init = torch.randn(shape, generator=gen, device=dev)
+    c = {"model": model, "items": items, "noise": noise, "batch": batch,
+         "eps": torch.randn(shape, generator=gen, device=dev),
+         "weights": {k: v.cpu() for k, v in model.state_dict().items()}}
+    ft.data_init_from_batch(ft.init_train_state(model), batch, eps=eps_init)
+    c["inited"] = {k: v.clone() for k, v in model.state_dict().items()}
+    c["plain"] = run_nats(c, plain=True)
+    return c
+
+
+def run_nats(c: dict, plain: bool = False) -> dict:
+    """The eval main path's nats and the training check's step (nats, grad
+    norm) through the kernels (or the plain route), from the case's weights."""
+    model = c["model"]
+    model.plain = plain
+    try:
+        model.load_state_dict(c["weights"])
+        with torch.no_grad():
+            nats, _ = ft.evaluate_on_test(model, c["items"], noise=c["noise"])
+        model.load_state_dict(c["inited"])
+        _, row = ft.train_step(ft.init_train_state(model), c["batch"], eps=c["eps"])
+        model.zero_grad(set_to_none=True)
+    finally:
+        model.plain = False
+    out = {"eval nats": float(nats), "train nats": float(row["nats"]),
+           "train grad_norm": float(row["grad_norm"])}
+    if not plain:
+        p = c["plain"]
+        out.update({"eval |d nats|": abs(out["eval nats"] - p["eval nats"]),
+                    "train |d nats|": abs(out["train nats"] - p["train nats"]),
+                    "grad_norm ratio": out["train grad_norm"] / p["train grad_norm"]})
+    return out
+
+
+def phase_readings(run: str, dev) -> dict:
+    """chip_smoke.phase_fused_layers at `run`'s cases alone, check_fused
+    reading its statistics instead of holding them to a limit."""
+    held = chip_smoke.check_fused
+    chip_smoke.check_fused = lambda what, got, ref, kind, limits=None: chip_smoke.error_stats(
+        got, ref)
+    try:
+        with torch.no_grad():
+            _, out = chip_smoke.phase_fused_layers(ft, dev, presets=(run,))
+    finally:
+        chip_smoke.check_fused = held
+    return {case: {kind: {key: r[key] for key in ("errors", "per_product_errors", "device_ms",
+                                                  "per_product_ms", "plain_ms", "bound_ms")}
+                   for kind, r in c.items() if isinstance(r, dict) and "errors" in r}
+            for case, c in out.items()}
+
+
 def use_sources(csrc: Path, build_dir: Path) -> None:
     """Build and load the library from `csrc` (a fault's copy, or the repo's)."""
     _build.CSRC, _build.BUILD_DIR, _build._LIB = csrc, build_dir, None
@@ -229,14 +328,16 @@ def use_sources(csrc: Path, build_dir: Path) -> None:
 
 
 def plant(csrc: Path, fault: list) -> None:
-    """Each (anchor, replacement) of `fault` in the one fused_layer* source
-    of `csrc` that holds its anchor, once."""
+    """Each (anchor, replacement) of `fault` wherever the anchor stands in
+    the fused_layer* sources of `csrc` (an epilogue of the one-pass and
+    wide tiers and its copy in the wider tier alike), at least once."""
     for anchor, planted in fault:
-        hits = [(p, p.read_text()) for p in sorted(csrc.glob("fused_layer*"))
-                if anchor in p.read_text()]
-        assert len(hits) == 1 and hits[0][1].count(anchor) == 1, anchor
-        path, text = hits[0]
-        path.write_text(text.replace(anchor, planted))
+        hits = 0
+        for path in sorted(csrc.glob("fused_layer*")):
+            text = path.read_text()
+            hits += text.count(anchor)
+            path.write_text(text.replace(anchor, planted))
+        assert hits >= 1, anchor
 
 
 def main() -> int:
@@ -246,6 +347,10 @@ def main() -> int:
                              "temporary directory, removed at the end)")
     parser.add_argument("--out", type=Path, default=REPO / "chiprun_out" / "fused_faults.json")
     parser.add_argument("--only", default="", help="run only the cases whose name holds this")
+    parser.add_argument("--phase", default="", help="read chip_smoke's fused-layer phase at "
+                                                    "this run's shapes first")
+    parser.add_argument("--nats", default="", help="also read this run's eval and training "
+                                                   "|d nats| against plain at full depth")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -255,11 +360,18 @@ def main() -> int:
     work = args.workdir or Path(tempfile.mkdtemp(prefix="fused_faults_"))
     src_dir, build_dir = _build.CSRC, _build.BUILD_DIR
     _build.library()
+    results = {}
+    if args.phase:
+        results["phase"] = phase_readings(args.phase, dev)
+        print("phase", args.phase, json.dumps(results["phase"]), flush=True)
     layer_cases = {f"{s} {p} {r}": layer_case(s, p, r, dev) for s, p, r in LAYER_CASES
                    if args.only in f"{s} {p} {r}"}
     chain_cases = {f"{s} {p} chains 4000": chain_case(s, p, dev) for s, p in CHAIN_CASES
                    if args.only in f"{s} {p} chains 4000"}
-    results = {}
+    nats = nats_case(args.nats, dev) if args.nats else None
+    if nats is not None:
+        results[f"plain | {args.nats} nats"] = nats["plain"]
+        print("plain |", args.nats, "nats", json.dumps(nats["plain"]), flush=True)
     try:
         for variant in ["as built", *FAULTS]:
             if variant == "as built":
@@ -275,6 +387,10 @@ def main() -> int:
             for name, c in chain_cases.items():
                 results[f"{variant} | {name}"] = run_chain(c)
                 print(variant, "|", name, json.dumps(results[f"{variant} | {name}"]), flush=True)
+            if nats is not None:
+                key = f"{variant} | {args.nats} nats"
+                results[key] = run_nats(nats)
+                print(key, json.dumps(results[key]), flush=True)
     finally:
         _build.CSRC, _build.BUILD_DIR, _build._LIB = src_dir, build_dir, None
         if args.workdir is None:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Whether two trees' fused layer kernels give the same results at the
 presets' shapes on the card, and their device times: on dulcet-universe's
-and helpful-sponge's full widths (two-layer stacks from a seed, bf16) the
+and helpful-sponge's full widths and w1024's (chip_smoke.W1024: the wide
+kernels at 1,024-wide MLPs; two-layer stacks from a seed, bf16) the
 conditioner, coupling_layer (with saves) and coupling_inverse (with the
 chained LU inverse) at an eval item's rows (40,960 / 51,200), B5 at a
 training step's rows (20,480 / 25,600: conditioner_record, coupling_record,
@@ -35,14 +36,15 @@ from pathlib import Path
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-CASES = (("dulcet-universe", 40960, 20480), ("helpful-sponge", 51200, 25600))
+CASES = (("dulcet-universe", 40960, 20480), ("helpful-sponge", 51200, 25600),
+         ("w1024", 40960, 20480))
 TAIL_ROWS, AUG_ROWS = 50000, 40960
 KIND = re.compile(r"(fused_layer(?:_bwd)?_kernel)(?:<|ILi)(\d)")
 
 
 def _model(ft, preset: str, dev):
-    from chip_smoke import perturb_identity_leaves
-    cfg = ft.get_config(preset)
+    from chip_smoke import perturb_identity_leaves, smoke_config
+    cfg = smoke_config(ft, preset)
     cfg.update(compute_dtype="bfloat16", n_flow_layers=2)
     model = ft.FlowCompareModel(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     perturb_identity_leaves(model, torch.Generator().manual_seed(1))
