@@ -121,8 +121,8 @@ Phases, each of which raises on failure (nothing is caught):
    first EdgeConv stage reads the cloud cast into 8 bf16 columns);
 15. attention (run third, before any model is built): the chains' cross
    attention, csrc/cross_attention.cu and cross_attention_bwd.cu (and their
-   *_wide.cu kernels past D = 128), at each head width D of
-   ATTENTION_SWEEP (8 to 512), on the
+   *_wide.cu kernels past D = 128, their *_cluster.cu tier past 512), at
+   each head width D of ATTENTION_SWEEP (8 to 1,024), on the
    TMA + wgmma route against the plain versions at dulcet's eval launch and
    training shape (20 x 1024 queries x 1250 keys, with m and den),
    helpful-sponge's augmenter (25 x 1024 x 1024), a sample (1 x 4000 x
@@ -219,10 +219,12 @@ Phases, each of which raises on failure (nothing is caught):
    checks at full width (`phase_sample_main`, `phase_train_check`: B7 and
    B5 with extra=None); each subcommand's wall seconds printed beside the
    card's name and power limit;
-22. routes from the shapes (`phase_c1`, after the variants): four bf16
+22. routes from the shapes (`phase_c1`, after the variants): five bf16
    dulcet-universe configs at 2 layers and full width that the kernels
-   refuse part by part (D = 576, 9 heads of 64: the stack and the
-   augmenter; a 2,056-wide coupling MLP: the stack and the augmenter; a
+   refuse part by part (D = 1,088, 17 heads of 64, past the attention's
+   1,024: the stack and the augmenter; D = 1,024, 16 heads: the same parts
+   for their packed input rows past 1,024; a 2,056-wide coupling MLP: the
+   stack and the augmenter; a
    1,026-wide latent: the stack; k = 257: the encoder), each
    printing `model.routes`; log_prob, one train_step after the data init
    and make_sample of 1 x 4000 at B=2 on CUDA against plain=True (|d nats|
@@ -273,16 +275,25 @@ Phases, each of which raises on failure (nothing is caught):
 26. the attention kernels' other head widths (`phase_head_widths`, after
    the data phase, the dulcet-universe model freed first): dulcet-universe
    in bf16 at full width and CUT_LAYERS layers at D = 32 (cross_dim_head 32),
-   D = 128 (cross_heads 2 x 64), D = 256 (4 x 64) and D = 512 (8 x 64),
-   every part of `model.routes` on its kernels (the attention's wide
-   kernels past D = 128): the eval main path through evaluate_on_test (2 items of B=20)
+   D = 128 (cross_heads 2 x 64), D = 256 (4 x 64), D = 512 (8 x 64) and
+   D = 576 (9 x 64), every part of `model.routes` on its kernels (the
+   attention's wide kernels past D = 128, its cluster tier past 512, every
+   attention launch of D = 576's paths on it): the eval main path through evaluate_on_test (2 items of B=20)
    against the plain path (|d nats| <= 0.01, change maps >= 99.9%; B1-B4
    launched, 4 launches a layer in B1, no WMMA attention), make_sample of
    1 x 4000 against the plain samples of the same z (|d nats| <= 0.01, 4
    launches a layer in B7) and the training check at B=2 (|d nats| <= 0.01,
    grad norm within 5%, cosine >= 0.99; 11 launches a layer in B5), each
    with the counters set to 0 just before and read after. Their attention
-   launches fill the kernels line's D = 32, 128, 256 and 512 entries;
+   launches fill the kernels line's D = 32, 128, 256, 512 and 576 entries;
+   then d768 (`phase_d768`): dulcet-universe at 12 heads of 64 (D = 768),
+   bf16, 115 layers, every part on its kernels, through the eval main path
+   (2 items of B=20) against plain, eval timing with the plain route's
+   inner loop, make_sample of 1 x 4000 against plain and its ms, the
+   training check at B=2 and train(max_steps=4) at B=20 or `fitting_batch`
+   (ms a step, peak memory), every attention launch of each path on the
+   cluster tier (`check_cluster_tier`: no one-block, wide or WMMA attention
+   kernel), 4 launches a layer in B1 and B7 and 11 in B5;
 27. clouds past shared memory (`phase_large_clouds`, then
    `phase_cloud_sizes`, after the head widths): B3 and B6 at 40 x 4,096 and
    8 x 16,384 points (the chunked walk) and B9's
@@ -354,8 +365,12 @@ gather as `sa_gather`, gemm_bf16,
 gemm_tn, cross_attention, cross_attention_bwd, conditioner,
 coupling_layer, coupling_inverse, B5's conditioner_record,
 coupling_record, coupling_bwd, conditioner_bwd, gemm_tn_grouped and
-grad_reduce, and B4's and B2's dgcnn_tail, augment_net and pack_rows at
-their headline shapes;
+grad_reduce, B4's and B2's dgcnn_tail, augment_net and pack_rows, and
+the attention's cluster tier, cross_attention_cluster,
+cross_attention_bwd_cluster and attention_core_cluster (at D = 768, with
+d768's and B10's entry point's launches, their other widths past 512
+under "by_width" and, forced at 512 beside the wide kernels, under
+"beside_wide_at_512"), at their headline shapes;
 B1, B2, B4, B5 and B7 carry their helpful-sponge branch's check under
 "global", B10 its second shape; cross_attention, cross_attention_bwd and
 B10 list their head widths under "widths" and the readings at the widths
@@ -391,7 +406,7 @@ SAMPLE_STD = 0.6                  # the sampler's latent scale (make_sample's de
 # flow kernels at depth: the meshes, the head widths' attention and the
 # clouds past shared memory. Their kernels and checks do not depend on the
 # depth; at 115 layers they took about 480 s of an 1,142 s run (the limit
-# is 1,200). The main paths, w1024, w2048 and k128 keep 115.
+# is 1,200). The main paths, w1024, w2048, k128 and d768 keep 115.
 CUT_LAYERS = 23
 REPO = Path(__file__).resolve().parent
 T_START = time.perf_counter()
@@ -407,7 +422,8 @@ PEAK_EX2_PER_S = 16 * 132 * 1.83e9
 # flowcompare_tpu_torch/ops/_build.py (32, 64, 128, 256, 512) and widths
 # between them (20: v = kv[:, D:] off 16-byte alignment)
 ATTENTION_TILES = (32, 64, 128, 256, 512)
-ATTENTION_SWEEP = (8, 20, 32, 48, 64, 96, 128, 192, 256, 384, 512)
+ATTENTION_SWEEP = (8, 20, 32, 48, 64, 96, 128, 192, 256, 384, 512, 576, 768, 1024)
+ATTENTION_WIDE_MAX_D = 512   # past it the cluster tier (csrc/*_cluster.cu)
 ATTENTION_WMMA_MAX_D = 128
 EDGE_WIDTHS = [(6, 64), (64, 64), (64, 128), (128, 256)]
 # (N, M, C) of PAConv's four set-abstraction levels on the 1250-point context
@@ -1352,15 +1368,23 @@ def phase_b10(device) -> tuple:
     (the library yardstick, never the port's; flash, up to D = 256 at
     multiples of 8, rounds p to bf16), and each one's share of outputs more
     than half a bf16 ulp off the plain version (`error_stats`): the kernel's
-    must lie within B10_SHARE_LIMIT, and below flash's where flash ran. The
-    bound: one q k^T and two bf16 P V
+    must lie within B10_SHARE_LIMIT, and below flash's where flash ran. Past
+    512 columns the plain version's own f32 sums drift from the exact ones
+    (as the forward's den does, `_attention_f64`), so there the kernel's share is
+    held against the contract evaluated in float64 (`b10_f64`), with
+    plain's own share against it and the kernel's against plain beside it.
+    The bound: one q k^T and two bf16 P V
     products (p in two bf16 terms, the least that keeps p past bf16 on the
     tensor cores) at the bf16 peak, or the exponentials (one a score) at
     the ex2 rate, or the bytes; the bound with the PV product at the f32
-    rate (the earlier kernel's) is logged beside it. Then its entry point,
-    apply_cross_attention(fused=True) against fused=False, forward and
-    autograd backward, with the launch counters set to 0 just before the
-    fused call and read after."""
+    rate (the earlier kernel's) is logged beside it. Past 512 columns the
+    kernel is the cluster tier (csrc/attention_core_cluster.cu); at 512 that
+    tier is also forced on the same inputs, timed beside the wide kernel
+    and held to its output bit for bit (`b10_cluster_beside_wide`). Then its
+    entry point, apply_cross_attention(fused=True) against fused=False,
+    forward and autograd backward, with the launch counters set to 0 just
+    before the fused call and read after, at D = 64 and at D = 768 on the
+    cluster tier (`b10_cluster_entry_point`)."""
     import torch.nn.functional as F
     from flowcompare_tpu_torch.core import attention
     from flowcompare_tpu_torch.ops import attention_cuda as ac
@@ -1384,6 +1408,16 @@ def phase_b10(device) -> tuple:
         torch.cuda.synchronize()
         stats = {"kernel": error_stats(got, ref),
                  "library": error_stats(lib_out.reshape(ref.shape), ref)}
+        held = "kernel"
+        if dw > ATTENTION_WIDE_MAX_D:
+            # past 512 columns plain's own f32 sums drift from the exact ones
+            # as the kernel's do: both are read against the contract in
+            # float64, and the kernel is held there
+            exact = b10_f64(q, k, v, scale)
+            stats["kernel_vs_f64"] = error_stats(got, exact)
+            stats["plain_vs_f64"] = error_stats(ref, exact)
+            held = "kernel_vs_f64"
+            del exact
         ms = device_ms(lambda: ac.fused_attention_core(q, k, v, scale))
         pms = time_ms(lambda: ac.fused_attention_core_plain(q, k, v, scale), reps=2)
         library = sdpa_library(q2, k2, v2, items, scale)
@@ -1392,7 +1426,9 @@ def phase_b10(device) -> tuple:
         lms_contiguous = time_ms(lambda: F.scaled_dot_product_attention(q, kc, vc, scale=scale))
         products = 2 * items * nq * nkv * dw
         entry = kernel_entry("fused_attention_core (attention_core)",
-                             "flowcompare_tpu_torch/csrc/attention_core.cu",
+                             "flowcompare_tpu_torch/csrc/" + (
+                                 "attention_core_cluster.cu" if dw > ATTENTION_WIDE_MAX_D
+                                 else "attention_core.cu"),
                              "flowcompare_tpu/ops/attention_pallas.py:69", float(d.max()), ms, pms,
                              3 * products, nbytes(q, k, v, got), library_ms=lms)
         entry["bound_ms"], entry["bound_by"], entry["bound_unit"] = attention_bound(
@@ -1415,19 +1451,23 @@ def phase_b10(device) -> tuple:
             f"({entry['bound_by']}, {entry['bound_unit']}: q k^T and two bf16 P V at the bf16 "
             f"peak, or one ex2 a score; with P V at the f32 rate {f32_pv_bound} ms)")
         assert beyond_ulp <= 1e-5, f"B10 disagrees with its plain version at D = {dw}"
-        assert stats["kernel"]["share_over_half_ulp"] <= B10_SHARE_LIMIT, \
-            "B10 puts more outputs over half a bf16 ulp off plain than B10_SHARE_LIMIT"
+        assert stats[held]["share_over_half_ulp"] <= B10_SHARE_LIMIT, \
+            f"B10 puts more outputs over half a bf16 ulp off {held} than B10_SHARE_LIMIT"
         if lib_backend == "FLASH_ATTENTION":
             assert (stats["kernel"]["share_over_half_ulp"]
                     < stats["library"]["share_over_half_ulp"]), \
                 "B10 rounds p no better than flash attention"
+        if dw == ATTENTION_WIDE_MAX_D:
+            entry["cluster"] = b10_cluster_beside_wide(q, k, v, scale, items)
         if dw == 64:
             entries.append(entry)
         else:
             by_width[str(dw)] = {key: entry[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_unit",
-                "library_ms", "share_over_half_ulp", "library")}
+                "library_ms", "share_over_half_ulp", "library", "source")}
             by_width[str(dw)]["shape"] = f"q {tuple(q.shape)}, k/v {tuple(k.shape)}"
+            if "cluster" in entry:
+                by_width[str(dw)]["cluster"] = entry["cluster"]
         del q, kv, k, v, kc, vc, got, ref, d, lib_out
 
     # the entry point at the flow's attention shape
@@ -1464,8 +1504,82 @@ def phase_b10(device) -> tuple:
         entries[0]["global"][key] = entries[1][key]
     entries[0]["widths"] = list(ATTENTION_SWEEP)
     entries[0]["by_width"] = by_width
+    cluster_entry = b10_cluster_entry_point(g, device, attention)
+    by_width[str(B10_CLUSTER_ENTRY_D)]["launches"] = cluster_entry["launches"]
     return entries[0], {"entry_point": {"launches": cf["B10"], "forward_rel_err": rel,
-                                        "gradient_cosines": cos}}
+                                        "gradient_cosines": cos},
+                        "cluster_entry_point": cluster_entry}
+
+
+def b10_f64(q, k, v, scale: float) -> torch.Tensor:
+    """B10's contract, softmax(q k^T * scale) v, evaluated in float64 from the
+    same bf16 operands, as float32."""
+    s = (q.double() @ k.double().transpose(-1, -2)) * scale
+    return (torch.softmax(s, -1) @ v.double()).float()
+
+
+def b10_cluster_beside_wide(q, k, v, scale: float, items: int) -> dict:
+    """B10's cluster tier forced at a width the wide kernel takes, on the
+    same operands: its output bit for bit the wide kernel's (the scores are
+    the wide kernel's partials summed in its order), and both device ms."""
+    from flowcompare_tpu_torch.ops import _build
+
+    dw = q.shape[-1]
+    qf, kf, vf = q.reshape(-1, dw), k.reshape(-1, dw), v.reshape(-1, dw)
+    outs = {route: torch.full_like(qf, float("nan")) for route in ("wgmma", "cluster")}
+
+    def call(route):
+        _build.attention_core(qf, kf, vf, outs[route], n_items=items, scale=scale, route=route)
+
+    for route in outs:
+        call(route)
+    torch.cuda.synchronize()
+    out = {"bit_equal_to_wide": bool(torch.equal(outs["wgmma"], outs["cluster"])),
+           "cluster_ms": device_ms(lambda: call("cluster")),
+           "wide_ms": device_ms(lambda: call("wgmma"))}
+    log(f"B10 at D = {dw}: the cluster tier beside the wide kernel on the same inputs: {out}")
+    assert out["bit_equal_to_wide"], "B10's cluster tier differs from the wide kernel"
+    return out
+
+
+B10_CLUSTER_ENTRY_D = 768   # d768's head width: 12 heads of 64
+
+
+def b10_cluster_entry_point(g, device, attention) -> dict:
+    """B10's entry point past 512 columns: apply_cross_attention(fused=True)
+    at 12 heads of 64 (D = 768) on the flow's attention shape, forward and
+    autograd backward, against fused=False, with the counters set to 0 just
+    before the fused call and read after: one B10 launch, on the cluster
+    tier."""
+    p = attention.init_cross_attention(g, out_dim=512, query_dim=256, context_dim=64,
+                                       heads=B10_CLUSTER_ENTRY_D // 64)
+    p = {key: {k2: v2.to(device).requires_grad_() for k2, v2 in sub.items()}
+         for key, sub in p.items()}
+    x = torch.randn(TIME_B, 1024, 256, generator=g).to(device).requires_grad_()
+    ctx = torch.randn(TIME_B, 1250, 64, generator=g).to(device).bfloat16()
+    cot = torch.randn(TIME_B, 1024, 512, generator=g).to(device)
+    wrt = [x, p["to_q"]["w"], p["to_kv"]["w"], p["out"]["w"]]
+    results = []
+    for fused in (True, False):
+        torch.cuda.synchronize()
+        reset_counters()
+        out = attention.apply_cross_attention(p, x, ctx, dtype=torch.bfloat16, fused=fused)
+        grads = torch.autograd.grad(out, wrt, cot)
+        torch.cuda.synchronize()
+        results.append((out.detach().float(), grads, read_counters()))
+    (of, gf, cf), (ou, gu, cu) = results
+    rel = float((of - ou).abs().max() / ou.abs().max())
+    cos = [float(torch.nn.functional.cosine_similarity(a.reshape(-1).float(),
+                                                       b.reshape(-1).float(), dim=0))
+           for a, b in zip(gf, gu)]
+    log(f"B10 entry point at D = {B10_CLUSTER_ENTRY_D} apply_cross_attention(fused=True): "
+        f"launches {cf['B10']}, on the cluster tier {cf['B10 cluster']} (fused=False: "
+        f"{cu['B10']}); forward max|d| over max|ref| against fused=False {rel} (tolerance "
+        f"0.02), gradient cosines {cos} (tolerance >= 0.999)")
+    assert cf["B10"] == cf["B10 cluster"] == 1 and cu["B10"] == 0, (cf, cu)
+    assert rel <= 0.02 and min(cos) >= 0.999, "B10's cluster tier disagrees at its entry point"
+    return {"d": B10_CLUSTER_ENTRY_D, "launches": cf["B10 cluster"], "forward_rel_err": rel,
+            "gradient_cosines": cos}
 
 
 def kernel_trace(fn, trace: str) -> tuple:
@@ -1676,7 +1790,10 @@ def phase_attention() -> tuple:
     alone), a call's ms through the wrapper with the host included,
     and the bound (`attention_bound`): the necessary products (2 forward, 5
     backward) at the bf16 peak, or one exponential a score at the ex2 rate,
-    or the bytes."""
+    or the bytes. Past 512 columns the route's kernels are the cluster tier
+    (csrc/*_cluster.cu); at D = 512 that tier is also forced on the eval
+    launch's inputs and timed beside the wide kernels, its forward held to
+    theirs bit for bit."""
     from flowcompare_tpu_torch.ops import _build
 
     g = torch.Generator().manual_seed(SEED + 60)
@@ -1686,7 +1803,8 @@ def phase_attention() -> tuple:
             timed = not big_next and (dw == 64 or idx in (
                 ATTENTION_TIMED_OTHER_WIDTHS if dw in ATTENTION_TILES else (0,)))
             cases.append(_attention_case(_build, g, dw, label, items, nq, nkv, with_m, big_next,
-                                         timed))
+                                         timed, beside=timed and dw == ATTENTION_WIDE_MAX_D
+                                         and idx == 0))
     assert all(c["within_tolerance"] for c in cases), "the cross attention disagrees with plain"
     assert all(c["sentinels_intact"] for c in cases), "an output column past D was written"
     heads = {dw: next(c for c in cases if c["d"] == dw) for dw in ATTENTION_SWEEP}
@@ -1699,12 +1817,22 @@ def phase_attention() -> tuple:
                     "bound_by": c[f"{prefix}bound_by"], "bound_unit": c[f"{prefix}bound_unit"],
                     "library_ms": c[f"{prefix}library"]["ms"], "wmma_ms": c[f"{prefix}wmma_ms"],
                     "call_ms": c[f"{prefix}call_ms"]}
+        def tier(dw, c):
+            extra = {}
+            if dw > ATTENTION_WIDE_MAX_D:
+                extra["source"] = source.replace(".cu", "_cluster.cu")
+            if f"{prefix}cluster_ms" in c:
+                extra["cluster"] = {"cluster_ms": c[f"{prefix}cluster_ms"],
+                                    "wide_ms": c[f"{prefix}ms"],
+                                    "bit_equal_to_wide": c.get(f"{prefix}cluster_bit_equal")}
+            return extra
+
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": 0, **numbers(head), "library": head[f"{prefix}library"],
                 "speedup_vs_wmma": head[f"{prefix}wmma_ms"] / head[f"{prefix}ms"],
                 "shape": f"{head['items']} x {head['nq']} queries x {head['nkv']} keys, d = 64",
                 "serves": serves, "widths": list(ATTENTION_SWEEP),
-                "by_width": {str(dw): {**numbers(c), "launches": 0,
+                "by_width": {str(dw): {**numbers(c), "launches": 0, **tier(dw, c),
                                        "shape": f"{c['items']} x {c['nq']} x {c['nkv']}, d = {dw}"}
                              for dw, c in heads.items() if dw != 64},
                 "shapes_checked": [f"{c['items']}x{c['nq']}x{c['nkv']}xd{c['d']}" for c in cases]}
@@ -1738,7 +1866,7 @@ def _attention_f64(q, k, v, out, *, n_items: int, m_out, den_out) -> None:
 
 
 def _attention_case(_build, g, dw: int, label: str, items: int, nq: int, nkv: int,
-                    with_m: bool, big_next: bool, timed: bool) -> dict:
+                    with_m: bool, big_next: bool, timed: bool, beside: bool = False) -> dict:
     """One case of `phase_attention` at head width dw: q scaled by 1 /
     sqrt(dw) as the folds scale it; with big_next the items after the
     first hold large queries and keys whose scores are about 1,150 x
@@ -1748,7 +1876,10 @@ def _attention_case(_build, g, dw: int, label: str, items: int, nq: int, nkv: in
     `attention_forward_f64` do (at such scores the plain version's own f32
     sums drift from the exact ones as dw grows). q and kv are laid out as
     the chains lay them out: rows of whole 16 bytes, kv as [k | 0 | v] with
-    v at dw rounded up to a multiple of 8 (`kv_layout`)."""
+    v at dw rounded up to a multiple of 8 (`kv_layout`). With `beside` (a
+    width the wide kernels take) the cluster tier is forced on the same
+    inputs and timed beside the route's own kernels, and its forward must
+    equal theirs bit for bit."""
     from flowcompare_tpu_torch.ops.flow_layer_cuda import bf16_rows, kv_layout
 
     q = torch.randn(items * nq, dw, generator=g) / dw ** 0.5
@@ -1838,6 +1969,21 @@ def _attention_case(_build, g, dw: int, label: str, items: int, nq: int, nkv: in
             "bwd_call_ms": time_ms(lambda: bwd("wgmma"), reps=10),
             "bwd_plain_ms": device_ms(lambda: backward(_build.attention_bwd_plain), reps=3),
             "bwd_library": sdpa_library(q, k, v, items, 1.0, backward=True)})
+        if beside:
+            wide_out = out.clone(), m_buf.clone(), den_buf.clone()
+            fwd("cluster")
+            torch.cuda.synchronize()
+            case["cluster_bit_equal"] = bool(
+                torch.equal(out, wide_out[0]) and (not with_m or (
+                    torch.equal(m_buf, wide_out[1]) and torch.equal(den_buf, wide_out[2]))))
+            case["bwd_cluster_bit_equal"] = None   # partials of 128 columns: not the wide sum
+            case["cluster_ms"] = device_ms(lambda: fwd("cluster"))
+            case["bwd_cluster_ms"] = device_ms(lambda: bwd("cluster"))
+            log(f"attention D = {dw}: the cluster tier beside the wide kernels on the same "
+                f"inputs: forward {case['cluster_ms']} ms (wide {case['ms']}), bit-equal "
+                f"{case['cluster_bit_equal']}; backward {case['bwd_cluster_ms']} ms (wide "
+                f"{case['bwd_ms']})")
+            assert case["cluster_bit_equal"], "the cluster forward differs from the wide kernel"
         scores = items * nq * nkv
         products = 2 * scores * dw
         case["bound_ms"], case["bound_by"], case["bound_unit"] = attention_bound(
@@ -3270,6 +3416,9 @@ def _counters():
             (_build, "CROSS_ATTENTION_WMMA_LAUNCHES", "attention wmma"),
             (_build, "ATTENTION_BWD_WGMMA_LAUNCHES", "attention_bwd wgmma"),
             (_build, "ATTENTION_BWD_WMMA_LAUNCHES", "attention_bwd wmma"),
+            (_build, "CROSS_ATTENTION_CLUSTER_LAUNCHES", "attention cluster"),
+            (_build, "ATTENTION_BWD_CLUSTER_LAUNCHES", "attention_bwd cluster"),
+            (_build, "ATTENTION_CORE_CLUSTER_LAUNCHES", "B10 cluster"),
             (_build, "FUSED_CONDITIONER_LAUNCHES", "conditioner"),
             (_build, "COUPLING_LAYER_LAUNCHES", "coupling_layer"),
             (_build, "COUPLING_INVERSE_LAUNCHES", "coupling_inverse"),
@@ -4410,13 +4559,30 @@ def phase_variants(ft, device, dulcet_item_s: float) -> dict:
 HEAD_WIDTH_RUNS = (("D = 32 (cross_dim_head 32, the JAX demo's)", 32, {"cross_dim_head": 32}),
                    ("D = 128 (cross_heads 2 x cross_dim_head 64)", 128, {"cross_heads": 2}),
                    ("D = 256 (cross_heads 4 x cross_dim_head 64)", 256, {"cross_heads": 4}),
-                   ("D = 512 (cross_heads 8 x cross_dim_head 64)", 512, {"cross_heads": 8}))
+                   ("D = 512 (cross_heads 8 x cross_dim_head 64)", 512, {"cross_heads": 8}),
+                   ("D = 576 (cross_heads 9 x cross_dim_head 64)", 576, {"cross_heads": 9}))
+
+
+def check_cluster_tier(launches: dict, what: str, backward: bool) -> dict:
+    """Past ATTENTION_WIDE_MAX_D every cross attention launch of a path (and,
+    with `backward`, every attention_bwd launch) took the cluster tier:
+    launched, and no one-block, wide or WMMA attention kernel. Returns the
+    counts."""
+    keys = [("attention wgmma", "attention cluster")] + (
+        [("attention_bwd wgmma", "attention_bwd cluster")] if backward else [])
+    out = {k: launches[k] for pair in keys for k in pair}
+    log(f"the attention's cluster tier in {what}: {out}")
+    for route, tier in keys:
+        assert launches[tier] > 0 and launches[route] == launches[tier], (what, out)
+    assert launches["attention wmma"] == launches["attention_bwd wmma"] == 0, (what, launches)
+    return out
 
 
 def phase_head_widths(ft, device) -> dict:
-    """dulcet-universe (bf16, full width, CUT_LAYERS layers) at D = 32, 128, 256
-    and 512 (HEAD_WIDTH_RUNS), every part of `model.routes` on its kernels
-    (past D = 128 the attention's wide kernels, *_wide.cu): the eval main
+    """dulcet-universe (bf16, full width, CUT_LAYERS layers) at D = 32, 128, 256,
+    512 and 576 (HEAD_WIDTH_RUNS), every part of `model.routes` on its kernels
+    (past D = 128 the attention's wide kernels, *_wide.cu, past 512 its
+    cluster tier, *_cluster.cu, `check_cluster_tier`): the eval main
     path through
     evaluate_on_test (2 items of B=20, both directions) against the plain
     path on the same noise (|d nats| <= 0.01, change maps >= 99.9%), with
@@ -4440,6 +4606,11 @@ def phase_head_widths(ft, device) -> dict:
         sample = phase_sample_main(ft, model, device)
         check = phase_train_check(ft, model, device, with_chains=True)
         b5 = check_b5_launches(check.pop("chains"), f"the training check at {label}", True)
+        if dw > ATTENTION_WIDE_MAX_D:
+            for what, counts, bwd in (("eval", launches, False),
+                                      ("make_sample", sample["launches"], False),
+                                      ("the training check", check["launches"], True)):
+                check_cluster_tier(counts, f"{what} at {label}", bwd)
         out[str(dw)] = {"label": label, "eval_launches": launches, "sample": sample,
                         "train_check": check, "b5": b5,
                         "attention_launches": launches["attention wgmma"],
@@ -4448,6 +4619,62 @@ def phase_head_widths(ft, device) -> dict:
         log(f"head width {label}: {out[str(dw)]['phase_s']:.1f} s")
         del model
         torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------- the attention's cluster tier
+
+D768 = {"cross_heads": 12}   # d768: dulcet-universe at 12 heads of 64 (D = 768)
+
+
+def phase_d768(ft, device) -> dict:
+    """d768 (dulcet-universe with 12 heads of 64, D = 768, bf16, 115 layers,
+    its own B=20; every part of `model.routes` on its kernels, the cross
+    attention and its backward on the cluster tier, the conditioner's q
+    product and the coupling's first product, K = 152 + 768, on the wide
+    fused tier): the eval main path through evaluate_on_test (2 items of
+    B=20, both directions) against the plain path (|d nats| within
+    `nats_tolerance`, change maps >= 99.9%); eval timing at B=20 with one
+    item's inner loop on the plain route; make_sample of 1 x 4000 against
+    the plain samples of the same z and its ms; the training check at B=2
+    (grad norm within 5%, cosine >= 0.99) with 11 launches a layer inside
+    B5; train(max_steps=4) at B=20 or the largest batch that fits
+    (`fitting_batch`): ms a step and peak memory. Every path's attention
+    launches are the cluster tier's (`check_cluster_tier`), 4 a layer inside
+    B1 and B7 (`check_flow_launches`). Each path's counters are set to 0
+    just before it and read just after."""
+    t0 = time.perf_counter()
+    model = make_model(ft, device, **D768)
+    cfg = model.config
+    assert cfg["cross_heads"] * cfg["cross_dim_head"] == 768, cfg["cross_heads"]
+    assert all(r == "kernels" for r in model.routes.values()), dict(model.routes)
+    log(f"d768: routes {dict(model.routes)}")
+    items = eval_items(cfg, TIME_B, 2, SEED + 3)
+    launches = phase_main_path(ft, model, device, items=items)
+    timing = phase_timing(ft, model, device)
+    sample = phase_sample_main(ft, model, device)
+    g = torch.Generator(device=device).manual_seed(SEED + 22)
+    x0 = torch.randn((1, cfg["n_samples_context"], 6), generator=g, device=device)
+    extra = torch.randn((1, 1), generator=g, device=device)
+    sample["make_sample_ms"] = time_ms(lambda: ft.make_sample(model, SAMPLE_N, x0, extra,
+                                                              generator=g), reps=3)
+    check = phase_train_check(ft, model, device, with_chains=True)
+    b5 = check_b5_launches(check.pop("chains"), "the training check at d768", True)
+    train_b = fitting_batch(model, check, TIME_B)
+    train_main, _ = phase_train_main(ft, model, device, batch=train_b)
+    tiers = {what: check_cluster_tier(counts, f"d768's {what}", bwd) for what, counts, bwd in (
+        ("eval", launches, False), ("make_sample", sample["launches"], False),
+        ("training check", check["launches"], True), ("train", train_main["launches"], True))}
+    out = {"eval_launches": launches, "timing": timing, "sample": sample, "train_check": check,
+           "b5": b5, "train_main": train_main, "train_batch": train_b, "cluster_tier": tiers,
+           "phase_s": time.perf_counter() - t0}
+    log(f"d768: {out['phase_s']:.1f} s; eval item {timing['item_s'] * 1e3:.2f} ms (one item's "
+        f"inner loop {timing['inner_loop_ms']:.2f} ms, plain {timing['plain_inner_loop_ms']:.2f} "
+        f"ms), make_sample {sample['make_sample_ms']:.2f} ms, train "
+        f"{train_main['ms_per_step']:.2f} ms a step at B={train_b} (peak "
+        f"{train_main['peak_mem_gib']:.2f} GiB)")
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5150,11 +5377,14 @@ def phase_cloud_sizes(ft, device) -> dict:
 
 # ------------------------------------------------- routes from the shapes
 
-# Three small bf16 configs (dulcet-universe at 2 layers, B=2) outside the
+# Small bf16 configs (dulcet-universe at 2 layers, B=2) outside the
 # kernels' shape limits, and the parts each must send to the plain route
 C1_B = 2
 C1_CASES = (
-    ("D = 576", {"cross_heads": 9}, ("stack", "augmenter")),
+    ("D = 1,088", {"cross_heads": 17}, ("stack", "augmenter")),
+    # within the attention's 1,024, past the packed rows': the stack's [x1 |
+    # extra | pad | cond] (1,176 columns) and the augmenter's net's (1,032)
+    ("D = 1,024", {"cross_heads": 16}, ("stack", "augmenter")),
     ("2,056-wide coupling MLP", {"hidden_dims": [2056, 2056, 2056]}, ("stack", "augmenter")),
     ("1,026-wide latent", {"latent_dim": 1026, "cif_latent_dim": 1026}, ("stack",)),
     ("k = 257", {"n_neighbors": 257}, ("encoder",)),
@@ -5178,7 +5408,8 @@ def _c1_check_launches(name: str, routes: dict, path: str, launches: dict) -> No
 
 def phase_c1(ft, device) -> dict:
     """Configs outside the kernels' shapes on the card (ROADMAP queue C1):
-    D = 576 (9 heads of 64), a 2,056-wide coupling MLP (past the fused
+    D = 1,088 (17 heads of 64, past the attention's 1,024), D = 1,024 (16
+    heads: the packed input rows past 1,024), a 2,056-wide coupling MLP (past the fused
     layer kernels' 2,048), a 1,026-wide latent (past their row-wise 1,024)
     and k = 257, each a bf16
     dulcet-universe at 2 layers and full width, B=2. Each prints its routes
@@ -5865,6 +6096,41 @@ def phase_model_axis(smi: str) -> dict:
     return out
 
 
+CLUSTER_KERNELS = ("cross_attention_cluster", "cross_attention_bwd_cluster",
+                   "attention_core_cluster")
+
+
+def cluster_kernel_entries(attention_entries: dict, b10: dict) -> dict:
+    """The kernels line's entries of the attention's cluster tier: each
+    kernel's readings at d768's D = 768 (the forward and backward at 20 x
+    1024 queries x 1250 keys, B10 at q (20, 1024, 768)) with the launches of
+    the path that runs it (d768's eval, its train(max_steps=4), B10's entry
+    point at D = 768), and at its other widths past 512 and, forced, at 512
+    beside the wide kernel."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    out = {}
+    for name, parent, kernel, source, replaces in (
+            ("cross_attention_cluster", attention_entries["cross_attention"],
+             "cross_attention_cluster_kernel", "cross_attention_cluster.cu",
+             "flowcompare_tpu/ops/flow_layer_pallas.py:800"),
+            ("cross_attention_bwd_cluster", attention_entries["cross_attention_bwd"],
+             "attn_bwd_cluster_kernel", "cross_attention_bwd_cluster.cu",
+             "flowcompare_tpu/ops/flow_layer_vjp_pallas.py:206"),
+            ("attention_core_cluster", b10, "attention_core_cluster_kernel",
+             "attention_core_cluster.cu", "flowcompare_tpu/ops/attention_pallas.py:69")):
+        at = parent["by_width"]
+        main = at[str(B10_CLUSTER_ENTRY_D)]
+        out[name] = {"name": f"{name} ({kernel})", "route": "cuda",
+                     "source": f"flowcompare_tpu_torch/csrc/{source}", "replaces": replaces,
+                     "launches": main["launches"], **{k: main[k] for k in keys},
+                     "shape": main["shape"],
+                     "by_width": {dw: {k: at[dw][k] for k in (*keys, "shape")}
+                                  for dw in at if int(dw) > ATTENTION_WIDE_MAX_D
+                                  and int(dw) != B10_CLUSTER_ENTRY_D},
+                     "beside_wide_at_512": at[str(ATTENTION_WIDE_MAX_D)].get("cluster")}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5969,6 +6235,16 @@ def main() -> int:
         for dw, run in head_widths.items():
             attention_entries[key]["by_width"][dw]["launches"] = run[
                 "attention_launches" if key == "cross_attention" else "attention_bwd_launches"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    d768 = phase_d768(ft, device)
+    log(f"d768 phase: {time.perf_counter() - t0:.1f} s")
+    # the cluster tier's launches on d768's paths: its eval (the forward)
+    # and its train(max_steps=4) (the backward)
+    attention_entries["cross_attention"]["by_width"]["768"]["launches"] = d768[
+        "eval_launches"]["attention cluster"]
+    attention_entries["cross_attention_bwd"]["by_width"]["768"]["launches"] = d768[
+        "train_main"]["launches"]["attention_bwd cluster"]
     torch.cuda.empty_cache()
     wide = phase_wide(ft, device)
     torch.cuda.empty_cache()
@@ -6107,7 +6383,7 @@ def main() -> int:
                       "knn_split": knn_split,
                       "b5_fused": b5_fused, "b5_fused_w1024": b5_wide, "w1024": wide,
                       "b5_fused_w2048": b5_w2048, "w2048": wide2,
-                      "k128": k128, "knn_k": knn_k,
+                      "k128": k128, "knn_k": knn_k, "d768": d768,
                       "wall_s": time.perf_counter() - T_START}))
     entries.update(gemm_entries)
     entries.update(attention_entries)
@@ -6129,11 +6405,13 @@ def main() -> int:
             **check_entry(entry, f"w2048, 2 layers x {b5_w2048['rows']} rows"),
             "launches": wide2["train_main"]["launches"][key]}
     entries.update(b5_entries)
+    entries.update(cluster_kernel_entries(attention_entries, entries["B10"]))
     print(json.dumps({"kernels": [entries[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6",
                                                        "B7", "B8", "B9", "sa_gather", "B10",
                                                        "gemm_bf16",
                                                        "gemm_tn", "cross_attention",
-                                                       "cross_attention_bwd", "conditioner",
+                                                       "cross_attention_bwd",
+                                                       *CLUSTER_KERNELS, "conditioner",
                                                        "coupling_layer", "coupling_inverse",
                                                        *B5_KERNELS, "dgcnn_tail", "augment_net",
                                                        "pack_rows")]}))

@@ -75,15 +75,6 @@ struct Core {
   static_assert(CORE_MIN_BLOCKS * SMEM <= 232448, "the rings exceed the SM's shared memory");
 };
 
-// Merges a (maximum, sum of exp(s - maximum)) pair into another; a pair
-// with no key yet has maximum -inf and sum 0.
-__device__ __forceinline__ void merge_max_sum(float& m, float& l, float m2, float l2) {
-  const float mn = fmaxf(m, m2);
-  if (mn == -INFINITY) return;
-  l = l * exp_sub(m, mn) + l2 * exp_sub(m2, mn);
-  m = mn;
-}
-
 template <int D>
 __global__ void __launch_bounds__(CORE_THREADS, CORE_MIN_BLOCKS)
     attention_core_wgmma_kernel(const __grid_constant__ CUtensorMap tq,

@@ -30,15 +30,6 @@ struct CoreWide {
   static_assert(2 * (SMEM + 2048) <= 233472, "two blocks do not fit an SM");
 };
 
-// Merges a (maximum, sum of exp(s - maximum)) pair into another; a pair
-// with no key yet has maximum -inf and sum 0.
-__device__ __forceinline__ void merge_max_sum(float& m, float& l, float m2, float l2) {
-  const float mn = fmaxf(m, m2);
-  if (mn == -INFINITY) return;
-  l = l * exp_sub(m, mn) + l2 * exp_sub(m2, mn);
-  m = mn;
-}
-
 template <int DT>
 __global__ void __launch_bounds__(CORE_THREADS, 2)
     attention_core_wide_kernel(const __grid_constant__ CUtensorMap tq,

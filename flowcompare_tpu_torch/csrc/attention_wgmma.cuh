@@ -23,7 +23,8 @@
 // a ring, sums the scores from partials of two boxes, and owns a group of the
 // output's boxes: the blocks of one query (or key) tile recompute the
 // scores, one group of output columns each, so the accumulators stay
-// within the registers of two blocks to an SM.
+// within the registers of two blocks to an SM. Past ATT_MAX_D the cluster
+// tier (attention_cluster.cuh) builds on these parts.
 //
 // A consumer warpgroup holds an m64n64 f32 accumulator as 32 registers a
 // thread: thread t (of 128) holds rows r0 = 16 (t / 32) + (t % 32) / 4 and
@@ -64,6 +65,15 @@ __device__ __forceinline__ float exp_sub(float s, float m) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"((s - m) * LOG2E));
   return y;
+}
+
+// Merges a (maximum, sum of exp(s - maximum)) pair into another; a pair
+// with no key yet has maximum -inf and sum 0 (B10's online row sums).
+__device__ __forceinline__ void merge_max_sum(float& m, float& l, float m2, float l2) {
+  const float mn = fmaxf(m, m2);
+  if (mn == -INFINITY) return;
+  l = l * exp_sub(m, mn) + l2 * exp_sub(m2, mn);
+  m = mn;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

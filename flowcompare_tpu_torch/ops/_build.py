@@ -30,7 +30,11 @@ The chains' cross attention (`cross_attention`, its backward
 `attention_bwd`) has the same two routes, chosen the same way
 (`attention_route`): the TMA + wgmma kernels of csrc/cross_attention.cu and
 csrc/cross_attention_bwd.cu, or their WMMA kernels for operands TMA cannot
-read; each route is counted. These wrappers, and `attn_bwd_prep`, run their
+read; each route is counted. Past ATTENTION_WIDE_MAX_D (512) columns the
+wgmma route runs its cluster tier (csrc/cross_attention_cluster.cu,
+cross_attention_bwd_cluster.cu and, for B10, attention_core_cluster.cu:
+thread-block clusters that split D), counted among the route's launches
+and by counters of its own. These wrappers, and `attn_bwd_prep`, run their
 plain versions (`cross_attention_plain`, `attention_bwd_plain`,
 `attn_bwd_prep_plain`) when given CPU tensors; every other launch function
 takes CUDA tensors only.
@@ -92,6 +96,10 @@ _SIGNATURES = {
     "fc_cross_attention": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _I, _I, _I, _I, _V],
     "fc_cross_attention_wmma": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _I, _I, _I, _I, _V],
     "fc_attention_core": [_V, _I, _V, _I, _V, _I, _V, _I, _I, _I, _I, _F, _I, _V],
+    "fc_cross_attention_cluster": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _I, _I, _I, _I, _V],
+    "fc_attention_core_cluster": [_V, _I, _V, _I, _V, _I, _V, _I, _I, _I, _I, _F, _I, _V],
+    "fc_attention_bwd_cluster": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _V, _I,
+                                 _V, _I, _I, _I, _I, _I, _V],
     "fc_attention_bwd": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _V, _I, _V, _I,
                          _I, _I, _I, _I, _V],
     "fc_attention_bwd_wmma": [_V, _I, _V, _V, _I, _V, _I, _V, _V, _V, _I, _V, _I, _V, _I, _V,
@@ -143,6 +151,12 @@ CROSS_ATTENTION_WGMMA_LAUNCHES = 0
 CROSS_ATTENTION_WMMA_LAUNCHES = 0
 ATTENTION_BWD_WGMMA_LAUNCHES = 0
 ATTENTION_BWD_WMMA_LAUNCHES = 0
+# and, among the wgmma route's launches, those of its cluster tier (the
+# heads past ATTENTION_WIDE_MAX_D, csrc/*_cluster.cu): the forward, the
+# backward and B10's attention_core
+CROSS_ATTENTION_CLUSTER_LAUNCHES = 0
+ATTENTION_BWD_CLUSTER_LAUNCHES = 0
+ATTENTION_CORE_CLUSTER_LAUNCHES = 0
 
 # and of the fused layer kernels (csrc/fused_layer.cu): the conditioner, the
 # coupling layer forward and its inverse
@@ -620,12 +634,16 @@ def row_norm(x: torch.Tensor, out: torch.Tensor, eps: float = 1e-5) -> None:
         x.data_ptr(), ldx, out.data_ptr(), ldy, x.shape[0], x.shape[1], eps, _stream()))
 
 
-# the head widths D of the attention kernels (csrc/cross_attention.cu,
-# cross_attention_bwd.cu, attention_core.cu and their *_wide.cu twins):
-# every 1 <= D <= ATTENTION_MAX_D, each on the smallest tile of 32, 64, 128,
-# 256 or 512 columns that holds it (`att_tile`, one template instance a
-# tile), the WMMA route up to ATTENTION_WMMA_MAX_D
-ATTENTION_MAX_D = 512
+# the head widths D of the attention kernels: every 1 <= D <=
+# ATTENTION_MAX_D. Up to ATTENTION_WIDE_MAX_D each on the smallest tile of
+# 32, 64, 128, 256 or 512 columns that holds it (csrc/cross_attention.cu,
+# cross_attention_bwd.cu, attention_core.cu and their *_wide.cu twins;
+# `att_tile`, one template instance a tile); past it the cluster tier
+# (csrc/*_cluster.cu, `ATT_CLUSTER_MAX_D`: a cluster of ceil(D / 128)
+# blocks, 128 columns each, sharing the scores through distributed shared
+# memory); the WMMA route up to ATTENTION_WMMA_MAX_D
+ATTENTION_MAX_D = 1024
+ATTENTION_WIDE_MAX_D = 512
 ATTENTION_WMMA_MAX_D = 128
 
 
@@ -687,8 +705,16 @@ def attention_width(what: str, q: torch.Tensor, *others: torch.Tensor) -> int:
 
 def _attention_chosen(route: Optional[str], natural: str, d: int, what: str) -> str:
     """`_choose_route` for the attention kernels, refusing the WMMA route
-    past ATTENTION_WMMA_MAX_D (the wgmma kernels take every width)."""
+    past ATTENTION_WMMA_MAX_D (the wgmma kernels take every width): "wgmma",
+    "wmma", or "cluster", the wgmma route's tier past ATTENTION_WIDE_MAX_D.
+    `route="cluster"` forces that tier at any width (TMA must read every
+    operand), for measurements and tests."""
+    if route == "cluster":
+        _choose_route("wgmma", natural, what)
+        return "cluster"
     chosen = _choose_route(route, natural, what)
+    if chosen == "wgmma" and d > ATTENTION_WIDE_MAX_D:
+        return "cluster"
     if chosen == "wmma" and d > ATTENTION_WMMA_MAX_D:
         raise ValueError(f"{what}: the WMMA route takes head widths D <= "
                          f"{ATTENTION_WMMA_MAX_D}, got {d}: give every bf16 operand a "
@@ -707,13 +733,17 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     maximum and denominator.
 
     Two routes, one contract (`cross_attention_plain`): the TMA + wgmma
-    kernel when TMA can read q, k and v (`attention_route`), otherwise the
-    WMMA kernel (D <= ATTENTION_WMMA_MAX_D; past it the wrapper raises). `route` forces one (for
-    measurements and tests); each route counts its launches
-    (CROSS_ATTENTION_WGMMA_LAUNCHES, CROSS_ATTENTION_WMMA_LAUNCHES). A CPU
-    q runs the plain version and counts nothing. Only out's D columns are
-    written: it may be a column slice of wider rows."""
+    kernel when TMA can read q, k and v (`attention_route`; past
+    ATTENTION_WIDE_MAX_D its cluster tier), otherwise the WMMA kernel (D <=
+    ATTENTION_WMMA_MAX_D; past it the wrapper raises). `route` forces one
+    ("wgmma", "wmma" or "cluster", for measurements and tests); each route
+    counts its launches (CROSS_ATTENTION_WGMMA_LAUNCHES, of which the
+    cluster tier's also CROSS_ATTENTION_CLUSTER_LAUNCHES;
+    CROSS_ATTENTION_WMMA_LAUNCHES). A CPU q runs the plain version and
+    counts nothing. Only out's D columns are written: it may be a column
+    slice of wider rows."""
     global CROSS_ATTENTION_WGMMA_LAUNCHES, CROSS_ATTENTION_WMMA_LAUNCHES
+    global CROSS_ATTENTION_CLUSTER_LAUNCHES
     if not q.is_cuda:
         cross_attention_plain(q, k, v, out, n_items=n_items, m_out=m_out, den_out=den_out)
         return
@@ -735,7 +765,11 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chosen = _attention_chosen(route, attention_route([q, k, v]), d, "cross_attention")
     args = (q.data_ptr(), ldq, k.data_ptr(), v.data_ptr(), ldk, out.data_ptr(), ldo, m_p, den_p,
             n_items, nq, nkv, d)
-    if chosen == "wgmma":
+    if chosen == "cluster":
+        rc = library().fc_cross_attention_cluster(*args, _stream())
+        CROSS_ATTENTION_WGMMA_LAUNCHES += 1
+        CROSS_ATTENTION_CLUSTER_LAUNCHES += 1
+    elif chosen == "wgmma":
         rc = library().fc_cross_attention(*args, _stream())
         CROSS_ATTENTION_WGMMA_LAUNCHES += 1
     else:
@@ -746,12 +780,15 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
-                   n_items: int, scale: float) -> None:
+                   n_items: int, scale: float, route: Optional[str] = None) -> None:
     """Per item: out = softmax(q k^T * scale) v with p at f32 precision (B10),
     q (items*nq, D), k and v (items*nkv, D) bf16, 1 <= D <= ATTENTION_MAX_D,
     each with its own row stride. The TMA + wgmma kernel (p split into three
-    bf16 terms for the tensor cores) takes operands TMA can read
-    (`attention_readable`), and raises on others."""
+    bf16 terms for the tensor cores; past ATTENTION_WIDE_MAX_D its cluster
+    tier, counted as ATTENTION_CORE_CLUSTER_LAUNCHES) takes operands TMA can
+    read (`attention_readable`), and raises on others; `route="cluster"`
+    forces the cluster tier at any width."""
+    global ATTENTION_CORE_CLUSTER_LAUNCHES
     ldq = _rows(q, "attention_core.q", torch.bfloat16)
     ldk = _rows(k, "attention_core.k", torch.bfloat16)
     ldv = _rows(v, "attention_core.v", torch.bfloat16)
@@ -763,9 +800,15 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     if attention_route([q, k, v]) != "wgmma":
         raise ValueError("attention_core: TMA cannot read q, k or v (16-byte-aligned base "
                          "and row stride needed)")
-    _check("attention_core", library().fc_attention_core(
+    if route not in (None, "wgmma", "cluster"):
+        raise ValueError(f"attention_core: route must be 'wgmma' or 'cluster', got {route!r}")
+    cluster = route == "cluster" or d > ATTENTION_WIDE_MAX_D
+    fn = library().fc_attention_core_cluster if cluster else library().fc_attention_core
+    _check("attention_core" + (" (cluster)" if cluster else ""), fn(
         q.data_ptr(), ldq, k.data_ptr(), ldk, v.data_ptr(), ldv, out.data_ptr(), ldo, n_items,
         q.shape[0] // n_items, k.shape[0] // n_items, float(scale), d, _stream()))
+    if cluster:
+        ATTENTION_CORE_CLUSTER_LAUNCHES += 1
 
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.Tensor,
@@ -794,11 +837,13 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.T
     """The backward of `cross_attention` from du = da / den and ddn (see
     attn_bwd_prep): dq (items*nq, D) and [dk | dv] (items*nkv, 2 D), 1 <= D
     <= ATTENTION_MAX_D, each in f32 and in bf16. Routes as `cross_attention`'s
-    (TMA + wgmma when TMA can read q, k, v and du; WMMA otherwise, up to
-    ATTENTION_WMMA_MAX_D); `route` forces one; counted as
-    ATTENTION_BWD_WGMMA_LAUNCHES / ATTENTION_BWD_WMMA_LAUNCHES.
+    (TMA + wgmma when TMA can read q, k, v and du, past ATTENTION_WIDE_MAX_D
+    its cluster tier; WMMA otherwise, up to ATTENTION_WMMA_MAX_D); `route`
+    forces one; counted as ATTENTION_BWD_WGMMA_LAUNCHES (the cluster tier's
+    also as ATTENTION_BWD_CLUSTER_LAUNCHES) / ATTENTION_BWD_WMMA_LAUNCHES.
     A CPU q runs `attention_bwd_plain` and counts nothing."""
     global ATTENTION_BWD_WGMMA_LAUNCHES, ATTENTION_BWD_WMMA_LAUNCHES
+    global ATTENTION_BWD_CLUSTER_LAUNCHES
     if not q.is_cuda:
         attention_bwd_plain(q, k, v, du, ddn, m, dq, dq_b, dkv, dkv_b, n_items=n_items)
         return
@@ -823,7 +868,11 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, du: torch.T
             _vec(ddn, "attention_bwd.ddn", rq), _vec(m, "attention_bwd.m", rq),
             dq.data_ptr(), lddq, dq_b.data_ptr(), lddqb, dkv.data_ptr(), lddkv,
             dkv_b.data_ptr(), lddkvb, n_items, nq, nkv, d)
-    if chosen == "wgmma":
+    if chosen == "cluster":
+        rc = library().fc_attention_bwd_cluster(*args, _stream())
+        ATTENTION_BWD_WGMMA_LAUNCHES += 1
+        ATTENTION_BWD_CLUSTER_LAUNCHES += 1
+    elif chosen == "wgmma":
         rc = library().fc_attention_bwd(*args, _stream())
         ATTENTION_BWD_WGMMA_LAUNCHES += 1
     else:

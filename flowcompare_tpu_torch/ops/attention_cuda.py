@@ -15,7 +15,8 @@ once to q's dtype.
   The CPU tests hold it against the plain version and the Pallas kernel.
 * `fused_attention_core` is a `torch.autograd.Function`. Its forward runs
   the plain version on CPU tensors and launches `csrc/attention_core.cu` on
-  CUDA tensors (bf16, 1 <= D <= `_build.ATTENTION_MAX_D` = 512; an operand
+  CUDA tensors (bf16, 1 <= D <= `_build.ATTENTION_MAX_D` = 1,024, past 512
+  on `csrc/attention_core_cluster.cu`'s thread-block clusters; an operand
   TMA cannot read, a base off 16-byte alignment or rows not of whole 16
   bytes, is first copied into rows it can; anything else raises). Its backward is the
   JAX package's `_bwd` as written: s and p recomputed in f32 with plain
@@ -127,8 +128,9 @@ def fused_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B, Nq, D), k and v (B, Nkv, D) (k and v may be column slices of one
     [k | v] tensor). A CPU tensor runs `fused_attention_core_plain`; a CUDA
-    tensor launches attention_core (bf16, 1 <= D <= 512), one block per 64
-    query rows of an item (and per 128 output columns past D = 128): q k^T
+    tensor launches attention_core (bf16, 1 <= D <= 1,024), one block per 64
+    query rows of an item (and per 128 output columns past D = 128; past D
+    = 512 those blocks form a cluster that shares the scores): q k^T
     on wgmma, p in f32 split into three bf16 terms
     whose PV products run on wgmma into one f32 sum, so p keeps about 24
     bits where flash attention's bf16 p keeps 8.

@@ -3,8 +3,9 @@ shapes alone.
 
 The kernels carry fixed limits (ROADMAP queue B): the cross attention of B1,
 B2, B5 and B7 takes every head width 1 <= D = heads * dim_head <=
-ATTENTION_MAX_D (512; one kernel instance a tile of 32, 64, 128, 256 or 512
-columns, the smallest that holds D); the fused layer kernels take
+ATTENTION_MAX_D (1,024; up to 512 one kernel instance a tile of 32, 64,
+128, 256 or 512 columns, the smallest that holds D, past it a thread-block
+cluster of ceil(D / 128) blocks); the fused layer kernels take
 widths up to 2,048 (the LayerNorm's row, the latent and a launch's packed
 input rows up to 1,024; B2's output layer in column passes of at most 256
 pairs) and 3 to 10 products a launch; B3 and B6 take k <= min(n, 256) neighbours of at most
@@ -17,7 +18,11 @@ any cloud (its level clouds in shared memory up to 12,662 points over
 PAConv's four levels, past it in registers, a shared tier and L2), and B9
 too (in shared memory up to 4,458 points, read from L2 past it; k <= 256). A
 configuration outside them runs, part by part, the path the JAX package
-takes off the TPU, and the other parts stay on their kernels:
+takes off the TPU, and the other parts stay on their kernels. At
+dulcet-universe's other widths the attention's limit is not the first to
+bind past D = 872: the coupling's packed input rows [x1 | extra | pad |
+cond] pass 1,024 there (from D = 873 the stack goes plain), and the
+augmenter's net's at D = 1,024:
 
 * "stack" (B1, B5, B7): `flow_layer_cuda.folded_scan_core` for eval and
   training, the unfolded reverse for sampling;

@@ -10,8 +10,9 @@ du, dS = bf16(e (du v^T + ddn)), dq = dS k, dk = dS^T q, in f32 and bf16.
 Here they are held against the JAX package on the same numpy inputs at
 ragged shapes (3 items of 70 queries against 90 or 34 keys, so no size is a
 multiple of a 64-row tile) and at head widths across the kernels' range
-(1 <= D <= 512: D = 8, 20, 32, 64, 96, 128, 256 and 512, so every tile width
-and widths between them, v = kv[:, D:] off 16-byte alignment at D = 20):
+(1 <= D <= 1,024: D = 8, 20, 32, 64, 96, 128, 256 and 512, so every tile
+width and widths between them, v = kv[:, D:] off 16-byte alignment at D =
+20, and the cluster tier's D = 576 and 1,024):
 the forward against max-subtracted softmax
 attention in jnp and the package's own `_attn_core` (the B5 kernel's
 attention, flow_layer_vjp_pallas.py); the backward against `jax.vjp` of the
@@ -37,7 +38,7 @@ from flowcompare_tpu_torch.ops import flow_layer_cuda as flc
 
 torch.set_num_threads(2)
 # (items, queries, keys, head width D); the D = 64 cases keep their ids
-HEAD_WIDTHS = (8, 20, 32, 64, 96, 128, 256, 512)
+HEAD_WIDTHS = (8, 20, 32, 64, 96, 128, 256, 512, 576, 1024)
 SHAPES = [pytest.param(3, 70, nkv, d, id=f"3-70-{nkv}" + ("" if d == 64 else f"-d{d}"))
           for d in HEAD_WIDTHS for nkv in (90, 34)]
 
@@ -127,7 +128,8 @@ def test_wrappers_run_the_plain_versions_on_cpu_without_counting():
     q, kv = _inputs(3, 70, 34, seed=3)
     tq, tkv, out, m, den = _forward(q, kv, 3)
     counters = ("CROSS_ATTENTION_WGMMA_LAUNCHES", "CROSS_ATTENTION_WMMA_LAUNCHES",
-                "ATTENTION_BWD_WGMMA_LAUNCHES", "ATTENTION_BWD_WMMA_LAUNCHES")
+                "ATTENTION_BWD_WGMMA_LAUNCHES", "ATTENTION_BWD_WMMA_LAUNCHES",
+                "CROSS_ATTENTION_CLUSTER_LAUNCHES", "ATTENTION_BWD_CLUSTER_LAUNCHES")
     before = [getattr(_build, c) for c in counters]
     got, gm, gd = torch.empty_like(out), torch.empty_like(m), torch.empty_like(den)
     _build.cross_attention(tq, tkv[:, :64], tkv[:, 64:], got, n_items=3, m_out=gm, den_out=gd)

@@ -1186,7 +1186,7 @@ def test_fused_attention_core_keeps_p_at_f32_precision(dev):
 @pytest.mark.cuda
 def test_fused_attention_core_backward_and_d_raises(dev):
     """B10's autograd backward (the JAX _bwd: an f32 recompute) against
-    autograd through the f32 softmax; a D past ATTENTION_MAX_D (512) raises
+    autograd through the f32 softmax; a D past ATTENTION_MAX_D (1,024) raises
     on CUDA tensors."""
     from flowcompare_tpu_torch.ops import attention_cuda as ac
     g = torch.Generator().manual_seed(31)
@@ -1197,7 +1197,7 @@ def test_fused_attention_core_backward_and_d_raises(dev):
     for a, b in zip(got, ref):
         assert a.dtype == torch.bfloat16
         torch.testing.assert_close(a.float(), b.bfloat16().float(), rtol=1e-2, atol=1e-3)
-    for d in (513, 1024):
+    for d in (1025, 1088, 2048):
         qd = rand(g, 2, 70, d, device=dev).bfloat16()
         kd = rand(g, 2, 90, d, device=dev).bfloat16()
         with pytest.raises(ValueError, match="D in"):
@@ -1651,17 +1651,19 @@ def test_attention_unaligned_view_takes_wmma_route(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [513, 576, 1024])
+@pytest.mark.parametrize("d", [1025, 1088, 2048])
 def test_attention_wrappers_refuse_other_widths(dev, d):
-    """A head width past ATTENTION_MAX_D (512) raises ValueError in the
-    forward, the backward and B10 on CUDA tensors, on either route, and
-    launches nothing: no plain version stands in."""
+    """A head width past ATTENTION_MAX_D (1,024) raises ValueError in the
+    forward, the backward and B10 on CUDA tensors, on every route and tier,
+    and launches nothing: no plain version stands in."""
     q, kv, k, v = attention_inputs(dev, 2, 70, 90, seed=8, d=d)
     counters = ("CROSS_ATTENTION_WGMMA_LAUNCHES", "CROSS_ATTENTION_WMMA_LAUNCHES",
-                "ATTENTION_BWD_WGMMA_LAUNCHES", "ATTENTION_BWD_WMMA_LAUNCHES")
+                "ATTENTION_BWD_WGMMA_LAUNCHES", "ATTENTION_BWD_WMMA_LAUNCHES",
+                "CROSS_ATTENTION_CLUSTER_LAUNCHES", "ATTENTION_BWD_CLUSTER_LAUNCHES",
+                "ATTENTION_CORE_CLUSTER_LAUNCHES")
     before = [getattr(_build, c) for c in counters]
     out, m, den = attention_forward(_build.cross_attention_plain, q, k, v, 2)
-    for route in ("wgmma", "wmma"):
+    for route in ("wgmma", "wmma", "cluster"):
         with pytest.raises(ValueError, match="head widths"):
             attention_forward(_build.cross_attention, q, k, v, 2, route=route)
         with pytest.raises(ValueError, match="head widths"):
@@ -1690,6 +1692,71 @@ def test_attention_wmma_route_refuses_past_128(dev, d):
         with pytest.raises(ValueError, match="WMMA route"):
             attention_backward(_build.attention_bwd, view, k, v, m, den, out, 2, 9, route=route)
     assert [getattr(_build, c) for c in counters] == before
+
+
+CLUSTER_COUNTERS = ("CROSS_ATTENTION_WGMMA_LAUNCHES", "CROSS_ATTENTION_CLUSTER_LAUNCHES",
+                    "ATTENTION_BWD_WGMMA_LAUNCHES", "ATTENTION_BWD_CLUSTER_LAUNCHES",
+                    "ATTENTION_CORE_CLUSTER_LAUNCHES")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 447, 512])
+@pytest.mark.parametrize("items,nq,nkv", [(3, 70, 90), (20, 1024, 1250)])
+def test_cluster_tier_equals_the_wide_kernels(dev, items, nq, nkv, d):
+    """The cluster tier forced at widths the wide kernels take: its scores
+    are the wide kernels' partials of 128 columns summed in their order, so
+    the forward (out, m, den) and B10 equal the wide kernels' bit for bit.
+    The wide backward sums all of D in one accumulator, so the cluster
+    backward is held to it by the plain bounds (cosine >= 0.9999, max error
+    <= 1e-2 of max |ref|) and stays deterministic. Each call counts on the
+    wgmma route, the forced ones also on the cluster tier."""
+    from flowcompare_tpu_torch.ops import attention_cuda as ac
+    q, kv, k, v = attention_inputs(dev, items, nq, nkv, seed=90 + d, d=d)
+    before = [getattr(_build, c) for c in CLUSTER_COUNTERS]
+    wide = attention_forward(_build.cross_attention, q, k, v, items)
+    cluster = attention_forward(_build.cross_attention, q, k, v, items, route="cluster")
+    rb = attention_backward(_build.attention_bwd, q, k, v, wide[1], wide[2], wide[0], items, 4)
+    gb = attention_backward(_build.attention_bwd, q, k, v, wide[1], wide[2], wide[0], items, 4,
+                            route="cluster")
+    again = attention_backward(_build.attention_bwd, q, k, v, wide[1], wide[2], wide[0], items,
+                               4, route="cluster")
+    scale = d ** -0.5
+    cores = []
+    for route in (None, "cluster"):
+        out = torch.full(q.shape, float("nan"), device=dev, dtype=torch.bfloat16)
+        _build.attention_core(q, k, v, out, n_items=items, scale=scale, route=route)
+        cores.append(out)
+    torch.cuda.synchronize()
+    assert [getattr(_build, c) - b for c, b in zip(CLUSTER_COUNTERS, before)] == [2, 1, 3, 2, 1]
+    assert all(torch.equal(a, b) for a, b in zip(cluster, wide))
+    assert torch.equal(cores[0], cores[1])
+    assert_attention_backward_close(gb, rb)
+    assert all(torch.equal(a, b) for a, b in zip(gb, again))
+    exact = (ac.fused_attention_core_plain(q.reshape(items, nq, d), k.reshape(items, nkv, d),
+                                           v.reshape(items, nkv, d), scale)).reshape(q.shape)
+    assert bool(((cores[1].float() - exact.float()).abs()
+                 <= 2.0 ** -7 * exact.float().abs() + 1e-5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [513, 576, 768, 1024])
+def test_attention_past_512_takes_the_cluster_tier(dev, d):
+    """Past ATTENTION_WIDE_MAX_D (512) the wrappers launch the cluster tier
+    with no route given (the forward, the backward and B10 each once, on the
+    wgmma route's counters and the tier's), right by the plain bounds."""
+    q, kv, k, v = attention_inputs(dev, 3, 70, 90, seed=95 + d, d=d)
+    before = [getattr(_build, c) for c in CLUSTER_COUNTERS]
+    got = attention_forward(_build.cross_attention, q, k, v, 3)
+    ref = attention_forward(_build.cross_attention_plain, q, k, v, 3)
+    gb = attention_backward(_build.attention_bwd, q, k, v, ref[1], ref[2], ref[0], 3, 6)
+    rb = attention_backward(_build.attention_bwd_plain, q, k, v, ref[1], ref[2], ref[0], 3, 6)
+    out = torch.empty_like(q)
+    _build.attention_core(q, k, v, out, n_items=3, scale=1.0)
+    torch.cuda.synchronize()
+    assert [getattr(_build, c) - b for c, b in zip(CLUSTER_COUNTERS, before)] == [1, 1, 1, 1, 1]
+    assert_attention_forward_close(got, ref)
+    assert_attention_backward_close(gb, rb)
+    assert bool(torch.isfinite(out.float()).all())
 
 
 @pytest.mark.cuda
@@ -2447,7 +2514,10 @@ def test_fps_large_clouds_match_plain(dev, clouds, n, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("overrides,refused", [
-    ({"cross_heads": 9}, {"stack", "augmenter"}),             # D = 9 x 64 = 576
+    ({"cross_heads": 17}, {"stack", "augmenter"}),            # D = 17 x 64 = 1,088
+    # D = 16 x 64 = 1,024: the attention takes it, the packed rows [x1 |
+    # extra | pad | cond] (stack) and the net's (augmenter) pass 1,024
+    ({"cross_heads": 16}, {"stack", "augmenter"}),
     ({"hidden_dims": [2056, 2056, 2056]}, {"stack", "augmenter"}),
     ({"n_neighbors": 257, "n_samples_context": 260}, {"encoder"})])   # past B3 / B6's 256
 def test_refused_parts_run_plain_on_the_card(dev, overrides, refused):

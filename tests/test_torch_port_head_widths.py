@@ -1,13 +1,15 @@
 """Port parity at the attention kernels' other head widths, on the CPU.
 
 The cross attention of B1, B2, B5 and B7 takes every head width 1 <= D =
-heads x dim_head <= `_build.ATTENTION_MAX_D` (512). Held here, for the tiny
+heads x dim_head <= `_build.ATTENTION_MAX_D` (1,024). Held here, for the tiny
 bf16 dulcet-universe of tests/torch_port_fixtures.py at D = 20
 (cross_dim_head 20: v = kv[:, D:] starts off 16-byte alignment), D = 32
 (cross_dim_head 32, the JAX demo's width), D = 128 (cross_heads 2 x
 cross_dim_head 64; the reference's heads only widen the one attention
-stream) and D = 256 (cross_heads 4 x 64, past the kernels' one-block
-tiles): every part of `model.routes` reads "kernels", and on the same
+stream), D = 256 (cross_heads 4 x 64, past the kernels' one-block
+tiles) and D = 576 (cross_heads 9 x 64, past 512: the cluster tier, and
+the conditioner's q product past 512 columns on the wide fused tier):
+every part of `model.routes` reads "kernels", and on the same
 weights (`load_jax_params`) and noise the port's kernel route (on CPU
 tensors the plain versions of B4, B2, B1, B5 and B7) agrees with the JAX
 package: `inner_loop` (log-probs rtol 2e-2 / atol 1.0 and nats within
@@ -41,7 +43,8 @@ torch.set_num_threads(2)
 
 # head width -> the tiny config's attention overrides
 WIDTHS = {20: {"cross_dim_head": 20}, 32: {"cross_dim_head": 32},
-          128: {"cross_heads": 2, "cross_dim_head": 64}, 256: {"cross_heads": 4, "cross_dim_head": 64}}
+          128: {"cross_heads": 2, "cross_dim_head": 64}, 256: {"cross_heads": 4, "cross_dim_head": 64},
+          576: {"cross_heads": 9, "cross_dim_head": 64}}
 
 
 def _config(d: int):

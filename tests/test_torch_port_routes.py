@@ -5,7 +5,7 @@ config's shapes; a refused part takes the JAX package's path off the TPU.
 Held here: every preset reads "kernels" for every part; so do the stack
 and the augmenter at each attention head width the kernels take (D = 32,
 64, 128), while D = 48 and D = 256 read "plain: ..." naming those widths;
-the three C1 configs (D = 576, a 2,056-wide coupling MLP, k = 257) read
+the C1 configs (D = 1,088, D = 1,024, a 2,056-wide coupling MLP, k = 257) read
 "plain: ..." on the right parts, while the 1,024- and 2,048-wide MLPs (the
 stack's, the augmenter's and the embedder head's, `w1024`, and `w2048` with
 its 1,024-wide latent and LayerNorm row) read "kernels"; the fused layer
@@ -41,7 +41,8 @@ torch.set_num_threads(2)
 
 PRESETS = ["dulcet-universe", "good-surf", "helpful-sponge", "summer-terrain", "swept-energy"]
 C1_CASES = {
-    "d576": ({"cross_heads": 9}, {"stack", "augmenter"}),
+    "d1088": ({"cross_heads": 17}, {"stack", "augmenter"}),    # past the attention's 1,024
+    "d1024": ({"cross_heads": 16}, {"stack", "augmenter"}),    # past the packed rows' 1,024
     "mlp2056": ({"hidden_dims": [2056, 2056, 2056]}, {"stack", "augmenter"}),
     "k257": ({"n_neighbors": 257}, {"encoder"}),
 }
@@ -106,20 +107,23 @@ def test_widths_past_1024_read_plain_naming_the_limit():
 
 
 @pytest.mark.parametrize("heads,dim_head", [(1, 32), (1, 64), (2, 64), (1, 8), (1, 20), (3, 32),
-                                            (4, 64), (8, 64), (1, 1), (1, 96), (1, 512)])
+                                            (4, 64), (8, 64), (1, 1), (1, 96), (1, 512), (9, 64),
+                                            (12, 64), (6, 128), (1, 872)])
 def test_attention_head_widths_take_the_kernels(heads, dim_head):
-    """Every D = heads x dim_head from 1 to `ATTENTION_MAX_D` (512): the
-    stack and the augmenter read "kernels" on dulcet-universe under bf16."""
+    """Every D = heads x dim_head from 1 to 872, within `ATTENTION_MAX_D`
+    (1,024) and the coupling's packed input rows (1,024 at dulcet's 152
+    columns before the attention's): the stack and the augmenter read
+    "kernels" on dulcet-universe under bf16."""
     cfg = ft.get_config("dulcet-universe")
     cfg.update(compute_dtype="bfloat16", cross_heads=heads, cross_dim_head=dim_head)
     assert 1 <= heads * dim_head <= routes.ATTENTION_MAX_D
     assert routes.model_routes(cfg) == {p: "kernels" for p in ("stack", "augmenter", "encoder")}
 
 
-@pytest.mark.parametrize("heads,dim_head", [(9, 64), (1, 520), (1, 513)])
+@pytest.mark.parametrize("heads,dim_head", [(17, 64), (1, 1025), (1, 1032)])
 def test_other_head_widths_read_plain_naming_the_set(heads, dim_head):
-    """D = 576, 520 and 513, past `ATTENTION_MAX_D`, send the stack and the
-    augmenter to the plain route with a reason that names the widths the
+    """D = 1,088, 1,025 and 1,032, past `ATTENTION_MAX_D`, send the stack and
+    the augmenter to the plain route with a reason that names the widths the
     kernels take; the encoder stays on its kernels."""
     cfg = ft.get_config("dulcet-universe")
     cfg.update(compute_dtype="bfloat16", cross_heads=heads, cross_dim_head=dim_head)
@@ -128,12 +132,32 @@ def test_other_head_widths_read_plain_naming_the_set(heads, dim_head):
     for part in ("stack", "augmenter"):
         assert got[part] == (f"plain: attention head width {heads} x {dim_head} = "
                              f"{heads * dim_head} (the cross-attention kernels take 1 <= D <= "
-                             f"512)")
+                             f"1024)")
+
+
+@pytest.mark.parametrize("heads,dim_head,plain", [(1, 873, {"stack"}), (1, 880, {"stack"}),
+                                                  (16, 64, {"stack", "augmenter"})])
+def test_head_widths_past_the_packed_rows_read_plain_for_them(heads, dim_head, plain):
+    """Within the attention's 1,024 the coupling's packed input rows [x1 |
+    extra | pad | cond] (152 + D columns) pass `FUSED_IN_W` (1,024) from D =
+    873, so the stack reads plain for them while the augmenter (its net's
+    rows 8 + D) stays on its kernels; at D = 1,024 both read plain for their
+    packed rows, and neither reason is the attention's."""
+    cfg = ft.get_config("dulcet-universe")
+    cfg.update(compute_dtype="bfloat16", cross_heads=heads, cross_dim_head=dim_head)
+    got = routes.model_routes(cfg)
+    assert {p for p, r in got.items() if r != "kernels"} == plain
+    assert got["encoder"] == "kernels"
+    for part in plain:
+        assert "attention head width" not in got[part]
+    if "augmenter" in plain:
+        assert "packed rows of 1032" in got["augmenter"], got["augmenter"]
+    assert f"({152 + heads * dim_head}, 512)" in got["stack"], got["stack"]
 
 
 def test_model_routes_are_read_only_and_the_gates():
     cfg = tiny_config("bfloat16")
-    cfg["cross_heads"] = 9                 # D = 9 x 64 = 576: no attention kernel
+    cfg["cross_heads"] = 17                # D = 17 x 64 = 1,088: no attention kernel
     model = ft.FlowCompareModel(cfg, device="cpu")
     assert dict(model.routes) == routes.model_routes(model.config)
     with pytest.raises(TypeError):
@@ -151,10 +175,10 @@ def test_gate_limits_at_their_edges():
     selection on any cloud (its rows in shared memory up to 4,458 points,
     none past it); B8 on any cloud (the large clouds' kernel past 12,662
     points), so the PAConv presets on their kernels at 12,663, 16,384 and
-    65,536 points too; the cross attention at head widths up to 512 (1 x
-    512 and 8 x 64 on the kernels, 1 x 513 plain)."""
+    65,536 points too; the cross attention at head widths up to 1,024 (1 x
+    512, 8 x 64 and 12 x 64 on the kernels, 1 x 1,025 plain)."""
     cfg = ft.get_config("dulcet-universe")
-    for heads, dim_head in ((1, 512), (8, 64)):
+    for heads, dim_head in ((1, 512), (8, 64), (12, 64)):
         assert routes.model_routes({**cfg, "cross_heads": heads, "cross_dim_head": dim_head,
                                     "compute_dtype": "bfloat16"})["stack"] == "kernels"
     # the fused layer kernels: products up to 2,048 (K and N), row-wise
@@ -177,8 +201,8 @@ def test_gate_limits_at_their_edges():
     assert plan["passes"] == [(0, 255), (255, 255), (510, 255), (765, 253)]
     assert flc.augment_net_plan([(72, 512), (512, 588)], 72, 294)["passes"] == [(0, 147),
                                                                                  (147, 147)]
-    wide = routes.model_routes({**cfg, "cross_heads": 1, "cross_dim_head": 513})
-    assert wide["stack"].startswith("plain: ") and "512" in wide["stack"]
+    wide = routes.model_routes({**cfg, "cross_heads": 1, "cross_dim_head": 1025})
+    assert wide["stack"].startswith("plain: ") and "1024" in wide["stack"]
     for k in (64, 65, 128, 256):
         assert routes.model_routes({**cfg, "n_neighbors": k})["encoder"] == "kernels"
     assert routes.model_routes({**cfg, "n_neighbors": 257})["encoder"].startswith("plain: ")

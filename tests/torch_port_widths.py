@@ -30,8 +30,12 @@ WIDE_CONFIGS = {"w1024": W1024, "w2048": W2048, "pre1024": PRE1024}
 # head widths D = heads x dim_head: every tile width of the attention
 # kernels (32, 64, 128, 256, 512) and widths between them, among them
 # widths that are no multiple of 8 (v = kv[:, D:] then starts off 16-byte
-# alignment) and odd ones (a row's last column stored alone)
-ATTENTION_SWEEP = (8, 20, 21, 32, 48, 64, 96, 128, 129, 192, 256, 384, 447, 512)
+# alignment) and odd ones (a row's last column stored alone); past 512 the
+# cluster tier's: a last block of one box (520, its 8 columns; 576), of a
+# box and a ragged one (1,001, odd), 768 (6 blocks) and 1,024 (8 blocks,
+# the most a portable cluster holds)
+ATTENTION_SWEEP = (8, 20, 21, 32, 48, 64, 96, 128, 129, 192, 256, 384, 447, 512, 520, 576, 768,
+                   1001, 1024)
 
 
 def preset_config(preset: str) -> dict:

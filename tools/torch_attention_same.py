@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Whether two trees' attention kernels give the same results at the head
-widths D = 32, 64 and 128 on the card, and their device times:
+widths D = 32, 64, 128, 256, 384 and 512 on the card (every tile of the
+one-block and wide kernels), and their device times:
 cross_attention (with m and den), its backward and B10's
 fused_attention_core at 20 x 1024 queries x 1250 keys and 1 x 4000 x 1250,
 on inputs made from a seed.
@@ -31,7 +32,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 SHAPES = ((20, 1024, 1250), (1, 4000, 1250))
-WIDTHS = (32, 64, 128)
+WIDTHS = (32, 64, 128, 256, 384, 512)
 
 
 def run(tree: Path, out: Path) -> None:
